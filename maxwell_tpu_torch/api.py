@@ -1,0 +1,122 @@
+"""Top-level API: solve a cavity eigenproblem in one call.
+
+    import maxwell_tpu_torch
+    from maxwell_tpu_torch.problems import BrickCavity3D
+    from maxwell_tpu_torch.sparse.reorder import PermutedProblem
+    res = maxwell_tpu_torch.solve(
+        PermutedProblem(BrickCavity3D(nx=24, ny=24, nz=24)), nev=5,
+        dtype=torch.float32, device="cuda",
+    )
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from maxwell_tpu_torch.utils.precision import fp32_true
+
+
+@fp32_true
+def solve(
+    problem,
+    nev: int = 5,
+    tol: float = 1e-8,
+    solver: str = "lobpcg",
+    maxiter: int | None = None,
+    dtype: torch.dtype = torch.float64,
+    block: int | None = None,
+    kernel: str = "auto",
+    distributed: bool = False,
+    refine: bool | str = "auto",
+    device: str | torch.device = "cuda",
+    **kwargs,
+):
+    """Solve K x = lambda M x for `problem` (RectCavity2D / BrickCavity3D /
+    PermutedProblem) on `device`.
+
+    kernel: "auto" — the BELLUnion CUDA kernels ("union") on a CUDA device
+    at f32, the plain blocked-ELL apply ("ref") otherwise — or an explicit
+    "ref" | "union". A union pencil on a CPU device runs the kernels' plain
+    PyTorch versions.
+
+    refine: mixed-precision polish (solvers/refine.py). "auto" applies it
+    when dtype is f32 and tol is below the f32 floor (1e-6): the device
+    solves to 1e-5, then f64 Rayleigh-quotient-shifted inverse iteration on
+    the host reaches tol.
+
+    Further keyword arguments go to lobpcg (stall_window, X0, log_every,
+    ...); precond_alpha sets the preconditioner shift (default: the
+    smallest analytic eigenvalue when the problem has an oracle, else 1).
+    """
+    device = torch.device(device)
+    if distributed:
+        raise NotImplementedError(
+            "distributed=True is not ported yet (ROADMAP.md, slice 4)"
+        )
+    if solver in ("lanczos", "shift_invert"):
+        raise NotImplementedError(
+            f"solver={solver!r} is not ported yet (ROADMAP.md, slice 3)"
+        )
+    if solver != "lobpcg":
+        raise ValueError(f"unknown solver {solver!r}")
+    if kernel == "auto":
+        kernel = (
+            "union"
+            if device.type == "cuda" and dtype == torch.float32
+            else "ref"
+        )
+
+    want_refine = refine is True or (
+        refine == "auto" and dtype == torch.float32 and tol < 1e-6
+    )
+    device_tol = max(tol, 1e-5) if want_refine else tol
+
+    # auto preconditioner shift: the scale of the smallest wanted mode
+    alpha = kwargs.pop("precond_alpha", None)
+    if alpha is None:
+        oracle = getattr(problem, "analytic_eigenvalues", None)
+        alpha = float(oracle(1)[0]) if oracle is not None else 1.0
+
+    from maxwell_tpu_torch.solvers.lobpcg import lobpcg
+    from maxwell_tpu_torch.solvers.operator import Pencil
+    from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
+
+    t0 = time.perf_counter()
+    pencil = Pencil.from_problem(
+        problem, block=block, kernel=kernel, dtype=dtype, device=device
+    )
+    setup_s = time.perf_counter() - t0
+    pc = shifted_cg_preconditioner(pencil, alpha=alpha, iters=20)
+    t0 = time.perf_counter()
+    # lobpcg returns host arrays, so the clock stops after the device work
+    res = lobpcg(
+        pencil, nev=nev, maxiter=maxiter or 200, tol=device_tol,
+        precond=pc, **kwargs,
+    )
+    res.timings.update(
+        setup_s=setup_s, device_solve_s=time.perf_counter() - t0
+    )
+    return _maybe_refine(problem, res, tol, want_refine)
+
+
+def _maybe_refine(problem, res, tol, want_refine):
+    if not want_refine or res.eigenvectors is None:
+        return res
+    from maxwell_tpu_torch.solvers.refine import refine_f64
+    from maxwell_tpu_torch.solvers.results import EigenResult
+
+    t0 = time.perf_counter()
+    ref = refine_f64(
+        problem, res.eigenvectors, theta=res.eigenvalues, tol=tol
+    )
+    return EigenResult(
+        eigenvalues=ref.eigenvalues,
+        eigenvectors=ref.eigenvectors,
+        residuals=ref.residuals,
+        iterations=res.iterations + ref.iterations,
+        converged=ref.converged,
+        history=list(res.history) + ref.history,
+        timings={**res.timings, "refine_s": time.perf_counter() - t0},
+    )

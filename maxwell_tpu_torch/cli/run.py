@@ -1,0 +1,258 @@
+"""CLI driver: `python -m maxwell_tpu_torch.cli.run configs/config2.json
+[--device cuda|cpu] [overrides]`.
+
+Takes the JSON configs of maxwell_tpu.cli.run (configs/); this port runs
+`solver.kind == "lobpcg"` on the assembled "rect2d" and "brick3d"
+problems. Other solver kinds, the stencil operator and distributed runs
+raise NotImplementedError naming their ROADMAP.md slice.
+
+Prints the per-iteration history as JSON lines, then a final JSON report
+(eigenvalues, residuals, iterations, converged, timings, n, and the
+analytic oracle for vacuum PEC cavities) with the reference CLI's keys.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def material_grids(cfg):
+    """Per-cell eps_r/mu_r from the JSON "materials" block:
+
+      "materials": {"eps_fill": {"value": 2.5,
+                                 "box": [x0, x1, y0, y1, z0, z1]},
+                    "mu_fill":  {...}}
+
+    box is in fractional cell coordinates (default: the whole cavity).
+    Returns (eps_r, mu_r) numpy grids or (None, None).
+    """
+    import numpy as np
+
+    mcfg = cfg.get("materials")
+    if not mcfg:
+        return None, None
+    nx, ny, nz = cfg.get("nx", 8), cfg.get("ny", 8), cfg.get("nz", 8)
+
+    def grid(spec):
+        if spec is None:
+            return None
+        g = np.ones((nx, ny, nz))
+        box = spec.get("box", [0, 1, 0, 1, 0, 1])
+        i0, i1 = int(box[0] * nx), max(int(box[1] * nx), int(box[0] * nx) + 1)
+        j0, j1 = int(box[2] * ny), max(int(box[3] * ny), int(box[2] * ny) + 1)
+        k0, k1 = int(box[4] * nz), max(int(box[5] * nz), int(box[4] * nz) + 1)
+        g[i0:i1, j0:j1, k0:k1] = spec.get("value", 1.0)
+        return g
+
+    return grid(mcfg.get("eps_fill")), grid(mcfg.get("mu_fill"))
+
+
+def build_problem(cfg):
+    kind = cfg.get("kind", "rect2d")
+    if kind == "rect2d":
+        from maxwell_tpu_torch.problems import RectCavity2D
+
+        return RectCavity2D(
+            a=cfg.get("a", 1.0),
+            b=cfg.get("b", 1.0),
+            nx=cfg.get("nx", 16),
+            ny=cfg.get("ny", 16),
+            bc=cfg.get("bc", "pec"),
+        )
+    if kind == "brick3d":
+        from maxwell_tpu_torch.problems import BrickCavity3D
+
+        eps_r, mu_r = material_grids(cfg)
+        return BrickCavity3D(
+            a=cfg.get("a", 1.0),
+            b=cfg.get("b", 1.0),
+            c=cfg.get("c", 1.0),
+            nx=cfg.get("nx", 8),
+            ny=cfg.get("ny", 8),
+            nz=cfg.get("nz", 8),
+            bc=cfg.get("bc", "pec"),
+            eps_r=eps_r,
+            mu_r=mu_r,
+        )
+    if kind == "tet3d":
+        raise NotImplementedError(
+            "tet3d problems are not ported yet (ROADMAP.md, slice 3)"
+        )
+    raise ValueError(f"unknown problem kind {kind!r}")
+
+
+def main(argv=None):
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("config", help="path to JSON config")
+    ap.add_argument("--nev", type=int, default=None)
+    ap.add_argument("--tol", type=float, default=None)
+    ap.add_argument("--maxiter", type=int, default=None)
+    ap.add_argument("--checkpoint", default=None, help="state file for save/resume")
+    ap.add_argument(
+        "--checkpoint-every", type=int, default=0,
+        help="also save the Ritz block every K iterations",
+    )
+    ap.add_argument(
+        "--save-eigenvectors", default=None,
+        help="write eigenpairs (values + vectors) to this .npz",
+    )
+    ap.add_argument(
+        "--refine", action="store_true",
+        help="f64 host polish to tol after the device solve "
+        "(solvers/refine.py)",
+    )
+    ap.add_argument(
+        "--device", default="cuda",
+        help="torch device of the solve (default: cuda)",
+    )
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+
+    with open(args.config) as f:
+        cfg = json.load(f)
+    scfg = cfg.get("solver", {})
+    if args.nev is not None:
+        scfg["nev"] = args.nev
+    if args.tol is not None:
+        scfg["tol"] = args.tol
+    if args.maxiter is not None:
+        scfg["maxiter"] = args.maxiter
+
+    kind = scfg.get("kind", "lobpcg")
+    stg = cfg.get("storage", {})
+    if kind != "lobpcg":
+        raise NotImplementedError(
+            f"solver kind {kind!r} is not ported yet (ROADMAP.md: lanczos, "
+            "tr_lanczos and shift_invert are slice 3, lobpcg_dist slice 4)"
+        )
+    if stg.get("operator") == "stencil":
+        raise NotImplementedError(
+            "the stencil operator is not ported yet (ROADMAP.md, slice 2)"
+        )
+    dtype = {"f32": torch.float32, "f64": torch.float64}[
+        stg.get("dtype", "f64")
+    ]
+    block = stg.get("block")  # None -> per-kernel default layout
+    kernel = stg.get("kernel", "auto")
+    if kernel == "auto":
+        kernel = (
+            "union"
+            if device.type == "cuda" and dtype == torch.float32
+            else "ref"
+        )
+
+    t0 = time.perf_counter()
+    problem = build_problem(cfg.get("problem", {}))
+    t_setup = time.perf_counter() - t0
+
+    nev = scfg.get("nev", 5)
+    tol = scfg.get("tol", 1e-8)
+    maxiter = scfg.get("maxiter", 200)
+    want_refine = args.refine or scfg.get("refine", False)
+    full_tol = tol
+    if want_refine and dtype == torch.float32:
+        # the device solve only needs the f32-comfortable part
+        tol = max(tol, 1e-5)
+
+    from maxwell_tpu_torch.solvers import lobpcg
+    from maxwell_tpu_torch.solvers.operator import Pencil
+    from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
+
+    t0 = time.perf_counter()
+    pencil = Pencil.from_problem(
+        problem, block=block, kernel=kernel, dtype=dtype, device=device
+    )
+    pc = None
+    if scfg.get("precond_alpha") is not None:
+        if scfg.get("precond", "auto") == "spectral":
+            raise NotImplementedError(
+                "the spectral preconditioner is not ported yet "
+                "(ROADMAP.md, slice 2)"
+            )
+        pc = shifted_cg_preconditioner(
+            pencil,
+            alpha=scfg["precond_alpha"],
+            iters=scfg.get("precond_iters", 20),
+        )
+    res = lobpcg(
+        pencil,
+        nev=nev,
+        m=scfg.get("block_size"),
+        maxiter=maxiter,
+        tol=tol,
+        precond=pc,
+        checkpoint=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        log_every=scfg.get("log_every", 0),
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_solve = time.perf_counter() - t0
+
+    t_refine = None
+    if want_refine:
+        from maxwell_tpu_torch.solvers.refine import refine_f64
+
+        t0 = time.perf_counter()
+        ref = refine_f64(
+            problem, res.eigenvectors, theta=res.eigenvalues, tol=full_tol
+        )
+        t_refine = time.perf_counter() - t0
+        ref.history = list(res.history) + [
+            dict(h, phase="refine") for h in ref.history
+        ]
+        ref.iterations += res.iterations
+        res = ref
+
+    for h in res.history:
+        print(json.dumps(h))
+
+    report = {
+        "eigenvalues": [float(v) for v in res.eigenvalues],
+        "residuals": [float(r) for r in res.residuals],
+        "iterations": res.iterations,
+        "converged": res.converged,
+        "t_setup_s": t_setup,
+        "t_solve_s": t_solve,
+        "n": int(problem.n_edges),
+    }
+    if t_refine is not None:
+        report["t_refine_s"] = t_refine
+    pcfg = cfg.get("problem", {})
+    if pcfg.get("bc", "pec") == "pec" and not pcfg.get("materials"):
+        # analytic oracle: the smallest PEC modes (none for loaded cavities)
+        if pcfg.get("kind", "rect2d") == "rect2d":
+            from maxwell_tpu_torch.problems.analytic import te_eigenvalues_2d
+
+            exact = te_eigenvalues_2d(pcfg.get("a", 1.0), pcfg.get("b", 1.0), nev)
+        else:
+            from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
+
+            exact = cavity_eigenvalues_3d(
+                pcfg.get("a", 1.0), pcfg.get("b", 1.0), pcfg.get("c", 1.0), nev
+            )
+        report["analytic"] = [float(v) for v in exact]
+        report["analytic_rel_err"] = [
+            float(abs(v - e) / e) for v, e in zip(res.eigenvalues, exact)
+        ]
+    if args.save_eigenvectors:
+        import numpy as np
+
+        np.savez(
+            args.save_eigenvectors,
+            eigenvalues=res.eigenvalues,
+            eigenvectors=res.eigenvectors,
+            residuals=res.residuals,
+        )
+        report["eigenvectors_file"] = args.save_eigenvectors
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""Build and load the CUDA kernels of maxwell_tpu_torch/csrc.
+
+At first use, `load()` compiles every csrc/*.cu with nvcc for sm_90a into
+one shared library with a plain C interface, and loads it with ctypes. The
+library lands in build/maxwell_tpu_torch/ at the root of the checkout, named
+by a content hash of the sources and flags, so an edited source rebuilds
+and an unchanged one is reused. ptxas's register and spill report is kept
+beside it (`<library>.log`).
+
+nvcc is found through torch.utils.cpp_extension.CUDA_HOME, then PATH. If it
+is missing or the build fails, `load()` raises with the compiler output;
+nothing falls back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "maxwell_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+# argtypes of each C entry point in csrc/bellunion_spmm.cu
+_SIGNATURES = {
+    "bellunion_matmat_f32": [_P] * 5 + [_I] * 5 + [_P],
+    "bellunion_matmat_b3": [_P] * 6 + [_I] * 5 + [_P],
+    "bellunion_km_matmat_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "bellunion_km_matmat_b3": [_P] * 9 + [_I] * 5 + [_P],
+}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc from CUDA_HOME (as torch resolved it) or PATH."""
+    from torch.utils import cpp_extension
+
+    home = cpp_extension.CUDA_HOME
+    if home:
+        cand = os.path.join(home, "bin", "nvcc")
+        if os.access(cand, os.X_OK):
+            return cand
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found (torch.utils.cpp_extension.CUDA_HOME="
+        f"{home!r}, and none on PATH): the CUDA kernels cannot be built"
+    )
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    sources = sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"libmaxwell_tpu_torch_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+    cmd = [
+        nvcc, *NVCC_FLAGS, "-o", str(tmp),
+        *(str(s) for s in sources if s.suffix == ".cu"),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C entry points' types."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,260 @@
+"""BELLUnion SpMM entry points: the CUDA kernels' wrappers and their plain
+PyTorch versions.
+
+    bellunion_matmat(A, X, stream, precision)   Y = A @ X, one value stream
+    bellunion_km_matmat(A, X, precision)        (K @ X, M @ X), X gathered once
+    bellunion_matvec(A, x, stream, precision)   y = A @ x, m = 1
+
+replace `bellunion_matmat_pallas`, `bellunion_km_matmat_pallas` and
+`bellunion_matvec_pallas` of maxwell_tpu/kernels/spmm.py. stream "a" is the
+layout's first value stream (K), "b" its second (M). precision "highest" is
+exact f32; "b3" forms vh*xh + vh*xl + vl*xh from the layout's bf16 (hi, lo)
+value split (BELLUnion.bf16x3) and an in-kernel split of X, with f32
+accumulation.
+
+A wrapper given CUDA tensors checks them and launches its kernel
+(csrc/bellunion_spmm.cu) or raises. Given CPU tensors it runs the plain
+version (`*_ref`), which the CPU tests hold against the JAX package and the
+chip smoke holds the kernels against. Each wrapper counts its kernel
+launches in `.launches`, each plain version its calls in `.calls`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from maxwell_tpu_torch.sparse.bellunion import BELLUnion
+
+_PRECISIONS = ("highest", "b3")
+
+
+def _streams(A: BELLUnion, streams: str, precision: str):
+    """[(hi, lo)] value tensors of each requested stream; lo is None in
+    "highest" mode."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}")
+    out = []
+    for s in streams:
+        if s not in "ab":
+            raise ValueError(f"unknown value stream {s!r}")
+        if precision == "b3":
+            pair = (A.vals_h, A.vals_l) if s == "a" else (A.vals_b_h, A.vals_b_l)
+            if pair[0] is None:
+                raise ValueError(
+                    "precision='b3' needs the bf16 split streams: build "
+                    "with BELLUnion.bf16x3()"
+                )
+        else:
+            pair = (A.vals if s == "a" else A.vals_b, None)
+        if pair[0] is None:
+            raise ValueError(f"value stream {s!r} not present")
+        out.append(pair)
+    return out
+
+
+def _pad_rows(X: torch.Tensor, rows: int) -> torch.Tensor:
+    if X.shape[0] >= rows:
+        return X
+    return torch.nn.functional.pad(X, (0, 0, 0, rows - X.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _gather_rows(A: BELLUnion) -> torch.Tensor:
+    """(NC, cl) row of X each value lane multiplies: lane c of chunk k reads
+    X[ucols[k, g*pack]*b + q] with g = c // (pack*b), q = c % (pack*b)."""
+    run = A.pack * A.b
+    base = A.ucols[:, :: A.pack].long() * A.b  # (NC, cl // run)
+    q = torch.arange(run, device=base.device)
+    return (base[:, :, None] + q).reshape(A.n_chunks, A.cl)
+
+
+def _union_ref(A: BELLUnion, X: torch.Tensor, streams: str, precision: str):
+    """Gather X into (NC, cl, m), one bmm per chunk against (128, cl) value
+    blocks, index_add_ the chunk results into their tiles."""
+    pairs = _streams(A, streams, precision)
+    m = X.shape[1]
+    Xg = _pad_rows(X, A.n_cols_padded)[_gather_rows(A)]  # (NC, cl, m)
+    if precision == "b3":
+        xh = Xg.to(torch.bfloat16)
+        xl = (Xg - xh.to(Xg.dtype)).to(torch.bfloat16)
+        xh, xl = xh.float(), xl.float()
+    tile_of = A.tile_of.long()
+    out = []
+    for hi, lo in pairs:
+        vh = hi.view(A.n_chunks, 128, A.cl)
+        if precision == "b3":
+            vh = vh.float()
+            vl = lo.view(A.n_chunks, 128, A.cl).float()
+            d = torch.bmm(vh, xh) + torch.bmm(vh, xl) + torch.bmm(vl, xh)
+        else:
+            d = torch.bmm(vh, Xg)
+        Y = torch.zeros((A.n_tiles, 128, m), dtype=d.dtype, device=d.device)
+        out.append(Y.index_add_(0, tile_of, d).reshape(A.n_padded, m))
+    return out
+
+
+def bellunion_matmat_ref(
+    A: BELLUnion, X: torch.Tensor, stream: str = "a",
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Plain version of bellunion_matmat."""
+    bellunion_matmat_ref.calls += 1
+    return _union_ref(A, X, stream, precision)[0]
+
+
+def bellunion_km_matmat_ref(
+    A: BELLUnion, X: torch.Tensor, precision: str = "highest"
+):
+    """Plain version of bellunion_km_matmat."""
+    bellunion_km_matmat_ref.calls += 1
+    Yk, Ym = _union_ref(A, X, "ab", precision)
+    return Yk, Ym
+
+
+def bellunion_matvec_ref(
+    A: BELLUnion, x: torch.Tensor, stream: str = "a",
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Plain version of bellunion_matvec."""
+    bellunion_matvec_ref.calls += 1
+    return _union_ref(A, x[:, None], stream, precision)[0][:, 0]
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs) -> None:
+    if X.dtype != torch.float32:
+        raise ValueError(f"the bellunion kernels take f32 X, got {X.dtype}")
+    if X.dim() != 2 or X.shape[1] < 1:
+        raise ValueError(f"X must be (rows, m >= 1), got {tuple(X.shape)}")
+    if not X.is_contiguous():
+        raise ValueError("X must be contiguous")
+    if A.cl % 128 != 0 or A.cl % (A.b * A.pack) != 0:
+        raise ValueError(f"chunk width {A.cl} must be a multiple of 128")
+    want = torch.bfloat16 if pairs[0][1] is not None else torch.float32
+    for t in (A.ucols, A.tile_ptr, *(v for pair in pairs for v in pair)):
+        if t is None:
+            continue
+        if t.device != X.device:
+            raise ValueError(f"layout on {t.device}, X on {X.device}")
+        if not t.is_contiguous():
+            raise ValueError("layout tensors must be contiguous")
+    for pair in pairs:
+        for v in pair:
+            if v is not None and v.dtype != want:
+                raise ValueError(f"value stream is {v.dtype}, need {want}")
+            if v is not None and v.data_ptr() % 16:
+                raise ValueError("value streams must be 16-byte aligned")
+    if A.ucols.dtype != torch.int32 or A.tile_ptr.dtype != torch.int32:
+        raise ValueError("ucols and tile_ptr must be int32")
+
+
+def _launch(name: str, A: BELLUnion, X: torch.Tensor, pairs, outs) -> None:
+    from maxwell_tpu_torch.kernels import _build
+
+    values = [v.data_ptr() for pair in pairs for v in pair if v is not None]
+    with torch.cuda.device(X.device):
+        rc = getattr(_build.load(), name)(
+            *values, A.ucols.data_ptr(), A.tile_ptr.data_ptr(),
+            X.data_ptr(), *(Y.data_ptr() for Y in outs),
+            A.n_tiles, X.shape[1], A.cl, A.b, A.pack,
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _matmat_cuda(A: BELLUnion, X: torch.Tensor, stream: str, precision: str):
+    pairs = _streams(A, stream, precision)
+    _check_cuda(A, X, pairs)
+    Xp = _pad_rows(X, A.n_cols_padded)
+    Y = torch.empty((A.n_padded, X.shape[1]), dtype=torch.float32,
+                    device=X.device)
+    name = "bellunion_matmat_b3" if precision == "b3" else "bellunion_matmat_f32"
+    _launch(name, A, Xp, pairs, (Y,))
+    return Y
+
+
+def bellunion_matmat(
+    A: BELLUnion, X: torch.Tensor, stream: str = "a",
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Y = A @ X, X (rows <= n_cols_padded, m), zero-padded to
+    n_cols_padded rows; Y (n_padded, m) f32."""
+    if X.device.type == "cpu":
+        return bellunion_matmat_ref(A, X, stream, precision)
+    Y = _matmat_cuda(A, X, stream, precision)
+    bellunion_matmat.launches += 1
+    return Y
+
+
+def bellunion_km_matmat(
+    A: BELLUnion, X: torch.Tensor, precision: str = "highest"
+):
+    """(K @ X, M @ X) in one kernel: each chunk's X block is gathered once
+    and feeds both value streams."""
+    if X.device.type == "cpu":
+        return bellunion_km_matmat_ref(A, X, precision)
+    pairs = _streams(A, "ab", precision)
+    _check_cuda(A, X, pairs)
+    Xp = _pad_rows(X, A.n_cols_padded)
+    Yk, Ym = (
+        torch.empty((A.n_padded, X.shape[1]), dtype=torch.float32,
+                    device=X.device)
+        for _ in range(2)
+    )
+    name = (
+        "bellunion_km_matmat_b3" if precision == "b3"
+        else "bellunion_km_matmat_f32"
+    )
+    _launch(name, A, Xp, pairs, (Yk, Ym))
+    bellunion_km_matmat.launches += 1
+    return Yk, Ym
+
+
+def bellunion_matvec(
+    A: BELLUnion, x: torch.Tensor, stream: str = "a",
+    precision: str = "highest",
+) -> torch.Tensor:
+    """y = A @ x for a vector x (length <= n_cols_padded); y (n_padded,).
+    Unlike the reference (which widened x to 8 lanes and lost `precision`),
+    this is a true m = 1 launch and honours `precision`."""
+    if x.dim() != 1:
+        raise ValueError(f"x must be a vector, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return bellunion_matvec_ref(A, x, stream, precision)
+    y = _matmat_cuda(A, x[:, None], stream, precision)[:, 0]
+    bellunion_matvec.launches += 1
+    return y
+
+
+KERNELS = (bellunion_matmat, bellunion_km_matmat, bellunion_matvec)
+PLAIN = (bellunion_matmat_ref, bellunion_km_matmat_ref, bellunion_matvec_ref)
+
+
+def reset_counts() -> None:
+    """Zero every kernel's launch count and every plain version's call
+    count."""
+    for fn in KERNELS:
+        fn.launches = 0
+    for fn in PLAIN:
+        fn.calls = 0
+
+
+def counts() -> dict:
+    """{name: launches} of the kernels and {name: calls} of the plain
+    versions."""
+    return {
+        **{fn.__name__: fn.launches for fn in KERNELS},
+        **{fn.__name__: fn.calls for fn in PLAIN},
+    }
+
+
+reset_counts()

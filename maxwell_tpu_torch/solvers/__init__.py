@@ -1,0 +1,7 @@
+"""Eigensolvers over an abstract operator (Pencil): LOBPCG with SVQB,
+Rayleigh-Ritz, the gradient-nullspace projector and the shifted-CG
+preconditioner, as Python loops over torch tensors."""
+
+from maxwell_tpu_torch.solvers.results import EigenResult  # noqa: F401
+from maxwell_tpu_torch.solvers.operator import Pencil  # noqa: F401
+from maxwell_tpu_torch.solvers.lobpcg import lobpcg  # noqa: F401

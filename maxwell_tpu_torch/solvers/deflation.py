@@ -1,0 +1,114 @@
+"""Deflation: gradient-nullspace projection and locked-eigenvector deflation.
+
+The curl-curl stiffness K has the discrete gradient range(G) as an exact
+nullspace (one dimension per interior node). The solvers work in the
+M-orthogonal complement of range(G):
+
+    P x = x - G (G^T M G)^{-1} G^T M x
+
+G is applied matrix-free from head/tail node indices (two nonzeros per
+row): a gather for G @ phi and a scatter-add (index_add_) for G^T @ y.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from maxwell_tpu_torch.solvers.cg import cg
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientProjector:
+    """M-orthogonal projector onto the complement of the gradient nullspace.
+
+    head/tail: (n,) int64 node ids per edge (n_nodes = ghost slot for an
+    endpoint on the PEC boundary); weight: (n,) signed magnitude 1/h_edge.
+    Vectors are padded to n_padded rows (zero padding preserved).
+    """
+
+    head: torch.Tensor
+    tail: torch.Tensor
+    weight: torch.Tensor
+    n: int
+    n_nodes: int
+    n_padded: int
+
+    @staticmethod
+    def from_gradient(
+        G: sp.spmatrix, n_padded: int, dtype: torch.dtype = torch.float32,
+        device: str | torch.device = "cuda",
+    ) -> "GradientProjector":
+        """Build from the assembled discrete gradient (rows = edges, cols =
+        nodes): +w at the head node and -w at the tail node of each edge."""
+        G = sp.coo_matrix(G)
+        n, n_nodes = G.shape
+        head = np.full(n, n_nodes, dtype=np.int64)  # default: ghost slot
+        tail = np.full(n, n_nodes, dtype=np.int64)
+        weight = np.zeros(n, dtype=np.float64)
+        pos = G.data > 0
+        head[G.row[pos]] = G.col[pos]
+        tail[G.row[~pos]] = G.col[~pos]
+        weight[G.row[pos]] = G.data[pos]
+        weight[G.row[~pos]] = -G.data[~pos]
+        return GradientProjector(
+            head=torch.as_tensor(head, device=device),
+            tail=torch.as_tensor(tail, device=device),
+            weight=torch.as_tensor(weight, dtype=dtype, device=device),
+            n=n,
+            n_nodes=n_nodes,
+            n_padded=n_padded,
+        )
+
+    def g_mm(self, phi: torch.Tensor) -> torch.Tensor:
+        """(n_padded, m) <- G @ phi for phi (n_nodes, m)."""
+        w = self.weight if phi.dim() == 1 else self.weight[:, None]
+        zero = phi.new_zeros((1,) + tuple(phi.shape[1:]))
+        phi_ext = torch.cat([phi, zero], dim=0)  # ghost node reads 0
+        out = w * (phi_ext[self.head] - phi_ext[self.tail])
+        pad = self.n_padded - self.n
+        if pad:
+            out = torch.cat([out, out.new_zeros((pad,) + tuple(out.shape[1:]))])
+        return out
+
+    def gt_mm(self, y: torch.Tensor) -> torch.Tensor:
+        """(n_nodes, m) <- G^T @ y for y (n_padded, m)."""
+        y = y[: self.n]
+        w = self.weight if y.dim() == 1 else self.weight[:, None]
+        wy = w * y
+        out = y.new_zeros((self.n_nodes + 1,) + tuple(y.shape[1:]))
+        out.index_add_(0, self.head, wy)
+        out.index_add_(0, self.tail, -wy)
+        return out[:-1]
+
+    def project(
+        self,
+        M_mm: Callable[[torch.Tensor], torch.Tensor],
+        X: torch.Tensor,
+        tol: float = 1e-10,
+        maxiter: int = 150,
+        dot=None,
+    ) -> torch.Tensor:
+        """X <- X - G (G^T M G)^-1 G^T M X, the nodal system by CG."""
+        vec_in = X.dim() == 1
+        if vec_in:
+            X = X[:, None]
+        L_mm = lambda phi: self.gt_mm(M_mm(self.g_mm(phi)))
+        rhs = self.gt_mm(M_mm(X))
+        q = cg(L_mm, rhs, tol=tol, maxiter=maxiter, dot=dot)
+        out = X - self.g_mm(q)
+        return out[:, 0] if vec_in else out
+
+
+def deflate_against(
+    X: torch.Tensor, Q: torch.Tensor, MQ: torch.Tensor, dot_mm=None
+) -> torch.Tensor:
+    """X <- X - Q (MQ^T X): remove components along locked M-orthonormal Q
+    (MQ = M @ Q precomputed)."""
+    if dot_mm is None:
+        dot_mm = lambda A, B: A.T @ B
+    return X - Q @ dot_mm(MQ, X)

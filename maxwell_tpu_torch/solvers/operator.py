@@ -1,0 +1,272 @@
+"""Operator abstraction consumed by the solvers.
+
+A `Pencil` bundles the stiffness K, the mass M and the gradient-nullspace
+projector; the solvers call its methods, which dispatch to the configured
+SpMM:
+
+    kernel="union"  BELLUnion layout carrying both value streams (K as
+                    stream a, M as stream b; M is None). CUDA tensors go
+                    through the hand-written kernels (kernels/spmm.py), CPU
+                    tensors through their plain versions.
+    kernel="ref"    blocked-ELL and a plain gather + einsum
+                    (sparse/bsr.py): the f64 path.
+
+The reference's other kernels ("pallas", "bellpairs") are not ported yet.
+Its VMEM routing and row-band split are not needed: the CUDA kernels read X
+from global memory at any size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from maxwell_tpu_torch.solvers.cg import cg
+from maxwell_tpu_torch.solvers.deflation import GradientProjector
+from maxwell_tpu_torch.sparse.bsr import BSRMatrix, bsr_matmat_ref
+
+_KERNELS = ("ref", "union")
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel in ("pallas", "bellpairs"):
+        raise NotImplementedError(
+            f'kernel="{kernel}" is not ported yet: its Pallas kernels are '
+            "queued in ROADMAP.md (Queue 2, after K4-K6)"
+        )
+    if kernel not in _KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Pencil:
+    """The matrix pencil (K, M) plus nullspace projector.
+
+    M may be None (standard eigenproblem, or kernel="union" where M is K's
+    second value stream). proj may be None (no nullspace deflation).
+    fastproj: exact tensor-product nodal solver for vacuum PEC bricks.
+    precision: union dot precision, "highest" (exact f32) or "b3" (three
+    bf16 products of the build-time value split; the f32 default).
+    """
+
+    K: object
+    M: BSRMatrix | None = None
+    proj: GradientProjector | None = None
+    kernel: str = "ref"
+    mass_tol: float = 1e-12
+    mass_iters: int = 300
+    fastproj: object | None = None
+    precision: str = "highest"
+
+    # --- shapes ---------------------------------------------------------
+    @property
+    def n(self) -> int:
+        return self.K.n
+
+    @property
+    def n_padded(self) -> int:
+        return self.K.n_padded
+
+    @property
+    def dtype(self) -> torch.dtype:
+        if self.kernel == "union":
+            return self.K.vals.dtype
+        return self.K.blocks.dtype
+
+    @property
+    def device(self) -> torch.device:
+        if self.kernel == "union":
+            return self.K.vals.device
+        return self.K.blocks.device
+
+    # --- reductions -----------------------------------------------------
+    def weigh(self, x: torch.Tensor) -> torch.Tensor:
+        """Row ownership weights for inner products (identity here)."""
+        return x
+
+    def dot_mm(self, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+        """(m, k) <- A^T B over the row axis."""
+        return A.T @ self.weigh(B)
+
+    def dot_cols(self, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+        """(m,) <- column-wise inner products."""
+        return torch.sum(A * self.weigh(B), dim=0)
+
+    def reduce_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """Finish a partial row-contraction (identity on one device)."""
+        return v
+
+    # --- applies (padded in, padded out) --------------------------------
+    def _union_mm(self, X: torch.Tensor, stream: str) -> torch.Tensor:
+        from maxwell_tpu_torch.kernels.spmm import (
+            bellunion_matmat,
+            bellunion_matvec,
+        )
+
+        X = X.contiguous()
+        if X.dim() == 1:
+            return bellunion_matvec(
+                self.K, X, stream=stream, precision=self.precision
+            )
+        return bellunion_matmat(
+            self.K, X, stream=stream, precision=self.precision
+        )
+
+    def _ref_mm(self, A: BSRMatrix, X: torch.Tensor) -> torch.Tensor:
+        vec = X.dim() == 1
+        Y = bsr_matmat_ref(A, X[:, None] if vec else X)
+        return Y[:, 0] if vec else Y
+
+    def K_mm(self, X: torch.Tensor) -> torch.Tensor:
+        if self.kernel == "union":
+            return self._union_mm(X, "a")
+        return self._ref_mm(self.K, X)
+
+    def M_mm(self, X: torch.Tensor) -> torch.Tensor:
+        if self.kernel == "union":
+            return self._union_mm(X, "b")
+        if self.M is None:
+            return X
+        return self._ref_mm(self.M, X)
+
+    def KM_mm(self, X: torch.Tensor):
+        """(K @ X, M @ X). kernel="union": ONE fused kernel — X gathered
+        once per chunk and contracted against both value streams."""
+        if self.kernel == "union" and self.K.vals_b is not None:
+            from maxwell_tpu_torch.kernels.spmm import bellunion_km_matmat
+
+            vec = X.dim() == 1
+            Xl = (X[:, None] if vec else X).contiguous()
+            Yk, Ym = bellunion_km_matmat(self.K, Xl, precision=self.precision)
+            return (Yk[:, 0], Ym[:, 0]) if vec else (Yk, Ym)
+        return self.K_mm(X), self.M_mm(X)
+
+    def Minv_mm(self, X: torch.Tensor) -> torch.Tensor:
+        """M^-1 X via CG. A union pencil stores M as K's second stream (M is
+        None there), so the identity shortcut applies to "ref" only."""
+        if self.kernel != "union" and self.M is None:
+            return X
+        return cg(
+            self.M_mm, X, tol=self.mass_tol, maxiter=self.mass_iters,
+            dot=self.dot_cols,
+        )
+
+    def project(self, X: torch.Tensor) -> torch.Tensor:
+        """M-orthogonal projection off the gradient nullspace (no-op
+        without a projector)."""
+        if self.proj is None:
+            return X
+        if self.fastproj is not None:
+            vec = X.dim() == 1
+            Xl = X[:, None] if vec else X
+            rhs = self.proj.gt_mm(self.M_mm(Xl))
+            out = Xl - self.proj.g_mm(self.fastproj.solve(rhs))
+            return out[:, 0] if vec else out
+        return self.proj.project(self.M_mm, X)
+
+    # --- constructors ---------------------------------------------------
+    @staticmethod
+    def from_problem(
+        problem,
+        block: int | None = None,
+        kernel: str = "ref",
+        dtype: torch.dtype = torch.float32,
+        precision: str = "auto",
+        device: str | torch.device = "cuda",
+    ) -> "Pencil":
+        """Build from a cavity problem (RectCavity2D / BrickCavity3D /
+        PermutedProblem). block default: 8 for the union layout, 4 for the
+        blocked-ELL reference. precision "auto": "b3" for a union pencil at
+        f32, "highest" otherwise."""
+        _check_kernel(kernel)
+        if block is None:
+            block = 8 if kernel == "union" else 4
+        M = None
+        if kernel == "union":
+            from maxwell_tpu_torch.sparse.bellunion import BELLUnion
+
+            if precision == "auto":
+                precision = "b3" if dtype == torch.float32 else "highest"
+            K = BELLUnion.from_csr(
+                problem.K, block=block, dtype=dtype, B=problem.M,
+                device=device,
+            )
+            if precision == "b3":
+                K = K.bf16x3()
+        else:
+            K = BSRMatrix.from_csr(
+                problem.K, block=block, align_slots=4, dtype=dtype,
+                device=device,
+            )
+            M = BSRMatrix.from_csr(
+                problem.M, block=block, align_slots=4, dtype=dtype,
+                device=device,
+            )
+        proj = GradientProjector.from_gradient(
+            problem.G, K.n_padded, dtype=dtype, device=device
+        )
+        # exact tensor-product projector solve for vacuum PEC bricks: the
+        # base problem's interior-node order is FastPoisson3D's layout, and
+        # row permutations (PermutedProblem) leave the node space alone
+        fastproj = None
+        base = getattr(problem, "base", problem)
+        if (
+            getattr(base, "nz", None) is not None
+            and getattr(base, "bc", "pec") == "pec"
+            and getattr(base, "eps_r", None) is None
+            and getattr(base, "mu_r", None) is None
+        ):
+            from maxwell_tpu_torch.solvers.fast_poisson import FastPoisson3D
+
+            fastproj = FastPoisson3D.build(
+                base.a, base.b, base.c, base.nx, base.ny, base.nz,
+                dtype=dtype, device=device,
+            )
+        if precision == "auto":
+            precision = "highest"
+        return Pencil(
+            K=K, M=M, proj=proj, kernel=kernel, fastproj=fastproj,
+            precision=precision,
+        )
+
+    @staticmethod
+    def from_reference(obj, device: str | torch.device = "cuda") -> "Pencil":
+        """Carry a JAX `Pencil` (or any object with the same fields) over:
+        its layout, GradientProjector (head/tail/weight) and FastPoisson3D
+        (Vx, Vy, Vz, inv_lam); every leaf is read through np.asarray."""
+        _check_kernel(obj.kernel)
+        t = lambda v: torch.from_numpy(np.array(v)).to(device)
+        if obj.kernel == "union":
+            from maxwell_tpu_torch.sparse.bellunion import BELLUnion
+
+            K, M = BELLUnion.from_reference(obj.K, device), None
+        else:
+            bsr = lambda A: BSRMatrix(
+                blocks=t(A.blocks), cols=t(A.cols).long(), n=int(A.n)
+            )
+            K = bsr(obj.K)
+            M = None if obj.M is None else bsr(obj.M)
+        proj = None
+        if obj.proj is not None:
+            p = obj.proj
+            proj = GradientProjector(
+                head=t(p.head).long(), tail=t(p.tail).long(),
+                weight=t(p.weight), n=int(p.n), n_nodes=int(p.n_nodes),
+                n_padded=int(p.n_padded),
+            )
+        fastproj = None
+        if obj.fastproj is not None:
+            from maxwell_tpu_torch.solvers.fast_poisson import FastPoisson3D
+
+            f = obj.fastproj
+            fastproj = FastPoisson3D(
+                Vx=t(f.Vx), Vy=t(f.Vy), Vz=t(f.Vz), inv_lam=t(f.inv_lam),
+                nx=int(f.nx), ny=int(f.ny), nz=int(f.nz),
+            )
+        return Pencil(
+            K=K, M=M, proj=proj, kernel=obj.kernel,
+            mass_tol=float(obj.mass_tol), mass_iters=int(obj.mass_iters),
+            fastproj=fastproj, precision=obj.precision,
+        )

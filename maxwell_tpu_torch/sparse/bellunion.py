@@ -1,0 +1,343 @@
+"""Tile-union blocked sparse layout ("BELLUnion") as torch tensors — the
+layout the CUDA SpMM kernels (kernels/spmm.py, csrc/bellunion_spmm.cu) read.
+
+Layout (identical to maxwell_tpu.sparse.bellunion, so the two packages can
+be held against each other): per 128-row tile, the union of its
+block-columns is grouped into aligned runs of `pack` block-columns and cut
+into chunks of cl lanes (cl // b block-columns). Chunks of all tiles are
+stored consecutively in one flat (NC * 128, cl) value array:
+
+    vals[128k + r, c]   row r of tile tile_of[k], lane c of chunk k
+    ucols[k, j]         block-column of lane group j (padding groups repeat
+                        a valid column and carry zero values)
+    tile_of[k]          owning tile; the chunks of one tile are consecutive
+    first[k]            1 on a tile's first chunk
+    tile_ptr[t]         first chunk of tile t (n_tiles + 1 entries; derived
+                        from tile_of, read by the CUDA kernels, which walk a
+                        tile's chunks inside one thread block)
+
+The layout stores about 53x the CSR values of the 24^3 curl-curl operator
+as zero fill: the TPU traded that for (128, 1024) dots shaped for its
+matrix unit. It is kept unchanged here for parity with the reference.
+
+What the reference needs only for its TPU host and VMEM is not ported: the
+host buffer arena (first-touch page faults on the TPU host), and the
+row-band split (`banded`), which exists because X had to fit in VMEM — a
+CUDA kernel reads X from global memory at any size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _tensor(v, device):
+    """np.asarray of any array-like leaf as a torch tensor on `device`.
+    bfloat16 numpy arrays (ml_dtypes, as the JAX package holds them) are
+    carried over bit for bit through an int16 view."""
+    if v is None:
+        return None
+    a = np.asarray(v)
+    if a.dtype.itemsize == 2 and a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16
+        ).to(device)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def _tile_ptr(tile_of: np.ndarray, n_tiles: int) -> np.ndarray:
+    counts = np.bincount(tile_of, minlength=n_tiles)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BELLUnion:
+    """Tile-union chunked sparse matrix (see module docstring).
+
+    vals: (NC*128, cl) value stream a (K); vals_b: optional stream b (M) on
+    the same structure. vals_h/vals_l (and vals_b_h/vals_b_l): optional
+    bf16 (hi, lo) split of each stream for the "b3" kernels, built by
+    bf16x3(). ucols (NC, cl // b), tile_of/first (NC,), tile_ptr
+    (n_tiles + 1,), all int32.
+    """
+
+    vals: torch.Tensor
+    ucols: torch.Tensor
+    tile_of: torch.Tensor
+    first: torch.Tensor
+    tile_ptr: torch.Tensor
+    n: int
+    n_tiles: int
+    b: int = 8
+    cl: int = 1024
+    vals_b: torch.Tensor | None = None
+    n_cols: int | None = None
+    pack: int = 1
+    vals_h: torch.Tensor | None = None
+    vals_l: torch.Tensor | None = None
+    vals_b_h: torch.Tensor | None = None
+    vals_b_l: torch.Tensor | None = None
+
+    _TENSORS = (
+        "vals", "ucols", "tile_of", "first", "tile_ptr", "vals_b",
+        "vals_h", "vals_l", "vals_b_h", "vals_b_l",
+    )
+
+    @property
+    def n_padded(self) -> int:
+        return self.n_tiles * 128
+
+    @property
+    def n_cols_padded(self) -> int:
+        """Rows the gathered-from X buffer must have."""
+        if self.n_cols is None:
+            return self.n_padded
+        return _round_up(max(self.n_cols, 1), self.b * self.pack)
+
+    @property
+    def n_chunks(self) -> int:
+        return self.tile_of.shape[0]
+
+    @property
+    def nnz_dense(self) -> int:
+        """Stored (= streamed) entries of one value stream."""
+        return self.vals.numel()
+
+    def to(self, device) -> "BELLUnion":
+        """Copy with every tensor moved to `device`."""
+        return dataclasses.replace(
+            self,
+            **{
+                f: getattr(self, f).to(device)
+                for f in self._TENSORS
+                if getattr(self, f) is not None
+            },
+        )
+
+    def bf16x3(self) -> "BELLUnion":
+        """Copy carrying the bf16 (hi, lo) split of each value stream:
+        hi = bf16_rn(v), lo = bf16_rn(v - f32(hi)). f32(hi) + f32(lo) keeps
+        ~16 mantissa bits of v, at the same bytes as one f32 stream."""
+
+        def split(v):
+            if v is None:
+                return None, None
+            vh = v.to(torch.bfloat16)
+            vl = (v - vh.to(v.dtype)).to(torch.bfloat16)
+            return vh, vl
+
+        vh, vl = split(self.vals)
+        bh, bl = split(self.vals_b)
+        return dataclasses.replace(
+            self, vals_h=vh, vals_l=vl, vals_b_h=bh, vals_b_l=bl
+        )
+
+    @staticmethod
+    def from_reference(obj, device="cuda") -> "BELLUnion":
+        """Carry a layout over from the JAX package (a maxwell_tpu BELLUnion,
+        or any object with the same fields): each leaf is read through
+        np.asarray, and tile_ptr is derived from tile_of."""
+        tile_of = np.asarray(obj.tile_of).astype(np.int32)
+        n_tiles = int(obj.n_tiles)
+        leaves = {
+            f: _tensor(getattr(obj, f, None), device)
+            for f in BELLUnion._TENSORS
+            if f != "tile_ptr"
+        }
+        return BELLUnion(
+            **leaves,
+            tile_ptr=torch.from_numpy(_tile_ptr(tile_of, n_tiles)).to(device),
+            n=int(obj.n),
+            n_tiles=n_tiles,
+            b=int(obj.b),
+            cl=int(obj.cl),
+            n_cols=None if obj.n_cols is None else int(obj.n_cols),
+            pack=int(obj.pack),
+        )
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def from_csr(
+        A: sp.spmatrix,
+        block: int = 8,
+        dtype: torch.dtype = torch.float32,
+        B: sp.spmatrix | None = None,
+        chunk_lanes: int = 1024,
+        ncols: int | None = None,
+        pack: int = 2,
+        device: str | torch.device = "cuda",
+    ) -> "BELLUnion":
+        """Build from CSR on the host (the reference's vectorized build),
+        then move the tensors to `device`. With B given, both value streams
+        share the union sparsity structure. ncols: column-space size for
+        rectangular matrices (None: square n_padded layout)."""
+        b = block
+        R = 128 // b
+        cl = chunk_lanes
+        CG = cl // b  # block-columns per chunk
+        p = pack
+        if CG % p != 0:
+            raise ValueError(f"pack={p} must divide chunk block-cols {CG}")
+        GP = CG // p  # pack groups per chunk
+        A = sp.csr_matrix(A)
+        if not A.has_canonical_format:
+            # canonicalize a COPY: csr_matrix(A) shares data/indices with
+            # the caller and sum_duplicates would mutate them in place
+            A = A.copy()
+            A.sum_duplicates()
+        n = A.shape[0]
+        n_pad = _round_up(max(n, 1), 128)
+        rect = ncols is not None
+        # the (pack*b)-row gather of the last group must stay inside X
+        nc_pad = _round_up(max(ncols, 1), b * p) if rect else n_pad
+
+        nbr = n_pad // b
+        ncb = nc_pad // b
+        ncbp = -(-ncb // p)  # pack groups across the column space
+        n_tiles = nbr // R
+
+        it = (
+            np.int32
+            if n_tiles * ncbp < 2**31 and nc_pad < 2**31
+            else np.int64
+        )
+
+        def _skeys(C):
+            """Per-scalar-nnz (tile, pack-group) composite keys and the
+            scalar row index."""
+            row = np.repeat(
+                np.arange(C.shape[0], dtype=it), np.diff(C.indptr)
+            )
+            key = (row // 128) * it(ncbp) + C.indices.astype(it) // (b * p)
+            return key, row
+
+        kA, rowA = _skeys(A)
+        if B is not None:
+            Bc = sp.csr_matrix(B)
+            if not Bc.has_canonical_format:
+                Bc = Bc.copy()
+                Bc.sum_duplicates()
+            same_pattern = (
+                A.indptr.shape == Bc.indptr.shape
+                and np.array_equal(A.indptr, Bc.indptr)
+                and np.array_equal(A.indices, Bc.indices)
+            )
+            if same_pattern:
+                kB, rowB = kA, rowA
+                uk = np.unique(kA)
+            else:
+                kB, rowB = _skeys(Bc)
+                uk = np.union1d(np.unique(kA), np.unique(kB))
+        else:
+            Bc = None
+            uk = np.unique(kA)
+
+        # every tile needs >= 1 union group (zero-valued group 0 if empty)
+        have = np.zeros(n_tiles, dtype=bool)
+        have[(uk // ncbp)] = True
+        if not have.all():
+            synth = np.flatnonzero(~have).astype(it) * it(ncbp)
+            uk = np.union1d(uk, synth)
+        ut = uk // ncbp  # tile of each unique (tile, group)
+        ug = (uk % ncbp).astype(np.int64)  # sorted unique groups per tile
+        usize = np.bincount(ut, minlength=n_tiles)
+        first_u = np.concatenate([[0], np.cumsum(usize)])
+
+        nck = -(-usize // GP)  # chunks per tile
+        NC = int(nck.sum())
+        chunk0 = np.concatenate([[0], np.cumsum(nck)])
+
+        # padded unions: every slot starts as the tile's LAST group, then
+        # the live prefix is overwritten
+        last_ug = ug[first_u[1:] - 1]
+        gcols_flat = np.repeat(last_ug, nck * GP)
+        pos_u = np.arange(uk.size) - first_u[ut]  # rank within tile union
+        gcols_flat[chunk0[ut] * GP + pos_u] = ug
+        # group g covers block-cols [g*p, g*p + p)
+        ucols = (
+            gcols_flat.reshape(NC, GP, 1) * p + np.arange(p)
+        ).reshape(NC, CG).astype(np.int32)
+
+        tile_of = np.repeat(np.arange(n_tiles, dtype=np.int32), nck)
+        first = np.zeros(NC, dtype=np.int32)
+        first[chunk0[:-1]] = 1
+
+        np_dt = torch.empty((), dtype=dtype).numpy().dtype
+        ft = np.int32 if NC * 128 * cl < 2**31 else np.int64
+        chunk0_f = chunk0.astype(ft)
+        first_uf = first_u.astype(ft)
+        flat_cache: dict = {}
+
+        def _fill(keys, row, C):
+            """Scalar nnz (row, col) lands at chunk row chunk*128 + row%128,
+            lane group*p*b + (blockcol%p)*b + col%b."""
+            v = np.zeros((NC * 128, cl), np_dt)
+            flat = flat_cache.get(id(keys))
+            if flat is None:
+                tile = keys // ncbp
+                pos = np.searchsorted(uk, keys).astype(ft) - first_uf[tile]
+                lane = (pos % GP) * ft(p * b) + (
+                    (C.indices.astype(ft) // b) % p
+                ) * ft(b) + C.indices.astype(ft) % b
+                flat = (
+                    (chunk0_f[tile] + pos // GP) * ft(128)
+                    + row.astype(ft) % 128
+                ) * ft(cl) + lane
+                flat_cache[id(keys)] = flat
+            v.reshape(-1)[flat] = C.data.astype(np_dt, copy=False)
+            return torch.from_numpy(v).to(device)
+
+        return BELLUnion(
+            vals=_fill(kA, rowA, A),
+            ucols=torch.from_numpy(ucols).to(device),
+            tile_of=torch.from_numpy(tile_of).to(device),
+            first=torch.from_numpy(first).to(device),
+            tile_ptr=torch.from_numpy(_tile_ptr(tile_of, n_tiles)).to(device),
+            vals_b=None if Bc is None else _fill(kB, rowB, Bc),
+            n=n,
+            n_tiles=n_tiles,
+            b=b,
+            cl=cl,
+            n_cols=ncols,
+            pack=p,
+        )
+
+    def to_csr(self, stream: str = "a") -> sp.csr_matrix:
+        """Round-trip for testing."""
+        b = self.b
+        vals = (self.vals if stream == "a" else self.vals_b).cpu().numpy()
+        ucols = self.ucols.cpu().numpy()
+        tile_of = self.tile_of.cpu().numpy()
+        CG = self.cl // b
+        rows, cols, blocks = [], [], []
+        for k in range(self.n_chunks):
+            vk = vals[128 * k : 128 * (k + 1)]
+            for rl in range(128 // b):
+                for g in range(CG):
+                    blk = vk[rl * b : (rl + 1) * b, g * b : (g + 1) * b]
+                    if np.any(blk != 0.0):
+                        rows.append(tile_of[k] * (128 // b) + rl)
+                        cols.append(ucols[k, g])
+                        blocks.append(blk)
+        nc = self.n if self.n_cols is None else self.n_cols
+        if not rows:
+            return sp.csr_matrix((self.n, nc))
+        coo_r = np.repeat(
+            np.asarray(rows) * b, b * b
+        ) + np.tile(np.repeat(np.arange(b), b), len(rows))
+        coo_c = np.repeat(
+            np.asarray(cols) * b, b * b
+        ) + np.tile(np.tile(np.arange(b), b), len(rows))
+        out = sp.coo_matrix(
+            (np.asarray(blocks).ravel(), (coo_r, coo_c)),
+            shape=(self.n_padded, self.n_cols_padded),
+        ).tocsr()
+        return out[: self.n, :nc].tocsr()

@@ -1,0 +1,133 @@
+"""maxwell_tpu_torch Pencil applies against the JAX Pencil built from the
+same problem: the fused K/M apply, the gradient projection, the mass solve
+and the shifted-CG preconditioner, at f32 (union layout; the reference's
+Pallas kernels in interpret mode) and at f64 (blocked-ELL "ref")."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from maxwell_tpu.problems import BrickCavity3D as RefBrick
+from maxwell_tpu.solvers.operator import Pencil as RefPencil
+from maxwell_tpu.solvers.precond import (
+    shifted_cg_preconditioner as ref_precond,
+)
+from maxwell_tpu_torch.problems import BrickCavity3D
+from maxwell_tpu_torch.solvers.operator import Pencil
+from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
+
+torch.set_num_threads(1)
+
+# (JAX dtype, torch dtype, kernel, union precision, tolerance): f32 at the
+# reference's union vs ref pencil bound (test_pallas_spmm.py:243), f64 to
+# near roundoff. The bound is on max |port - reference| relative to
+# max |reference|, since the outputs' scales differ by orders of magnitude.
+CONFIGS = {
+    "f32_union_b3": (jnp.float32, torch.float32, "union", "auto", 2e-5),
+    "f32_union_highest": (jnp.float32, torch.float32, "union", "highest", 2e-5),
+    "f64_ref": (jnp.float64, torch.float64, "ref", "auto", 1e-12),
+}
+# 20 CG sweeps on the ill-conditioned K + alpha M amplify the b3 apply error
+# (~1e-6): at 5^3 the reference's own b3 preconditioner output is 6.4e-4 off
+# its f64 result, and the port's 6.8e-4. Held at "highest" to 2e-5 above,
+# b3 is held here to the size of that amplified error.
+PRECOND_B3_TOL = 2e-3
+OPS = ["KM_mm", "project", "Minv_mm", "precond"]
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def pencils(request):
+    jdt, tdt, kernel, precision, tol = CONFIGS[request.param]
+    kw = dict(nx=5, ny=5, nz=5)
+    ref = RefPencil.from_problem(
+        RefBrick(**kw), kernel=kernel, dtype=jdt, precision=precision
+    )
+    port = Pencil.from_problem(
+        BrickCavity3D(**kw), kernel=kernel, dtype=tdt, precision=precision,
+        device="cpu",
+    )
+    assert port.precision == ref.precision
+    assert port.n_padded == ref.n_padded
+    X = np.zeros((port.n_padded, 8))
+    X[: port.n] = np.random.default_rng(4).standard_normal((port.n, 8))
+    return ref, port, X, jdt, tdt, tol
+
+
+def _apply(pencil, op, X, alpha=20.0):
+    if op == "KM_mm":
+        return pencil.KM_mm(X)
+    if op == "precond":
+        pc = (ref_precond if isinstance(pencil, RefPencil)
+              else shifted_cg_preconditioner)(pencil, alpha=alpha, iters=20)
+        return (pc(X),)
+    return (getattr(pencil, op)(X),)
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_pencil_apply_matches_reference(pencils, op):
+    ref, port, X, jdt, tdt, tol = pencils
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.block_until_ready(_apply(ref, op, jnp.asarray(X, jdt)))
+    got = _apply(port, op, torch.as_tensor(X, dtype=tdt))
+    if op == "precond" and port.precision == "b3":
+        tol = PRECOND_B3_TOL
+    for g, w in zip(got, want):
+        g, w = g.numpy()[: port.n], np.asarray(w)[: port.n]
+        assert np.abs(g - w).max() <= tol * np.abs(w).max()
+
+
+def test_pencil_from_reference_applies_identically(pencils):
+    """The JAX pencil's arrays carried over give the port's own applies."""
+    ref, port, X, jdt, tdt, tol = pencils
+    got = Pencil.from_reference(ref, device="cpu")
+    assert (got.kernel, got.precision, got.n_padded) == (
+        port.kernel, port.precision, port.n_padded
+    )
+    Xt = torch.as_tensor(X, dtype=tdt)
+    for g, w in zip(got.KM_mm(Xt), port.KM_mm(Xt)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        got.project(Xt).numpy(), port.project(Xt).numpy(), rtol=tol, atol=tol
+    )
+
+
+def test_cg_matches_reference():
+    """The mass solve's CG (early exit tested every few sweeps) returns the
+    reference's iterate in f64."""
+    from maxwell_tpu.solvers.cg import cg as ref_cg
+    from maxwell_tpu_torch.solvers.cg import cg
+
+    cav = RefBrick(nx=4, ny=4, nz=3)
+    M = cav.M.toarray()
+    B = np.random.default_rng(8).standard_normal((M.shape[0], 3))
+    for maxiter in (5, 200):
+        want = np.asarray(ref_cg(lambda X: jnp.asarray(M) @ X,
+                                 jnp.asarray(B), tol=1e-10, maxiter=maxiter))
+        got = cg(lambda X: torch.from_numpy(M) @ X, torch.from_numpy(B),
+                 tol=1e-10, maxiter=maxiter).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+
+
+def test_fast_poisson_2d_and_deflation_match_reference():
+    from maxwell_tpu.solvers.deflation import deflate_against as ref_deflate
+    from maxwell_tpu.solvers.fast_poisson import FastPoisson2D as RefFP2
+    from maxwell_tpu_torch.solvers.deflation import deflate_against
+    from maxwell_tpu_torch.solvers.fast_poisson import FastPoisson2D
+
+    rng = np.random.default_rng(9)
+    ref = RefFP2.build(1.0, 1.5, 7, 5, dtype=jnp.float64)
+    port = FastPoisson2D.build(1.0, 1.5, 7, 5, device="cpu")
+    r = rng.standard_normal((6 * 4, 3))
+    np.testing.assert_allclose(
+        port.solve(torch.from_numpy(r)).numpy(),
+        np.asarray(ref.solve(jnp.asarray(r))), rtol=1e-12, atol=1e-12,
+    )
+    X, Q, MQ = (rng.standard_normal((30, k)) for k in (4, 2, 2))
+    np.testing.assert_allclose(
+        deflate_against(*map(torch.from_numpy, (X, Q, MQ))).numpy(),
+        np.asarray(ref_deflate(*map(jnp.asarray, (X, Q, MQ)))),
+        rtol=1e-12, atol=1e-12,
+    )

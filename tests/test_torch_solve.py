@@ -1,0 +1,105 @@
+"""The slice end to end: maxwell_tpu_torch.solve and its CLI against
+maxwell_tpu's on the same problems."""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import maxwell_tpu
+import maxwell_tpu_torch
+from maxwell_tpu.cli import run as ref_cli
+from maxwell_tpu.problems import BrickCavity3D as RefBrick
+from maxwell_tpu.sparse.reorder import PermutedProblem as RefPermuted
+from maxwell_tpu_torch.cli import run as port_cli
+from maxwell_tpu_torch.problems import BrickCavity3D
+from maxwell_tpu_torch.sparse.reorder import PermutedProblem
+
+torch.set_num_threads(1)
+
+CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
+
+
+def test_solve_f32_union_refined_matches_reference():
+    """f32 union solve (plain versions of the kernels on the CPU), cut at
+    the f32 floor and refined to 1e-8 in f64 on the host, against the
+    reference's f32 "ref" solve refined the same way."""
+    kw = dict(nx=6, ny=6, nz=6)
+    ref_prob = RefPermuted(RefBrick(**kw))
+    prob = PermutedProblem(BrickCavity3D(**kw))
+    n = prob.K.shape[0]
+    X0 = np.random.default_rng(2).standard_normal((n, 9))
+    X0_ref = np.zeros((-(-n // 128) * 128, 9))
+    X0_ref[:n] = X0
+    opts = dict(nev=5, tol=1e-8, stall_window=12)
+    want = maxwell_tpu.solve(
+        ref_prob, dtype=jnp.float32, kernel="ref",
+        X0=jnp.asarray(X0_ref, jnp.float32), **opts,
+    )
+    got = maxwell_tpu_torch.solve(
+        prob, dtype=torch.float32, kernel="union", device="cpu", X0=X0,
+        **opts,
+    )
+    assert want.converged and got.converged
+    assert want.residuals.max() <= 1e-8 and got.residuals.max() <= 1e-8
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-7)
+    assert got.eigenvectors.shape == (n, 5)
+
+
+def test_solve_auto_kernel_on_cpu_is_ref():
+    """kernel="auto" picks the union kernels only on a CUDA device at f32."""
+    from maxwell_tpu_torch.kernels import spmm
+
+    spmm.reset_counts()
+    res = maxwell_tpu_torch.solve(
+        BrickCavity3D(nx=4, ny=4, nz=4), nev=3, tol=1e-8,
+        dtype=torch.float32, device="cpu", maxiter=60,
+    )
+    assert res.converged and res.residuals.max() <= 1e-8
+    assert all(v == 0 for v in spmm.counts().values())
+
+
+@pytest.mark.parametrize(
+    "kwargs", [dict(solver="lanczos"), dict(solver="shift_invert", sigma=1.0),
+               dict(distributed=True)],
+)
+def test_solve_unported_paths_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        maxwell_tpu_torch.solve(BrickCavity3D(nx=2, ny=2, nz=2),
+                                device="cpu", **kwargs)
+
+
+def _last_json(out):
+    lines = [json.loads(l) for l in out.strip().splitlines()
+             if l.startswith("{")]
+    return lines[-1]
+
+
+def test_cli_config2_matches_reference_cli(capsys, tmp_path):
+    with open(os.path.join(CONFIGS, "config2.json")) as f:
+        cfg = json.load(f)
+    cfg["problem"].update(nx=8, ny=8)
+    path = tmp_path / "config2_8.json"
+    path.write_text(json.dumps(cfg))
+
+    assert ref_cli.main([str(path), "--platform", "cpu"]) == 0
+    want = _last_json(capsys.readouterr().out)
+    assert port_cli.main([str(path), "--device", "cpu"]) == 0
+    got = _last_json(capsys.readouterr().out)
+    assert sorted(got) == sorted(want)
+    assert got["converged"] and max(got["residuals"]) <= cfg["solver"]["tol"]
+    np.testing.assert_allclose(
+        got["eigenvalues"], want["eigenvalues"], rtol=1e-8
+    )
+    assert got["n"] == want["n"]
+
+
+def test_cli_unported_solver_raises(tmp_path):
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps({"problem": {"kind": "rect2d"},
+                                "solver": {"kind": "lanczos"}}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_cli.main([str(path), "--device", "cpu"])
