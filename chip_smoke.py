@@ -1,28 +1,47 @@
 """Chip smoke test of maxwell_tpu_torch on one NVIDIA GPU: build the CUDA
 kernels from the sources in this checkout, hold each against its plain
-PyTorch version at the shapes of the 24^3 operator, then drive the port's
-main path (maxwell_tpu_torch.solve on the 24^3 RCM Nedelec brick, refined to
-1e-8) and check that it ran through the kernels.
+PyTorch version at the shapes of its path, drive both ported paths and check
+that they ran through the kernels:
+
+  slice 1, the assembled path: maxwell_tpu_torch.solve on the 16^3 RCM
+    Nedelec brick, refined to 1e-8 on the host (its kernels checked on that
+    operator and, as before, on the 24^3 one);
+  slice 2, the matrix-free path: the 64^3 vacuum PEC brick as a tap-stencil
+    pencil (n = 811,200), f32 LOBPCG with the spectral preconditioner, then
+    the double-word refinement on the device to 1e-8; and config 7 (16^3
+    loaded cavity) through the CLI.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the process exits non-zero:
-  1. device   name, nvidia-smi name and power limit, CUDA and nvcc versions
-  2. build    nvcc build of maxwell_tpu_torch/csrc (seconds)
-  3. kernels  every union kernel against its plain version on the card, for
-              precision in {highest, b3} and m in {1, 8, 9}; one JSON line
-              per case with median times over 20 launches (CUDA events);
-              m = 8 also against scipy in f64 on the host
-  4. solve    the main path, solve() to 1e-8, with launch counts zeroed
-              just before it and read just after; then, counted apart, each
-              eigenvector's residual through the SpMV entry point on the card
-  5. result   an {"off_main_path": [...]} line for the SpMV entry point
-              (which solve() does not call), the {"kernels": [...]} line of
-              the main path's kernels, the nvidia-smi line, and last
-              {"ok": true, "device": {...}}
+  1. device    name, nvidia-smi name and power limit, CUDA and nvcc versions
+  2. build     nvcc build of maxwell_tpu_torch/csrc (one nvcc per source)
+  3. kernels   every union kernel against its plain version on the 24^3
+               and the 16^3 (the solve's) RCM operators, for precision in
+               {highest, b3} and m in {1, 8, 9}; one JSON line per case with
+               median times over 20 launches (CUDA events), the bound of
+               the bytes and operations the product needs on the CSR, and
+               torch.sparse.mm on that CSR
+  4. solve     slice 1: solve() to 1e-8 at 16^3, launch counts zeroed just
+               before and read just after; then, counted apart, each
+               eigenvector's residual through the SpMV entry point
+  5. stencil solve   slice 2 at 64^3 (the knobs of the reference bench's
+               time-to-1e-8 row), counts zeroed just before and read just
+               after; residuals verified with an f64 pencil afterwards
+  6. stencil   the tap-stencil kernel against its plain version at 64^3,
+               modes K, M, KM at m in {1, 9}, timed as in phase 3 (the
+               library call: torch.sparse.mm on the CSR of the same taps)
+  7. dielectric  configs/config7_dielectric.json through the CLI on cuda
+  8. result    an {"off_main_path": [...]} line for the SpMV entry point
+               (no solver calls it), the {"kernels": [...]} line of the main
+               paths' kernels, the nvidia-smi line, and last
+               {"ok": true, "device": {...}}
 """
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -31,26 +50,39 @@ import time
 import numpy as np
 import torch
 
-GRID = 24  # the 24^3 RCM curl-curl operator: n = 38,088, nnz = 1,173,840
+GRID = 24  # union kernel checks kept from the first slice, n = 38,088
+SOLVE_GRID = 16  # slice-1 solve (its host f64 refine grows fast with n)
+STENCIL_GRID = 64  # slice 2: n = 811,200 edges
 NEV = 5
 LAUNCHES = 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FLOPS_PER_S = {"f32": 67e12, "bf16": 989e12}  # H100 SXM dense peaks
 # f32 summation order differs from the plain version's (cuBLAS bmm +
-# index_add_); the JAX package's own tests use the same bounds
-TOL = {"highest": 1e-5, "b3": 2e-5}
+# index_add_ for the union kernels, another tap order and FMA contraction
+# for the stencil); the JAX package's own tests use the same union bounds
+TOL = {"highest": 1e-5, "b3": 2e-5, "stencil": 1e-5}
 # residual of a refined eigenvector recomputed with f32 applies on the card:
-# its floor is ~eps_f32 * ||K|| ||x|| / ||Kx|| ~ 1e-5 at 24^3; a wrong vector
-# gives O(1)
+# its floor is ~eps_f32 * ||K|| ||x|| / ||Kx||; a wrong vector gives O(1)
 DEVICE_RESIDUAL_TOL = 1e-3
-SOURCE = "maxwell_tpu_torch/csrc/bellunion_spmm.cu"
 REPLACES = {
     "bellunion_matmat": "maxwell_tpu/kernels/spmm.py:304",
     "bellunion_km_matmat": "maxwell_tpu/kernels/spmm.py:466",
     "bellunion_matvec": "maxwell_tpu/kernels/spmm.py:900",
+    "stencil_taps": "maxwell_tpu/kernels/stencil_taps.py:114",
 }
-# what solve() launches: the fused apply (LOBPCG's W, the preconditioner's
-# CG) and the single-stream apply (projector, initial SVQB). The SpMV entry
-# point is the m = 1 launch of the single-stream kernel; no solver calls it.
-MAIN_PATH = ("bellunion_km_matmat", "bellunion_matmat")
+SOURCE = {
+    "bellunion_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
+    "bellunion_km_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
+    "bellunion_matvec": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
+    "stencil_taps": "maxwell_tpu_torch/csrc/stencil_taps.cu",
+}
+# what each path launches. solve(): the fused apply (LOBPCG's W, the
+# preconditioner's CG) and the single-stream apply (projector, initial
+# SVQB). The stencil path: the fused K/M taps (LOBPCG's W) and the M taps
+# (projector). The SpMV entry point is the m = 1 launch of the
+# single-stream kernel; no solver calls it.
+MAIN_PATH = ("bellunion_km_matmat", "bellunion_matmat", "stencil_taps")
+STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 
 def log(obj):
@@ -82,6 +114,24 @@ def median_ms(fn, n=LAUNCHES):
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def bound_ms(nbytes, flops, kind):
+    """The least time for the work: bytes over the memory rate, or
+    operations over the peak rate for their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[kind] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def torch_csr(A, device):
+    A = A.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)),
+        torch.from_numpy(A.indices.astype(np.int64)),
+        torch.from_numpy(A.data.astype(np.float32)),
+        size=A.shape, device=device,
+    )
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -108,9 +158,19 @@ def phase_build():
          "library": lib.name})
 
 
-def phase_kernels(problem):
-    """Each kernel against its plain version at the 24^3 shapes. Returns
-    (layout, per-kernel stats at the main path's shape)."""
+def csr_bytes(A, m):
+    """Bytes a product of the CSR matrix A with an (n, m) f32 block must
+    move: values and column indices (4 B each), row pointers, X read once
+    and Y written once."""
+    rows, cols = A.shape
+    return A.nnz * 8 + (rows + 1) * 4 + cols * m * 4 + rows * m * 4
+
+
+def phase_kernels(problem, grid):
+    """Each union kernel against its plain version on the problem's RCM
+    operator. Returns per-kernel stats at the main path's shape."""
+    import scipy.sparse as sp
+
     from maxwell_tpu_torch.kernels import spmm
     from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 
@@ -120,20 +180,26 @@ def phase_kernels(problem):
     t0 = time.perf_counter()
     A = BELLUnion.from_csr(K, B=M, device=dev).bf16x3()
     torch.cuda.synchronize()
-    log({"phase": "layout", "n": n, "nnz": nnz, "chunks": A.n_chunks,
-         "tiles": A.n_tiles, "value_bytes_per_stream": A.nnz_dense * 4,
+    log({"phase": "layout", "grid": grid, "n": n, "nnz": nnz,
+         "chunks": A.n_chunks, "tiles": A.n_tiles,
+         "value_bytes_per_stream": A.nnz_dense * 4,
          "build_s": time.perf_counter() - t0})
-    if (n, nnz) != (38088, 1173840):
-        raise AssertionError(f"unexpected 24^3 operator: n={n}, nnz={nnz}")
+    # the library call for each case: torch.sparse.mm (cuSPARSE) on the CSR
+    # of the same operator(s); the fused case stacks K over M. The bound
+    # counts the bytes of that CSR, not of the union layout's zero fill.
+    mats = {"a": K, "b": M, "km": sp.vstack([K, M]).tocsr()}
+    csr = {case: torch_csr(mat, dev) for case, mat in mats.items()}
 
     rng = np.random.default_rng(0)
-    stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
+    stats = {name: {"max_abs_err": 0.0} for name in REPLACES
+             if name != "stencil_taps"}
     for precision in ("highest", "b3"):
         for m in (1, 8, 9):
             Xh = np.zeros((A.n_padded, m), np.float32)
             Xh[:n] = rng.standard_normal((n, m))
             X = torch.from_numpy(Xh).to(dev)
             x = X[:, 0].contiguous()
+            Xn = X[:n].contiguous()
             cases = {
                 "km": (
                     lambda: spmm.bellunion_km_matmat(A, X, precision),
@@ -170,17 +236,32 @@ def phase_kernels(problem):
                         f"{abs_err:.3e} > {TOL[precision]} * {scale:.3e}"
                     )
                 ms, plain_ms = median_ms(kern), median_ms(plain)
-                nbytes = (
-                    streams * A.nnz_dense * 4  # values (f32 or bf16 hi+lo)
-                    + A.ucols.numel() * 4
-                    + A.n_chunks * A.cl * m * 4  # gathered X
-                    + streams * A.n_padded * m * 4  # Y
+                lib = csr[case]
+                library_ms = median_ms(lambda: torch.sparse.mm(lib, Xn))
+                nbytes = csr_bytes(mats[case], m)
+                # one multiply-add per nonzero and column, three per
+                # nonzero in b3 (bf16 products)
+                flops = mats[case].nnz * m * 2 * (
+                    3 if precision == "b3" else 1)
+                b_ms, b_by = bound_ms(
+                    nbytes, flops, "bf16" if precision == "b3" else "f32")
+                # what the kernel reads and writes in the union layout:
+                # values with their zero fill, tile and column tables, the
+                # gathered X blocks, Y
+                layout_bytes = (
+                    streams * A.nnz_dense * 4
+                    + (A.ucols.numel() + A.tile_ptr.numel()) * 4
+                    + A.n_chunks * A.cl * m * 4
+                    + streams * A.n_padded * m * 4
                 )
                 row = {
-                    "kernel": name, "case": case, "precision": precision,
-                    "m": m, "max_abs_err": abs_err, "rel_err": abs_err / scale,
-                    "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-                    "GB_per_s": nbytes / ms / 1e6,
+                    "kernel": name, "grid": grid, "case": case,
+                    "precision": precision, "m": m, "max_abs_err": abs_err,
+                    "rel_err": abs_err / scale,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+                    "layout_bytes": layout_bytes,
+                    "layout_GB_per_s": layout_bytes / ms / 1e6,
                     # nnz of the operator(s) applied per second, the
                     # reference bench's convention (one count per call)
                     "csr_nnz_per_s": streams * nnz / (ms * 1e-3),
@@ -189,47 +270,65 @@ def phase_kernels(problem):
                 st = stats[name]
                 st["max_abs_err"] = max(st["max_abs_err"], abs_err)
                 # the shapes the main path gives each kernel: the solve's
-                # b3 block applies at m = 9, the residual check's SpMV
+                # b3 block applies at m = 9 (fused K/M for LOBPCG's W, the
+                # single stream mostly as M in the projector), the residual
+                # check's SpMV
                 main = (
                     (name == "bellunion_matvec" and precision == "highest"
                      and case == "a")
                     or (name != "bellunion_matvec" and precision == "b3"
-                        and m == 9 and case in ("km", "a"))
+                        and m == 9 and case in ("km", "b"))
                 )
                 if main:
-                    st.update(ms=ms, plain_ms=plain_ms)
+                    st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=library_ms)
             if m == 8:
                 ref = K @ Xh[:n].astype(np.float64)
                 Y = spmm.bellunion_matmat(A, X, "a", precision)
                 err = np.abs(Y[:n].cpu().numpy() - ref).max()
                 if not err <= TOL[precision] * np.abs(ref).max():
                     raise AssertionError(f"K @ X vs scipy: {err:.3e}")
-                log({"check": "scipy_f64", "precision": precision, "m": m,
+                log({"check": "scipy_f64", "grid": grid,
+                     "precision": precision, "m": m,
                      "rel_err": float(err / np.abs(ref).max())})
-    return A, stats
+    return stats
 
 
-def phase_solve(problem, A):
-    """The main path: solve() on the card, with launch counts zeroed just
-    before and read just after. Then, counted on their own, each refined
+def all_counts():
+    from maxwell_tpu_torch.kernels import spmm, stencil_taps
+
+    return {**spmm.counts(), **stencil_taps.counts()}
+
+
+def reset_all_counts():
+    from maxwell_tpu_torch.kernels import spmm, stencil_taps
+
+    spmm.reset_counts()
+    stencil_taps.reset_counts()
+
+
+def phase_solve(problem):
+    """Slice 1: solve() on the card, with launch counts zeroed just before
+    and read just after. Then, counted on their own, each refined
     eigenvector's residual through the SpMV entry point, which solve() does
     not call. Returns (main-path counts, residual-check counts)."""
     import maxwell_tpu_torch
-    from maxwell_tpu_torch.kernels import spmm
     from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
     from maxwell_tpu_torch.solvers.operator import Pencil
+    from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 
-    spmm.reset_counts()
+    reset_all_counts()
     t0 = time.perf_counter()
     res = maxwell_tpu_torch.solve(
         problem, nev=NEV, tol=1e-8, dtype=torch.float32, device="cuda",
         maxiter=120, stall_window=12,
     )
     wall = time.perf_counter() - t0
-    counts = spmm.counts()
+    counts = all_counts()
 
+    A = BELLUnion.from_csr(problem.K, B=problem.M, device="cuda")
     check = Pencil(K=A, kernel="union", precision="highest")
-    spmm.reset_counts()
+    reset_all_counts()
     dev_res = []
     for i, lam in enumerate(res.eigenvalues):
         x = torch.from_numpy(res.eigenvectors[:, i].astype(np.float32)).cuda()
@@ -238,7 +337,7 @@ def phase_solve(problem, A):
             torch.linalg.norm(kx) + abs(float(lam)) * torch.linalg.norm(mx)
         )
         dev_res.append(r.item())
-    check_counts = spmm.counts()
+    check_counts = all_counts()
 
     exact = cavity_eigenvalues_3d(1.0, 1.0, 1.0, NEV)
     rel = np.abs(res.eigenvalues - exact) / exact
@@ -248,7 +347,8 @@ def phase_solve(problem, A):
         len(res.history),
     )
     log({
-        "phase": "solve", "converged": res.converged,
+        "phase": "solve", "grid": SOLVE_GRID, "n": problem.K.shape[0],
+        "converged": res.converged,
         "iterations": res.iterations, "device_iterations": device_iters,
         "eigenvalues": [float(v) for v in res.eigenvalues],
         "analytic_rel_err": [float(v) for v in rel],
@@ -267,7 +367,7 @@ def phase_solve(problem, A):
         raise AssertionError(f"eigenvalues off the analytic modes: {rel}")
     if not max(dev_res) <= DEVICE_RESIDUAL_TOL:
         raise AssertionError(f"device residual check: {dev_res}")
-    for name in MAIN_PATH:
+    for name in ("bellunion_km_matmat", "bellunion_matmat"):
         if counts[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
     for name in REPLACES:
@@ -278,21 +378,236 @@ def phase_solve(problem, A):
     return counts, check_counts
 
 
+def stencil_csr(pencil, want_K, want_M):
+    """CSR of the masked tap operator in the stencil's flat layout, built on
+    the host from the tap table (one shifted block per tap), K's rows over
+    M's when both are wanted. The library call's operand."""
+    import scipy.sparse as sp
+
+    from maxwell_tpu_torch.kernels.stencil_taps import component_shapes
+
+    shapes = component_shapes(pencil.shape)
+    offs = np.cumsum([0] + [a * b * c for a, b, c in shapes])
+    mask = pencil.mask.cpu().numpy()
+    mats = []
+    for which in ([2] if want_K else []) + ([3] if want_M else []):
+        indptr, cols, vals = [np.zeros(1, np.int64)], [], []
+        for alpha, s in enumerate(shapes):
+            ix, iy, iz = (g.reshape(-1) for g in np.meshgrid(
+                *(np.arange(d) for d in s), indexing="ij"))
+            rows = offs[alpha] + np.arange(ix.size)
+            C = np.zeros((ix.size, len(pencil.taps[alpha])), np.int64)
+            V = np.zeros(C.shape, np.float32)
+            for t, tap in enumerate(pencil.taps[alpha]):
+                beta, (dx, dy, dz) = tap[0], tap[1]
+                bx, by, bz = shapes[beta]
+                sx, sy, sz = ix + dx, iy + dy, iz + dz
+                ok = ((sx >= 0) & (sx < bx) & (sy >= 0) & (sy < by)
+                      & (sz >= 0) & (sz < bz))
+                q = offs[beta] + (sx * by + sy) * bz + sz
+                C[:, t] = np.where(ok, q, 0)
+                V[:, t] = np.where(ok, tap[which] * mask[rows]
+                                   * mask[np.where(ok, q, 0)], 0.0)
+            keep = V != 0.0
+            indptr.append(indptr[-1][-1] + np.cumsum(keep.sum(axis=1)))
+            cols.append(C[keep])
+            vals.append(V[keep])
+        n_pad = pencil.n_padded
+        indptr.append(np.full(n_pad - offs[3], indptr[-1][-1]))
+        mats.append(sp.csr_matrix(
+            (np.concatenate(vals), np.concatenate(cols),
+             np.concatenate(indptr)), shape=(n_pad, n_pad)))
+    return sp.vstack(mats).tocsr() if len(mats) > 1 else mats[0]
+
+
+def phase_stencil_kernels(pencil):
+    """The tap-stencil kernel against its plain version at the 64^3 shapes.
+    Returns the stats of the main path's case (fused K/M at m = 9)."""
+    from maxwell_tpu_torch.kernels import stencil_taps as kst
+
+    dev = torch.device("cuda")
+    n_pad = pencil.n_padded
+    t0 = time.perf_counter()
+    libs = {mode: torch_csr(stencil_csr(pencil, *want), dev)
+            for mode, want in STENCIL_MODES.items()}
+    log({"phase": "stencil_csr", "seconds": time.perf_counter() - t0,
+         "nnz": {mode: A.values().numel() for mode, A in libs.items()}})
+    rows = pencil.mask.sum().item()  # unmasked rows compute, masked skip
+    taps_per_row = np.mean([len(t) for t in pencil.taps])
+    rng = np.random.default_rng(1)
+    st = {"max_abs_err": 0.0}
+    for m in (1, 9):
+        # random on every row, masked and padding ones too: the kernel
+        # applies both masks itself
+        X = torch.from_numpy(
+            rng.standard_normal((n_pad, m)).astype(np.float32)).to(dev)
+        for mode, (want_K, want_M) in STENCIL_MODES.items():
+            kern = lambda: kst.stencil_taps(
+                X, pencil.mask, pencil.taps, pencil.shape, want_K, want_M)
+            plain = lambda: kst.stencil_taps_ref(
+                X, pencil.mask, pencil.taps, pencil.shape, want_K, want_M)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+            abs_err = max((g - w).abs().max().item() for g, w in pairs)
+            scale = max(w.abs().max().item() for _, w in pairs)
+            if not abs_err <= TOL["stencil"] * scale:
+                raise AssertionError(
+                    f"stencil_taps {mode} m={m}: max error {abs_err:.3e} > "
+                    f"{TOL['stencil']} * {scale:.3e}")
+            ms, plain_ms = median_ms(kern), median_ms(plain)
+            lib = libs[mode]
+            library_ms = median_ms(lambda: torch.sparse.mm(lib, X))
+            ops = len(pairs)
+            nbytes = n_pad * m * 4 + n_pad * 4 + ops * n_pad * m * 4
+            flops = ops * rows * taps_per_row * 2 * m
+            b_ms, b_by = bound_ms(nbytes, flops, "f32")
+            log({"kernel": "stencil_taps", "mode": mode, "m": m,
+                 "max_abs_err": abs_err, "rel_err": abs_err / scale,
+                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6,
+                 "bound_us": b_ms * 1e3, "bound_ms": b_ms, "bound_by": b_by})
+            st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+            if mode == "KM" and m == 9:  # LOBPCG's fused W apply
+                st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=library_ms)
+    del libs
+    torch.cuda.empty_cache()
+    return st
+
+
+def f64_residuals(X, theta):
+    """Relative residuals of (theta, X) against an f64 pencil built apart,
+    applied by the plain tap version (the kernel is f32)."""
+    from maxwell_tpu_torch.kernels.stencil_taps import stencil_taps_ref
+    from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
+
+    g = STENCIL_GRID
+    p64 = StencilPencil3D.build(nx=g, ny=g, nz=g, dtype=torch.float64,
+                                device="cuda")
+    Xp = torch.zeros((p64.n_padded, X.shape[1]), dtype=torch.float64,
+                     device="cuda")
+    Xp[: p64.n] = torch.from_numpy(X).cuda()
+    KX, MX = stencil_taps_ref(Xp, p64.mask, p64.taps, p64.shape, True, True)
+    th = torch.from_numpy(np.asarray(theta, np.float64)).cuda()
+    R = KX - MX * th[None, :]
+    scale = KX.norm(dim=0) + th.abs() * MX.norm(dim=0)
+    return (R.norm(dim=0) / scale).cpu().numpy()
+
+
+def phase_stencil_solve():
+    """Slice 2 at 64^3 with the reference bench's knobs (bench.py:707-762):
+    build, spectral preconditioner (alpha 15), f32 LOBPCG (nev 5, maxiter
+    60, tol 2e-6, stall_window 10), refine_dw to 1e-8. Counts zeroed just
+    before, read just after. Returns (pencil, counts)."""
+    from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
+    from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
+    from maxwell_tpu_torch.solvers.lobpcg import lobpcg
+    from maxwell_tpu_torch.solvers.refine_device import refine_dw
+    from maxwell_tpu_torch.solvers.spectral import spectral_preconditioner
+
+    g = STENCIL_GRID
+    reset_all_counts()
+    t0 = time.perf_counter()
+    pencil = StencilPencil3D.build(nx=g, ny=g, nz=g, dtype=torch.float32,
+                                   device="cuda")
+    pc = spectral_preconditioner(pencil, alpha=15.0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res32 = lobpcg(pencil, nev=NEV, maxiter=60, tol=2e-6, precond=pc,
+                   stall_window=10)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lobpcg_counts = all_counts()
+    ref = refine_dw(pencil, res32.eigenvectors, tol=1e-8)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = all_counts()
+
+    # outside the counted window: the f64 check and the dw apply's time
+    verified = f64_residuals(ref.eigenvectors, ref.eigenvalues)
+    Xh = torch.from_numpy(ref.eigenvectors.astype(np.float32)).cuda()
+    Xh = torch.nn.functional.pad(Xh, (0, 0, 0, pencil.n_padded - pencil.n))
+    Xl = torch.zeros_like(Xh)
+    dw_ms = median_ms(lambda: pencil.KM_mm_dw(Xh, Xl), n=5)
+    exact = cavity_eigenvalues_3d(1.0, 1.0, 1.0, NEV)
+    rel = np.abs(np.sort(ref.eigenvalues) - exact) / exact
+    launches = lobpcg_counts["stencil_taps"]
+    log({
+        "phase": "stencil_solve", "grid": g, "n": pencil.n,
+        "n_padded": pencil.n_padded,
+        "setup_s": t1 - t0, "lobpcg_s": t2 - t1, "refine_s": t3 - t2,
+        "wall_s": t3 - t0, "lobpcg_iterations": res32.iterations,
+        "lobpcg_max_res": float(res32.residuals.max()),
+        "refine_sweeps": ref.iterations - 1, "converged": ref.converged,
+        "eigenvalues": [float(v) for v in ref.eigenvalues],
+        "analytic_rel_err": [float(v) for v in rel],
+        "residuals_dw": [float(v) for v in ref.residuals],
+        "residuals_f64_verified": [float(v) for v in verified],
+        "stencil_taps_launches_lobpcg": launches,
+        "launches_per_lobpcg_iteration": launches / max(res32.iterations, 1),
+        "KM_mm_dw_ms_m5": dw_ms, "counts": counts,
+    })
+    if not ref.converged or ref.residuals.max() > 1e-8:
+        raise AssertionError(f"refine_dw not converged: {ref.residuals}")
+    if not verified.max() <= 2e-8:
+        raise AssertionError(f"f64-verified residuals {verified}")
+    if not np.all(np.isfinite(ref.eigenvectors)) or (
+        ref.eigenvectors.shape != (pencil.n, NEV)
+    ):
+        raise AssertionError("refined eigenvectors: shape or values")
+    if not rel.max() <= 5e-3:
+        raise AssertionError(f"eigenvalues off the analytic modes: {rel}")
+    if counts["stencil_taps"] <= 0 or counts["stencil_taps_ref"] != 0:
+        raise AssertionError(f"stencil path counts: {counts}")
+    return pencil, counts
+
+
+def phase_dielectric():
+    """configs/config7_dielectric.json through the port's CLI on cuda."""
+    from maxwell_tpu_torch.cli import run as cli
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "config7_dielectric.json")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([path, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    rep = json.loads(out.getvalue().strip().splitlines()[-1])
+    log({"phase": "dielectric", "rc": rc, "wall_s": wall,
+         **{k: rep[k] for k in ("converged", "iterations", "n", "t_solve_s",
+                                "t_refine_s", "eigenvalues", "residuals")}})
+    if rc != 0 or not rep["converged"] or max(rep["residuals"]) > 1e-8:
+        raise AssertionError(f"config7 through the CLI: {rep}")
+
+
 def main():
     phase_device()
     from maxwell_tpu_torch.problems import BrickCavity3D
     from maxwell_tpu_torch.sparse.reorder import PermutedProblem
 
     phase_build()
-    problem = PermutedProblem(BrickCavity3D(nx=GRID, ny=GRID, nz=GRID))
-    A, stats = phase_kernels(problem)
-    counts, check_counts = phase_solve(problem, A)
+    phase_kernels(PermutedProblem(BrickCavity3D(nx=GRID, ny=GRID, nz=GRID)),
+                  GRID)
+    problem = PermutedProblem(BrickCavity3D(
+        nx=SOLVE_GRID, ny=SOLVE_GRID, nz=SOLVE_GRID))
+    # the kernels line reports the union kernels at the solve's shapes
+    stats = phase_kernels(problem, SOLVE_GRID)
+    counts, check_counts = phase_solve(problem)
+    pencil, stencil_counts = phase_stencil_solve()
+    stats["stencil_taps"] = phase_stencil_kernels(pencil)
+    del pencil
+    phase_dielectric()
+
+    launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"]}
 
     def entry(name):
-        return {"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": counts[name],
-                "max_abs_err": stats[name]["max_abs_err"],
-                "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+        st = stats[name]
+        return {"name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": launches[name],
+                **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}}
 
     log({"off_main_path": [{
         **entry("bellunion_matvec"),

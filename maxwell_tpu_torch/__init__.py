@@ -1,6 +1,7 @@
-"""maxwell_tpu_torch — the PyTorch/CUDA port of maxwell_tpu for NVIDIA Hopper.
+"""maxwell_tpu_torch — the PyTorch/CUDA port of the JAX package (maxwell_tpu/)
+for NVIDIA Hopper.
 
-The package mirrors maxwell_tpu module for module (problems/, sparse/,
+The package mirrors maxwell_tpu/ module for module (problems/, sparse/,
 kernels/, solvers/, utils/, api.py, cli/). Plain tensor code is PyTorch; the
 Pallas TPU kernels of the ported path are hand-written CUDA for sm_90a
 (csrc/, built at first use by kernels/_build.py). The package imports

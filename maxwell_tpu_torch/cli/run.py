@@ -1,10 +1,14 @@
 """CLI driver: `python -m maxwell_tpu_torch.cli.run configs/config2.json
 [--device cuda|cpu] [overrides]`.
 
-Takes the JSON configs of maxwell_tpu.cli.run (configs/); this port runs
+Takes the JSON configs of maxwell_tpu/cli/run.py (configs/); this port runs
 `solver.kind == "lobpcg"` on the assembled "rect2d" and "brick3d"
-problems. Other solver kinds, the stencil operator and distributed runs
-raise NotImplementedError naming their ROADMAP.md slice.
+problems and on the matrix-free operator (`storage.operator == "stencil"`:
+StencilPencil2D / StencilPencil3D, with materials). With refinement, PEC 3D
+stencil pencils refine to tol on the device (`refine_dw`), other stencil
+pencils by warm-started f64 LOBPCG on the CPU (`refine_f64_pencil`), and
+assembled problems by host f64 RQI (`refine_f64`). Other solver kinds and
+distributed runs raise NotImplementedError naming their ROADMAP.md slice.
 
 Prints the per-iteration history as JSON lines, then a final JSON report
 (eigenvalues, residuals, iterations, converged, timings, n, and the
@@ -84,6 +88,28 @@ def build_problem(cfg):
     raise ValueError(f"unknown problem kind {kind!r}")
 
 
+def build_stencil(pcfg, dtype, block, device):
+    """The matrix-free pencil of a "rect2d" or "brick3d" problem block."""
+    if pcfg.get("kind", "rect2d") == "rect2d":
+        from maxwell_tpu_torch.problems.stencil2d import StencilPencil2D
+
+        return StencilPencil2D.build(
+            a=pcfg.get("a", 1.0), b=pcfg.get("b", 1.0),
+            nx=pcfg.get("nx", 16), ny=pcfg.get("ny", 16),
+            dtype=dtype, block=block or 8, bc=pcfg.get("bc", "pec"),
+            device=device,
+        )
+    from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
+
+    eps_r, mu_r = material_grids(pcfg)
+    return StencilPencil3D.build(
+        a=pcfg.get("a", 1.0), b=pcfg.get("b", 1.0), c=pcfg.get("c", 1.0),
+        nx=pcfg.get("nx", 8), ny=pcfg.get("ny", 8), nz=pcfg.get("nz", 8),
+        dtype=dtype, block=block or 8, bc=pcfg.get("bc", "pec"),
+        eps_r=eps_r, mu_r=mu_r, device=device,
+    )
+
+
 def main(argv=None):
     import torch
 
@@ -103,8 +129,8 @@ def main(argv=None):
     )
     ap.add_argument(
         "--refine", action="store_true",
-        help="f64 host polish to tol after the device solve "
-        "(solvers/refine.py)",
+        help="polish to tol after the f32 solve: on the device for PEC 3D "
+        "stencil pencils, in f64 on the host otherwise",
     )
     ap.add_argument(
         "--device", default="cuda",
@@ -125,15 +151,13 @@ def main(argv=None):
 
     kind = scfg.get("kind", "lobpcg")
     stg = cfg.get("storage", {})
+    pcfg = cfg.get("problem", {})
     if kind != "lobpcg":
         raise NotImplementedError(
             f"solver kind {kind!r} is not ported yet (ROADMAP.md: lanczos, "
             "tr_lanczos and shift_invert are slice 3, lobpcg_dist slice 4)"
         )
-    if stg.get("operator") == "stencil":
-        raise NotImplementedError(
-            "the stencil operator is not ported yet (ROADMAP.md, slice 2)"
-        )
+    use_stencil = stg.get("operator") == "stencil"
     dtype = {"f32": torch.float32, "f64": torch.float64}[
         stg.get("dtype", "f64")
     ]
@@ -147,7 +171,8 @@ def main(argv=None):
         )
 
     t0 = time.perf_counter()
-    problem = build_problem(cfg.get("problem", {}))
+    # the matrix-free path builds no assembled matrices
+    problem = None if use_stencil else build_problem(pcfg)
     t_setup = time.perf_counter() - t0
 
     nev = scfg.get("nev", 5)
@@ -162,23 +187,33 @@ def main(argv=None):
     from maxwell_tpu_torch.solvers import lobpcg
     from maxwell_tpu_torch.solvers.operator import Pencil
     from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
+    from maxwell_tpu_torch.solvers.spectral import spectral_preconditioner
 
     t0 = time.perf_counter()
-    pencil = Pencil.from_problem(
-        problem, block=block, kernel=kernel, dtype=dtype, device=device
-    )
+    if use_stencil:
+        pencil = build_stencil(pcfg, dtype, block, device)
+    else:
+        pencil = Pencil.from_problem(
+            problem, block=block, kernel=kernel, dtype=dtype, device=device
+        )
     pc = None
     if scfg.get("precond_alpha") is not None:
-        if scfg.get("precond", "auto") == "spectral":
-            raise NotImplementedError(
-                "the spectral preconditioner is not ported yet "
-                "(ROADMAP.md, slice 2)"
+        pkind = scfg.get("precond", "auto")
+        if pkind in ("auto", "spectral"):
+            # the spectral (K + alpha M)^-1 for PEC 3D stencil pencils
+            try:
+                pc = spectral_preconditioner(
+                    pencil, alpha=scfg["precond_alpha"]
+                )
+            except (ValueError, AttributeError):
+                if pkind == "spectral":
+                    raise
+        if pc is None:
+            pc = shifted_cg_preconditioner(
+                pencil,
+                alpha=scfg["precond_alpha"],
+                iters=scfg.get("precond_iters", 20),
             )
-        pc = shifted_cg_preconditioner(
-            pencil,
-            alpha=scfg["precond_alpha"],
-            iters=scfg.get("precond_iters", 20),
-        )
     res = lobpcg(
         pencil,
         nev=nev,
@@ -196,12 +231,36 @@ def main(argv=None):
 
     t_refine = None
     if want_refine:
-        from maxwell_tpu_torch.solvers.refine import refine_f64
+        from maxwell_tpu_torch.solvers.refine_device import (
+            refine_dw,
+            refine_dw_supports,
+        )
 
         t0 = time.perf_counter()
-        ref = refine_f64(
-            problem, res.eigenvectors, theta=res.eigenvalues, tol=full_tol
-        )
+        if use_stencil and refine_dw_supports(pencil):
+            # double-word RQI on the device: PEC 3D stencil pencils, vacuum
+            # (exact spectral shift solves) and loaded (block MINRES)
+            ref = refine_dw(pencil, res.eigenvectors, tol=full_tol)
+        elif use_stencil:
+            # matrix-free polish: the same pencil, materials included, at
+            # f64 on the CPU, LOBPCG continued from the f32 block
+            from maxwell_tpu_torch.solvers.refine import refine_f64_pencil
+
+            ref = refine_f64_pencil(
+                lambda dt, dev: build_stencil(pcfg, dt, block, dev),
+                res.eigenvectors, tol=full_tol,
+                precond_alpha=scfg.get("precond_alpha", 15.0),
+                precond_iters=scfg.get("precond_iters", 16),
+            )
+        else:
+            from maxwell_tpu_torch.solvers.refine import refine_f64
+
+            ref = refine_f64(
+                problem, res.eigenvectors, theta=res.eigenvalues,
+                tol=full_tol,
+            )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         t_refine = time.perf_counter() - t0
         ref.history = list(res.history) + [
             dict(h, phase="refine") for h in ref.history
@@ -219,11 +278,10 @@ def main(argv=None):
         "converged": res.converged,
         "t_setup_s": t_setup,
         "t_solve_s": t_solve,
-        "n": int(problem.n_edges),
+        "n": int(pencil.n if use_stencil else problem.n_edges),
     }
     if t_refine is not None:
         report["t_refine_s"] = t_refine
-    pcfg = cfg.get("problem", {})
     if pcfg.get("bc", "pec") == "pec" and not pcfg.get("materials"):
         # analytic oracle: the smallest PEC modes (none for loaded cavities)
         if pcfg.get("kind", "rect2d") == "rect2d":

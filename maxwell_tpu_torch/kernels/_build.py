@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of maxwell_tpu_torch/csrc.
 
-At first use, `load()` compiles every csrc/*.cu with nvcc for sm_90a into
-one shared library with a plain C interface, and loads it with ctypes. The
+At first use, `load()` compiles every csrc/*.cu with nvcc for sm_90a (one
+nvcc process per source, all started together), links the objects into one
+shared library with a plain C interface, and loads it with ctypes. The
 library lands in build/maxwell_tpu_torch/ at the root of the checkout, named
 by a content hash of the sources and flags, so an edited source rebuilds
 and an unchanged one is reused. ptxas's register and spill report is kept
@@ -26,16 +27,19 @@ SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "maxwell_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-# argtypes of each C entry point in csrc/bellunion_spmm.cu
+# argtypes of each C entry point in csrc/*.cu
 _SIGNATURES = {
+    # bellunion_spmm.cu
     "bellunion_matmat_f32": [_P] * 5 + [_I] * 5 + [_P],
     "bellunion_matmat_b3": [_P] * 6 + [_I] * 5 + [_P],
     "bellunion_km_matmat_f32": [_P] * 7 + [_I] * 5 + [_P],
     "bellunion_km_matmat_b3": [_P] * 9 + [_I] * 5 + [_P],
+    # stencil_taps.cu
+    "stencil_taps_f32": [_P] * 8 + [_I] * 2 + [_P],
 }
 
 
@@ -69,20 +73,43 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
-    cmd = [
-        nvcc, *NVCC_FLAGS, "-o", str(tmp),
-        *(str(s) for s in sources if s.suffix == ".cu"),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    objs, procs = [], []
+    for src in (s for s in sources if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    tmp = BUILD_DIR / f"{tag}.so"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    try:
+        log = []
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            _check(cmd, proc.returncode, text)
+            log.append(f"$ {' '.join(cmd)}\n{text}")
+        done = subprocess.run(link, capture_output=True, text=True)
+        _check(link, done.returncode, done.stdout + done.stderr)
+    finally:
+        for cmd, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def _check(cmd, returncode: int, text: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {returncode}:\n{' '.join(cmd)}\n{text}"
+        )
 
 
 @functools.cache

@@ -2,7 +2,7 @@
 
 Used for the mass solve M^-1 X, the CG variant of the gradient projector
 and the fixed-sweep shifted preconditioner. Same iteration as
-maxwell_tpu.solvers.cg: columns that reach the floor (or whose direction
+maxwell_tpu/solvers/cg.py: columns that reach the floor (or whose direction
 collapses) are frozen, so once every column is frozen further sweeps leave
 X unchanged. The loop therefore tests for the early exit only every
 _CHECK_EVERY sweeps — each test is a device-to-host sync — and returns the

@@ -64,6 +64,18 @@ class GradientProjector:
             n_padded=n_padded,
         )
 
+    @staticmethod
+    def from_reference(
+        p, device: str | torch.device = "cuda"
+    ) -> "GradientProjector":
+        """Carry a JAX GradientProjector (head/tail/weight) over."""
+        t = lambda v: torch.from_numpy(np.array(v)).to(device)
+        return GradientProjector(
+            head=t(p.head).long(), tail=t(p.tail).long(),
+            weight=t(p.weight), n=int(p.n), n_nodes=int(p.n_nodes),
+            n_padded=int(p.n_padded),
+        )
+
     def g_mm(self, phi: torch.Tensor) -> torch.Tensor:
         """(n_padded, m) <- G @ phi for phi (n_nodes, m)."""
         w = self.weight if phi.dim() == 1 else self.weight[:, None]

@@ -58,6 +58,15 @@ class FastPoisson3D:
             nx=nx, ny=ny, nz=nz,
         )
 
+    @staticmethod
+    def from_reference(f, device: str | torch.device = "cuda") -> "FastPoisson3D":
+        """Carry a JAX FastPoisson3D (Vx, Vy, Vz, inv_lam) over."""
+        t = lambda v: torch.from_numpy(np.array(v)).to(device)
+        return FastPoisson3D(
+            Vx=t(f.Vx), Vy=t(f.Vy), Vz=t(f.Vz), inv_lam=t(f.inv_lam),
+            nx=int(f.nx), ny=int(f.ny), nz=int(f.nz),
+        )
+
     def solve(self, r: torch.Tensor) -> torch.Tensor:
         kx, ky, kz = self.nx - 1, self.ny - 1, self.nz - 1
         m = r.shape[1]

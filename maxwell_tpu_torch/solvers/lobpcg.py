@@ -1,6 +1,6 @@
 """LOBPCG block eigensolver for K x = lambda M x.
 
-The iteration of maxwell_tpu.solvers.lobpcg as a Python loop over tensors
+The iteration of maxwell_tpu/solvers/lobpcg.py as a Python loop over tensors
 (the reference compiles it into one while_loop):
 - The search basis S = [X, W, P] is M-orthonormalized by SVQB, after which
   Rayleigh-Ritz is an ordinary eigh of S^T K S. Rank-deficient basis

@@ -250,21 +250,12 @@ class Pencil:
             M = None if obj.M is None else bsr(obj.M)
         proj = None
         if obj.proj is not None:
-            p = obj.proj
-            proj = GradientProjector(
-                head=t(p.head).long(), tail=t(p.tail).long(),
-                weight=t(p.weight), n=int(p.n), n_nodes=int(p.n_nodes),
-                n_padded=int(p.n_padded),
-            )
+            proj = GradientProjector.from_reference(obj.proj, device)
         fastproj = None
         if obj.fastproj is not None:
             from maxwell_tpu_torch.solvers.fast_poisson import FastPoisson3D
 
-            f = obj.fastproj
-            fastproj = FastPoisson3D(
-                Vx=t(f.Vx), Vy=t(f.Vy), Vz=t(f.Vz), inv_lam=t(f.inv_lam),
-                nx=int(f.nx), ny=int(f.ny), nz=int(f.nz),
-            )
+            fastproj = FastPoisson3D.from_reference(obj.fastproj, device)
         return Pencil(
             K=K, M=M, proj=proj, kernel=obj.kernel,
             mass_tol=float(obj.mass_tol), mass_iters=int(obj.mass_iters),

@@ -1,6 +1,7 @@
-"""Mixed-precision residual refinement (host f64, scipy) — a copy of
-maxwell_tpu.solvers.refine.refine_f64. The matrix-free `refine_f64_pencil`
-is not ported yet (ROADMAP.md, slice 2).
+"""Mixed-precision residual refinement on the host in f64: a copy of
+maxwell_tpu/solvers/refine.py::refine_f64 (scipy, assembled operators) and the
+port of its matrix-free `refine_f64_pencil` (warm-started f64 LOBPCG on the
+CPU).
 
 Original notes (SURVEY.md §6 "time-to-1e-8"):
 
@@ -123,4 +124,52 @@ def refine_f64(
         iterations=len(hist),
         converged=bool(res.max() <= tol),
         history=hist,
+    )
+
+
+def refine_f64_pencil(
+    build_pencil,
+    X: np.ndarray,
+    tol: float = 1e-8,
+    maxiter: int = 60,
+    precond_alpha: float | None = 15.0,
+    precond_iters: int = 16,
+) -> EigenResult:
+    """Matrix-free f64 polish: warm-started LOBPCG on the host CPU.
+
+    The factorization-based `refine_f64` needs assembled scipy K/M; this
+    variant never assembles anything. `build_pencil(dtype, device)` must
+    return the SAME pencil (a layout matching X's rows); it is called with
+    torch.float64 and device "cpu", and LOBPCG continues there from the
+    f32 eigenvector block. Serves stencil pencils that `refine_dw` does not
+    take (2D, PMC).
+    """
+    import torch
+
+    from maxwell_tpu_torch.solvers.lobpcg import lobpcg
+    from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
+
+    X = np.asarray(X, dtype=np.float64)
+    if X.ndim == 1:
+        X = X[:, None]
+    nev = X.shape[1]
+    pencil = build_pencil(torch.float64, "cpu")
+    X0 = np.zeros((pencil.n_padded, nev))
+    X0[: pencil.n] = X[: pencil.n]
+    pc = None
+    if precond_alpha is not None:
+        try:
+            # exact spectral solve when the pencil supports it (vacuum-PEC
+            # taps)
+            from maxwell_tpu_torch.solvers.spectral import (
+                spectral_preconditioner,
+            )
+
+            pc = spectral_preconditioner(pencil, alpha=precond_alpha)
+        except (ValueError, AttributeError):
+            pc = shifted_cg_preconditioner(
+                pencil, alpha=precond_alpha, iters=precond_iters
+            )
+    return lobpcg(
+        pencil, nev=nev, m=nev, maxiter=maxiter, tol=tol, precond=pc, X0=X0,
     )

@@ -1,0 +1,231 @@
+"""Exact spectral solve of (K + alpha*M) W = R for vacuum-PEC brick
+cavities on the stencil's flat layout: the LOBPCG preconditioner of the
+matrix-free path, and the per-column shift solve of the on-device
+refinement. The port of maxwell_tpu/solvers/spectral.py (single device).
+
+Math. On a uniform tensor grid the lowest-order Nedelec pencil
+diagonalizes in a mixed sine/cosine tensor basis: per axis, let
+(An, Mn) be the interior-node 1D stiffness/mass pair with Mn-orthonormal
+generalized eigenvectors s_k (discrete sines), eigenvalues lam_k, and let
+u_k = D s_k / sqrt(lam_k) (discrete cosines on cells, Mc-orthonormal,
+Mc = h*I), plus u_0 = const. Component bases:
+
+    Ex: u(kx) (x) s(ky) (x) s(kz),   Ey: s (x) u (x) s,   Ez: s (x) s (x) u
+
+With sig_k = sqrt(lam_k) (sig_0 = 0), the transformed pencil per mode
+triple is M^ = I, K^ = |sig|^2 I - sig sig^T, so with
+beta = alpha + |sig|^2, Sherman-Morrison gives
+
+    (K^ + alpha I)^-1 = I/beta + sig sig^T / (alpha * beta).
+
+The solve is: forward axis transforms (dense contractions), two elementwise
+grids, inverse transforms. The transforms are plain torch.einsum, run in
+true f32 (no TF32: `fp32_true`), as the reference runs them under
+Precision.HIGHEST outside any kernel. For loaded PEC cavities the vacuum
+solve is an approximate preconditioner.
+
+Not ported yet: DistSpectralShift (the slab-sharded solve, slice 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from maxwell_tpu_torch.utils.precision import fp32_true
+
+
+def _axis_1d(n: int, h: float):
+    """Interior-node sine basis + cell cosine basis for one axis.
+
+    Returns (S (n-1, n-1), U (n, n), sig (n,)): S columns Mn-orthonormal,
+    U columns Mc-orthonormal, sig[k] = sqrt(lam_k) with sig[0] = 0 (the
+    constant cell mode pairs with no sine)."""
+    import scipy.linalg
+
+    q = n - 1
+    Mn = (h / 6.0) * (
+        4.0 * np.eye(q) + np.eye(q, k=1) + np.eye(q, k=-1)
+    )
+    An = (1.0 / h) * (
+        2.0 * np.eye(q) - np.eye(q, k=1) - np.eye(q, k=-1)
+    )
+    lam, S = scipy.linalg.eigh(An, Mn)  # S^T Mn S = I
+    # cell derivative of interior hats: (D phi)_c = (phi_{c+1}-phi_c)/h
+    D = np.zeros((n, q))
+    for c in range(n):
+        if c < q:
+            D[c, c] = 1.0 / h  # node c+1 = interior index c
+        if c - 1 >= 0:
+            D[c, c - 1] = -1.0 / h
+    sig = np.sqrt(lam)
+    U = np.zeros((n, n))
+    U[:, 0] = 1.0 / np.sqrt(n * h)
+    U[:, 1:] = (D @ S) / sig[None, :]
+    return S, U, np.concatenate([[0.0], sig])
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralShiftSolver:
+    """W = (K + alpha*M)^-1 R on the stencil flat layout (vacuum PEC)."""
+
+    Sx: torch.Tensor
+    Sy: torch.Tensor
+    Sz: torch.Tensor
+    Ux: torch.Tensor
+    Uy: torch.Tensor
+    Uz: torch.Tensor
+    sigx: torch.Tensor  # (nx,) etc., sig[0] = 0
+    sigy: torch.Tensor
+    sigz: torch.Tensor
+    alpha: float
+    nx: int
+    ny: int
+    nz: int
+    n: int
+    n_padded: int
+
+    @staticmethod
+    def build(a, b, c, nx, ny, nz, alpha, n_padded,
+              dtype: torch.dtype = torch.float32,
+              device: str | torch.device = "cuda") -> "SpectralShiftSolver":
+        hx, hy, hz = a / nx, b / ny, c / nz
+        Sx, Ux, sigx = _axis_1d(nx, hx)
+        Sy, Uy, sigy = _axis_1d(ny, hy)
+        Sz, Uz, sigz = _axis_1d(nz, hz)
+        t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+        return SpectralShiftSolver(
+            Sx=t(Sx), Sy=t(Sy), Sz=t(Sz), Ux=t(Ux), Uy=t(Uy), Uz=t(Uz),
+            sigx=t(sigx), sigy=t(sigy), sigz=t(sigz),
+            alpha=float(alpha), nx=nx, ny=ny, nz=nz,
+            n=nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
+            + (nx + 1) * (ny + 1) * nz,
+            n_padded=n_padded,
+        )
+
+    @staticmethod
+    def from_reference(
+        obj, device: str | torch.device = "cuda"
+    ) -> "SpectralShiftSolver":
+        """Carry a JAX SpectralShiftSolver over (arrays through
+        np.asarray)."""
+        t = lambda v: torch.from_numpy(np.array(v)).to(device)
+        return SpectralShiftSolver(
+            *(t(getattr(obj, k)) for k in (
+                "Sx", "Sy", "Sz", "Ux", "Uy", "Uz", "sigx", "sigy", "sigz")),
+            alpha=float(obj.alpha), nx=int(obj.nx), ny=int(obj.ny),
+            nz=int(obj.nz), n=int(obj.n), n_padded=int(obj.n_padded),
+        )
+
+    # ------------------------------------------------------------------
+    def _grids(self, X):
+        nx, ny, nz = self.nx, self.ny, self.nz
+        m = X.shape[1]
+        sx = nx * (ny + 1) * (nz + 1)
+        sy = (nx + 1) * ny * (nz + 1)
+        Ex = X[:sx].reshape(nx, ny + 1, nz + 1, m)
+        Ey = X[sx : sx + sy].reshape(nx + 1, ny, nz + 1, m)
+        Ez = X[sx + sy : self.n].reshape(nx + 1, ny + 1, nz, m)
+        return Ex, Ey, Ez
+
+    @staticmethod
+    def _tr3(G, Ax, Ay, Az):
+        """Contract grid (X, Y, Z, m) with per-axis transform matrices:
+        out[k,l,p,m] = sum A_x[i,k] A_y[j,l] A_z[q,p] G[i,j,q,m]."""
+        G = torch.einsum("ik,ijqm->kjqm", Ax, G)
+        G = torch.einsum("jl,kjqm->klqm", Ay, G)
+        return torch.einsum("qp,klqm->klpm", Az, G)
+
+    def solve(self, R: torch.Tensor) -> torch.Tensor:
+        """(K + alpha M)^-1 R, R (n_padded, m) flat stencil layout.
+        Rows outside the PEC-interior tensor structure (masked boundary
+        edges, padding) pass through as zeros."""
+        return self._solve_alpha(R, self.alpha)
+
+    def solve_sigma(self, R: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+        """(K - sigma_j M)^-1 R[:, j] per column: the exact shift-invert
+        solve at per-column shifts (sigma (m,) must avoid the symbol
+        eigenvalues |sig|^2)."""
+        return self._solve_alpha(R, -sigma[None, None, None, :])
+
+    @fp32_true
+    def _solve_alpha(self, R: torch.Tensor, alpha) -> torch.Tensor:
+        vec = R.dim() == 1
+        Rl = R[:, None] if vec else R
+        m = Rl.shape[1]
+        nx, ny, nz = self.nx, self.ny, self.nz
+        Ex, Ey, Ez = self._grids(Rl)
+        # interior tensor blocks (PEC: tangential boundary rows are masked)
+        ex = Ex[:, 1:ny, 1:nz]  # (nx, ny-1, nz-1, m)
+        ey = Ey[1:nx, :, 1:nz]
+        ez = Ez[1:nx, 1:ny, :]
+
+        # forward: r^ = P^T r (_tr3 contracts A[i,k] over the grid axis i)
+        rx = self._tr3(ex, self.Ux, self.Sy, self.Sz)
+        ry = self._tr3(ey, self.Sx, self.Uy, self.Sz)
+        rz = self._tr3(ez, self.Sx, self.Sy, self.Uz)
+
+        # mode lattice (nx, ny, nz): position 0 on each SINE axis is absent
+        # -> zero padding; sig vectors already carry sig[0] = 0
+        pad = lambda g, px, py, pz: torch.nn.functional.pad(
+            g, (0, 0, pz, 0, py, 0, px, 0)
+        )
+        Rx = pad(rx, 0, 1, 1)
+        Ry = pad(ry, 1, 0, 1)
+        Rz = pad(rz, 1, 1, 0)
+        sx_ = self.sigx[:, None, None, None]
+        sy_ = self.sigy[None, :, None, None]
+        sz_ = self.sigz[None, None, :, None]
+        beta = alpha + sx_**2 + sy_**2 + sz_**2
+        dot = sx_ * Rx + sy_ * Ry + sz_ * Rz
+        coef = dot / (alpha * beta)
+        Hx = Rx / beta + sx_ * coef
+        Hy = Ry / beta + sy_ * coef
+        Hz = Rz / beta + sz_ * coef
+
+        # inverse: w = P h (contract the COLUMN index => pass A^T to _tr3)
+        wx = self._tr3(Hx[:, 1:, 1:], self.Ux.T, self.Sy.T, self.Sz.T)
+        wy = self._tr3(Hy[1:, :, 1:], self.Sx.T, self.Uy.T, self.Sz.T)
+        wz = self._tr3(Hz[1:, 1:, :], self.Sx.T, self.Sy.T, self.Uz.T)
+
+        Yx, Yy, Yz = (torch.zeros_like(g) for g in (Ex, Ey, Ez))
+        Yx[:, 1:ny, 1:nz] = wx
+        Yy[1:nx, :, 1:nz] = wy
+        Yz[1:nx, 1:ny, :] = wz
+        out = torch.cat(
+            [Yx.reshape(-1, m), Yy.reshape(-1, m), Yz.reshape(-1, m)]
+        )
+        out = torch.nn.functional.pad(out, (0, 0, 0, self.n_padded - self.n))
+        return out[:, 0] if vec else out
+
+
+def spectral_preconditioner(pencil, alpha: float = 15.0):
+    """(K + alpha M)^-1 preconditioner for a PEC StencilPencil3D.
+
+    Exact for the vacuum pencil (tap path). For loaded PEC cavities
+    (eps_r/mu_r != 1, field-coefficient taps) the vacuum solve serves as an
+    approximate preconditioner. PMC pencils are rejected: the interior-sine
+    tensor basis encodes PEC walls."""
+    if (
+        getattr(pencil, "nz", None) is None
+        or getattr(pencil, "bc", "pec") != "pec"
+        or (
+            getattr(pencil, "taps", None) is None
+            and getattr(pencil, "ftaps_meta", None) is None
+        )
+    ):
+        raise ValueError(
+            "spectral preconditioner needs a 3D PEC tap/ftap pencil"
+        )
+    sol = SpectralShiftSolver.build(
+        pencil.a, pencil.b, pencil.c, pencil.nx, pencil.ny, pencil.nz,
+        alpha, pencil.n_padded, dtype=pencil.dtype, device=pencil.device,
+    )
+    return functools.partial(_spectral_apply, sol)
+
+
+def _spectral_apply(sol: SpectralShiftSolver, R: torch.Tensor) -> torch.Tensor:
+    return sol.solve(R)

@@ -1,7 +1,7 @@
 """Tile-union blocked sparse layout ("BELLUnion") as torch tensors — the
 layout the CUDA SpMM kernels (kernels/spmm.py, csrc/bellunion_spmm.cu) read.
 
-Layout (identical to maxwell_tpu.sparse.bellunion, so the two packages can
+Layout (identical to maxwell_tpu/sparse/bellunion.py, so the two packages can
 be held against each other): per 128-row tile, the union of its
 block-columns is grouped into aligned runs of `pack` block-columns and cut
 into chunks of cl lanes (cl // b block-columns). Chunks of all tiles are
@@ -142,7 +142,7 @@ class BELLUnion:
 
     @staticmethod
     def from_reference(obj, device="cuda") -> "BELLUnion":
-        """Carry a layout over from the JAX package (a maxwell_tpu BELLUnion,
+        """Carry a layout over from the JAX package (its BELLUnion,
         or any object with the same fields): each leaf is read through
         np.asarray, and tile_ptr is derived from tile_of."""
         tile_of = np.asarray(obj.tile_of).astype(np.int32)

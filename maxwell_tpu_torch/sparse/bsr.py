@@ -1,6 +1,6 @@
 """Blocked-ELL ("tiled BSR") storage as torch tensors, and the plain
 blocked SpMM that serves `kernel="ref"` (f64 solves, and any run whose
-tensors are not on a CUDA device at f32), as in maxwell_tpu.sparse.bsr.
+tensors are not on a CUDA device at f32), as in maxwell_tpu/sparse/bsr.py.
 
 Each block-row stores a FIXED number S of b x b blocks (padding slots point
 at block-column 0 with zero values), so the apply is one gather plus one

@@ -1,5 +1,5 @@
 """maxwell_tpu_torch on a CUDA device: the hand-written kernels against
-their plain PyTorch versions, and the solve and CLI through them.
+their plain PyTorch versions, and the solves and CLI through them.
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. The file imports
 neither jax nor maxwell_tpu, so on a machine with the card and no JAX it
@@ -17,7 +17,7 @@ import torch
 
 import maxwell_tpu_torch
 from maxwell_tpu_torch.cli import run as port_cli
-from maxwell_tpu_torch.kernels import spmm
+from maxwell_tpu_torch.kernels import spmm, stencil_taps as kst
 from maxwell_tpu_torch.problems import BrickCavity3D
 from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 from maxwell_tpu_torch.sparse.reorder import PermutedProblem
@@ -96,3 +96,73 @@ def test_cuda_cli_brick(cuda_device, capsys, tmp_path, dtype):
            if l.startswith("{")][-1]
     assert rep["converged"] and max(rep["residuals"]) <= 1e-8
     assert max(rep["analytic_rel_err"]) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["K", "M", "KM"])
+@pytest.mark.parametrize("m", [1, 3, 9, 17])
+def test_cuda_stencil_kernel_matches_plain(cuda_device, m, mode):
+    """An odd (7, 6, 5) grid: the three component grids have different
+    shapes, so every bounds check of the kernel is exercised. X is random
+    on masked and padding rows too: the kernel applies both masks."""
+    from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
+
+    p = StencilPencil3D.build(nx=7, ny=6, nz=5, a=1.0, b=0.8, c=1.3,
+                              dtype=torch.float32, device=cuda_device)
+    want_K, want_M = mode != "M", mode != "K"
+    X = torch.from_numpy(
+        np.random.default_rng(m).standard_normal((p.n_padded, m))
+    ).float().to(cuda_device)
+    kst.reset_counts()
+    got = kst.stencil_taps(X, p.mask, p.taps, p.shape, want_K, want_M)
+    want = kst.stencil_taps_ref(X, p.mask, p.taps, p.shape, want_K, want_M)
+    assert kst.counts() == {"stencil_taps": 1, "stencil_taps_ref": 1}
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            err = (g - w).abs().max() / w.abs().max()
+            assert err.item() <= 1e-5
+            assert not g[p.n:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_stencil_slice_matches_cpu_plain(cuda_device):
+    """The 8^3 road to 1e-8 (f32 LOBPCG with the spectral preconditioner,
+    then refine_dw) through the kernel on the card, against the same road
+    through its plain version on the CPU."""
+    from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
+    from maxwell_tpu_torch.solvers.lobpcg import lobpcg
+    from maxwell_tpu_torch.solvers.refine_device import refine_dw
+    from maxwell_tpu_torch.solvers.spectral import spectral_preconditioner
+
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        p = StencilPencil3D.build(nx=8, ny=8, nz=8, dtype=torch.float32,
+                                  device=dev)
+        X0 = np.zeros((p.n_padded, 9), np.float32)
+        X0[: p.n] = np.random.default_rng(3).standard_normal((p.n, 9))
+        kst.reset_counts()
+        r32 = lobpcg(p, nev=5, maxiter=60, tol=1e-5, stall_window=10,
+                     precond=spectral_preconditioner(p, 15.0), X0=X0)
+        out[dev.type] = (refine_dw(p, r32.eigenvectors, tol=1e-8),
+                         kst.counts())
+    (gpu, gpu_counts), (cpu, _) = out["cuda"], out["cpu"]
+    assert gpu.converged and gpu.residuals.max() <= 1e-8
+    np.testing.assert_allclose(gpu.eigenvalues, cpu.eigenvalues, rtol=1e-9)
+    assert gpu_counts["stencil_taps"] > 0
+    assert gpu_counts["stencil_taps_ref"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_cli_config7(cuda_device, capsys, tmp_path):
+    """configs/config7_dielectric.json (loaded cavity, field taps, on-device
+    dw refinement) at 8^3 through the CLI on the card."""
+    with open(os.path.join(CONFIGS, "config7_dielectric.json")) as f:
+        cfg = json.load(f)
+    cfg["problem"].update(nx=8, ny=8, nz=8)
+    path = tmp_path / "config7_8.json"
+    path.write_text(json.dumps(cfg))
+    assert port_cli.main([str(path), "--device", "cuda"]) == 0
+    rep = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+           if l.startswith("{")][-1]
+    assert rep["converged"] and max(rep["residuals"]) <= 1e-8
