@@ -1,7 +1,7 @@
 """Chip smoke test of maxwell_tpu_torch on one NVIDIA GPU: build the CUDA
 kernels from the sources in this checkout, hold each against its plain
-PyTorch version at the shapes of its path, drive both ported paths and check
-that they ran through the kernels:
+PyTorch version at the shapes of its path, drive the three ported paths and
+check that they ran through the kernels:
 
   slice 1, the assembled path: maxwell_tpu_torch.solve on the 16^3 RCM
     Nedelec brick, refined to 1e-8 on the host (its kernels checked on that
@@ -9,7 +9,12 @@ that they ran through the kernels:
   slice 2, the matrix-free path: the 64^3 vacuum PEC brick as a tap-stencil
     pencil (n = 811,200), f32 LOBPCG with the spectral preconditioner, then
     the double-word refinement on the device to 1e-8; and config 7 (16^3
-    loaded cavity) through the CLI.
+    loaded cavity) through the CLI;
+  slice 3, the blocked-ELL road (kernel="pallas"): solve() on the 24^3 RCM
+    brick to 1e-5 through the blocked-ELL SpMM, twice, bit for bit the
+    same, and config 1 (2D, 16x16)
+    through the CLI with Lanczos and thick-restart Lanczos, the f32 runs
+    through the blocked-ELL SpMV and refined to 1e-8 on the host.
 
     python3 chip_smoke.py
 
@@ -32,10 +37,22 @@ Phases, in order; any failure raises and the process exits non-zero:
                modes K, M, KM at m in {1, 9}, timed as in phase 3 (the
                library call: torch.sparse.mm on the CSR of the same taps)
   7. dielectric  configs/config7_dielectric.json through the CLI on cuda
-  8. result    an {"off_main_path": [...]} line for the SpMV entry point
-               (no solver calls it), the {"kernels": [...]} line of the main
-               paths' kernels, the nvidia-smi line, and last
-               {"ok": true, "device": {...}}
+  8. bsr kernels  the blocked-ELL kernels (SpMM, windowed SpMM, SpMV)
+               against their plain versions on K and M of the 24^3 and 16^3
+               RCM bricks and of config 1's 16x16 rectangle, m in {1, 9},
+               timed as in phase 3; the windowed kernel's window unit,
+               window bytes and whether it staged the window in shared
+               memory
+  9. bsr solve  slice 3: solve(kernel="pallas") on the 24^3 RCM brick to
+               1e-5 (no refine), counts zeroed just before, read just
+               after; run twice, the two histories bitwise equal
+ 10. lanczos   config 1 through the CLI: (a) as written (f64, plain torch
+               on the card), (b) f32 "pallas" Lanczos + host refine, (c) the
+               same with thick-restart Lanczos; counts zeroed before each
+ 11. result    an {"off_main_path": [...]} line for the kernels no solver
+               path calls (the union SpMV, the windowed blocked-ELL SpMM),
+               the {"kernels": [...]} line of the main paths' kernels, the
+               nvidia-smi line, and last {"ok": true, "device": {...}}
 """
 
 import contextlib
@@ -45,14 +62,22 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
-import torch
 
+# cuBLAS picks its reduction order from a fixed workspace only with this set
+# (the documented condition for its bitwise-repeatable results), which the
+# repeated blocked-ELL solve checks
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
+
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 GRID = 24  # union kernel checks kept from the first slice, n = 38,088
 SOLVE_GRID = 16  # slice-1 solve (its host f64 refine grows fast with n)
 STENCIL_GRID = 64  # slice 2: n = 811,200 edges
+BSR_GRID = 24  # slice 3: the blocked-ELL solve, n = 38,088
 NEV = 5
 LAUNCHES = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -60,7 +85,11 @@ FLOPS_PER_S = {"f32": 67e12, "bf16": 989e12}  # H100 SXM dense peaks
 # f32 summation order differs from the plain version's (cuBLAS bmm +
 # index_add_ for the union kernels, another tap order and FMA contraction
 # for the stencil); the JAX package's own tests use the same union bounds
-TOL = {"highest": 1e-5, "b3": 2e-5, "stencil": 1e-5}
+# for the stencil; the blocked-ELL kernels (all three, the windowed one
+# included: it does the same per-element arithmetic in the same order as
+# the plain SpMM kernel, only its column index differs) are held to the
+# bound of the reference's own SpMM test (tests/unit/test_pallas_spmm.py:27)
+TOL = {"highest": 1e-5, "b3": 2e-5, "stencil": 1e-5, "bsr": 1e-5}
 # residual of a refined eigenvector recomputed with f32 applies on the card:
 # its floor is ~eps_f32 * ||K|| ||x|| / ||Kx||; a wrong vector gives O(1)
 DEVICE_RESIDUAL_TOL = 1e-3
@@ -69,19 +98,30 @@ REPLACES = {
     "bellunion_km_matmat": "maxwell_tpu/kernels/spmm.py:466",
     "bellunion_matvec": "maxwell_tpu/kernels/spmm.py:900",
     "stencil_taps": "maxwell_tpu/kernels/stencil_taps.py:114",
+    "bsr_matmat": "maxwell_tpu/kernels/spmm.py:79",
+    "bsr_matmat_windowed": "maxwell_tpu/kernels/spmm.py:152",
+    "bsr_matvec": "maxwell_tpu/kernels/spmm.py:892",
 }
 SOURCE = {
     "bellunion_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
     "bellunion_km_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
     "bellunion_matvec": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
     "stencil_taps": "maxwell_tpu_torch/csrc/stencil_taps.cu",
+    "bsr_matmat": "maxwell_tpu_torch/csrc/bsr_spmm.cu",
+    "bsr_matmat_windowed": "maxwell_tpu_torch/csrc/bsr_spmm.cu",
+    "bsr_matvec": "maxwell_tpu_torch/csrc/bsr_spmm.cu",
 }
 # what each path launches. solve(): the fused apply (LOBPCG's W, the
 # preconditioner's CG) and the single-stream apply (projector, initial
 # SVQB). The stencil path: the fused K/M taps (LOBPCG's W) and the M taps
 # (projector). The SpMV entry point is the m = 1 launch of the
-# single-stream kernel; no solver calls it.
-MAIN_PATH = ("bellunion_km_matmat", "bellunion_matmat", "stencil_taps")
+# single-stream kernel; no solver calls it. The blocked-ELL road: the SpMM
+# (solve(kernel="pallas"): LOBPCG's K and M applies, the preconditioner's
+# CG) and the SpMV (Lanczos: K and M applies of vectors, CG on M, the
+# projector); the windowed SpMM is off every solver path, as in the
+# reference.
+MAIN_PATH = ("bellunion_km_matmat", "bellunion_matmat", "stencil_taps",
+             "bsr_matmat", "bsr_matvec")
 STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 
@@ -99,9 +139,14 @@ def nvidia_smi_line() -> str:
 
 
 def median_ms(fn, n=LAUNCHES):
-    """Median of n launches, each timed by its own pair of CUDA events."""
+    """Median of n launches, each timed by its own pair of CUDA events. A
+    device-side sleep queued first keeps the card busy while the host
+    enqueues the launches, so a kernel shorter than its host-side launch
+    cost is timed on the device alone."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clock
     pairs = []
     for _ in range(n):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -191,8 +236,7 @@ def phase_kernels(problem, grid):
     csr = {case: torch_csr(mat, dev) for case, mat in mats.items()}
 
     rng = np.random.default_rng(0)
-    stats = {name: {"max_abs_err": 0.0} for name in REPLACES
-             if name != "stencil_taps"}
+    stats = {fn.__name__: {"max_abs_err": 0.0} for fn in spmm.KERNELS}
     for precision in ("highest", "b3"):
         for m in (1, 8, 9):
             Xh = np.zeros((A.n_padded, m), np.float32)
@@ -295,16 +339,17 @@ def phase_kernels(problem, grid):
 
 
 def all_counts():
-    from maxwell_tpu_torch.kernels import spmm, stencil_taps
+    from maxwell_tpu_torch.kernels import bsr_spmm, spmm, stencil_taps
 
-    return {**spmm.counts(), **stencil_taps.counts()}
+    return {**spmm.counts(), **stencil_taps.counts(), **bsr_spmm.counts()}
 
 
 def reset_all_counts():
-    from maxwell_tpu_torch.kernels import spmm, stencil_taps
+    from maxwell_tpu_torch.kernels import bsr_spmm, spmm, stencil_taps
 
     spmm.reset_counts()
     stencil_taps.reset_counts()
+    bsr_spmm.reset_counts()
 
 
 def phase_solve(problem):
@@ -563,18 +608,25 @@ def phase_stencil_solve():
     return pencil, counts
 
 
-def phase_dielectric():
-    """configs/config7_dielectric.json through the port's CLI on cuda."""
+def run_cli(cfg_path):
+    """The port's CLI in this process on cuda, its counts zeroed just
+    before and read just after. Returns (rc, report, counts, wall s)."""
     from maxwell_tpu_torch.cli import run as cli
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "configs", "config7_dielectric.json")
     out = io.StringIO()
+    reset_all_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli.main([path, "--device", "cuda"])
+        rc = cli.main([cfg_path, "--device", "cuda"])
     wall = time.perf_counter() - t0
-    rep = json.loads(out.getvalue().strip().splitlines()[-1])
+    counts = all_counts()
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1]), counts, wall
+
+
+def phase_dielectric():
+    """configs/config7_dielectric.json through the port's CLI on cuda."""
+    path = os.path.join(CONFIGS, "config7_dielectric.json")
+    rc, rep, _, wall = run_cli(path)
     log({"phase": "dielectric", "rc": rc, "wall_s": wall,
          **{k: rep[k] for k in ("converged", "iterations", "n", "t_solve_s",
                                 "t_refine_s", "eigenvalues", "residuals")}})
@@ -582,14 +634,237 @@ def phase_dielectric():
         raise AssertionError(f"config7 through the CLI: {rep}")
 
 
+def phase_bsr_kernels(problems):
+    """The blocked-ELL kernels against their plain versions on K and M of
+    each (label, problem). Returns per-kernel stats at the main paths'
+    shapes: the SpMM (and the windowed SpMM beside it) on the 24^3 K at
+    m = 9, LOBPCG's block; the SpMV on config 1's M at m = 1, the mass CG's
+    vector."""
+    from maxwell_tpu_torch.kernels import bsr_spmm as kb
+    from maxwell_tpu_torch.sparse.bsr import BSRMatrix
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    stats = {fn.__name__: {"max_abs_err": 0.0} for fn in kb.KERNELS}
+    for label, problem in problems:
+        for op, mat in (("K", problem.K.tocsr()), ("M", problem.M.tocsr())):
+            t0 = time.perf_counter()
+            A = BSRMatrix.from_csr(mat, block=8, device=dev)
+            torch.cuda.synchronize()
+            n = mat.shape[0]
+            slots_read = int(A.slot_count.sum())
+            # the stored layout: every slot's 8x8 values and its column
+            layout_bytes = A.nnz_dense * 4 + A.n_brows * A.slots * 4
+            log({"phase": "bsr_layout", "problem": label, "op": op, "n": n,
+                 "nnz": mat.nnz, "n_padded": A.n_padded, "slots": A.slots,
+                 "nonzero_blocks": slots_read, "win_unit": A.win_unit,
+                 "layout_bytes": layout_bytes,
+                 "build_s": time.perf_counter() - t0})
+            lib = torch_csr(mat, dev)
+            for m in (1, 9):
+                Xh = np.zeros((A.n_padded, m), np.float32)
+                Xh[:n] = rng.standard_normal((n, m))
+                X = torch.from_numpy(Xh).to(dev)
+                x = X[:, 0].contiguous()
+                Xn = X[:n].contiguous()
+                cases = [
+                    ("bsr_matmat", lambda: kb.bsr_matmat(A, X),
+                     lambda: kb.bsr_matmat_ref(A, X), Xn),
+                    ("bsr_matmat_windowed",
+                     lambda: kb.bsr_matmat_windowed(A, X),
+                     lambda: kb.bsr_matmat_windowed_ref(A, X), Xn),
+                ]
+                if m == 1:
+                    cases.append(("bsr_matvec", lambda: kb.bsr_matvec(A, x),
+                                  lambda: kb.bsr_matvec_ref(A, x), Xn))
+                got_by = {}
+                for name, kern, plain, Xlib in cases:
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    got_by[name] = got
+                    abs_err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    if not abs_err <= TOL["bsr"] * scale:
+                        raise AssertionError(
+                            f"{name} {label} {op} m={m}: max error "
+                            f"{abs_err:.3e} > {TOL['bsr']} * {scale:.3e}")
+                    ms, plain_ms = median_ms(kern), median_ms(plain)
+                    library_ms = median_ms(lambda: torch.sparse.mm(lib, Xlib))
+                    nbytes = csr_bytes(mat, m)
+                    b_ms, b_by = bound_ms(nbytes, mat.nnz * m * 2, "f32")
+                    # what the kernel reads: the slots up to each row's last
+                    # nonzero block (values and columns), the slot counts,
+                    # X once, Y once
+                    read_bytes = (slots_read * (64 * 4 + 4) + A.n_brows * 4
+                                  + 2 * A.n_padded * m * 4)
+                    row = {
+                        "kernel": name, "problem": label, "op": op, "m": m,
+                        "max_abs_err": abs_err, "rel_err": abs_err / scale,
+                        "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bytes": nbytes,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "layout_bytes": layout_bytes, "read_bytes": read_bytes,
+                        "read_GB_per_s": read_bytes / ms / 1e6,
+                    }
+                    if name == "bsr_matmat_windowed":
+                        row.update(win_unit=A.win_unit,
+                                   window_bytes=kb.window_bytes(A, m),
+                                   window_staged=kb.window_staged(A, m))
+                    log(row)
+                    st = stats[name]
+                    st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+                    main = (
+                        (name != "bsr_matvec" and label == f"{BSR_GRID}^3"
+                         and op == "K" and m == 9)
+                        or (name == "bsr_matvec" and label == "config1"
+                            and op == "M")
+                    )
+                    if main:
+                        st.update({k: row[k] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "layout_bytes")})
+                        if name == "bsr_matmat_windowed":
+                            st.update({k: row[k] for k in (
+                                "win_unit", "window_bytes", "window_staged")})
+                # the two SpMM forms hold each other, not only the plain one
+                Y8, Y9 = got_by["bsr_matmat"], got_by["bsr_matmat_windowed"]
+                d = (Y8 - Y9).abs().max().item()
+                if not d <= TOL["bsr"] * Y8.abs().max().item():
+                    raise AssertionError(f"K8 vs K9 {label} {op} m={m}: {d}")
+                log({"check": "bsr_matmat_vs_windowed", "problem": label,
+                     "op": op, "m": m, "max_abs_diff": d,
+                     "bitwise_equal": bool(torch.equal(Y8, Y9))})
+            del A, lib
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_bsr_solve():
+    """Slice 3: solve(kernel="pallas") on the 24^3 RCM brick at slice 1's
+    knobs (tol 1e-5, maxiter 120, stall_window 12, a seeded X0), on the card
+    only (no host refine: at 24^3 it takes minutes on the host). Counts
+    zeroed just before, read just after. Run twice: no step of the road
+    adds in an order that varies (no atomics), so the two runs agree bit
+    for bit and the tolerance is met on every run or on none."""
+    import maxwell_tpu_torch
+    from maxwell_tpu_torch.problems import BrickCavity3D
+    from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
+    from maxwell_tpu_torch.sparse.reorder import PermutedProblem
+
+    g, tol = BSR_GRID, 1e-5
+    problem = PermutedProblem(BrickCavity3D(nx=g, ny=g, nz=g))
+    n = problem.K.shape[0]
+    X0 = np.random.default_rng(5).standard_normal((n, 9))
+    runs = []
+    for _ in range(2):
+        reset_all_counts()
+        t0 = time.perf_counter()
+        res = maxwell_tpu_torch.solve(
+            problem, kernel="pallas", dtype=torch.float32, device="cuda",
+            nev=NEV, tol=tol, refine=False, maxiter=120, stall_window=12,
+            X0=X0,
+        )
+        torch.cuda.synchronize()
+        runs.append((res, all_counts(), time.perf_counter() - t0))
+    (res, counts, wall), (res2, _, wall2) = runs
+    hist = [h["max_rel_res"] for h in res.history]
+    identical = (hist == [h["max_rel_res"] for h in res2.history]
+                 and np.array_equal(res.eigenvectors, res2.eigenvectors))
+    exact = cavity_eigenvalues_3d(1.0, 1.0, 1.0, NEV)
+    rel = np.abs(res.eigenvalues - exact) / exact
+    log({
+        "phase": "bsr_solve", "grid": g, "n": n, "kernel": "pallas",
+        "converged": res.converged, "iterations": res.iterations,
+        "eigenvalues": [float(v) for v in res.eigenvalues],
+        "analytic_rel_err": [float(v) for v in rel],
+        "residuals": [float(v) for v in res.residuals],
+        "history_max_res": hist, "repeat_identical": identical,
+        **res.timings, "wall_s": wall, "repeat_wall_s": wall2,
+        "ms_per_iteration": res.timings["device_solve_s"]
+        / max(res.iterations, 1) * 1e3,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi_line(),
+        "counts": counts,
+    })
+    if not res.converged or res.residuals.max() > tol:
+        raise AssertionError(f"pallas solve not converged: {res.residuals}")
+    if not identical:
+        raise AssertionError("two runs of the pallas solve differ")
+    if not np.all(np.isfinite(res.eigenvectors)) or (
+        res.eigenvectors.shape != (n, NEV)
+    ):
+        raise AssertionError("pallas solve eigenvectors: shape or values")
+    if not rel.max() <= 1e-2:
+        raise AssertionError(f"eigenvalues off the analytic modes: {rel}")
+    if counts["bsr_matmat"] <= 0:
+        raise AssertionError("bsr_matmat was not launched by the main path")
+    union = ("bellunion_km_matmat", "bellunion_matmat", "bellunion_matvec")
+    if any(counts[k] or counts[k + "_ref"] for k in union):
+        raise AssertionError(f"the union kernels ran in the pallas solve: "
+                             f"{counts}")
+    if any(counts[k] for k in counts if k.startswith("bsr_") and
+           k.endswith("_ref")):
+        raise AssertionError(f"a plain blocked-ELL version ran: {counts}")
+    return counts
+
+
+def phase_lanczos():
+    """Config 1 through the CLI: (a) as written (f64, kernel auto -> the
+    plain blocked-ELL apply on the card), (b) f32 "pallas" Lanczos refined
+    to 1e-8 on the host (the reference's config-1 route on the TPU), (c)
+    (b) with thick-restart Lanczos. Returns the counts of (b)."""
+    path = os.path.join(CONFIGS, "config1.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    variants = {"a": cfg}
+    b = json.loads(json.dumps(cfg))
+    b["storage"] = {"dtype": "f32", "kernel": "pallas"}
+    b["solver"]["refine"] = True
+    variants["b"] = b
+    c = json.loads(json.dumps(b))
+    c["solver"].update(kind="tr_lanczos", ncv=24, max_restarts=60)
+    variants["c"] = c
+    reports, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, variant in variants.items():
+            p = path
+            if key != "a":
+                p = os.path.join(tmp, f"config1_{key}.json")
+                with open(p, "w") as f:
+                    json.dump(variant, f)
+            rc, rep, cnt, wall = run_cli(p)
+            reports[key], counts[key] = rep, cnt
+            log({"phase": "lanczos", "variant": key,
+                 "solver": variant["solver"]["kind"],
+                 "storage": variant["storage"], "rc": rc, "wall_s": wall,
+                 **{k: rep.get(k) for k in (
+                     "converged", "iterations", "n", "t_solve_s",
+                     "t_refine_s", "eigenvalues", "residuals",
+                     "analytic_rel_err")},
+                 "counts": {k: v for k, v in cnt.items() if v}})
+            if rc != 0 or not rep["converged"] or max(rep["residuals"]) > 1e-8:
+                raise AssertionError(f"config 1 ({key}) through the CLI: {rep}")
+            if key != "a" and (cnt["bsr_matvec"] <= 0 or any(
+                    cnt[k] for k in cnt if k.startswith("bsr_")
+                    and k.endswith("_ref"))):
+                raise AssertionError(f"config 1 ({key}) counts: {cnt}")
+    if max(reports["a"]["analytic_rel_err"]) > 2.5e-2:
+        raise AssertionError(f"config 1 (a) vs analytic: {reports['a']}")
+    ev_a = np.asarray(reports["a"]["eigenvalues"])
+    for key in ("b", "c"):
+        rel = np.abs(np.asarray(reports[key]["eigenvalues"]) - ev_a) / ev_a
+        if not rel.max() <= 1e-8:
+            raise AssertionError(f"config 1 ({key}) vs (a): {rel}")
+    return counts["b"]
+
+
 def main():
     phase_device()
-    from maxwell_tpu_torch.problems import BrickCavity3D
+    from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
     from maxwell_tpu_torch.sparse.reorder import PermutedProblem
 
     phase_build()
-    phase_kernels(PermutedProblem(BrickCavity3D(nx=GRID, ny=GRID, nz=GRID)),
-                  GRID)
+    grid_problem = PermutedProblem(BrickCavity3D(nx=GRID, ny=GRID, nz=GRID))
+    phase_kernels(grid_problem, GRID)
     problem = PermutedProblem(BrickCavity3D(
         nx=SOLVE_GRID, ny=SOLVE_GRID, nz=SOLVE_GRID))
     # the kernels line reports the union kernels at the solve's shapes
@@ -599,8 +874,18 @@ def main():
     stats["stencil_taps"] = phase_stencil_kernels(pencil)
     del pencil
     phase_dielectric()
+    stats.update(phase_bsr_kernels([
+        (f"{BSR_GRID}^3", grid_problem),
+        (f"{SOLVE_GRID}^3", problem),
+        ("config1", RectCavity2D(nx=16, ny=16)),
+    ]))
+    bsr_counts = phase_bsr_solve()
+    lanczos_counts = phase_lanczos()
 
-    launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"]}
+    launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"],
+                "bsr_matmat": bsr_counts["bsr_matmat"],
+                "bsr_matmat_windowed": bsr_counts["bsr_matmat_windowed"],
+                "bsr_matvec": lanczos_counts["bsr_matvec"]}
 
     def entry(name):
         st = stats[name]
@@ -609,10 +894,13 @@ def main():
                 **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}}
 
-    log({"off_main_path": [{
-        **entry("bellunion_matvec"),
-        "residual_check_launches": check_counts["bellunion_matvec"],
-    }]})
+    log({"off_main_path": [
+        {**entry("bellunion_matvec"),
+         "residual_check_launches": check_counts["bellunion_matvec"]},
+        {**entry("bsr_matmat_windowed"),
+         **{k: stats["bsr_matmat_windowed"][k]
+            for k in ("win_unit", "window_bytes", "window_staged")}},
+    ]})
     log({"kernels": [entry(name) for name in MAIN_PATH]})
     log(f"nvidia-smi: {nvidia_smi_line()}")
     log({"ok": True, "device": {"platform": "gpu",

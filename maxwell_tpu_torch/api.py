@@ -36,30 +36,38 @@ def solve(
     """Solve K x = lambda M x for `problem` (RectCavity2D / BrickCavity3D /
     PermutedProblem) on `device`.
 
+    solver: "lobpcg" (preconditioned; the shift is auto-tuned from the
+    analytic oracle when there is one) or "lanczos" (solvers/lanczos.py,
+    maxiter default 300). "shift_invert" is not ported yet.
+
     kernel: "auto" — the BELLUnion CUDA kernels ("union") on a CUDA device
     at f32, the plain blocked-ELL apply ("ref") otherwise — or an explicit
-    "ref" | "union". A union pencil on a CPU device runs the kernels' plain
-    PyTorch versions.
+    "ref" | "union" | "pallas" (blocked-ELL with 8x8 blocks through its
+    CUDA SpMM/SpMV kernels, f32 only on a CUDA device). A "union" or
+    "pallas" pencil on a CPU device runs the kernels' plain PyTorch
+    versions.
 
     refine: mixed-precision polish (solvers/refine.py). "auto" applies it
     when dtype is f32 and tol is below the f32 floor (1e-6): the device
     solves to 1e-5, then f64 Rayleigh-quotient-shifted inverse iteration on
     the host reaches tol.
 
-    Further keyword arguments go to lobpcg (stall_window, X0, log_every,
-    ...); precond_alpha sets the preconditioner shift (default: the
-    smallest analytic eigenvalue when the problem has an oracle, else 1).
+    Further keyword arguments go to the solver: lobpcg (stall_window, X0,
+    log_every, ...) or lanczos (v0, generator); precond_alpha sets LOBPCG's
+    preconditioner shift (default: the smallest analytic eigenvalue when
+    the problem has an oracle, else 1).
     """
     device = torch.device(device)
     if distributed:
         raise NotImplementedError(
-            "distributed=True is not ported yet (ROADMAP.md, slice 4)"
+            "distributed=True is not ported yet (ROADMAP.md, slice 6)"
         )
-    if solver in ("lanczos", "shift_invert"):
+    if solver == "shift_invert":
         raise NotImplementedError(
-            f"solver={solver!r} is not ported yet (ROADMAP.md, slice 3)"
+            "solver='shift_invert' is not ported yet (ROADMAP.md, slice 7: "
+            "shift-invert with the native LDL^T)"
         )
-    if solver != "lobpcg":
+    if solver not in ("lobpcg", "lanczos"):
         raise ValueError(f"unknown solver {solver!r}")
     if kernel == "auto":
         kernel = (
@@ -79,22 +87,34 @@ def solve(
         oracle = getattr(problem, "analytic_eigenvalues", None)
         alpha = float(oracle(1)[0]) if oracle is not None else 1.0
 
-    from maxwell_tpu_torch.solvers.lobpcg import lobpcg
     from maxwell_tpu_torch.solvers.operator import Pencil
-    from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
 
     t0 = time.perf_counter()
     pencil = Pencil.from_problem(
         problem, block=block, kernel=kernel, dtype=dtype, device=device
     )
     setup_s = time.perf_counter() - t0
-    pc = shifted_cg_preconditioner(pencil, alpha=alpha, iters=20)
-    t0 = time.perf_counter()
-    # lobpcg returns host arrays, so the clock stops after the device work
-    res = lobpcg(
-        pencil, nev=nev, maxiter=maxiter or 200, tol=device_tol,
-        precond=pc, **kwargs,
-    )
+    # both solvers return host arrays, so the clock stops after the device
+    # work
+    if solver == "lanczos":
+        from maxwell_tpu_torch.solvers.lanczos import lanczos
+
+        t0 = time.perf_counter()
+        res = lanczos(
+            pencil, nev=nev, maxiter=maxiter or 300, tol=device_tol, **kwargs
+        )
+    else:
+        from maxwell_tpu_torch.solvers.lobpcg import lobpcg
+        from maxwell_tpu_torch.solvers.precond import (
+            shifted_cg_preconditioner,
+        )
+
+        pc = shifted_cg_preconditioner(pencil, alpha=alpha, iters=20)
+        t0 = time.perf_counter()
+        res = lobpcg(
+            pencil, nev=nev, maxiter=maxiter or 200, tol=device_tol,
+            precond=pc, **kwargs,
+        )
     res.timings.update(
         setup_s=setup_s, device_solve_s=time.perf_counter() - t0
     )

@@ -2,13 +2,15 @@
 [--device cuda|cpu] [overrides]`.
 
 Takes the JSON configs of maxwell_tpu/cli/run.py (configs/); this port runs
-`solver.kind == "lobpcg"` on the assembled "rect2d" and "brick3d"
-problems and on the matrix-free operator (`storage.operator == "stencil"`:
-StencilPencil2D / StencilPencil3D, with materials). With refinement, PEC 3D
-stencil pencils refine to tol on the device (`refine_dw`), other stencil
-pencils by warm-started f64 LOBPCG on the CPU (`refine_f64_pencil`), and
-assembled problems by host f64 RQI (`refine_f64`). Other solver kinds and
-distributed runs raise NotImplementedError naming their ROADMAP.md slice.
+the solver kinds "lobpcg", "lanczos" and "tr_lanczos" (`ncv`,
+`max_restarts`) on the assembled "rect2d" and "brick3d" problems
+(`storage.kernel`: "auto", "ref", "union" or "pallas") and on the
+matrix-free operator (`storage.operator == "stencil"`: StencilPencil2D /
+StencilPencil3D, with materials). With refinement, PEC 3D stencil pencils
+refine to tol on the device (`refine_dw`), other stencil pencils by
+warm-started f64 LOBPCG on the CPU (`refine_f64_pencil`), and assembled
+problems by host f64 RQI (`refine_f64`). "shift_invert", "lobpcg_dist" and
+tet meshes raise NotImplementedError naming their ROADMAP.md slice.
 
 Prints the per-iteration history as JSON lines, then a final JSON report
 (eigenvalues, residuals, iterations, converged, timings, n, and the
@@ -83,7 +85,7 @@ def build_problem(cfg):
         )
     if kind == "tet3d":
         raise NotImplementedError(
-            "tet3d problems are not ported yet (ROADMAP.md, slice 3)"
+            "tet3d problems are not ported yet (ROADMAP.md, slice 8)"
         )
     raise ValueError(f"unknown problem kind {kind!r}")
 
@@ -107,6 +109,44 @@ def build_stencil(pcfg, dtype, block, device):
         nx=pcfg.get("nx", 8), ny=pcfg.get("ny", 8), nz=pcfg.get("nz", 8),
         dtype=dtype, block=block or 8, bc=pcfg.get("bc", "pec"),
         eps_r=eps_r, mu_r=mu_r, device=device,
+    )
+
+
+def _lobpcg(pencil, scfg, nev, maxiter, tol, args):
+    """LOBPCG with the config's preconditioner: the spectral
+    (K + alpha M)^-1 for PEC 3D stencil pencils where `precond` allows it,
+    else shifted CG."""
+    from maxwell_tpu_torch.solvers import lobpcg
+    from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
+    from maxwell_tpu_torch.solvers.spectral import spectral_preconditioner
+
+    pc = None
+    if scfg.get("precond_alpha") is not None:
+        pkind = scfg.get("precond", "auto")
+        if pkind in ("auto", "spectral"):
+            try:
+                pc = spectral_preconditioner(
+                    pencil, alpha=scfg["precond_alpha"]
+                )
+            except (ValueError, AttributeError):
+                if pkind == "spectral":
+                    raise
+        if pc is None:
+            pc = shifted_cg_preconditioner(
+                pencil,
+                alpha=scfg["precond_alpha"],
+                iters=scfg.get("precond_iters", 20),
+            )
+    return lobpcg(
+        pencil,
+        nev=nev,
+        m=scfg.get("block_size"),
+        maxiter=maxiter,
+        tol=tol,
+        precond=pc,
+        checkpoint=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        log_every=scfg.get("log_every", 0),
     )
 
 
@@ -152,11 +192,13 @@ def main(argv=None):
     kind = scfg.get("kind", "lobpcg")
     stg = cfg.get("storage", {})
     pcfg = cfg.get("problem", {})
-    if kind != "lobpcg":
+    if kind in ("shift_invert", "lobpcg_dist"):
         raise NotImplementedError(
-            f"solver kind {kind!r} is not ported yet (ROADMAP.md: lanczos, "
-            "tr_lanczos and shift_invert are slice 3, lobpcg_dist slice 4)"
+            f"solver kind {kind!r} is not ported yet (ROADMAP.md: "
+            "shift_invert is slice 7, lobpcg_dist slice 6)"
         )
+    if kind not in ("lobpcg", "lanczos", "tr_lanczos"):
+        raise ValueError(f"unknown solver {kind!r}")
     use_stencil = stg.get("operator") == "stencil"
     dtype = {"f32": torch.float32, "f64": torch.float64}[
         stg.get("dtype", "f64")
@@ -184,10 +226,7 @@ def main(argv=None):
         # the device solve only needs the f32-comfortable part
         tol = max(tol, 1e-5)
 
-    from maxwell_tpu_torch.solvers import lobpcg
     from maxwell_tpu_torch.solvers.operator import Pencil
-    from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
-    from maxwell_tpu_torch.solvers.spectral import spectral_preconditioner
 
     t0 = time.perf_counter()
     if use_stencil:
@@ -196,35 +235,19 @@ def main(argv=None):
         pencil = Pencil.from_problem(
             problem, block=block, kernel=kernel, dtype=dtype, device=device
         )
-    pc = None
-    if scfg.get("precond_alpha") is not None:
-        pkind = scfg.get("precond", "auto")
-        if pkind in ("auto", "spectral"):
-            # the spectral (K + alpha M)^-1 for PEC 3D stencil pencils
-            try:
-                pc = spectral_preconditioner(
-                    pencil, alpha=scfg["precond_alpha"]
-                )
-            except (ValueError, AttributeError):
-                if pkind == "spectral":
-                    raise
-        if pc is None:
-            pc = shifted_cg_preconditioner(
-                pencil,
-                alpha=scfg["precond_alpha"],
-                iters=scfg.get("precond_iters", 20),
-            )
-    res = lobpcg(
-        pencil,
-        nev=nev,
-        m=scfg.get("block_size"),
-        maxiter=maxiter,
-        tol=tol,
-        precond=pc,
-        checkpoint=args.checkpoint,
-        checkpoint_every=args.checkpoint_every,
-        log_every=scfg.get("log_every", 0),
-    )
+    if kind == "lanczos":
+        from maxwell_tpu_torch.solvers.lanczos import lanczos
+
+        res = lanczos(pencil, nev=nev, maxiter=maxiter, tol=tol)
+    elif kind == "tr_lanczos":
+        from maxwell_tpu_torch.solvers.trlanczos import thick_restart_lanczos
+
+        res = thick_restart_lanczos(
+            pencil, nev=nev, ncv=scfg.get("ncv"),
+            max_restarts=scfg.get("max_restarts", 40), tol=tol,
+        )
+    else:
+        res = _lobpcg(pencil, scfg, nev, maxiter, tol, args)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_solve = time.perf_counter() - t0

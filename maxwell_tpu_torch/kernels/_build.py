@@ -38,6 +38,9 @@ _SIGNATURES = {
     "bellunion_matmat_b3": [_P] * 6 + [_I] * 5 + [_P],
     "bellunion_km_matmat_f32": [_P] * 7 + [_I] * 5 + [_P],
     "bellunion_km_matmat_b3": [_P] * 9 + [_I] * 5 + [_P],
+    # bsr_spmm.cu
+    "bsr_matmat_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "bsr_matmat_windowed_f32": [_P] * 6 + [_I] * 5 + [_P],
     # stencil_taps.cu
     "stencil_taps_f32": [_P] * 8 + [_I] * 2 + [_P],
 }

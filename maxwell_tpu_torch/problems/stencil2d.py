@@ -67,8 +67,14 @@ class StencilPencil2D:
     def dot_cols(self, A, B):
         return torch.sum(A * B, dim=0)
 
+    def dot_vv(self, x, y):
+        return torch.dot(x, y)
+
     def reduce_rows(self, v):
         return v
+
+    def col_norms(self, A):
+        return torch.sqrt(torch.clamp(self.dot_cols(A, A), min=0.0))
 
     # --- grid packing -----------------------------------------------------
     @property

@@ -274,8 +274,14 @@ class StencilPencil3D:
     def dot_cols(self, A, B):
         return torch.sum(A * B, dim=0)
 
+    def dot_vv(self, x, y):
+        return torch.dot(x, y)
+
     def reduce_rows(self, v):
         return v
+
+    def col_norms(self, A):
+        return torch.sqrt(torch.clamp(self.dot_cols(A, A), min=0.0))
 
     # --- packing ----------------------------------------------------------
     def _to_grids(self, X):
@@ -484,7 +490,7 @@ class StencilPencil3D:
 
     # --- grid-form discrete gradient ---------------------------------------
     # On the tensor grid G is a finite-difference operator: static slices
-    # instead of the projector's head/tail gather and scatter.
+    # instead of the projector's head/tail and incidence gathers.
     def _g_grid(self, q):
         """(n_padded, m) <- G q for q ((nx-1)(ny-1)(nz-1), m) interior
         nodal values (row-major), PEC edge mask applied."""

@@ -7,12 +7,16 @@ M-orthogonal complement of range(G):
     P x = x - G (G^T M G)^{-1} G^T M x
 
 G is applied matrix-free from head/tail node indices (two nonzeros per
-row): a gather for G @ phi and a scatter-add (index_add_) for G^T @ y.
+row): a gather for G @ phi, and for G^T @ y a gather of each node's
+incident edges and a sum over them. The reference scatter-adds G^T @ y; on
+a CUDA device a scatter-add (index_add_) adds in whatever order its
+atomics land, so two runs of a solve would differ in their last bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -20,6 +24,26 @@ import scipy.sparse as sp
 import torch
 
 from maxwell_tpu_torch.solvers.cg import cg
+
+
+def _incidence(head: np.ndarray, tail: np.ndarray, n: int, n_nodes: int):
+    """(n_nodes, D) ids of each node's incident edges (n, a zero row, pads
+    a node with fewer than D) in edge order, and the sign G gives each (+1
+    at the head, -1 at the tail)."""
+    edge = np.concatenate([np.arange(n), np.arange(n)])
+    node = np.concatenate([head, tail])
+    sign = np.repeat([1.0, -1.0], n)
+    keep = node < n_nodes  # the ghost slot is no node
+    edge, node, sign = edge[keep], node[keep], sign[keep]
+    order = np.lexsort((edge, node))
+    edge, node, sign = edge[order], node[order], sign[order]
+    count = np.bincount(node, minlength=n_nodes)
+    pos = np.arange(node.size) - (np.cumsum(count) - count)[node]
+    ids = np.full((n_nodes, max(int(count.max(initial=0)), 1)), n, np.int64)
+    signs = np.zeros(ids.shape)
+    ids[node, pos] = edge
+    signs[node, pos] = sign
+    return ids, signs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +61,17 @@ class GradientProjector:
     n: int
     n_nodes: int
     n_padded: int
+
+    @functools.cached_property
+    def incidence(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(node_edges, node_signs), each (n_nodes, D), for G^T @ y (see
+        _incidence); built at the first G^T apply (a stencil pencil with
+        its grid-form projector never makes one)."""
+        ids, signs = _incidence(self.head.cpu().numpy(),
+                                self.tail.cpu().numpy(), self.n, self.n_nodes)
+        dev = self.head.device
+        return (torch.from_numpy(ids).to(dev),
+                torch.from_numpy(signs).to(dtype=self.weight.dtype, device=dev))
 
     @staticmethod
     def from_gradient(
@@ -90,12 +125,11 @@ class GradientProjector:
     def gt_mm(self, y: torch.Tensor) -> torch.Tensor:
         """(n_nodes, m) <- G^T @ y for y (n_padded, m)."""
         y = y[: self.n]
-        w = self.weight if y.dim() == 1 else self.weight[:, None]
-        wy = w * y
-        out = y.new_zeros((self.n_nodes + 1,) + tuple(y.shape[1:]))
-        out.index_add_(0, self.head, wy)
-        out.index_add_(0, self.tail, -wy)
-        return out[:-1]
+        vec = y.dim() == 1
+        w = self.weight if vec else self.weight[:, None]
+        wy = torch.cat([w * y, y.new_zeros((1,) + tuple(y.shape[1:]))])
+        edges, signs = self.incidence
+        return (wy[edges] * (signs if vec else signs[..., None])).sum(dim=1)
 
     def project(
         self,

@@ -7,7 +7,12 @@ The iteration of maxwell_tpu/solvers/lobpcg.py as a Python loop over tensors
   columns (the empty P of iteration 0, collapsed directions near
   convergence) are masked by SVQB and pushed above the wanted spectrum by a
   diagonal shift.
-- P is implicit (the Ritz rotation without its X-block rows).
+- P is implicit: the Ritz step's W and P share, its coefficients taken back
+  through the SVQB transform first. The reference drops the first m rows of
+  the coefficients in the SVQB basis instead, where they are not X's: P
+  comes out equal to the new X, SVQB masks it, and every iteration is a
+  steepest-descent step on [X, W] (twice the iterations; at 24^3 in f32 it
+  reaches the f32 floor before 1e-5 and bounces there).
 - The gradient nullspace is projected out of the initial block and of every
   new search direction.
 - In-loop soft locking (on by default, lock_tol = tol * 1e-2) freezes a
@@ -118,10 +123,10 @@ def lobpcg_run(
         MS = torch.cat([MX, MW, MP], dim=1)
         # M-orthonormalize the basis (dead columns masked) and rotate KS by
         # the same transform — no extra SpMM
-        S, MS, good, T = svqb(S, MS, dot_mm=dot_mm)
-        KS = KS @ T
+        Q, MQ, good, T = svqb(S, MS, dot_mm=dot_mm)
+        KQ = KS @ T
 
-        A = dot_mm(S, KS)
+        A = dot_mm(Q, KQ)
         A = 0.5 * (A + A.T)
         # push SVQB-masked columns above the wanted spectrum; the shift
         # stays moderate relative to ||A|| so f32 eigh keeps the small ones
@@ -131,16 +136,17 @@ def lobpcg_run(
         Cx = C[:, :m]  # smallest m Ritz pairs
         theta_new = thetaS[:m]
 
-        X_new = S @ Cx
-        KX_new = KS @ Cx
-        MX_new = MS @ Cx
+        X_new = Q @ Cx
+        KX_new = KQ @ Cx
+        MX_new = MQ @ Cx
 
-        # implicit P: drop the X-block rows of the Ritz rotation
-        Cp = Cx.clone()
-        Cp[:m, :] = 0.0
-        P_new = S @ Cp
-        KP_new = KS @ Cp
-        MP_new = MS @ Cp
+        # implicit P: the Ritz step without its X share. SVQB mixes the
+        # blocks, so the coefficients go back to [X, W, P] (T @ Cx) before
+        # X's rows are dropped
+        Cp = (T @ Cx)[m:]
+        P_new = S[:, m:] @ Cp
+        KP_new = KS[:, m:] @ Cp
+        MP_new = MS[:, m:] @ Cp
 
         if lock_tol > 0.0:
             # pin frozen columns bit-exactly (they stay in the RR basis, so

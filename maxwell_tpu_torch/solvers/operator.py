@@ -8,33 +8,37 @@ SpMM:
                     stream a, M as stream b; M is None). CUDA tensors go
                     through the hand-written kernels (kernels/spmm.py), CPU
                     tensors through their plain versions.
+    kernel="pallas" blocked-ELL with 8x8 blocks, K and M as two BSRMatrix
+                    layouts. CUDA f32 tensors go through the hand-written
+                    blocked-ELL kernels (kernels/bsr_spmm.py): the SpMV
+                    for a vector or a one-column block, the SpMM
+                    otherwise; CPU tensors through their plain versions.
     kernel="ref"    blocked-ELL and a plain gather + einsum
                     (sparse/bsr.py): the f64 path.
 
-The reference's other kernels ("pallas", "bellpairs") are not ported yet.
-Its VMEM routing and row-band split are not needed: the CUDA kernels read X
-from global memory at any size.
+The reference's "bellpairs" layout is not ported yet. Its VMEM routing and
+row-band split are not needed: the CUDA kernels read X from global memory
+at any size.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from maxwell_tpu_torch.solvers.cg import cg
 from maxwell_tpu_torch.solvers.deflation import GradientProjector
 from maxwell_tpu_torch.sparse.bsr import BSRMatrix, bsr_matmat_ref
 
-_KERNELS = ("ref", "union")
+_KERNELS = ("ref", "union", "pallas")
 
 
 def _check_kernel(kernel: str) -> None:
-    if kernel in ("pallas", "bellpairs"):
+    if kernel == "bellpairs":
         raise NotImplementedError(
-            f'kernel="{kernel}" is not ported yet: its Pallas kernels are '
-            "queued in ROADMAP.md (Queue 2, after K4-K6)"
+            'kernel="bellpairs" is not ported yet: its Pallas kernels '
+            "(K11-K14) are queued in ROADMAP.md (Queue 2)"
         )
     if kernel not in _KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
@@ -44,8 +48,10 @@ def _check_kernel(kernel: str) -> None:
 class Pencil:
     """The matrix pencil (K, M) plus nullspace projector.
 
-    M may be None (standard eigenproblem, or kernel="union" where M is K's
-    second value stream). proj may be None (no nullspace deflation).
+    kernel: "union", "pallas" or "ref" (the module docstring says what
+    each runs). M may be None (standard eigenproblem, or kernel="union"
+    where M is K's second value stream). proj may be None (no nullspace
+    deflation).
     fastproj: exact tensor-product nodal solver for vacuum PEC bricks.
     precision: union dot precision, "highest" (exact f32) or "b3" (three
     bf16 products of the build-time value split; the f32 default).
@@ -94,9 +100,17 @@ class Pencil:
         """(m,) <- column-wise inner products."""
         return torch.sum(A * self.weigh(B), dim=0)
 
+    def dot_vv(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Inner product of two vectors (a 0-d tensor)."""
+        return torch.dot(x, self.weigh(y))
+
     def reduce_rows(self, v: torch.Tensor) -> torch.Tensor:
         """Finish a partial row-contraction (identity on one device)."""
         return v
+
+    def col_norms(self, A: torch.Tensor) -> torch.Tensor:
+        """(m,) <- column norms."""
+        return torch.sqrt(torch.clamp(self.dot_cols(A, A), min=0.0))
 
     # --- applies (padded in, padded out) --------------------------------
     def _union_mm(self, X: torch.Tensor, stream: str) -> torch.Tensor:
@@ -114,26 +128,40 @@ class Pencil:
             self.K, X, stream=stream, precision=self.precision
         )
 
-    def _ref_mm(self, A: BSRMatrix, X: torch.Tensor) -> torch.Tensor:
+    def _bsr_mm(self, A: BSRMatrix, X: torch.Tensor) -> torch.Tensor:
         vec = X.dim() == 1
+        if self.kernel == "pallas":
+            from maxwell_tpu_torch.kernels.bsr_spmm import (
+                bsr_matmat,
+                bsr_matvec,
+            )
+
+            X = X.contiguous()
+            # a vector, or the (n, 1) block CG makes of one: the SpMV
+            if vec or X.shape[1] == 1:
+                y = bsr_matvec(A, X if vec else X[:, 0])
+                return y if vec else y[:, None]
+            return bsr_matmat(A, X)
         Y = bsr_matmat_ref(A, X[:, None] if vec else X)
         return Y[:, 0] if vec else Y
 
     def K_mm(self, X: torch.Tensor) -> torch.Tensor:
         if self.kernel == "union":
             return self._union_mm(X, "a")
-        return self._ref_mm(self.K, X)
+        return self._bsr_mm(self.K, X)
 
     def M_mm(self, X: torch.Tensor) -> torch.Tensor:
         if self.kernel == "union":
             return self._union_mm(X, "b")
         if self.M is None:
             return X
-        return self._ref_mm(self.M, X)
+        return self._bsr_mm(self.M, X)
 
     def KM_mm(self, X: torch.Tensor):
         """(K @ X, M @ X). kernel="union": ONE fused kernel — X gathered
-        once per chunk and contracted against both value streams."""
+        once per chunk and contracted against both value streams;
+        kernel="pallas" and "ref": two single-operator applies, as in the
+        reference."""
         if self.kernel == "union" and self.K.vals_b is not None:
             from maxwell_tpu_torch.kernels.spmm import bellunion_km_matmat
 
@@ -177,12 +205,12 @@ class Pencil:
         device: str | torch.device = "cuda",
     ) -> "Pencil":
         """Build from a cavity problem (RectCavity2D / BrickCavity3D /
-        PermutedProblem). block default: 8 for the union layout, 4 for the
-        blocked-ELL reference. precision "auto": "b3" for a union pencil at
-        f32, "highest" otherwise."""
+        PermutedProblem). block default: 8 for the union and "pallas"
+        layouts, 4 for the blocked-ELL reference. precision "auto": "b3"
+        for a union pencil at f32, "highest" otherwise."""
         _check_kernel(kernel)
         if block is None:
-            block = 8 if kernel == "union" else 4
+            block = 8 if kernel in ("union", "pallas") else 4
         M = None
         if kernel == "union":
             from maxwell_tpu_torch.sparse.bellunion import BELLUnion
@@ -196,13 +224,14 @@ class Pencil:
             if precision == "b3":
                 K = K.bf16x3()
         else:
-            K = BSRMatrix.from_csr(
-                problem.K, block=block, align_slots=4, dtype=dtype,
-                device=device,
-            )
-            M = BSRMatrix.from_csr(
-                problem.M, block=block, align_slots=4, dtype=dtype,
-                device=device,
+            # "pallas": slots aligned to 128 // b, as the reference builds it
+            align = None if kernel == "pallas" else 4
+            K, M = (
+                BSRMatrix.from_csr(
+                    A, block=block, align_slots=align, dtype=dtype,
+                    device=device, kernel_metadata=kernel == "pallas",
+                )
+                for A in (problem.K, problem.M)
             )
         proj = GradientProjector.from_gradient(
             problem.G, K.n_padded, dtype=dtype, device=device
@@ -237,17 +266,14 @@ class Pencil:
         its layout, GradientProjector (head/tail/weight) and FastPoisson3D
         (Vx, Vy, Vz, inv_lam); every leaf is read through np.asarray."""
         _check_kernel(obj.kernel)
-        t = lambda v: torch.from_numpy(np.array(v)).to(device)
         if obj.kernel == "union":
             from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 
             K, M = BELLUnion.from_reference(obj.K, device), None
         else:
-            bsr = lambda A: BSRMatrix(
-                blocks=t(A.blocks), cols=t(A.cols).long(), n=int(A.n)
-            )
-            K = bsr(obj.K)
-            M = None if obj.M is None else bsr(obj.M)
+            K = BSRMatrix.from_reference(obj.K, device)
+            M = None if obj.M is None else BSRMatrix.from_reference(
+                obj.M, device)
         proj = None
         if obj.proj is not None:
             proj = GradientProjector.from_reference(obj.proj, device)

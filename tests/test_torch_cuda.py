@@ -17,9 +17,10 @@ import torch
 
 import maxwell_tpu_torch
 from maxwell_tpu_torch.cli import run as port_cli
-from maxwell_tpu_torch.kernels import spmm, stencil_taps as kst
+from maxwell_tpu_torch.kernels import bsr_spmm, spmm, stencil_taps as kst
 from maxwell_tpu_torch.problems import BrickCavity3D
 from maxwell_tpu_torch.sparse.bellunion import BELLUnion
+from maxwell_tpu_torch.sparse.bsr import BSRMatrix
 from maxwell_tpu_torch.sparse.reorder import PermutedProblem
 
 torch.set_num_threads(1)
@@ -166,3 +167,92 @@ def test_cuda_cli_config7(cuda_device, capsys, tmp_path):
     rep = [json.loads(l) for l in capsys.readouterr().out.splitlines()
            if l.startswith("{")][-1]
     assert rep["converged"] and max(rep["residuals"]) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("m", [1, 3, 9, 17])
+def test_cuda_bsr_kernels_match_plain(cuda_device, monkeypatch, m, staged):
+    """The blocked-ELL SpMM, its windowed form (window staged in shared
+    memory, or read from global memory) and the SpMV against their plain
+    versions; the two SpMM forms do the same arithmetic in the same order."""
+    cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
+    A = BSRMatrix.from_csr(cav.K, block=8, device=cuda_device)
+    if not staged:
+        monkeypatch.setattr(bsr_spmm, "SMEM_LIMIT", 0)
+    assert bsr_spmm.window_staged(A, m) == staged
+    X = torch.from_numpy(
+        np.random.default_rng(m).standard_normal((A.n_padded, m))
+    ).float().to(cuda_device)
+    want = bsr_spmm.bsr_matmat_ref(A, X)
+    bsr_spmm.reset_counts()
+    Y8 = bsr_spmm.bsr_matmat(A, X)
+    Y9 = bsr_spmm.bsr_matmat_windowed(A, X)
+    got = [Y8, Y9]
+    if m == 1:
+        got.append(bsr_spmm.bsr_matvec(A, X[:, 0].contiguous())[:, None])
+    torch.cuda.synchronize()
+    for g in got:
+        err = (g - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-5
+    assert torch.equal(Y8, Y9)
+    c = bsr_spmm.counts()
+    assert c["bsr_matmat"] == c["bsr_matmat_windowed"] == 1
+    assert c["bsr_matvec"] == (m == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["f64", "misaligned"])
+def test_cuda_bsr_wrappers_raise(cuda_device, bad):
+    """No fallback: an f64 CUDA tensor or a layout not cut into whole
+    128-row tiles raises instead of taking the plain version."""
+    cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
+    dtype = torch.float64 if bad == "f64" else torch.float32
+    A = BSRMatrix.from_csr(cav.K, block=8, dtype=dtype, device=cuda_device,
+                           row_align=1 if bad == "misaligned" else None)
+    X = torch.ones((A.n_padded, 2), dtype=dtype, device=cuda_device)
+    for fn in (bsr_spmm.bsr_matmat, bsr_spmm.bsr_matmat_windowed):
+        with pytest.raises(ValueError):
+            fn(A, X)
+    with pytest.raises(ValueError):
+        bsr_spmm.bsr_matvec(A, X[:, 0].contiguous())
+
+
+@pytest.mark.cuda
+def test_cuda_pallas_solve_matches_cpu_plain(cuda_device):
+    """The f32 "pallas" solve through the blocked-ELL kernels on the card
+    against the same solve through their plain versions on the CPU, both
+    refined to 1e-8."""
+    prob = PermutedProblem(BrickCavity3D(nx=6, ny=6, nz=6))
+    X0 = np.random.default_rng(2).standard_normal((prob.K.shape[0], 9))
+    opts = dict(nev=5, tol=1e-8, dtype=torch.float32, kernel="pallas",
+                stall_window=12, X0=X0)
+    bsr_spmm.reset_counts()
+    spmm.reset_counts()
+    got = maxwell_tpu_torch.solve(prob, device=cuda_device, **opts)
+    counts = {**bsr_spmm.counts(), **spmm.counts()}
+    want = maxwell_tpu_torch.solve(prob, device="cpu", **opts)
+    assert got.converged and got.residuals.max() <= 1e-8
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-7)
+    assert counts["bsr_matmat"] > 0 and counts["bsr_matmat_ref"] == 0
+    assert counts["bellunion_km_matmat"] == counts["bellunion_matmat"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lanczos", "tr_lanczos"])
+def test_cuda_cli_config1_pallas(cuda_device, capsys, tmp_path, kind):
+    """config 1 through the CLI on the card: f32 "pallas" Krylov solve
+    through the blocked-ELL SpMV, host f64 refine to 1e-8."""
+    with open(os.path.join(CONFIGS, "config1.json")) as f:
+        cfg = json.load(f)
+    cfg["storage"] = {"dtype": "f32", "kernel": "pallas"}
+    cfg["solver"].update(kind=kind, refine=True, ncv=24, max_restarts=60)
+    path = tmp_path / "config1_pallas.json"
+    path.write_text(json.dumps(cfg))
+    bsr_spmm.reset_counts()
+    assert port_cli.main([str(path), "--device", "cuda"]) == 0
+    counts = bsr_spmm.counts()
+    rep = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+           if l.startswith("{")][-1]
+    assert rep["converged"] and max(rep["residuals"]) <= 1e-8
+    assert counts["bsr_matvec"] > 0 and counts["bsr_matvec_ref"] == 0

@@ -153,3 +153,44 @@ def test_svqb_masks_dead_columns():
     So, MSo, good, T = svqb(S, S)
     assert good.tolist().count(False) == 1
     assert torch.allclose(So, S @ T) and torch.isfinite(So).all()
+
+
+def test_lobpcg_keeps_its_p_block(monkeypatch):
+    """The implicit P block survives SVQB after the first iteration (the
+    reference's rule drops it: its basis stays [X, W], 2m live columns), so
+    the port reaches the reference's tolerance in fewer iterations from the
+    same start block."""
+    import importlib
+
+    mod = importlib.import_module("maxwell_tpu_torch.solvers.lobpcg")
+    svqb, live = mod.svqb, []
+
+    def counting_svqb(S, MS, dot_mm=None, eps=None):
+        out = svqb(S, MS, dot_mm=dot_mm, eps=eps)
+        if S.shape[1] == 3 * M_BLOCK:
+            live.append(int(out[2].sum()))
+        return out
+
+    monkeypatch.setattr(mod, "svqb", counting_svqb)
+    kw = dict(nx=6, ny=6, nz=6)
+    ref_pen = RefPencil.from_problem(RefBrick(**kw), kernel="ref",
+                                     dtype=jnp.float64)
+    pen = Pencil.from_problem(BrickCavity3D(**kw), kernel="ref",
+                              dtype=torch.float64, device="cpu")
+    X0 = np.random.default_rng(11).standard_normal((pen.n, M_BLOCK))
+    X0_ref = np.zeros((ref_pen.n_padded, M_BLOCK))
+    X0_ref[: pen.n] = X0
+    want = ref_lobpcg(
+        ref_pen, nev=NEV, maxiter=150, tol=1e-9,
+        precond=ref_precond(ref_pen, alpha=ALPHA, iters=20),
+        X0=jnp.asarray(X0_ref, jnp.float64),
+    )
+    got = lobpcg(
+        pen, nev=NEV, maxiter=150, tol=1e-9,
+        precond=shifted_cg_preconditioner(pen, alpha=ALPHA, iters=20), X0=X0,
+    )
+    assert want.converged and got.converged
+    assert live[0] == 2 * M_BLOCK  # P starts empty
+    assert max(live[1:]) == 3 * M_BLOCK
+    assert got.iterations < want.iterations
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-8)

@@ -63,7 +63,7 @@ def test_solve_auto_kernel_on_cpu_is_ref():
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(solver="lanczos"), dict(solver="shift_invert", sigma=1.0),
+    "kwargs", [dict(kernel="bellpairs"), dict(solver="shift_invert", sigma=1.0),
                dict(distributed=True)],
 )
 def test_solve_unported_paths_raise(kwargs):
@@ -100,6 +100,6 @@ def test_cli_config2_matches_reference_cli(capsys, tmp_path):
 def test_cli_unported_solver_raises(tmp_path):
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"problem": {"kind": "rect2d"},
-                                "solver": {"kind": "lanczos"}}))
+                                "solver": {"kind": "shift_invert"}}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main([str(path), "--device", "cpu"])
