@@ -1,6 +1,6 @@
 """Chip smoke test of maxwell_tpu_torch on one NVIDIA GPU: build the CUDA
 kernels from the sources in this checkout, hold each against its plain
-PyTorch version at the shapes of its path, drive the three ported paths and
+PyTorch version at the shapes of its path, drive the four ported paths and
 check that they ran through the kernels:
 
   slice 1, the assembled path: maxwell_tpu_torch.solve on the 16^3 RCM
@@ -14,7 +14,11 @@ check that they ran through the kernels:
     brick to 1e-5 through the blocked-ELL SpMM, twice, bit for bit the
     same, and config 1 (2D, 16x16)
     through the CLI with Lanczos and thick-restart Lanczos, the f32 runs
-    through the blocked-ELL SpMV and refined to 1e-8 on the host.
+    through the blocked-ELL SpMV and refined to 1e-8 on the host;
+  slice 4, the BELLPairs road (kernel="bellpairs"): solve() on the 24^3 RCM
+    brick to 1e-5 through the fused K/M and one-stream paired-chunk SpMM,
+    twice, bit for bit the same, and config 2 (2D, 32x32) through the CLI at
+    f32, refined to 1e-8 on the host.
 
     python3 chip_smoke.py
 
@@ -49,9 +53,21 @@ Phases, in order; any failure raises and the process exits non-zero:
  10. lanczos   config 1 through the CLI: (a) as written (f64, plain torch
                on the card), (b) f32 "pallas" Lanczos + host refine, (c) the
                same with thick-restart Lanczos; counts zeroed before each
- 11. result    an {"off_main_path": [...]} line for the kernels no solver
-               path calls (the union SpMV, the windowed blocked-ELL SpMM),
-               the {"kernels": [...]} line of the main paths' kernels, the
+ 11. bellpairs kernels  the BELLPairs kernels against their plain versions:
+               at 24^3 the one-stream SpMM (streams a and b), the fused K/M
+               SpMM and the windowed SpMM at m in {1, 9}, timed as in phase
+               8, with the bytes stored and the bytes of the live pairs; at
+               48^3 (n = 318,096) the banded forms at m = 9 with the
+               reference's own band split (3 bands), timed beside the
+               full-X kernels; the 48^3 layout is freed after
+ 12. bellpairs solve  slice 4: solve(kernel="bellpairs") on the 24^3 RCM
+               brick as phase 9 (tol 1e-5, twice, bitwise equal)
+ 13. bellpairs cli  config 2 through the CLI: f32 "bellpairs" + host refine
+               to 1e-8
+ 14. result    an {"off_main_path": [...]} line for the kernels no solver
+               path calls (the union SpMV, the windowed blocked-ELL and
+               BELLPairs SpMMs, the banded BELLPairs forms), the
+               {"kernels": [...]} line of the main paths' kernels, the
                nvidia-smi line, and last {"ok": true, "device": {...}}
 """
 
@@ -78,6 +94,7 @@ GRID = 24  # union kernel checks kept from the first slice, n = 38,088
 SOLVE_GRID = 16  # slice-1 solve (its host f64 refine grows fast with n)
 STENCIL_GRID = 64  # slice 2: n = 811,200 edges
 BSR_GRID = 24  # slice 3: the blocked-ELL solve, n = 38,088
+BANDED_GRID = 48  # slice 4: the banded BELLPairs forms, n = 318,096
 NEV = 5
 LAUNCHES = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -89,7 +106,8 @@ FLOPS_PER_S = {"f32": 67e12, "bf16": 989e12}  # H100 SXM dense peaks
 # included: it does the same per-element arithmetic in the same order as
 # the plain SpMM kernel, only its column index differs) are held to the
 # bound of the reference's own SpMM test (tests/unit/test_pallas_spmm.py:27)
-TOL = {"highest": 1e-5, "b3": 2e-5, "stencil": 1e-5, "bsr": 1e-5}
+TOL = {"highest": 1e-5, "b3": 2e-5, "stencil": 1e-5, "bsr": 1e-5,
+       "bellpairs": 1e-5}
 # residual of a refined eigenvector recomputed with f32 applies on the card:
 # its floor is ~eps_f32 * ||K|| ||x|| / ||Kx||; a wrong vector gives O(1)
 DEVICE_RESIDUAL_TOL = 1e-3
@@ -101,6 +119,11 @@ REPLACES = {
     "bsr_matmat": "maxwell_tpu/kernels/spmm.py:79",
     "bsr_matmat_windowed": "maxwell_tpu/kernels/spmm.py:152",
     "bsr_matvec": "maxwell_tpu/kernels/spmm.py:892",
+    "bellpairs_matmat": "maxwell_tpu/kernels/spmm.py:630",
+    "bellpairs_km_matmat": "maxwell_tpu/kernels/spmm.py:713",
+    "bellpairs_matmat_windowed": "maxwell_tpu/kernels/spmm.py:836",
+    "bellpairs_matmat_banded": "maxwell_tpu/kernels/spmm.py:772",
+    "bellpairs_km_matmat_banded": "maxwell_tpu/kernels/spmm.py:790",
 }
 SOURCE = {
     "bellunion_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
@@ -110,6 +133,13 @@ SOURCE = {
     "bsr_matmat": "maxwell_tpu_torch/csrc/bsr_spmm.cu",
     "bsr_matmat_windowed": "maxwell_tpu_torch/csrc/bsr_spmm.cu",
     "bsr_matvec": "maxwell_tpu_torch/csrc/bsr_spmm.cu",
+    "bellpairs_matmat": "maxwell_tpu_torch/csrc/bellpairs_spmm.cu",
+    "bellpairs_km_matmat": "maxwell_tpu_torch/csrc/bellpairs_spmm.cu",
+    "bellpairs_matmat_windowed": "maxwell_tpu_torch/csrc/bellpairs_spmm.cu",
+    # the banded forms: a host loop (kernels/bellpairs_spmm.py) launching the
+    # two kernels above once per band
+    "bellpairs_matmat_banded": "maxwell_tpu_torch/csrc/bellpairs_spmm.cu",
+    "bellpairs_km_matmat_banded": "maxwell_tpu_torch/csrc/bellpairs_spmm.cu",
 }
 # what each path launches. solve(): the fused apply (LOBPCG's W, the
 # preconditioner's CG) and the single-stream apply (projector, initial
@@ -119,9 +149,14 @@ SOURCE = {
 # (solve(kernel="pallas"): LOBPCG's K and M applies, the preconditioner's
 # CG) and the SpMV (Lanczos: K and M applies of vectors, CG on M, the
 # projector); the windowed SpMM is off every solver path, as in the
-# reference.
+# reference. The BELLPairs road: the fused K/M SpMM (LOBPCG's W apply, the
+# preconditioner's CG) and the one-stream SpMM (the first block's K and M,
+# the projector's M applies); its windowed and banded forms are off the
+# solve path (the reference routed to the bands only where X overflowed
+# VMEM).
 MAIN_PATH = ("bellunion_km_matmat", "bellunion_matmat", "stencil_taps",
-             "bsr_matmat", "bsr_matvec")
+             "bsr_matmat", "bsr_matvec", "bellpairs_km_matmat",
+             "bellpairs_matmat")
 STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 
@@ -338,18 +373,24 @@ def phase_kernels(problem, grid):
     return stats
 
 
-def all_counts():
-    from maxwell_tpu_torch.kernels import bsr_spmm, spmm, stencil_taps
+def _kernel_modules():
+    from maxwell_tpu_torch.kernels import (
+        bellpairs_spmm,
+        bsr_spmm,
+        spmm,
+        stencil_taps,
+    )
 
-    return {**spmm.counts(), **stencil_taps.counts(), **bsr_spmm.counts()}
+    return spmm, stencil_taps, bsr_spmm, bellpairs_spmm
+
+
+def all_counts():
+    return {k: v for mod in _kernel_modules() for k, v in mod.counts().items()}
 
 
 def reset_all_counts():
-    from maxwell_tpu_torch.kernels import bsr_spmm, spmm, stencil_taps
-
-    spmm.reset_counts()
-    stencil_taps.reset_counts()
-    bsr_spmm.reset_counts()
+    for mod in _kernel_modules():
+        mod.reset_counts()
 
 
 def phase_solve(problem):
@@ -739,20 +780,19 @@ def phase_bsr_kernels(problems):
     return stats
 
 
-def phase_bsr_solve():
-    """Slice 3: solve(kernel="pallas") on the 24^3 RCM brick at slice 1's
-    knobs (tol 1e-5, maxiter 120, stall_window 12, a seeded X0), on the card
-    only (no host refine: at 24^3 it takes minutes on the host). Counts
-    zeroed just before, read just after. Run twice: no step of the road
-    adds in an order that varies (no atomics), so the two runs agree bit
-    for bit and the tolerance is met on every run or on none."""
+def phase_repeat_solve(problem, kernel, family, required):
+    """A slice's solve(kernel=...) on the 24^3 RCM brick at slice 1's knobs
+    (tol 1e-5, maxiter 120, stall_window 12, a seeded X0), on the card only
+    (no host refine: at 24^3 it takes minutes on the host). Counts zeroed
+    just before, read just after; every kernel in `required` must have
+    launched, and nothing outside the `family` of the road's kernels, nor
+    any plain version. Run twice: no step of the road adds in an order that
+    varies (no atomics), so the two runs agree bit for bit and the
+    tolerance is met on every run or on none."""
     import maxwell_tpu_torch
-    from maxwell_tpu_torch.problems import BrickCavity3D
     from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
-    from maxwell_tpu_torch.sparse.reorder import PermutedProblem
 
     g, tol = BSR_GRID, 1e-5
-    problem = PermutedProblem(BrickCavity3D(nx=g, ny=g, nz=g))
     n = problem.K.shape[0]
     X0 = np.random.default_rng(5).standard_normal((n, 9))
     runs = []
@@ -760,7 +800,7 @@ def phase_bsr_solve():
         reset_all_counts()
         t0 = time.perf_counter()
         res = maxwell_tpu_torch.solve(
-            problem, kernel="pallas", dtype=torch.float32, device="cuda",
+            problem, kernel=kernel, dtype=torch.float32, device="cuda",
             nev=NEV, tol=tol, refine=False, maxiter=120, stall_window=12,
             X0=X0,
         )
@@ -772,8 +812,9 @@ def phase_bsr_solve():
                  and np.array_equal(res.eigenvectors, res2.eigenvectors))
     exact = cavity_eigenvalues_3d(1.0, 1.0, 1.0, NEV)
     rel = np.abs(res.eigenvalues - exact) / exact
+    phase = {"pallas": "bsr_solve"}.get(kernel, f"{kernel}_solve")
     log({
-        "phase": "bsr_solve", "grid": g, "n": n, "kernel": "pallas",
+        "phase": phase, "grid": g, "n": n, "kernel": kernel,
         "converged": res.converged, "iterations": res.iterations,
         "eigenvalues": [float(v) for v in res.eigenvalues],
         "analytic_rel_err": [float(v) for v in rel],
@@ -783,27 +824,26 @@ def phase_bsr_solve():
         "ms_per_iteration": res.timings["device_solve_s"]
         / max(res.iterations, 1) * 1e3,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi_line(),
-        "counts": counts,
+        "counts": {k: v for k, v in counts.items() if v},
     })
     if not res.converged or res.residuals.max() > tol:
-        raise AssertionError(f"pallas solve not converged: {res.residuals}")
+        raise AssertionError(f"{kernel} solve not converged: {res.residuals}")
     if not identical:
-        raise AssertionError("two runs of the pallas solve differ")
+        raise AssertionError(f"two runs of the {kernel} solve differ")
     if not np.all(np.isfinite(res.eigenvectors)) or (
         res.eigenvectors.shape != (n, NEV)
     ):
-        raise AssertionError("pallas solve eigenvectors: shape or values")
+        raise AssertionError(f"{kernel} solve eigenvectors: shape or values")
     if not rel.max() <= 1e-2:
         raise AssertionError(f"eigenvalues off the analytic modes: {rel}")
-    if counts["bsr_matmat"] <= 0:
-        raise AssertionError("bsr_matmat was not launched by the main path")
-    union = ("bellunion_km_matmat", "bellunion_matmat", "bellunion_matvec")
-    if any(counts[k] or counts[k + "_ref"] for k in union):
-        raise AssertionError(f"the union kernels ran in the pallas solve: "
-                             f"{counts}")
-    if any(counts[k] for k in counts if k.startswith("bsr_") and
-           k.endswith("_ref")):
-        raise AssertionError(f"a plain blocked-ELL version ran: {counts}")
+    for name in required:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the main path")
+    stray = {k: v for k, v in counts.items()
+             if v and (k.endswith("_ref") or not k.startswith(family))}
+    if stray:
+        raise AssertionError(
+            f"the {kernel} solve ran other kernels or plain versions: {stray}")
     return counts
 
 
@@ -857,6 +897,242 @@ def phase_lanczos():
     return counts["b"]
 
 
+def _check_close(label, got, want, tol):
+    """Max abs error of got against want (tensors or tuples of them), raised
+    unless within tol * max|want|. Returns (error, scale)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    scale = max(w.abs().max().item() for w in want)
+    if not abs_err <= tol * scale:
+        raise AssertionError(
+            f"{label}: max error {abs_err:.3e} > {tol} * {scale:.3e}")
+    return abs_err, scale
+
+
+def phase_bellpairs_kernels(problem):
+    """The BELLPairs kernels against their plain versions on the K and M of
+    the 24^3 RCM brick (one pair structure, two value streams). Returns
+    per-kernel stats at the main path's shapes, m = 9: the fused K/M SpMM
+    (LOBPCG's W, the preconditioner's CG), the one-stream SpMM on stream b
+    (the projector's M applies) and, beside it, the windowed SpMM."""
+    import scipy.sparse as sp
+
+    from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
+    from maxwell_tpu_torch.sparse.bellpairs import BELLPairs
+
+    dev = torch.device("cuda")
+    K, M = problem.K.tocsr(), problem.M.tocsr()
+    n = K.shape[0]
+    t0 = time.perf_counter()
+    A = BELLPairs.from_csr(K, B=M, device=dev)
+    torch.cuda.synchronize()
+    live = int(A.npairs.sum())
+    stored = A.nnz_dense * 4  # value bytes of one stream, padding included
+    pair_bytes = live * 2 * A.b * A.b * 4  # one stream's live pair panels
+    log({"phase": "bellpairs_layout", "grid": BSR_GRID, "n": n,
+         "nnz": K.nnz, "n_padded": A.n_padded, "slots": A.slots,
+         "max_ch": A.max_ch, "live_pairs": live,
+         "mean_live_pairs_per_block_row": live / A.n_brows,
+         "win_unit": A.win_unit, "value_bytes_per_stream": stored,
+         "chunk_clamped_bytes_per_stream": A.nnz_streamed * 4,
+         "live_pair_bytes_per_stream": pair_bytes,
+         "build_s": time.perf_counter() - t0})
+    mats = {"a": K, "b": M, "km": sp.vstack([K, M]).tocsr()}
+    csr = {case: torch_csr(mat, dev) for case, mat in mats.items()}
+    rng = np.random.default_rng(3)
+    names = ("bellpairs_matmat", "bellpairs_km_matmat",
+             "bellpairs_matmat_windowed")
+    stats = {name: {"max_abs_err": 0.0} for name in names}
+    for m in (1, 9):
+        Xh = np.zeros((A.n_padded, m), np.float32)
+        Xh[:n] = rng.standard_normal((n, m))
+        X = torch.from_numpy(Xh).to(dev)
+        Xn = X[:n].contiguous()
+        cases = [
+            ("bellpairs_matmat", "a", lambda: kp.bellpairs_matmat(A, X, "a"),
+             lambda: kp.bellpairs_matmat_ref(A, X, "a")),
+            ("bellpairs_matmat", "b", lambda: kp.bellpairs_matmat(A, X, "b"),
+             lambda: kp.bellpairs_matmat_ref(A, X, "b")),
+            ("bellpairs_km_matmat", "km", lambda: kp.bellpairs_km_matmat(A, X),
+             lambda: kp.bellpairs_km_matmat_ref(A, X)),
+            ("bellpairs_matmat_windowed", "a",
+             lambda: kp.bellpairs_matmat_windowed(A, X),
+             lambda: kp.bellpairs_matmat_windowed_ref(A, X)),
+        ]
+        got_by = {}
+        for name, case, kern, plain in cases:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got_by[name, case] = got
+            abs_err, scale = _check_close(f"{name} {case} m={m}", got, want,
+                                          TOL["bellpairs"])
+            ms, plain_ms = median_ms(kern), median_ms(plain)
+            lib = csr[case]
+            library_ms = median_ms(lambda: torch.sparse.mm(lib, Xn))
+            streams = 2 if case == "km" else 1
+            nbytes = csr_bytes(mats[case], m)
+            b_ms, b_by = bound_ms(nbytes, mats[case].nnz * m * 2, "f32")
+            # what the kernel reads: the live pairs' values and columns, the
+            # pair counts, X once; Y written once per stream
+            read_bytes = (streams * pair_bytes + live * 4 + A.n_brows * 4
+                          + A.n_padded * m * 4 * (1 + streams))
+            row = {
+                "kernel": name, "grid": BSR_GRID, "case": case, "m": m,
+                "max_abs_err": abs_err, "rel_err": abs_err / scale,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+                "layout_bytes": streams * stored + A.cols.numel() * 4,
+                "read_bytes": read_bytes,
+                "read_GB_per_s": read_bytes / ms / 1e6,
+            }
+            if name == "bellpairs_matmat_windowed":
+                row.update(win_unit=A.win_unit,
+                           window_bytes=kp.window_bytes(A, m),
+                           window_staged=kp.window_staged(A, m))
+            log(row)
+            st = stats[name]
+            st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+            if m == 9 and case in ("km", "b") or (
+                    m == 9 and name == "bellpairs_matmat_windowed"):
+                st.update({k: row[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "layout_bytes", "read_bytes")})
+                if name == "bellpairs_matmat_windowed":
+                    st.update({k: row[k] for k in (
+                        "win_unit", "window_bytes", "window_staged")})
+        # the one-stream, fused and windowed forms do the same per-element
+        # arithmetic in the same order
+        Ya = got_by["bellpairs_matmat", "a"]
+        same = {
+            "km_vs_a": torch.equal(got_by["bellpairs_km_matmat", "km"][0], Ya),
+            "km_vs_b": torch.equal(got_by["bellpairs_km_matmat", "km"][1],
+                                   got_by["bellpairs_matmat", "b"]),
+            "windowed_vs_a": torch.equal(
+                got_by["bellpairs_matmat_windowed", "a"], Ya),
+        }
+        log({"check": "bellpairs_forms_bitwise_equal", "m": m, **same})
+        if not all(same.values()):
+            raise AssertionError(f"BELLPairs forms differ at m={m}: {same}")
+    del A, csr
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_bellpairs_banded():
+    """The banded BELLPairs forms on the 48^3 RCM brick (n = 318,096) at
+    m = 9, with the reference's own band split for its max_m = 96
+    (maxwell_tpu/solvers/operator.py:337-346: window rows capped at the
+    lane-padded VMEM budget over 128 lanes of 4 B, with 5/6 headroom),
+    against their plain versions and timed beside the one-stream and fused
+    kernels on the full X. Frees the 48^3 layout before it returns."""
+    import scipy.sparse as sp
+
+    from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
+    from maxwell_tpu_torch.problems import BrickCavity3D
+    from maxwell_tpu_torch.sparse.bellpairs import BELLPairs
+    from maxwell_tpu_torch.sparse.reorder import PermutedProblem
+
+    dev = torch.device("cuda")
+    g = BANDED_GRID
+    t0 = time.perf_counter()
+    problem = PermutedProblem(BrickCavity3D(nx=g, ny=g, nz=g))
+    K, M = problem.K.tocsr(), problem.M.tocsr()
+    t1 = time.perf_counter()
+    A = BELLPairs.from_csr(K, B=M, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rows_cap = 96 * 1024 * 1024 // (128 * 4) * 5 // 6
+    AB = A.banded(m=96, budget_bytes=rows_cap * 96 * 4)
+    t3 = time.perf_counter()
+    n = K.shape[0]
+    log({"phase": "bellpairs_banded_layout", "grid": g, "n": n,
+         "nnz": K.nnz, "n_padded": A.n_padded, "slots": A.slots,
+         "value_bytes_per_stream": A.nnz_dense * 4,
+         "bands": len(AB.bands), "col_starts": list(AB.col_starts),
+         "col_rows": list(AB.col_rows), "problem_s": t1 - t0,
+         "build_s": t2 - t1, "band_s": t3 - t2})
+    m = 9
+    Xh = np.zeros((A.n_padded, m), np.float32)
+    Xh[:n] = np.random.default_rng(4).standard_normal((n, m))
+    X = torch.from_numpy(Xh).to(dev)
+    Xn = X[:n].contiguous()
+    mats = {"a": K, "km": sp.vstack([K, M]).tocsr()}
+    cases = [
+        ("bellpairs_matmat_banded", "a",
+         lambda: kp.bellpairs_matmat_banded(AB, X),
+         lambda: kp.bellpairs_matmat_banded_ref(AB, X),
+         lambda: kp.bellpairs_matmat(A, X)),
+        ("bellpairs_km_matmat_banded", "km",
+         lambda: kp.bellpairs_km_matmat_banded(AB, X),
+         lambda: kp.bellpairs_km_matmat_banded_ref(AB, X),
+         lambda: kp.bellpairs_km_matmat(A, X)),
+    ]
+    stats = {}
+    for name, case, kern, plain, full in cases:
+        got, want, whole = kern(), plain(), full()
+        torch.cuda.synchronize()
+        abs_err, scale = _check_close(f"{name} m={m}", got, want,
+                                      TOL["bellpairs"])
+        _check_close(f"{name} against the full-X kernel", got, whole,
+                     TOL["bellpairs"])
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            got if isinstance(got, tuple) else (got,),
+            whole if isinstance(whole, tuple) else (whole,)))
+        ms, plain_ms = median_ms(kern), median_ms(plain)
+        full_ms = median_ms(full)
+        lib = torch_csr(mats[case], dev)
+        library_ms = median_ms(lambda: torch.sparse.mm(lib, Xn))
+        del lib
+        nbytes = csr_bytes(mats[case], m)
+        b_ms, b_by = bound_ms(nbytes, mats[case].nnz * m * 2, "f32")
+        row = {"kernel": name, "grid": g, "case": case, "m": m,
+               "max_abs_err": abs_err, "rel_err": abs_err / scale, "ms": ms,
+               "plain_ms": plain_ms, "full_x_kernel_ms": full_ms,
+               "library_ms": library_ms, "bytes": nbytes, "bound_ms": b_ms,
+               "bound_by": b_by, "bands": len(AB.bands),
+               "col_rows": list(AB.col_rows),
+               "bitwise_equal_full_x": bitwise}
+        log(row)
+        stats[name] = {k: row[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "full_x_kernel_ms", "bound_ms",
+            "bound_by", "library_ms", "bands", "col_rows")}
+    del A, AB, X, Xn, problem
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_bellpairs_cli():
+    """Config 2 (2D, 32x32) through the CLI on cuda with `storage: {"dtype":
+    "f32", "kernel": "bellpairs"}`, refined to 1e-8 on the host. Returns its
+    counts."""
+    path = os.path.join(CONFIGS, "config2.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["storage"] = {"dtype": "f32", "kernel": "bellpairs"}
+    cfg["solver"]["refine"] = True
+    with tempfile.TemporaryDirectory() as tmp:
+        p = os.path.join(tmp, "config2_bellpairs.json")
+        with open(p, "w") as f:
+            json.dump(cfg, f)
+        rc, rep, cnt, wall = run_cli(p)
+    log({"phase": "bellpairs_cli", "config": "config2", "rc": rc,
+         "storage": cfg["storage"], "wall_s": wall,
+         **{k: rep.get(k) for k in (
+             "converged", "iterations", "n", "t_solve_s", "t_refine_s",
+             "eigenvalues", "residuals", "analytic_rel_err")},
+         "counts": {k: v for k, v in cnt.items() if v}})
+    if rc != 0 or not rep["converged"] or max(rep["residuals"]) > 1e-8:
+        raise AssertionError(f"config 2 (bellpairs) through the CLI: {rep}")
+    if max(rep["analytic_rel_err"]) > 2.5e-2:
+        raise AssertionError(f"config 2 (bellpairs) vs analytic: {rep}")
+    stray = {k: v for k, v in cnt.items()
+             if v and (k.endswith("_ref") or not k.startswith("bellpairs_"))}
+    if cnt["bellpairs_km_matmat"] <= 0 or stray:
+        raise AssertionError(f"config 2 (bellpairs) counts: {cnt}")
+    return cnt
+
+
 def main():
     phase_device()
     from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
@@ -879,27 +1155,40 @@ def main():
         (f"{SOLVE_GRID}^3", problem),
         ("config1", RectCavity2D(nx=16, ny=16)),
     ]))
-    bsr_counts = phase_bsr_solve()
+    bsr_counts = phase_repeat_solve(grid_problem, "pallas", "bsr_",
+                                    ("bsr_matmat",))
     lanczos_counts = phase_lanczos()
+    stats.update(phase_bellpairs_kernels(grid_problem))
+    stats.update(phase_bellpairs_banded())
+    bp_counts = phase_repeat_solve(
+        grid_problem, "bellpairs", "bellpairs_",
+        ("bellpairs_km_matmat", "bellpairs_matmat"))
+    phase_bellpairs_cli()
 
     launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"],
                 "bsr_matmat": bsr_counts["bsr_matmat"],
                 "bsr_matmat_windowed": bsr_counts["bsr_matmat_windowed"],
-                "bsr_matvec": lanczos_counts["bsr_matvec"]}
+                "bsr_matvec": lanczos_counts["bsr_matvec"],
+                **{k: v for k, v in bp_counts.items()
+                   if k.startswith("bellpairs_") and not k.endswith("_ref")}}
 
-    def entry(name):
+    def entry(name, *extra):
         st = stats[name]
         return {"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}}
+                                      "bound_ms", "bound_by", "library_ms",
+                                      *extra)}}
 
+    window = ("win_unit", "window_bytes", "window_staged")
+    bands = ("bands", "col_rows", "full_x_kernel_ms")
     log({"off_main_path": [
         {**entry("bellunion_matvec"),
          "residual_check_launches": check_counts["bellunion_matvec"]},
-        {**entry("bsr_matmat_windowed"),
-         **{k: stats["bsr_matmat_windowed"][k]
-            for k in ("win_unit", "window_bytes", "window_staged")}},
+        entry("bsr_matmat_windowed", *window),
+        entry("bellpairs_matmat_windowed", *window),
+        entry("bellpairs_matmat_banded", *bands),
+        entry("bellpairs_km_matmat_banded", *bands),
     ]})
     log({"kernels": [entry(name) for name in MAIN_PATH]})
     log(f"nvidia-smi: {nvidia_smi_line()}")

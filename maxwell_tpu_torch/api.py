@@ -43,9 +43,11 @@ def solve(
     kernel: "auto" — the BELLUnion CUDA kernels ("union") on a CUDA device
     at f32, the plain blocked-ELL apply ("ref") otherwise — or an explicit
     "ref" | "union" | "pallas" (blocked-ELL with 8x8 blocks through its
-    CUDA SpMM/SpMV kernels, f32 only on a CUDA device). A "union" or
-    "pallas" pencil on a CPU device runs the kernels' plain PyTorch
-    versions.
+    CUDA SpMM/SpMV kernels) | "bellpairs" (paired-chunk blocked-ELL with
+    K and M on one pair structure, through its fused K/M and one-stream
+    CUDA SpMM kernels); the "pallas" and "bellpairs" kernels take f32
+    only on a CUDA device. A "union", "pallas" or "bellpairs" pencil on a
+    CPU device runs the kernels' plain PyTorch versions.
 
     refine: mixed-precision polish (solvers/refine.py). "auto" applies it
     when dtype is f32 and tol is below the f32 floor (1e-6): the device

@@ -4,9 +4,9 @@
 Takes the JSON configs of maxwell_tpu/cli/run.py (configs/); this port runs
 the solver kinds "lobpcg", "lanczos" and "tr_lanczos" (`ncv`,
 `max_restarts`) on the assembled "rect2d" and "brick3d" problems
-(`storage.kernel`: "auto", "ref", "union" or "pallas") and on the
-matrix-free operator (`storage.operator == "stencil"`: StencilPencil2D /
-StencilPencil3D, with materials). With refinement, PEC 3D stencil pencils
+(`storage.kernel`: "auto", "ref", "union", "pallas" or "bellpairs") and on
+the matrix-free operator (`storage.operator == "stencil"`: StencilPencil2D
+/ StencilPencil3D, with materials). With refinement, PEC 3D stencil pencils
 refine to tol on the device (`refine_dw`), other stencil pencils by
 warm-started f64 LOBPCG on the CPU (`refine_f64_pencil`), and assembled
 problems by host f64 RQI (`refine_f64`). "shift_invert", "lobpcg_dist" and
@@ -112,7 +112,7 @@ def build_stencil(pcfg, dtype, block, device):
     )
 
 
-def _lobpcg(pencil, scfg, nev, maxiter, tol, args):
+def _lobpcg(pencil, scfg, nev, maxiter, tol, args, stall_window):
     """LOBPCG with the config's preconditioner: the spectral
     (K + alpha M)^-1 for PEC 3D stencil pencils where `precond` allows it,
     else shifted CG."""
@@ -147,6 +147,7 @@ def _lobpcg(pencil, scfg, nev, maxiter, tol, args):
         checkpoint=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
         log_every=scfg.get("log_every", 0),
+        stall_window=stall_window,
     )
 
 
@@ -247,7 +248,14 @@ def main(argv=None):
             max_restarts=scfg.get("max_restarts", 40), tol=tol,
         )
     else:
-        res = _lobpcg(pencil, scfg, nev, maxiter, tol, args)
+        # an f32 solve that a refinement follows is cut at the f32 floor and
+        # hands over its best iterate (the reference CLI's rule for its
+        # distributed LOBPCG, maxwell_tpu/cli/run.py:274-285, applied here
+        # to every LOBPCG): bouncing on at the floor can break the block
+        # down (config 2 at f32: max residual 0.99 by iteration 67), and the
+        # refine then converges to other eigenpairs
+        stall = 15 if want_refine and dtype == torch.float32 else 0
+        res = _lobpcg(pencil, scfg, nev, maxiter, tol, args, stall)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_solve = time.perf_counter() - t0

@@ -38,6 +38,10 @@ _SIGNATURES = {
     "bellunion_matmat_b3": [_P] * 6 + [_I] * 5 + [_P],
     "bellunion_km_matmat_f32": [_P] * 7 + [_I] * 5 + [_P],
     "bellunion_km_matmat_b3": [_P] * 9 + [_I] * 5 + [_P],
+    # bellpairs_spmm.cu
+    "bellpairs_matmat_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "bellpairs_km_matmat_f32": [_P] * 7 + [_I] * 3 + [_P],
+    "bellpairs_matmat_windowed_f32": [_P] * 6 + [_I] * 5 + [_P],
     # bsr_spmm.cu
     "bsr_matmat_f32": [_P] * 5 + [_I] * 3 + [_P],
     "bsr_matmat_windowed_f32": [_P] * 6 + [_I] * 5 + [_P],

@@ -13,12 +13,22 @@ SpMM:
                     blocked-ELL kernels (kernels/bsr_spmm.py): the SpMV
                     for a vector or a one-column block, the SpMM
                     otherwise; CPU tensors through their plain versions.
+    kernel="bellpairs"  paired-chunk blocked-ELL (sparse/bellpairs.py)
+                    carrying both value streams on one pair structure (K as
+                    stream a, M as stream b; M is None). CUDA f32 tensors go
+                    through the hand-written kernels
+                    (kernels/bellpairs_spmm.py): the fused K/M SpMM for
+                    KM_mm, the one-stream SpMM for K_mm and M_mm (a vector
+                    or a one-column block is a true m = 1 launch); CPU
+                    tensors through their plain versions.
     kernel="ref"    blocked-ELL and a plain gather + einsum
                     (sparse/bsr.py): the f64 path.
 
-The reference's "bellpairs" layout is not ported yet. Its VMEM routing and
-row-band split are not needed: the CUDA kernels read X from global memory
-at any size.
+The reference's VMEM routing for the union and bellpairs layouts (`max_m`,
+`Kbanded`, the row-band split; maxwell_tpu/solvers/operator.py:133-174,
+312-346) is TPU plumbing and is dropped: the CUDA kernels read X from global
+memory at any size. The banded BELLPairs apply stays a ported entry point
+(kernels/bellpairs_spmm.py) off the solve path.
 """
 
 from __future__ import annotations
@@ -31,15 +41,12 @@ from maxwell_tpu_torch.solvers.cg import cg
 from maxwell_tpu_torch.solvers.deflation import GradientProjector
 from maxwell_tpu_torch.sparse.bsr import BSRMatrix, bsr_matmat_ref
 
-_KERNELS = ("ref", "union", "pallas")
+_KERNELS = ("ref", "union", "pallas", "bellpairs")
+# layouts that carry M as K's second value stream (M is None)
+_TWO_STREAM = ("union", "bellpairs")
 
 
 def _check_kernel(kernel: str) -> None:
-    if kernel == "bellpairs":
-        raise NotImplementedError(
-            'kernel="bellpairs" is not ported yet: its Pallas kernels '
-            "(K11-K14) are queued in ROADMAP.md (Queue 2)"
-        )
     if kernel not in _KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
 
@@ -48,10 +55,10 @@ def _check_kernel(kernel: str) -> None:
 class Pencil:
     """The matrix pencil (K, M) plus nullspace projector.
 
-    kernel: "union", "pallas" or "ref" (the module docstring says what
-    each runs). M may be None (standard eigenproblem, or kernel="union"
-    where M is K's second value stream). proj may be None (no nullspace
-    deflation).
+    kernel: "union", "bellpairs", "pallas" or "ref" (the module docstring
+    says what each runs). M may be None (standard eigenproblem, or
+    kernel="union" / "bellpairs" where M is K's second value stream).
+    proj may be None (no nullspace deflation).
     fastproj: exact tensor-product nodal solver for vacuum PEC bricks.
     precision: union dot precision, "highest" (exact f32) or "b3" (three
     bf16 products of the build-time value split; the f32 default).
@@ -77,15 +84,19 @@ class Pencil:
 
     @property
     def dtype(self) -> torch.dtype:
-        if self.kernel == "union":
-            return self.K.vals.dtype
-        return self.K.blocks.dtype
+        return self._values.dtype
 
     @property
     def device(self) -> torch.device:
+        return self._values.device
+
+    @property
+    def _values(self) -> torch.Tensor:
         if self.kernel == "union":
-            return self.K.vals.device
-        return self.K.blocks.device
+            return self.K.vals
+        if self.kernel == "bellpairs":
+            return self.K.vals2d
+        return self.K.blocks
 
     # --- reductions -----------------------------------------------------
     def weigh(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,6 +139,15 @@ class Pencil:
             self.K, X, stream=stream, precision=self.precision
         )
 
+    def _pairs_mm(self, X: torch.Tensor, stream: str) -> torch.Tensor:
+        from maxwell_tpu_torch.kernels.bellpairs_spmm import bellpairs_matmat
+
+        vec = X.dim() == 1
+        Y = bellpairs_matmat(
+            self.K, (X[:, None] if vec else X).contiguous(), stream
+        )
+        return Y[:, 0] if vec else Y
+
     def _bsr_mm(self, A: BSRMatrix, X: torch.Tensor) -> torch.Tensor:
         vec = X.dim() == 1
         if self.kernel == "pallas":
@@ -148,20 +168,33 @@ class Pencil:
     def K_mm(self, X: torch.Tensor) -> torch.Tensor:
         if self.kernel == "union":
             return self._union_mm(X, "a")
+        if self.kernel == "bellpairs":
+            return self._pairs_mm(X, "a")
         return self._bsr_mm(self.K, X)
 
     def M_mm(self, X: torch.Tensor) -> torch.Tensor:
         if self.kernel == "union":
             return self._union_mm(X, "b")
+        if self.kernel == "bellpairs":
+            return self._pairs_mm(X, "b")
         if self.M is None:
             return X
         return self._bsr_mm(self.M, X)
 
     def KM_mm(self, X: torch.Tensor):
-        """(K @ X, M @ X). kernel="union": ONE fused kernel — X gathered
-        once per chunk and contracted against both value streams;
-        kernel="pallas" and "ref": two single-operator applies, as in the
-        reference."""
+        """(K @ X, M @ X). kernel="union" and "bellpairs": ONE fused kernel
+        — X gathered once per chunk (pair slot) and contracted against both
+        value streams, for a vector too; kernel="pallas" and "ref": two
+        single-operator applies, as in the reference."""
+        if self.kernel == "bellpairs":
+            from maxwell_tpu_torch.kernels.bellpairs_spmm import (
+                bellpairs_km_matmat,
+            )
+
+            vec = X.dim() == 1
+            Xl = (X[:, None] if vec else X).contiguous()
+            Yk, Ym = bellpairs_km_matmat(self.K, Xl)
+            return (Yk[:, 0], Ym[:, 0]) if vec else (Yk, Ym)
         if self.kernel == "union" and self.K.vals_b is not None:
             from maxwell_tpu_torch.kernels.spmm import bellunion_km_matmat
 
@@ -172,9 +205,10 @@ class Pencil:
         return self.K_mm(X), self.M_mm(X)
 
     def Minv_mm(self, X: torch.Tensor) -> torch.Tensor:
-        """M^-1 X via CG. A union pencil stores M as K's second stream (M is
-        None there), so the identity shortcut applies to "ref" only."""
-        if self.kernel != "union" and self.M is None:
+        """M^-1 X via CG. A union or bellpairs pencil stores M as K's second
+        stream (M is None there), so the identity shortcut applies to the
+        blocked-ELL pencils only."""
+        if self.kernel not in _TWO_STREAM and self.M is None:
             return X
         return cg(
             self.M_mm, X, tol=self.mass_tol, maxiter=self.mass_iters,
@@ -205,12 +239,12 @@ class Pencil:
         device: str | torch.device = "cuda",
     ) -> "Pencil":
         """Build from a cavity problem (RectCavity2D / BrickCavity3D /
-        PermutedProblem). block default: 8 for the union and "pallas"
-        layouts, 4 for the blocked-ELL reference. precision "auto": "b3"
-        for a union pencil at f32, "highest" otherwise."""
+        PermutedProblem). block default: 8 for the union, bellpairs and
+        "pallas" layouts, 4 for the blocked-ELL reference. precision "auto":
+        "b3" for a union pencil at f32, "highest" otherwise."""
         _check_kernel(kernel)
         if block is None:
-            block = 8 if kernel in ("union", "pallas") else 4
+            block = 8 if kernel in ("union", "pallas", "bellpairs") else 4
         M = None
         if kernel == "union":
             from maxwell_tpu_torch.sparse.bellunion import BELLUnion
@@ -223,6 +257,13 @@ class Pencil:
             )
             if precision == "b3":
                 K = K.bf16x3()
+        elif kernel == "bellpairs":
+            from maxwell_tpu_torch.sparse.bellpairs import BELLPairs
+
+            K = BELLPairs.from_csr(
+                problem.K, block=block, dtype=dtype, B=problem.M,
+                device=device,
+            )
         else:
             # "pallas": slots aligned to 128 // b, as the reference builds it
             align = None if kernel == "pallas" else 4
@@ -264,12 +305,18 @@ class Pencil:
     def from_reference(obj, device: str | torch.device = "cuda") -> "Pencil":
         """Carry a JAX `Pencil` (or any object with the same fields) over:
         its layout, GradientProjector (head/tail/weight) and FastPoisson3D
-        (Vx, Vy, Vz, inv_lam); every leaf is read through np.asarray."""
+        (Vx, Vy, Vz, inv_lam); every leaf is read through np.asarray. A
+        bellpairs pencil's banded split (`Kbanded`) is TPU routing and is
+        not carried."""
         _check_kernel(obj.kernel)
         if obj.kernel == "union":
             from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 
             K, M = BELLUnion.from_reference(obj.K, device), None
+        elif obj.kernel == "bellpairs":
+            from maxwell_tpu_torch.sparse.bellpairs import BELLPairs
+
+            K, M = BELLPairs.from_reference(obj.K, device), None
         else:
             K = BSRMatrix.from_reference(obj.K, device)
             M = None if obj.M is None else BSRMatrix.from_reference(

@@ -166,8 +166,8 @@ def test_pencil_kernels_accepted_and_refused():
     prob = RectCavity2D(nx=4, ny=4)
     p = Pencil.from_problem(prob, kernel="pallas", device="cpu")
     assert p.K.b == 8 and p.K.slots % 16 == 0 and p.M is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Pencil.from_problem(prob, kernel="bellpairs", device="cpu")
+    bp = Pencil.from_problem(prob, kernel="bellpairs", device="cpu")
+    assert bp.M is None and bp.K.vals2d_b is not None and bp.K.b == 8
     with pytest.raises(ValueError):
         Pencil.from_problem(prob, kernel="nope", device="cpu")
 

@@ -17,8 +17,10 @@ import torch
 
 import maxwell_tpu_torch
 from maxwell_tpu_torch.cli import run as port_cli
+from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
 from maxwell_tpu_torch.kernels import bsr_spmm, spmm, stencil_taps as kst
 from maxwell_tpu_torch.problems import BrickCavity3D
+from maxwell_tpu_torch.sparse.bellpairs import BELLPairs
 from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 from maxwell_tpu_torch.sparse.bsr import BSRMatrix
 from maxwell_tpu_torch.sparse.reorder import PermutedProblem
@@ -256,3 +258,103 @@ def test_cuda_cli_config1_pallas(cuda_device, capsys, tmp_path, kind):
            if l.startswith("{")][-1]
     assert rep["converged"] and max(rep["residuals"]) <= 1e-8
     assert counts["bsr_matvec"] > 0 and counts["bsr_matvec_ref"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("m", [1, 3, 9, 17])
+@pytest.mark.parametrize("grid", [(6, 5, 4), (8, 8, 8)])
+def test_cuda_bellpairs_kernels_match_plain(cuda_device, monkeypatch, grid,
+                                            m, staged):
+    """The BELLPairs SpMM (both streams), the fused K/M SpMM, the windowed
+    SpMM (window staged in shared memory, or read from global memory) and
+    the banded forms (1 band on 6x5x4, 4 on 8^3) against their plain
+    versions; the one-stream, fused, windowed and banded forms do the same
+    per-element arithmetic in the same order."""
+    cav = PermutedProblem(BrickCavity3D(nx=grid[0], ny=grid[1], nz=grid[2]))
+    A = BELLPairs.from_csr(cav.K, B=cav.M, device=cuda_device)
+    AB = A.banded(m=8, budget_bytes=24 * 1024)
+    if not staged:
+        monkeypatch.setattr(bsr_spmm, "SMEM_LIMIT", 0)
+    assert kp.window_staged(A, m) == staged
+    X = torch.from_numpy(
+        np.random.default_rng(m).standard_normal((A.n_padded, m))
+    ).float().to(cuda_device)
+    want_k, want_m = kp.bellpairs_km_matmat_ref(A, X)
+    kp.reset_counts()
+    Yk, Ym = kp.bellpairs_km_matmat(A, X)
+    got = {
+        "a": (kp.bellpairs_matmat(A, X, "a"), want_k),
+        "b": (kp.bellpairs_matmat(A, X, "b"), want_m),
+        "km_k": (Yk, want_k), "km_m": (Ym, want_m),
+        "windowed": (kp.bellpairs_matmat_windowed(A, X), want_k),
+        "banded_b": (kp.bellpairs_matmat_banded(AB, X, "b"), want_m),
+    }
+    Bk, Bm = kp.bellpairs_km_matmat_banded(AB, X)
+    got.update(banded_km_k=(Bk, want_k), banded_km_m=(Bm, want_m))
+    torch.cuda.synchronize()
+    for name, (g, w) in got.items():
+        err = (g - w).abs().max() / w.abs().max()
+        assert err.item() <= 1e-5, name
+    for name in ("km_k", "windowed", "banded_km_k"):
+        assert torch.equal(got[name][0], got["a"][0]), name
+    for name in ("km_m", "banded_b", "banded_km_m"):
+        assert torch.equal(got[name][0], got["b"][0]), name
+    c = kp.counts()
+    assert (c["bellpairs_matmat"], c["bellpairs_km_matmat"],
+            c["bellpairs_matmat_windowed"], c["bellpairs_matmat_banded"],
+            c["bellpairs_km_matmat_banded"]) == (2, 1, 1, 1, 1)
+    assert not any(c[fn.__name__] for fn in kp.PLAIN)
+
+
+@pytest.mark.cuda
+def test_cuda_bellpairs_wrappers_raise(cuda_device):
+    """No fallback: an f64 CUDA tensor raises instead of taking the plain
+    version."""
+    cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
+    A = BELLPairs.from_csr(cav.K, B=cav.M, dtype=torch.float64,
+                           device=cuda_device)
+    X = torch.ones((A.n_padded, 2), dtype=torch.float64, device=cuda_device)
+    for call in (lambda: kp.bellpairs_matmat(A, X, "b"),
+                 lambda: kp.bellpairs_km_matmat(A, X),
+                 lambda: kp.bellpairs_matmat_windowed(A, X)):
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.cuda
+def test_cuda_bellpairs_solve_matches_cpu_plain(cuda_device):
+    """The f32 "bellpairs" solve through its kernels on the card against the
+    same solve through their plain versions on the CPU, both refined to
+    1e-8."""
+    prob = PermutedProblem(BrickCavity3D(nx=6, ny=6, nz=6))
+    X0 = np.random.default_rng(2).standard_normal((prob.K.shape[0], 9))
+    opts = dict(nev=5, tol=1e-8, dtype=torch.float32, kernel="bellpairs",
+                stall_window=12, X0=X0)
+    kp.reset_counts()
+    got = maxwell_tpu_torch.solve(prob, device=cuda_device, **opts)
+    counts = kp.counts()
+    want = maxwell_tpu_torch.solve(prob, device="cpu", **opts)
+    assert got.converged and got.residuals.max() <= 1e-8
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-7)
+    assert counts["bellpairs_km_matmat"] > 0 and counts["bellpairs_matmat"] > 0
+    assert not any(counts[fn.__name__] for fn in kp.PLAIN)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_config2_bellpairs(cuda_device, capsys, tmp_path):
+    """Config 2 through the CLI on the card with `storage.kernel:
+    "bellpairs"` at f32 and the host f64 refine to 1e-8."""
+    with open(os.path.join(CONFIGS, "config2.json")) as f:
+        cfg = json.load(f)
+    cfg["storage"] = {"dtype": "f32", "kernel": "bellpairs"}
+    path = tmp_path / "config2_bellpairs.json"
+    path.write_text(json.dumps(cfg))
+    kp.reset_counts()
+    assert port_cli.main([str(path), "--device", "cuda", "--refine"]) == 0
+    counts = kp.counts()
+    rep = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+           if l.startswith("{")][-1]
+    assert rep["converged"] and max(rep["residuals"]) <= 1e-8
+    assert counts["bellpairs_km_matmat"] > 0
+    assert counts["bellpairs_km_matmat_ref"] == 0

@@ -63,8 +63,7 @@ def test_solve_auto_kernel_on_cpu_is_ref():
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(kernel="bellpairs"), dict(solver="shift_invert", sigma=1.0),
-               dict(distributed=True)],
+    "kwargs", [dict(solver="shift_invert", sigma=1.0), dict(distributed=True)],
 )
 def test_solve_unported_paths_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
