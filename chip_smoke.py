@@ -18,7 +18,14 @@ check that they ran through the kernels:
   slice 4, the BELLPairs road (kernel="bellpairs"): solve() on the 24^3 RCM
     brick to 1e-5 through the fused K/M and one-stream paired-chunk SpMM,
     twice, bit for bit the same, and config 2 (2D, 32x32) through the CLI at
-    f32, refined to 1e-8 on the host.
+    f32, refined to 1e-8 on the host;
+  slice 5, the distributed assembled road: the 24^3 RCM brick in 8 row
+    shards on the card, lobpcg_dist to 1e-5 through the fused interior SpMM
+    + halo copy (union pencil, "rdma_overlap") and through the ring shift
+    (blocked-ELL pencil, "rdma"), each twice, bit for bit the same;
+    thick-restart Lanczos on the 8-shard 16x16 rectangle; config 4 through
+    the CLI (f64 as written, and f32 union refined to 1e-8); and the banded
+    union apply at 48^3.
 
     python3 chip_smoke.py
 
@@ -64,9 +71,28 @@ Phases, in order; any failure raises and the process exits non-zero:
                brick as phase 9 (tol 1e-5, twice, bitwise equal)
  13. bellpairs cli  config 2 through the CLI: f32 "bellpairs" + host refine
                to 1e-8
- 14. result    an {"off_main_path": [...]} line for the kernels no solver
+ 14. union banded  the banded union apply (K7) on the 48^3 RCM brick (the
+               problem phase 11 built) with the reference's own band split
+               for max_m 96, m = 9, highest and b3: against its plain
+               version and bit for bit against the full-X kernel (K2),
+               timed beside it; the layout is freed after
+ 15. dist kernels  the 24^3 RCM brick in 8 row shards (union pencil and
+               blocked-ELL pencil): the ring shift (K6) and the fused
+               interior SpMM + halo copy (K5, one and two streams) against
+               their plain versions and bit for bit against the plain
+               transport and K2; the sharded K and M products against the
+               one-device union pencil; times, bounds and library calls
+ 16. dist solves  slice 5: lobpcg_dist on the 8-shard 24^3 brick, union +
+               "rdma_overlap" and "pallas" + "rdma" (tol 1e-5, twice each,
+               bitwise equal, counts zeroed before each run), against the
+               one-device 24^3 union solve; thick_restart_lanczos_dist on
+               the 8-shard 16x16 rectangle ("pallas" + "rdma")
+ 17. dist cli  config 4 through the CLI: as written (f64, 16^3, 8 shards,
+               deep halos, plain torch on the card) and f32 "union" + host
+               refine to 1e-8
+ 18. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
-               BELLPairs SpMMs, the banded BELLPairs forms), the
+               BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of the main paths' kernels, the
                nvidia-smi line, and last {"ok": true, "device": {...}}
 """
@@ -94,7 +120,8 @@ GRID = 24  # union kernel checks kept from the first slice, n = 38,088
 SOLVE_GRID = 16  # slice-1 solve (its host f64 refine grows fast with n)
 STENCIL_GRID = 64  # slice 2: n = 811,200 edges
 BSR_GRID = 24  # slice 3: the blocked-ELL solve, n = 38,088
-BANDED_GRID = 48  # slice 4: the banded BELLPairs forms, n = 318,096
+BANDED_GRID = 48  # slices 4, 5: the banded forms, n = 318,096
+SHARDS = 8  # slice 5: the distributed road's row shards (config 4's count)
 NEV = 5
 LAUNCHES = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -124,6 +151,9 @@ REPLACES = {
     "bellpairs_matmat_windowed": "maxwell_tpu/kernels/spmm.py:836",
     "bellpairs_matmat_banded": "maxwell_tpu/kernels/spmm.py:772",
     "bellpairs_km_matmat_banded": "maxwell_tpu/kernels/spmm.py:790",
+    "bellunion_matmat_banded": "maxwell_tpu/kernels/spmm.py:568",
+    "union_interior_overlap": "maxwell_tpu/kernels/halo_rdma.py:166",
+    "ring_shift": "maxwell_tpu/kernels/halo_rdma.py:42",
 }
 SOURCE = {
     "bellunion_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
@@ -140,6 +170,10 @@ SOURCE = {
     # two kernels above once per band
     "bellpairs_matmat_banded": "maxwell_tpu_torch/csrc/bellpairs_spmm.cu",
     "bellpairs_km_matmat_banded": "maxwell_tpu_torch/csrc/bellpairs_spmm.cu",
+    # a host loop (kernels/spmm.py) launching K2 once per band
+    "bellunion_matmat_banded": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
+    "union_interior_overlap": "maxwell_tpu_torch/csrc/halo.cu",
+    "ring_shift": "maxwell_tpu_torch/csrc/halo.cu",
 }
 # what each path launches. solve(): the fused apply (LOBPCG's W, the
 # preconditioner's CG) and the single-stream apply (projector, initial
@@ -153,10 +187,13 @@ SOURCE = {
 # preconditioner's CG) and the one-stream SpMM (the first block's K and M,
 # the projector's M applies); its windowed and banded forms are off the
 # solve path (the reference routed to the bands only where X overflowed
-# VMEM).
+# VMEM). The distributed road: the fused interior SpMM + halo copy (union
+# pencil with "rdma_overlap": every K, M and fused K/M apply) and the ring
+# shift (blocked-ELL pencil with "rdma": every apply's halo exchange); the
+# banded union apply is off the solve path, as the banded BELLPairs forms.
 MAIN_PATH = ("bellunion_km_matmat", "bellunion_matmat", "stencil_taps",
              "bsr_matmat", "bsr_matvec", "bellpairs_km_matmat",
-             "bellpairs_matmat")
+             "bellpairs_matmat", "union_interior_overlap", "ring_shift")
 STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 
@@ -377,11 +414,12 @@ def _kernel_modules():
     from maxwell_tpu_torch.kernels import (
         bellpairs_spmm,
         bsr_spmm,
+        halo,
         spmm,
         stencil_taps,
     )
 
-    return spmm, stencil_taps, bsr_spmm, bellpairs_spmm
+    return spmm, stencil_taps, bsr_spmm, bellpairs_spmm, halo
 
 
 def all_counts():
@@ -1019,38 +1057,38 @@ def phase_bellpairs_kernels(problem):
     return stats
 
 
-def phase_bellpairs_banded():
+# the reference's band split for its max_m = 96
+# (maxwell_tpu/solvers/operator.py:337-346): window rows capped at the
+# lane-padded VMEM budget over 128 lanes of 4 B, with 5/6 headroom
+BAND_M = 96
+BAND_BUDGET = 96 * 1024 * 1024 // (128 * 4) * 5 // 6 * BAND_M * 4
+
+
+def phase_bellpairs_banded(problem):
     """The banded BELLPairs forms on the 48^3 RCM brick (n = 318,096) at
-    m = 9, with the reference's own band split for its max_m = 96
-    (maxwell_tpu/solvers/operator.py:337-346: window rows capped at the
-    lane-padded VMEM budget over 128 lanes of 4 B, with 5/6 headroom),
-    against their plain versions and timed beside the one-stream and fused
-    kernels on the full X. Frees the 48^3 layout before it returns."""
+    m = 9, with the reference's own band split (BAND_BUDGET), against their
+    plain versions and timed beside the one-stream and fused kernels on the
+    full X. Frees the 48^3 layout before it returns."""
     import scipy.sparse as sp
 
     from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
-    from maxwell_tpu_torch.problems import BrickCavity3D
     from maxwell_tpu_torch.sparse.bellpairs import BELLPairs
-    from maxwell_tpu_torch.sparse.reorder import PermutedProblem
 
     dev = torch.device("cuda")
     g = BANDED_GRID
-    t0 = time.perf_counter()
-    problem = PermutedProblem(BrickCavity3D(nx=g, ny=g, nz=g))
     K, M = problem.K.tocsr(), problem.M.tocsr()
     t1 = time.perf_counter()
     A = BELLPairs.from_csr(K, B=M, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    rows_cap = 96 * 1024 * 1024 // (128 * 4) * 5 // 6
-    AB = A.banded(m=96, budget_bytes=rows_cap * 96 * 4)
+    AB = A.banded(m=BAND_M, budget_bytes=BAND_BUDGET)
     t3 = time.perf_counter()
     n = K.shape[0]
     log({"phase": "bellpairs_banded_layout", "grid": g, "n": n,
          "nnz": K.nnz, "n_padded": A.n_padded, "slots": A.slots,
          "value_bytes_per_stream": A.nnz_dense * 4,
          "bands": len(AB.bands), "col_starts": list(AB.col_starts),
-         "col_rows": list(AB.col_rows), "problem_s": t1 - t0,
+         "col_rows": list(AB.col_rows),
          "build_s": t2 - t1, "band_s": t3 - t2})
     m = 9
     Xh = np.zeros((A.n_padded, m), np.float32)
@@ -1097,9 +1135,400 @@ def phase_bellpairs_banded():
         stats[name] = {k: row[k] for k in (
             "max_abs_err", "ms", "plain_ms", "full_x_kernel_ms", "bound_ms",
             "bound_by", "library_ms", "bands", "col_rows")}
-    del A, AB, X, Xn, problem
+    del A, AB, X, Xn
     torch.cuda.empty_cache()
     return stats
+
+
+def phase_union_banded(problem):
+    """The banded union apply (K7) on the 48^3 RCM brick's K at m = 9 with
+    the reference's band split, highest and b3 (bands built with
+    split_bf16: views of the full layout's bf16 streams): against its plain
+    version, bit for bit against the full-X kernel (K2), timed beside it.
+    Frees the 48^3 layout before it returns."""
+    from maxwell_tpu_torch.kernels import spmm
+    from maxwell_tpu_torch.sparse.bellunion import BELLUnion
+
+    dev = torch.device("cuda")
+    K = problem.K.tocsr()
+    n = K.shape[0]
+    t0 = time.perf_counter()
+    A = BELLUnion.from_csr(K, device=dev).bf16x3()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    AB = A.banded(m=BAND_M, budget_bytes=BAND_BUDGET, split_bf16=True)
+    t2 = time.perf_counter()
+    log({"phase": "union_banded_layout", "grid": BANDED_GRID, "n": n,
+         "nnz": K.nnz, "chunks": A.n_chunks,
+         "value_bytes_per_stream": A.nnz_dense * 4,
+         "bands": len(AB.bands), "col_starts": list(AB.col_starts),
+         "col_rows": list(AB.col_rows), "build_s": t1 - t0,
+         "band_s": t2 - t1})
+    m = 9
+    Xh = np.zeros((A.n_padded, m), np.float32)
+    Xh[:n] = np.random.default_rng(8).standard_normal((n, m))
+    X = torch.from_numpy(Xh).to(dev)
+    Xn = X[:n].contiguous()
+    lib = torch_csr(K, dev)
+    library_ms = median_ms(lambda: torch.sparse.mm(lib, Xn))
+    stats = {"max_abs_err": 0.0}
+    for precision in ("highest", "b3"):
+        kern = lambda: spmm.bellunion_matmat_banded(AB, X, "a", precision)
+        plain = lambda: spmm.bellunion_matmat_banded_ref(AB, X, "a",
+                                                         precision)
+        full = lambda: spmm.bellunion_matmat(A, X, "a", precision)
+        got, want, whole = kern(), plain(), full()
+        torch.cuda.synchronize()
+        abs_err, scale = _check_close(f"bellunion_matmat_banded {precision}",
+                                      got, want, TOL[precision])
+        bitwise = torch.equal(got, whole)
+        if not bitwise:
+            raise AssertionError(
+                f"banded union apply ({precision}) differs from the full-X "
+                "kernel")
+        ms, plain_ms, full_ms = median_ms(kern), median_ms(plain), median_ms(
+            full)
+        flops = K.nnz * m * 2 * (3 if precision == "b3" else 1)
+        b_ms, b_by = bound_ms(csr_bytes(K, m), flops,
+                              "bf16" if precision == "b3" else "f32")
+        row = {"kernel": "bellunion_matmat_banded", "grid": BANDED_GRID,
+               "precision": precision, "m": m, "max_abs_err": abs_err,
+               "rel_err": abs_err / scale, "ms": ms, "plain_ms": plain_ms,
+               "full_x_kernel_ms": full_ms, "library_ms": library_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bands": len(AB.bands),
+               "col_rows": list(AB.col_rows), "bitwise_equal_full_x": bitwise}
+        log(row)
+        stats["max_abs_err"] = max(stats["max_abs_err"], abs_err)
+        if precision == "highest":  # the reference's banded route
+            stats.update({k: row[k] for k in (
+                "ms", "plain_ms", "full_x_kernel_ms", "bound_ms", "bound_by",
+                "library_ms", "bands", "col_rows")})
+    del A, AB, X, Xn, lib
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _dist_pencils(problem):
+    """The 24^3 RCM brick in SHARDS row shards on the card: the union
+    pencil with "rdma_overlap" and the blocked-ELL pencil with "rdma". The
+    problem is already RCM-ordered, so the partitioner keeps its order."""
+    from maxwell_tpu_torch.dist import partition_problem
+
+    out = {}
+    for kernel, impl in (("union", "rdma_overlap"), ("pallas", "rdma")):
+        t0 = time.perf_counter()
+        dp = partition_problem(problem, SHARDS, kernel=kernel,
+                               dtype=torch.float32, reorder=False,
+                               halo_impl=impl, device="cuda")
+        torch.cuda.synchronize()
+        info = {"phase": "dist_layout", "grid": GRID, "kernel": kernel,
+                "halo_impl": impl, "shards": SHARDS, "L": dp.L, "H": dp.H,
+                "rows_per_shard": dp.Lb, "halo_rows": dp.Hb,
+                "shallow": dp.H <= dp.L, "build_s": time.perf_counter() - t0}
+        if kernel == "union":
+            info.update(
+                interior_chunks=dp.Ui.n_chunks, boundary_chunks=dp.Ub.n_chunks,
+                interior_value_bytes=2 * dp.Ui.nnz_dense * 4,
+                boundary_value_bytes=2 * dp.Ub.nnz_dense * 4)
+        else:
+            info.update(
+                interior_block_bytes=(dp.K_int.nnz_dense
+                                      + dp.M_int.nnz_dense) * 4,
+                boundary_block_bytes=(dp.K_bnd.nnz_dense
+                                      + dp.M_bnd.nnz_dense) * 4)
+        log(info)
+        if not dp.H <= dp.L:
+            raise AssertionError(f"24^3 in {SHARDS} shards is not shallow")
+        out[kernel] = dp
+    return out
+
+
+def _block_diag_interior(problem, dp):
+    """CSR of each shard's interior part of K and M, block diagonal over the
+    shards (what K5's SpMM computes), from the host CSR."""
+    import scipy.sparse as sp
+
+    Lb = dp.Lb
+    mats = []
+    for A in (problem.K, problem.M):
+        C = sp.csr_matrix(A).copy()
+        C.resize((dp.global_rows, dp.global_rows))
+        C = C.tocoo()
+        keep = C.row // Lb == C.col // Lb
+        mats.append(sp.csr_matrix(
+            (C.data[keep], (C.row[keep], C.col[keep])), shape=C.shape))
+    return mats
+
+
+def phase_dist_kernels(problem, pencils):
+    """K6 and K5 on the 8-shard 24^3 brick, m = 9 (LOBPCG's block) and
+    m = 1, against their plain versions and bit for bit against the plain
+    transport and K2; the sharded products against the one-device union
+    pencil. Returns per-kernel stats at the main path's shapes: K5 with both
+    streams and K6 writing the halo-extended buffer, m = 9."""
+    from maxwell_tpu_torch.kernels import halo, spmm
+    from maxwell_tpu_torch.solvers.operator import Pencil
+    from maxwell_tpu_torch.sparse.bellunion import BELLUnion
+
+    import scipy.sparse as sp
+
+    dev = torch.device("cuda")
+    du, dpl = pencils["union"], pencils["pallas"]
+    D, Lb, Hb = du.D, du.Lb, du.Hb
+    n = problem.K.shape[0]
+    rng = np.random.default_rng(9)
+    single = Pencil(K=BELLUnion.from_csr(problem.K, B=problem.M, device=dev),
+                    kernel="union", precision="highest")
+    Ki, Mi = _block_diag_interior(problem, du)
+    lib_i = {"a": torch_csr(Ki, dev), "b": torch_csr(Mi, dev),
+             "ab": torch_csr(sp.vstack([Ki, Mi]).tocsr(), dev)}
+    stats = {"union_interior_overlap": {"max_abs_err": 0.0},
+             "ring_shift": {"max_abs_err": 0.0}}
+    for m in (9, 1):
+        Xh = np.zeros((du.global_rows, m), np.float32)
+        Xh[:n] = rng.standard_normal((n, m))
+        X = torch.from_numpy(Xh).to(dev)
+        # K6: both output layouts, f32, bit for bit the plain transport
+        for own, pad in ((True, du.b), (False, 0)):
+            kern = lambda: halo.ring_shift(X, D, Hb, own, pad)
+            plain = lambda: halo.ring_shift_ref(X, D, Hb, own, pad)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"ring_shift own={own} m={m} differs")
+            # the library call: one index_select of the buffer's rows from
+            # X with a zero row appended
+            rows = got.shape[0] // D
+            r = torch.arange(rows, device=dev)
+            base = torch.arange(D, device=dev)[:, None] * Lb
+            h = r - (Lb if own else 0)
+            src = torch.where(
+                (r < Lb) & own, base + r,
+                torch.where((h >= 0) & (h < Hb), base - Hb + h,
+                            torch.where((h >= Hb) & (h < 2 * Hb),
+                                        base + Lb + h - Hb, -1)))
+            src = torch.where((src < 0) | (src >= D * Lb), D * Lb, src)
+            src = src.reshape(-1)
+            Xz = torch.cat([X, X.new_zeros((1, m))])
+            if not torch.equal(torch.index_select(Xz, 0, src), want):
+                raise AssertionError("the index_select yardstick differs")
+            ms, plain_ms = median_ms(kern), median_ms(plain)
+            library_ms = median_ms(lambda: torch.index_select(Xz, 0, src))
+            nbytes = X.numel() * 4 + got.numel() * 4
+            b_ms, b_by = bound_ms(nbytes, 0, "f32")
+            row = {"kernel": "ring_shift", "grid": GRID, "shards": D, "m": m,
+                   "own": own, "rows_out": got.shape[0], "max_abs_err": 0.0,
+                   "bitwise_equal_plain": True, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+                   "GB_per_s": nbytes / ms / 1e6}
+            log(row)
+            if own and m == 9:  # the "rdma" blocked-ELL apply's exchange
+                stats["ring_shift"].update({k: row[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        dpl_chk = dpl.halo_checksum(X).item()
+        if dpl_chk != 0.0:
+            raise AssertionError(f"halo checksum {dpl_chk}")
+        # K5: one and two streams, bit for bit K2 + the plain transport
+        for streams in ("b", "ab"):
+            kern = lambda: halo.union_interior_overlap(du.Ui, X, D, Hb,
+                                                       streams)
+            plain = lambda: halo.union_interior_overlap_ref(du.Ui, X, D, Hb,
+                                                            streams)
+            got, want = kern(), plain()
+            split = [spmm.bellunion_matmat(du.Ui, X, s) for s in streams]
+            split.append(halo.ppermute(X, D, Hb))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, split))
+            if not same:
+                raise AssertionError(f"K5 {streams} m={m} != K2 + transport")
+            abs_err, scale = _check_close(f"union_interior_overlap {streams}",
+                                          got, want, TOL["highest"])
+            ms, plain_ms = median_ms(kern), median_ms(plain)
+            lib = lib_i[streams]
+            library_ms = median_ms(lambda: torch.sparse.mm(lib, X))
+            mat = {"b": Mi, "ab": None}[streams]
+            nnz = Mi.nnz if mat is not None else Ki.nnz + Mi.nnz
+            # interior values and columns, row pointers per stream, X read
+            # once, each Y and the halo section written once
+            nbytes = (nnz * 8 + len(streams) * (du.global_rows + 1) * 4
+                      + X.numel() * 4 * (1 + len(streams))
+                      + D * 2 * Hb * m * 4)
+            b_ms, b_by = bound_ms(nbytes, nnz * m * 2, "f32")
+            layout_bytes = len(streams) * du.Ui.nnz_dense * 4
+            row = {"kernel": "union_interior_overlap", "grid": GRID,
+                   "shards": D, "streams": streams, "m": m,
+                   "max_abs_err": abs_err, "rel_err": abs_err / scale,
+                   "bitwise_equal_k2_and_transport": same, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+                   "layout_bytes": layout_bytes,
+                   "layout_GB_per_s": layout_bytes / ms / 1e6}
+            log(row)
+            st = stats["union_interior_overlap"]
+            st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+            if streams == "ab" and m == 9:  # LOBPCG's W, the CG sweeps
+                st.update({k: row[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        # the sharded products against the one-device union pencil
+        Xs = torch.zeros((single.n_padded, m), device=dev)
+        Xs[:n] = X[:n]
+        for dp in (du, dpl):
+            for which in ("K", "M"):
+                Yd = (dp.K_mm if which == "K" else dp.M_mm)(X)[:n]
+                Ys = (single.K_mm if which == "K" else single.M_mm)(Xs)[:n]
+                torch.cuda.synchronize()
+                err, scale = _check_close(
+                    f"spmm_dist {dp.kernel} {which} m={m}", Yd, Ys, 2e-5)
+                log({"check": "spmm_dist_vs_single", "kernel": dp.kernel,
+                     "halo_impl": dp.halo_impl, "op": which, "m": m,
+                     "rel_err": err / scale})
+    del single, lib_i
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_dist_solves(problem, pencils):
+    """Slice 5's solves: lobpcg_dist on the 8-shard 24^3 brick at slice 1's
+    knobs (tol 1e-5, maxiter 120, stall_window 12, a seeded X0, shifted CG
+    with the smallest analytic eigenvalue), union + "rdma_overlap" and
+    "pallas" + "rdma", each run twice (bitwise equal), counts zeroed just
+    before each run and read just after; their eigenvalues against the
+    one-device 24^3 union solve's; then thick_restart_lanczos_dist on the
+    8-shard 16x16 rectangle ("pallas" + "rdma"). Returns {name: counts}."""
+    import maxwell_tpu_torch
+    from maxwell_tpu_torch.dist import partition_problem
+    from maxwell_tpu_torch.problems import RectCavity2D
+    from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
+    from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
+    from maxwell_tpu_torch.solvers.trlanczos import thick_restart_lanczos_dist
+
+    tol = 1e-5
+    n = problem.K.shape[0]
+    X0 = np.random.default_rng(5).standard_normal((n, 9))
+    exact = cavity_eigenvalues_3d(1.0, 1.0, 1.0, NEV)
+    one = maxwell_tpu_torch.solve(
+        problem, kernel="union", dtype=torch.float32, device="cuda", nev=NEV,
+        tol=tol, refine=False, maxiter=120, stall_window=12, X0=X0)
+    log({"phase": "dist_single_reference", "grid": GRID,
+         "converged": one.converged, "iterations": one.iterations,
+         "eigenvalues": [float(v) for v in one.eigenvalues]})
+    out = {}
+    required = {"union": ("union_interior_overlap", "bellunion_matmat"),
+                "pallas": ("ring_shift", "bsr_matmat")}
+    for kernel, dp in pencils.items():
+        runs = []
+        for _ in range(2):
+            reset_all_counts()
+            t0 = time.perf_counter()
+            res = lobpcg_dist(dp, nev=NEV, maxiter=120, tol=tol,
+                              stall_window=12, X0=X0,
+                              precond_alpha=float(exact[0]))
+            torch.cuda.synchronize()
+            runs.append((res, all_counts(), time.perf_counter() - t0))
+        (res, counts, wall), (res2, _, wall2) = runs
+        hist = [h["max_rel_res"] for h in res.history]
+        identical = (hist == [h["max_rel_res"] for h in res2.history]
+                     and np.array_equal(res.eigenvectors, res2.eigenvectors))
+        rel_one = np.abs(res.eigenvalues - one.eigenvalues) / one.eigenvalues
+        rel = np.abs(res.eigenvalues - exact) / exact
+        log({"phase": "dist_solve", "grid": GRID, "shards": dp.D,
+             "kernel": kernel, "halo_impl": dp.halo_impl,
+             "converged": res.converged, "iterations": res.iterations,
+             "eigenvalues": [float(v) for v in res.eigenvalues],
+             "rel_to_single_device": [float(v) for v in rel_one],
+             "analytic_rel_err": [float(v) for v in rel],
+             "residuals": [float(v) for v in res.residuals],
+             "history_max_res": hist, "repeat_identical": identical,
+             "wall_s": wall, "repeat_wall_s": wall2,
+             "ms_per_iteration": wall / max(res.iterations, 1) * 1e3,
+             "device": torch.cuda.get_device_name(0),
+             "nvidia_smi": nvidia_smi_line(),
+             "counts": {k: v for k, v in counts.items() if v}})
+        if not res.converged or res.residuals.max() > tol:
+            raise AssertionError(f"dist {kernel} not converged: "
+                                 f"{res.residuals}")
+        if not identical:
+            raise AssertionError(f"two runs of the dist {kernel} solve differ")
+        if not np.all(np.isfinite(res.eigenvectors)) or (
+                res.eigenvectors.shape != (n, NEV)):
+            raise AssertionError("dist solve eigenvectors: shape or values")
+        if not rel_one.max() <= 1e-4:
+            raise AssertionError(f"dist {kernel} vs one device: {rel_one}")
+        for name in required[kernel]:
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the "
+                                     f"dist {kernel} solve")
+        stray = {k: v for k, v in counts.items() if v and k.endswith("_ref")}
+        if stray:
+            raise AssertionError(f"plain versions ran on the card: {stray}")
+        out[kernel] = counts
+
+    cav = RectCavity2D(nx=16, ny=16)
+    dp = partition_problem(cav, SHARDS, kernel="pallas", dtype=torch.float32,
+                           halo_impl="rdma", device="cuda")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = thick_restart_lanczos_dist(dp, nev=3, ncv=20, max_restarts=40,
+                                     tol=1e-5)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    exact2 = np.sort(cav.analytic_eigenvalues(3))
+    rel = np.abs(np.sort(res.eigenvalues) - exact2) / exact2
+    log({"phase": "dist_trlanczos", "problem": "rect 16x16",
+         "shards": dp.D, "H": dp.H, "L": dp.L, "converged": res.converged,
+         "iterations": res.iterations,
+         "eigenvalues": [float(v) for v in res.eigenvalues],
+         "residuals": [float(v) for v in res.residuals],
+         "analytic_rel_err": [float(v) for v in rel],
+         "wall_s": time.perf_counter() - t0,
+         "counts": {k: v for k, v in counts.items() if v}})
+    if not res.converged or not rel.max() <= 2.5e-2:
+        raise AssertionError(f"dist thick-restart Lanczos: {res}")
+    if counts["ring_shift"] <= 0 or counts["bsr_matvec"] <= 0:
+        raise AssertionError(f"dist thick-restart Lanczos counts: {counts}")
+    out["trlanczos"] = counts
+    return out
+
+
+def phase_dist_cli():
+    """Config 4 through the CLI on cuda: (a) as written (f64, 16^3, 8
+    shards: deep halos, the plain blocked-ELL apply on the card), (b) f32
+    "union" + host refine to 1e-8, the reference's TPU route."""
+    path = os.path.join(CONFIGS, "config4.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    b = json.loads(json.dumps(cfg))
+    b["storage"] = {"dtype": "f32", "kernel": "union"}
+    b["solver"]["refine"] = True
+    reports = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, variant in (("a", cfg), ("b", b)):
+            p = path
+            if key == "b":
+                p = os.path.join(tmp, "config4_union.json")
+                with open(p, "w") as f:
+                    json.dump(variant, f)
+            rc, rep, cnt, wall = run_cli(p)
+            reports[key] = rep
+            log({"phase": "dist_cli", "config": "config4", "variant": key,
+                 "storage": variant["storage"], "rc": rc, "wall_s": wall,
+                 **{k: rep.get(k) for k in (
+                     "converged", "iterations", "n", "t_solve_s",
+                     "t_refine_s", "eigenvalues", "residuals",
+                     "analytic_rel_err")},
+                 "counts": {k: v for k, v in cnt.items() if v}})
+            if rc != 0 or not rep["converged"] or max(rep["residuals"]) > 1e-8:
+                raise AssertionError(f"config 4 ({key}) through the CLI: {rep}")
+            if max(rep["analytic_rel_err"]) > 2.5e-2:
+                raise AssertionError(f"config 4 ({key}) vs analytic: {rep}")
+            stray = {k: v for k, v in cnt.items() if v and k.endswith("_ref")}
+            if stray or (key == "b" and cnt["bellunion_matmat"] <= 0):
+                raise AssertionError(f"config 4 ({key}) counts: {cnt}")
+    ev_a = np.asarray(reports["a"]["eigenvalues"])
+    rel = np.abs(np.asarray(reports["b"]["eigenvalues"]) - ev_a) / ev_a
+    if not rel.max() <= 1e-8:
+        raise AssertionError(f"config 4 (b) vs (a): {rel}")
 
 
 def phase_bellpairs_cli():
@@ -1133,44 +1562,68 @@ def phase_bellpairs_cli():
     return cnt
 
 
+def timed(fn, *args):
+    """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log({"phase_seconds": fn.__name__, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main():
     phase_device()
     from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
     from maxwell_tpu_torch.sparse.reorder import PermutedProblem
 
-    phase_build()
+    timed(phase_build)
     grid_problem = PermutedProblem(BrickCavity3D(nx=GRID, ny=GRID, nz=GRID))
-    phase_kernels(grid_problem, GRID)
+    timed(phase_kernels, grid_problem, GRID)
     problem = PermutedProblem(BrickCavity3D(
         nx=SOLVE_GRID, ny=SOLVE_GRID, nz=SOLVE_GRID))
     # the kernels line reports the union kernels at the solve's shapes
-    stats = phase_kernels(problem, SOLVE_GRID)
-    counts, check_counts = phase_solve(problem)
-    pencil, stencil_counts = phase_stencil_solve()
-    stats["stencil_taps"] = phase_stencil_kernels(pencil)
+    stats = timed(phase_kernels, problem, SOLVE_GRID)
+    counts, check_counts = timed(phase_solve, problem)
+    pencil, stencil_counts = timed(phase_stencil_solve)
+    stats["stencil_taps"] = timed(phase_stencil_kernels, pencil)
     del pencil
-    phase_dielectric()
-    stats.update(phase_bsr_kernels([
+    timed(phase_dielectric)
+    stats.update(timed(phase_bsr_kernels, [
         (f"{BSR_GRID}^3", grid_problem),
         (f"{SOLVE_GRID}^3", problem),
         ("config1", RectCavity2D(nx=16, ny=16)),
     ]))
-    bsr_counts = phase_repeat_solve(grid_problem, "pallas", "bsr_",
-                                    ("bsr_matmat",))
-    lanczos_counts = phase_lanczos()
-    stats.update(phase_bellpairs_kernels(grid_problem))
-    stats.update(phase_bellpairs_banded())
-    bp_counts = phase_repeat_solve(
-        grid_problem, "bellpairs", "bellpairs_",
+    bsr_counts = timed(phase_repeat_solve, grid_problem, "pallas", "bsr_",
+                       ("bsr_matmat",))
+    lanczos_counts = timed(phase_lanczos)
+    stats.update(timed(phase_bellpairs_kernels, grid_problem))
+    t0 = time.perf_counter()
+    big = PermutedProblem(BrickCavity3D(
+        nx=BANDED_GRID, ny=BANDED_GRID, nz=BANDED_GRID))
+    log({"phase": "banded_problem", "grid": BANDED_GRID,
+         "seconds": time.perf_counter() - t0})
+    stats.update(timed(phase_bellpairs_banded, big))
+    stats["bellunion_matmat_banded"] = timed(phase_union_banded, big)
+    del big
+    bp_counts = timed(
+        phase_repeat_solve, grid_problem, "bellpairs", "bellpairs_",
         ("bellpairs_km_matmat", "bellpairs_matmat"))
-    phase_bellpairs_cli()
+    timed(phase_bellpairs_cli)
+    pencils = timed(_dist_pencils, grid_problem)
+    stats.update(timed(phase_dist_kernels, grid_problem, pencils))
+    dist_counts = timed(phase_dist_solves, grid_problem, pencils)
+    del pencils
+    torch.cuda.empty_cache()
+    timed(phase_dist_cli)
 
     launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"],
                 "bsr_matmat": bsr_counts["bsr_matmat"],
                 "bsr_matmat_windowed": bsr_counts["bsr_matmat_windowed"],
                 "bsr_matvec": lanczos_counts["bsr_matvec"],
                 **{k: v for k, v in bp_counts.items()
-                   if k.startswith("bellpairs_") and not k.endswith("_ref")}}
+                   if k.startswith("bellpairs_") and not k.endswith("_ref")},
+                "union_interior_overlap":
+                    dist_counts["union"]["union_interior_overlap"],
+                "ring_shift": dist_counts["pallas"]["ring_shift"]}
 
     def entry(name, *extra):
         st = stats[name]
@@ -1189,6 +1642,7 @@ def main():
         entry("bellpairs_matmat_windowed", *window),
         entry("bellpairs_matmat_banded", *bands),
         entry("bellpairs_km_matmat_banded", *bands),
+        entry("bellunion_matmat_banded", *bands),
     ]})
     log({"kernels": [entry(name) for name in MAIN_PATH]})
     log(f"nvidia-smi: {nvidia_smi_line()}")

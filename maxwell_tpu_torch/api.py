@@ -29,6 +29,7 @@ def solve(
     block: int | None = None,
     kernel: str = "auto",
     distributed: bool = False,
+    n_shards: int | None = None,
     refine: bool | str = "auto",
     device: str | torch.device = "cuda",
     **kwargs,
@@ -49,6 +50,10 @@ def solve(
     only on a CUDA device. A "union", "pallas" or "bellpairs" pencil on a
     CPU device runs the kernels' plain PyTorch versions.
 
+    distributed=True: LOBPCG on a row-sharded pencil (dist/partition.py)
+    of n_shards row shards (default 1), all on `device`; kernel "ref",
+    "union" or "pallas".
+
     refine: mixed-precision polish (solvers/refine.py). "auto" applies it
     when dtype is f32 and tol is below the f32 floor (1e-6): the device
     solves to 1e-5, then f64 Rayleigh-quotient-shifted inverse iteration on
@@ -60,10 +65,6 @@ def solve(
     the problem has an oracle, else 1).
     """
     device = torch.device(device)
-    if distributed:
-        raise NotImplementedError(
-            "distributed=True is not ported yet (ROADMAP.md, slice 6)"
-        )
     if solver == "shift_invert":
         raise NotImplementedError(
             "solver='shift_invert' is not ported yet (ROADMAP.md, slice 7: "
@@ -88,6 +89,23 @@ def solve(
     if alpha is None:
         oracle = getattr(problem, "analytic_eigenvalues", None)
         alpha = float(oracle(1)[0]) if oracle is not None else 1.0
+
+    if distributed:
+        from maxwell_tpu_torch.dist import make_mesh, partition_problem
+        from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
+
+        if solver != "lobpcg":
+            raise ValueError("the distributed path is LOBPCG only")
+        mesh = make_mesh(n_shards or 1, device)
+        t0 = time.perf_counter()
+        dp = partition_problem(problem, mesh.D, block=block, kernel=kernel,
+                               dtype=dtype, mesh=mesh)
+        setup_s = time.perf_counter() - t0
+        res = lobpcg_dist(dp, mesh, nev=nev, maxiter=maxiter or 200,
+                          tol=device_tol, precond_alpha=alpha, **kwargs)
+        res.timings.update(setup_s=setup_s,
+                           device_solve_s=time.perf_counter() - t0 - setup_s)
+        return _maybe_refine(problem, res, tol, want_refine)
 
     from maxwell_tpu_torch.solvers.operator import Pencil
 

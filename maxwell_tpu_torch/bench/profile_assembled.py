@@ -1,12 +1,14 @@
 """Where the time of the assembled f32 LOBPCG goes on the card, per layout:
 the 24^3 RCM brick (n = 38,088) as a "union", "pallas" and "bellpairs"
-pencil, with solve()'s shifted-CG preconditioner (20 sweeps, alpha the
-smallest analytic eigenvalue). For each: 10 iterations after a warm-up,
-timed on the host clock and traced with torch.profiler (device time by
-kernel), then the solve to 1e-5 from a seeded block (the chip smoke's
-knobs). One JSON line per layout.
+pencil, and in 8 row shards (dist/partition.py) as a union pencil with the
+fused interior SpMM + halo copy ("union/rdma_overlap") and a blocked-ELL
+pencil with the ring shift ("pallas/rdma"), with solve()'s shifted-CG
+preconditioner (20 sweeps, alpha the smallest analytic eigenvalue). For
+each: 10 iterations after a warm-up, timed on the host clock and traced
+with torch.profiler (device time by kernel), then the solve to 1e-5 from a
+seeded block (the chip smoke's knobs). One JSON line per case.
 
-    python -m maxwell_tpu_torch.bench.profile_assembled
+    python -m maxwell_tpu_torch.bench.profile_assembled [case ...]
 
 Needs a CUDA device.
 """
@@ -15,13 +17,16 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from maxwell_tpu_torch.dist import partition_problem
 from maxwell_tpu_torch.problems import BrickCavity3D
+from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
 from maxwell_tpu_torch.solvers.lobpcg import lobpcg
 from maxwell_tpu_torch.solvers.operator import Pencil
 from maxwell_tpu_torch.solvers.precond import shifted_cg_preconditioner
@@ -29,7 +34,8 @@ from maxwell_tpu_torch.sparse.reorder import PermutedProblem
 from maxwell_tpu_torch.utils.precision import fp32_true
 
 GRID = 24
-KERNELS = ("union", "pallas", "bellpairs")
+SHARDS = 8
+CASES = ("union", "pallas", "bellpairs", "union/rdma_overlap", "pallas/rdma")
 
 
 def _profile(fn):
@@ -63,12 +69,21 @@ def main():
     alpha = float(problem.analytic_eigenvalues(1)[0])
     n = problem.K.shape[0]
     X0 = np.random.default_rng(5).standard_normal((n, 9))
-    for kernel in KERNELS:
-        pencil = Pencil.from_problem(problem, kernel=kernel,
-                                     dtype=torch.float32, device="cuda")
-        pc = shifted_cg_preconditioner(pencil, alpha=alpha, iters=20)
-        run = lambda it, tol, **kw: lobpcg(  # noqa: E731
-            pencil, nev=5, maxiter=it, tol=tol, precond=pc, X0=X0, **kw)
+    for case in sys.argv[1:] or CASES:
+        kernel, _, halo_impl = case.partition("/")
+        if halo_impl:
+            pencil = partition_problem(
+                problem, SHARDS, kernel=kernel, dtype=torch.float32,
+                reorder=False, halo_impl=halo_impl, device="cuda")
+            run = lambda it, tol, **kw: lobpcg_dist(  # noqa: E731
+                pencil, nev=5, maxiter=it, tol=tol, precond_alpha=alpha,
+                X0=X0, **kw)
+        else:
+            pencil = Pencil.from_problem(problem, kernel=kernel,
+                                         dtype=torch.float32, device="cuda")
+            pc = shifted_cg_preconditioner(pencil, alpha=alpha, iters=20)
+            run = lambda it, tol, **kw: lobpcg(  # noqa: E731
+                pencil, nev=5, maxiter=it, tol=tol, precond=pc, X0=X0, **kw)
         run(3, 1e-30)  # warm-up
         wall_ms, busy_ms, ops, top = _profile(lambda: run(10, 1e-30))
         torch.cuda.synchronize()
@@ -77,7 +92,8 @@ def main():
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
         print(json.dumps({
-            "kernel": kernel, "grid": GRID, "n": n, "card": card,
+            "case": case, "grid": GRID, "n": n, "card": card,
+            "shards": SHARDS if halo_impl else 1,
             "iterations_profiled": 10, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "device_ops": ops,
             "idle_share": max(0.0, 1 - busy_ms / wall_ms),
@@ -85,7 +101,7 @@ def main():
             "solve_s": solve_s,
             "solve_max_res": float(res.residuals.max()),
         }), flush=True)
-        del pencil, pc
+        del pencil, run
         torch.cuda.empty_cache()
 
 

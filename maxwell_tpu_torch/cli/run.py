@@ -6,11 +6,16 @@ the solver kinds "lobpcg", "lanczos" and "tr_lanczos" (`ncv`,
 `max_restarts`) on the assembled "rect2d" and "brick3d" problems
 (`storage.kernel`: "auto", "ref", "union", "pallas" or "bellpairs") and on
 the matrix-free operator (`storage.operator == "stencil"`: StencilPencil2D
-/ StencilPencil3D, with materials). With refinement, PEC 3D stencil pencils
-refine to tol on the device (`refine_dw`), other stencil pencils by
-warm-started f64 LOBPCG on the CPU (`refine_f64_pencil`), and assembled
-problems by host f64 RQI (`refine_f64`). "shift_invert", "lobpcg_dist" and
-tet meshes raise NotImplementedError naming their ROADMAP.md slice.
+/ StencilPencil3D, with materials), and "lobpcg_dist" on the assembled
+problems (`dist.n_shards` row shards, `storage.kernel` "auto", "ref",
+"union" or "pallas"; config 4). A distributed run builds the mesh its
+config names, all shards on the one device: the reference clamps the shard
+count to the visible devices, since a JAX mesh needs a device per shard.
+With refinement, PEC 3D stencil pencils refine to tol on the device
+(`refine_dw`), other stencil pencils by warm-started f64 LOBPCG on the CPU
+(`refine_f64_pencil`), and assembled problems by host f64 RQI
+(`refine_f64`). "shift_invert", the distributed stencil operator and tet
+meshes raise NotImplementedError naming their ROADMAP.md slice.
 
 Prints the per-iteration history as JSON lines, then a final JSON report
 (eigenvalues, residuals, iterations, converged, timings, n, and the
@@ -151,6 +156,57 @@ def _lobpcg(pencil, scfg, nev, maxiter, tol, args, stall_window):
     )
 
 
+def _lobpcg_dist(problem, cfg, scfg, block, kernel, dtype, device, nev,
+                 maxiter, tol, args, want_refine):
+    """The distributed LOBPCG of the reference CLI (maxwell_tpu/cli/run.py:
+    213-291, assembled operators): `dist.n_shards` row shards on the one
+    device, shifted-CG preconditioner, and an f32 solve that a refinement
+    follows cut at its floor (stall_window 15)."""
+    import torch
+
+    from maxwell_tpu_torch.dist import make_mesh, partition_problem
+    from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
+
+    mesh = make_mesh(cfg.get("dist", {}).get("n_shards", 1), device)
+    dp = partition_problem(problem, mesh.D, block=block, kernel=kernel,
+                           dtype=dtype, mesh=mesh)
+    return lobpcg_dist(
+        dp, mesh, nev=nev, m=scfg.get("block_size"), maxiter=maxiter,
+        tol=tol, precond_alpha=scfg.get("precond_alpha"),
+        precond_iters=scfg.get("precond_iters", 20),
+        precond=scfg.get("precond", "auto"), checkpoint=args.checkpoint,
+        checkpoint_every=args.checkpoint_every, batch=scfg.get("batch"),
+        stall_window=scfg.get(
+            "stall_window",
+            15 if want_refine and dtype == torch.float32 else 0,
+        ),
+        log_every=scfg.get("log_every", 0),
+    )
+
+
+def _single_device(pencil, kind, scfg, nev, maxiter, tol, args, f32_refine):
+    """The config's solver on one pencil."""
+    if kind == "lanczos":
+        from maxwell_tpu_torch.solvers.lanczos import lanczos
+
+        return lanczos(pencil, nev=nev, maxiter=maxiter, tol=tol)
+    if kind == "tr_lanczos":
+        from maxwell_tpu_torch.solvers.trlanczos import thick_restart_lanczos
+
+        return thick_restart_lanczos(
+            pencil, nev=nev, ncv=scfg.get("ncv"),
+            max_restarts=scfg.get("max_restarts", 40), tol=tol,
+        )
+    # an f32 solve that a refinement follows is cut at the f32 floor and
+    # hands over its best iterate (the reference CLI's rule for its
+    # distributed LOBPCG, maxwell_tpu/cli/run.py:274-285, applied here to
+    # every LOBPCG): bouncing on at the floor can break the block down
+    # (config 2 at f32: max residual 0.99 by iteration 67), and the refine
+    # then converges to other eigenpairs
+    stall = 15 if f32_refine else 0
+    return _lobpcg(pencil, scfg, nev, maxiter, tol, args, stall)
+
+
 def main(argv=None):
     import torch
 
@@ -193,14 +249,19 @@ def main(argv=None):
     kind = scfg.get("kind", "lobpcg")
     stg = cfg.get("storage", {})
     pcfg = cfg.get("problem", {})
-    if kind in ("shift_invert", "lobpcg_dist"):
+    if kind == "shift_invert":
         raise NotImplementedError(
-            f"solver kind {kind!r} is not ported yet (ROADMAP.md: "
-            "shift_invert is slice 7, lobpcg_dist slice 6)"
+            "solver kind 'shift_invert' is not ported yet (ROADMAP.md, "
+            "slice 7)"
         )
-    if kind not in ("lobpcg", "lanczos", "tr_lanczos"):
+    if kind not in ("lobpcg", "lanczos", "tr_lanczos", "lobpcg_dist"):
         raise ValueError(f"unknown solver {kind!r}")
     use_stencil = stg.get("operator") == "stencil"
+    if kind == "lobpcg_dist" and use_stencil:
+        raise NotImplementedError(
+            "the distributed stencil operator is not ported yet (ROADMAP.md: "
+            "the distributed stencil half of slice 6)"
+        )
     dtype = {"f32": torch.float32, "f64": torch.float64}[
         stg.get("dtype", "f64")
     ]
@@ -230,32 +291,19 @@ def main(argv=None):
     from maxwell_tpu_torch.solvers.operator import Pencil
 
     t0 = time.perf_counter()
-    if use_stencil:
-        pencil = build_stencil(pcfg, dtype, block, device)
+    if kind == "lobpcg_dist":
+        res = _lobpcg_dist(problem, cfg, scfg, block, kernel, dtype, device,
+                           nev, maxiter, tol, args, want_refine)
     else:
-        pencil = Pencil.from_problem(
-            problem, block=block, kernel=kernel, dtype=dtype, device=device
-        )
-    if kind == "lanczos":
-        from maxwell_tpu_torch.solvers.lanczos import lanczos
-
-        res = lanczos(pencil, nev=nev, maxiter=maxiter, tol=tol)
-    elif kind == "tr_lanczos":
-        from maxwell_tpu_torch.solvers.trlanczos import thick_restart_lanczos
-
-        res = thick_restart_lanczos(
-            pencil, nev=nev, ncv=scfg.get("ncv"),
-            max_restarts=scfg.get("max_restarts", 40), tol=tol,
-        )
-    else:
-        # an f32 solve that a refinement follows is cut at the f32 floor and
-        # hands over its best iterate (the reference CLI's rule for its
-        # distributed LOBPCG, maxwell_tpu/cli/run.py:274-285, applied here
-        # to every LOBPCG): bouncing on at the floor can break the block
-        # down (config 2 at f32: max residual 0.99 by iteration 67), and the
-        # refine then converges to other eigenpairs
-        stall = 15 if want_refine and dtype == torch.float32 else 0
-        res = _lobpcg(pencil, scfg, nev, maxiter, tol, args, stall)
+        if use_stencil:
+            pencil = build_stencil(pcfg, dtype, block, device)
+        else:
+            pencil = Pencil.from_problem(
+                problem, block=block, kernel=kernel, dtype=dtype,
+                device=device,
+            )
+        res = _single_device(pencil, kind, scfg, nev, maxiter, tol, args,
+                             want_refine and dtype == torch.float32)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_solve = time.perf_counter() - t0

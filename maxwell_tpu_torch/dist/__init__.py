@@ -1,0 +1,13 @@
+"""Row-sharded distributed pencils (maxwell_tpu/dist/): the block-row
+partitioner, the stacked-view DistPencil with its halo exchange, and the
+shard mesh. All shards live in one process on one device."""
+
+from maxwell_tpu_torch.dist.mesh import (  # noqa: F401
+    Mesh,
+    make_mesh,
+    mesh_topology_report,
+)
+from maxwell_tpu_torch.dist.partition import (  # noqa: F401
+    DistPencil,
+    partition_problem,
+)

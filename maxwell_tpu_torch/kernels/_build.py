@@ -34,10 +34,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 # argtypes of each C entry point in csrc/*.cu
 _SIGNATURES = {
     # bellunion_spmm.cu
-    "bellunion_matmat_f32": [_P] * 5 + [_I] * 5 + [_P],
-    "bellunion_matmat_b3": [_P] * 6 + [_I] * 5 + [_P],
-    "bellunion_km_matmat_f32": [_P] * 7 + [_I] * 5 + [_P],
-    "bellunion_km_matmat_b3": [_P] * 9 + [_I] * 5 + [_P],
+    "bellunion_matmat_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "bellunion_matmat_b3": [_P] * 7 + [_I] * 5 + [_P],
+    "bellunion_km_matmat_f32": [_P] * 8 + [_I] * 5 + [_P],
+    "bellunion_km_matmat_b3": [_P] * 10 + [_I] * 5 + [_P],
     # bellpairs_spmm.cu
     "bellpairs_matmat_f32": [_P] * 5 + [_I] * 3 + [_P],
     "bellpairs_km_matmat_f32": [_P] * 7 + [_I] * 3 + [_P],
@@ -47,6 +47,9 @@ _SIGNATURES = {
     "bsr_matmat_windowed_f32": [_P] * 6 + [_I] * 5 + [_P],
     # stencil_taps.cu
     "stencil_taps_f32": [_P] * 8 + [_I] * 2 + [_P],
+    # halo.cu
+    "ring_shift": [_P] * 2 + [_I] * 7 + [_P],
+    "union_overlap_f32": [_P] * 9 + [_I] * 8 + [_P],
 }
 
 

@@ -4,9 +4,13 @@ PyTorch versions.
     bellunion_matmat(A, X, stream, precision)   Y = A @ X, one value stream
     bellunion_km_matmat(A, X, precision)        (K @ X, M @ X), X gathered once
     bellunion_matvec(A, x, stream, precision)   y = A @ x, m = 1
+    bellunion_matmat_banded(AB, X, stream, precision)
+                                                Y = A @ X, one launch of the
+                                                first per row band
 
-replace `bellunion_matmat_pallas`, `bellunion_km_matmat_pallas` and
-`bellunion_matvec_pallas` of maxwell_tpu/kernels/spmm.py. stream "a" is the
+replace `bellunion_matmat_pallas`, `bellunion_km_matmat_pallas`,
+`bellunion_matvec_pallas` and `bellunion_matmat_banded` of
+maxwell_tpu/kernels/spmm.py. stream "a" is the
 layout's first value stream (K), "b" its second (M). precision "highest" is
 exact f32; "b3" forms vh*xh + vh*xl + vl*xh from the layout's bf16 (hi, lo)
 value split (BELLUnion.bf16x3) and an in-kernel split of X, with f32
@@ -16,14 +20,21 @@ A wrapper given CUDA tensors checks them and launches its kernel
 (csrc/bellunion_spmm.cu) or raises. Given CPU tensors it runs the plain
 version (`*_ref`), which the CPU tests hold against the JAX package and the
 chip smoke holds the kernels against. Each wrapper counts its kernel
-launches in `.launches`, each plain version its calls in `.calls`.
+launches in `.launches` (a banded call counts once), each plain version its
+calls in `.calls`.
+
+The banded form (a BandedBELLUnion, BELLUnion.banded) launches the
+one-stream kernel once per band on that band's contiguous X window, a view
+of X (padded only if a window runs past X's last row), writing into the
+band's rows of one output: the same chunks and the same arithmetic as the
+full-X kernel, so the two agree bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from maxwell_tpu_torch.sparse.bellunion import BELLUnion
+from maxwell_tpu_torch.sparse.bellunion import BandedBELLUnion, BELLUnion
 
 _PRECISIONS = ("highest", "b3")
 
@@ -56,6 +67,17 @@ def _pad_rows(X: torch.Tensor, rows: int) -> torch.Tensor:
     if X.shape[0] >= rows:
         return X
     return torch.nn.functional.pad(X, (0, 0, 0, rows - X.shape[0]))
+
+
+def _band_slices(AB: BandedBELLUnion, X: torch.Tensor):
+    """(band, its X window, its first output row) of each band; the windows
+    are views of X, zero-padded first only if a window runs past its end."""
+    Xp = _pad_rows(X, max(cs + r for cs, r in zip(AB.col_starts,
+                                                  AB.col_rows)))
+    row = 0
+    for bp, cs, rows in zip(AB.bands, AB.col_starts, AB.col_rows):
+        yield bp, Xp[cs : cs + rows], row
+        row += bp.n_padded
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +146,17 @@ def bellunion_matvec_ref(
     return _union_ref(A, x[:, None], stream, precision)[0][:, 0]
 
 
+def bellunion_matmat_banded_ref(
+    AB: BandedBELLUnion, X: torch.Tensor, stream: str = "a",
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Plain version of bellunion_matmat_banded: the plain product of each
+    band on its X window, concatenated."""
+    bellunion_matmat_banded_ref.calls += 1
+    return torch.cat([_union_ref(bp, xw, stream, precision)[0]
+                      for bp, xw, _ in _band_slices(AB, X)])
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -139,7 +172,8 @@ def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs) -> None:
     if A.cl % 128 != 0 or A.cl % (A.b * A.pack) != 0:
         raise ValueError(f"chunk width {A.cl} must be a multiple of 128")
     want = torch.bfloat16 if pairs[0][1] is not None else torch.float32
-    for t in (A.ucols, A.tile_ptr, *(v for pair in pairs for v in pair)):
+    for t in (A.ucols, A.tile_ptr, A.tile_end,
+              *(v for pair in pairs for v in pair)):
         if t is None:
             continue
         if t.device != X.device:
@@ -152,8 +186,15 @@ def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs) -> None:
                 raise ValueError(f"value stream is {v.dtype}, need {want}")
             if v is not None and v.data_ptr() % 16:
                 raise ValueError("value streams must be 16-byte aligned")
-    if A.ucols.dtype != torch.int32 or A.tile_ptr.dtype != torch.int32:
-        raise ValueError("ucols and tile_ptr must be int32")
+    if any(t is not None and t.dtype != torch.int32
+           for t in (A.ucols, A.tile_ptr, A.tile_end)):
+        raise ValueError("ucols, tile_ptr and tile_end must be int32")
+
+
+def _tile_end(A: BELLUnion):
+    """Pointer to the layout's tile_end (None: the kernels stop each tile at
+    tile_ptr[t + 1])."""
+    return None if A.tile_end is None else A.tile_end.data_ptr()
 
 
 def _launch(name: str, A: BELLUnion, X: torch.Tensor, pairs, outs) -> None:
@@ -163,7 +204,7 @@ def _launch(name: str, A: BELLUnion, X: torch.Tensor, pairs, outs) -> None:
     with torch.cuda.device(X.device):
         rc = getattr(_build.load(), name)(
             *values, A.ucols.data_ptr(), A.tile_ptr.data_ptr(),
-            X.data_ptr(), *(Y.data_ptr() for Y in outs),
+            _tile_end(A), X.data_ptr(), *(Y.data_ptr() for Y in outs),
             A.n_tiles, X.shape[1], A.cl, A.b, A.pack,
             torch.cuda.current_stream(X.device).cuda_stream,
         )
@@ -171,12 +212,16 @@ def _launch(name: str, A: BELLUnion, X: torch.Tensor, pairs, outs) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _matmat_cuda(A: BELLUnion, X: torch.Tensor, stream: str, precision: str):
+def _matmat_cuda(A: BELLUnion, X: torch.Tensor, stream: str, precision: str,
+                 Y: torch.Tensor | None = None):
+    """One launch of the one-stream kernel into Y (n_padded, m), a new
+    tensor unless given (contiguous, f32)."""
     pairs = _streams(A, stream, precision)
     _check_cuda(A, X, pairs)
     Xp = _pad_rows(X, A.n_cols_padded)
-    Y = torch.empty((A.n_padded, X.shape[1]), dtype=torch.float32,
-                    device=X.device)
+    if Y is None:
+        Y = torch.empty((A.n_padded, X.shape[1]), dtype=torch.float32,
+                        device=X.device)
     name = "bellunion_matmat_b3" if precision == "b3" else "bellunion_matmat_f32"
     _launch(name, A, Xp, pairs, (Y,))
     return Y
@@ -235,8 +280,27 @@ def bellunion_matvec(
     return y
 
 
-KERNELS = (bellunion_matmat, bellunion_km_matmat, bellunion_matvec)
-PLAIN = (bellunion_matmat_ref, bellunion_km_matmat_ref, bellunion_matvec_ref)
+def bellunion_matmat_banded(
+    AB: BandedBELLUnion, X: torch.Tensor, stream: str = "a",
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Y = A @ X for a BandedBELLUnion, X (rows, m) with rows >= every
+    band's window end or zero-padded to it; Y (AB.n_padded, m). "b3" needs
+    bands built with split_bf16=True."""
+    if X.device.type == "cpu":
+        return bellunion_matmat_banded_ref(AB, X, stream, precision)
+    Y = torch.empty((AB.n_padded, X.shape[1]), dtype=torch.float32,
+                    device=X.device)
+    for bp, xw, row in _band_slices(AB, X.contiguous()):
+        _matmat_cuda(bp, xw, stream, precision, Y[row : row + bp.n_padded])
+    bellunion_matmat_banded.launches += 1
+    return Y
+
+
+KERNELS = (bellunion_matmat, bellunion_km_matmat, bellunion_matvec,
+           bellunion_matmat_banded)
+PLAIN = (bellunion_matmat_ref, bellunion_km_matmat_ref, bellunion_matvec_ref,
+         bellunion_matmat_banded_ref)
 
 
 def reset_counts() -> None:

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from maxwell_tpu_torch.solvers.operator import Pencil
-from maxwell_tpu_torch.solvers.results import EigenResult
+from maxwell_tpu_torch.solvers.results import EigenResult, merge_stages
 from maxwell_tpu_torch.solvers.rr import svqb
 from maxwell_tpu_torch.utils.precision import fp32_true
 
@@ -49,6 +49,7 @@ def lobpcg_run(
     prev_iters: int = 0,
     stall_window: int = 0,
     lock_tol: float = 0.0,
+    shards: int | None = None,
 ):
     """LOBPCG loop. X0: (n_padded, m), already projected off the nullspace
     (zero padding preserved). Convergence is tested on the first `nev`
@@ -60,7 +61,11 @@ def lobpcg_run(
     frozen: X/KX/MX/theta pinned, its W and P contributions zeroed, while
     it stays in the RR basis. stall_window > 0: stop after that many
     iterations without a >= 10% improvement of the best residual and
-    return the best iterate. Returns (theta, X, res, iters, res_hist).
+    return the best iterate. checkpoint_every > 0 saves (X, theta, iteration)
+    to checkpoint_path every that many iterations; with `shards` = D (a
+    row-sharded pencil's stacked block) one file per shard,
+    `{checkpoint_path}.shard{d}` (utils/checkpoint.load_sharded_state).
+    Returns (theta, X, res, iters, res_hist).
     """
     n, m = X0.shape
     dtype = X0.dtype
@@ -208,12 +213,14 @@ def lobpcg_run(
         ):
             from maxwell_tpu_torch.utils.checkpoint import save_state
 
-            save_state(
-                checkpoint_path,
-                X=X_new.cpu().numpy(),
-                theta=theta_new.cpu().numpy(),
-                iteration=prev_iters + it + 1,
-            )
+            Xh, th = X_new.cpu().numpy(), theta_new.cpu().numpy()
+            if shards is None:
+                save_state(checkpoint_path, X=Xh, theta=th,
+                           iteration=prev_iters + it + 1)
+            else:
+                for d, Xd in enumerate(np.split(Xh, shards)):
+                    save_state(f"{checkpoint_path}.shard{d}", X=Xd, theta=th,
+                               iteration=prev_iters + it + 1)
         X, KX, MX, theta = X_new, KX_new, MX_new, theta_new
         P, KP, MP = P_new, KP_new, MP_new
         res = res_new
@@ -260,11 +267,16 @@ def lobpcg(
     floor cut-off before f64 refinement).
     lock: in-loop soft locking (lock_tol = tol * 1e-2). Output pairs are
     re-sorted ascending on exit.
+    batch < nev: solve in stages of `batch` pairs, each stage's block
+    hard-deflated from the next (per-iteration cost drops as pairs lock);
+    stage s draws its start block from `generator` (default: seed s on the
+    pencil's device); X0 and checkpoint are not used there, as in the
+    reference.
     """
     if batch is not None and batch < nev:
-        raise NotImplementedError(
-            "the staged `batch` path is not ported yet (ROADMAP.md, Queue 1)"
-        )
+        return _lobpcg_staged(
+            pencil, nev, batch, maxiter, tol, generator, precond, deflate_Q,
+            log_every, stall_window, lock)
     if m is None:
         m = nev + max(4, nev // 2)
     n_pad, n = pencil.n_padded, pencil.n
@@ -343,3 +355,31 @@ def lobpcg(
             for i, h in enumerate(hist)
         ],
     )
+
+
+def _lobpcg_staged(pencil, nev, batch, maxiter, tol, generator, precond,
+                   deflate_Q, log_every, stall_window, lock) -> EigenResult:
+    """The staged `batch` path (maxwell_tpu/solvers/lobpcg.py:392-431)."""
+    Q = None if deflate_Q is None else np.asarray(
+        deflate_Q.cpu() if torch.is_tensor(deflate_Q) else deflate_Q)
+    vals, vecs, resids, hist = [], [], [], []
+    iters = done = stage = 0
+    while done < nev:
+        k = min(batch, nev - done)
+        gen = generator
+        if gen is None:
+            gen = torch.Generator(device=pencil.device).manual_seed(stage)
+        r = lobpcg(pencil, nev=k, maxiter=maxiter, tol=tol, generator=gen,
+                   precond=precond, deflate_Q=Q, log_every=log_every,
+                   stall_window=stall_window, lock=lock)
+        vals.append(r.eigenvalues)
+        vecs.append(r.eigenvectors)
+        resids.append(r.residuals)
+        hist.extend({**h, "iter": iters + h["iter"], "stage": stage}
+                    for h in r.history)
+        iters += r.iterations
+        Q = (r.eigenvectors if Q is None
+             else np.concatenate([Q, r.eigenvectors], axis=1))
+        done += k
+        stage += 1
+    return merge_stages(vals, vecs, resids, iters, hist, tol)

@@ -36,3 +36,19 @@ class EigenResult:
             f"converged={self.converged}, max_res={self.residuals.max():.2e},\n"
             f"  eigenvalues={ev})"
         )
+
+
+def merge_stages(vals, vecs, resids, iters, hist, tol) -> EigenResult:
+    """One result from the stages of a staged (`batch`) solve: the stages'
+    pairs in ascending order."""
+    lam = np.concatenate(vals)
+    order = np.argsort(lam)
+    res = np.concatenate(resids)
+    return EigenResult(
+        eigenvalues=lam[order],
+        eigenvectors=np.concatenate(vecs, axis=1)[:, order],
+        residuals=res[order],
+        iterations=iters,
+        converged=bool(res.max() <= tol),
+        history=hist,
+    )

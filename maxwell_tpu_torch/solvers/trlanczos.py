@@ -14,8 +14,10 @@ total iterations.
   (ncv x ncv) on the host, robust to the arrowhead structure and roundoff.
 - Each expansion step runs on the device and writes its basis row in place
   in the preallocated V/MV buffers; the small eigh runs on the host between
-  cycles. The distributed variant (`thick_restart_lanczos_dist`) waits for
-  the distributed slice.
+  cycles.
+- `thick_restart_lanczos_dist` runs the same cycles on a row-sharded
+  DistPencil (dist/partition.py), whose stacked view supplies the
+  per-shard reductions and halo exchanges.
 """
 
 from __future__ import annotations
@@ -175,3 +177,36 @@ def thick_restart_lanczos(
         iterations=total_iters,
         converged=bool(np.all(res <= 10 * tol)),
     )
+
+
+@fp32_true
+def thick_restart_lanczos_dist(
+    dpencil,
+    mesh=None,
+    nev: int = 5,
+    ncv: int | None = None,
+    max_restarts: int = 40,
+    tol: float = 1e-8,
+    v0=None,
+    generator: torch.Generator | None = None,
+    mode: str = "direct",
+    sigma: float = 0.0,
+) -> EigenResult:
+    """Distributed thick-restart Lanczos (direct mode) on a DistPencil: the
+    basis is (ncv + 1) stacked vectors, O(n ncv) as on one device. v0: start
+    vector in the stacked layout (default: make_block(1) from `generator`).
+    Eigenvectors come back in the problem's ordering. mode="shift_invert"
+    waits for shift-invert."""
+    if mode != "direct":
+        raise NotImplementedError(
+            "thick_restart_lanczos_dist(mode='shift_invert') is not ported "
+            "yet (ROADMAP.md, slice 7: shift-invert)")
+    from maxwell_tpu_torch.solvers.dist_solve import _check_mesh
+
+    _check_mesh(dpencil, mesh)
+    if v0 is None:
+        v0 = dpencil.make_block(1, generator)[:, 0]
+    res = thick_restart_lanczos(dpencil, nev=nev, ncv=ncv,
+                                max_restarts=max_restarts, tol=tol, v0=v0)
+    res.eigenvectors = dpencil.extract_vectors(res.eigenvectors)
+    return res

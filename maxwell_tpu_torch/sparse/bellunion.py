@@ -15,15 +15,21 @@ stored consecutively in one flat (NC * 128, cl) value array:
     tile_ptr[t]         first chunk of tile t (n_tiles + 1 entries; derived
                         from tile_of, read by the CUDA kernels, which walk a
                         tile's chunks inside one thread block)
+    tile_end[t]         optional: one past the last LIVE chunk of tile t,
+                        where zero chunks pad the layout (`pad_chunks`); the
+                        kernels stop there (None: tile_ptr[t + 1])
 
 The layout stores about 53x the CSR values of the 24^3 curl-curl operator
 as zero fill: the TPU traded that for (128, 1024) dots shaped for its
 matrix unit. It is kept unchanged here for parity with the reference.
 
-What the reference needs only for its TPU host and VMEM is not ported: the
-host buffer arena (first-touch page faults on the TPU host), and the
-row-band split (`banded`), which exists because X had to fit in VMEM — a
-CUDA kernel reads X from global memory at any size.
+`pad_chunks` appends zero chunks (the distributed partitioner pads every
+shard's layout to one chunk count and stacks them). `banded` splits the
+layout into row bands, each reading one contiguous X window: the reference
+needed that where X overflowed VMEM; a CUDA kernel reads X from global
+memory at any size, so the banded apply (kernels/spmm.py) is an entry point
+off the solve path. The reference's host buffer arena (first-touch page
+faults on the TPU host) is not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ import dataclasses
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+
+# every value tensor of a layout: the f32 streams and their bf16 splits
+_VALUE_STREAMS = ("vals", "vals_b", "vals_h", "vals_l", "vals_b_h", "vals_b_l")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -85,7 +95,9 @@ class BELLUnion:
     vals_l: torch.Tensor | None = None
     vals_b_h: torch.Tensor | None = None
     vals_b_l: torch.Tensor | None = None
+    tile_end: torch.Tensor | None = None
 
+    # the reference's leaves (from_reference) and tile_ptr
     _TENSORS = (
         "vals", "ucols", "tile_of", "first", "tile_ptr", "vals_b",
         "vals_h", "vals_l", "vals_b_h", "vals_b_l",
@@ -117,7 +129,7 @@ class BELLUnion:
             self,
             **{
                 f: getattr(self, f).to(device)
-                for f in self._TENSORS
+                for f in (*self._TENSORS, "tile_end")
                 if getattr(self, f) is not None
             },
         )
@@ -310,6 +322,127 @@ class BELLUnion:
             pack=p,
         )
 
+    def pad_chunks(self, NC: int) -> "BELLUnion":
+        """Pad the chunk list to NC chunks, as the reference does
+        (maxwell_tpu/sparse/bellunion.py:522): padding chunks carry zero
+        values (in every value stream, bf16 splits included), point at the
+        LAST tile with first = 0 and column 0, so the kernels, which walk
+        each tile's chunks tile_ptr[t] .. tile_ptr[t + 1], would accumulate
+        exact zeros there; tile_ptr is derived again. tile_end keeps each
+        tile's live end, so the CUDA kernels skip the padding: the TPU grid
+        streamed it, here it would all fall to the last tile's block."""
+        cur = self.n_chunks
+        if cur == NC:
+            return self
+        if cur > NC:
+            raise ValueError(f"cannot shrink {cur} chunks to {NC}")
+        pad = NC - cur
+        CG = self.cl // self.b
+
+        def padv(v):
+            if v is None:
+                return None
+            out = v.new_zeros((NC * 128, self.cl))
+            out[: cur * 128] = v
+            return out
+
+        tile_of = torch.cat([
+            self.tile_of, self.tile_of.new_full((pad,), self.n_tiles - 1)])
+        return dataclasses.replace(
+            self,
+            **{f: padv(getattr(self, f)) for f in _VALUE_STREAMS},
+            ucols=torch.cat([self.ucols, self.ucols.new_zeros((pad, CG))]),
+            tile_of=tile_of,
+            first=torch.cat([self.first, self.first.new_zeros(pad)]),
+            tile_ptr=torch.from_numpy(
+                _tile_ptr(tile_of.cpu().numpy(), self.n_tiles)
+            ).to(self.tile_ptr.device),
+            tile_end=(self.tile_ptr[1:].clone() if self.tile_end is None
+                      else self.tile_end),
+        )
+
+    def banded(self, m: int, budget_bytes: int = 10 * 1024 * 1024,
+               split_bf16: bool = False) -> "BandedBELLUnion":
+        """Split into row bands whose X windows hold at most
+        budget_bytes // (4 m) rows (the reference's split,
+        maxwell_tpu/sparse/bellunion.py:601). Under a bandwidth-reducing
+        ordering consecutive tiles have overlapping column windows, so each
+        band reads one CONTIGUOUS X slice [col_start, col_start + col_rows).
+
+        A band's value streams are views of this layout's (contiguous chunk
+        ranges); its ucols and tile_of are rebased to its window and first
+        tile. Unlike the reference's band, whose column space is left square,
+        a band is rectangular: its n_cols is its window's col_rows, which is
+        what its kernel reads. split_bf16: give each band views of the
+        bf16x3() split streams (the "b3" kernel's)."""
+        if self.n_cols is not None:
+            raise ValueError("banded() supports square layouts only")
+        b = self.b
+        tile_of = self.tile_of.cpu().numpy()
+        ucols = self.ucols.cpu().numpy()
+        cmin_t = np.full(self.n_tiles, np.iinfo(np.int64).max)
+        cmax_t = np.zeros(self.n_tiles, dtype=np.int64)
+        np.minimum.at(cmin_t, tile_of, ucols.min(axis=1))
+        np.maximum.at(cmax_t, tile_of, ucols.max(axis=1) + 1)
+        # a tile that no chunk names: a degenerate valid window
+        unset = cmin_t > cmax_t
+        cmin_t = np.where(unset, 0, cmin_t)
+        cmax_t = np.where(unset, 1, cmax_t)
+        max_rows = budget_bytes // (4 * m)
+        full = self
+        if split_bf16 and self.vals_h is None:
+            full = self.bf16x3()
+        chunk_of_tile0 = np.searchsorted(tile_of, np.arange(self.n_tiles))
+        dev = self.ucols.device
+
+        bands, starts, rows = [], [], []
+        t0 = 0
+        while t0 < self.n_tiles:
+            t1 = t0 + 1
+            c0, c1 = cmin_t[t0], cmax_t[t0]
+            while t1 < self.n_tiles:
+                nc0, nc1 = min(c0, cmin_t[t1]), max(c1, cmax_t[t1])
+                if (nc1 - nc0) * b > max_rows:
+                    break
+                c0, c1, t1 = nc0, nc1, t1 + 1
+            if (c1 - c0) * b > max_rows:
+                raise ValueError(
+                    "single tile window exceeds the X budget: reorder the "
+                    "matrix (RCM) or raise budget_bytes"
+                )
+            k0 = int(chunk_of_tile0[t0])
+            k1 = int(chunk_of_tile0[t1]) if t1 < self.n_tiles else self.n_chunks
+            view = lambda v: None if v is None else v[k0 * 128 : k1 * 128]
+            streams = {f: view(getattr(self, f))
+                       for f in ("vals", "vals_b")}
+            if split_bf16:
+                streams.update({f: view(getattr(full, f))
+                                for f in _VALUE_STREAMS[2:]})
+            tof = tile_of[k0:k1] - t0
+            bands.append(BELLUnion(
+                **streams,
+                ucols=torch.from_numpy(
+                    (ucols[k0:k1] - c0).astype(np.int32)).to(dev),
+                tile_of=torch.from_numpy(tof.astype(np.int32)).to(dev),
+                first=self.first[k0:k1],
+                tile_ptr=torch.from_numpy(_tile_ptr(tof, t1 - t0)).to(dev),
+                tile_end=None if self.tile_end is None
+                else self.tile_end[t0:t1] - k0,
+                n=(t1 - t0) * 128,
+                n_tiles=t1 - t0,
+                b=b,
+                cl=self.cl,
+                n_cols=int(c1 - c0) * b,
+                pack=self.pack,
+            ))
+            starts.append(int(c0) * b)
+            rows.append(int(c1 - c0) * b)
+            t0 = t1
+        return BandedBELLUnion(
+            bands=tuple(bands), col_starts=tuple(starts),
+            col_rows=tuple(rows), n=self.n, b=b,
+        )
+
     def to_csr(self, stream: str = "a") -> sp.csr_matrix:
         """Round-trip for testing."""
         b = self.b
@@ -341,3 +474,24 @@ class BELLUnion:
             shape=(self.n_padded, self.n_cols_padded),
         ).tocsr()
         return out[: self.n, :nc].tocsr()
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedBELLUnion:
+    """Row-band split of a BELLUnion (BELLUnion.banded): band i computes
+    rows [sum of the earlier bands' n_padded, + bands[i].n_padded) of A @ X
+    from the X rows [col_starts[i], col_starts[i] + col_rows[i])."""
+
+    bands: tuple
+    col_starts: tuple
+    col_rows: tuple
+    n: int
+    b: int
+
+    @property
+    def n_padded(self) -> int:
+        return sum(bp.n_padded for bp in self.bands)
+
+    @property
+    def nnz_dense(self) -> int:
+        return sum(bp.nnz_dense for bp in self.bands)

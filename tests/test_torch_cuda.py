@@ -17,9 +17,11 @@ import torch
 
 import maxwell_tpu_torch
 from maxwell_tpu_torch.cli import run as port_cli
+from maxwell_tpu_torch.dist import partition_problem
 from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
-from maxwell_tpu_torch.kernels import bsr_spmm, spmm, stencil_taps as kst
-from maxwell_tpu_torch.problems import BrickCavity3D
+from maxwell_tpu_torch.kernels import bsr_spmm, halo, spmm, stencil_taps as kst
+from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
+from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
 from maxwell_tpu_torch.sparse.bellpairs import BELLPairs
 from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 from maxwell_tpu_torch.sparse.bsr import BSRMatrix
@@ -358,3 +360,109 @@ def test_cuda_cli_config2_bellpairs(cuda_device, capsys, tmp_path):
     assert rep["converged"] and max(rep["residuals"]) <= 1e-8
     assert counts["bellpairs_km_matmat"] > 0
     assert counts["bellpairs_km_matmat_ref"] == 0
+
+
+def _dist(kernel, impl, device, problem=None):
+    return partition_problem(problem or RectCavity2D(nx=16, ny=16), 8,
+                             kernel=kernel, dtype=torch.float32,
+                             halo_impl=impl, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 3, 9])
+@pytest.mark.parametrize("deep", [False, True])
+def test_cuda_ring_shift_matches_plain(cuda_device, dtype, m, deep):
+    """The ring-shift kernel (K6) equals its plain version bit for bit, in
+    both output layouts, for a shallow halo and a halo deeper than a
+    shard."""
+    D, Lb = 8, 40
+    Hb = 56 if deep else 16
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (D * Lb, m))).to(dtype=dtype, device=cuda_device)
+    halo.reset_counts()
+    for own, pad in ((False, 0), (True, 8)):
+        got = halo.ring_shift(X, D, Hb, own, pad)
+        want = halo.ring_shift_ref(X, D, Hb, own, pad)
+        assert torch.equal(got, want)
+    assert halo.counts()["ring_shift"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", ["a", "b", "ab"])
+@pytest.mark.parametrize("m", [1, 9, 17])
+def test_cuda_union_overlap_matches_plain(cuda_device, streams, m):
+    """The fused interior SpMM + halo copy (K5): bit for bit the one-stream
+    kernel (K2) and the ring shift, and within the union bound of its plain
+    version."""
+    dp = _dist("union", "rdma_overlap", cuda_device)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (dp.global_rows, m))).float().to(cuda_device)
+    got = halo.union_interior_overlap(dp.Ui, X, dp.D, dp.Hb, streams)
+    want = [spmm.bellunion_matmat(dp.Ui, X, s) for s in streams]
+    want.append(halo.ring_shift(X, dp.D, dp.Hb))
+    plain = halo.union_interior_overlap_ref(dp.Ui, X, dp.D, dp.Hb, streams)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        assert (g - p).abs().max().item() <= TOL["highest"] * p.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "b3"])
+def test_cuda_union_banded_matches_plain(cuda_device, precision):
+    """The banded union apply (K7): bit for bit the full-X kernel (K2),
+    within the union bound of its plain version."""
+    cav = PermutedProblem(BrickCavity3D(nx=12, ny=12, nz=12))
+    A = BELLUnion.from_csr(cav.K, B=cav.M, device=cuda_device).bf16x3()
+    AB = A.banded(9, budget_bytes=4 * 9 * 3000, split_bf16=True)
+    assert len(AB.bands) > 1
+    X = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (A.n_padded, 9))).float().to(cuda_device)
+    spmm.reset_counts()
+    for stream in "ab":
+        got = spmm.bellunion_matmat_banded(AB, X, stream, precision)
+        assert torch.equal(got, spmm.bellunion_matmat(A, X, stream,
+                                                      precision))
+        want = spmm.bellunion_matmat_banded_ref(AB, X, stream, precision)
+        assert ((got - want).abs().max() / want.abs().max()).item() <= TOL[
+            precision]
+    assert spmm.counts()["bellunion_matmat_banded"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,impl", [("union", "rdma_overlap"),
+                                         ("pallas", "rdma")])
+def test_cuda_dist_transports_bit_equal_ppermute(cuda_device, kernel, impl):
+    base = _dist(kernel, "ppermute", cuda_device)
+    port = _dist(kernel, impl, cuda_device)
+    X = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (base.global_rows, 9))).float().to(cuda_device)
+    for a, b in zip(port.KM_mm(X), base.KM_mm(X)):
+        assert torch.equal(a, b)
+    assert torch.equal(port.M_mm(X[:, 0]), base.M_mm(X[:, 0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,impl", [("union", "rdma_overlap"),
+                                         ("pallas", "rdma")])
+def test_cuda_dist_solve_matches_cpu_plain(cuda_device, kernel, impl):
+    """The distributed f32 LOBPCG through the kernels on the card against
+    the same solve through their plain versions on the CPU. On the card
+    this 480-row problem's f32 floor lies near 1-2e-5 (the plain "ref"
+    pencil's too), where the CPU's reaches 5e-6: the run stops at its best
+    iterate after a stall and is held to 5e-5."""
+    X0 = np.random.default_rng(7).standard_normal((480, 7))
+    opts = dict(nev=3, maxiter=60, tol=1e-5, precond_alpha=10.0, X0=X0,
+                stall_window=8)
+    halo.reset_counts()
+    bsr_spmm.reset_counts()
+    got = lobpcg_dist(_dist(kernel, impl, cuda_device), **opts)
+    counts = {**halo.counts(), **bsr_spmm.counts()}
+    want = lobpcg_dist(_dist(kernel, impl, "cpu"), **opts)
+    assert want.converged and got.residuals.max() <= 5e-5
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=2e-5)
+    if kernel == "union":
+        assert counts["union_interior_overlap"] > 0
+    else:
+        assert counts["ring_shift"] > 0 and counts["bsr_matmat"] > 0
+    assert not any(counts[fn.__name__] for fn in halo.PLAIN)

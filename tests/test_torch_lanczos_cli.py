@@ -92,8 +92,12 @@ def test_cli_tr_lanczos_f64(config1, tmp_path, capsys):
 
 @pytest.mark.parametrize("kind", ["shift_invert", "lobpcg_dist"])
 def test_cli_unported_kinds_raise(tmp_path, kind):
+    """shift_invert is refused; lobpcg_dist is ported for the assembled
+    operator and refused for the distributed stencil operator."""
+    cfg = {"problem": {"kind": "rect2d"}, "solver": {"kind": kind}}
+    if kind == "lobpcg_dist":
+        cfg["storage"] = {"operator": "stencil"}
     path = tmp_path / "c.json"
-    path.write_text(json.dumps({"problem": {"kind": "rect2d"},
-                                "solver": {"kind": kind}}))
+    path.write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main([str(path), "--device", "cpu"])

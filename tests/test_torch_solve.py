@@ -63,12 +63,30 @@ def test_solve_auto_kernel_on_cpu_is_ref():
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(solver="shift_invert", sigma=1.0), dict(distributed=True)],
+    "kwargs", [dict(solver="shift_invert", sigma=1.0),
+               dict(distributed=True, solver="shift_invert", sigma=1.0)],
 )
 def test_solve_unported_paths_raise(kwargs):
+    """Shift-invert waits for its slice, on one shard or many (the
+    distributed LOBPCG is ported: test_solve_distributed_lobpcg)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         maxwell_tpu_torch.solve(BrickCavity3D(nx=2, ny=2, nz=2),
                                 device="cpu", **kwargs)
+
+
+def test_solve_distributed_lobpcg():
+    """solve(distributed=True): LOBPCG on an 8-shard pencil, refined to
+    1e-8 on the host from f32, the same eigenvalues as the one-device
+    solve."""
+    prob = BrickCavity3D(nx=5, ny=5, nz=5)
+    got = maxwell_tpu_torch.solve(prob, nev=3, tol=1e-8, dtype=torch.float32,
+                                  distributed=True, n_shards=8,
+                                  kernel="union", device="cpu",
+                                  stall_window=12)
+    want = maxwell_tpu_torch.solve(prob, nev=3, tol=1e-8, device="cpu")
+    assert got.converged and got.residuals.max() <= 1e-8
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-8)
+    assert {"setup_s", "device_solve_s", "refine_s"} <= set(got.timings)
 
 
 def _last_json(out):
