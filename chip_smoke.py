@@ -1,7 +1,7 @@
 """Chip smoke test of maxwell_tpu_torch on one NVIDIA GPU: build the CUDA
 kernels from the sources in this checkout, hold each against its plain
-PyTorch version at the shapes of its path, drive the four ported paths and
-check that they ran through the kernels:
+PyTorch version at the shapes of its path, drive the ported paths and the
+probes and check that they ran through the kernels:
 
   slice 1, the assembled path: maxwell_tpu_torch.solve on the 16^3 RCM
     Nedelec brick, refined to 1e-8 on the host (its kernels checked on that
@@ -25,7 +25,10 @@ check that they ran through the kernels:
     (blocked-ELL pencil, "rdma"), each twice, bit for bit the same;
     thick-restart Lanczos on the 8-shard 16x16 rectangle; config 4 through
     the CLI (f64 as written, and f32 union refined to 1e-8); and the banded
-    union apply at 48^3.
+    union apply at 48^3;
+  slice 6, the tile-union probes (K15a, K15b): the probe scripts
+    maxwell_tpu_torch.bench.exp_union and exp_union2 at their full default
+    sizes, each probe kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -90,10 +93,19 @@ Phases, in order; any failure raises and the process exits non-zero:
  17. dist cli  config 4 through the CLI: as written (f64, 16^3, 8 shards,
                deep halos, plain torch on the card) and f32 "union" + host
                refine to 1e-8
- 18. result    an {"off_main_path": [...]} line for the kernels no solver
+ 18. union probes  slice 6 through the probe scripts' run(): exp_union.run
+               (T 298, UC 128: u0_hi, u0_def, u1_runs, u2_km) and
+               exp_union2.run (the 24^3 RCM K in six (chunk_lanes, pack)
+               layouts at m in {8, 9}: union_unstaged beside K2), counts
+               zeroed just before and read just after; every probe kernel
+               within 1e-5 of max|plain| (K15b also of scipy), launched,
+               and no plain version called; one JSON line per variant
+ 19. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
-               {"kernels": [...]} line of the main paths' kernels, the
+               {"kernels": [...]} line of every ported kernel with the path
+               that launches it ("solve: ...", "off-path" with 0 launches,
+               or "probe: ..." with the probe phase's launches), the
                nvidia-smi line, and last {"ok": true, "device": {...}}
 """
 
@@ -101,7 +113,6 @@ import contextlib
 import io
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -115,6 +126,14 @@ import numpy as np
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 
+# the card's timers and bounds (H100 SXM rates), shared with the probes
+from maxwell_tpu_torch.bench.timing import (  # noqa: E402
+    bound_ms,
+    csr_bytes,
+    median_ms,
+    torch_csr,
+)
+
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 GRID = 24  # union kernel checks kept from the first slice, n = 38,088
 SOLVE_GRID = 16  # slice-1 solve (its host f64 refine grows fast with n)
@@ -123,9 +142,6 @@ BSR_GRID = 24  # slice 3: the blocked-ELL solve, n = 38,088
 BANDED_GRID = 48  # slices 4, 5: the banded forms, n = 318,096
 SHARDS = 8  # slice 5: the distributed road's row shards (config 4's count)
 NEV = 5
-LAUNCHES = 20
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FLOPS_PER_S = {"f32": 67e12, "bf16": 989e12}  # H100 SXM dense peaks
 # f32 summation order differs from the plain version's (cuBLAS bmm +
 # index_add_ for the union kernels, another tap order and FMA contraction
 # for the stencil); the JAX package's own tests use the same union bounds
@@ -154,6 +170,11 @@ REPLACES = {
     "bellunion_matmat_banded": "maxwell_tpu/kernels/spmm.py:568",
     "union_interior_overlap": "maxwell_tpu/kernels/halo_rdma.py:166",
     "ring_shift": "maxwell_tpu/kernels/halo_rdma.py:42",
+    "u0_hi": "maxwell_tpu/bench/exp_union.py:92",
+    "u0_def": "maxwell_tpu/bench/exp_union.py:92",
+    "u1_runs": "maxwell_tpu/bench/exp_union.py:122",
+    "u2_km": "maxwell_tpu/bench/exp_union.py:154",
+    "union_unstaged": "maxwell_tpu/bench/exp_union2.py:106",
 }
 SOURCE = {
     "bellunion_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
@@ -174,6 +195,8 @@ SOURCE = {
     "bellunion_matmat_banded": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
     "union_interior_overlap": "maxwell_tpu_torch/csrc/halo.cu",
     "ring_shift": "maxwell_tpu_torch/csrc/halo.cu",
+    **{name: "maxwell_tpu_torch/csrc/union_probes.cu" for name in (
+        "u0_hi", "u0_def", "u1_runs", "u2_km", "union_unstaged")},
 }
 # what each path launches. solve(): the fused apply (LOBPCG's W, the
 # preconditioner's CG) and the single-stream apply (projector, initial
@@ -191,9 +214,27 @@ SOURCE = {
 # pencil with "rdma_overlap": every K, M and fused K/M apply) and the ring
 # shift (blocked-ELL pencil with "rdma": every apply's halo exchange); the
 # banded union apply is off the solve path, as the banded BELLPairs forms.
-MAIN_PATH = ("bellunion_km_matmat", "bellunion_matmat", "stencil_taps",
-             "bsr_matmat", "bsr_matvec", "bellpairs_km_matmat",
-             "bellpairs_matmat", "union_interior_overlap", "ring_shift")
+MAIN_PATH = {
+    "bellunion_km_matmat": "solve: solve() union, 16^3",
+    "bellunion_matmat": "solve: solve() union, 16^3",
+    "stencil_taps": "solve: stencil LOBPCG, 64^3",
+    "bsr_matmat": "solve: solve(kernel='pallas'), 24^3",
+    "bsr_matvec": "solve: config 1, f32 Lanczos",
+    "bellpairs_km_matmat": "solve: solve(kernel='bellpairs'), 24^3",
+    "bellpairs_matmat": "solve: solve(kernel='bellpairs'), 24^3",
+    "union_interior_overlap": "solve: lobpcg_dist union + rdma_overlap, "
+                              "24^3 in 8 shards",
+    "ring_shift": "solve: lobpcg_dist pallas + rdma, 24^3 in 8 shards",
+}
+# off every solve path: 0 launches there (the off_main_path line says what
+# else launched them)
+OFF_PATH = ("bellunion_matvec", "bsr_matmat_windowed",
+            "bellpairs_matmat_windowed", "bellpairs_matmat_banded",
+            "bellpairs_km_matmat_banded", "bellunion_matmat_banded")
+# the tile-union probes: launched by their scripts' run() in phase 18
+PROBES = {"u0_hi": "probe: exp_union", "u0_def": "probe: exp_union",
+          "u1_runs": "probe: exp_union", "u2_km": "probe: exp_union",
+          "union_unstaged": "probe: exp_union2"}
 STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 
@@ -208,45 +249,6 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout
     return out.strip().splitlines()[0]
-
-
-def median_ms(fn, n=LAUNCHES):
-    """Median of n launches, each timed by its own pair of CUDA events. A
-    device-side sleep queued first keeps the card busy while the host
-    enqueues the launches, so a kernel shorter than its host-side launch
-    cost is timed on the device alone."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clock
-    pairs = []
-    for _ in range(n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        pairs.append((e0, e1))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
-
-
-def bound_ms(nbytes, flops, kind):
-    """The least time for the work: bytes over the memory rate, or
-    operations over the peak rate for their type, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FLOPS_PER_S[kind] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def torch_csr(A, device):
-    A = A.tocsr()
-    return torch.sparse_csr_tensor(
-        torch.from_numpy(A.indptr.astype(np.int64)),
-        torch.from_numpy(A.indices.astype(np.int64)),
-        torch.from_numpy(A.data.astype(np.float32)),
-        size=A.shape, device=device,
-    )
 
 
 def phase_device():
@@ -273,14 +275,6 @@ def phase_build():
     _build.load()
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "library": lib.name})
-
-
-def csr_bytes(A, m):
-    """Bytes a product of the CSR matrix A with an (n, m) f32 block must
-    move: values and column indices (4 B each), row pointers, X read once
-    and Y written once."""
-    rows, cols = A.shape
-    return A.nnz * 8 + (rows + 1) * 4 + cols * m * 4 + rows * m * 4
 
 
 def phase_kernels(problem, grid):
@@ -417,9 +411,10 @@ def _kernel_modules():
         halo,
         spmm,
         stencil_taps,
+        union_probes,
     )
 
-    return spmm, stencil_taps, bsr_spmm, bellpairs_spmm, halo
+    return spmm, stencil_taps, bsr_spmm, bellpairs_spmm, halo, union_probes
 
 
 def all_counts():
@@ -1562,6 +1557,59 @@ def phase_bellpairs_cli():
     return cnt
 
 
+def phase_union_probes():
+    """The tile-union probes at their full default sizes, through the
+    probe scripts' own run() (no subprocess): K15a (exp_union.run, T 298,
+    UC 128: u0_hi, u0_def, u1_runs, u2_km) and K15b (exp_union2.run on the
+    24^3 RCM K: six layouts, m in {8, 9}, union_unstaged beside K2). The
+    probe scripts hold every kernel against its plain version (1e-5 of
+    max|plain|; u0_def against the plain product of bf16-rounded operands)
+    and K15b against scipy (1e-5), and raise past it; their oracles are
+    uncounted. Counts are zeroed just before and read just after: every
+    probe kernel launched, no plain version called. One JSON line per
+    variant. Returns (stats of the kernels line, counts)."""
+    from maxwell_tpu_torch.bench import exp_union, exp_union2
+    from maxwell_tpu_torch.kernels import union_probes as up
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    r1 = exp_union.run()
+    t1 = time.perf_counter()
+    r2 = exp_union2.run(GRID, ms=(8, 9))
+    t2 = time.perf_counter()
+    counts = all_counts()
+    torch.cuda.empty_cache()
+    panel = ("u0_hi", "u0_def", "u1_runs", "u2_km")
+    log({"phase": "exp_union", "seconds": t1 - t0,
+         **{k: v for k, v in r1.items() if k not in panel}})
+    for name in panel:
+        log({"probe": "exp_union", "variant": name, **r1[name]})
+    log({"phase": "exp_union2", "seconds": t2 - t1,
+         **{k: v for k, v in r2.items() if k != "variants"}})
+    for name, v in r2["variants"].items():
+        log({"probe": "exp_union2", "variant": name, **v})
+
+    worst = max(v[f"m{m}"]["unstaged"]["max_abs_err"]
+                for v in r2["variants"].values() for m in (8, 9)
+                if "unstaged" in v[f"m{m}"])
+    for name in (*PROBES, "bellunion_matmat"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the probes")
+    stray = {k: v for k, v in counts.items() if v and k.endswith("_ref")}
+    if stray:
+        raise AssertionError(f"plain versions ran on the card: {stray}")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    stats = {name: {"max_abs_err": r1[name]["max_abs_err"],
+                    **{k: r1[name][k] for k in keys}} for name in panel}
+    # the kernels line reports the unstaged kernel on the reference's
+    # production layout (1024, 2) at the probe's m = 8
+    pm = r2["variants"]["pair1024"]["m8"]
+    stats["union_unstaged"] = {
+        "max_abs_err": worst, "ms": pm["unstaged"]["ms"],
+        **{k: pm[k] for k in keys[1:]}}
+    return stats, {name: counts[name] for name in up.counts()}
+
+
 def timed(fn, *args):
     """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
     t0 = time.perf_counter()
@@ -1614,6 +1662,8 @@ def main():
     del pencils
     torch.cuda.empty_cache()
     timed(phase_dist_cli)
+    probe_stats, probe_counts = timed(phase_union_probes)
+    stats.update(probe_stats)
 
     launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"],
                 "bsr_matmat": bsr_counts["bsr_matmat"],
@@ -1623,7 +1673,8 @@ def main():
                    if k.startswith("bellpairs_") and not k.endswith("_ref")},
                 "union_interior_overlap":
                     dist_counts["union"]["union_interior_overlap"],
-                "ring_shift": dist_counts["pallas"]["ring_shift"]}
+                "ring_shift": dist_counts["pallas"]["ring_shift"],
+                **{name: probe_counts[name] for name in PROBES}}
 
     def entry(name, *extra):
         st = stats[name]
@@ -1644,7 +1695,11 @@ def main():
         entry("bellpairs_km_matmat_banded", *bands),
         entry("bellunion_matmat_banded", *bands),
     ]})
-    log({"kernels": [entry(name) for name in MAIN_PATH]})
+    # every ported kernel, with the path that launches it
+    paths = {**MAIN_PATH, **{name: "off-path" for name in OFF_PATH},
+             **PROBES}
+    log({"kernels": [{**entry(name), "path": path}
+                     for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

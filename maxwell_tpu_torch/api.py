@@ -60,9 +60,10 @@ def solve(
     the host reaches tol.
 
     Further keyword arguments go to the solver: lobpcg (stall_window, X0,
-    log_every, ...) or lanczos (v0, generator); precond_alpha sets LOBPCG's
-    preconditioner shift (default: the smallest analytic eigenvalue when
-    the problem has an oracle, else 1).
+    log_every, ...) or lanczos (v0, generator); an f32 LOBPCG that a refine
+    follows takes stall_window=15 unless one is given; precond_alpha sets
+    LOBPCG's preconditioner shift (default: the smallest analytic
+    eigenvalue when the problem has an oracle, else 1).
     """
     device = torch.device(device)
     if solver == "shift_invert":
@@ -83,6 +84,12 @@ def solve(
         refine == "auto" and dtype == torch.float32 and tol < 1e-6
     )
     device_tol = max(tol, 1e-5) if want_refine else tol
+    # an f32 LOBPCG that a refine follows is cut at its floor and hands over
+    # its best block (the CLI's rule, cli/run.py): bouncing on at the floor
+    # can break the block down, and the refine then converges to other
+    # eigenpairs (config 2 at f32). A caller's stall_window, 0 included, wins.
+    if solver == "lobpcg" and want_refine and dtype == torch.float32:
+        kwargs.setdefault("stall_window", 15)
 
     # auto preconditioner shift: the scale of the smallest wanted mode
     alpha = kwargs.pop("precond_alpha", None)

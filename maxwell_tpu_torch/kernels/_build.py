@@ -50,6 +50,10 @@ _SIGNATURES = {
     # halo.cu
     "ring_shift": [_P] * 2 + [_I] * 7 + [_P],
     "union_overlap_f32": [_P] * 9 + [_I] * 8 + [_P],
+    # union_probes.cu
+    "union_panel_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "union_panel_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "union_unstaged_f32": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 

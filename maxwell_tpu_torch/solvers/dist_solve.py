@@ -100,7 +100,7 @@ def lobpcg_dist(
         return _lobpcg_dist_staged(
             dpencil, nev=nev, batch=batch, m=m, maxiter=maxiter, tol=tol,
             generator=generator, precond_alpha=precond_alpha,
-            precond_iters=precond_iters, deflate_Q=deflate_Q,
+            precond_iters=precond_iters, precond=precond, deflate_Q=deflate_Q,
             stall_window=stall_window, stage_polish=stage_polish, lock=lock,
             log_every=log_every,
         )
@@ -173,14 +173,14 @@ def lobpcg_dist(
 
 
 def _lobpcg_dist_staged(dpencil, nev, batch, m, maxiter, tol, generator,
-                        precond_alpha, precond_iters, deflate_Q,
+                        precond_alpha, precond_iters, precond, deflate_Q,
                         stall_window=0, stage_polish=None, lock=True,
                         log_every=0):
     """Incremental deflated multi-eigenpair solve: stage s solves the next
     `batch` pairs with every earlier stage's block hard-deflated, so the
     active block is `batch + guards` wide instead of `nev + guards`. Each
     stage draws its start block from `generator` (default: seed s on the
-    pencil's device)."""
+    pencil's device) and takes the caller's `precond`."""
     Q = None if deflate_Q is None else np.asarray(deflate_Q)
     vals, vecs, resids, hist = [], [], [], []
     iters = done = stage = 0
@@ -193,7 +193,7 @@ def _lobpcg_dist_staged(dpencil, nev, batch, m, maxiter, tol, generator,
             dpencil, nev=k, m=None if m is None else min(m, k + 4),
             maxiter=maxiter, tol=tol, generator=gen,
             precond_alpha=precond_alpha, precond_iters=precond_iters,
-            precond="cg", deflate_Q=Q, stall_window=stall_window, lock=lock,
+            precond=precond, deflate_Q=Q, stall_window=stall_window, lock=lock,
             log_every=log_every,
         )
         if stage_polish is not None:

@@ -16,10 +16,12 @@ import pytest
 import torch
 
 import maxwell_tpu_torch
+from maxwell_tpu_torch.bench import exp_union
 from maxwell_tpu_torch.cli import run as port_cli
 from maxwell_tpu_torch.dist import partition_problem
 from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
 from maxwell_tpu_torch.kernels import bsr_spmm, halo, spmm, stencil_taps as kst
+from maxwell_tpu_torch.kernels import union_probes as up
 from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
 from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
 from maxwell_tpu_torch.sparse.bellpairs import BELLPairs
@@ -450,7 +452,10 @@ def test_cuda_dist_solve_matches_cpu_plain(cuda_device, kernel, impl):
     the same solve through their plain versions on the CPU. On the card
     this 480-row problem's f32 floor lies near 1-2e-5 (the plain "ref"
     pencil's too), where the CPU's reaches 5e-6: the run stops at its best
-    iterate after a stall and is held to 5e-5."""
+    iterate after a stall and is held to 5e-5. The floor is set by the f32
+    torch.linalg.eigh of the SVQB/Rayleigh-Ritz matrices on the card
+    (cuSOLVER: 2.6-3.5x LAPACK's eigen-residual); with that eigh on the
+    CPU, or in f64, the card's run reaches 4-7e-6 (PERF.md section 7)."""
     X0 = np.random.default_rng(7).standard_normal((480, 7))
     opts = dict(nev=3, maxiter=60, tol=1e-5, precond_alpha=10.0, X0=X0,
                 stall_window=8)
@@ -466,3 +471,59 @@ def test_cuda_dist_solve_matches_cpu_plain(cuda_device, kernel, impl):
     else:
         assert counts["ring_shift"] > 0 and counts["bsr_matmat"] > 0
     assert not any(counts[fn.__name__] for fn in halo.PLAIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,UC", [(10, 16), (37, 32)])
+def test_cuda_union_panel_kernels_match_plain(cuda_device, T, UC):
+    """K15a's kernels against their plain versions on the probe's own
+    inputs at small sizes (T > 8 and not a multiple of 8): 1e-5 of
+    max|plain| (u0_def: against the plain product of bf16-rounded
+    operands), rows from 128 T on zero."""
+    d = exp_union.make_inputs(T, UC)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in d.items()
+         if k != "n"}
+    cols, rcols, vals, vb, X = (t[k] for k in ("cols", "rcols", "vals",
+                                               "vals_b", "X"))
+    up.reset_counts()
+    cases = [
+        (up.u0_hi(cols, vals, X), up.panel_plain(cols, vals, X, 8)),
+        (up.u0_def(cols, vals, X),
+         up.panel_plain(cols, vals, X, 8, bf16=True)),
+        (up.u1_runs(rcols, vals, X), up.panel_plain(rcols, vals, X, 64)),
+        (up.u2_km(rcols, vals, vb, X),
+         up.panel_plain(rcols, vals, X, 64, vals_b=vb)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in cases:
+        assert got.shape == X.shape
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+        assert not got[128 * T:].any()
+    c = up.counts()
+    assert all(c[fn.__name__] == 1 for fn in up.KERNELS[:4])
+    assert not any(c[fn.__name__] for fn in up.PLAIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cl,pack", [(512, 1), (1024, 1), (1024, 2),
+                                     (1024, 4), (512, 2), (128, 1)])
+@pytest.mark.parametrize("m", [1, 8, 9, 17])
+def test_cuda_union_unstaged_matches_plain(cuda_device, cl, pack, m):
+    """K15b's unstaged kernel against its plain version and against K2 on
+    the same layout (1e-5 of max|plain|), and bit for bit itself over two
+    launches (one block walks a tile's chunks in order: no atomics)."""
+    cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
+    A = BELLUnion.from_csr(cav.K, chunk_lanes=cl, pack=pack,
+                           device=cuda_device)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (A.n_cols_padded, m))).float().to(cuda_device)
+    up.reset_counts()
+    got, again = up.union_unstaged(A, X), up.union_unstaged(A, X)
+    want = up.union_unstaged_ref(A, X)
+    staged = spmm.bellunion_matmat(A, X, "a", "highest")
+    torch.cuda.synchronize()
+    scale = want.abs().max()
+    assert ((got - want).abs().max() / scale).item() <= 1e-5
+    assert ((got - staged).abs().max() / scale).item() <= 1e-5
+    assert torch.equal(got, again)
+    assert up.counts()["union_unstaged"] == 2

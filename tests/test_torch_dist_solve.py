@@ -26,6 +26,7 @@ from maxwell_tpu.solvers.precond import (
 from maxwell_tpu_torch.dist import make_mesh, partition_problem
 from maxwell_tpu_torch.kernels import halo, spmm
 from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
+from maxwell_tpu_torch.solvers import dist_solve
 from maxwell_tpu_torch.solvers.dist_solve import (
     lobpcg_dist,
     shift_invert_lanczos_dist,
@@ -135,6 +136,40 @@ def test_lobpcg_dist_staged_batch_matches_reference(mesh, brick6):
     np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-10)
     assert {h["stage"] for h in got.history} == {0, 1}
     assert got.eigenvectors.shape == (port.n, 4)
+
+
+def test_lobpcg_dist_staged_spectral_raises(brick6):
+    """A staged run asks for the caller's preconditioner as the unstaged
+    one does: "spectral" raises the same refusal."""
+    _, port = brick6
+    with pytest.raises(NotImplementedError, match="DistSpectralShift"):
+        lobpcg_dist(port, None, nev=4, batch=2, precond="spectral")
+
+
+def test_lobpcg_dist_staged_passes_precond(monkeypatch, brick6):
+    """Every stage of a staged run takes the caller's `precond` (the
+    reference passes it through, maxwell_tpu/solvers/dist_solve.py:279).
+    On an assembled pencil "auto" is the shifted-CG branch, so the staged
+    "auto" run stays bit for bit the "cg" run it was before."""
+    _, port = brick6
+    seen = []
+
+    def recording(*args, **kwargs):
+        seen.append(kwargs.get("precond", "auto"))
+        return lobpcg_dist(*args, **kwargs)
+
+    monkeypatch.setattr(dist_solve, "lobpcg_dist", recording)
+    runs = {}
+    for precond in ("auto", "cg"):
+        seen.clear()
+        runs[precond] = lobpcg_dist(port, None, nev=4, batch=2, maxiter=60,
+                                    tol=1e-8, precond_alpha=15.0,
+                                    precond=precond)
+        assert seen == [precond, precond]
+    a, c = runs["auto"], runs["cg"]
+    assert a.converged
+    assert np.array_equal(a.eigenvalues, c.eigenvalues)
+    assert np.array_equal(a.eigenvectors, c.eigenvectors)
 
 
 def test_lobpcg_dist_checkpoint_resume(tmp_path, brick6):

@@ -1,12 +1,14 @@
 """The slice end to end: maxwell_tpu_torch.solve and its CLI against
 maxwell_tpu's on the same problems."""
 
+import importlib
 import json
 import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 
 import maxwell_tpu
@@ -15,10 +17,14 @@ from maxwell_tpu.cli import run as ref_cli
 from maxwell_tpu.problems import BrickCavity3D as RefBrick
 from maxwell_tpu.sparse.reorder import PermutedProblem as RefPermuted
 from maxwell_tpu_torch.cli import run as port_cli
-from maxwell_tpu_torch.problems import BrickCavity3D
+from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
+from maxwell_tpu_torch.solvers import dist_solve
 from maxwell_tpu_torch.sparse.reorder import PermutedProblem
 
 torch.set_num_threads(1)
+
+# the module: the package's attribute of that name is the function
+lobpcg_mod = importlib.import_module("maxwell_tpu_torch.solvers.lobpcg")
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 
@@ -87,6 +93,62 @@ def test_solve_distributed_lobpcg():
     assert got.converged and got.residuals.max() <= 1e-8
     np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-8)
     assert {"setup_s", "device_solve_s", "refine_s"} <= set(got.timings)
+
+
+def test_solve_f32_refine_config2_keeps_the_lowest_modes():
+    """Config 2 (32x32) through solve() at f32 with the host refine and no
+    stall_window: the f32 LOBPCG is cut at its floor (stall_window 15 by
+    default) and hands the refine its best block, so the five lowest modes
+    come out. Without the cut the block broke down at the floor and the
+    refine converged to a wrong 5th mode. Held to the dense generalized
+    eigenvalues at the refine's tolerance."""
+    with open(os.path.join(CONFIGS, "config2.json")) as f:
+        cfg = json.load(f)
+    p, s = cfg["problem"], cfg["solver"]
+    cav = RectCavity2D(a=p["a"], b=p["b"], nx=p["nx"], ny=p["ny"])
+    dense = scipy.linalg.eigh(cav.K.toarray(), cav.M.toarray(),
+                              eigvals_only=True)
+    want = np.sort(dense[dense > 1e-8])[: s["nev"]]
+    got = maxwell_tpu_torch.solve(
+        cav, nev=s["nev"], tol=s["tol"], maxiter=s["maxiter"],
+        precond_alpha=s["precond_alpha"], dtype=torch.float32, refine=True,
+        device="cpu")
+    assert got.converged and got.residuals.max() <= s["tol"]
+    np.testing.assert_allclose(got.eigenvalues, want, rtol=s["tol"])
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("distributed", [False, True])
+@pytest.mark.parametrize("dtype,refine,given,expect", [
+    (torch.float32, True, {}, 15),
+    (torch.float32, True, {"stall_window": 0}, 0),
+    (torch.float32, True, {"stall_window": 7}, 7),
+    (torch.float32, False, {}, None),
+    (torch.float64, True, {}, None),
+])
+def test_solve_stall_window_default(monkeypatch, distributed, dtype, refine,
+                                    given, expect):
+    """solve() passes LOBPCG stall_window=15 only for an f32 solve that a
+    refine follows, and a caller's own value (0 included) wins, on the
+    one-device and the distributed branch."""
+    seen = {}
+
+    def recording(*args, **kwargs):
+        seen.update(kwargs)
+        raise _Stop
+
+    mod, name = ((dist_solve, "lobpcg_dist") if distributed
+                 else (lobpcg_mod, "lobpcg"))
+    monkeypatch.setattr(mod, name, recording)
+    with pytest.raises(_Stop):
+        maxwell_tpu_torch.solve(
+            BrickCavity3D(nx=2, ny=2, nz=2), nev=2, tol=1e-8, dtype=dtype,
+            refine=refine, distributed=distributed, n_shards=2,
+            device="cpu", **given)
+    assert seen.get("stall_window") == expect
 
 
 def _last_json(out):
