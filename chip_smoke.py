@@ -28,7 +28,11 @@ probes and check that they ran through the kernels:
     union apply at 48^3;
   slice 6, the tile-union probes (K15a, K15b): the probe scripts
     maxwell_tpu_torch.bench.exp_union and exp_union2 at their full default
-    sizes, each probe kernel against its plain version.
+    sizes, each probe kernel against its plain version;
+  slice 7, the BELLPairs per-tile and tap-stencil shift probes (K15d,
+    K15f): the probe scripts maxwell_tpu_torch.bench.exp_grid and
+    exp_stencil2 at their full default sizes, each probe kernel against its
+    plain version, K11 and K4 timed beside them.
 
     python3 chip_smoke.py
 
@@ -100,7 +104,14 @@ Phases, in order; any failure raises and the process exits non-zero:
                zeroed just before and read just after; every probe kernel
                within 1e-5 of max|plain| (K15b also of scipy), launched,
                and no plain version called; one JSON line per variant
- 19. result    an {"off_main_path": [...]} line for the kernels no solver
+ 19. grid and stencil probes  slice 7 through the probe scripts' run():
+               exp_grid.run (T 298: e0-e5, then K11 at m 8 on the 24^3 K)
+               and exp_stencil2.run (the 64^3 field at m 8 and 9: p0-p6,
+               then K4 fused at 64^3, m 9), counts zeroed just before and
+               read just after; every probe kernel within 1e-5 of
+               max|plain| (p5/p6 also of p1/p3's), launched, and no plain
+               version called; one JSON line per variant
+ 20. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -154,6 +165,10 @@ TOL = {"highest": 1e-5, "b3": 2e-5, "stencil": 1e-5, "bsr": 1e-5,
 # residual of a refined eigenvector recomputed with f32 applies on the card:
 # its floor is ~eps_f32 * ||K|| ||x|| / ||Kx||; a wrong vector gives O(1)
 DEVICE_RESIDUAL_TOL = 1e-3
+# the K15d and K15f probe kernels (phase 19)
+GRID_PROBES = ("e0_grid1", "e1_grid6", "e2_grid6_when", "e3_acc424",
+               "e4_cat424", "e5_cat424_mm")
+SHIFT_PROBES = tuple(f"shift_p{k}" for k in range(7))
 REPLACES = {
     "bellunion_matmat": "maxwell_tpu/kernels/spmm.py:304",
     "bellunion_km_matmat": "maxwell_tpu/kernels/spmm.py:466",
@@ -175,6 +190,10 @@ REPLACES = {
     "u1_runs": "maxwell_tpu/bench/exp_union.py:122",
     "u2_km": "maxwell_tpu/bench/exp_union.py:154",
     "union_unstaged": "maxwell_tpu/bench/exp_union2.py:106",
+    **{name: f"maxwell_tpu/bench/exp_grid.py:{line}" for name, line in zip(
+        GRID_PROBES, (74, 92, 119, 133, 162, 189))},
+    # one pallas_call, seven bodies (_mk, exp_stencil2.py:32-90)
+    **dict.fromkeys(SHIFT_PROBES, "maxwell_tpu/bench/exp_stencil2.py:120"),
 }
 SOURCE = {
     "bellunion_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
@@ -197,6 +216,9 @@ SOURCE = {
     "ring_shift": "maxwell_tpu_torch/csrc/halo.cu",
     **{name: "maxwell_tpu_torch/csrc/union_probes.cu" for name in (
         "u0_hi", "u0_def", "u1_runs", "u2_km", "union_unstaged")},
+    **dict.fromkeys(GRID_PROBES, "maxwell_tpu_torch/csrc/grid_probes.cu"),
+    **dict.fromkeys(SHIFT_PROBES,
+                    "maxwell_tpu_torch/csrc/stencil_probes.cu"),
 }
 # what each path launches. solve(): the fused apply (LOBPCG's W, the
 # preconditioner's CG) and the single-stream apply (projector, initial
@@ -235,6 +257,9 @@ OFF_PATH = ("bellunion_matvec", "bsr_matmat_windowed",
 PROBES = {"u0_hi": "probe: exp_union", "u0_def": "probe: exp_union",
           "u1_runs": "probe: exp_union", "u2_km": "probe: exp_union",
           "union_unstaged": "probe: exp_union2"}
+# the BELLPairs per-tile and tap-stencil shift probes: phase 19
+PROBES_2 = {**dict.fromkeys(GRID_PROBES, "probe: exp_grid"),
+            **dict.fromkeys(SHIFT_PROBES, "probe: exp_stencil2")}
 STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 
@@ -408,13 +433,16 @@ def _kernel_modules():
     from maxwell_tpu_torch.kernels import (
         bellpairs_spmm,
         bsr_spmm,
+        grid_probes,
         halo,
         spmm,
+        stencil_probes,
         stencil_taps,
         union_probes,
     )
 
-    return spmm, stencil_taps, bsr_spmm, bellpairs_spmm, halo, union_probes
+    return (spmm, stencil_taps, bsr_spmm, bellpairs_spmm, halo, union_probes,
+            grid_probes, stencil_probes)
 
 
 def all_counts():
@@ -1610,6 +1638,60 @@ def phase_union_probes():
     return stats, {name: counts[name] for name in up.counts()}
 
 
+def phase_grid_and_stencil_probes():
+    """The BELLPairs per-tile probe (K15d: exp_grid.run, T 298, e0-e5, then
+    K11 at m 8 on the 24^3 K) and the tap-stencil shift probe (K15f:
+    exp_stencil2.run, the 64^3 field at m 8 and 9, p0-p6, then K4 fused at
+    64^3, m 9), at their full default sizes through the probe scripts' own
+    run(). The scripts hold every kernel against its plain version (1e-5 of
+    max|plain|; p5 and p6 also against p1's and p3's plain output) and raise
+    past it; their oracles are uncounted. Counts are zeroed just before and
+    read just after: every probe kernel launched, no plain version called.
+    One JSON line per variant. Returns (stats of the kernels line, counts);
+    a shift case reports m 8 (the reference's default) with m 9 beside."""
+    from maxwell_tpu_torch.bench import exp_grid, exp_stencil2
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    r1 = exp_grid.run()
+    t1 = time.perf_counter()
+    r2 = exp_stencil2.run()
+    t2 = time.perf_counter()
+    counts = all_counts()
+    torch.cuda.empty_cache()
+    log({"phase": "exp_grid", "seconds": t1 - t0,
+         **{k: v for k, v in r1.items() if k not in GRID_PROBES}})
+    for name in GRID_PROBES:
+        log({"probe": "exp_grid", "variant": name, **r1[name]})
+    log({"phase": "exp_stencil2", "seconds": t2 - t1, "grid": r2["grid"],
+         "k4": r2["k4"]})
+    for m in (8, 9):
+        res = r2[f"m{m}"]
+        log({"probe": "exp_stencil2", "m": m,
+             **{k: v for k, v in res.items() if not k.startswith("p")}})
+        for case in (f"p{k}" for k in range(7)):
+            log({"probe": "exp_stencil2", "variant": case, "m": m,
+                 **res[case]})
+
+    for name in PROBES_2:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the probes")
+    stray = {k: v for k, v in counts.items() if v and k.endswith("_ref")}
+    if stray:
+        raise AssertionError(f"plain versions ran on the card: {stray}")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    stats = {name: {"max_abs_err": r1[name]["max_abs_err"],
+                    **{k: r1[name][k] for k in keys}}
+             for name in GRID_PROBES}
+    for k in range(7):
+        m8, m9 = r2["m8"][f"p{k}"], r2["m9"][f"p{k}"]
+        stats[f"shift_p{k}"] = {
+            "max_abs_err": max(m8["max_abs_err"], m9["max_abs_err"]),
+            **{key: m8[key] for key in keys},
+            "m9": {key: m9[key] for key in ("max_abs_err", *keys)}}
+    return stats, {name: counts[name] for name in PROBES_2}
+
+
 def timed(fn, *args):
     """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
     t0 = time.perf_counter()
@@ -1664,6 +1746,8 @@ def main():
     timed(phase_dist_cli)
     probe_stats, probe_counts = timed(phase_union_probes)
     stats.update(probe_stats)
+    probe_stats, probe2_counts = timed(phase_grid_and_stencil_probes)
+    stats.update(probe_stats)
 
     launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"],
                 "bsr_matmat": bsr_counts["bsr_matmat"],
@@ -1674,7 +1758,8 @@ def main():
                 "union_interior_overlap":
                     dist_counts["union"]["union_interior_overlap"],
                 "ring_shift": dist_counts["pallas"]["ring_shift"],
-                **{name: probe_counts[name] for name in PROBES}}
+                **{name: probe_counts[name] for name in PROBES},
+                **probe2_counts}
 
     def entry(name, *extra):
         st = stats[name]
@@ -1697,8 +1782,10 @@ def main():
     ]})
     # every ported kernel, with the path that launches it
     paths = {**MAIN_PATH, **{name: "off-path" for name in OFF_PATH},
-             **PROBES}
-    log({"kernels": [{**entry(name), "path": path}
+             **PROBES, **PROBES_2}
+    log({"kernels": [{**entry(name), "path": path,
+                      **({"m9": stats[name]["m9"]} if "m9" in stats[name]
+                         else {})}
                      for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")
     log({"ok": True, "device": {"platform": "gpu",

@@ -1,28 +1,35 @@
 """Which dense op sets the card's f32 floor of the distributed LOBPCG on the
-8-shard 16x16 rectangle (it stalls near 1-2e-5 on the card and reaches
-5e-6 on the CPU; tests/test_torch_cuda.py holds the card to 5e-5).
+8-shard 16x16 rectangle. With the small eigh in f32 it stalled near 1-2e-5
+on the card and reached 5e-6 on the CPU; solvers/rr.small_eigh now runs
+that eigh in f64 (tests/test_torch_cuda.py holds the card to 1e-5).
 
 The solve is lobpcg_dist's loop (solvers/lobpcg.lobpcg_run) at the cuda
 test's knobs: nev 3, block 7 from one seeded numpy X0, tol 1e-5, maxiter
 60, stall_window 8, the shifted-CG preconditioner (alpha 10, 20 sweeps).
 Each run places its parts on the card or the CPU:
 
-  card, cpu               everything on one side
+  card, cpu               everything on one side (small_eigh in f64)
   dense_cpu_applies_card  LOBPCG's dense algebra (Gram products, SVQB and
                           Rayleigh-Ritz eigh, rotations, residual norms) on
                           the CPU, the operator applies (K, M, KM,
                           projector, preconditioner) on the card
   dense_card_applies_cpu  the reverse
-  card_eigh_cpu           on the card, torch.linalg.eigh on the CPU (f32)
-  card_eigh_f64           on the card, eigh in f64 (on the card)
+  card_eigh_cpu           on the card, small_eigh on the CPU
+  card_eigh_f32           on the card, the eigh in f32 on the card, on the
+                          matrix as given (as before the repair: cuSOLVER)
+  card_eigh_f32_sym       the same on the symmetrised matrix (small_eigh's
+                          input, eigh in f32)
+  cpu_eigh_f32            on the CPU, the eigh in f32 as given (LAPACK)
   card_dot_cpu            on the card, the Gram products (dot_mm) on the CPU
-  cpu_eigh_card           on the CPU, eigh on the card (f32)
+  cpu_eigh_card           on the CPU, small_eigh on the card
 
 and prints the best residual and the history of each. Then op by op: every
-eigh input and the first 40 Gram operand pairs of the card run,
+small_eigh input (f32) and the first 40 Gram operand pairs of the card run,
 recomputed on the card and on the CPU against f64 (eigenvalue error and
 eigen-residual ||A V - V diag(w)|| relative to the largest |eigenvalue| and
-||A||; Gram error relative to |A|^T |B|).
+||A||; "eigh" the f32 eigh, "small_eigh" the f64 one rounded to f32; Gram
+error relative to |A|^T |B|), and the host time of one call of each eigh
+at each size (median of 20, synchronised: the cost of the repair).
 
     python -m maxwell_tpu_torch.bench.f32_floor [--kernel ref|union|pallas]
         [--out PATH]
@@ -36,7 +43,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
+import statistics
+import time
 
 import numpy as np
 import torch
@@ -51,11 +61,14 @@ RUNS = {
     "dense_cpu_applies_card": ("cpu", "card", None, None),
     "dense_card_applies_cpu": ("card", "cpu", None, None),
     "card_eigh_cpu": ("card", "card", "cpu", None),
-    "card_eigh_f64": ("card", "card", "f64", None),
+    "card_eigh_f32": ("card", "card", "f32", None),
+    "card_eigh_f32_sym": ("card", "card", "f32_sym", None),
+    "cpu_eigh_f32": ("cpu", "cpu", "f32", None),
     "card_dot_cpu": ("card", "card", None, "cpu"),
     "cpu_eigh_card": ("cpu", "cpu", "card", None),
 }
-_EIGH = torch.linalg.eigh
+# the runs whose arithmetic differs from the default's (f32 eigh)
+F32_EIGH = ("card_eigh_f32", "card_eigh_f32_sym", "cpu_eigh_f32")
 
 
 class _Split:
@@ -91,26 +104,45 @@ class _Split:
         return p.dot_mm(A.to(p.device), B.to(p.device)).to(A.device)
 
 
+def _lobpcg_module():
+    """solvers/lobpcg.py (the package exports a function of that name)."""
+    return importlib.import_module("maxwell_tpu_torch.solvers.lobpcg")
+
+
+def _f32_eigh(A):
+    """The eigh as it ran before the repair: in A's dtype, on A's device,
+    on the matrix as given (SVQB's scaled Gram matrix is symmetric only to
+    rounding; eigh reads its lower triangle)."""
+    return torch.linalg.eigh(A)
+
+
 @contextlib.contextmanager
 def _eigh_on(where, devices):
-    """torch.linalg.eigh computed on `where` ("cpu", "card") or in f64
-    (None: left as it is)."""
+    """LOBPCG's small eigh (rr.small_eigh, at its three sites) replaced:
+    computed by small_eigh on `where` ("cpu", "card"), or in f32 on the
+    matrix as given ("f32") or symmetrised ("f32_sym"); None leaves it as
+    it is."""
+    from maxwell_tpu_torch.solvers import rr
+
+    lobpcg = _lobpcg_module()
     if where is None:
         yield
         return
+    small = rr.small_eigh
 
-    def eigh(A, *args, **kwargs):
-        if where == "f64":
-            w, V = _EIGH(A.double(), *args, **kwargs)
-        else:
-            w, V = _EIGH(A.to(devices[where]), *args, **kwargs)
-        return w.to(A.device, A.dtype), V.to(A.device, A.dtype)
+    def eigh(A):
+        if where == "f32":
+            return _f32_eigh(A)
+        if where == "f32_sym":
+            return _f32_eigh(0.5 * (A + A.T))
+        w, V = small(A.to(devices[where]))
+        return w.to(A.device), V.to(A.device)
 
-    prev, torch.linalg.eigh = torch.linalg.eigh, eigh
+    rr.small_eigh = lobpcg.small_eigh = eigh
     try:
         yield
     finally:
-        torch.linalg.eigh = prev
+        rr.small_eigh = lobpcg.small_eigh = small
 
 
 def _solve(pencils, devices, dense, op, eigh_on=None, dot_on=None):
@@ -135,18 +167,21 @@ def _solve(pencils, devices, dense, op, eigh_on=None, dot_on=None):
 
 
 def _op_errors(pencils, devices):
-    """The card run's eigh inputs and Gram operands, recomputed on each
-    side against f64."""
+    """The card run's small_eigh inputs and Gram operands, recomputed on
+    each side against f64: the f32 eigh ("eigh") and small_eigh."""
+    from maxwell_tpu_torch.solvers import rr
     from maxwell_tpu_torch.utils.precision import solver_precision
 
+    lobpcg = _lobpcg_module()
     eighs, dots = [], []
     card = pencils["card"]
     cls = type(card)
     dot_mm = cls.dot_mm
+    small = rr.small_eigh
 
-    def rec_eigh(A, *args, **kwargs):
+    def rec_eigh(A):
         eighs.append(A.detach().clone())
-        return _EIGH(A, *args, **kwargs)
+        return small(A)
 
     def rec_dot(self, A, B):
         if len(dots) < 40:
@@ -154,29 +189,37 @@ def _op_errors(pencils, devices):
         return dot_mm(self, A, B)
 
     cls.dot_mm = rec_dot
-    torch.linalg.eigh = rec_eigh
+    rr.small_eigh = lobpcg.small_eigh = rec_eigh
     try:
         _solve(pencils, devices, "card", "card")
     finally:
-        torch.linalg.eigh = _EIGH
+        rr.small_eigh = lobpcg.small_eigh = small
         cls.dot_mm = dot_mm
 
-    out = {"eigh": {s: {"w_err": 0.0, "resid": 0.0} for s in devices},
-           "gram": {s: 0.0 for s in devices}, "eigh_count": len(eighs),
-           "gram_count": len(dots)}
+    kinds = {"eigh": _f32_eigh, "small_eigh": small}
+    out = {kind: {s: {"w_err": 0.0, "resid": 0.0} for s in devices}
+           for kind in kinds}
+    out.update(gram={s: 0.0 for s in devices}, eigh_count=len(eighs),
+               gram_count=len(dots))
     with solver_precision():
         for A in eighs:
             A64 = A.double().cpu()
+            A64 = 0.5 * (A64 + A64.T)
             w64 = torch.linalg.eigvalsh(A64)
             scale = float(w64.abs().max())
             for side, dev in devices.items():
-                w, V = (t.double().cpu() for t in _EIGH(A.to(dev)))
-                e = out["eigh"][side]
-                e["w_err"] = max(e["w_err"],
-                                 float((w - w64).abs().max()) / scale)
-                e["resid"] = max(e["resid"], float(
-                    torch.linalg.norm(A64 @ V - V * w[None, :])
-                    / torch.linalg.norm(A64)))
+                for kind, fn in kinds.items():
+                    w, V = (t.double().cpu() for t in fn(A.to(dev)))
+                    e = out[kind][side]
+                    e["w_err"] = max(e["w_err"],
+                                     float((w - w64).abs().max()) / scale)
+                    e["resid"] = max(e["resid"], float(
+                        torch.linalg.norm(A64 @ V - V * w[None, :])
+                        / torch.linalg.norm(A64)))
+        out["eigh_ms"] = {side: {
+            f"{kind}_{A.shape[0]}": _host_ms(lambda: fn(A.to(dev)), dev)
+            for A in {e.shape[0]: e for e in eighs}.values()
+            for kind, fn in kinds.items()} for side, dev in devices.items()}
         for A, B in dots:
             A64, B64 = A.double().cpu(), B.double().cpu()
             den = float((A64.abs().T @ B64.abs()).max())
@@ -185,6 +228,20 @@ def _op_errors(pencils, devices):
                 out["gram"][side] = max(out["gram"][side], float(
                     (C - A64.T @ B64).abs().max()) / den)
     return out
+
+
+def _host_ms(fn, device, n: int = 20) -> float:
+    """Median host milliseconds of fn() with the device synchronised."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
+    fn()
+    sync()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
 
 
 def run(kernel: str = "ref", card="cuda") -> dict:

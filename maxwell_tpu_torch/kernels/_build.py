@@ -54,6 +54,14 @@ _SIGNATURES = {
     "union_panel_f32": [_P] * 5 + [_I] * 4 + [_P],
     "union_panel_bf16": [_P] * 4 + [_I] * 4 + [_P],
     "union_unstaged_f32": [_P] * 6 + [_I] * 5 + [_P],
+    # grid_probes.cu
+    "grid_copy_f32": [_P] * 2 + [_I] * 2 + [_P],
+    "grid_steps_f32": [_P] * 3 + [_I] * 2 + [_P],
+    "grid_acc_f32": [_P] * 3 + [_I] * 3 + [_P],
+    "grid_cat_f32": [_P] * 3 + [_I] * 3 + [_P],
+    "grid_cat_mm_f32": [_P] * 4 + [_I] * 3 + [_P],
+    # stencil_probes.cu
+    "shift_probe_f32": [_P] * 2 + [_I] * 6 + [_P],
 }
 
 

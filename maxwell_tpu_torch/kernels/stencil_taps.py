@@ -58,6 +58,11 @@ def stencil_taps_ref(X, mask, taps, shape, want_K=True, want_M=False):
     """Plain version: each tap is a static slice of a zero-padded
     component grid, accumulated in tap order as the XLA path does."""
     stencil_taps_ref.calls += 1
+    return taps_plain(X, mask, taps, shape, want_K, want_M)
+
+
+def taps_plain(X, mask, taps, shape, want_K=True, want_M=False):
+    """stencil_taps_ref's arithmetic without a count (a probe's oracle)."""
     mk = mask[:, None]
     grids = to_grids(X * mk, shape)
     # one zero plane on each side of every grid axis (not of m)

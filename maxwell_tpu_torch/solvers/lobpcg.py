@@ -30,7 +30,7 @@ import torch
 
 from maxwell_tpu_torch.solvers.operator import Pencil
 from maxwell_tpu_torch.solvers.results import EigenResult, merge_stages
-from maxwell_tpu_torch.solvers.rr import svqb
+from maxwell_tpu_torch.solvers.rr import small_eigh, svqb
 from maxwell_tpu_torch.utils.precision import fp32_true
 
 
@@ -134,10 +134,11 @@ def lobpcg_run(
         A = dot_mm(Q, KQ)
         A = 0.5 * (A + A.T)
         # push SVQB-masked columns above the wanted spectrum; the shift
-        # stays moderate relative to ||A|| so f32 eigh keeps the small ones
+        # stays moderate relative to ||A|| (stored in the working dtype) so
+        # the eigh keeps the small ones
         dead_shift = 10.0 * torch.max(torch.abs(torch.diagonal(A))) + 1.0
         A = A + torch.diag(torch.where(good, 0.0, dead_shift).to(dtype))
-        thetaS, C = torch.linalg.eigh(A)
+        thetaS, C = small_eigh(A)
         Cx = C[:, :m]  # smallest m Ritz pairs
         theta_new = thetaS[:m]
 

@@ -1,8 +1,9 @@
 """Rayleigh-Ritz and block M-orthonormalization.
 
-The small dense eigenproblems run on the tensors' device (torch.linalg.eigh)
-and the tall-skinny orthonormalization is SVQB/CholQR — Gram-matrix based,
-so the n-dimensional work is tall-skinny matrix products.
+The small dense eigenproblems run on the tensors' device (`small_eigh`: in
+float64 whatever the working dtype) and the tall-skinny orthonormalization
+is SVQB/CholQR — Gram-matrix based, so the n-dimensional work is
+tall-skinny matrix products.
 """
 
 from __future__ import annotations
@@ -12,6 +13,22 @@ import torch
 
 def _local_dot(A, B):
     return A.T @ B
+
+
+def small_eigh(A: torch.Tensor):
+    """Eigen-decomposition (theta ascending, V) of a small symmetric matrix
+    (at most 3m x 3m in LOBPCG), computed in float64 on A's own device and
+    returned in A's dtype. A is symmetrised first.
+
+    The JAX package runs this eigh in the working dtype
+    (maxwell_tpu/solvers/rr.py:30, :59, lobpcg.py:201). In float32 on an
+    H100, torch.linalg.eigh (cuSOLVER) leaves 2.6-3.5x LAPACK's
+    eigen-residual, and that alone held the card's f32 LOBPCG 2-3x above
+    the CPU's floor (PERF.md section 7, bench/f32_floor.py). The matrices
+    are tiny, so one float64 path serves every device."""
+    A64 = A.to(torch.float64)
+    theta, V = torch.linalg.eigh(0.5 * (A64 + A64.T))
+    return theta.to(A.dtype), V.to(A.dtype)
 
 
 def eigh_gen(A: torch.Tensor, B: torch.Tensor, eps: float = 1e-12):
@@ -25,7 +42,7 @@ def eigh_gen(A: torch.Tensor, B: torch.Tensor, eps: float = 1e-12):
     Ainv = torch.linalg.solve_triangular(L, A, upper=False)  # L^-1 A
     At = torch.linalg.solve_triangular(L, Ainv.T, upper=False)
     At = 0.5 * (At + At.T)
-    theta, V = torch.linalg.eigh(At)
+    theta, V = small_eigh(At)
     C = torch.linalg.solve_triangular(L.T, V, upper=True)  # L^-T V
     return theta, C
 
@@ -51,7 +68,7 @@ def svqb(S: torch.Tensor, MS: torch.Tensor, dot_mm=None,
     ok = dg > torch.max(dg) * fi.eps**2
     Dinv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, dg, 1.0)), 0.0)
     Gs = G * Dinv[:, None] * Dinv[None, :]
-    theta, V = torch.linalg.eigh(Gs)
+    theta, V = small_eigh(Gs)
     good = theta > eps * torch.max(theta)
     inv_sqrt = torch.where(
         good, 1.0 / torch.sqrt(torch.abs(theta)), 0.0

@@ -16,11 +16,13 @@ import pytest
 import torch
 
 import maxwell_tpu_torch
-from maxwell_tpu_torch.bench import exp_union
+from maxwell_tpu_torch.bench import exp_grid, exp_stencil2, exp_union
 from maxwell_tpu_torch.cli import run as port_cli
 from maxwell_tpu_torch.dist import partition_problem
 from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
 from maxwell_tpu_torch.kernels import bsr_spmm, halo, spmm, stencil_taps as kst
+from maxwell_tpu_torch.kernels import grid_probes as gp
+from maxwell_tpu_torch.kernels import stencil_probes as spr
 from maxwell_tpu_torch.kernels import union_probes as up
 from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
 from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
@@ -449,13 +451,12 @@ def test_cuda_dist_transports_bit_equal_ppermute(cuda_device, kernel, impl):
                                          ("pallas", "rdma")])
 def test_cuda_dist_solve_matches_cpu_plain(cuda_device, kernel, impl):
     """The distributed f32 LOBPCG through the kernels on the card against
-    the same solve through their plain versions on the CPU. On the card
-    this 480-row problem's f32 floor lies near 1-2e-5 (the plain "ref"
-    pencil's too), where the CPU's reaches 5e-6: the run stops at its best
-    iterate after a stall and is held to 5e-5. The floor is set by the f32
-    torch.linalg.eigh of the SVQB/Rayleigh-Ritz matrices on the card
-    (cuSOLVER: 2.6-3.5x LAPACK's eigen-residual); with that eigh on the
-    CPU, or in f64, the card's run reaches 4-7e-6 (PERF.md section 7)."""
+    the same solve through their plain versions on the CPU, held to 1e-5.
+    With the small SVQB/Rayleigh-Ritz eigh in f32 this 480-row problem
+    stalled near 1-2e-5 on the card (cuSOLVER's f32 eigh leaves 2.6-3.5x
+    LAPACK's eigen-residual) where the CPU reached 5e-6; solvers/rr.small_eigh
+    runs that eigh in f64 on the tensor's device, and the card's run then
+    converges below 1e-5 like the CPU's (PERF.md section 7)."""
     X0 = np.random.default_rng(7).standard_normal((480, 7))
     opts = dict(nev=3, maxiter=60, tol=1e-5, precond_alpha=10.0, X0=X0,
                 stall_window=8)
@@ -464,7 +465,7 @@ def test_cuda_dist_solve_matches_cpu_plain(cuda_device, kernel, impl):
     got = lobpcg_dist(_dist(kernel, impl, cuda_device), **opts)
     counts = {**halo.counts(), **bsr_spmm.counts()}
     want = lobpcg_dist(_dist(kernel, impl, "cpu"), **opts)
-    assert want.converged and got.residuals.max() <= 5e-5
+    assert want.converged and got.residuals.max() <= 1e-5
     np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=2e-5)
     if kernel == "union":
         assert counts["union_interior_overlap"] > 0
@@ -527,3 +528,80 @@ def test_cuda_union_unstaged_matches_plain(cuda_device, cl, pack, m):
     assert ((got - staged).abs().max() / scale).item() <= 1e-5
     assert torch.equal(got, again)
     assert up.counts()["union_unstaged"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [10, 37])
+@pytest.mark.parametrize("live", [1, 3, 6])
+def test_cuda_grid_probes_match_plain(cuda_device, T, live):
+    """K15d's six kernels against their plain versions on the probe's own
+    draws at small T (> 8, not a multiple of 8), with 1 to 6 live chunks
+    and ragged live counts for e2 (0 to 7, clamped at 6): 1e-5 of
+    max|plain|; each launched once, no plain version called."""
+    d = exp_grid.make_inputs(T)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in d.items()}
+    cols, X, vals = t["cols"], t["X"], t["vals"]
+    nch = torch.from_numpy(np.random.default_rng(T).integers(
+        0, 8, T).astype(np.int32)).to(cuda_device)
+    args = {gp.e0_grid1: (X, T), gp.e1_grid6: (X, T),
+            gp.e2_grid6_when: (nch, X), gp.e3_acc424: (cols, X, live),
+            gp.e4_cat424: (cols, X, live),
+            gp.e5_cat424_mm: (cols, vals, X, live)}
+    gp.reset_counts()
+    for kern, a in args.items():
+        got, want = kern(*a), gp.PLAIN_OF[kern](*a)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (128 * T, 8)
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    c = gp.counts()
+    assert all(c[fn.__name__] == 1 for fn in gp.KERNELS)
+    assert not any(c[fn.__name__] for fn in gp.PLAIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,m", [(3, 1), (3, 8), (5, 9), (4, 17),
+                                    (70, 16)])
+def test_cuda_shift_probes_match_plain(cuda_device, grid, m):
+    """K15f's seven cases against their plain versions (1e-5 of
+    max|plain|), p5 against p1's plain output and p6 against p3's, on the
+    probe's own field at small and ragged sizes (ZM = (grid + 2) m from 15
+    to 1,152 lanes: one warp, partial warps, rows longer than a block);
+    each case launched once, no plain version called."""
+    field = torch.from_numpy(exp_stencil2.make_field(grid, m)).to(
+        cuda_device)
+    spr.reset_counts()
+    plain = {c: spr.shift_plain(c, field, m) for c in spr.CASES}
+    for case in spr.CASES:
+        got = spr.shift_probe(case, field, m)
+        torch.cuda.synchronize()
+        want = plain[exp_stencil2.SAME_AS.get(case, case)]
+        assert got.shape == want.shape == (grid + 2, grid + 2,
+                                           (grid + 2) * m)
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+        assert ((got - plain[case]).abs().max()
+                / plain[case].abs().max()).item() <= 1e-5
+    c = spr.counts()
+    assert all(c[f"shift_{k}"] == 1 and c[f"shift_{k}_ref"] == 0
+               for k in spr.CASES)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_wrappers_raise(cuda_device):
+    """Bad device input raises before any launch: f64 or misaligned X, a
+    short X, an unknown case, m outside [1, 32), a non-contiguous field."""
+    d = exp_grid.make_inputs(10)
+    X = torch.from_numpy(d["X"]).to(cuda_device)
+    cols = torch.from_numpy(d["cols"]).to(cuda_device)
+    field = torch.from_numpy(exp_stencil2.make_field(3, 8)).to(cuda_device)
+    gp.reset_counts()
+    spr.reset_counts()
+    for call in (lambda: gp.e0_grid1(X.double(), 10),
+                 lambda: gp.e0_grid1(X.view(-1)[1:-7].view(-1, 8), 10),
+                 lambda: gp.e3_acc424(cols, X[:1200], 3),
+                 lambda: gp.e3_acc424(cols, X, 7),
+                 lambda: spr.shift_probe("p7", field, 8),
+                 lambda: spr.shift_probe("p1", field, 32),
+                 lambda: spr.shift_probe("p1", field.transpose(0, 1), 8)):
+        with pytest.raises(ValueError):
+            call()
+    assert not any(gp.counts().values()) and not any(spr.counts().values())
