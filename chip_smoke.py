@@ -107,10 +107,12 @@ Phases, in order; any failure raises and the process exits non-zero:
  19. grid and stencil probes  slice 7 through the probe scripts' run():
                exp_grid.run (T 298: e0-e5, then K11 at m 8 on the 24^3 K)
                and exp_stencil2.run (the 64^3 field at m 8 and 9: p0-p6,
-               then K4 fused at 64^3, m 9), counts zeroed just before and
-               read just after; every probe kernel within 1e-5 of
-               max|plain| (p5/p6 also of p1/p3's), launched, and no plain
-               version called; one JSON line per variant
+               each beside one F.conv3d call; then K4 fused at 64^3, m 9,
+               beside p3 on a field with as many outputs), counts zeroed
+               just before and read just after; every probe kernel (and
+               conv3d) within 1e-5 of max|plain| (p5/p6 also of p1/p3's),
+               launched, and no plain version called; one JSON line per
+               variant
  20. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
@@ -253,13 +255,20 @@ MAIN_PATH = {
 OFF_PATH = ("bellunion_matvec", "bsr_matmat_windowed",
             "bellpairs_matmat_windowed", "bellpairs_matmat_banded",
             "bellpairs_km_matmat_banded", "bellunion_matmat_banded")
-# the tile-union probes: launched by their scripts' run() in phase 18
+# the probe kernels, by the script whose run() launches them: the
+# tile-union probes in phase 18, the BELLPairs per-tile and tap-stencil
+# shift probes in phase 19
 PROBES = {"u0_hi": "probe: exp_union", "u0_def": "probe: exp_union",
           "u1_runs": "probe: exp_union", "u2_km": "probe: exp_union",
-          "union_unstaged": "probe: exp_union2"}
-# the BELLPairs per-tile and tap-stencil shift probes: phase 19
-PROBES_2 = {**dict.fromkeys(GRID_PROBES, "probe: exp_grid"),
-            **dict.fromkeys(SHIFT_PROBES, "probe: exp_stencil2")}
+          "union_unstaged": "probe: exp_union2",
+          **dict.fromkeys(GRID_PROBES, "probe: exp_grid"),
+          **dict.fromkeys(SHIFT_PROBES, "probe: exp_stencil2")}
+
+
+def probes_of(*scripts):
+    """The probe kernels that the named scripts launch."""
+    return [name for name, path in PROBES.items()
+            if path.removeprefix("probe: ") in scripts]
 STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 
@@ -1620,7 +1629,7 @@ def phase_union_probes():
     worst = max(v[f"m{m}"]["unstaged"]["max_abs_err"]
                 for v in r2["variants"].values() for m in (8, 9)
                 if "unstaged" in v[f"m{m}"])
-    for name in (*PROBES, "bellunion_matmat"):
+    for name in (*probes_of("exp_union", "exp_union2"), "bellunion_matmat"):
         if counts[name] <= 0:
             raise AssertionError(f"{name} was not launched by the probes")
     stray = {k: v for k, v in counts.items() if v and k.endswith("_ref")}
@@ -1673,7 +1682,8 @@ def phase_grid_and_stencil_probes():
             log({"probe": "exp_stencil2", "variant": case, "m": m,
                  **res[case]})
 
-    for name in PROBES_2:
+    mine = probes_of("exp_grid", "exp_stencil2")
+    for name in mine:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was not launched by the probes")
     stray = {k: v for k, v in counts.items() if v and k.endswith("_ref")}
@@ -1689,7 +1699,7 @@ def phase_grid_and_stencil_probes():
             "max_abs_err": max(m8["max_abs_err"], m9["max_abs_err"]),
             **{key: m8[key] for key in keys},
             "m9": {key: m9[key] for key in ("max_abs_err", *keys)}}
-    return stats, {name: counts[name] for name in PROBES_2}
+    return stats, {name: counts[name] for name in mine}
 
 
 def timed(fn, *args):
@@ -1758,7 +1768,8 @@ def main():
                 "union_interior_overlap":
                     dist_counts["union"]["union_interior_overlap"],
                 "ring_shift": dist_counts["pallas"]["ring_shift"],
-                **{name: probe_counts[name] for name in PROBES},
+                **{name: probe_counts[name]
+                   for name in probes_of("exp_union", "exp_union2")},
                 **probe2_counts}
 
     def entry(name, *extra):
@@ -1782,7 +1793,7 @@ def main():
     ]})
     # every ported kernel, with the path that launches it
     paths = {**MAIN_PATH, **{name: "off-path" for name in OFF_PATH},
-             **PROBES, **PROBES_2}
+             **PROBES}
     log({"kernels": [{**entry(name), "path": path,
                       **({"m9": stats[name]["m9"]} if "m9" in stats[name]
                          else {})}

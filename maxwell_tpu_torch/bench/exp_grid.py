@@ -13,7 +13,7 @@ per row, and the full pair-panel product:
                  value panels @ their X slices (K11's arithmetic)
 
     python -m maxwell_tpu_torch.bench.exp_grid [T] [--device cuda|cpu]
-        [--k11-grid N] [--out PATH]
+        [--out PATH]
 
 T tiles (default 298), R 16, b = m = 8, NCH 6 chunks of Cp 8 pair slots, 3
 live; the inputs are the reference's (exp_grid.py:32-44), drawn from
@@ -25,8 +25,10 @@ gathered_GBps (the X slice bytes, with e5's value panels, over the time),
 library_ms where one PyTorch call computes the same function
 (X[:128].repeat for e0/e1, one torch.bmm on the panel gathered beforehand
 for e5), and the max error against the plain version (the run fails above
-1e-5 of max|plain|). Then K11 (bellpairs_matmat) at m 8 on the --k11-grid
-RCM brick's K (default 24, whose layout has e5's shape), timed beside e5.
+1e-5 of max|plain|). Then, at the reference's T 298 only, K11
+(bellpairs_matmat) at m 8 on the 24^3 RCM brick's K, timed beside e5: its
+4,768 block rows of 48 pair slots are the probe's 298 tiles, so at another
+T the comparison has no counterpart and is left out.
 Runs on the card unless --device cpu is given; there the plain versions
 run and nothing is timed. Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_grid_results.json).
@@ -47,6 +49,8 @@ from maxwell_tpu_torch.utils.precision import fp32_true
 
 TOL = 1e-5  # of max|plain|: f32 sums in another order than the plain's
 LIVE = 3  # live chunks per tile (the 24^3 matrix has ~3.3)
+T_REF = 298  # the reference's tiles: the block rows of K11_GRID^3's K
+K11_GRID = 24
 
 
 def make_inputs(T: int, seed: int = 0) -> dict:
@@ -98,9 +102,10 @@ def _k11(grid: int, dev: torch.device, timed: bool, e5_ms) -> dict:
 
 
 @fp32_true
-def run(T: int = 298, device="cuda", k11_grid: int = 24) -> dict:
-    """Every variant at T tiles on `device`, then K11 at k11_grid^3; raises
-    if a kernel disagrees with its plain version. Returns the results."""
+def run(T: int = T_REF, device="cuda") -> dict:
+    """Every variant at T tiles on `device`, then (at T_REF) K11 on the
+    K11_GRID^3 K; raises if a kernel disagrees with its plain version.
+    Returns the results."""
     dev = device_of(device)
     data = make_inputs(T)
     t = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
@@ -157,8 +162,8 @@ def run(T: int = 298, device="cuda", k11_grid: int = 24) -> dict:
                        gathered_GBps=gathered / ms / 1e6,
                        library=lib, library_ms=lib_ms)
         results[name] = row
-    if k11_grid:
-        results["k11"] = _k11(k11_grid, dev, timed,
+    if T == T_REF:
+        results["k11"] = _k11(K11_GRID, dev, timed,
                               results["e5_cat424_mm"].get("ms"))
     return results
 
@@ -183,12 +188,11 @@ def _library(name, X, T, cols, vals, slots):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("T", nargs="?", type=int, default=298)
+    ap.add_argument("T", nargs="?", type=int, default=T_REF)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--k11-grid", type=int, default=24)
     ap.add_argument("--out", default=str(PROBE_DIR / "exp_grid_results.json"))
     args = ap.parse_args(argv)
-    results = run(args.T, args.device, args.k11_grid)
+    results = run(args.T, args.device)
     write(results, args.out)
     print(json.dumps(results, indent=1))
     return 0

@@ -22,7 +22,8 @@
 //                 at its live pair count (no blocks racing on one output).
 //   grid_acc      e3_acc424 (:124-141, :133): the (16, 8) sum of the tile's
 //                 16 x 24 X slices, summed in registers as they arrive,
-//                 written tiled 8 times.
+//                 written tiled 8 times. 8 warps per tile, as grid_cat, so
+//                 that e3 against e4 differs in the staging alone.
 //   grid_cat      e4_cat424 (:143-170, :162): per block row r and chunk c,
 //                 the row's 8 slices are first staged in shared memory (the
 //                 TPU's concatenated panel), then summed per row; the tile's
@@ -55,7 +56,7 @@ constexpr int kB = 8;                   // rows per block row
 constexpr int kCp = 8;                  // pair slots per chunk
 constexpr int kTileF4 = kR * kB * 8 / 4;  // float4 of a (128, 8) tile: 256
 constexpr int kSliceF4 = 2 * kB * 8 / 4;  // float4 of a (16, 8) slice: 32
-constexpr int kAccWarps = 4;            // grid_acc: warps per tile
+constexpr int kAccWarps = 8;            // grid_acc: warps per tile, as grid_cat
 constexpr int kCatThreads = 256;        // grid_cat: 8 warps per tile
 constexpr int kMmWarps = 8;             // grid_cat_mm: block rows per block
 
@@ -82,7 +83,7 @@ grid_steps_kernel(const int32_t* __restrict__ nch,
   y[(size_t)t * kTileF4 + threadIdx.x] = acc;
 }
 
-// warp w sums slices w, w + 4, ...; lane l holds float4 l of the slice
+// warp w sums slices w, w + 8, ...; lane l holds float4 l of the slice
 __global__ void __launch_bounds__(kAccWarps * 32)
 grid_acc_kernel(const int32_t* __restrict__ cols,
                 const float4* __restrict__ x, float4* __restrict__ y,

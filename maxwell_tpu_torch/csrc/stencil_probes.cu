@@ -33,8 +33,9 @@
 // (the reference hoists it) and p4's 33 reads are left to the compiler, which
 // merges them into 3: the ladder p0 (1 load) / p4 (3) / p1, p2 (33) / p3 (33
 // over three planes) / p5 (1 + 2 shuffles) / p6 (9 + 18 shuffles) shows what
-// loads and shuffles cost per output, and p3 against K4 what K4's masks,
-// bounds checks and index arithmetic add.
+// loads and shuffles cost per output, and p3 against K4 (per output
+// element, on a field with as many outputs) what K4's masks, bounds checks
+// and index arithmetic add.
 //
 // Bound: the field read once (10.1 MB at g 64, m 8) and the output written
 // once (9.2 MB): 5.8 us at 3.35 TB/s; 2 x 33 flops per output, 2.3 us at

@@ -146,6 +146,9 @@ def _check(X, T, *, nch=None, cols=None, live=None, vals=None) -> None:
         if cols.dtype != torch.int32 or cols.dim() != 2:
             raise ValueError(f"cols must be int32 (16 T, Q), got "
                              f"{cols.dtype} {tuple(cols.shape)}")
+        if cols.shape[0] < R or cols.shape[0] % R:
+            raise ValueError(f"cols has {cols.shape[0]} block rows, not a "
+                             f"positive multiple of {R}")
         if not 1 <= live * CP <= cols.shape[1]:
             raise ValueError(f"live = {live} chunks of {CP} slots do not fit "
                              f"Q = {cols.shape[1]}")
@@ -163,6 +166,26 @@ def _check(X, T, *, nch=None, cols=None, live=None, vals=None) -> None:
             raise ValueError("operands must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("operands must be 16-byte aligned")
+    if cols is not None:
+        check_cols(cols, X, live)
+
+
+def check_cols(cols, X, live) -> None:
+    """Raise unless every read block column c of cols[:, :live * 8] has
+    its slice X[8 c : 8 c + 16] inside X. The kernels read X there
+    unchecked. The values are read once per tensor version (a device
+    reduction and a sync), and the result is kept on the tensor, so that
+    a timed repeat launches the kernel alone."""
+    key = (cols._version, X.shape[0], live)
+    if getattr(cols, "_grid_probe_cols_ok", None) == key:
+        return
+    used = cols[:, :live * CP]
+    lo, hi = int(used.min()), int(used.max())
+    top = (X.shape[0] - 2 * B) // B
+    if lo < 0 or hi > top:
+        raise ValueError(f"cols in [{lo}, {hi}] leave [0, {top}], the block "
+                         f"columns whose slices lie in X's {X.shape[0]} rows")
+    cols._grid_probe_cols_ok = key
 
 
 def _launch(name, X, T, inputs, ints):

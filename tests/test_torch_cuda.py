@@ -588,10 +588,14 @@ def test_cuda_shift_probes_match_plain(cuda_device, grid, m):
 @pytest.mark.cuda
 def test_cuda_probe_wrappers_raise(cuda_device):
     """Bad device input raises before any launch: f64 or misaligned X, a
-    short X, an unknown case, m outside [1, 32), a non-contiguous field."""
+    short X, a read block column whose slice leaves X, a cols row count
+    not a multiple of 16, an unknown case, m outside [1, 32), a
+    non-contiguous field."""
     d = exp_grid.make_inputs(10)
     X = torch.from_numpy(d["X"]).to(cuda_device)
     cols = torch.from_numpy(d["cols"]).to(cuda_device)
+    far = cols.clone()
+    far[7, 5] = 160  # slice rows 1280-1295 of X's 1288
     field = torch.from_numpy(exp_stencil2.make_field(3, 8)).to(cuda_device)
     gp.reset_counts()
     spr.reset_counts()
@@ -599,6 +603,9 @@ def test_cuda_probe_wrappers_raise(cuda_device):
                  lambda: gp.e0_grid1(X.view(-1)[1:-7].view(-1, 8), 10),
                  lambda: gp.e3_acc424(cols, X[:1200], 3),
                  lambda: gp.e3_acc424(cols, X, 7),
+                 lambda: gp.e5_cat424_mm(far, torch.from_numpy(
+                     d["vals"]).to(cuda_device), X, 3),
+                 lambda: gp.e4_cat424(cols[:150].contiguous(), X, 3),
                  lambda: spr.shift_probe("p7", field, 8),
                  lambda: spr.shift_probe("p1", field, 32),
                  lambda: spr.shift_probe("p1", field.transpose(0, 1), 8)):

@@ -160,22 +160,31 @@ def _digest(name):
 
 
 def test_probe_on_cpu_writes_only_out(tmp_path, monkeypatch):
-    """--device cpu runs the plain versions and K11's plain version, times
-    nothing (a CPU has no device time), writes its JSON to --out only, and
-    leaves the reference's exp_grid_results.json at the root as it was,
-    even when run from the root."""
+    """--device cpu runs the plain versions, times nothing (a CPU has no
+    device time), writes its JSON to --out only, and leaves the reference's
+    exp_grid_results.json at the root as it was, even when run from the
+    root. K11's comparison needs the reference's T 298: at T 10 it is left
+    out."""
     before = _digest("exp_grid_results.json")
     monkeypatch.chdir(ROOT)
     out = tmp_path / "g.json"
-    assert exp_grid.main(["10", "--device", "cpu", "--k11-grid", "4",
-                          "--out", str(out)]) == 0
+    assert exp_grid.main(["10", "--device", "cpu", "--out", str(out)]) == 0
     assert _digest("exp_grid_results.json") == before
     r = json.loads(out.read_text())
     assert r["device"] == "cpu" and r["T"] == 10 and r["LIVE"] == LIVE
     for name in NAMES:
         assert r[name]["max_abs_err"] == 0.0 and "ms" not in r[name]
-    assert r["k11"]["grid"] == 4 and r["k11"]["max_abs_err"] <= 1e-5
+    assert "k11" not in r
     assert r["slice_bytes"] == 10 * R * LIVE * CP * 2 * B * 8 * 4
+
+
+def test_k11_side_on_cpu():
+    """K11 beside e5: its kernel's CPU path against the uncounted plain
+    arithmetic on a small RCM brick, untimed on a CPU."""
+    r = exp_grid._k11(4, torch.device("cpu"), False, None)
+    assert r["grid"] == 4 and r["max_abs_err"] <= 1e-5
+    assert r["live_pair_bytes"] == r["live_pairs"] * 2 * B * B * 4
+    assert "ms" not in r
 
 
 def test_probe_defaults_to_the_card(monkeypatch, tmp_path):
@@ -192,8 +201,8 @@ def _meta(shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("bad", ["f64_x", "wide_x", "short_x", "nch_int64",
-                                 "cols_int64", "live_too_many", "vals_shape",
-                                 "non_contiguous"])
+                                 "cols_int64", "cols_rows", "live_too_many",
+                                 "vals_shape", "non_contiguous"])
 def test_wrappers_reject_bad_device_input(bad):
     """A tensor that is not on the CPU takes the kernel path, which checks
     its input before any build or launch (meta tensors stand in for CUDA
@@ -214,6 +223,8 @@ def test_wrappers_reject_bad_device_input(bad):
         nch = _meta((Tm,), torch.int64)
     elif bad == "cols_int64":
         cols = _meta((16 * Tm, 48), torch.int64)
+    elif bad == "cols_rows":
+        cols = _meta((16 * Tm + 3, 48), torch.int32)
     elif bad == "live_too_many":
         live = 7
     elif bad == "vals_shape":
@@ -229,13 +240,32 @@ def test_wrappers_reject_bad_device_input(bad):
     # the operands each case spoils
     hit = {"f64_x": NAMES, "wide_x": NAMES, "short_x": NAMES,
            "non_contiguous": NAMES, "nch_int64": ["e2_grid6_when"],
-           "cols_int64": NAMES[3:], "live_too_many": NAMES[3:],
+           "cols_int64": NAMES[3:], "cols_rows": NAMES[3:],
+           "live_too_many": NAMES[3:],
            "vals_shape": ["e5_cat424_mm"]}[bad]
     gp.reset_counts()
     for name in hit:
         with pytest.raises(ValueError):
             calls[name]()
     assert not any(gp.counts().values())
+
+
+@pytest.mark.parametrize("value,ok", [(-1, False), (0, True), (31, True),
+                                      (32, False)])
+def test_cols_outside_x_are_refused(value, ok):
+    """The kernels read X[8 c : 8 c + 16] unchecked, so the wrappers refuse
+    a read block column c whose slice leaves X (here X has 2 tiles + 8
+    rows: c in [0, 31]); an unread slot may hold anything. A column that
+    passed is not read again until the tensor changes in place."""
+    cols = torch.zeros((32, 48), dtype=torch.int32)
+    X = torch.zeros((2 * 128 + 8, 8))
+    cols[5, LIVE * CP - 1] = value
+    cols[5, LIVE * CP] = 10**6  # past the live slots: not read
+    if ok:
+        gp.check_cols(cols, X, LIVE)
+        cols[5, LIVE * CP - 1] = 32
+    with pytest.raises(ValueError, match="leave"):
+        gp.check_cols(cols, X, LIVE)
 
 
 def test_counts_reset(data):

@@ -115,8 +115,7 @@ def test_probe_on_cpu_writes_only_out(tmp_path, monkeypatch):
     monkeypatch.chdir(ROOT)
     out = tmp_path / "s.json"
     assert exp_stencil2.main(["--grid", "4", "--ms", "2", "3", "--device",
-                              "cpu", "--k4-grid", "4", "--out",
-                              str(out)]) == 0
+                              "cpu", "--out", str(out)]) == 0
     assert _digest("exp_stencil2_results.json") == before
     r = json.loads(out.read_text())
     assert r["device"] == "cpu" and r["grid"] == 4
@@ -127,9 +126,33 @@ def test_probe_on_cpu_writes_only_out(tmp_path, monkeypatch):
         assert res["flops"] == 2 * 33 * 36 * 6 * m
         for case in sp.CASES:
             assert res[case]["max_abs_err"] == 0.0 and "ms" not in res[case]
+            assert res[case]["library_err"] <= 1e-5 * 600
         assert res["p5"]["err_vs_p1"] <= 1e-5 * 600
         assert res["p6"]["err_vs_p3"] <= 1e-5 * 600
-    assert r["k4"]["grid"] == 4 and r["k4"]["max_abs_err"] == 0.0
+    k4 = r["k4"]
+    assert k4["grid"] == 4 and k4["max_abs_err"] == 0.0
+    assert k4["outputs"] == k4["n_padded"] * 9 and "ms" not in k4
+    # p3 on the field whose outputs are nearest K4's
+    p3 = k4["p3_same_outputs"]
+    g = p3["grid"]
+    assert p3["outputs"] == (g + 2) ** 3 * 9 and p3["max_abs_err"] == 0.0
+    assert round(k4["n_padded"] ** (1 / 3)) == g + 2
+
+
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("case", sp.CASES)
+def test_conv3d_computes_each_case(case, m):
+    """The library call timed beside each case: F.conv3d with the case's
+    33 taps summed into a 3 x 3 x 3 filter, dilated by m along z, gives the
+    plain version's output (1e-6 of max|plain|, f32 sums in another
+    order)."""
+    field = torch.from_numpy(exp_stencil2.make_field(5, m))
+    W = exp_stencil2.conv_weight(case)
+    assert float(W.sum()) == sum(c for *_, c in sp._taps(case))
+    want = sp.shift_plain(case, field, m)
+    got = exp_stencil2.library(field, W, m)
+    assert got.shape == want.shape == (7, 7, 7 * m)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-6
 
 
 def test_probe_defaults_to_the_card(monkeypatch, tmp_path):
