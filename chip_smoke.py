@@ -32,7 +32,11 @@ probes and check that they ran through the kernels:
   slice 7, the BELLPairs per-tile and tap-stencil shift probes (K15d,
     K15f): the probe scripts maxwell_tpu_torch.bench.exp_grid and
     exp_stencil2 at their full default sizes, each probe kernel against its
-    plain version, K11 and K4 timed beside them.
+    plain version, K11 and K4 timed beside them;
+  slice 8, the blocked-ELL SpMM and X-gather probes (K15c, K15e): the probe
+    scripts maxwell_tpu_torch.bench.exp_spmm and exp_gather at their full
+    default sizes, each probe kernel against its plain version, K8, K11 and
+    K12 timed beside the first.
 
     python3 chip_smoke.py
 
@@ -113,7 +117,15 @@ Phases, in order; any failure raises and the process exits non-zero:
                conv3d) within 1e-5 of max|plain| (p5/p6 also of p1/p3's),
                launched, and no plain version called; one JSON line per
                variant
- 20. result    an {"off_main_path": [...]} line for the kernels no solver
+ 20. spmm and gather probes  slice 8 through the probe scripts' run():
+               exp_spmm.run (the 24^3 RCM K's blocked-ELL layout at m in
+               {8, 32, 64, 128}: v1-v6, then K8, K11 and K12 beside) and
+               exp_gather.run (T 298, S 64: g0-g5, g3w), counts zeroed
+               just before and read just after; every probe kernel (and
+               its library call) within 1e-5 of max|plain| (the _def
+               variants against bf16-rounded operands), launched, and no
+               plain version called; one JSON line per variant
+ 21. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -171,6 +183,13 @@ DEVICE_RESIDUAL_TOL = 1e-3
 GRID_PROBES = ("e0_grid1", "e1_grid6", "e2_grid6_when", "e3_acc424",
                "e4_cat424", "e5_cat424_mm")
 SHIFT_PROBES = tuple(f"shift_p{k}" for k in range(7))
+# the K15c and K15e probe kernels (phase 20), with their pallas_call lines
+SPMM_PROBES = {"v1_panel_hi": 127, "v2_panel_def": 127, "v3_stream": 159,
+               "v3b_onedot": 184, "v4_gather": 212, "v5_batched_hi": 277,
+               "v5_batched_def": 277, "v6_smem_hi": 244}
+GATHER_PROBES = {"g0_slices": 103, "g1_slices2x": 125, "g2_taa0": 151,
+                 "g3_taa1": 176, "g3w_taa1_wide": 204, "g4_lane_ds": 228,
+                 "g5_floor": 247}
 REPLACES = {
     "bellunion_matmat": "maxwell_tpu/kernels/spmm.py:304",
     "bellunion_km_matmat": "maxwell_tpu/kernels/spmm.py:466",
@@ -196,6 +215,10 @@ REPLACES = {
         GRID_PROBES, (74, 92, 119, 133, 162, 189))},
     # one pallas_call, seven bodies (_mk, exp_stencil2.py:32-90)
     **dict.fromkeys(SHIFT_PROBES, "maxwell_tpu/bench/exp_stencil2.py:120"),
+    **{name: f"maxwell_tpu/bench/exp_spmm.py:{line}"
+       for name, line in SPMM_PROBES.items()},
+    **{name: f"maxwell_tpu/bench/exp_gather.py:{line}"
+       for name, line in GATHER_PROBES.items()},
 }
 SOURCE = {
     "bellunion_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
@@ -221,6 +244,12 @@ SOURCE = {
     **dict.fromkeys(GRID_PROBES, "maxwell_tpu_torch/csrc/grid_probes.cu"),
     **dict.fromkeys(SHIFT_PROBES,
                     "maxwell_tpu_torch/csrc/stencil_probes.cu"),
+    **dict.fromkeys(SPMM_PROBES, "maxwell_tpu_torch/csrc/spmm_probes.cu"),
+    **dict.fromkeys(GATHER_PROBES,
+                    "maxwell_tpu_torch/csrc/gather_probes.cu"),
+    # the gather-only rung is g0's kernel; g5 is K15d's e0 kernel
+    "v4_gather": "maxwell_tpu_torch/csrc/gather_probes.cu",
+    "g5_floor": "maxwell_tpu_torch/csrc/grid_probes.cu",
 }
 # what each path launches. solve(): the fused apply (LOBPCG's W, the
 # preconditioner's CG) and the single-stream apply (projector, initial
@@ -257,12 +286,15 @@ OFF_PATH = ("bellunion_matvec", "bsr_matmat_windowed",
             "bellpairs_km_matmat_banded", "bellunion_matmat_banded")
 # the probe kernels, by the script whose run() launches them: the
 # tile-union probes in phase 18, the BELLPairs per-tile and tap-stencil
-# shift probes in phase 19
+# shift probes in phase 19, the blocked-ELL SpMM and X-gather probes in
+# phase 20
 PROBES = {"u0_hi": "probe: exp_union", "u0_def": "probe: exp_union",
           "u1_runs": "probe: exp_union", "u2_km": "probe: exp_union",
           "union_unstaged": "probe: exp_union2",
           **dict.fromkeys(GRID_PROBES, "probe: exp_grid"),
-          **dict.fromkeys(SHIFT_PROBES, "probe: exp_stencil2")}
+          **dict.fromkeys(SHIFT_PROBES, "probe: exp_stencil2"),
+          **dict.fromkeys(SPMM_PROBES, "probe: exp_spmm"),
+          **dict.fromkeys(GATHER_PROBES, "probe: exp_gather")}
 
 
 def probes_of(*scripts):
@@ -442,16 +474,18 @@ def _kernel_modules():
     from maxwell_tpu_torch.kernels import (
         bellpairs_spmm,
         bsr_spmm,
+        gather_probes,
         grid_probes,
         halo,
         spmm,
+        spmm_probes,
         stencil_probes,
         stencil_taps,
         union_probes,
     )
 
     return (spmm, stencil_taps, bsr_spmm, bellpairs_spmm, halo, union_probes,
-            grid_probes, stencil_probes)
+            grid_probes, stencil_probes, spmm_probes, gather_probes)
 
 
 def all_counts():
@@ -1702,6 +1736,59 @@ def phase_grid_and_stencil_probes():
     return stats, {name: counts[name] for name in mine}
 
 
+def phase_spmm_and_gather_probes():
+    """The blocked-ELL SpMM probe (K15c: exp_spmm.run, the 24^3 RCM K at m
+    in {8, 32, 64, 128}, v1-v6, then K8, K11 and K12 beside) and the
+    X-gather probe (K15e: exp_gather.run, T 298, S 64, g0-g5 and g3w), at
+    their full default sizes through the probe scripts' own run(). The
+    scripts hold every kernel and every library call against its plain
+    version (1e-5 of max|plain|; the _def variants against the product of
+    bf16-rounded operands, the bf16-output library calls at 1e-2, K12 also
+    against (K + M) X in f64) and raise past it; their oracles are
+    uncounted. Counts are zeroed just before and read just after: every
+    probe kernel launched, no plain version called. One JSON line per
+    variant. Returns (stats of the kernels line, counts); a K15c variant
+    reports m 8 with m 32, 64 and 128 beside."""
+    from maxwell_tpu_torch.bench import exp_gather, exp_spmm
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    r1 = exp_spmm.run()
+    t1 = time.perf_counter()
+    r2 = exp_gather.run()
+    t2 = time.perf_counter()
+    counts = all_counts()
+    torch.cuda.empty_cache()
+    widths = [k for k in r1 if k.startswith("m") and k[1:].isdigit()]
+    log({"phase": "exp_spmm", "seconds": t1 - t0,
+         **{k: v for k, v in r1.items() if k not in widths}})
+    for w in widths:
+        for name, row in r1[w].items():
+            log({"probe": "exp_spmm", "variant": name, "m": int(w[1:]),
+                 **row})
+    log({"phase": "exp_gather", "seconds": t2 - t1,
+         **{k: v for k, v in r2.items() if k not in GATHER_PROBES}})
+    for name in GATHER_PROBES:
+        log({"probe": "exp_gather", "variant": name, **r2[name]})
+
+    mine = probes_of("exp_spmm", "exp_gather")
+    for name in mine:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the probes")
+    stray = {k: v for k, v in counts.items() if v and k.endswith("_ref")}
+    if stray:
+        raise AssertionError(f"plain versions ran on the card: {stray}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    stats = {name: {k: r2[name][k] for k in keys} for name in GATHER_PROBES}
+    for name in SPMM_PROBES:
+        stats[name] = {
+            **{k: r1["m8"][name][k] for k in keys},
+            **{w: {k: r1[w][name][k] for k in keys}
+               for w in widths if w != "m8"}}
+    return stats, {name: counts[name] for name in mine}
+
+
 def timed(fn, *args):
     """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
     t0 = time.perf_counter()
@@ -1758,6 +1845,8 @@ def main():
     stats.update(probe_stats)
     probe_stats, probe2_counts = timed(phase_grid_and_stencil_probes)
     stats.update(probe_stats)
+    probe_stats, probe3_counts = timed(phase_spmm_and_gather_probes)
+    stats.update(probe_stats)
 
     launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"],
                 "bsr_matmat": bsr_counts["bsr_matmat"],
@@ -1770,7 +1859,7 @@ def main():
                 "ring_shift": dist_counts["pallas"]["ring_shift"],
                 **{name: probe_counts[name]
                    for name in probes_of("exp_union", "exp_union2")},
-                **probe2_counts}
+                **probe2_counts, **probe3_counts}
 
     def entry(name, *extra):
         st = stats[name]
@@ -1794,9 +1883,11 @@ def main():
     # every ported kernel, with the path that launches it
     paths = {**MAIN_PATH, **{name: "off-path" for name in OFF_PATH},
              **PROBES}
+    # the probes' other widths: m 9 (K15f), m 32, 64, 128 (K15c)
     log({"kernels": [{**entry(name), "path": path,
-                      **({"m9": stats[name]["m9"]} if "m9" in stats[name]
-                         else {})}
+                      **{w: stats[name][w] for w in ("m9", "m32", "m64",
+                                                     "m128")
+                         if w in stats[name]}}
                      for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")
     log({"ok": True, "device": {"platform": "gpu",

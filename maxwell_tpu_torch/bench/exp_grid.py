@@ -22,10 +22,13 @@ launches), per_tile_ns, plain_ms, bound_ms / bound_by at the card's
 published rates (the bytes the function needs: X's 4 KB block or X once,
 the used cols, for e5 the live half of the value stream, Y once),
 gathered_GBps (the X slice bytes, with e5's value panels, over the time),
-library_ms where one PyTorch call computes the same function
-(X[:128].repeat for e0/e1, one torch.bmm on the panel gathered beforehand
-for e5), and the max error against the plain version (the run fails above
-1e-5 of max|plain|). Then, at the reference's T 298 only, K11
+library_ms of one PyTorch call computing the same function (X[:128].repeat
+for e0/e1, a broadcast torch.mul for e2, F.embedding_bag sums over X's
+overlapping 16-row windows for e3/e4, one torch.bmm on the panel gathered
+beforehand for e5; `library` says what each includes and excludes), and
+the max error against the plain version (the run fails above 1e-5 of
+max|plain|, the library call's too, at 1e-4 for the embedding_bag sums).
+Then, at the reference's T 298 only, K11
 (bellpairs_matmat) at m 8 on the 24^3 RCM brick's K, timed beside e5: its
 4,768 block rows of 48 pair slots are the probe's 298 tiles, so at another
 T the comparison has no counterpart and is left out.
@@ -41,7 +44,13 @@ import json
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from maxwell_tpu_torch.bench.exp_gather import (
+    LIB_TOL_SUM,
+    bag_sum,
+    window_view,
+)
 from maxwell_tpu_torch.bench.exp_union import PROBE_DIR, device_of, write
 from maxwell_tpu_torch.bench.timing import bound_ms, median_ms
 from maxwell_tpu_torch.kernels import grid_probes as gp
@@ -150,17 +159,22 @@ def run(T: int = T_REF, device="cuda") -> dict:
         if got.shape != want.shape or not err <= TOL * scale:
             raise AssertionError(f"{name}: max error {err:.3e} > {TOL} * "
                                  f"{scale:.3e} against the plain version")
-        row = {"max_abs_err": err, "rel_err": err / scale}
+        what, call, as_plain, tol = library(name, t, T)
+        lib_err = (as_plain(call()) - want).abs().max().item()
+        if not lib_err <= tol * scale:
+            raise AssertionError(f"{name}: library call off by {lib_err:.3e}"
+                                 f" > {tol} * {scale:.3e}")
+        row = {"max_abs_err": err, "rel_err": err / scale, "library": what,
+               "library_max_abs_err": lib_err}
         if timed:
             ms = median_ms(lambda: kern(*args))
             b_ms, b_by = bound_ms(nbytes, flops, "f32")
-            lib, lib_ms = _library(name, X, T, cols, vals, slots)
             row.update(ms=ms, per_tile_ns=ms * 1e6 / T,
                        plain_ms=median_ms(lambda: plain(*args)),
                        bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                        flops=flops, gathered_bytes=gathered,
                        gathered_GBps=gathered / ms / 1e6,
-                       library=lib, library_ms=lib_ms)
+                       library_ms=median_ms(call))
         results[name] = row
     if T == T_REF:
         results["k11"] = _k11(K11_GRID, dev, timed,
@@ -168,22 +182,49 @@ def run(T: int = T_REF, device="cuda") -> dict:
     return results
 
 
-def _library(name, X, T, cols, vals, slots):
-    """(what, ms) of one PyTorch call computing the variant's function, or
-    ("none", None)."""
+def library(name, t, T):
+    """(what, call, as_plain, tol) of one PyTorch call computing the
+    variant's function: the call runs on operands formed beforehand (t:
+    the run's tensors); as_plain maps its output onto the plain version's
+    (untimed); tol is the bound against the plain version, of
+    max|plain|."""
+    X, cols = t["X"], t["cols"]
+    slots = LIVE * gp.CP
     if name in ("e0_grid1", "e1_grid6"):
-        return "X[:128].repeat(T, 1)", median_ms(
-            lambda: X[:gp.TILE].repeat(T, 1))
+        return ("X[:128].repeat(T, 1)", lambda: X[:gp.TILE].repeat(T, 1),
+                lambda out: out, TOL)
+    if name == "e2_grid6_when":
+        base = X[:gp.TILE]
+        fac = (1 + t["nch"].clamp(0, gp.NCH)).float()[:, None, None]
+        return ("torch.mul of X[:128] by each tile's factor 1 + min(nch, 6)"
+                ", broadcast (excludes forming the factor)",
+                lambda: torch.mul(base, fac),
+                lambda out: out.reshape(-1, gp.M), TOL)
+    if name == "e3_acc424":
+        call, as_plain = bag_sum(cols, X, slots, 2 * gp.B)
+        return ("F.embedding_bag sum over the overlapping 16-row windows "
+                "X.as_strided((nbr, 128), (64, 1)), made contiguous "
+                "beforehand, one bag of the tile's 16 x 24 live slots "
+                "(excludes the 8-fold tile)", call, as_plain, LIB_TOL_SUM)
+    if name == "e4_cat424":
+        nbr, Q = cols.shape
+        idx = cols.view(T, gp.R, Q)[:, :gp.R // 2, :slots].reshape(
+            -1, slots).long()
+        Wv = window_view(X, 2 * gp.B)
+        return ("F.embedding_bag sum over the same windows, one bag of 24 "
+                "live slots per block row r < 8 of each tile (excludes the "
+                "column slice, taken beforehand)",
+                lambda: F.embedding_bag(idx, Wv, mode="sum"),
+                lambda out: out.reshape(-1, gp.M), LIB_TOL_SUM)
     if name == "e5_cat424_mm":
         nbr, Q = cols.shape
         k = slots * 2 * gp.B
-        V = vals.view(nbr, gp.B, Q * 2 * gp.B)[:, :, :k]  # live half, a view
+        V = t["vals"].view(nbr, gp.B, Q * 2 * gp.B)[:, :, :k]  # live half
         P = gp.slices(cols, X, slots).reshape(nbr, k, gp.M)
-        ms = median_ms(lambda: torch.bmm(V, P))
-        del P
         return ("torch.bmm on the panel gathered beforehand (excludes the "
-                "gather)", ms)
-    return "none", None
+                "gather)", lambda: torch.bmm(V, P),
+                lambda out: out.reshape(-1, gp.M), TOL)
+    raise KeyError(name)
 
 
 def main(argv=None) -> int:

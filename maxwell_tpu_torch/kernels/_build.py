@@ -62,6 +62,14 @@ _SIGNATURES = {
     "grid_cat_mm_f32": [_P] * 4 + [_I] * 3 + [_P],
     # stencil_probes.cu
     "shift_probe_f32": [_P] * 2 + [_I] * 6 + [_P],
+    # gather_probes.cu
+    "gather_sum_f32": [_P] * 3 + [_I] * 7 + [_P],
+    "gather_taa0_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "gather_taa1_f32": [_P] + [_I] * 3 + [_P, _I, _P] + [_I] * 3 + [_P],
+    # spmm_probes.cu
+    "spmm_probe_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "spmm_probe_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "spmm_stream_bf16": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 

@@ -1,0 +1,306 @@
+"""Blocked-ELL SpMM probes (K15c): the CUDA kernels' wrappers and their
+plain PyTorch versions. No solver calls them; the probe script
+maxwell_tpu_torch/bench/exp_spmm.py does.
+
+The probe of maxwell_tpu/bench/exp_spmm.py: a blocked-ELL layout of nbr
+block rows (a multiple of R = 16: whole 128-row tiles) of S slots (a
+multiple of 4) of 8 x 8 blocks, as the transposed value panel V = blocks2d
+(nbr b, S b) f32 (row r b + i, column s b + k, `panel_values`) and cols
+(nbr, S) int32; X (rows, m) f32 with m in {8, 32, 64, 128}; Y (nbr b, m).
+
+    v5_batched_hi(V, cols, X)    Y = A X: per slot, X[8 c : 8 c + 8] read
+                                 from global memory, f32 FMAs
+    v1_panel_hi(V, cols, X)      the same, each row's X panel staged in
+                                 shared memory in 2-slot chunks
+    v6_smem_hi(V, cols, X)       v5_hi with the tile's cols staged in
+                                 shared memory
+    v5_batched_def(V, cols, X)   v5 with bf16 operands (nearest even) and
+                                 f32 sums (the TPU's DEFAULT precision),
+                                 mma.sync m16n8k16
+    v2_panel_def(V, cols, X)     v1 with bf16 operands
+    v3_stream(V, X)              every block row's values @ the fixed panel
+                                 X[0 : S b], bf16 operands
+    v3b_onedot(V, X)             the same function, one (128, S b) product
+                                 per tile
+    v4_gather(cols, X)           per tile the sum of its R S slices
+                                 X[8 c : 8 c + 8], tiled R times (the
+                                 kernel of K15e's g0_slices)
+
+A wrapper given CUDA tensors checks them and launches its kernel
+(csrc/spmm_probes.cu; v4: csrc/gather_probes.cu) or raises; given CPU
+tensors it runs the plain version (`*_ref`). Each wrapper counts its
+launches in `.launches`, each plain version its calls in `.calls`.
+`PLAIN_OF` maps each wrapper to the plain arithmetic without a count: the
+probe script's oracles, whose comparison launches do not count as the
+probe's path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from maxwell_tpu_torch.kernels import gather_probes as gpr
+
+R, B = 16, 8  # block rows per tile, block size
+MS = gpr.SLICE_MS  # the widths the kernels are built for
+SMEM_LIMIT = 232448  # a block's shared memory on the H100
+
+
+def panel_values(blocks: torch.Tensor) -> torch.Tensor:
+    """blocks (nbr, S, b, b) -> the transposed value panel (nbr b, S b):
+    row r b + i, column s b + k (exp_spmm.py:80-85)."""
+    nbr, S, b, _ = blocks.shape
+    return blocks.permute(0, 2, 1, 3).reshape(nbr * b, S * b).contiguous()
+
+
+def fixed_staged(S: int, m: int, onedot: bool) -> bool:
+    """Whether v3_stream (onedot False) or v3b_onedot stages the fixed
+    panel X[0 : S b] in shared memory at width m (rows m + 4 floats apart;
+    v3b also holds its k-half sums there), else reads it from global
+    memory."""
+    smem = S * B * (m + 4) * 4
+    if onedot:
+        smem += (R // 2) * (m // B) * 4 * 32 * 4
+    return smem <= SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def gathered_panel(cols, X):
+    """(nbr, S b, m): each block row's X panel, slot s's rows X[8 c : 8 c +
+    8] at rows 8 s .. 8 s + 7."""
+    nbr, S = cols.shape
+    m = X.shape[1]
+    return X[: X.shape[0] // B * B].view(-1, B, m)[cols.long()].reshape(
+        nbr, S * B, m)
+
+
+def product_plain(V, cols, X, bf16=False):
+    """Y = A X as one bmm of the (nbr, b, S b) values against the gathered
+    panels; bf16: both operands rounded to bf16 first, f32 sums."""
+    nbr, S = cols.shape
+    Vb, P = V.view(nbr, B, S * B), gathered_panel(cols, X)
+    if bf16:
+        Vb, P = Vb.bfloat16().float(), P.bfloat16().float()
+    return torch.bmm(Vb, P).reshape(nbr * B, -1)
+
+
+def product_def_plain(V, cols, X):
+    return product_plain(V, cols, X, bf16=True)
+
+
+def stream_plain(V, X):
+    """V @ X[0 : S b] with bf16-rounded operands and f32 sums."""
+    return V.bfloat16().float() @ X[: V.shape[1]].bfloat16().float()
+
+
+def v5_batched_hi_ref(V, cols, X):
+    """Plain version of v5_batched_hi."""
+    v5_batched_hi_ref.calls += 1
+    return product_plain(V, cols, X)
+
+
+def v1_panel_hi_ref(V, cols, X):
+    """Plain version of v1_panel_hi."""
+    v1_panel_hi_ref.calls += 1
+    return product_plain(V, cols, X)
+
+
+def v6_smem_hi_ref(V, cols, X):
+    """Plain version of v6_smem_hi."""
+    v6_smem_hi_ref.calls += 1
+    return product_plain(V, cols, X)
+
+
+def v5_batched_def_ref(V, cols, X):
+    """Plain version of v5_batched_def."""
+    v5_batched_def_ref.calls += 1
+    return product_def_plain(V, cols, X)
+
+
+def v2_panel_def_ref(V, cols, X):
+    """Plain version of v2_panel_def."""
+    v2_panel_def_ref.calls += 1
+    return product_def_plain(V, cols, X)
+
+
+def v3_stream_ref(V, X):
+    """Plain version of v3_stream."""
+    v3_stream_ref.calls += 1
+    return stream_plain(V, X)
+
+
+def v3b_onedot_ref(V, X):
+    """Plain version of v3b_onedot."""
+    v3b_onedot_ref.calls += 1
+    return stream_plain(V, X)
+
+
+def v4_gather_ref(cols, X):
+    """Plain version of v4_gather."""
+    v4_gather_ref.calls += 1
+    return gpr.sum_plain(cols, X)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(V, X, cols=None) -> int:
+    """Check the operands; returns m."""
+    m = X.shape[1] if X.dim() == 2 else 0
+    if m not in MS:
+        raise ValueError(f"X must be (rows, m) with m in {MS}, got "
+                         f"{tuple(X.shape)}")
+    if V.dim() != 2 or V.shape[0] % (R * B) or not V.shape[0] or \
+            V.shape[1] % (4 * B) or not V.shape[1]:
+        raise ValueError(f"V must be (nbr 8, S 8) with nbr a multiple of "
+                         f"{R} and S of 4, got {tuple(V.shape)}")
+    nbr, S = V.shape[0] // B, V.shape[1] // B
+    if cols is None:
+        gpr.check_operands(V, X, dtypes=(torch.float32,) * 2)
+        if X.shape[0] < S * B:
+            raise ValueError(f"X has {X.shape[0]} rows, the fixed panel "
+                             f"needs {S * B}")
+        return m
+    gpr.check_operands(V, cols, X,
+                       dtypes=(torch.float32, torch.int32, torch.float32))
+    if tuple(cols.shape) != (nbr, S):
+        raise ValueError(f"cols must be ({nbr}, {S}), got "
+                         f"{tuple(cols.shape)}")
+    gpr.check_cols(cols, X.shape[0], S, B)
+    return m
+
+
+def _product(name, V, cols, X, flag):
+    m = _check(V, X, cols)
+    Y = torch.empty((V.shape[0], m), dtype=torch.float32, device=X.device)
+    gpr.launch(name, V, cols, X, Y, V.shape[0] // B, V.shape[1] // B, m,
+               flag)
+    return Y
+
+
+def _stream(V, X, onedot):
+    m = _check(V, X)
+    S = V.shape[1] // B
+    Y = torch.empty((V.shape[0], m), dtype=torch.float32, device=X.device)
+    gpr.launch("spmm_stream_bf16", V, X, Y, V.shape[0] // B, S, m,
+               int(onedot), int(fixed_staged(S, m, onedot)))
+    return Y
+
+
+def v5_batched_hi(V, cols, X):
+    """K15c v5_batched_hi (exp_spmm.py:260-291, HIGHEST): the unstaged
+    baseline, X slices from L2 into registers, f32 FMAs."""
+    if X.device.type == "cpu":
+        return v5_batched_hi_ref(V, cols, X)
+    Y = _product("spmm_probe_f32", V, cols, X, 0)
+    v5_batched_hi.launches += 1
+    return Y
+
+
+def v1_panel_hi(V, cols, X):
+    """K15c v1_panel_hi (exp_spmm.py:111-142, HIGHEST): v5_hi with each
+    row's X panel staged in shared memory."""
+    if X.device.type == "cpu":
+        return v1_panel_hi_ref(V, cols, X)
+    Y = _product("spmm_probe_f32", V, cols, X, 1)
+    v1_panel_hi.launches += 1
+    return Y
+
+
+def v6_smem_hi(V, cols, X):
+    """K15c v6_smem_hi (exp_spmm.py:226-258): v5_hi with the tile's cols
+    staged in shared memory."""
+    if X.device.type == "cpu":
+        return v6_smem_hi_ref(V, cols, X)
+    Y = _product("spmm_probe_f32", V, cols, X, 2)
+    v6_smem_hi.launches += 1
+    return Y
+
+
+def v5_batched_def(V, cols, X):
+    """K15c v5_batched_def (exp_spmm.py:260-291, DEFAULT): v5 with bf16
+    operands through mma.sync."""
+    if X.device.type == "cpu":
+        return v5_batched_def_ref(V, cols, X)
+    Y = _product("spmm_probe_bf16", V, cols, X, 0)
+    v5_batched_def.launches += 1
+    return Y
+
+
+def v2_panel_def(V, cols, X):
+    """K15c v2_panel_def (exp_spmm.py:111-142, DEFAULT): v1 with bf16
+    operands through mma.sync."""
+    if X.device.type == "cpu":
+        return v2_panel_def_ref(V, cols, X)
+    Y = _product("spmm_probe_bf16", V, cols, X, 1)
+    v2_panel_def.launches += 1
+    return Y
+
+
+def v3_stream(V, X):
+    """K15c v3_stream (exp_spmm.py:144-171): no gather, one product per
+    8-row block against the fixed panel."""
+    if X.device.type == "cpu":
+        return v3_stream_ref(V, X)
+    Y = _stream(V, X, False)
+    v3_stream.launches += 1
+    return Y
+
+
+def v3b_onedot(V, X):
+    """K15c v3b_onedot (exp_spmm.py:173-196): v3's function as one
+    (128, S b) product per tile."""
+    if X.device.type == "cpu":
+        return v3b_onedot_ref(V, X)
+    Y = _stream(V, X, True)
+    v3b_onedot.launches += 1
+    return Y
+
+
+def v4_gather(cols, X):
+    """K15c v4_gather (exp_spmm.py:198-224): the gather alone, K15e's
+    g0_slices kernel at width m."""
+    if X.device.type == "cpu":
+        return v4_gather_ref(cols, X)
+    Y = gpr.gather_sum(cols, X)
+    v4_gather.launches += 1
+    return Y
+
+
+KERNELS = (v1_panel_hi, v2_panel_def, v3_stream, v3b_onedot, v4_gather,
+           v5_batched_hi, v5_batched_def, v6_smem_hi)
+PLAIN = (v1_panel_hi_ref, v2_panel_def_ref, v3_stream_ref, v3b_onedot_ref,
+         v4_gather_ref, v5_batched_hi_ref, v5_batched_def_ref,
+         v6_smem_hi_ref)
+# each wrapper's plain arithmetic, uncounted
+PLAIN_OF = {v1_panel_hi: product_plain, v2_panel_def: product_def_plain,
+            v3_stream: stream_plain, v3b_onedot: stream_plain,
+            v4_gather: gpr.sum_plain, v5_batched_hi: product_plain,
+            v5_batched_def: product_def_plain, v6_smem_hi: product_plain}
+
+
+def reset_counts() -> None:
+    """Zero every kernel's launch count and every plain version's call
+    count."""
+    for fn in KERNELS:
+        fn.launches = 0
+    for fn in PLAIN:
+        fn.calls = 0
+
+
+def counts() -> dict:
+    """{name: launches} of the kernels and {name: calls} of the plain
+    versions."""
+    return {
+        **{fn.__name__: fn.launches for fn in KERNELS},
+        **{fn.__name__: fn.calls for fn in PLAIN},
+    }
+
+
+reset_counts()

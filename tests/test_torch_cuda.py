@@ -16,12 +16,19 @@ import pytest
 import torch
 
 import maxwell_tpu_torch
-from maxwell_tpu_torch.bench import exp_grid, exp_stencil2, exp_union
+from maxwell_tpu_torch.bench import (
+    exp_gather,
+    exp_grid,
+    exp_stencil2,
+    exp_union,
+)
 from maxwell_tpu_torch.cli import run as port_cli
 from maxwell_tpu_torch.dist import partition_problem
 from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
 from maxwell_tpu_torch.kernels import bsr_spmm, halo, spmm, stencil_taps as kst
+from maxwell_tpu_torch.kernels import gather_probes as gpr
 from maxwell_tpu_torch.kernels import grid_probes as gp
+from maxwell_tpu_torch.kernels import spmm_probes as spp
 from maxwell_tpu_torch.kernels import stencil_probes as spr
 from maxwell_tpu_torch.kernels import union_probes as up
 from maxwell_tpu_torch.problems import BrickCavity3D, RectCavity2D
@@ -612,3 +619,118 @@ def test_cuda_probe_wrappers_raise(cuda_device):
         with pytest.raises(ValueError):
             call()
     assert not any(gp.counts().values()) and not any(spr.counts().values())
+
+
+def _spmm_probe_case(case, m, device):
+    """(V, cols, X) of a blocked-ELL probe case: a small brick's K (S 32)
+    or a random layout of 5 tiles with S = 20 slots, X with 8 rows beyond
+    the last block row."""
+    if case == "brick":
+        cav = PermutedProblem(BrickCavity3D(nx=5, ny=5, nz=6))
+        A = BSRMatrix.from_csr(cav.K, block=8, device=device)
+        V, cols = spp.panel_values(A.blocks), A.cols
+    else:
+        rng = np.random.default_rng(7)
+        nbr, S = 5 * 16, 20
+        V = torch.from_numpy(rng.standard_normal((nbr * 8, S * 8)).astype(
+            np.float32)).to(device)
+        cols = torch.from_numpy(rng.integers(0, nbr + 1, (nbr, S)).astype(
+            np.int32)).to(device)
+    rows = V.shape[0] + 8
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (rows, m)).astype(np.float32)).to(device)
+    return V, cols, X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["brick", "random"])
+@pytest.mark.parametrize("m", [8, 32, 64, 128])
+def test_cuda_spmm_probes_match_plain(cuda_device, case, m):
+    """K15c's eight kernels against their plain versions (1e-5 of
+    max|plain|; the _def variants and v3/v3b against the product of
+    bf16-rounded operands) at each m, on the 5x5x6 brick's K (3 tiles, S
+    32) and on a random layout (5 tiles, S 20, X one block row taller than
+    the layout); each launched once, no plain version called."""
+    V, cols, X = _spmm_probe_case(case, m, cuda_device)
+    spp.reset_counts()
+    for kern in spp.KERNELS:
+        name = kern.__name__
+        if name in ("v3_stream", "v3b_onedot"):
+            args = (V, X)
+        elif name == "v4_gather":
+            args = (cols, X)
+        else:
+            args = (V, cols, X)
+        got, want = kern(*args), spp.PLAIN_OF[kern](*args)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (V.shape[0], m), name
+        assert ((got - want).abs().max()
+                / want.abs().max()).item() <= 1e-5, name
+    c = spp.counts()
+    assert all(c[fn.__name__] == 1 for fn in spp.KERNELS)
+    assert not any(c[fn.__name__] for fn in spp.PLAIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(10, 64), (37, 20)])
+def test_cuda_gather_probes_match_plain(cuda_device, T, S):
+    """K15e's seven kernels against their plain versions on the probe's
+    own draws at small T and a ragged S (1e-5 of max|plain|), and g5
+    bit for bit against K15d's e0; each launched once, no plain version
+    called."""
+    t = {k: torch.from_numpy(v).to(cuda_device)
+         for k, v in exp_gather.make_inputs(T, S).items()}
+    X = t["X"]
+    Xp = torch.nn.functional.pad(X, (0, 0, 0, 8))
+    XTp = torch.nn.functional.pad(X.T.contiguous(), (0, 8))
+    P = 8 * S
+    args = {gpr.g0_slices: (t["cols"], X), gpr.g1_slices2x: (t["cols"], Xp),
+            gpr.g4_lane_ds: (t["cols"], XTp), gpr.g2_taa0: (t["idx0"], X, P),
+            gpr.g3_taa1: (t["idx1"], X.T.contiguous()),
+            gpr.g3w_taa1_wide: (t["idx1w"], t["XTW"], P),
+            gpr.g5_floor: (X, T)}
+    gpr.reset_counts()
+    gp.reset_counts()
+    for kern, a in args.items():
+        got, want = kern(*a), gpr.PLAIN_OF[kern](*a)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape, kern.__name__
+        assert ((got - want).abs().max()
+                / want.abs().max()).item() <= 1e-5, kern.__name__
+    assert torch.equal(gpr.g5_floor(X, T), gp.e0_grid1(X, T))
+    c = gpr.counts()
+    assert c["g5_floor"] == 2 and gp.counts()["e0_grid1"] == 1
+    assert all(c[fn.__name__] == 1 for fn in gpr.KERNELS[:-1])
+    assert not any(c[fn.__name__] for fn in gpr.PLAIN)
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
+    """Bad device input raises before any launch: a width the kernels are
+    not built for, f64 values, a slot count not a multiple of 4, a block
+    column whose slice leaves X, a short X for the fixed panel, idx out of
+    range for g2 and g3, a misaligned or non-contiguous X."""
+    V, cols, X = _spmm_probe_case("random", 8, cuda_device)
+    far = cols.clone()
+    far[3, 7] = X.shape[0] // 8
+    t = {k: torch.from_numpy(v).to(cuda_device)
+         for k, v in exp_gather.make_inputs(10, 64).items()}
+    bad0 = t["idx0"].clone()
+    bad0[5, 3] = 512
+    bad1 = t["idx1"].clone()
+    bad1[2, 9] = -1
+    spp.reset_counts()
+    gpr.reset_counts()
+    for call in (lambda: spp.v5_batched_hi(V, cols, X[:, :4].contiguous()),
+                 lambda: spp.v1_panel_hi(V.double(), cols, X),
+                 lambda: spp.v5_batched_def(V[:, :72].contiguous(),
+                                            cols[:, :9].contiguous(), X),
+                 lambda: spp.v6_smem_hi(V, far, X),
+                 lambda: spp.v3_stream(V, X[:100]),
+                 lambda: spp.v4_gather(cols, X.view(-1)[1:-7].view(-1, 8)),
+                 lambda: gpr.g2_taa0(bad0, t["X"], 512),
+                 lambda: gpr.g3_taa1(bad1, t["X"].T.contiguous()),
+                 lambda: gpr.g0_slices(t["cols"], t["X"].T.contiguous().T)):
+        with pytest.raises(ValueError):
+            call()
+    assert not any(spp.counts().values()) and not any(gpr.counts().values())

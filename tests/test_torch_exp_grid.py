@@ -151,6 +151,28 @@ def test_inputs_are_the_reference_draws():
         rng.standard_normal((nbr * B, NCH * CP * 2 * B)), jnp.float32)))
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_library_call_matches_plain(data, name):
+    """Each variant's library call (the one PyTorch call the probe times
+    beside its kernel: e2 a broadcast torch.mul, e3/e4 F.embedding_bag
+    sums over X's overlapping 16-row windows) computes the plain version's
+    function within its stated bound: 1e-5 of max|plain|, 1e-4 for the
+    embedding_bag sums. e2 against e2's own live counts 0 to 8 too."""
+    t = _torch(data)
+    what, call, as_plain, tol = exp_grid.library(name, t, T)
+    want = gp.PLAIN_OF[getattr(gp, name)](*_args(name, t))
+    got = as_plain(call())
+    assert what and got.shape == want.shape == (128 * T, 8)
+    assert (got - want).abs().max() <= tol * want.abs().max()
+    if name == "e2_grid6_when":
+        t["nch"] = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 3],
+                                dtype=torch.int32)
+        _, call, as_plain, _ = exp_grid.library(name, t, T)
+        want = gp.steps_plain(t["nch"], t["X"])
+        assert (as_plain(call()) - want).abs().max() <= (
+            1e-5 * want.abs().max())
+
+
 def _digest(name):
     path = os.path.join(ROOT, name)
     if not os.path.exists(path):
