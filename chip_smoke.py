@@ -45,10 +45,13 @@ Phases, in order; any failure raises and the process exits non-zero:
   2. build     nvcc build of maxwell_tpu_torch/csrc (one nvcc per source)
   3. kernels   every union kernel against its plain version on the 24^3
                and the 16^3 (the solve's) RCM operators, for precision in
-               {highest, b3} and m in {1, 8, 9}; one JSON line per case with
-               median times over 20 launches (CUDA events), the bound of
-               the bytes and operations the product needs on the CSR, and
-               torch.sparse.mm on that CSR
+               {highest, b3} and m in {1, 8, 9}; a layout line with the
+               live sub-blocks and runs and the seconds the live form
+               takes; one JSON line per case with median times over 20
+               launches (CUDA events), the bound of the bytes and operations
+               the product needs on the CSR, torch.sparse.mm on that CSR,
+               and the bytes the kernel reads (live sub-blocks, live X
+               runs, tables, Y) beside those of the full layout
   4. solve     slice 1: solve() to 1e-8 at 16^3, launch counts zeroed just
                before and read just after; then, counted apart, each
                eigenvector's residual through the SpMV entry point
@@ -349,7 +352,7 @@ def phase_kernels(problem, grid):
     import scipy.sparse as sp
 
     from maxwell_tpu_torch.kernels import spmm
-    from maxwell_tpu_torch.sparse.bellunion import BELLUnion
+    from maxwell_tpu_torch.sparse.bellunion import BELLUnion, LiveBlocks
 
     dev = torch.device("cuda")
     K, M = problem.K.tocsr(), problem.M.tocsr()
@@ -357,10 +360,21 @@ def phase_kernels(problem, grid):
     t0 = time.perf_counter()
     A = BELLUnion.from_csr(K, B=M, device=dev).bf16x3()
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the live form alone, derived again from the finished layout: the work
+    # from_csr and bf16x3 did for it (find, list, compact six streams)
+    t0 = time.perf_counter()
+    LiveBlocks.build(A)
+    torch.cuda.synchronize()
+    L = A.live
     log({"phase": "layout", "grid": grid, "n": n, "nnz": nnz,
          "chunks": A.n_chunks, "tiles": A.n_tiles,
          "value_bytes_per_stream": A.nnz_dense * 4,
-         "build_s": time.perf_counter() - t0})
+         "live_sub_blocks": L.n_blocks,
+         "sub_blocks": A.n_chunks * 16 * (A.cl // 16),
+         "live_runs": L.n_runs, "runs": A.n_chunks * (A.cl // 16),
+         "x_max": L.x_max, "live_value_bytes_per_stream": L.n_blocks * 512,
+         "build_s": build_s, "live_build_s": time.perf_counter() - t0})
     # the library call for each case: torch.sparse.mm (cuSPARSE) on the CSR
     # of the same operator(s); the fused case stacks K over M. The bound
     # counts the bytes of that CSR, not of the union layout's zero fill.
@@ -421,15 +435,7 @@ def phase_kernels(problem, grid):
                     3 if precision == "b3" else 1)
                 b_ms, b_by = bound_ms(
                     nbytes, flops, "bf16" if precision == "b3" else "f32")
-                # what the kernel reads and writes in the union layout:
-                # values with their zero fill, tile and column tables, the
-                # gathered X blocks, Y
-                layout_bytes = (
-                    streams * A.nnz_dense * 4
-                    + (A.ucols.numel() + A.tile_ptr.numel()) * 4
-                    + A.n_chunks * A.cl * m * 4
-                    + streams * A.n_padded * m * 4
-                )
+                layout_bytes, fill_bytes = union_bytes(A, streams, m)
                 row = {
                     "kernel": name, "grid": grid, "case": case,
                     "precision": precision, "m": m, "max_abs_err": abs_err,
@@ -438,6 +444,7 @@ def phase_kernels(problem, grid):
                     "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
                     "layout_bytes": layout_bytes,
                     "layout_GB_per_s": layout_bytes / ms / 1e6,
+                    "fill_bytes": fill_bytes,
                     # nnz of the operator(s) applied per second, the
                     # reference bench's convention (one count per call)
                     "csr_nnz_per_s": streams * nnz / (ms * 1e-3),
@@ -468,6 +475,24 @@ def phase_kernels(problem, grid):
                      "precision": precision, "m": m,
                      "rel_err": float(err / np.abs(ref).max())})
     return stats
+
+
+def union_bytes(A, streams, m):
+    """(layout_bytes, fill_bytes) of a union kernel call on A at width m.
+    layout_bytes: what the kernel reads and writes: the live sub-blocks'
+    values (4 bytes each: f32, or bf16 hi + lo), the live X runs once (16
+    rows of m f32 each; every block of a tile stages its chunks' runs, from
+    L2), the live tables, ucols and tile_ptr, Y. fill_bytes: the same with
+    the full value streams (the zero fill) and every lane's X row, what the
+    kernels read before the live form."""
+    L = A.live
+    y = streams * A.n_padded * m * 4
+    tables = (A.ucols.numel() + A.tile_ptr.numel()) * 4
+    live = (streams * L.n_blocks * 128 * 4 + L.n_runs * 16 * m * 4 + tables
+            + (L.sb_ptr.numel() + L.sb_run.numel() + L.xr_ptr.numel()
+               + L.xr_run.numel()) * 4 + y)
+    fill = streams * A.nnz_dense * 4 + tables + A.n_chunks * A.cl * m * 4 + y
+    return live, fill
 
 
 def _kernel_modules():
@@ -1421,7 +1446,7 @@ def phase_dist_kernels(problem, pencils):
                       + X.numel() * 4 * (1 + len(streams))
                       + D * 2 * Hb * m * 4)
             b_ms, b_by = bound_ms(nbytes, nnz * m * 2, "f32")
-            layout_bytes = len(streams) * du.Ui.nnz_dense * 4
+            layout_bytes, fill_bytes = union_bytes(du.Ui, len(streams), m)
             row = {"kernel": "union_interior_overlap", "grid": GRID,
                    "shards": D, "streams": streams, "m": m,
                    "max_abs_err": abs_err, "rel_err": abs_err / scale,
@@ -1429,7 +1454,8 @@ def phase_dist_kernels(problem, pencils):
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
                    "layout_bytes": layout_bytes,
-                   "layout_GB_per_s": layout_bytes / ms / 1e6}
+                   "layout_GB_per_s": layout_bytes / ms / 1e6,
+                   "fill_bytes": fill_bytes}
             log(row)
             st = stats["union_interior_overlap"]
             st["max_abs_err"] = max(st["max_abs_err"], abs_err)

@@ -6,7 +6,9 @@ pencil with the ring shift ("pallas/rdma"), with solve()'s shifted-CG
 preconditioner (20 sweeps, alpha the smallest analytic eigenvalue). For
 each: 10 iterations after a warm-up, timed on the host clock and traced
 with torch.profiler (device time by kernel), then the solve to 1e-5 from a
-seeded block (the chip smoke's knobs). One JSON line per case.
+seeded block (the chip smoke's knobs), twice: nothing on these roads adds
+in a varying order, so the two runs must agree bit for bit
+(`repeat_identical`). One JSON line per case.
 
     python -m maxwell_tpu_torch.bench.profile_assembled [case ...]
 
@@ -86,11 +88,17 @@ def main():
                 pencil, nev=5, maxiter=it, tol=tol, precond=pc, X0=X0, **kw)
         run(3, 1e-30)  # warm-up
         wall_ms, busy_ms, ops, top = _profile(lambda: run(10, 1e-30))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run(120, 1e-5, stall_window=12)
-        torch.cuda.synchronize()
-        solve_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(120, 1e-5, stall_window=12)
+            torch.cuda.synchronize()
+            runs.append((res, time.perf_counter() - t0))
+        (res, solve_s), (res2, _) = runs
+        hist = [h["max_rel_res"] for h in res.history]
+        identical = (hist == [h["max_rel_res"] for h in res2.history]
+                     and np.array_equal(res.eigenvectors, res2.eigenvectors))
         print(json.dumps({
             "case": case, "grid": GRID, "n": n, "card": card,
             "shards": SHARDS if halo_impl else 1,
@@ -100,6 +108,7 @@ def main():
             "top_device_ms": top, "solve_iterations": res.iterations,
             "solve_s": solve_s,
             "solve_max_res": float(res.residuals.max()),
+            "history_max_res": hist, "repeat_identical": identical,
         }), flush=True)
         del pencil, run
         torch.cuda.empty_cache()

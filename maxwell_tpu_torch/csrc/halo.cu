@@ -37,13 +37,13 @@
 // every shard; a tile stops at tile_end, before the zero padding chunks,
 // which the TPU grid streamed and which here would all fall to the block of
 // each shard's last tile. "highest" precision only, as the TPU kernel.
-// Bound: bytes, as K2 (the union layout's values with their zero fill).
+// Bound: bytes, as K2 (the stacked layout's live sub-blocks, compacted).
 
 #include "bellunion_tile.cuh"
 
 namespace {
 
-constexpr int kCopyThreads = 256;
+constexpr int kCopyThreads = 256;  // ring_shift's blocks
 constexpr int64_t kMaxCopyBlocks = 132 * 16;
 
 // Writes element i of the stacked output (see the file comment); i runs
@@ -95,49 +95,42 @@ int ring_shift_launch(const void* x, void* out, int64_t D, int64_t Lb,
   return (int)cudaGetLastError();
 }
 
-template <int MS, bool FUSED>
-__global__ void __launch_bounds__(kThreads)
+// blocks of 32 * warps threads: the first n_copy copy the halo section, the
+// rest are K2's blocks of the stacked interior layout, 16 / warps per tile
+template <bool FUSED>
+__global__ void __launch_bounds__(kMaxThreads)
 union_overlap_kernel(const Params p, float* halo, int64_t D, int64_t Lb,
                      int64_t Hb, int64_t n_copy) {
   const int64_t bx = blockIdx.x;
+  const int64_t threads = blockDim.x;
   if (bx < n_copy) {
     halo_rows<float>(p.x, halo, D, Lb, Hb, p.m, 2 * Hb, false, 0,
-                     bx * kThreads + threadIdx.x, n_copy * kThreads);
+                     bx * threads + threadIdx.x, n_copy * threads);
     return;
   }
+  const int64_t parts = kGroups / (threads / 32);
   const int64_t w = bx - n_copy;
-  union_tile<MS, false, FUSED>(p, w / kBlocksPerTile,
-                               (int)(w % kBlocksPerTile));
-}
-
-template <int MS, bool FUSED>
-int overlap_ms(const Params& p, float* halo, int64_t n_tiles, int64_t D,
-               int64_t Lb, int64_t Hb, cudaStream_t stream) {
-  auto kernel = union_overlap_kernel<MS, FUSED>;
-  size_t smem = 0;
-  const cudaError_t e =
-      union_smem<MS>(reinterpret_cast<const void*>(kernel), p.cl, &smem);
-  if (e != cudaSuccess) return (int)e;
-  // about eight copied values per thread
-  const int64_t total = D * 2 * Hb * p.m;
-  int64_t n_copy = (total + kThreads * 8 - 1) / (kThreads * 8);
-  if (n_copy > kMaxCopyBlocks) n_copy = kMaxCopyBlocks;
-  const int64_t blocks = n_copy + n_tiles * kBlocksPerTile;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p, halo, D, Lb, Hb,
-                                                        n_copy);
-  return (int)cudaGetLastError();
+  union_tile<false, FUSED>(p, w / parts, (int)(w % parts));
 }
 
 template <bool FUSED>
-int overlap(const Params& p, float* halo, int64_t n_tiles, int64_t D,
-            int64_t Lb, int64_t Hb, cudaStream_t stream) {
-  if (p.m == 1) return overlap_ms<1, FUSED>(p, halo, n_tiles, D, Lb, Hb, stream);
-  if (p.m == 2) return overlap_ms<2, FUSED>(p, halo, n_tiles, D, Lb, Hb, stream);
-  if (p.m <= 4) return overlap_ms<4, FUSED>(p, halo, n_tiles, D, Lb, Hb, stream);
-  if (p.m <= 8) return overlap_ms<8, FUSED>(p, halo, n_tiles, D, Lb, Hb, stream);
-  if (p.m <= 12)
-    return overlap_ms<12, FUSED>(p, halo, n_tiles, D, Lb, Hb, stream);
-  return overlap_ms<16, FUSED>(p, halo, n_tiles, D, Lb, Hb, stream);
+int overlap(const Params& p, float* halo, int64_t n_tiles, int64_t warps,
+            int64_t D, int64_t Lb, int64_t Hb, cudaStream_t stream) {
+  if (!union_warps_ok(warps)) return (int)cudaErrorInvalidValue;
+  auto kernel = union_overlap_kernel<FUSED>;
+  size_t smem = 0;
+  const cudaError_t e =
+      union_smem(reinterpret_cast<const void*>(kernel), p, &smem);
+  if (e != cudaSuccess) return (int)e;
+  // about eight copied values per thread
+  const int64_t threads = 32 * warps;
+  const int64_t total = D * 2 * Hb * p.m;
+  int64_t n_copy = (total + threads * 8 - 1) / (threads * 8);
+  if (n_copy > kMaxCopyBlocks) n_copy = kMaxCopyBlocks;
+  const int64_t blocks = n_copy + n_tiles * (kGroups / warps);
+  kernel<<<(unsigned)blocks, (unsigned)threads, smem, stream>>>(
+      p, halo, D, Lb, Hb, n_copy);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -164,16 +157,21 @@ extern "C" int ring_shift(const void* x, void* out, int64_t D, int64_t Lb,
 }
 
 // vals_b == nullptr: one stream (vals_a) into ya; else both, one X gather.
+// The value pointers and tables are those of the bellunion_matmat_* entry
+// points (csrc/bellunion_spmm.cu).
 extern "C" int union_overlap_f32(
-    const void* vals_a, const void* vals_b, const void* ucols,
-    const void* tile_ptr, const void* tile_end, const void* x, void* ya,
-    void* yb, void* halo, int64_t n_tiles, int64_t m, int64_t cl, int64_t b,
-    int64_t pack, int64_t D, int64_t Lb, int64_t Hb, void* stream) {
-  const Params p = make_params(vals_a, nullptr, vals_b, nullptr, ucols,
-                               tile_ptr, tile_end, x, ya, yb, m, cl, b,
-                               pack);
+    const void* vals_a, const void* vals_b, const void* sb_ptr,
+    const void* sb_run, const void* xr_ptr, const void* xr_run,
+    const void* ucols, const void* tile_ptr, const void* tile_end,
+    const void* x, void* ya, void* yb, void* halo, int64_t n_tiles,
+    int64_t m, int64_t cl, int64_t b, int64_t x_max, int64_t warps,
+    int64_t D, int64_t Lb, int64_t Hb, void* stream) {
+  const Tables tb{sb_ptr, sb_run, xr_ptr, xr_run, ucols, tile_ptr, tile_end};
+  const Params p = make_params(vals_a, nullptr, vals_b, nullptr, tb, x, ya,
+                               yb, m, cl, b, x_max);
   float* h = static_cast<float*>(halo);
   cudaStream_t s = (cudaStream_t)stream;
-  if (vals_b == nullptr) return overlap<false>(p, h, n_tiles, D, Lb, Hb, s);
-  return overlap<true>(p, h, n_tiles, D, Lb, Hb, s);
+  if (vals_b == nullptr)
+    return overlap<false>(p, h, n_tiles, warps, D, Lb, Hb, s);
+  return overlap<true>(p, h, n_tiles, warps, D, Lb, Hb, s);
 }

@@ -36,15 +36,48 @@
 // block in shared memory. The TPU probe set or accumulated each output tile
 // by `first`; here one block walks a tile's chunks in order (tile_ptr ..
 // tile_end) and keeps the sums in registers across chunks: no atomics,
-// deterministic. Its geometry is K2's (16 warps x 4 rows, half a tile per
-// block); it differs from K2 in the staging, and so needs no barrier per
-// chunk and one warp sum per tile instead of one per chunk.
+// deterministic. Its geometry is the first K2 kernel's (16 warps x 4 rows,
+// half a tile per block, every stored value streamed); it differed from
+// that kernel in the staging, and so needs no barrier per chunk and one
+// warp sum per tile instead of one per chunk.
 
 #include <cuda_bf16.h>
-
-#include "bellunion_tile.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+// union_unstaged's geometry: 16 warps own 4 rows each, half a tile per block
+constexpr int kWarps = 16;
+constexpr int kRowsPerWarp = 4;
+constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
+constexpr int kBlocksPerTile = 128 / kRowsPerBlock;
+constexpr int kThreads = kWarps * 32;
+
+struct UnstagedParams {
+  const float* vals;   // (NC * 128, cl) value stream a
+  const int32_t* ucols;
+  const int32_t* tile_ptr;
+  const int32_t* tile_end;  // nullable: tile_ptr[t + 1]
+  const float* x;      // (rows >= n_cols_padded, m) row-major
+  float* y;            // (n_tiles * 128, m)
+  int64_t m, cl, b, pack;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(__nv_bfloat16 h) {
+  return *reinterpret_cast<uint16_t*>(&h);
+}
 
 constexpr int kPanelWarps = 8;
 constexpr int kPanelThreads = kPanelWarps * 32;  // one block per tile
@@ -290,7 +323,7 @@ __device__ __forceinline__ void load_x_rows(const float* xr, int64_t m,
 // per (row, column) at the end.
 template <int MS>
 __global__ void __launch_bounds__(kThreads)
-union_unstaged_kernel(const Params p) {
+union_unstaged_kernel(const UnstagedParams p) {
   constexpr int RP = MS > 8 ? 2 : 4;
   const int64_t t = blockIdx.x;
   const int warp = threadIdx.x >> 5;
@@ -301,7 +334,7 @@ union_unstaged_kernel(const Params p) {
   const int64_t cl = p.cl;
   const int64_t CG = cl / p.b;
   const int64_t run = p.pack * p.b;  // X rows per aligned run
-  const float* vals = static_cast<const float*>(p.va);
+  const float* vals = p.vals;
 
   for (int64_t j0 = 0; j0 < p.m; j0 += MS) {
     const int ms = (int)((p.m - j0) < MS ? (p.m - j0) : MS);
@@ -343,7 +376,7 @@ union_unstaged_kernel(const Params p) {
         }
       }
 
-      float* yr = p.ya + (t * 128 + rp) * p.m + j0;
+      float* yr = p.y + (t * 128 + rp) * p.m + j0;
 #pragma unroll
       for (int r = 0; r < RP; ++r)
 #pragma unroll
@@ -358,7 +391,7 @@ union_unstaged_kernel(const Params p) {
 }
 
 template <int MS>
-int launch_unstaged_ms(const Params& p, int64_t n_tiles,
+int launch_unstaged_ms(const UnstagedParams& p, int64_t n_tiles,
                        cudaStream_t stream) {
   const dim3 grid((unsigned)n_tiles, kBlocksPerTile);
   union_unstaged_kernel<MS><<<grid, kThreads, 0, stream>>>(p);
@@ -408,9 +441,14 @@ extern "C" int union_unstaged_f32(const void* vals, const void* ucols,
                                   const void* x, void* y, int64_t n_tiles,
                                   int64_t m, int64_t cl, int64_t b,
                                   int64_t pack, void* stream) {
-  const Params p = make_params(vals, nullptr, nullptr, nullptr, ucols,
-                               tile_ptr, tile_end, x, y, nullptr, m, cl, b,
-                               pack);
+  UnstagedParams p;
+  p.vals = static_cast<const float*>(vals);
+  p.ucols = static_cast<const int32_t*>(ucols);
+  p.tile_ptr = static_cast<const int32_t*>(tile_ptr);
+  p.tile_end = static_cast<const int32_t*>(tile_end);
+  p.x = static_cast<const float*>(x);
+  p.y = static_cast<float*>(y);
+  p.m = m; p.cl = cl; p.b = b; p.pack = pack;
   const cudaStream_t s = (cudaStream_t)stream;
   if (m == 1) return launch_unstaged_ms<1>(p, n_tiles, s);
   if (m == 2) return launch_unstaged_ms<2>(p, n_tiles, s);

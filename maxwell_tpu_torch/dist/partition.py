@@ -514,8 +514,12 @@ def _stack_union(us, col_rows: int):
     """One layout from D per-shard union layouts of one chunk count NC:
     shard d's chunks at d NC (its tiles' live ends, tile_end, moved with
     them), its tiles at d T, its columns moved by d col_rows (the stacked
-    buffer the layout reads)."""
-    from maxwell_tpu_torch.sparse.bellunion import BELLUnion, _tile_ptr
+    buffer the layout reads), its live sub-blocks after shard d - 1's."""
+    from maxwell_tpu_torch.sparse.bellunion import (
+        BELLUnion,
+        LiveBlocks,
+        _tile_ptr,
+    )
 
     u0 = us[0]
     D = len(us)
@@ -540,6 +544,7 @@ def _stack_union(us, col_rows: int):
         cl=u0.cl,
         n_cols=D * col_rows,
         pack=u0.pack,
+        live=LiveBlocks.stack([u.live for u in us], ("vals", "vals_b")),
     )
 
 

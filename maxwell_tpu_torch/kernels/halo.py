@@ -43,9 +43,10 @@ import torch
 
 from maxwell_tpu_torch.kernels.bsr_spmm import _launch
 from maxwell_tpu_torch.kernels.spmm import (
+    UNION_WARPS,
     _check_cuda,
-    _streams,
-    _tile_end,
+    _live_pairs,
+    _tables,
     _union_ref,
 )
 from maxwell_tpu_torch.sparse.bellunion import BELLUnion
@@ -158,7 +159,7 @@ def union_interior_overlap(A: BELLUnion, X: torch.Tensor, D: int, Hb: int,
     Lb = _shards(X, D, Hb)
     if streams not in ("a", "b", "ab"):
         raise ValueError(f"streams must be 'a', 'b' or 'ab', got {streams!r}")
-    pairs = _streams(A, streams, "highest")
+    pairs = _live_pairs(A, streams, "highest")
     _check_cuda(A, X, pairs)
     if X.shape[0] != A.n_cols_padded or A.n_padded != X.shape[0]:
         raise ValueError(
@@ -171,9 +172,8 @@ def union_interior_overlap(A: BELLUnion, X: torch.Tensor, D: int, Hb: int,
     vb = pairs[1][0].data_ptr() if len(pairs) == 2 else None
     yb = Ys[1].data_ptr() if len(Ys) == 2 else None
     _launch("union_overlap_f32", X, pairs[0][0].data_ptr(), vb,
-            A.ucols.data_ptr(), A.tile_ptr.data_ptr(), _tile_end(A),
-            X.data_ptr(), Ys[0].data_ptr(), yb, halo.data_ptr(), A.n_tiles,
-            m, A.cl, A.b, A.pack, D, Lb, Hb)
+            *_tables(A), X.data_ptr(), Ys[0].data_ptr(), yb, halo.data_ptr(),
+            A.n_tiles, m, A.cl, A.b, A.live.x_max, UNION_WARPS, D, Lb, Hb)
     union_interior_overlap.launches += 1
     return (*Ys, halo)
 

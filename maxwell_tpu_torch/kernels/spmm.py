@@ -17,11 +17,15 @@ value split (BELLUnion.bf16x3) and an in-kernel split of X, with f32
 accumulation.
 
 A wrapper given CUDA tensors checks them and launches its kernel
-(csrc/bellunion_spmm.cu) or raises. Given CPU tensors it runs the plain
-version (`*_ref`), which the CPU tests hold against the JAX package and the
-chip smoke holds the kernels against. Each wrapper counts its kernel
-launches in `.launches` (a banded call counts once), each plain version its
-calls in `.calls`.
+(csrc/bellunion_spmm.cu) or raises. The kernels read the layout's live form
+(BELLUnion.live: the live 8 x 16 sub-blocks, compacted, and the X runs they
+need); a layout without it raises. Given CPU tensors a wrapper runs the
+plain version (`*_ref`, the full value streams), which the CPU tests hold
+against the JAX package and the chip smoke holds the kernels against. Each
+wrapper counts its kernel launches in `.launches` (a banded call counts
+once), each plain version its calls in `.calls`. `_union_live_ref` computes
+the product from the live form alone, as the kernels read it; no solver
+calls it (the CPU tests hold it to the JAX package).
 
 The banded form (a BandedBELLUnion, BELLUnion.banded) launches the
 one-stream kernel once per band on that band's contiguous X window, a view
@@ -37,6 +41,11 @@ import torch
 from maxwell_tpu_torch.sparse.bellunion import BandedBELLUnion, BELLUnion
 
 _PRECISIONS = ("highest", "b3")
+# warps per thread block of the union kernels, one per 8-row group of a
+# tile; 16 / UNION_WARPS blocks per tile. 16 (one block per tile) was the
+# fastest of 1, 2, 4, 8, 16 at 24^3 and 16^3 on an H100, 85 tiles on 132
+# SMs included (bench/union_warps.py, PERF.md §6)
+UNION_WARPS = 16
 
 
 def _streams(A: BELLUnion, streams: str, precision: str):
@@ -60,6 +69,26 @@ def _streams(A: BELLUnion, streams: str, precision: str):
         if pair[0] is None:
             raise ValueError(f"value stream {s!r} not present")
         out.append(pair)
+    return out
+
+
+def _live_pairs(A: BELLUnion, streams: str, precision: str):
+    """[(hi, lo)] compacted value tensors of the live form (A.live) for
+    each requested stream, as _streams gives the full ones."""
+    _streams(A, streams, precision)  # checks the names and the splits
+    if A.live is None:
+        raise ValueError(
+            "the union kernels read the layout's live sub-blocks: this "
+            "layout has no live form (BELLUnion.with_live)")
+    out = []
+    for s in streams:
+        base = "vals" if s == "a" else "vals_b"
+        names = (base + "_h", base + "_l") if precision == "b3" else (base,)
+        pair = [getattr(A.live, f) for f in names]
+        if any(v is None for v in pair):
+            raise ValueError(
+                f"the live form lacks stream {s!r} at precision {precision!r}")
+        out.append((pair[0], pair[1] if len(pair) == 2 else None))
     return out
 
 
@@ -119,6 +148,41 @@ def _union_ref(A: BELLUnion, X: torch.Tensor, streams: str, precision: str):
     return out
 
 
+def _union_live_ref(A: BELLUnion, X: torch.Tensor, streams: str,
+                    precision: str):
+    """The product from the live form alone, as the kernels read it: per
+    live sub-block, its 16 X rows (its run's lanes through ucols) times its
+    (8, 16) values, added into its 8 rows of Y. Off every solver path."""
+    L = A.live
+    pairs = _live_pairs(A, streams, precision)
+    dev = L.sb_ptr.device
+    grp = torch.repeat_interleave(
+        torch.arange(A.n_chunks * 16, device=dev),
+        (L.sb_ptr[1:] - L.sb_ptr[:-1]).long())  # 16 chunk + row group
+    chunk = grp // 16
+    run = L.xr_run[L.xr_ptr[chunk].long() + L.sb_run.long()].long()
+    lanes = run[:, None] * 16 + torch.arange(16, device=dev)
+    rows = A.ucols[chunk[:, None], lanes // A.b].long() * A.b + lanes % A.b
+    Xg = _pad_rows(X, A.n_cols_padded)[rows]  # (NSB, 16, m)
+    if precision == "b3":
+        xh = Xg.to(torch.bfloat16)
+        xl = (Xg - xh.to(Xg.dtype)).to(torch.bfloat16)
+        xh, xl = xh.float(), xl.float()
+    dst = A.tile_of[chunk].long() * 16 + grp % 16  # output row group
+    m = X.shape[1]
+    out = []
+    for hi, lo in pairs:
+        if precision == "b3":
+            vh, vl = hi.float(), lo.float()
+            d = torch.bmm(vh, xh) + torch.bmm(vh, xl) + torch.bmm(vl, xh)
+        else:
+            d = torch.bmm(hi, Xg)
+        Y = torch.zeros((A.n_tiles * 16, 8, m), dtype=d.dtype,
+                        device=d.device)
+        out.append(Y.index_add_(0, dst, d).reshape(A.n_padded, m))
+    return out
+
+
 def bellunion_matmat_ref(
     A: BELLUnion, X: torch.Tensor, stream: str = "a",
     precision: str = "highest",
@@ -162,7 +226,10 @@ def bellunion_matmat_banded_ref(
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs) -> None:
+def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs,
+                live: bool = True) -> None:
+    """pairs: the compacted live streams (_live_pairs), or with live=False
+    the full ones (_streams, for the K15b probe)."""
     if X.dtype != torch.float32:
         raise ValueError(f"the bellunion kernels take f32 X, got {X.dtype}")
     if X.dim() != 2 or X.shape[1] < 1:
@@ -172,8 +239,10 @@ def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs) -> None:
     if A.cl % 128 != 0 or A.cl % (A.b * A.pack) != 0:
         raise ValueError(f"chunk width {A.cl} must be a multiple of 128")
     want = torch.bfloat16 if pairs[0][1] is not None else torch.float32
-    for t in (A.ucols, A.tile_ptr, A.tile_end,
-              *(v for pair in pairs for v in pair)):
+    tables = (A.ucols, A.tile_ptr, A.tile_end)
+    if live:
+        tables += tuple(getattr(A.live, f) for f in A.live._INDEX)
+    for t in (*tables, *(v for pair in pairs for v in pair)):
         if t is None:
             continue
         if t.device != X.device:
@@ -186,15 +255,24 @@ def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs) -> None:
                 raise ValueError(f"value stream is {v.dtype}, need {want}")
             if v is not None and v.data_ptr() % 16:
                 raise ValueError("value streams must be 16-byte aligned")
-    if any(t is not None and t.dtype != torch.int32
-           for t in (A.ucols, A.tile_ptr, A.tile_end)):
-        raise ValueError("ucols, tile_ptr and tile_end must be int32")
+            if live and v is not None and tuple(v.shape[1:]) != (8, 16):
+                raise ValueError("live value streams must be (NSB, 8, 16)")
+    if any(t is not None and t.dtype != torch.int32 for t in tables):
+        raise ValueError("ucols, tile_ptr, tile_end and the live tables "
+                         "must be int32")
+    if live and (A.live.sb_ptr.numel() != 16 * A.n_chunks + 1
+                 or A.live.xr_ptr.numel() != A.n_chunks + 1):
+        raise ValueError("the live form does not match the layout's chunks")
 
 
-def _tile_end(A: BELLUnion):
-    """Pointer to the layout's tile_end (None: the kernels stop each tile at
-    tile_ptr[t + 1])."""
-    return None if A.tile_end is None else A.tile_end.data_ptr()
+def _tables(A: BELLUnion) -> list:
+    """Pointers to the tables every union entry point takes, in its order:
+    sb_ptr, sb_run, xr_ptr, xr_run, ucols, tile_ptr, tile_end (None: the
+    kernels stop each tile at tile_ptr[t + 1])."""
+    L = A.live
+    return [L.sb_ptr.data_ptr(), L.sb_run.data_ptr(), L.xr_ptr.data_ptr(),
+            L.xr_run.data_ptr(), A.ucols.data_ptr(), A.tile_ptr.data_ptr(),
+            None if A.tile_end is None else A.tile_end.data_ptr()]
 
 
 def _launch(name: str, A: BELLUnion, X: torch.Tensor, pairs, outs) -> None:
@@ -203,9 +281,8 @@ def _launch(name: str, A: BELLUnion, X: torch.Tensor, pairs, outs) -> None:
     values = [v.data_ptr() for pair in pairs for v in pair if v is not None]
     with torch.cuda.device(X.device):
         rc = getattr(_build.load(), name)(
-            *values, A.ucols.data_ptr(), A.tile_ptr.data_ptr(),
-            _tile_end(A), X.data_ptr(), *(Y.data_ptr() for Y in outs),
-            A.n_tiles, X.shape[1], A.cl, A.b, A.pack,
+            *values, *_tables(A), X.data_ptr(), *(Y.data_ptr() for Y in outs),
+            A.n_tiles, X.shape[1], A.cl, A.b, A.live.x_max, UNION_WARPS,
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     if rc != 0:
@@ -216,7 +293,7 @@ def _matmat_cuda(A: BELLUnion, X: torch.Tensor, stream: str, precision: str,
                  Y: torch.Tensor | None = None):
     """One launch of the one-stream kernel into Y (n_padded, m), a new
     tensor unless given (contiguous, f32)."""
-    pairs = _streams(A, stream, precision)
+    pairs = _live_pairs(A, stream, precision)
     _check_cuda(A, X, pairs)
     Xp = _pad_rows(X, A.n_cols_padded)
     if Y is None:
@@ -247,7 +324,7 @@ def bellunion_km_matmat(
     and feeds both value streams."""
     if X.device.type == "cpu":
         return bellunion_km_matmat_ref(A, X, precision)
-    pairs = _streams(A, "ab", precision)
+    pairs = _live_pairs(A, "ab", precision)
     _check_cuda(A, X, pairs)
     Xp = _pad_rows(X, A.n_cols_padded)
     Yk, Ym = (

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from maxwell_tpu_torch.kernels import spmm
+from maxwell_tpu_torch.kernels.bsr_spmm import _launch
 from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 
 PANEL_WIDTH = 8  # the probe's b = m = 8
@@ -214,13 +215,17 @@ def union_unstaged(A: BELLUnion, X: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return union_unstaged_ref(A, X)
     pairs = spmm._streams(A, "a", "highest")
-    spmm._check_cuda(A, X, pairs)
+    spmm._check_cuda(A, X, pairs, live=False)  # it reads the full stream
     Xp = spmm._pad_rows(X, A.n_cols_padded)
     if Xp.data_ptr() % 16:  # its rows are read with 16-byte loads
         raise ValueError("X must be 16-byte aligned")
     Y = torch.empty((A.n_padded, X.shape[1]), dtype=torch.float32,
                     device=X.device)
-    spmm._launch("union_unstaged_f32", A, Xp, pairs, (Y,))
+    _launch("union_unstaged_f32", Xp, pairs[0][0].data_ptr(),
+            A.ucols.data_ptr(), A.tile_ptr.data_ptr(),
+            None if A.tile_end is None else A.tile_end.data_ptr(),
+            Xp.data_ptr(), Y.data_ptr(), A.n_tiles, X.shape[1], A.cl, A.b,
+            A.pack)
     union_unstaged.launches += 1
     return Y
 

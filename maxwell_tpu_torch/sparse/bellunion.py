@@ -21,7 +21,14 @@ stored consecutively in one flat (NC * 128, cl) value array:
 
 The layout stores about 53x the CSR values of the 24^3 curl-curl operator
 as zero fill: the TPU traded that for (128, 1024) dots shaped for its
-matrix unit. It is kept unchanged here for parity with the reference.
+matrix unit. Its fields stay as the reference has them (the plain versions
+and the tests read them); beside them every layout carries `live`, a
+LiveBlocks: the 8-row x 16-lane sub-blocks that hold a nonzero (20% of the
+stored ones at 16^3 and 24^3), their values compacted one sub-block after
+another, and the X runs each chunk needs. The CUDA kernels read only that.
+It is derived once, when the layout is made (from_csr, from_reference),
+and carried through to, bf16x3, pad_chunks, banded and the distributed
+stack.
 
 `pad_chunks` appends zero chunks (the distributed partitioner pads every
 shard's layout to one chunk count and stacks them). `banded` splits the
@@ -68,6 +75,174 @@ def _tile_ptr(tile_of: np.ndarray, n_tiles: int) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
 
 
+def _ptr(counts: torch.Tensor) -> torch.Tensor:
+    """int32 prefix offsets [0, c0, c0 + c1, ...] of a count vector."""
+    return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+
+
+def _bf16_split(v):
+    """hi = bf16_rn(v), lo = bf16_rn(v - f32(hi)), elementwise."""
+    if v is None:
+        return None, None
+    vh = v.to(torch.bfloat16)
+    return vh, (v - vh.to(v.dtype)).to(torch.bfloat16)
+
+
+# sub-block shape of the live form: one 8-row group of a tile by one run of
+# 16 lanes (the k16 of a bf16 mma.sync), 16 row groups per 128-row tile
+SB_ROWS, SB_LANES = 8, 16
+ROW_GROUPS = 128 // SB_ROWS
+
+
+@dataclasses.dataclass(frozen=True)
+class LiveBlocks:
+    """The live sub-blocks of a BELLUnion layout, which the CUDA kernels
+    read instead of the full value streams.
+
+    Sub-block (k, r, s) is rows 8r .. 8r + 7 of chunk k (row group r of its
+    tile) by lanes 16s .. 16s + 15 (run s; at the default b = 8, pack = 2
+    one aligned run of 16 X rows). It is live if any value stream of the
+    layout holds a nonzero in it, so one list serves every stream:
+
+        sb_ptr[16k + r] .. sb_ptr[16k + r + 1]
+                    the live sub-blocks of row group r of chunk k, in run
+                    order; sub-block i's values are row i of each stream
+        sb_run[i]   the position of sub-block i's run in its chunk's run
+                    list (xr_run[xr_ptr[k] + sb_run[i]] is the run)
+        xr_ptr[k] .. xr_ptr[k + 1]
+                    the runs live in some row group of chunk k, ascending:
+                    the X rows the kernel stages for that chunk
+        xr_run[j]   a run index within its chunk
+        x_max       the most live runs of one chunk (sizes the staging)
+
+    vals, vals_b, vals_h, vals_l, vals_b_h, vals_b_l: the matching full
+    streams of the layout, compacted to (NSB, 8, 16): sub-block i's rows
+    and lanes, row-major. Row-major is the order of the mma fragments
+    (csrc/bellunion_tile.cuh): lane t of a warp holds row t // 4, lanes
+    4 (t % 4) .. + 3, one 16-byte (f32) or 8-byte (bf16) load. All index
+    tensors are int32.
+    """
+
+    sb_ptr: torch.Tensor
+    sb_run: torch.Tensor
+    xr_ptr: torch.Tensor
+    xr_run: torch.Tensor
+    x_max: int
+    vals: torch.Tensor | None = None
+    vals_b: torch.Tensor | None = None
+    vals_h: torch.Tensor | None = None
+    vals_l: torch.Tensor | None = None
+    vals_b_h: torch.Tensor | None = None
+    vals_b_l: torch.Tensor | None = None
+
+    _INDEX = ("sb_ptr", "sb_run", "xr_ptr", "xr_run")
+
+    @property
+    def n_blocks(self) -> int:
+        return self.sb_run.shape[0]
+
+    @property
+    def n_runs(self) -> int:
+        return self.xr_run.shape[0]
+
+    @staticmethod
+    def build(A: "BELLUnion") -> "LiveBlocks":
+        """Find A's live sub-blocks from its f32 value streams (vals and
+        vals_b; a bf16 split is zero wherever its f32 value is) and compact
+        every value stream A carries, on A's device."""
+        NC, R = A.n_chunks, A.cl // SB_LANES
+        if A.cl % SB_LANES:
+            raise ValueError(f"chunk width {A.cl} is not a multiple of 16")
+
+        def blocks(v):  # (chunk, row group, row, run, lane) view
+            return v.view(NC, ROW_GROUPS, SB_ROWS, R, SB_LANES)
+
+        live = torch.zeros((NC, ROW_GROUPS, R), dtype=torch.bool,
+                           device=A.vals.device)
+        for v in (A.vals, A.vals_b):
+            if v is not None:
+                live |= (blocks(v) != 0).any(4).any(2)
+        k, r, s = live.nonzero(as_tuple=True)  # in (chunk, group, run) order
+        xlive = live.any(1)  # (NC, R): runs live in some row group
+        n_x = xlive.sum(1)
+        pos = xlive.cumsum(1) - 1  # run -> position in its chunk's list
+        return LiveBlocks(
+            sb_ptr=_ptr(live.sum(2).reshape(-1)),
+            sb_run=pos[k, s].to(torch.int32),
+            xr_ptr=_ptr(n_x),
+            xr_run=xlive.nonzero(as_tuple=True)[1].to(torch.int32),
+            x_max=int(n_x.max()) if NC else 0,
+            **{f: blocks(getattr(A, f))[k, r, :, s, :].contiguous()
+               for f in _VALUE_STREAMS if getattr(A, f) is not None},
+        )
+
+    def _streams(self) -> dict:
+        return {f: getattr(self, f) for f in _VALUE_STREAMS}
+
+    def to(self, device) -> "LiveBlocks":
+        return dataclasses.replace(self, **{
+            f: t.to(device) for f, t in
+            {**{f: getattr(self, f) for f in self._INDEX},
+             **self._streams()}.items() if t is not None})
+
+    def bf16x3(self) -> "LiveBlocks":
+        """The bf16 (hi, lo) split of the compacted f32 streams: the same
+        elementwise rounding as BELLUnion.bf16x3, so bit for bit the
+        compacted split of the full streams."""
+        vh, vl = _bf16_split(self.vals)
+        bh, bl = _bf16_split(self.vals_b)
+        return dataclasses.replace(
+            self, vals_h=vh, vals_l=vl, vals_b_h=bh, vals_b_l=bl)
+
+    def pad(self, n_pad: int) -> "LiveBlocks":
+        """n_pad more chunks with no live sub-block (pad_chunks)."""
+        return dataclasses.replace(
+            self,
+            sb_ptr=torch.cat([self.sb_ptr,
+                              self.sb_ptr[-1:].repeat(ROW_GROUPS * n_pad)]),
+            xr_ptr=torch.cat([self.xr_ptr, self.xr_ptr[-1:].repeat(n_pad)]),
+        )
+
+    def chunks(self, k0: int, k1: int, streams) -> "LiveBlocks":
+        """Chunks k0 .. k1 - 1 as a list of their own (a band): pointers
+        rebased, the named value streams as views of this one's."""
+        sb_ptr = self.sb_ptr[ROW_GROUPS * k0: ROW_GROUPS * k1 + 1]
+        xr_ptr = self.xr_ptr[k0: k1 + 1]
+        i0, i1 = int(sb_ptr[0]), int(sb_ptr[-1])
+        j0, j1 = int(xr_ptr[0]), int(xr_ptr[-1])
+        return LiveBlocks(
+            sb_ptr=sb_ptr - i0, sb_run=self.sb_run[i0:i1],
+            xr_ptr=xr_ptr - j0, xr_run=self.xr_run[j0:j1],
+            x_max=int((xr_ptr[1:] - xr_ptr[:-1]).max()) if k1 > k0 else 0,
+            **{f: getattr(self, f)[i0:i1] for f in streams
+               if getattr(self, f) is not None},
+        )
+
+    @staticmethod
+    def stack(lives, streams) -> "LiveBlocks":
+        """One list of the chunks of several layouts, one after the other
+        (the distributed stack), with the named value streams: run indices
+        are chunk-local, so only the pointers move."""
+        def cat_ptr(f):
+            parts, off = [], 0
+            for lv in lives:
+                p = getattr(lv, f)
+                parts.append(p[:-1] + off)
+                off += int(p[-1])
+            return torch.cat(parts + [parts[0].new_full((1,), off)])
+
+        def cat(f):
+            ts = [getattr(lv, f) for lv in lives]
+            return None if ts[0] is None else torch.cat(ts)
+
+        return LiveBlocks(
+            sb_ptr=cat_ptr("sb_ptr"), sb_run=cat("sb_run"),
+            xr_ptr=cat_ptr("xr_ptr"), xr_run=cat("xr_run"),
+            x_max=max(lv.x_max for lv in lives),
+            **{f: cat(f) for f in streams},
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class BELLUnion:
     """Tile-union chunked sparse matrix (see module docstring).
@@ -96,6 +271,7 @@ class BELLUnion:
     vals_b_h: torch.Tensor | None = None
     vals_b_l: torch.Tensor | None = None
     tile_end: torch.Tensor | None = None
+    live: LiveBlocks | None = None
 
     # the reference's leaves (from_reference) and tile_ptr
     _TENSORS = (
@@ -129,27 +305,25 @@ class BELLUnion:
             self,
             **{
                 f: getattr(self, f).to(device)
-                for f in (*self._TENSORS, "tile_end")
+                for f in (*self._TENSORS, "tile_end", "live")
                 if getattr(self, f) is not None
             },
         )
 
+    def with_live(self) -> "BELLUnion":
+        """Copy carrying the live form derived from the value streams."""
+        return dataclasses.replace(self, live=LiveBlocks.build(self))
+
     def bf16x3(self) -> "BELLUnion":
         """Copy carrying the bf16 (hi, lo) split of each value stream:
         hi = bf16_rn(v), lo = bf16_rn(v - f32(hi)). f32(hi) + f32(lo) keeps
-        ~16 mantissa bits of v, at the same bytes as one f32 stream."""
-
-        def split(v):
-            if v is None:
-                return None, None
-            vh = v.to(torch.bfloat16)
-            vl = (v - vh.to(v.dtype)).to(torch.bfloat16)
-            return vh, vl
-
-        vh, vl = split(self.vals)
-        bh, bl = split(self.vals_b)
+        ~16 mantissa bits of v, at the same bytes as one f32 stream. The
+        live form gets the split of its compacted streams."""
+        vh, vl = _bf16_split(self.vals)
+        bh, bl = _bf16_split(self.vals_b)
         return dataclasses.replace(
-            self, vals_h=vh, vals_l=vl, vals_b_h=bh, vals_b_l=bl
+            self, vals_h=vh, vals_l=vl, vals_b_h=bh, vals_b_l=bl,
+            live=None if self.live is None else self.live.bf16x3(),
         )
 
     @staticmethod
@@ -173,7 +347,7 @@ class BELLUnion:
             cl=int(obj.cl),
             n_cols=None if obj.n_cols is None else int(obj.n_cols),
             pack=int(obj.pack),
-        )
+        ).with_live()
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -320,7 +494,7 @@ class BELLUnion:
             cl=cl,
             n_cols=ncols,
             pack=p,
-        )
+        ).with_live()
 
     def pad_chunks(self, NC: int) -> "BELLUnion":
         """Pad the chunk list to NC chunks, as the reference does
@@ -330,7 +504,8 @@ class BELLUnion:
         each tile's chunks tile_ptr[t] .. tile_ptr[t + 1], would accumulate
         exact zeros there; tile_ptr is derived again. tile_end keeps each
         tile's live end, so the CUDA kernels skip the padding: the TPU grid
-        streamed it, here it would all fall to the last tile's block."""
+        streamed it, here it would all fall to the last tile's block. The
+        padding chunks have no live sub-block."""
         cur = self.n_chunks
         if cur == NC:
             return self
@@ -359,6 +534,7 @@ class BELLUnion:
             ).to(self.tile_ptr.device),
             tile_end=(self.tile_ptr[1:].clone() if self.tile_end is None
                       else self.tile_end),
+            live=None if self.live is None else self.live.pad(pad),
         )
 
     def banded(self, m: int, budget_bytes: int = 10 * 1024 * 1024,
@@ -374,7 +550,8 @@ class BELLUnion:
         tile. Unlike the reference's band, whose column space is left square,
         a band is rectangular: its n_cols is its window's col_rows, which is
         what its kernel reads. split_bf16: give each band views of the
-        bf16x3() split streams (the "b3" kernel's)."""
+        bf16x3() split streams (the "b3" kernel's). Each band's live form
+        is its chunks' part of this layout's, its streams views too."""
         if self.n_cols is not None:
             raise ValueError("banded() supports square layouts only")
         b = self.b
@@ -428,6 +605,8 @@ class BELLUnion:
                 tile_ptr=torch.from_numpy(_tile_ptr(tof, t1 - t0)).to(dev),
                 tile_end=None if self.tile_end is None
                 else self.tile_end[t0:t1] - k0,
+                live=None if full.live is None
+                else full.live.chunks(k0, k1, streams),
                 n=(t1 - t0) * 128,
                 n_tiles=t1 - t0,
                 b=b,

@@ -8,11 +8,13 @@ runs on its own:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import json
 import os
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import maxwell_tpu_torch
@@ -60,7 +62,7 @@ def layout():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["highest", "b3"])
-@pytest.mark.parametrize("m", [1, 3, 9, 17])
+@pytest.mark.parametrize("m", [1, 3, 9, 17, 33])
 def test_cuda_kernels_match_plain(layout, cuda_device, m, precision):
     A = layout.to(cuda_device)
     X = torch.from_numpy(
@@ -74,6 +76,92 @@ def test_cuda_kernels_match_plain(layout, cuda_device, m, precision):
         err = (got - want).abs().max() / want.abs().max()
         assert err.item() <= TOL[precision]
     assert torch.equal(Yk, Y1)  # same per-element arithmetic, fixed order
+
+
+def _pair_layout(device):
+    """Two random CSRs whose patterns differ (sub-blocks live in one
+    stream only), one chunk of 63 live runs per tile."""
+    n = 1000
+    A = sp.random(n, n, density=0.01, format="csr", random_state=7)
+    B = sp.random(n, n, density=0.008, format="csr", random_state=8)
+    return BELLUnion.from_csr(A, B=B, device=device).bf16x3()
+
+
+def _xs(A, m, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (A.n_padded, m))).float().to(A.vals.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "b3"])
+@pytest.mark.parametrize("m", [1, 9, 17, 33])
+def test_cuda_union_pair_fused_equals_single(cuda_device, m, precision):
+    """On the pair whose patterns differ: K1 == K2 bit for bit on each
+    stream (one live list, the same products per stream), and both within
+    the union bound of the plain version (17, 33: several column
+    slices)."""
+    A = _pair_layout(cuda_device)
+    X = _xs(A, m, seed=m)
+    Yk, Ym = spmm.bellunion_km_matmat(A, X, precision=precision)
+    assert torch.equal(Yk, spmm.bellunion_matmat(A, X, "a", precision))
+    assert torch.equal(Ym, spmm.bellunion_matmat(A, X, "b", precision))
+    for got, want in zip((Yk, Ym), spmm.bellunion_km_matmat_ref(
+            A, X, precision=precision)):
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= TOL[precision]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "b3"])
+def test_cuda_union_empty_tile_gives_zeros(cuda_device, precision):
+    """A tile whose rows are all zero keeps a chunk with no live sub-block:
+    the kernels write exact zeros there (Y is not pre-zeroed)."""
+    cav = PermutedProblem(BrickCavity3D(nx=6, ny=6, nz=6))
+    keep = np.ones(cav.K.shape[0])
+    keep[128:256] = 0.0
+    D = sp.diags(keep)
+    A = BELLUnion.from_csr(D @ cav.K, B=D @ cav.M,
+                           device=cuda_device).bf16x3()
+    tile1 = A.live.sb_ptr[16 * int(A.tile_ptr[1]): 16 * int(A.tile_ptr[2])
+                          + 1]
+    assert int(tile1[-1] - tile1[0]) == 0
+    X = _xs(A, 9, seed=3)
+    for Y in (*spmm.bellunion_km_matmat(A, X, precision=precision),
+              spmm.bellunion_matmat(A, X, "b", precision)):
+        assert torch.equal(Y[128:256], torch.zeros_like(Y[128:256]))
+    Rk, _ = spmm.bellunion_km_matmat_ref(A, X, precision=precision)
+    Yk = spmm.bellunion_matmat(A, X, "a", precision)
+    assert ((Yk - Rk).abs().max() / Rk.abs().max()).item() <= TOL[precision]
+
+
+@pytest.mark.cuda
+def test_cuda_union_without_live_form_raises(layout, cuda_device):
+    A = dataclasses.replace(layout.to(cuda_device), live=None)
+    X = _xs(A, 9, seed=1)
+    for call in (lambda: spmm.bellunion_matmat(A, X),
+                 lambda: spmm.bellunion_km_matmat(A, X, precision="b3"),
+                 lambda: spmm.bellunion_matvec(A, X[:, 0].contiguous()),
+                 lambda: halo.union_interior_overlap(A, X, 1, 0)):
+        with pytest.raises(ValueError, match="live"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 8, 16])
+def test_cuda_union_warps_bit_equal(layout, cuda_device, monkeypatch,
+                                    warps):
+    """The warps per block only split a tile's row groups over blocks: each
+    row group's sums are the same instructions, so every split gives the
+    default's bits."""
+    A = layout.to(cuda_device)
+    X = _xs(A, 9, seed=2)
+    want = [spmm.bellunion_km_matmat(A, X, precision=p)
+            for p in ("highest", "b3")]
+    monkeypatch.setattr(spmm, "UNION_WARPS", warps)
+    got = [spmm.bellunion_km_matmat(A, X, precision=p)
+           for p in ("highest", "b3")]
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
 
 
 @pytest.mark.cuda
