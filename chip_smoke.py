@@ -160,6 +160,7 @@ from maxwell_tpu_torch.bench.timing import (  # noqa: E402
     csr_bytes,
     median_ms,
     torch_csr,
+    union_bytes,
 )
 
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
@@ -475,24 +476,6 @@ def phase_kernels(problem, grid):
                      "precision": precision, "m": m,
                      "rel_err": float(err / np.abs(ref).max())})
     return stats
-
-
-def union_bytes(A, streams, m):
-    """(layout_bytes, fill_bytes) of a union kernel call on A at width m.
-    layout_bytes: what the kernel reads and writes: the live sub-blocks'
-    values (4 bytes each: f32, or bf16 hi + lo), the live X runs once (16
-    rows of m f32 each; every block of a tile stages its chunks' runs, from
-    L2), the live tables, ucols and tile_ptr, Y. fill_bytes: the same with
-    the full value streams (the zero fill) and every lane's X row, what the
-    kernels read before the live form."""
-    L = A.live
-    y = streams * A.n_padded * m * 4
-    tables = (A.ucols.numel() + A.tile_ptr.numel()) * 4
-    live = (streams * L.n_blocks * 128 * 4 + L.n_runs * 16 * m * 4 + tables
-            + (L.sb_ptr.numel() + L.sb_run.numel() + L.xr_ptr.numel()
-               + L.xr_run.numel()) * 4 + y)
-    fill = streams * A.nnz_dense * 4 + tables + A.n_chunks * A.cl * m * 4 + y
-    return live, fill
 
 
 def _kernel_modules():

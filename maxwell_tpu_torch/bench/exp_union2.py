@@ -19,15 +19,16 @@ which are now (1024, 2): that file no longer measures what the names say.)
     python -m maxwell_tpu_torch.bench.exp_union2 [--device cuda|cpu]
         [--out PATH] [--grid N]
 
-Per variant and m: time, pct of the variant's own roofline
-(exp_union2.py:130's bytes over the copy bandwidth measured in the same
-run) and of the CSR bound (the CSR's bytes at 3.35 TB/s), true nnz/s,
-stored MB and n_chunks, the max relative error against scipy's K @ X in
-f64 and against the plain version (the run fails above 1e-5 of the
-reference's max), the plain version's time, and torch.sparse.mm on the
-CSR as the library line. One layout is built at a time and freed after.
-Runs on the card unless --device cpu is given (then the plain versions
-run and nothing is timed). Writes JSON to --out (default
+Per variant and m: time, pct of the kernel's own roofline (the bytes it
+moves over the copy bandwidth measured in the same run: exp_union2.py:130's
+for the unstaged kernel, which reads the full layout; the live form's,
+timing.union_bytes, for K2) and of the CSR bound (the CSR's bytes at 3.35
+TB/s), true nnz/s, stored MB and n_chunks, the max relative error against
+scipy's K @ X in f64 and against the plain version (the run fails above
+1e-5 of the reference's max), the plain version's time, and
+torch.sparse.mm on the CSR as the library line. One layout is built at a
+time and freed after. Runs on the card unless --device cpu is given (then
+the plain versions run and nothing is timed). Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_union2_results.json).
 """
 
@@ -47,6 +48,7 @@ from maxwell_tpu_torch.bench.timing import (
     csr_bytes,
     median_ms,
     torch_csr,
+    union_bytes,
 )
 from maxwell_tpu_torch.kernels import spmm
 from maxwell_tpu_torch.kernels import union_probes as up
@@ -121,7 +123,8 @@ def run(grid: int = 24, ms=(8, 9), device="cuda") -> dict:
                 per_m.update(
                     plain_ms=median_ms(lambda: up.unstaged_plain(A, X)),
                     library_ms=median_ms(lambda: torch.sparse.mm(lib, Xn)),
-                    bound_ms=b_ms, bound_by=b_by, own_bytes=own_bytes(A, m))
+                    bound_ms=b_ms, bound_by=b_by, own_bytes=own_bytes(A, m),
+                    live_bytes=union_bytes(A, 1, m)[0])
             for kind, fn in kernels_of(name).items():
                 Y = fn(A, X)
                 err = float(np.abs(Y[:n].cpu().numpy() - ref).max()
@@ -136,9 +139,13 @@ def run(grid: int = 24, ms=(8, 9), device="cuda") -> dict:
                        "rel_err": abs_err / scale}
                 if timed:
                     ms_ = median_ms(lambda: fn(A, X))
+                    # K2 reads the live form, the unstaged kernel the
+                    # full layout
+                    nbytes = per_m["live_bytes" if kind == "staged"
+                                   else "own_bytes"]
                     row.update(
                         ms=ms_, time_s=ms_ * 1e-3,
-                        pct=100 * own_bytes(A, m) / bw / (ms_ * 1e-3),
+                        pct=100 * nbytes / bw / (ms_ * 1e-3),
                         pct_csr_bound=100 * per_m["bound_ms"] / ms_,
                         nnz_per_s=nnz / (ms_ * 1e-3))
                 per_m[kind] = row

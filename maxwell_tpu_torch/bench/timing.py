@@ -6,6 +6,8 @@ the port's counterpart of maxwell_tpu/bench/exp_gather.py::timeit_chain.
                              the denominator of every "% of own roofline"
     bound_ms(bytes, flops, kind)   the least time the card could take
     csr_bytes(A, m)          bytes a CSR product with an (n, m) block moves
+    union_bytes(A, s, m)     bytes a union kernel call reads and writes, on
+                             the live form and on the full layout
     torch_csr(A, device)     a scipy matrix as a torch CSR tensor (f32), the
                              operand of the library call torch.sparse.mm
 
@@ -75,6 +77,24 @@ def csr_bytes(A, m: int) -> int:
     and Y written once."""
     rows, cols = A.shape
     return A.nnz * 8 + (rows + 1) * 4 + cols * m * 4 + rows * m * 4
+
+
+def union_bytes(A, streams, m):
+    """(layout_bytes, fill_bytes) of a union kernel call on A at width m.
+    layout_bytes: what the kernel reads and writes: the live sub-blocks'
+    values (4 bytes each: f32, or bf16 hi + lo), the live X runs once (16
+    rows of m f32 each; every block of a tile stages its chunks' runs, from
+    L2), the live tables, ucols and tile_ptr, Y. fill_bytes: the same with
+    the full value streams (the zero fill) and every lane's X row, what the
+    kernels read before the live form."""
+    L = A.live
+    y = streams * A.n_padded * m * 4
+    tables = (A.ucols.numel() + A.tile_ptr.numel()) * 4
+    live = (streams * L.n_blocks * 128 * 4 + L.n_runs * 16 * m * 4 + tables
+            + (L.sb_ptr.numel() + L.sb_run.numel() + L.xr_ptr.numel()
+               + L.xr_run.numel()) * 4 + y)
+    fill = streams * A.nnz_dense * 4 + tables + A.n_chunks * A.cl * m * 4 + y
+    return live, fill
 
 
 def torch_csr(A, device):

@@ -23,22 +23,19 @@
 namespace {
 
 template <bool B3, bool FUSED>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kThreads)
 bellunion_spmm_kernel(const Params p) {
-  union_tile<B3, FUSED>(p, blockIdx.x, blockIdx.y);
+  union_tile<B3, FUSED>(p, blockIdx.x);
 }
 
 template <bool B3, bool FUSED>
-int launch(const Params& p, int64_t n_tiles, int64_t warps,
-           cudaStream_t stream) {
-  if (!union_warps_ok(warps)) return (int)cudaErrorInvalidValue;
+int launch(const Params& p, int64_t n_tiles, cudaStream_t stream) {
   auto kernel = bellunion_spmm_kernel<B3, FUSED>;
   size_t smem = 0;
   const cudaError_t e =
       union_smem(reinterpret_cast<const void*>(kernel), p, &smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)n_tiles, (unsigned)(kGroups / warps));
-  kernel<<<grid, (unsigned)(32 * warps), smem, stream>>>(p);
+  kernel<<<(unsigned)n_tiles, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -57,11 +54,11 @@ extern "C" int bellunion_matmat_f32(
     const void* xr_ptr, const void* xr_run, const void* ucols,
     const void* tile_ptr, const void* tile_end, const void* x, void* y,
     int64_t n_tiles, int64_t m, int64_t cl, int64_t b, int64_t x_max,
-    int64_t warps, void* stream) {
+    void* stream) {
   const Tables tb{sb_ptr, sb_run, xr_ptr, xr_run, ucols, tile_ptr, tile_end};
   const Params p = make_params(vals, nullptr, nullptr, nullptr, tb, x, y,
                                nullptr, m, cl, b, x_max);
-  return launch<false, false>(p, n_tiles, warps, (cudaStream_t)stream);
+  return launch<false, false>(p, n_tiles, (cudaStream_t)stream);
 }
 
 extern "C" int bellunion_matmat_b3(
@@ -69,11 +66,11 @@ extern "C" int bellunion_matmat_b3(
     const void* sb_run, const void* xr_ptr, const void* xr_run,
     const void* ucols, const void* tile_ptr, const void* tile_end,
     const void* x, void* y, int64_t n_tiles, int64_t m, int64_t cl,
-    int64_t b, int64_t x_max, int64_t warps, void* stream) {
+    int64_t b, int64_t x_max, void* stream) {
   const Tables tb{sb_ptr, sb_run, xr_ptr, xr_run, ucols, tile_ptr, tile_end};
   const Params p = make_params(vals_h, vals_l, nullptr, nullptr, tb, x, y,
                                nullptr, m, cl, b, x_max);
-  return launch<true, false>(p, n_tiles, warps, (cudaStream_t)stream);
+  return launch<true, false>(p, n_tiles, (cudaStream_t)stream);
 }
 
 extern "C" int bellunion_km_matmat_f32(
@@ -81,11 +78,11 @@ extern "C" int bellunion_km_matmat_f32(
     const void* sb_run, const void* xr_ptr, const void* xr_run,
     const void* ucols, const void* tile_ptr, const void* tile_end,
     const void* x, void* yk, void* ym, int64_t n_tiles, int64_t m,
-    int64_t cl, int64_t b, int64_t x_max, int64_t warps, void* stream) {
+    int64_t cl, int64_t b, int64_t x_max, void* stream) {
   const Tables tb{sb_ptr, sb_run, xr_ptr, xr_run, ucols, tile_ptr, tile_end};
   const Params p = make_params(vals_k, nullptr, vals_m, nullptr, tb, x, yk,
                                ym, m, cl, b, x_max);
-  return launch<false, true>(p, n_tiles, warps, (cudaStream_t)stream);
+  return launch<false, true>(p, n_tiles, (cudaStream_t)stream);
 }
 
 extern "C" int bellunion_km_matmat_b3(
@@ -94,9 +91,9 @@ extern "C" int bellunion_km_matmat_b3(
     const void* xr_ptr, const void* xr_run, const void* ucols,
     const void* tile_ptr, const void* tile_end, const void* x, void* yk,
     void* ym, int64_t n_tiles, int64_t m, int64_t cl, int64_t b,
-    int64_t x_max, int64_t warps, void* stream) {
+    int64_t x_max, void* stream) {
   const Tables tb{sb_ptr, sb_run, xr_ptr, xr_run, ucols, tile_ptr, tile_end};
   const Params p = make_params(vals_kh, vals_kl, vals_mh, vals_ml, tb, x, yk,
                                ym, m, cl, b, x_max);
-  return launch<true, true>(p, n_tiles, warps, (cudaStream_t)stream);
+  return launch<true, true>(p, n_tiles, (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
 // The per-tile body of the BELLUnion SpMM, shared by csrc/bellunion_spmm.cu
 // (the K2/K1/K3 kernels) and csrc/halo.cu (the fused interior SpMM + halo
-// copy): the warps of one thread block compute some of the 8-row groups of a
+// copy): the 16 warps of one thread block compute the 16 8-row groups of a
 // 128-row output tile, walking the tile's chunks tile_ptr[t] .. tile_end[t]
 // in order (tile_end, where given, stops before the zero chunks that pad a
 // layout to a common chunk count; else tile_ptr[t+1]). Both kernels run the
@@ -18,15 +18,13 @@
 // nonzero (20% of the stored ones at 16^3 and 24^3), compacted one after
 // another, and per chunk only the X runs (16 lanes) that some row group
 // needs (66-68%). Design:
-// - One owner per output row group: warp w of block (t, part) owns row group
-//   part * warps + w of tile t and walks the tile's chunks in order, with its
-//   sums in registers: no atomics, each output element written once,
-//   deterministic. warps (1, 2, 4, 8 or 16) is a launch argument, the grid
-//   (tiles, 16 / warps). The kernel is bound by each tile's chain of
-//   dependent loads (the staging, then a row group's batches), so more warps
-//   on an SM pay: one block of 16 warps per tile ran fastest at 24^3 and at
-//   16^3 (85 tiles on 132 SMs), and bigger batches, loads issued before the
-//   staging wait or a register cap for a third block per SM did not pay.
+// - One owner per output row group: warp w of block t owns row group w of
+//   tile t and walks the tile's chunks in order, with its sums in registers:
+//   no atomics, each output element written once, deterministic. One block
+//   of 16 warps per tile: splitting a tile's groups over 2 to 16 blocks (to
+//   fill the 132 SMs at 16^3's 85 tiles) was no faster (PERF.md, PR 10),
+//   nor were bigger batches, loads issued before the staging wait or a
+//   register cap for a third block per SM.
 // - Per chunk the block stages the chunk's live X runs, columns [j0, j0 +
 //   16), in shared memory as f32, transposed per run (xs[(q ms + j) 16 +
 //   lane], q the run's position in the chunk's list), with 4-byte cp.async;
@@ -64,7 +62,7 @@ namespace {
 constexpr int kGroups = 16;        // 8-row groups of a 128-row tile
 constexpr int kRunLanes = 16;      // lanes of a run: one k16 mma step
 constexpr int kSlice = 16;         // X columns per pass: the mma's m16
-constexpr int kMaxThreads = 32 * kGroups;
+constexpr int kThreads = 32 * kGroups;  // one warp per row group
 constexpr int kUnroll = 4;         // sub-blocks whose loads go out together
 
 struct Params {
@@ -283,14 +281,13 @@ __device__ __forceinline__ void store_b3(float* y, int64_t m, int ms,
   }
 }
 
-// Row groups [part * warps, (part + 1) * warps) of output tile t, warps =
-// blockDim.x / 32. Needs union_smem() bytes of dynamic shared memory.
+// Output tile t, one row group per warp of a block of kThreads. Needs
+// union_smem() bytes of dynamic shared memory.
 template <bool B3, bool FUSED>
-__device__ __forceinline__ void union_tile(const Params& p, int64_t t,
-                                           int part) {
+__device__ __forceinline__ void union_tile(const Params& p, int64_t t) {
   extern __shared__ __align__(16) float xs_all[];
   const int lane = threadIdx.x & 31;
-  const int group = part * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int group = threadIdx.x >> 5;
   const int64_t k0 = p.tile_ptr[t];
   const int64_t k1 = p.tile_end ? p.tile_end[t] : p.tile_ptr[t + 1];
   const int64_t row0 = t * 128 + 8 * group;
@@ -350,11 +347,6 @@ inline cudaError_t union_smem(const void* kernel, const Params& p,
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   return cudaSuccess;
-}
-
-// warps per block must divide the 16 row groups of a tile
-inline bool union_warps_ok(int64_t warps) {
-  return warps >= 1 && warps <= kGroups && kGroups % warps == 0;
 }
 
 // The layout tables, in the order every entry point takes them.

@@ -95,41 +95,36 @@ int ring_shift_launch(const void* x, void* out, int64_t D, int64_t Lb,
   return (int)cudaGetLastError();
 }
 
-// blocks of 32 * warps threads: the first n_copy copy the halo section, the
-// rest are K2's blocks of the stacked interior layout, 16 / warps per tile
+// blocks of kThreads: the first n_copy copy the halo section, the rest are
+// K2's blocks of the stacked interior layout, one per tile
 template <bool FUSED>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kThreads)
 union_overlap_kernel(const Params p, float* halo, int64_t D, int64_t Lb,
                      int64_t Hb, int64_t n_copy) {
   const int64_t bx = blockIdx.x;
-  const int64_t threads = blockDim.x;
   if (bx < n_copy) {
     halo_rows<float>(p.x, halo, D, Lb, Hb, p.m, 2 * Hb, false, 0,
-                     bx * threads + threadIdx.x, n_copy * threads);
+                     bx * kThreads + threadIdx.x, n_copy * kThreads);
     return;
   }
-  const int64_t parts = kGroups / (threads / 32);
-  const int64_t w = bx - n_copy;
-  union_tile<false, FUSED>(p, w / parts, (int)(w % parts));
+  union_tile<false, FUSED>(p, bx - n_copy);
 }
 
 template <bool FUSED>
-int overlap(const Params& p, float* halo, int64_t n_tiles, int64_t warps,
-            int64_t D, int64_t Lb, int64_t Hb, cudaStream_t stream) {
-  if (!union_warps_ok(warps)) return (int)cudaErrorInvalidValue;
+int overlap(const Params& p, float* halo, int64_t n_tiles, int64_t D,
+            int64_t Lb, int64_t Hb, cudaStream_t stream) {
   auto kernel = union_overlap_kernel<FUSED>;
   size_t smem = 0;
   const cudaError_t e =
       union_smem(reinterpret_cast<const void*>(kernel), p, &smem);
   if (e != cudaSuccess) return (int)e;
   // about eight copied values per thread
-  const int64_t threads = 32 * warps;
   const int64_t total = D * 2 * Hb * p.m;
-  int64_t n_copy = (total + threads * 8 - 1) / (threads * 8);
+  int64_t n_copy = (total + kThreads * 8 - 1) / (kThreads * 8);
   if (n_copy > kMaxCopyBlocks) n_copy = kMaxCopyBlocks;
-  const int64_t blocks = n_copy + n_tiles * (kGroups / warps);
-  kernel<<<(unsigned)blocks, (unsigned)threads, smem, stream>>>(
-      p, halo, D, Lb, Hb, n_copy);
+  const int64_t blocks = n_copy + n_tiles;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p, halo, D, Lb, Hb,
+                                                        n_copy);
   return (int)cudaGetLastError();
 }
 
@@ -164,14 +159,14 @@ extern "C" int union_overlap_f32(
     const void* sb_run, const void* xr_ptr, const void* xr_run,
     const void* ucols, const void* tile_ptr, const void* tile_end,
     const void* x, void* ya, void* yb, void* halo, int64_t n_tiles,
-    int64_t m, int64_t cl, int64_t b, int64_t x_max, int64_t warps,
-    int64_t D, int64_t Lb, int64_t Hb, void* stream) {
+    int64_t m, int64_t cl, int64_t b, int64_t x_max, int64_t D, int64_t Lb,
+    int64_t Hb, void* stream) {
   const Tables tb{sb_ptr, sb_run, xr_ptr, xr_run, ucols, tile_ptr, tile_end};
   const Params p = make_params(vals_a, nullptr, vals_b, nullptr, tb, x, ya,
                                yb, m, cl, b, x_max);
   float* h = static_cast<float*>(halo);
   cudaStream_t s = (cudaStream_t)stream;
   if (vals_b == nullptr)
-    return overlap<false>(p, h, n_tiles, warps, D, Lb, Hb, s);
-  return overlap<true>(p, h, n_tiles, warps, D, Lb, Hb, s);
+    return overlap<false>(p, h, n_tiles, D, Lb, Hb, s);
+  return overlap<true>(p, h, n_tiles, D, Lb, Hb, s);
 }

@@ -43,7 +43,6 @@ import torch
 
 from maxwell_tpu_torch.kernels.bsr_spmm import _launch
 from maxwell_tpu_torch.kernels.spmm import (
-    UNION_WARPS,
     _check_cuda,
     _live_pairs,
     _tables,
@@ -173,7 +172,7 @@ def union_interior_overlap(A: BELLUnion, X: torch.Tensor, D: int, Hb: int,
     yb = Ys[1].data_ptr() if len(Ys) == 2 else None
     _launch("union_overlap_f32", X, pairs[0][0].data_ptr(), vb,
             *_tables(A), X.data_ptr(), Ys[0].data_ptr(), yb, halo.data_ptr(),
-            A.n_tiles, m, A.cl, A.b, A.live.x_max, UNION_WARPS, D, Lb, Hb)
+            A.n_tiles, m, A.cl, A.b, A.live.x_max, D, Lb, Hb)
     union_interior_overlap.launches += 1
     return (*Ys, halo)
 

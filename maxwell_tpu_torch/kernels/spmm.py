@@ -41,11 +41,6 @@ import torch
 from maxwell_tpu_torch.sparse.bellunion import BandedBELLUnion, BELLUnion
 
 _PRECISIONS = ("highest", "b3")
-# warps per thread block of the union kernels, one per 8-row group of a
-# tile; 16 / UNION_WARPS blocks per tile. 16 (one block per tile) was the
-# fastest of 1, 2, 4, 8, 16 at 24^3 and 16^3 on an H100, 85 tiles on 132
-# SMs included (bench/union_warps.py, PERF.md §6)
-UNION_WARPS = 16
 
 
 def _streams(A: BELLUnion, streams: str, precision: str):
@@ -226,10 +221,12 @@ def bellunion_matmat_banded_ref(
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs,
-                live: bool = True) -> None:
-    """pairs: the compacted live streams (_live_pairs), or with live=False
-    the full ones (_streams, for the K15b probe)."""
+def _check_layout(A: BELLUnion, X: torch.Tensor, values, want,
+                  tables=()) -> None:
+    """What every union kernel needs: f32 X (rows, m >= 1), contiguous; the
+    chunk width; the int32 tables ucols, tile_ptr, tile_end and `tables`;
+    the value tensors `values` of dtype `want`, 16-byte aligned. All
+    contiguous, on X's device."""
     if X.dtype != torch.float32:
         raise ValueError(f"the bellunion kernels take f32 X, got {X.dtype}")
     if X.dim() != 2 or X.shape[1] < 1:
@@ -238,30 +235,34 @@ def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs,
         raise ValueError("X must be contiguous")
     if A.cl % 128 != 0 or A.cl % (A.b * A.pack) != 0:
         raise ValueError(f"chunk width {A.cl} must be a multiple of 128")
-    want = torch.bfloat16 if pairs[0][1] is not None else torch.float32
-    tables = (A.ucols, A.tile_ptr, A.tile_end)
-    if live:
-        tables += tuple(getattr(A.live, f) for f in A.live._INDEX)
-    for t in (*tables, *(v for pair in pairs for v in pair)):
+    tables = (A.ucols, A.tile_ptr, A.tile_end, *tables)
+    for t in (*tables, *values):
         if t is None:
             continue
         if t.device != X.device:
             raise ValueError(f"layout on {t.device}, X on {X.device}")
         if not t.is_contiguous():
             raise ValueError("layout tensors must be contiguous")
-    for pair in pairs:
-        for v in pair:
-            if v is not None and v.dtype != want:
-                raise ValueError(f"value stream is {v.dtype}, need {want}")
-            if v is not None and v.data_ptr() % 16:
-                raise ValueError("value streams must be 16-byte aligned")
-            if live and v is not None and tuple(v.shape[1:]) != (8, 16):
-                raise ValueError("live value streams must be (NSB, 8, 16)")
+    for v in values:
+        if v.dtype != want:
+            raise ValueError(f"value stream is {v.dtype}, need {want}")
+        if v.data_ptr() % 16:
+            raise ValueError("value streams must be 16-byte aligned")
     if any(t is not None and t.dtype != torch.int32 for t in tables):
-        raise ValueError("ucols, tile_ptr, tile_end and the live tables "
-                         "must be int32")
-    if live and (A.live.sb_ptr.numel() != 16 * A.n_chunks + 1
-                 or A.live.xr_ptr.numel() != A.n_chunks + 1):
+        raise ValueError("the layout's tables must be int32")
+
+
+def _check_cuda(A: BELLUnion, X: torch.Tensor, pairs) -> None:
+    """_check_layout for the live kernels: pairs are the compacted streams
+    (_live_pairs), the tables the live form's."""
+    values = [v for pair in pairs for v in pair if v is not None]
+    want = torch.bfloat16 if pairs[0][1] is not None else torch.float32
+    _check_layout(A, X, values, want,
+                  tuple(getattr(A.live, f) for f in A.live._INDEX))
+    if any(tuple(v.shape[1:]) != (8, 16) for v in values):
+        raise ValueError("live value streams must be (NSB, 8, 16)")
+    if (A.live.sb_ptr.numel() != 16 * A.n_chunks + 1
+            or A.live.xr_ptr.numel() != A.n_chunks + 1):
         raise ValueError("the live form does not match the layout's chunks")
 
 
@@ -282,7 +283,7 @@ def _launch(name: str, A: BELLUnion, X: torch.Tensor, pairs, outs) -> None:
     with torch.cuda.device(X.device):
         rc = getattr(_build.load(), name)(
             *values, *_tables(A), X.data_ptr(), *(Y.data_ptr() for Y in outs),
-            A.n_tiles, X.shape[1], A.cl, A.b, A.live.x_max, UNION_WARPS,
+            A.n_tiles, X.shape[1], A.cl, A.b, A.live.x_max,
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     if rc != 0:

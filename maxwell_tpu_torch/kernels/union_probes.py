@@ -210,18 +210,18 @@ def u2_km(rcols, vals, vals_b, X):
 def union_unstaged(A: BELLUnion, X: torch.Tensor) -> torch.Tensor:
     """K15b (exp_union2.py:63-109): Y = A @ X (stream a, f32), X
     (rows <= n_cols_padded, m) zero-padded to n_cols_padded rows, read
-    from global memory by the kernel; Y (n_padded, m). The checks,
-    padding and launch arguments are K2's."""
+    from global memory by the kernel; Y (n_padded, m). The layout checks
+    and padding are K2's."""
     if X.device.type == "cpu":
         return union_unstaged_ref(A, X)
-    pairs = spmm._streams(A, "a", "highest")
-    spmm._check_cuda(A, X, pairs, live=False)  # it reads the full stream
+    vals = spmm._streams(A, "a", "highest")[0][0]  # the full stream
+    spmm._check_layout(A, X, [vals], torch.float32)
     Xp = spmm._pad_rows(X, A.n_cols_padded)
     if Xp.data_ptr() % 16:  # its rows are read with 16-byte loads
         raise ValueError("X must be 16-byte aligned")
     Y = torch.empty((A.n_padded, X.shape[1]), dtype=torch.float32,
                     device=X.device)
-    _launch("union_unstaged_f32", Xp, pairs[0][0].data_ptr(),
+    _launch("union_unstaged_f32", Xp, vals.data_ptr(),
             A.ucols.data_ptr(), A.tile_ptr.data_ptr(),
             None if A.tile_end is None else A.tile_end.data_ptr(),
             Xp.data_ptr(), Y.data_ptr(), A.n_tiles, X.shape[1], A.cl, A.b,

@@ -147,24 +147,6 @@ def test_cuda_union_without_live_form_raises(layout, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("warps", [1, 2, 8, 16])
-def test_cuda_union_warps_bit_equal(layout, cuda_device, monkeypatch,
-                                    warps):
-    """The warps per block only split a tile's row groups over blocks: each
-    row group's sums are the same instructions, so every split gives the
-    default's bits."""
-    A = layout.to(cuda_device)
-    X = _xs(A, 9, seed=2)
-    want = [spmm.bellunion_km_matmat(A, X, precision=p)
-            for p in ("highest", "b3")]
-    monkeypatch.setattr(spmm, "UNION_WARPS", warps)
-    got = [spmm.bellunion_km_matmat(A, X, precision=p)
-           for p in ("highest", "b3")]
-    for g, w in zip(got, want):
-        assert all(torch.equal(a, b) for a, b in zip(g, w))
-
-
-@pytest.mark.cuda
 def test_cuda_solve_matches_cpu_plain(cuda_device):
     """The f32 solve through the kernels on the card against the same solve
     through their plain versions on the CPU, both refined to 1e-8."""
