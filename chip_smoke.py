@@ -64,10 +64,12 @@ Phases, in order; any failure raises and the process exits non-zero:
   7. dielectric  configs/config7_dielectric.json through the CLI on cuda
   8. bsr kernels  the blocked-ELL kernels (SpMM, windowed SpMM, SpMV)
                against their plain versions on K and M of the 24^3 and 16^3
-               RCM bricks and of config 1's 16x16 rectangle, m in {1, 9},
-               timed as in phase 3; the windowed kernel's window unit,
+               RCM bricks and of config 1's 16x16 rectangle, m in {1, 8,
+               9}, timed as in phase 3; the windowed kernel's window unit,
                window bytes and whether it staged the window in shared
-               memory
+               memory; the SpMV and the SpMM at m 1 bit for bit; and
+               launch_floor_ms, the median time of an empty launch
+               (torch.cuda._sleep(0)), beside the SpMV's row
   9. bsr solve  slice 3: solve(kernel="pallas") on the 24^3 RCM brick to
                1e-5 (no refine), counts zeroed just before, read just
                after; run twice, the two histories bitwise equal
@@ -91,11 +93,13 @@ Phases, in order; any failure raises and the process exits non-zero:
                version and bit for bit against the full-X kernel (K2),
                timed beside it; the layout is freed after
  15. dist kernels  the 24^3 RCM brick in 8 row shards (union pencil and
-               blocked-ELL pencil): the ring shift (K6) and the fused
-               interior SpMM + halo copy (K5, one and two streams) against
-               their plain versions and bit for bit against the plain
-               transport and K2; the sharded K and M products against the
-               one-device union pencil; times, bounds and library calls
+               blocked-ELL pencil): the ring shift (K6, both layouts, m in
+               {9, 1}, with the copy unit it chose and launch_floor_ms) and
+               the fused interior SpMM + halo copy (K5, one and two
+               streams) against their plain versions and bit for bit
+               against the plain transport and K2; the sharded K and M
+               products against the one-device union pencil; times, bounds
+               and library calls
  16. dist solves  slice 5: lobpcg_dist on the 8-shard 24^3 brick, union +
                "rdma_overlap" and "pallas" + "rdma" (tol 1e-5, twice each,
                bitwise equal, counts zeroed before each run), against the
@@ -310,6 +314,12 @@ STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 def log(obj):
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def launch_floor_ms() -> float:
+    """Median time of an empty launch on the card: below a few
+    microseconds the launch itself sets a kernel's pace."""
+    return median_ms(lambda: torch.cuda._sleep(0))
 
 
 def nvidia_smi_line() -> str:
@@ -799,6 +809,8 @@ def phase_bsr_kernels(problems):
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
     stats = {fn.__name__: {"max_abs_err": 0.0} for fn in kb.KERNELS}
+    floor_ms = launch_floor_ms()
+    log({"phase": "launch_floor", "launch_floor_ms": floor_ms})
     for label, problem in problems:
         for op, mat in (("K", problem.K.tocsr()), ("M", problem.M.tocsr())):
             t0 = time.perf_counter()
@@ -814,7 +826,7 @@ def phase_bsr_kernels(problems):
                  "layout_bytes": layout_bytes,
                  "build_s": time.perf_counter() - t0})
             lib = torch_csr(mat, dev)
-            for m in (1, 9):
+            for m in (1, 8, 9):
                 Xh = np.zeros((A.n_padded, m), np.float32)
                 Xh[:n] = rng.standard_normal((n, m))
                 X = torch.from_numpy(Xh).to(dev)
@@ -863,6 +875,15 @@ def phase_bsr_kernels(problems):
                         row.update(win_unit=A.win_unit,
                                    window_bytes=kb.window_bytes(A, m),
                                    window_staged=kb.window_staged(A, m))
+                    if name == "bsr_matvec":
+                        # the SpMV is the SpMM's m = 1 launch
+                        row.update(
+                            launch_floor_ms=floor_ms,
+                            bitwise_equal_spmm=bool(torch.equal(
+                                got, got_by["bsr_matmat"][:, 0])))
+                        if not row["bitwise_equal_spmm"]:
+                            raise AssertionError(
+                                f"K10 != K8 at m 1, {label} {op}")
                     log(row)
                     st = stats[name]
                     st["max_abs_err"] = max(st["max_abs_err"], abs_err)
@@ -879,6 +900,13 @@ def phase_bsr_kernels(problems):
                         if name == "bsr_matmat_windowed":
                             st.update({k: row[k] for k in (
                                 "win_unit", "window_bytes", "window_staged")})
+                        if name == "bsr_matvec":
+                            st["launch_floor_ms"] = floor_ms
+                    if (name == "bsr_matmat" and label == f"{BSR_GRID}^3"
+                            and op == "K" and m == 8):
+                        st["m8"] = {k: row[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}
                 # the two SpMM forms hold each other, not only the plain one
                 Y8, Y9 = got_by["bsr_matmat"], got_by["bsr_matmat_windowed"]
                 d = (Y8 - Y9).abs().max().item()
@@ -1358,6 +1386,7 @@ def phase_dist_kernels(problem, pencils):
              "ab": torch_csr(sp.vstack([Ki, Mi]).tocsr(), dev)}
     stats = {"union_interior_overlap": {"max_abs_err": 0.0},
              "ring_shift": {"max_abs_err": 0.0}}
+    floor_ms = launch_floor_ms()
     for m in (9, 1):
         Xh = np.zeros((du.global_rows, m), np.float32)
         Xh[:n] = rng.standard_normal((n, m))
@@ -1390,16 +1419,22 @@ def phase_dist_kernels(problem, pencils):
             library_ms = median_ms(lambda: torch.index_select(Xz, 0, src))
             nbytes = X.numel() * 4 + got.numel() * 4
             b_ms, b_by = bound_ms(nbytes, 0, "f32")
+            # the copy unit the wrapper chose: the plan's, narrowed to the
+            # pointers
+            unit = halo.copy_unit(halo.ring_shift_plan(
+                D, Lb, Hb, own, pad, m * 4)[0], X, got)
             row = {"kernel": "ring_shift", "grid": GRID, "shards": D, "m": m,
                    "own": own, "rows_out": got.shape[0], "max_abs_err": 0.0,
-                   "bitwise_equal_plain": True, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bitwise_equal_plain": True, "unit_bytes": unit,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "launch_floor_ms": floor_ms,
                    "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
                    "GB_per_s": nbytes / ms / 1e6}
             log(row)
             if own and m == 9:  # the "rdma" blocked-ELL apply's exchange
                 stats["ring_shift"].update({k: row[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "launch_floor_ms", "unit_bytes")})
         dpl_chk = dpl.halo_checksum(X).item()
         if dpl_chk != 0.0:
             raise AssertionError(f"halo checksum {dpl_chk}")
@@ -1892,10 +1927,12 @@ def main():
     # every ported kernel, with the path that launches it
     paths = {**MAIN_PATH, **{name: "off-path" for name in OFF_PATH},
              **PROBES}
-    # the probes' other widths: m 9 (K15f), m 32, 64, 128 (K15c)
+    # other widths: m 8 (K8), m 9 (K15f), m 32, 64, 128 (K15c); the empty
+    # launch's time beside K6 and K10, and K6's copy unit
     log({"kernels": [{**entry(name), "path": path,
-                      **{w: stats[name][w] for w in ("m9", "m32", "m64",
-                                                     "m128")
+                      **{w: stats[name][w] for w in (
+                          "m8", "m9", "m32", "m64", "m128",
+                          "launch_floor_ms", "unit_bytes")
                          if w in stats[name]}}
                      for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "stencil_taps_f32": [_P] * 8 + [_I] * 2 + [_P],
     # halo.cu
     "ring_shift": [_P] * 2 + [_I] * 7 + [_P],
-    "union_overlap_f32": [_P] * 13 + [_I] * 8 + [_P],
+    "union_overlap_f32": [_P] * 13 + [_I] * 9 + [_P],
     # union_probes.cu
     "union_panel_f32": [_P] * 5 + [_I] * 4 + [_P],
     "union_panel_bf16": [_P] * 4 + [_I] * 4 + [_P],

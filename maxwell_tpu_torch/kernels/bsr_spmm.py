@@ -12,7 +12,9 @@ sparse/bsr.py's BSRMatrix with 8x8 blocks, as `Pencil(kernel="pallas")`
 builds it; the windowed form needs the window metadata `from_csr` builds.
 
 A wrapper given CUDA tensors checks them and launches its kernel
-(csrc/bsr_spmm.cu) or raises: f32 only, 8x8 blocks, whole 128-row tiles.
+(csrc/bsr_spmm.cu: one body for all three; f32 FMAs at m <= 2, 3xTF32
+tensor-core products from m = 3) or raises: f32 only, 8x8 blocks, whole
+128-row tiles.
 Unlike the reference there is no fallback to the einsum path for f64, for
 unaligned layouts or for a large X: the kernels read X from global memory
 at any size. Given CPU tensors a wrapper runs its plain version (`*_ref`),

@@ -18,16 +18,22 @@ pad_rows zero rows] stacked over the shards: with own and pad_rows = b, the
 halo-extended buffer of the blocked-ELL boundary product; without, the
 [left | right] section of the union boundary product. One launch
 (csrc/halo.cu) writes it for every shard; it only moves bytes (f32 or f64).
-Its plain version is slicing and torch.cat, which is also the "ppermute"
-transport of the pencil, and the kernel's result equals it bit for bit.
+`ring_shift_plan` is the copy that launch makes: per shard at most five
+segments, each a contiguous byte range of the output filled from one
+contiguous range of X or with zeros, and the copy unit (16, 8 or 4 bytes)
+that divides every segment's offsets and length. The kernel computes the
+same segments itself and takes the unit from the wrapper. Its plain version
+is slicing and torch.cat, which is also the "ppermute" transport of the
+pencil, and the kernel's result equals it bit for bit.
 
 `union_interior_overlap` takes the stacked interior layout of all shards
 (one BELLUnion whose columns index the stacked X) and returns the interior
 product of each requested value stream ("a", "b" or "ab") and the
-[left | right] halo section, in one launch: the halo copy runs in extra
-thread blocks beside the SpMM blocks, whose per-tile arithmetic is the
-one-stream union kernel's (csrc/bellunion_tile.cuh), so the products equal
-`bellunion_matmat`'s bit for bit. "highest" precision, f32, as the TPU
+[left | right] halo section, in one launch: the halo copy (the ring
+shift's segment copy) runs in extra thread blocks beside the SpMM blocks,
+whose per-tile arithmetic is the one-stream union kernel's
+(csrc/bellunion_tile.cuh), so the products equal `bellunion_matmat`'s bit
+for bit. "highest" precision, f32, as the TPU
 kernel. Its plain version is the plain union product of each stream and the
 plain ring shift.
 
@@ -38,6 +44,9 @@ its kernel launches in `.launches`, each plain version its calls in
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -122,6 +131,66 @@ def union_interior_overlap_ref(A: BELLUnion, X: torch.Tensor, D: int,
 
 
 # ---------------------------------------------------------------------------
+# The ring shift's copy plan
+# ---------------------------------------------------------------------------
+
+COPY_UNITS = (16, 8, 4)  # bytes, widest first
+
+
+def shard_segments(d: int, D: int, Lb: int, Hb: int, own: bool,
+                   pad_rows: int):
+    """The five segments of shard d's output block, in rows: (dst, src,
+    n), src -1 for n zero rows, dst counted from the start of the stacked
+    output. In order: own rows (n = 0 without own); the left halo's rows
+    before X's first row (zeros); its rows in X; the right halo's rows in
+    X; its rows past X's end and the pad (zeros). csrc/halo.cu's
+    ring_segment is the same table."""
+    o = Lb if own else 0
+    base = d * (o + 2 * Hb + pad_rows)
+    zl = min(max(Hb - d * Lb, 0), Hb)
+    rc = min(max((D - 1 - d) * Lb, 0), Hb)
+    return ((base, d * Lb, o),
+            (base + o, -1, zl),
+            (base + o + zl, d * Lb - Hb + zl, Hb - zl),
+            (base + o + Hb, (d + 1) * Lb, rc),
+            (base + o + Hb + rc, -1, Hb - rc + pad_rows))
+
+
+@functools.lru_cache(maxsize=64)
+def ring_shift_plan(D: int, Lb: int, Hb: int, own: bool, pad_rows: int,
+                    row_bytes: int):
+    """(unit, segments) of the ring shift of a stacked (D Lb, m) X whose
+    rows are row_bytes long: the non-empty segments of every shard as
+    (dst, src, nbytes) byte ranges (src -1: zeros), and the widest copy
+    unit of COPY_UNITS that divides every offset and length among them
+    (the pointers may narrow it further: `copy_unit`)."""
+    segs = []
+    for d in range(D):
+        for dst, src, n in shard_segments(d, D, Lb, Hb, own, pad_rows):
+            if n > 0:
+                segs.append((dst * row_bytes,
+                             -1 if src < 0 else src * row_bytes,
+                             n * row_bytes))
+    g = 0
+    for dst, src, n in segs:
+        g = math.gcd(g, dst, max(src, 0), n)
+    unit = next((u for u in COPY_UNITS if g % u == 0), None)
+    if unit is None:
+        raise ValueError(f"rows of {row_bytes} bytes have no 4-byte copy "
+                         "unit")
+    return unit, tuple(segs)
+
+
+def copy_unit(plan_unit: int, *tensors: torch.Tensor) -> int:
+    """The plan's unit, narrowed until it divides every tensor's address."""
+    unit = plan_unit
+    while unit > COPY_UNITS[-1] and any(t.data_ptr() % unit
+                                        for t in tensors):
+        unit //= 2
+    return unit
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -140,9 +209,11 @@ def ring_shift(X: torch.Tensor, D: int, Hb: int, own: bool = False,
         raise ValueError("X must be contiguous")
     rows = (Lb if own else 0) + 2 * Hb + pad_rows
     out = torch.empty((D * rows, X.shape[1]), dtype=X.dtype, device=X.device)
+    row_bytes = X.shape[1] * X.element_size()
+    unit = copy_unit(ring_shift_plan(D, Lb, Hb, own, pad_rows, row_bytes)[0],
+                     X, out)
     _launch("ring_shift", X, X.data_ptr(), out.data_ptr(), D, Lb, Hb,
-            X.shape[1] * X.element_size(), rows, int(own),
-            Lb if own else 0)
+            row_bytes, pad_rows, int(own), unit)
     ring_shift.launches += 1
     return out
 
@@ -170,9 +241,10 @@ def union_interior_overlap(A: BELLUnion, X: torch.Tensor, D: int, Hb: int,
     halo = torch.empty((D * 2 * Hb, m), dtype=torch.float32, device=X.device)
     vb = pairs[1][0].data_ptr() if len(pairs) == 2 else None
     yb = Ys[1].data_ptr() if len(Ys) == 2 else None
+    unit = copy_unit(ring_shift_plan(D, Lb, Hb, False, 0, m * 4)[0], X, halo)
     _launch("union_overlap_f32", X, pairs[0][0].data_ptr(), vb,
             *_tables(A), X.data_ptr(), Ys[0].data_ptr(), yb, halo.data_ptr(),
-            A.n_tiles, m, A.cl, A.b, A.live.x_max, D, Lb, Hb)
+            A.n_tiles, m, A.cl, A.b, A.live.x_max, D, Lb, Hb, unit)
     union_interior_overlap.launches += 1
     return (*Ys, halo)
 

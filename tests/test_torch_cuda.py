@@ -256,11 +256,13 @@ def test_cuda_cli_config7(cuda_device, capsys, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("staged", [True, False])
-@pytest.mark.parametrize("m", [1, 3, 9, 17])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 9, 16, 17, 32, 128])
 def test_cuda_bsr_kernels_match_plain(cuda_device, monkeypatch, m, staged):
     """The blocked-ELL SpMM, its windowed form (window staged in shared
     memory, or read from global memory) and the SpMV against their plain
-    versions; the two SpMM forms do the same arithmetic in the same order."""
+    versions, on both product routes (f32 FMAs at m 1, 2; 3xTF32 mma from
+    m 3); the two SpMM forms do the same arithmetic in the same order, and
+    the SpMV is the SpMM's m = 1 launch: both bit for bit."""
     cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
     A = BSRMatrix.from_csr(cav.K, block=8, device=cuda_device)
     if not staged:
@@ -281,9 +283,34 @@ def test_cuda_bsr_kernels_match_plain(cuda_device, monkeypatch, m, staged):
         err = (g - want).abs().max() / want.abs().max()
         assert err.item() <= 1e-5
     assert torch.equal(Y8, Y9)
+    if m == 1:
+        assert torch.equal(got[2], Y8)
     c = bsr_spmm.counts()
     assert c["bsr_matmat"] == c["bsr_matmat_windowed"] == 1
     assert c["bsr_matvec"] == (m == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [129, 200, 300])
+def test_cuda_bsr_wide_x_in_passes(cuda_device, m):
+    """Past 128 columns the SpMM launches once per 128 columns (the last
+    pass narrower), the windowed form staging each pass's columns of the
+    window."""
+    cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
+    A = BSRMatrix.from_csr(cav.K, block=8, device=cuda_device)
+    X = torch.from_numpy(
+        np.random.default_rng(m).standard_normal((A.n_padded, m))
+    ).float().to(cuda_device)
+    want = bsr_spmm.bsr_matmat_ref(A, X)
+    Y8 = bsr_spmm.bsr_matmat(A, X)
+    Y9 = bsr_spmm.bsr_matmat_windowed(A, X)
+    torch.cuda.synchronize()
+    assert ((Y8 - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert torch.equal(Y8, Y9)
+    # a pass equals the same columns taken alone (on the mma route there)
+    if m - 128 >= 3:
+        assert torch.equal(Y8[:, 128:], bsr_spmm.bsr_matmat(
+            A, X[:, 128:].contiguous()))
 
 
 @pytest.mark.cuda
@@ -452,21 +479,25 @@ def _dist(kernel, impl, device, problem=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m", [1, 3, 9])
-@pytest.mark.parametrize("deep", [False, True])
-def test_cuda_ring_shift_matches_plain(cuda_device, dtype, m, deep):
+@pytest.mark.parametrize("depth", ["0", "1", "16", "Lb", "deep"])
+@pytest.mark.parametrize("Lb", [5, 40])
+@pytest.mark.parametrize("D", [1, 2, 8])
+def test_cuda_ring_shift_matches_plain(cuda_device, D, Lb, depth, m, dtype):
     """The ring-shift kernel (K6) equals its plain version bit for bit, in
-    both output layouts, for a shallow halo and a halo deeper than a
-    shard."""
-    D, Lb = 8, 40
-    Hb = 56 if deep else 16
-    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
-        (D * Lb, m))).to(dtype=dtype, device=cuda_device)
+    both output layouts, at every copy unit it chooses: odd and even shard
+    lengths, 4- to 72-byte rows, no halo, a one-row halo, 16 rows, a halo
+    as deep as a shard and one deeper, one, two and eight shards, and X at
+    an address that only 4 (f32) or 8 (f64) divides."""
+    Hb = {"0": 0, "1": 1, "16": 16, "Lb": Lb, "deep": Lb + 16}[depth]
+    base = torch.from_numpy(np.random.default_rng(D + m).standard_normal(
+        D * Lb * m + 1)).to(dtype=dtype, device=cuda_device)
     halo.reset_counts()
-    for own, pad in ((False, 0), (True, 8)):
-        got = halo.ring_shift(X, D, Hb, own, pad)
-        want = halo.ring_shift_ref(X, D, Hb, own, pad)
-        assert torch.equal(got, want)
-    assert halo.counts()["ring_shift"] == 2
+    for X in (base[:-1].view(D * Lb, m), base[1:].view(D * Lb, m)):
+        for own, pad in ((False, 0), (True, 8)):
+            got = halo.ring_shift(X, D, Hb, own, pad)
+            want = halo.ring_shift_ref(X, D, Hb, own, pad)
+            assert torch.equal(got, want)
+    assert halo.counts()["ring_shift"] == 4
 
 
 @pytest.mark.cuda
