@@ -310,6 +310,9 @@ def probes_of(*scripts):
     return [name for name, path in PROBES.items()
             if path.removeprefix("probe: ") in scripts]
 STENCIL_MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
+# the BELLPairs widths: f32 FMAs at m 1, 2; 3xTF32 mma from m 3, one m-tile
+# up to 16, then a second (17) and a third (33)
+BELLPAIRS_WIDTHS = (1, 2, 3, 9, 16, 17, 33)
 
 
 def log(obj):
@@ -629,8 +632,10 @@ def stencil_csr(pencil, want_K, want_M):
 
 
 def phase_stencil_kernels(pencil):
-    """The tap-stencil kernel against its plain version at the 64^3 shapes.
-    Returns the stats of the main path's case (fused K/M at m = 9)."""
+    """The tap-stencil kernel against its plain version at the 64^3 shapes,
+    on the PEC mask and on an all-ones one (the mask is data: zero only on
+    the padding rows), at m 1, 9 and 17. Returns the stats of the main
+    path's case (fused K/M at m = 9, PEC)."""
     from maxwell_tpu_torch.kernels import stencil_taps as kst
 
     dev = torch.device("cuda")
@@ -640,45 +645,54 @@ def phase_stencil_kernels(pencil):
             for mode, want in STENCIL_MODES.items()}
     log({"phase": "stencil_csr", "seconds": time.perf_counter() - t0,
          "nnz": {mode: A.values().numel() for mode, A in libs.items()}})
-    rows = pencil.mask.sum().item()  # unmasked rows compute, masked skip
+    ones = torch.zeros_like(pencil.mask)
+    ones[: pencil.n] = 1.0
     taps_per_row = np.mean([len(t) for t in pencil.taps])
     rng = np.random.default_rng(1)
     st = {"max_abs_err": 0.0}
-    for m in (1, 9):
-        # random on every row, masked and padding ones too: the kernel
-        # applies both masks itself
-        X = torch.from_numpy(
-            rng.standard_normal((n_pad, m)).astype(np.float32)).to(dev)
-        for mode, (want_K, want_M) in STENCIL_MODES.items():
-            kern = lambda: kst.stencil_taps(
-                X, pencil.mask, pencil.taps, pencil.shape, want_K, want_M)
-            plain = lambda: kst.stencil_taps_ref(
-                X, pencil.mask, pencil.taps, pencil.shape, want_K, want_M)
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            pairs = [(g, w) for g, w in zip(got, want) if w is not None]
-            abs_err = max((g - w).abs().max().item() for g, w in pairs)
-            scale = max(w.abs().max().item() for _, w in pairs)
-            if not abs_err <= TOL["stencil"] * scale:
-                raise AssertionError(
-                    f"stencil_taps {mode} m={m}: max error {abs_err:.3e} > "
-                    f"{TOL['stencil']} * {scale:.3e}")
-            ms, plain_ms = median_ms(kern), median_ms(plain)
-            lib = libs[mode]
-            library_ms = median_ms(lambda: torch.sparse.mm(lib, X))
-            ops = len(pairs)
-            nbytes = n_pad * m * 4 + n_pad * 4 + ops * n_pad * m * 4
-            flops = ops * rows * taps_per_row * 2 * m
-            b_ms, b_by = bound_ms(nbytes, flops, "f32")
-            log({"kernel": "stencil_taps", "mode": mode, "m": m,
-                 "max_abs_err": abs_err, "rel_err": abs_err / scale,
-                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                 "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6,
-                 "bound_us": b_ms * 1e3, "bound_ms": b_ms, "bound_by": b_by})
-            st["max_abs_err"] = max(st["max_abs_err"], abs_err)
-            if mode == "KM" and m == 9:  # LOBPCG's fused W apply
-                st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=library_ms)
+    for mask_kind, mask in (("pec", pencil.mask), ("ones", ones)):
+        rows = mask.sum().item()  # unmasked rows compute, masked skip
+        for m in (1, 9, 17):
+            # random on every row, masked and padding ones too: the kernel
+            # applies both masks itself
+            X = torch.from_numpy(
+                rng.standard_normal((n_pad, m)).astype(np.float32)).to(dev)
+            for mode, (want_K, want_M) in STENCIL_MODES.items():
+                kern = lambda: kst.stencil_taps(
+                    X, mask, pencil.taps, pencil.shape, want_K, want_M)
+                plain = lambda: kst.stencil_taps_ref(
+                    X, mask, pencil.taps, pencil.shape, want_K, want_M)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+                abs_err = max((g - w).abs().max().item() for g, w in pairs)
+                scale = max(w.abs().max().item() for _, w in pairs)
+                if not abs_err <= TOL["stencil"] * scale:
+                    raise AssertionError(
+                        f"stencil_taps {mode} m={m} {mask_kind}: max error "
+                        f"{abs_err:.3e} > {TOL['stencil']} * {scale:.3e}")
+                ms, plain_ms = median_ms(kern), median_ms(plain)
+                # the library's CSR holds the PEC mask's operator
+                library_ms = None
+                if mask_kind == "pec":
+                    lib = libs[mode]
+                    library_ms = median_ms(lambda: torch.sparse.mm(lib, X))
+                ops = len(pairs)
+                nbytes = n_pad * m * 4 + n_pad * 4 + ops * n_pad * m * 4
+                flops = ops * rows * taps_per_row * 2 * m
+                b_ms, b_by = bound_ms(nbytes, flops, "f32")
+                log({"kernel": "stencil_taps", "mode": mode, "m": m,
+                     "mask": mask_kind, "max_abs_err": abs_err,
+                     "rel_err": abs_err / scale, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6,
+                     "bound_us": b_ms * 1e3, "bound_ms": b_ms,
+                     "bound_by": b_by})
+                st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+                if mode == "KM" and m == 9 and mask_kind == "pec":
+                    # LOBPCG's fused W apply
+                    st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=library_ms)
     del libs
     torch.cuda.empty_cache()
     return st
@@ -1052,10 +1066,12 @@ def _check_close(label, got, want, tol):
 
 def phase_bellpairs_kernels(problem):
     """The BELLPairs kernels against their plain versions on the K and M of
-    the 24^3 RCM brick (one pair structure, two value streams). Returns
-    per-kernel stats at the main path's shapes, m = 9: the fused K/M SpMM
-    (LOBPCG's W, the preconditioner's CG), the one-stream SpMM on stream b
-    (the projector's M applies) and, beside it, the windowed SpMM."""
+    the 24^3 RCM brick (one pair structure, two value streams), at m 1 and
+    2 (f32 FMAs) and 3, 9, 16, 17 and 33 (3xTF32 mma; 17 and 33 walk a
+    second and third m-tile). Returns per-kernel stats at the main path's
+    shapes, m = 9: the fused K/M SpMM (LOBPCG's W, the preconditioner's
+    CG), the one-stream SpMM on stream b (the projector's M applies) and,
+    beside it, the windowed SpMM; m 1 beside."""
     import scipy.sparse as sp
 
     from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
@@ -1084,7 +1100,7 @@ def phase_bellpairs_kernels(problem):
     names = ("bellpairs_matmat", "bellpairs_km_matmat",
              "bellpairs_matmat_windowed")
     stats = {name: {"max_abs_err": 0.0} for name in names}
-    for m in (1, 9):
+    for m in BELLPAIRS_WIDTHS:
         Xh = np.zeros((A.n_padded, m), np.float32)
         Xh[:n] = rng.standard_normal((n, m))
         X = torch.from_numpy(Xh).to(dev)
@@ -1133,6 +1149,9 @@ def phase_bellpairs_kernels(problem):
             log(row)
             st = stats[name]
             st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+            if m == 1 and case in ("km", "b"):
+                st["m1"] = {k: row[k] for k in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms")}
             if m == 9 and case in ("km", "b") or (
                     m == 9 and name == "bellpairs_matmat_windowed"):
                 st.update({k: row[k] for k in (
@@ -1168,9 +1187,10 @@ BAND_BUDGET = 96 * 1024 * 1024 // (128 * 4) * 5 // 6 * BAND_M * 4
 
 def phase_bellpairs_banded(problem):
     """The banded BELLPairs forms on the 48^3 RCM brick (n = 318,096) at
-    m = 9, with the reference's own band split (BAND_BUDGET), against their
-    plain versions and timed beside the one-stream and fused kernels on the
-    full X. Frees the 48^3 layout before it returns."""
+    every BELLPAIRS_WIDTHS width, with the reference's own band split
+    (BAND_BUDGET), against their plain versions and bit for bit against
+    the one-stream and fused kernels on the full X, and timed beside them
+    at m = 9. Frees the 48^3 layout before it returns."""
     import scipy.sparse as sp
 
     from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
@@ -1192,52 +1212,61 @@ def phase_bellpairs_banded(problem):
          "bands": len(AB.bands), "col_starts": list(AB.col_starts),
          "col_rows": list(AB.col_rows),
          "build_s": t2 - t1, "band_s": t3 - t2})
-    m = 9
-    Xh = np.zeros((A.n_padded, m), np.float32)
-    Xh[:n] = np.random.default_rng(4).standard_normal((n, m))
-    X = torch.from_numpy(Xh).to(dev)
-    Xn = X[:n].contiguous()
     mats = {"a": K, "km": sp.vstack([K, M]).tocsr()}
-    cases = [
-        ("bellpairs_matmat_banded", "a",
-         lambda: kp.bellpairs_matmat_banded(AB, X),
-         lambda: kp.bellpairs_matmat_banded_ref(AB, X),
-         lambda: kp.bellpairs_matmat(A, X)),
-        ("bellpairs_km_matmat_banded", "km",
-         lambda: kp.bellpairs_km_matmat_banded(AB, X),
-         lambda: kp.bellpairs_km_matmat_banded_ref(AB, X),
-         lambda: kp.bellpairs_km_matmat(A, X)),
-    ]
-    stats = {}
-    for name, case, kern, plain, full in cases:
-        got, want, whole = kern(), plain(), full()
-        torch.cuda.synchronize()
-        abs_err, scale = _check_close(f"{name} m={m}", got, want,
-                                      TOL["bellpairs"])
-        _check_close(f"{name} against the full-X kernel", got, whole,
-                     TOL["bellpairs"])
-        bitwise = all(torch.equal(a, b) for a, b in zip(
-            got if isinstance(got, tuple) else (got,),
-            whole if isinstance(whole, tuple) else (whole,)))
-        ms, plain_ms = median_ms(kern), median_ms(plain)
-        full_ms = median_ms(full)
-        lib = torch_csr(mats[case], dev)
-        library_ms = median_ms(lambda: torch.sparse.mm(lib, Xn))
-        del lib
-        nbytes = csr_bytes(mats[case], m)
-        b_ms, b_by = bound_ms(nbytes, mats[case].nnz * m * 2, "f32")
-        row = {"kernel": name, "grid": g, "case": case, "m": m,
-               "max_abs_err": abs_err, "rel_err": abs_err / scale, "ms": ms,
-               "plain_ms": plain_ms, "full_x_kernel_ms": full_ms,
-               "library_ms": library_ms, "bytes": nbytes, "bound_ms": b_ms,
-               "bound_by": b_by, "bands": len(AB.bands),
-               "col_rows": list(AB.col_rows),
-               "bitwise_equal_full_x": bitwise}
-        log(row)
-        stats[name] = {k: row[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "full_x_kernel_ms", "bound_ms",
-            "bound_by", "library_ms", "bands", "col_rows")}
-    del A, AB, X, Xn
+    rng = np.random.default_rng(4)
+    stats = {name: {"max_abs_err": 0.0} for name in (
+        "bellpairs_matmat_banded", "bellpairs_km_matmat_banded")}
+    for m in BELLPAIRS_WIDTHS:
+        Xh = np.zeros((A.n_padded, m), np.float32)
+        Xh[:n] = rng.standard_normal((n, m))
+        X = torch.from_numpy(Xh).to(dev)
+        cases = [
+            ("bellpairs_matmat_banded", "a",
+             lambda: kp.bellpairs_matmat_banded(AB, X),
+             lambda: kp.bellpairs_matmat_banded_ref(AB, X),
+             lambda: kp.bellpairs_matmat(A, X)),
+            ("bellpairs_km_matmat_banded", "km",
+             lambda: kp.bellpairs_km_matmat_banded(AB, X),
+             lambda: kp.bellpairs_km_matmat_banded_ref(AB, X),
+             lambda: kp.bellpairs_km_matmat(A, X)),
+        ]
+        for name, case, kern, plain, full in cases:
+            got, want, whole = kern(), plain(), full()
+            torch.cuda.synchronize()
+            abs_err, scale = _check_close(f"{name} m={m}", got, want,
+                                          TOL["bellpairs"])
+            _check_close(f"{name} m={m} against the full-X kernel", got,
+                         whole, TOL["bellpairs"])
+            bitwise = all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                whole if isinstance(whole, tuple) else (whole,)))
+            row = {"kernel": name, "grid": g, "case": case, "m": m,
+                   "max_abs_err": abs_err, "rel_err": abs_err / scale,
+                   "bitwise_equal_full_x": bitwise}
+            if m == 9:  # the solver's width: timed
+                ms, plain_ms = median_ms(kern), median_ms(plain)
+                full_ms = median_ms(full)
+                lib = torch_csr(mats[case], dev)
+                Xn = X[:n].contiguous()
+                library_ms = median_ms(lambda: torch.sparse.mm(lib, Xn))
+                del lib, Xn
+                nbytes = csr_bytes(mats[case], m)
+                b_ms, b_by = bound_ms(nbytes, mats[case].nnz * m * 2, "f32")
+                row.update(ms=ms, plain_ms=plain_ms, full_x_kernel_ms=full_ms,
+                           library_ms=library_ms, bytes=nbytes,
+                           bound_ms=b_ms, bound_by=b_by,
+                           bands=len(AB.bands), col_rows=list(AB.col_rows))
+                stats[name].update({k: row[k] for k in (
+                    "ms", "plain_ms", "full_x_kernel_ms", "bound_ms",
+                    "bound_by", "library_ms", "bands", "col_rows")})
+            log(row)
+            if not bitwise:
+                raise AssertionError(f"{name} m={m} differs from the full-X "
+                                     "kernel's bits")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                             abs_err)
+        del X
+    del A, AB
     torch.cuda.empty_cache()
     return stats
 
@@ -1931,7 +1960,7 @@ def main():
     # launch's time beside K6 and K10, and K6's copy unit
     log({"kernels": [{**entry(name), "path": path,
                       **{w: stats[name][w] for w in (
-                          "m8", "m9", "m32", "m64", "m128",
+                          "m1", "m8", "m9", "m32", "m64", "m128",
                           "launch_floor_ms", "unit_bytes")
                          if w in stats[name]}}
                      for name, path in paths.items()]})

@@ -1,7 +1,7 @@
 """Where the time of the 64^3 matrix-free path goes on the card: 10 f32
 LOBPCG iterations (spectral preconditioner) after a warm-up, then one
 `refine_dw`, each timed on the host clock and traced with torch.profiler
-(device time by kernel, top rows printed).
+(device time by kernel, top rows printed, and the tap kernel's total).
 
     python -m maxwell_tpu_torch.bench.profile_stencil
 
@@ -44,6 +44,11 @@ def timed(label, fn, rows):
           f"(idle {100 * max(0.0, 1 - device_ms / (wall * 1e3)):.0f}%)")
     print(ka.table(sort_by="self_cuda_time_total", row_limit=rows,
                    max_name_column_width=60))
+    taps = [e for e in ka if "stencil_taps" in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"{label}: stencil_taps "
+          f"{sum(e.self_device_time_total for e in taps) / 1e3:.3f} ms in "
+          f"{sum(e.count for e in taps)} launches")
     return out
 
 

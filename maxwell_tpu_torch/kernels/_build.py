@@ -46,7 +46,7 @@ _SIGNATURES = {
     "bsr_matmat_f32": [_P] * 5 + [_I] * 3 + [_P],
     "bsr_matmat_windowed_f32": [_P] * 6 + [_I] * 5 + [_P],
     # stencil_taps.cu
-    "stencil_taps_f32": [_P] * 8 + [_I] * 2 + [_P],
+    "stencil_taps_f32": [_P] * 8,
     # halo.cu
     "ring_shift": [_P] * 2 + [_I] * 7 + [_P],
     "union_overlap_f32": [_P] * 13 + [_I] * 9 + [_P],

@@ -12,7 +12,9 @@ shape = (nx, ny, nz); mask is the (n_padded,) PEC mask; taps is
 to the outputs after them; padding rows come out zero.
 
 Given CUDA tensors the wrapper checks them and launches the kernel
-(csrc/stencil_taps.cu) or raises. Given CPU tensors it runs the plain
+(csrc/stencil_taps.cu) or raises; `stencil_plan` is what the launch needs
+from the host (the tile for m, the taps' offsets in the staged tile), and
+the CPU tests apply it in torch. Given CPU tensors it runs the plain
 version `stencil_taps_ref`, which the CPU tests hold against the JAX package
 and the chip smoke holds the kernel against. The wrapper counts its
 launches in `stencil_taps.launches`, the plain version its calls in
@@ -21,6 +23,7 @@ launches in `stencil_taps.launches`, the plain version its calls in
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -90,19 +93,160 @@ def taps_plain(X, mask, taps, shape, want_K=True, want_M=False):
     )
 
 
-@functools.lru_cache(maxsize=16)
-def tap_table(taps):
-    """Host arrays of the kernel's tap table: meta (T, 4) int32 (beta, dx,
-    dy, dz), coef (T, 2) f32 (cK, cM), counts (3,) int32; component 0's
-    taps first."""
-    meta = np.array(
-        [(b, *d) for comp in taps for b, d, _, _ in comp], np.int32
-    ).reshape(-1, 4)
-    coef = np.array(
-        [(cK, cM) for comp in taps for _, _, cK, cM in comp], np.float32
-    ).reshape(-1, 2)
-    counts = np.array([len(comp) for comp in taps], np.int32)
-    return meta, coef, counts
+# the kernel's tiling (csrc/stencil_taps.cu): a block owns TILE_Y x tile_z
+# positions of the common (nx+1, ny+1, nz+1) box and a chunk of x-planes,
+# and keeps RING x-planes of the three input components in shared memory
+TILE_Y = 4  # output y rows per block (kTileY in the kernel)
+RING = 3  # staged x-planes per input component: x - 1, x, x + 1
+MAX_THREADS = 256  # a block's threads: one staged element of a row each
+BLOCK_REGS = 80  # registers a thread (the kernel's launch bounds, 256 x 3)
+SMS = 132  # the H100's streaming multiprocessors
+SM_SMEM = 233472  # shared memory of an SM (228 KB), 1 KB of it per block
+SM_THREADS = 2048
+SM_REGS = 65536
+MIN_CHUNK = 4  # x-planes of output per block at least (the halo costs 2)
+WAVES = 2  # blocks to aim for: two waves of what fits on the card at once
+# the plan's integer header, in the order the kernel reads it
+PLAN_FIELDS = ("m", "n", "n_padded", "tile_y", "tile_z", "chunk_x", "grid_z",
+               "grid_y", "grid_x", "pad_blocks", "threads", "row_stride",
+               "plane", "smem_bytes")
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilPlan:
+    """What the tap kernel's launch needs from the host (see stencil_plan).
+
+    Staged layout: for each of RING x-plane slots, for each input component
+    beta, a plane of (TILE_Y + 2) rows of row_stride = (tile_z + 2) m
+    floats: position (y0 - 1 + row, z0 - 1 + lz) of the tile, column j, at
+    row * row_stride + lz * m + j; plane x lives in slot x mod RING. The
+    taps come in columns (beta, dx, dz): column c's element for the output
+    at (x, y0 + r, z0 + lz), column j, in staged row k is at
+    slot(x + dx) * 3 plane + col_off[c] + k row_stride + (lz + 1) m + j,
+    and its tap (alpha, dy) reads staged row r + 1 + dy."""
+
+    m: int
+    n: int
+    n_padded: int
+    dims: tuple  # (X, Y, Z) of the Ex, Ey, Ez grids
+    offs: tuple  # first row of each component, then n
+    box: tuple  # (X, Y, Z) extent of the common box of positions
+    tile_y: int
+    tile_z: int
+    chunk_x: int  # x-planes of output per block
+    grid_z: int
+    grid_y: int
+    grid_x: int
+    pad_blocks: int  # blocks after the tiles that zero rows n .. n_padded
+    threads: int
+    row_stride: int
+    plane: int
+    smem_bytes: int
+    columns: tuple  # (beta, dx, dz, first tap, tap count) of each column
+    col_off: tuple  # beta plane + dz m: each column's offset in the tile
+    taps: tuple  # (alpha, dy) of each tap, column by column
+    coef: tuple  # (cK, cM) of each tap
+
+    @property
+    def tiles(self) -> int:
+        return self.grid_z * self.grid_y * self.grid_x
+
+    def header(self) -> np.ndarray:
+        """The kernel's int32 plan: PLAN_FIELDS, the component dims (9), the
+        component offsets (4), the box (3), the column and tap counts."""
+        head = [getattr(self, f) for f in PLAN_FIELDS]
+        return np.array(
+            head + [d for dim in self.dims for d in dim] + list(self.offs)
+            + list(self.box) + [len(self.columns), len(self.taps)], np.int32)
+
+    def arrays(self):
+        """(int32: each column's (beta, dx, dz, first, count, offset), then
+        each tap's (alpha, dy); f32: each tap's (cK, cM))."""
+        cols = [v for c, off in zip(self.columns, self.col_off)
+                for v in (*c, off)]
+        return (np.array(cols + [v for t in self.taps for v in t], np.int32),
+                np.array(self.coef, np.float32).reshape(-1, 2))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(tile_z: int, m: int) -> int:
+    """Shared memory of a block: RING planes of three components, each
+    (TILE_Y + 2) rows of (tile_z + 2) m floats."""
+    return RING * 3 * (TILE_Y + 2) * (tile_z + 2) * m * 4
+
+
+def blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks of the kernel an SM holds at once: by shared memory, threads
+    and registers."""
+    return min(SM_SMEM // (smem + 1024), SM_THREADS // threads,
+               SM_REGS // (threads * BLOCK_REGS))
+
+
+@functools.lru_cache(maxsize=32)
+def stencil_plan(shape, m: int, taps, n_padded: int) -> StencilPlan:
+    """The tap kernel's launch plan for an (nx, ny, nz) brick at width m.
+
+    Tiles: tile_z is the widest z extent whose staged row (tile_z + 2) m
+    fits MAX_THREADS threads and whose block fits two to an SM's shared
+    memory (at least 1), evened out over the box's z extent; TILE_Y rows;
+    the box's x extent cut into chunks (of MIN_CHUNK planes at least) so
+    that WAVES times as many blocks run as fit on the card at once. A
+    staged row is at most two elements per thread. The taps go in columns
+    (beta, dx, dz), each with its offset in the staged tile; dx picks the
+    ring slot, a tap's dy its staged row. The kernel takes the vacuum hex
+    element's pattern of 99 taps in 21 columns (csrc/stencil_taps.cu
+    col_of, tap_of) and refuses another."""
+    m = int(m)
+    if not 1 <= m <= 2 * MAX_THREADS // 3:
+        raise ValueError(f"the tap kernel takes a staged row of 3 m <= "
+                         f"{2 * MAX_THREADS} floats, got m = {m}")
+    dims = tuple(tuple(d) for d in component_shapes(shape))
+    sizes = [a * b * c for a, b, c in dims]
+    offs = tuple(int(v) for v in np.cumsum([0] + sizes))
+    n = offs[3]
+    if n_padded < n:
+        raise ValueError(f"n_padded {n_padded} < n {n}")
+    box = tuple(max(d[i] for d in dims) for i in range(3))
+    tz_max = max(1, MAX_THREADS // m - 2)
+    while tz_max > 1 and smem_bytes(tz_max, m) + 1024 > SM_SMEM // 2:
+        tz_max -= 1
+    grid_z = _cdiv(box[2], tz_max)
+    tile_z = _cdiv(box[2], grid_z)
+    grid_z = _cdiv(box[2], tile_z)
+    row_stride = (tile_z + 2) * m
+    threads = min(_cdiv(row_stride, 32) * 32, MAX_THREADS)
+    grid_y = _cdiv(box[1], TILE_Y)
+    blocks = WAVES * SMS * blocks_per_sm(smem_bytes(tile_z, m), threads)
+    grid_x = max(1, min(blocks // (grid_z * grid_y),
+                        _cdiv(box[0], MIN_CHUNK)))
+    chunk_x = _cdiv(box[0], grid_x)
+    grid_x = _cdiv(box[0], chunk_x)
+    plane = (TILE_Y + 2) * row_stride
+    # the kernel's order: by column (beta, dx, dz), then (alpha, dy)
+    flat = sorted(((a, b, *d, cK, cM) for a, comp in enumerate(taps)
+                   for b, d, cK, cM in comp),
+                  key=lambda t: (t[1], t[2], t[4], t[0], t[3]))
+    if any(b not in (0, 1, 2) or any(abs(v) > 1 for v in d)
+           for b, *d in (t[1:5] for t in flat)):
+        raise ValueError("taps reach beta in 0..2, offsets in -1..1")
+    columns, col_off = [], []
+    for i, (_, b, dx, _, dz, _, _) in enumerate(flat):
+        if not columns or columns[-1][:3] != (b, dx, dz):
+            columns.append((b, dx, dz, i, 0))
+            col_off.append(b * plane + dz * m)
+        columns[-1] = (*columns[-1][:4], columns[-1][4] + 1)
+    return StencilPlan(
+        m=m, n=n, n_padded=int(n_padded), dims=dims, offs=offs, box=box,
+        tile_y=TILE_Y, tile_z=tile_z, chunk_x=chunk_x, grid_z=grid_z,
+        grid_y=grid_y, grid_x=grid_x,
+        pad_blocks=_cdiv((n_padded - n) * m, threads), threads=threads,
+        row_stride=row_stride, plane=plane,
+        smem_bytes=smem_bytes(tile_z, m), columns=tuple(columns),
+        col_off=tuple(col_off), taps=tuple((t[0], t[3]) for t in flat),
+        coef=tuple((float(t[5]), float(t[6])) for t in flat))
 
 
 def stencil_taps(X, mask, taps, shape, want_K=True, want_M=False):
@@ -133,8 +277,9 @@ def stencil_taps(X, mask, taps, shape, want_K=True, want_M=False):
         raise ValueError(f"mask on {mask.device}, X on {X.device}")
     from maxwell_tpu_torch.kernels import _build
 
-    meta, coef, counts = tap_table(taps)
-    dims = np.array(component_shapes(shape), np.int32)
+    plan = stencil_plan(tuple(shape), X.shape[1], taps, X.shape[0])
+    head = plan.header()
+    cols, coef = plan.arrays()
     YK = torch.empty_like(X) if want_K else None
     YM = torch.empty_like(X) if want_M else None
     with torch.cuda.device(X.device):
@@ -142,8 +287,7 @@ def stencil_taps(X, mask, taps, shape, want_K=True, want_M=False):
             X.data_ptr(), mask.data_ptr(),
             YK.data_ptr() if want_K else None,
             YM.data_ptr() if want_M else None,
-            meta.ctypes.data, coef.ctypes.data, counts.ctypes.data,
-            dims.ctypes.data, X.shape[0], X.shape[1],
+            head.ctypes.data, cols.ctypes.data, coef.ctypes.data,
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     if rc != 0:

@@ -184,31 +184,49 @@ def test_cuda_cli_brick(cuda_device, capsys, tmp_path, dtype):
     assert max(rep["analytic_rel_err"]) < 5e-2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["K", "M", "KM"])
-@pytest.mark.parametrize("m", [1, 3, 9, 17])
-def test_cuda_stencil_kernel_matches_plain(cuda_device, m, mode):
-    """An odd (7, 6, 5) grid: the three component grids have different
-    shapes, so every bounds check of the kernel is exercised. X is random
-    on masked and padding rows too: the kernel applies both masks."""
+def _stencil_case(device, m, mask_kind):
+    """The odd (7, 6, 5) grid's pencil, its PEC mask or an all-ones one
+    (zero on the padding rows), and X random on every row."""
     from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
 
     p = StencilPencil3D.build(nx=7, ny=6, nz=5, a=1.0, b=0.8, c=1.3,
-                              dtype=torch.float32, device=cuda_device)
-    want_K, want_M = mode != "M", mode != "K"
+                              dtype=torch.float32, device=device)
+    mask = p.mask
+    if mask_kind == "ones":
+        mask = torch.zeros_like(p.mask)
+        mask[: p.n] = 1.0
     X = torch.from_numpy(
         np.random.default_rng(m).standard_normal((p.n_padded, m))
-    ).float().to(cuda_device)
-    kst.reset_counts()
-    got = kst.stencil_taps(X, p.mask, p.taps, p.shape, want_K, want_M)
-    want = kst.stencil_taps_ref(X, p.mask, p.taps, p.shape, want_K, want_M)
-    assert kst.counts() == {"stencil_taps": 1, "stencil_taps_ref": 1}
+    ).float().to(device)
+    return p, mask, X
+
+
+def _check_stencil(p, got, want):
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
         if g is not None:
             err = (g - w).abs().max() / w.abs().max()
             assert err.item() <= 1e-5
             assert not g[p.n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", ["pec", "ones"])
+@pytest.mark.parametrize("mode", ["K", "M", "KM"])
+@pytest.mark.parametrize("m", [1, 3, 9, 17, 86])
+def test_cuda_stencil_kernel_matches_plain(cuda_device, m, mode, mask_kind):
+    """An odd (7, 6, 5) grid: the three component grids have different
+    shapes, so the staging of every grid's edges is exercised (m 86: six
+    z tiles, two staged elements a thread). X is random on masked and
+    padding rows too: the kernel applies both masks, which are data (the
+    PEC mask, or all ones)."""
+    p, mask, X = _stencil_case(cuda_device, m, mask_kind)
+    want_K, want_M = mode != "M", mode != "K"
+    kst.reset_counts()
+    got = kst.stencil_taps(X, mask, p.taps, p.shape, want_K, want_M)
+    want = kst.stencil_taps_ref(X, mask, p.taps, p.shape, want_K, want_M)
+    assert kst.counts() == {"stencil_taps": 1, "stencil_taps_ref": 1}
+    _check_stencil(p, got, want)
 
 
 @pytest.mark.cuda
@@ -372,7 +390,7 @@ def test_cuda_cli_config1_pallas(cuda_device, capsys, tmp_path, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("staged", [True, False])
-@pytest.mark.parametrize("m", [1, 3, 9, 17])
+@pytest.mark.parametrize("m", [1, 2, 3, 9, 16, 17, 33])
 @pytest.mark.parametrize("grid", [(6, 5, 4), (8, 8, 8)])
 def test_cuda_bellpairs_kernels_match_plain(cuda_device, monkeypatch, grid,
                                             m, staged):
@@ -415,6 +433,31 @@ def test_cuda_bellpairs_kernels_match_plain(cuda_device, monkeypatch, grid,
             c["bellpairs_matmat_windowed"], c["bellpairs_matmat_banded"],
             c["bellpairs_km_matmat_banded"]) == (2, 1, 1, 1, 1)
     assert not any(c[fn.__name__] for fn in kp.PLAIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [129, 200])
+def test_cuda_bellpairs_wide_x_in_passes(cuda_device, m):
+    """Past 128 columns the BELLPairs kernels launch once per 128 columns
+    (the last pass narrower), the fused form writing both outputs of each
+    pass, the windowed form staging each pass's columns of the window."""
+    cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
+    A = BELLPairs.from_csr(cav.K, B=cav.M, device=cuda_device)
+    X = torch.from_numpy(
+        np.random.default_rng(m).standard_normal((A.n_padded, m))
+    ).float().to(cuda_device)
+    want_k, want_m = kp.bellpairs_km_matmat_ref(A, X)
+    Yk, Ym = kp.bellpairs_km_matmat(A, X)
+    Ya = kp.bellpairs_matmat(A, X, "a")
+    Yw = kp.bellpairs_matmat_windowed(A, X)
+    torch.cuda.synchronize()
+    for got, want in ((Yk, want_k), (Ym, want_m)):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert torch.equal(Yk, Ya) and torch.equal(Yw, Ya)
+    # a pass equals the same columns taken alone (on the mma route there)
+    if m - 128 >= 3:
+        assert torch.equal(Ya[:, 128:], kp.bellpairs_matmat(
+            A, X[:, 128:].contiguous(), "a"))
 
 
 @pytest.mark.cuda
