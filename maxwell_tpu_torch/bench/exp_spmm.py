@@ -3,7 +3,8 @@ maxwell_tpu/bench/exp_spmm.py on the RCM brick's K (24^3: n = 38,088, 4,768
 block rows of S = 64 slots, a 78.1 MB value panel). It splits the cost of
 K8 (the blocked-ELL SpMM) into the value stream, the X gather and the
 product's shape, as a ladder of kernels that each differ from their
-neighbour in one thing, 16 warps per 128-row tile throughout:
+neighbour in one thing (16 warps per 128-row tile; v3 and v3b stream the
+values persistently, one block per SM):
 
   v5_batched_hi   Y = A X, X slices read from L2 as used, f32 FMAs
   v1_panel_hi     v5_hi with each row's X panel staged in shared memory
@@ -11,7 +12,7 @@ neighbour in one thing, 16 warps per 128-row tile throughout:
   v5_batched_def  v5 with bf16 operands, mma.sync m16n8k16 (transposed)
   v2_panel_def    v1 with bf16 operands
   v3_stream       no gather: each block row @ the fixed panel X[0 : S b]
-  v3b_onedot      v3's function as one (128, S b) product per tile
+  v3b_onedot      v3's function as one (64, S b) product per 64 rows
   v4_gather       the gather alone: per tile the sum of its slices
 
 and, timed beside at every m, the ported kernels the reference compared
@@ -34,10 +35,12 @@ v3b), roofline_ms and pct_roofline (the reference's yardsticks over the
 copy bandwidth measured in the same run: the layout roofline
 exp_spmm.py:106-108, for v7 the pairs roofline :309-311, for v9 the fused
 roofline :346-349), and library_ms of one PyTorch call (`library` says
-what it includes and excludes). Runs on the card unless --device cpu is
-given; there the plain versions run and nothing is timed. Writes JSON to
---out (default build/maxwell_tpu_torch/probes/exp_spmm_results.json);
-never the reference's exp_spmm_results.json.
+what it includes and excludes; v3 and v3b also library_bf16_ms, the call
+on operands rounded to bf16 beforehand, `library_bf16`). Runs on the card
+unless --device cpu is given; there the plain versions run and nothing is
+timed. Writes JSON to --out (default
+build/maxwell_tpu_torch/probes/exp_spmm_results.json); never the
+reference's exp_spmm_results.json.
 """
 
 from __future__ import annotations
@@ -108,17 +111,36 @@ def library(name, V, cols, X, Kcsr, n):
                 lambda: torch.bmm(Vb, Pb),
                 lambda out: out.float().reshape(nbr * B, m), LIB_TOL_BF16)
     if name in STREAM:
-        Vb, Xb = V.bfloat16(), X[:S * B].bfloat16()
-        return ("torch.matmul(blocks2d, X[:S b]) with both operands rounded "
-                "to bf16 beforehand (bf16 output)",
-                lambda: torch.matmul(Vb, Xb), lambda out: out.float(),
-                LIB_TOL_BF16)
+        Xs = X[:S * B]
+
+        def call():
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return torch.matmul(V, Xs)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+
+        return ("torch.matmul(blocks2d, X[:S b]) on the probe's f32 "
+                "operands, TF32 allowed for this call (reads the kernels' "
+                "bytes)", call, lambda out: out, LIB_TOL_BF16)
     if name == "v4_gather":
         call, as_plain = bag_sum(cols, X, S, B)
         return ("F.embedding_bag sum over X viewed as (nbr, 8 m) slices, "
                 "one bag of R S per tile (excludes the R-fold tile)", call,
                 as_plain, LIB_TOL_SUM)
     raise KeyError(name)
+
+
+def library_bf16(V, X):
+    """(what, call, as_plain, tol) of the stream variants' second library
+    call: torch.matmul on operands rounded to bf16 beforehand, which reads
+    half the kernels' value bytes."""
+    Vb, Xb = V.bfloat16(), X[:V.shape[1]].bfloat16()
+    return ("torch.matmul(blocks2d, X[:S b]) with both operands rounded to "
+            "bf16 beforehand (reads half the value bytes; bf16 output)",
+            lambda: torch.matmul(Vb, Xb), lambda out: out.float(),
+            LIB_TOL_BF16)
 
 
 def _held(name, got, want, tol=TOL):
@@ -191,8 +213,11 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
             row["library_max_abs_err"] = _held(
                 f"{name} library", as_plain(call()), want, tol)[0]
             if name in STREAM:
-                row["panel_staged"] = spp.fixed_staged(S, m,
-                                                       name == "v3b_onedot")
+                what2, call2, as_plain2, tol2 = library_bf16(V, X)
+                row["library_bf16"] = what2
+                row["library_bf16_max_abs_err"] = _held(
+                    f"{name} library_bf16", as_plain2(call2()), want,
+                    tol2)[0]
             if timed:
                 if name in STREAM:
                     nbytes = V.numel() * 4 + S * B * m * 4 + xy // 2
@@ -210,6 +235,8 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
                            operations=ops, roofline_ms=roof,
                            pct_roofline=100 * roof / ms_,
                            library_ms=median_ms(call))
+                if name in STREAM:
+                    row["library_bf16_ms"] = median_ms(call2)
             res[name] = row
             del got, want
         res.update(_beside(A, AP, X, KM, m, roofs, bw))

@@ -9,8 +9,8 @@
 // as the transposed value panel blocks2d (nbr b, S b) f32 (row r b + i,
 // column s b + k: 78.1 MB), cols (nbr, S) int32, X (rows, m) f32 at m in
 // {8, 32, 64, 128}. A tile is R = 16 block rows, 128 output rows; one block
-// of 16 warps per tile in every variant, so that neighbours on the ladder
-// below differ in one thing only.
+// of 16 warps per tile in the gathering variants, so that neighbours on the
+// ladder below differ in one thing only.
 //
 //   bsr_f32<UNSTAGED>   v5_batched_hi (:260-291, pallas_call :277,
 //                       HIGHEST): Y = A X, warp w owns block row w of the
@@ -36,33 +36,38 @@
 //                       the m16 rows are zero); a k16 step is two slots.
 //   bsr_bf16<true>      v2_panel_def (:127, DEFAULT): as v5_def, with v1's
 //                       staged 2-slot chunks (one k16 step each).
-//   stream_bf16<false>  v3_stream (:144-171, :159): as v2_def without the
+//   stream_kernel       v3_stream (:144-171, :159): as v2_def without the
 //                       gather: every block row's values @ the fixed panel
-//                       X[0:S b], staged once per block where it fits
-//                       (m <= 64), else read from L2; one transposed
-//                       product per 8-row block. (The TPU failed to lower
+//                       X[0:S b], one transposed product per 8-row block
+//                       (mma.sync), each X^T fragment read once per k step
+//                       for a warp's 2 block rows. (The TPU failed to lower
 //                       it: scatter.)
-//   stream_bf16<true>   v3b_onedot (:173-196, :184): the same function, one
-//                       (128, S b) @ (S b, m) product per tile: the values'
-//                       rows are the m16 rows (two block rows per m16 tile,
-//                       not transposed), X's columns the n8. Warp w takes
-//                       row tile w / 2 and half w % 2 of the k range; the
-//                       halves are summed through shared memory. The one
-//                       change from v3: the product's shape.
+//   onedot_kernel       v3b_onedot (:173-196, :184): the same function as
+//                       one (64, S b) @ (S b, m) product per 64 rows on
+//                       wgmma, the values the register A operand, the panel
+//                       the shared-memory B. The one change from v3: the
+//                       product's shape.
+//                       Both are persistent (one block per SM), take the
+//                       values through a TMA ring and stage the panel once
+//                       per block in bf16 (see below); the other variants
+//                       keep one block of 16 warps per tile.
 //
 // Bounds (at the card's published rates, the probe's inputs once): 78.1 MB
 // of values dominate at m 8 (~0.024 ms by bytes); at m 128 the 5.0 GFLOP
 // of the product take ~0.075 ms at the f32 peak (bf16: 0.005 ms, so the
 // _def variants and v3/v3b stay bound by bytes). What the design does
-// about it: the values are streamed once with 16-byte loads marked
-// evict-first (__ldcs), each block row's 2 KB rows read by one warp; X
-// slices (32 m bytes, contiguous) are read with 16-byte loads in the f32
-// variants, as aligned scalars in the mma fragments. Every output is
-// written once by one thread: no atomics, runs repeat bit for bit.
+// about it: the values are streamed once, with 16-byte loads marked
+// evict-first (__ldcs) in the gathering variants, by TMA into a ring of
+// stages in v3/v3b; X slices (32 m bytes, contiguous) are read with 16-byte
+// loads in the f32 variants, as aligned scalars in the mma fragments. Every
+// output is written once by one thread: no atomics, runs repeat bit for
+// bit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -299,111 +304,638 @@ bsr_bf16_kernel(const Params p) {
   xt_store<M>(p.y, r, d, g, tig);
 }
 
-// The fixed panel X[0 : S b] staged in shared memory at row stride M + 4
-template <int M>
-__device__ __forceinline__ void stage_fixed(const float* x, int64_t P,
-                                            float* panel) {
-  constexpr int CG = M / 4;
-  for (int64_t e = threadIdx.x; e < P * CG; e += kThreads) {
-    const int64_t row = e / CG;
-    const int f = (int)(e - row * CG);
-    *reinterpret_cast<float4*>(panel + row * (M + 4) + 4 * f) =
-        ld4<false>(x + row * M + 4 * f);
-  }
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// v3_stream and v3b_onedot: a persistent, warp-specialised stream
+// ---------------------------------------------------------------------------
+//
+// One block per SM walks its work units in the fixed order blockIdx.x + i
+// gridDim.x (no atomics: every output is written once, by one thread).
+// The last warp is the producer: its lane 0 copies the values by TMA
+// (cp.async.bulk.tensor.2d, 128-byte swizzle, evict-first) into a ring of
+// stages in shared memory, each completed on its "full" mbarrier; the
+// warps before it are the consumers (v3: 16 warps, v3b: 2 warpgroups). The
+// block's units go out in steps (v3: 16 units, v3b: 2), and a stage holds
+// chunk kc of each live unit of the step, one box each. In a step with
+// fewer live units (the block's last), a stage holds several chunks of
+// each, so the ring keeps as many bytes in flight as in a full step. Every
+// consumer warp waits for every stage and releases it on its "empty"
+// mbarrier (one arrival per consumer warp), after reading its own boxes if
+// it has any; so no warp can wait on a stage's next phase before it has
+// seen the last one, and the phase parity stays exact. The ring's first
+// copies start while the consumers stage the fixed panel X[0 : P] (P = S b)
+// once per block, in bf16 (nearest even) and already in the layout its
+// product reads.
+//
+// A box is 32 f32 columns (128 B, the swizzle's span) of a unit's value
+// rows: a chunk, two k16 steps. Values are read as float4: the row's k 4 t
+// .. 4 t + 3 of the step, the permuted k order of xt_step. In the swizzled
+// box, lanes g and g + 1 read the same four 16-byte chunks of either step;
+// so lanes with odd g read their second step first, which puts the 8 lanes
+// of a phase on 8 chunks, and a select puts the steps back in order.
+
+constexpr int kBoxCols = 32;   // f32 columns of a TMA box: 128 B
+constexpr int kV3Warps = 16;   // v3: consumer warps
+constexpr int kV3Rows = 2;     // v3: block rows of a unit
+constexpr int kV3bRows = 64;   // v3b: rows of a unit (a warpgroup's)
+
+template <bool ONEDOT>
+struct Ring {
+  static constexpr int kBoxRows = ONEDOT ? kV3bRows : kV3Rows * kB;
+  static constexpr int kBox = kBoxRows * kBoxCols * 4;  // v3 2 KB, v3b 8 KB
+  static constexpr int kConsumers = ONEDOT ? 8 : kV3Warps;  // warps
+  static constexpr int kThreads = (kConsumers + 1) * 32;  // + the producer
+  static constexpr int kPerStep = ONEDOT ? 2 : kConsumers;  // units a step
+  static constexpr int kStage = kPerStep * kBox;        // 32 KB, 16 KB
+  static constexpr int kStages = ONEDOT ? 4 : 3;
+};
+
+// shared memory of a launch: 1 KB to align the ring (the 128-byte swizzle
+// repeats every 1 KB), the ring, the bf16 panel (P m 2 bytes in either
+// layout), the full and empty barriers
+template <bool ONEDOT>
+size_t stream_smem(int64_t P, int64_t m) {
+  using Rg = Ring<ONEDOT>;
+  return 1024 + (size_t)Rg::kStages * Rg::kStage + (size_t)P * m * 2 +
+         2 * Rg::kStages * 8;
 }
 
-// v3_stream: warp w, block row w of the tile, Y^T = X[0:P]^T V^T
-template <int M, bool STAGED>
-__global__ void __launch_bounds__(kThreads)
-stream_bf16_kernel(const Params p) {
-  constexpr int MT = M >= 16 ? M / 16 : 1;
-  constexpr int XS = M + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* panel = reinterpret_cast<float*>(smem);
-  const int64_t P = p.S * kB;
-  if (STAGED) stage_fixed<M>(p.x, P, panel);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int64_t r = (int64_t)blockIdx.x * kR + warp;
-  const float* vg = p.v + (r * kB + g) * P + 4 * tig;
-  float d[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) d[mt][0] = d[mt][1] = d[mt][2] =
-      d[mt][3] = 0.f;
-  for (int64_t k0 = 0; k0 < P; k0 += 16) {
-    const float4 v = __ldcs(reinterpret_cast<const float4*>(vg + k0));
-    const uint32_t b0 = pack_bf16(v.x, v.y);
-    const uint32_t b1 = pack_bf16(v.z, v.w);
-    if (STAGED)
-      xt_step<M, true>(d, panel + (k0 + 4 * tig) * XS, XS, g, b0, b1);
-    else
-      xt_step<M, false>(d, p.x + (k0 + 4 * tig) * M, M, g, b0, b1);
-  }
-  xt_store<M>(p.y, r, d, g, tig);
+struct StreamParams {
+  const float* x;  // (rows, m), rows >= P
+  float* y;        // (nbr b, m)
+  int P;           // S b
+  int units;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// v3b_onedot: warp w, rows 16 (w / 2) .. + 15 of the tile and half w % 2 of
-// the k range, Y = V X[0:P]; D tile nt: rows g, g + 8, columns 8 nt + 2 tig
-template <int M, bool STAGED>
-__global__ void __launch_bounds__(kThreads)
-onedot_bf16_kernel(const Params p) {
-  constexpr int NT = M / 8;
-  constexpr int XS = M + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int64_t P = p.S * kB;
-  float* panel = reinterpret_cast<float*>(smem);
-  float* red = panel + (STAGED ? P * XS : 0);  // [8][NT][4][32]
-  if (STAGED) stage_fixed<M>(p.x, P, panel);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int rt = warp >> 1;
-  const int kh = warp & 1;
-  const int64_t row0 = (int64_t)blockIdx.x * kR * kB + 16 * rt;
-  const float* va = p.v + (row0 + g) * P + 4 * tig;
-  const float* vb = va + 8 * P;
-  const float* xb = STAGED ? panel : p.x;
-  const int64_t xs = STAGED ? XS : M;
-  float d[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) d[nt][0] = d[nt][1] = d[nt][2] =
-      d[nt][3] = 0.f;
-  for (int64_t k0 = kh * (P / 2); k0 < (kh + 1) * (P / 2); k0 += 16) {
-    const float4 a = __ldcs(reinterpret_cast<const float4*>(va + k0));
-    const float4 b = __ldcs(reinterpret_cast<const float4*>(vb + k0));
-    const uint32_t a0 = pack_bf16(a.x, a.y), a1 = pack_bf16(b.x, b.y);
-    const uint32_t a2 = pack_bf16(a.z, a.w), a3 = pack_bf16(b.z, b.w);
-    const float* xr = xb + (k0 + 4 * tig) * xs;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = 8 * nt + g;
-      mma_bf16(d[nt], a0, a1, a2, a3,
-               pack_bf16(ld<STAGED>(xr + n), ld<STAGED>(xr + xs + n)),
-               pack_bf16(ld<STAGED>(xr + 2 * xs + n),
-                         ld<STAGED>(xr + 3 * xs + n)));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
+      "l"(policy)
+      : "memory");
+}
+
+// the consumer threads, apart from the producer warp
+template <int N>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 lds4(const unsigned char* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Both steps of a box row for lane (g, t), as bf16x2 pairs: h[kk] = {k 4 t,
+// 4 t + 1 | k 4 t + 2, 4 t + 3} of step kk. row: the row's 128 bytes in the
+// box, g = its index mod 8.
+__device__ __forceinline__ void box_row(const unsigned char* row, int g,
+                                        int t, uint32_t (&h)[2][2]) {
+  const int odd = g & 1;
+  const float4 f = lds4(row + (((4 * odd + t) ^ g) << 4));
+  const float4 s = lds4(row + (((4 * (odd ^ 1) + t) ^ g) << 4));
+  const uint32_t f0 = pack_bf16(f.x, f.y), f1 = pack_bf16(f.z, f.w);
+  const uint32_t s0 = pack_bf16(s.x, s.y), s1 = pack_bf16(s.z, s.w);
+  h[0][0] = odd ? s0 : f0;
+  h[0][1] = odd ? s1 : f1;
+  h[1][0] = odd ? f0 : s0;
+  h[1][1] = odd ? f1 : s1;
+}
+
+// The ring's walk, shared by the producer and the consumers: in step j the
+// block's units j kPerStep + c (c < live) are live; each stage of the step
+// holds chunks k0 .. k0 + cps - 1 of each (cps = kPerStep / live), chunk kc
+// of unit c in box (kc - k0) live + c. A full step takes nk stages.
+template <bool ONEDOT>
+struct Walk {
+  using Rg = Ring<ONEDOT>;
+  int mine;  // the block's units
+  int nk;    // chunks of a unit
+  __device__ int live(int j) const {
+    return min(Rg::kPerStep, mine - j * Rg::kPerStep);
+  }
+  __device__ int unit(int j, int c) const {
+    return blockIdx.x + (j * Rg::kPerStep + c) * gridDim.x;
+  }
+};
+
+// The producer: lane 0 of the last warp fills the ring stage by stage.
+template <bool ONEDOT>
+__device__ void produce(const CUtensorMap* map, unsigned char* ring,
+                        uint64_t* bars, const Walk<ONEDOT>& w) {
+  using Rg = Ring<ONEDOT>;
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  int q = 0;
+  for (int j = 0; j * Rg::kPerStep < w.mine; ++j) {
+    const int live = w.live(j);
+    const int cps = Rg::kPerStep / live;
+    for (int k0 = 0; k0 < w.nk; k0 += cps, ++q) {
+      const int s = q % Rg::kStages;
+      const int k1 = min(w.nk, k0 + cps);
+      const uint32_t full = smem_u32(bars + s);
+      mbar_wait(smem_u32(bars + Rg::kStages + s),
+                ((q / Rg::kStages) & 1) ^ 1);
+      mbar_expect_tx(full, (k1 - k0) * live * Rg::kBox);
+      for (int kc = k0; kc < k1; ++kc)
+        for (int c = 0; c < live; ++c)
+          tma_load_2d(
+              smem_u32(ring + s * Rg::kStage + ((kc - k0) * live + c) *
+                                                   Rg::kBox),
+              map, full, kc * kBoxCols, w.unit(j, c) * Rg::kBoxRows,
+              policy);
     }
   }
-  if (kh == 1) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) red[((rt * NT + nt) * 4 + q) * 32 + lane] =
-          d[nt][q];
+}
+
+// set up the barriers, split the roles; returns true in the consumers
+template <bool ONEDOT>
+__device__ __forceinline__ bool stream_setup(const CUtensorMap* map,
+                                             unsigned char* ring,
+                                             uint64_t* bars,
+                                             const Walk<ONEDOT>& w) {
+  using Rg = Ring<ONEDOT>;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Rg::kStages; ++s) {
+      mbar_init(smem_u32(bars + s), 1);
+      mbar_init(smem_u32(bars + Rg::kStages + s), Rg::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (kh == 0) {
+  if (threadIdx.x < Rg::kConsumers * 32) return true;
+  if (threadIdx.x == Rg::kConsumers * 32)
+    produce<ONEDOT>(map, ring, bars, w);
+  return false;
+}
+
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// the warp index, read from lane 0 so that the compiler sees it is the same
+// across the warp (wgmma's issue must not look divergent)
+__device__ __forceinline__ int warp_uniform() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
+}
+
+// Wait for stage q of the walk, hand back its base and empty barrier
+template <bool ONEDOT>
+__device__ __forceinline__ const unsigned char* take_stage(
+    const unsigned char* ring, uint64_t* bars, int q, uint32_t* empty) {
+  using Rg = Ring<ONEDOT>;
+  const int s = q % Rg::kStages;
+  mbar_wait(smem_u32(bars + s), (q / Rg::kStages) & 1);
+  *empty = smem_u32(bars + Rg::kStages + s);
+  return ring + s * Rg::kStage;
+}
+
+// the warp is done reading a stage
+__device__ __forceinline__ void release(uint32_t empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
+}
+
+// v3: X[0 : P]^T as mma.sync A fragments in xt_step's order: for k16 step
+// kb and 16-column tile mt, lane (g, t)'s {a0, a2, a1, a3} (16 B; at m 8,
+// where X's columns 8 .. 15 do not exist, {a0, a2}, 8 B) in slot
+// (kb MT + mt) 32 + xt_slot(g, t). A thread takes column n of a k16 step
+// (16 loads, the warp's 32 columns side by side) and writes one 8-byte
+// pair into each of the four lanes (n % 8, t) of tile n / 16: {a0, a2} for
+// columns 0 .. 7 of the tile, {a1, a3} for 8 .. 15. The slots are
+// permuted so that those writes from 16 columns fall on 16 distinct bank
+// pairs. A thread loads kStageBatch / 2 columns before it packs the first,
+// so that many L2 reads are in flight.
+constexpr int kStageBatch = 8;
+
+__device__ __forceinline__ int xt_slot(int g, int t) {
+  return 4 * g + (t ^ ((g >> 1) & 3));
+}
+
+template <int M, int NT>
+__device__ void stage_xt_fragments(const float* __restrict__ x, int P,
+                                   unsigned char* panel) {
+  constexpr int MT = M >= 16 ? M / 16 : 1;
+  constexpr int U = kStageBatch / 2;
+  uint32_t* word = reinterpret_cast<uint32_t*>(panel);
+  const int total = P / 16 * M;
+  for (int e0 = threadIdx.x; e0 < total; e0 += U * NT) {
+    float v[U][16];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * NT;
+      if (e >= total) break;
+      const float* xc = x + (int64_t)(16 * (e / M)) * M + e % M;
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        d[nt][q] += red[((rt * NT + nt) * 4 + q) * 32 + lane];
-      float* y = p.y + (row0 + g) * M + 8 * nt + 2 * tig;
-      *reinterpret_cast<float2*>(y) = make_float2(d[nt][0], d[nt][1]);
-      *reinterpret_cast<float2*>(y + 8 * M) = make_float2(d[nt][2], d[nt][3]);
+      for (int k = 0; k < 16; ++k) v[u][k] = __ldg(xc + k * M);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * NT;
+      if (e >= total) break;
+      const int kb = e / M, n = e % M;
+      const int h = (n >> 3) & 1;  // columns 8 .. 15 of a tile: a1, a3
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint2 pair = make_uint2(pack_bf16(v[u][4 * t], v[u][4 * t + 1]),
+                                      pack_bf16(v[u][4 * t + 2],
+                                                v[u][4 * t + 3]));
+        const int slot = (kb * MT + n / 16) * 32 + xt_slot(n & 7, t);
+        reinterpret_cast<uint2*>(word)[slot * (M >= 16 ? 2 : 1) + h] = pair;
+      }
+    }
+  }
+}
+
+// v3_stream: every block row multiplied by the fixed panel on its own,
+// transposed: Y^T (m x 8) = X[0:P]^T V^T, one mma.sync m16n8k16 chain per
+// block row and 16-column tile. A step's live units (2 block rows each)
+// give 2 live block rows; warp w takes rows w and w + 16 of them (in a
+// full step, rows of 2 units; in the block's last, those that exist, so
+// that the last step's products do not fall to one warp). Each A fragment
+// is read from the panel once per k step and serves the warp's rows; the B
+// fragments (the rows' values) come from the ring. 16 warps of 2 rows
+// ran faster than 8 of 4 at every m on an H100 (more warps to hide the
+// mma and shared-memory latencies).
+template <int M>
+__global__ void __launch_bounds__(Ring<false>::kThreads, 1)
+stream_kernel(const __grid_constant__ CUtensorMap map, const StreamParams p) {
+  using Rg = Ring<false>;
+  constexpr int MT = M >= 16 ? M / 16 : 1;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1k(smem_raw);
+  unsigned char* panel = ring + Rg::kStages * Rg::kStage;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(panel + (size_t)p.P * M * 2);
+  const int G = gridDim.x;
+  const Walk<false> w{
+      (int)blockIdx.x < p.units ? (p.units - (int)blockIdx.x + G - 1) / G
+                                : 0,
+      p.P / kBoxCols};
+  if (!stream_setup<false>(&map, ring, bars, w)) return;
+  if (w.mine > 0) stage_xt_fragments<M, kV3Warps * 32>(p.x, p.P, panel);
+  consumers_sync<kV3Warps * 32>();
+  const int warp = warp_uniform();
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int slot = xt_slot(g, tig);  // the lane's fragment in a panel tile
+  int q = 0;
+  for (int j = 0; j * kV3Warps < w.mine; ++j) {
+    const int live = w.live(j);
+    const int cps = kV3Warps / live;
+    // the warp's rows of the step: row i is the step's row warp + 16 i,
+    // block row (warp + 16 i) % 2 of unit (warp + 16 i) / 2, for i < rows
+    const int rows =
+        min(kV3Rows, (live * kV3Rows - warp + kV3Warps - 1) / kV3Warps);
+    float d[kV3Rows][MT][4];
+#pragma unroll
+    for (int i = 0; i < kV3Rows; ++i)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        d[i][mt][0] = d[i][mt][1] = d[i][mt][2] = d[i][mt][3] = 0.f;
+    for (int k0 = 0; k0 < w.nk; k0 += cps, ++q) {
+      uint32_t empty;
+      const unsigned char* stage = take_stage<false>(ring, bars, q, &empty);
+      if (rows == 0) {
+        release(empty);
+        continue;
+      }
+      const int k1 = min(w.nk, k0 + cps);
+      for (int kc = k0; kc < k1; ++kc) {
+        uint32_t b[kV3Rows][2][2];
+#pragma unroll
+        for (int i = 0; i < kV3Rows; ++i) {
+          const int row = warp + kV3Warps * i;
+          if (i < rows)
+            box_row(stage + ((kc - k0) * live + row / kV3Rows) * Rg::kBox +
+                        (row % kV3Rows * kB + g) * 128,
+                    g, tig, b[i]);
+        }
+        if (kc + 1 == k1) release(empty);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int kb = 2 * kc + kk;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t a0, a1 = 0, a2, a3 = 0;
+            if constexpr (M >= 16) {
+              const uint4 a = reinterpret_cast<const uint4*>(
+                  panel)[(kb * MT + mt) * 32 + slot];
+              a0 = a.x, a2 = a.y, a1 = a.z, a3 = a.w;
+            } else {
+              const uint2 a =
+                  reinterpret_cast<const uint2*>(panel)[kb * 32 + slot];
+              a0 = a.x, a2 = a.y;
+            }
+#pragma unroll
+            for (int i = 0; i < kV3Rows; ++i)
+              if (i < rows)
+                mma_bf16(d[i][mt], a0, a1, a2, a3, b[i][kk][0], b[i][kk][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kV3Rows; ++i) {
+      const int row = warp + kV3Warps * i;
+      if (i < rows)
+        xt_store<M>(p.y,
+                    (int64_t)w.unit(j, row / kV3Rows) * kV3Rows +
+                        row % kV3Rows,
+                    d[i], g, tig);
+    }
+  }
+}
+
+// v3b: X[0 : P] in bf16 as wgmma's K-major core matrices, no swizzle: for
+// k16 step kb, 8-column group ng and k half h, the 128-byte core matrix
+// (kb M / 8 + ng) 2 + h; its row n % 8 holds column n's 8 k of half h in
+// the permuted order (h 0: k 0 1 4 5 8 9 12 13; h 1: k 2 3 6 7 10 11 14
+// 15). A thread loads kStageBatch / 2 core rows' values before it packs.
+template <int M, int NT>
+__device__ void stage_b_cores(const float* __restrict__ x, int P,
+                              unsigned char* panel) {
+  constexpr int U = kStageBatch / 2;
+  uint4* core = reinterpret_cast<uint4*>(panel);
+  const int total = P / 16 * M;
+  for (int e0 = threadIdx.x; e0 < total; e0 += U * NT) {
+    float v[U][16];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * NT;
+      if (e >= total) break;
+      const float* xc = x + (int64_t)(16 * (e / M)) * M + e % M;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) v[u][k] = __ldg(xc + k * M);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * NT;
+      if (e >= total) break;
+      const int kb = e / M, n = e % M;
+      uint4* row = core + ((kb * (M / 8) + n / 8) * 2) * 8 + n % 8;
+      row[0] = make_uint4(pack_bf16(v[u][0], v[u][1]),
+                          pack_bf16(v[u][4], v[u][5]),
+                          pack_bf16(v[u][8], v[u][9]),
+                          pack_bf16(v[u][12], v[u][13]));
+      row[8] = make_uint4(pack_bf16(v[u][2], v[u][3]),
+                          pack_bf16(v[u][6], v[u][7]),
+                          pack_bf16(v[u][10], v[u][11]),
+                          pack_bf16(v[u][14], v[u][15]));
+    }
+  }
+}
+
+// a shared-memory matrix descriptor: no swizzle, leading (k) and stride
+// (n) byte offsets
+__device__ __forceinline__ uint64_t core_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32) (+)= A (64 x 16, bf16, registers: mma.sync's m16n8k16 A
+// fragment per warp, warp w rows 16 w ..) @ B (16 x N, bf16, K-major in
+// shared memory); acc 0 overwrites D
+__device__ __forceinline__ void wgmma_rs(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %8, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %9, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %20, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %21, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(desc));
+}
+
+// One chunk (a box: two k16 steps) of a warpgroup's unit: the lane's A
+// fragments from the box (rows g and g + 8 of the warp's 16), then two
+// wgmma into d; the stage is released after its last chunk (`last`). a is
+// the register set this chunk writes: the group that read it two chunks
+// ago has retired (wait_group 1 after each commit).
+template <int M>
+__device__ __forceinline__ void onedot_chunk(const unsigned char* row, int g,
+                                             int tig, uint32_t (&a)[2][4],
+                                             float (&d)[M / 2],
+                                             uint32_t b_addr, int first,
+                                             uint32_t empty, bool last) {
+  uint32_t lo[2][2], hi[2][2];
+  box_row(row, g, tig, lo);
+  box_row(row + 8 * 128, g, tig, hi);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    a[kk][0] = lo[kk][0];
+    a[kk][1] = hi[kk][0];
+    a[kk][2] = lo[kk][1];
+    a[kk][3] = hi[kk][1];
+  }
+  keep(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_rs(d, a[kk], core_desc(b_addr + kk * (M / 8) * 256, 128, 256),
+             first ? kk : 1);
+  wgmma_commit();
+  if (last) release(empty);
+  keep(d);
+  wgmma_wait<1>();
+}
+
+// v3b_onedot: warpgroup h (warps 4 h .. 4 h + 3) takes the block's units
+// 2 j + h, 64 rows each, and computes each as one (64, P) @ (P, m) product
+// over the whole k range with wgmma m64n{m}k16: A the values, rounded to
+// bf16 in registers from the ring; B the bf16 panel through its descriptor.
+template <int M>
+__global__ void __launch_bounds__(Ring<true>::kThreads, 1)
+onedot_kernel(const __grid_constant__ CUtensorMap map, const StreamParams p) {
+  using Rg = Ring<true>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1k(smem_raw);
+  unsigned char* panel = ring + Rg::kStages * Rg::kStage;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(panel + (size_t)p.P * M * 2);
+  const int G = gridDim.x;
+  const Walk<true> w{
+      (int)blockIdx.x < p.units ? (p.units - (int)blockIdx.x + G - 1) / G
+                                : 0,
+      p.P / kBoxCols};
+  if (!stream_setup<true>(&map, ring, bars, w)) return;
+  if (w.mine > 0) stage_b_cores<M, 256>(p.x, p.P, panel);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync<256>();
+  const int warp = warp_uniform();
+  const int h = warp >> 2;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int r = 16 * (warp & 3) + g;  // the lane's first row in a unit
+  const uint32_t panel_addr = smem_u32(panel);
+  const uint32_t b_step = 2 * (M / 8) * 256;  // a chunk's two k16 steps
+  float d[M / 2];
+  uint32_t a[2][2][4];  // two register sets, alternating by chunk
+  int q = 0;
+  for (int j = 0; 2 * j < w.mine; ++j) {
+    const int live = w.live(j);
+    const int cps = 2 / live;
+    const bool own = h < live;
+    for (int k0 = 0; k0 < w.nk; k0 += cps, ++q) {
+      uint32_t empty;
+      const unsigned char* stage = take_stage<true>(ring, bars, q, &empty);
+      if (!own) {
+        release(empty);
+        continue;
+      }
+      const int k1 = min(w.nk, k0 + cps);
+      for (int kc = k0; kc < k1; ++kc) {
+        const unsigned char* row =
+            stage + ((kc - k0) * live + h) * Rg::kBox + r * 128;
+        // the register sets alternate by chunk
+        if (kc & 1)
+          onedot_chunk<M>(row, g, tig, a[1], d, panel_addr + kc * b_step,
+                          false, empty, kc + 1 == k1);
+        else
+          onedot_chunk<M>(row, g, tig, a[0], d, panel_addr + kc * b_step,
+                          kc == 0, empty, kc + 1 == k1);
+      }
+    }
+    if (!own) continue;
+    wgmma_wait<0>();
+    keep(d);
+    float* y = p.y + ((int64_t)w.unit(j, h) * kV3bRows + r) * M + 2 * tig;
+#pragma unroll
+    for (int nt = 0; nt < M / 8; ++nt) {
+      *reinterpret_cast<float2*>(y + 8 * nt) =
+          make_float2(d[4 * nt], d[4 * nt + 1]);
+      *reinterpret_cast<float2*>(y + 8 * M + 8 * nt) =
+          make_float2(d[4 * nt + 2], d[4 * nt + 3]);
     }
   }
 }
@@ -442,18 +974,61 @@ int bf16_m(const Params& p, int64_t tiles, int64_t staged, cudaStream_t st) {
                 : launch(bsr_bf16_kernel<M, false>, p, tiles, 0, st);
 }
 
-template <int M>
-int stream_m(const Params& p, int64_t tiles, int64_t onedot, int64_t staged,
+template <int M, bool ONEDOT>
+int stream_launch(const CUtensorMap& map, const StreamParams& p,
+                  cudaStream_t st) {
+  const size_t smem = stream_smem<ONEDOT>(p.P, M);
+  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const CUtensorMap, const StreamParams) =
+      ONEDOT ? onedot_kernel<M> : stream_kernel<M>;
+  cudaError_t e = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)sms, Ring<ONEDOT>::kThreads, smem, st>>>(map, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool ONEDOT>
+int stream_m(const CUtensorMap& map, const StreamParams& p, int64_t m,
              cudaStream_t st) {
-  const size_t panel = staged ? (size_t)p.S * kB * (M + 4) * 4 : 0;
-  if (onedot) {
-    const size_t red = (size_t)kWarps / 2 * (M / 8) * 4 * 32 * 4;
-    return staged
-        ? launch(onedot_bf16_kernel<M, true>, p, tiles, panel + red, st)
-        : launch(onedot_bf16_kernel<M, false>, p, tiles, red, st);
-  }
-  return staged ? launch(stream_bf16_kernel<M, true>, p, tiles, panel, st)
-                : launch(stream_bf16_kernel<M, false>, p, tiles, 0, st);
+  if (m == 8) return stream_launch<8, ONEDOT>(map, p, st);
+  if (m == 32) return stream_launch<32, ONEDOT>(map, p, st);
+  if (m == 64) return stream_launch<64, ONEDOT>(map, p, st);
+  if (m == 128) return stream_launch<128, ONEDOT>(map, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point query: the library needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
 }
 
 Params params(const void* v, const void* cols, const void* x, void* y,
@@ -500,18 +1075,42 @@ extern "C" int spmm_probe_bf16(const void* v, const void* cols,
   return (int)cudaErrorInvalidValue;
 }
 
-// onedot 0: v3_stream, 1: v3b_onedot; staged: the fixed panel in shared
-// memory (else read from global memory)
-extern "C" int spmm_stream_bf16(const void* v, const void* x, void* y,
+// The tensor map of the value panel V (nbr b, S b) f32 for v3_stream
+// (onedot 0: boxes of 32 rows) or v3b_onedot (1: 64 rows), 32 columns wide,
+// 128-byte swizzle, into out (a CUtensorMap, 128 bytes of host memory).
+// Returns 0, -1 if the driver has no cuTensorMapEncodeTiled, else its
+// CUresult.
+extern "C" int spmm_stream_tensor_map(const void* v, int64_t nbr, int64_t S,
+                                      int64_t onedot, void* out) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  alignas(64) CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)(S * kB), (cuuint64_t)(nbr * kB)};
+  const cuuint64_t strides[1] = {(cuuint64_t)(S * kB * 4)};
+  const cuuint32_t box[2] = {
+      kBoxCols, (cuuint32_t)(onedot ? Ring<true>::kBoxRows
+                                    : Ring<false>::kBoxRows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      &map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(v), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)r;
+  memcpy(out, &map, sizeof map);
+  return 0;
+}
+
+// onedot 0: v3_stream, 1: v3b_onedot, on the tensor map that
+// spmm_stream_tensor_map wrote for V and this onedot; one block per SM
+extern "C" int spmm_stream_bf16(const void* map, const void* x, void* y,
                                 int64_t nbr, int64_t S, int64_t m,
-                                int64_t onedot, int64_t staged,
-                                void* stream) {
-  const Params p = params(v, nullptr, x, y, S);
-  const int64_t tiles = nbr / kR;
+                                int64_t onedot, void* stream) {
+  alignas(64) CUtensorMap tm;
+  memcpy(&tm, map, sizeof tm);
+  const StreamParams p{
+      static_cast<const float*>(x), static_cast<float*>(y), (int)(S * kB),
+      (int)(onedot ? nbr * kB / kV3bRows : nbr / kV3Rows)};
   cudaStream_t st = (cudaStream_t)stream;
-  if (m == 8) return stream_m<8>(p, tiles, onedot, staged, st);
-  if (m == 32) return stream_m<32>(p, tiles, onedot, staged, st);
-  if (m == 64) return stream_m<64>(p, tiles, onedot, staged, st);
-  if (m == 128) return stream_m<128>(p, tiles, onedot, staged, st);
-  return (int)cudaErrorInvalidValue;
+  return onedot ? stream_m<true>(tm, p, m, st) : stream_m<false>(tm, p, m, st);
 }

@@ -69,7 +69,8 @@ _SIGNATURES = {
     # spmm_probes.cu
     "spmm_probe_f32": [_P] * 4 + [_I] * 4 + [_P],
     "spmm_probe_bf16": [_P] * 4 + [_I] * 4 + [_P],
-    "spmm_stream_bf16": [_P] * 3 + [_I] * 5 + [_P],
+    "spmm_stream_tensor_map": [_P] + [_I] * 3 + [_P],
+    "spmm_stream_bf16": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 

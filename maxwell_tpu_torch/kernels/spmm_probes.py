@@ -37,6 +37,9 @@ probe's path.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from maxwell_tpu_torch.kernels import gather_probes as gpr
@@ -53,15 +56,19 @@ def panel_values(blocks: torch.Tensor) -> torch.Tensor:
     return blocks.permute(0, 2, 1, 3).reshape(nbr * b, S * b).contiguous()
 
 
-def fixed_staged(S: int, m: int, onedot: bool) -> bool:
-    """Whether v3_stream (onedot False) or v3b_onedot stages the fixed
-    panel X[0 : S b] in shared memory at width m (rows m + 4 floats apart;
-    v3b also holds its k-half sums there), else reads it from global
-    memory."""
-    smem = S * B * (m + 4) * 4
-    if onedot:
-        smem += (R // 2) * (m // B) * 4 * 32 * 4
-    return smem <= SMEM_LIMIT
+# v3/v3b: the value ring (stages, bytes a stage) of csrc/spmm_probes.cu's
+# Ring<onedot>: a stage is one (rows, 32 f32) box per unit of a step, v3
+# three of 16 units' (16 rows), v3b four of two units' (64 rows)
+STREAM_RING = {False: (3, 16 * 16 * 32 * 4), True: (4, 2 * 64 * 32 * 4)}
+
+
+def stream_smem(S: int, m: int, onedot: bool) -> int:
+    """Shared memory of a v3_stream (onedot False) or v3b_onedot block at S
+    slots and width m, as the kernel lays it out: 1 KB to align the ring,
+    the ring, the fixed panel X[0 : S b] in bf16, a full and an empty
+    barrier per stage."""
+    stages, stage = STREAM_RING[onedot]
+    return 1024 + stages * stage + S * B * m * 2 + 2 * stages * 8
 
 
 # ---------------------------------------------------------------------------
@@ -186,11 +193,32 @@ def _product(name, V, cols, X, flag):
 
 def _stream(V, X, onedot):
     m = _check(V, X)
-    S = V.shape[1] // B
+    nbr, S = V.shape[0] // B, V.shape[1] // B
+    need = stream_smem(S, m, onedot)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"S = {S} at m = {m}: the bf16 panel and the value "
+                         f"ring take {need} bytes of shared memory, more "
+                         f"than {SMEM_LIMIT}")
     Y = torch.empty((V.shape[0], m), dtype=torch.float32, device=X.device)
-    gpr.launch("spmm_stream_bf16", V, X, Y, V.shape[0] // B, S, m,
-               int(onedot), int(fixed_staged(S, m, onedot)))
+    tmap = _tensor_map(V.data_ptr(), V.device.index, nbr, S, onedot)
+    gpr.launch("spmm_stream_bf16", ctypes.addressof(tmap), X, Y, nbr, S, m,
+               int(onedot))
     return Y
+
+
+@functools.lru_cache(maxsize=64)
+def _tensor_map(ptr, device, nbr, S, onedot):
+    """The TMA descriptor (CUtensorMap, 128 bytes) of the value panel at
+    ptr on `device`, (nbr b, S b) f32, with v3's or v3b's box; encoded
+    once per pointer and shape (it holds nothing else)."""
+    from maxwell_tpu_torch.kernels import _build
+
+    buf = ctypes.create_string_buffer(128)
+    rc = _build.load().spmm_stream_tensor_map(ptr, nbr, S, int(onedot), buf)
+    if rc != 0:
+        raise RuntimeError(f"spmm_stream_tensor_map failed: {rc} (-1: no "
+                           "cuTensorMapEncodeTiled, else its CUresult)")
+    return buf
 
 
 def v5_batched_hi(V, cols, X):

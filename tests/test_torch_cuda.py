@@ -815,6 +815,41 @@ def test_cuda_spmm_probes_match_plain(cuda_device, case, m):
     assert not any(c[fn.__name__] for fn in spp.PLAIN)
 
 
+def _stream_case(tiles, S, m, device):
+    """A random value panel of `tiles` 128-row tiles and S slots, and X
+    (S 8 + 8 rows, m) from numpy's default_rng."""
+    rng = np.random.default_rng(tiles * 1000 + S)
+    V = torch.from_numpy(rng.standard_normal((tiles * 128, S * 8)).astype(
+        np.float32)).to(device)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (S * 8 + 8, m)).astype(np.float32)).to(device)
+    return V, X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 32, 64, 128])
+@pytest.mark.parametrize("tiles,S", [(3, 32), (300, 20), (298, 64)])
+def test_cuda_stream_probes_persistent(cuda_device, tiles, S, m):
+    """v3_stream and v3b_onedot, one block per SM walking its units: with
+    fewer units than SMs (3 tiles), with more units than SMs x ring stages
+    so that every barrier's phase wraps many times (300 tiles at S 20), and
+    at the 24^3 K's shape (298 tiles, S 64); each within 1e-5 of max|plain|
+    and bit for bit across two runs."""
+    V, X = _stream_case(tiles, S, m, cuda_device)
+    want = spp.stream_plain(V, X)
+    spp.reset_counts()
+    for kern in (spp.v3_stream, spp.v3b_onedot):
+        got, again = kern(V, X), kern(V, X)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (tiles * 128, m)
+        assert ((got - want).abs().max()
+                / want.abs().max()).item() <= 1e-5, kern.__name__
+        assert torch.equal(got, again), kern.__name__
+    c = spp.counts()
+    assert c["v3_stream"] == c["v3b_onedot"] == 2
+    assert not c["v3_stream_ref"] and not c["v3b_onedot_ref"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,S", [(10, 64), (37, 20)])
 def test_cuda_gather_probes_match_plain(cuda_device, T, S):
@@ -852,8 +887,9 @@ def test_cuda_gather_probes_match_plain(cuda_device, T, S):
 def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
     """Bad device input raises before any launch: a width the kernels are
     not built for, f64 values, a slot count not a multiple of 4, a block
-    column whose slice leaves X, a short X for the fixed panel, idx out of
-    range for g2 and g3, a misaligned or non-contiguous X."""
+    column whose slice leaves X, a short X for the fixed panel, a panel
+    that with the value ring leaves shared memory (S 96 at m 128), idx out
+    of range for g2 and g3, a misaligned or non-contiguous X."""
     V, cols, X = _spmm_probe_case("random", 8, cuda_device)
     far = cols.clone()
     far[3, 7] = X.shape[0] // 8
@@ -863,6 +899,8 @@ def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
     bad0[5, 3] = 512
     bad1 = t["idx1"].clone()
     bad1[2, 9] = -1
+    wide = torch.zeros((128, 96 * 8), device=cuda_device)  # S 96
+    Xwide = torch.zeros((96 * 8, 128), device=cuda_device)
     spp.reset_counts()
     gpr.reset_counts()
     for call in (lambda: spp.v5_batched_hi(V, cols, X[:, :4].contiguous()),
@@ -871,6 +909,7 @@ def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
                                             cols[:, :9].contiguous(), X),
                  lambda: spp.v6_smem_hi(V, far, X),
                  lambda: spp.v3_stream(V, X[:100]),
+                 lambda: spp.v3b_onedot(wide, Xwide),
                  lambda: spp.v4_gather(cols, X.view(-1)[1:-7].view(-1, 8)),
                  lambda: gpr.g2_taa0(bad0, t["X"], 512),
                  lambda: gpr.g3_taa1(bad1, t["X"].T.contiguous()),

@@ -175,12 +175,61 @@ def test_library_call_matches_plain(port_layout, name, m):
     assert (got - want).abs().max() <= tol * want.abs().max()
 
 
-def test_fixed_panel_staging_rule():
-    """v3/v3b stage the fixed 512-row panel in shared memory up to m 64
-    and read it from global memory at m 128 (S 64)."""
-    for onedot in (False, True):
-        assert [spp.fixed_staged(64, m, onedot) for m in spp.MS] == [
-            True, True, True, False]
+@pytest.mark.parametrize("m", [8, 32, 64, 128])
+@pytest.mark.parametrize("onedot", [False, True])
+def test_stream_panel_staged_at_every_m(onedot, m):
+    """v3/v3b stage the whole fixed panel X[0 : 512] in bf16 beside their
+    value ring at every m at S 64 (the 24^3 K's slots): 16 S m bytes of
+    panel; the ring, the same at every m, holds at least three stages of
+    one box per unit of a step (16 units of 16 rows in v3, 2 of 64 rows in
+    v3b)."""
+    need = spp.stream_smem(64, m, onedot)
+    stages, stage = spp.STREAM_RING[onedot]
+    assert stages >= 3 and stage == (2 * 8192 if onedot else 16 * 2048)
+    assert need == 1024 + stages * stage + 64 * B * m * 2 + 16 * stages
+    assert need <= spp.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("m", [8, 32, 64, 128])
+@pytest.mark.parametrize("onedot", [False, True])
+def test_stream_refuses_a_panel_past_the_limit(onedot, m):
+    """The first S (a multiple of 4) whose panel and ring leave the H100's
+    232,448 bytes is refused with ValueError before any build or launch
+    (meta tensors stand in for CUDA ones); the S before it fits."""
+    S = 4
+    while spp.stream_smem(S, m, onedot) <= spp.SMEM_LIMIT:
+        S += 4
+    assert spp.stream_smem(S - 4, m, onedot) <= spp.SMEM_LIMIT
+    V = _meta((R * B, S * B))
+    X = _meta((S * B, m))
+    wrapper = spp.v3b_onedot if onedot else spp.v3_stream
+    spp.reset_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        wrapper(V, X)
+    assert not any(spp.counts().values())
+
+
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("name", ["v3_stream", "v3b_onedot"])
+def test_stream_library_calls_match_plain(port_layout, name, m):
+    """The stream variants' two library calls: torch.matmul on the probe's
+    own f32 operands (TF32 allowed for that call only, the setting restored
+    after) and on operands rounded to bf16 beforehand; both within 1e-2 of
+    max|plain|."""
+    K, A = port_layout
+    X = torch.from_numpy(_x(A.n_padded, m))
+    V = spp.panel_values(A.blocks)
+    want = spp.stream_plain(V, X)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    what, call, as_plain, tol = exp_spmm.library(
+        name, V, A.cols, X, torch_csr(K, "cpu"), A.n)
+    what2, call2, as_plain2, tol2 = exp_spmm.library_bf16(V, X)
+    assert "f32" in what and "bf16" in what2
+    for c, ap, t in ((call, as_plain, tol), (call2, as_plain2, tol2)):
+        got = ap(c())
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert (got - want).abs().max() <= t * want.abs().max()
+    assert torch.backends.cuda.matmul.allow_tf32 == prev
 
 
 def _digest(name):
@@ -212,6 +261,8 @@ def test_probe_on_cpu_writes_only_out(tmp_path, monkeypatch):
             assert res[name]["library"]
         for name in ("v2_panel_def", "v5_batched_def"):
             assert 0 < res[name]["rel_err_vs_f32"] < 2e-2
+        for name in ("v3_stream", "v3b_onedot"):
+            assert res[name]["library_bf16"]
         assert res["v0_current"]["max_abs_err"] == 0.0
         assert res["v7_pairs"]["max_abs_err"] == 0.0
         assert res["v9_km"]["rel_err_vs_f64"] < 1e-5
