@@ -6,7 +6,7 @@ product's shape, as a ladder of kernels that each differ from their
 neighbour in one thing (16 warps per 128-row tile; v3 and v3b stream the
 values persistently, one block per SM):
 
-  v5_batched_hi   Y = A X, X slices read from L2 as used, f32 FMAs
+  v5_batched_hi   Y = A X, X slices read from L1/L2 as used, 3xTF32 mma
   v1_panel_hi     v5_hi with each row's X panel staged in shared memory
   v6_smem_hi      v5_hi with the tile's cols staged in shared memory
   v5_batched_def  v5 with bf16 operands, mma.sync m16n8k16 (transposed)
@@ -27,7 +27,8 @@ The layout is the port's BSRMatrix.from_csr (its slot order follows
 scipy's builder, not the reference's); X is drawn from numpy's
 default_rng(m). Per variant and m: ms (median of 20 launches), plain_ms,
 max_abs_err against the plain version (the run fails above 1e-5 of
-max|plain|; the _def variants against the plain product of bf16-rounded
+max|plain|, or where a _hi variant's second run differs from its first,
+`bitwise_repeat`; the _def variants against the plain product of bf16-rounded
 operands, with their error against the f32 product beside), bound_ms /
 bound_by at the card's published rates (the probe's inputs once: values,
 cols, X, Y; 2 nbr b S b m operations at f32 for _hi, bf16 for _def, v3,
@@ -202,6 +203,10 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
             got, want = kern(*args), plain(*args)
             err, scale = _held(name, got, want)
             row = {"max_abs_err": err, "rel_err": err / scale}
+            if name in HI:  # one writer per output, no atomics
+                row["bitwise_repeat"] = torch.equal(got, kern(*args))
+                if not row["bitwise_repeat"]:
+                    raise AssertionError(f"{name}: two runs differ")
             if name in DEF:
                 f32 = spp.product_plain(V, cols, X)
                 row["err_vs_f32"] = (got - f32).abs().max().item()

@@ -6,7 +6,8 @@ m = 9 (the LOBPCG block on the solve path). Each variant is built with the
 
   prod512   (512, 1)   K2, the shipped kernel (X block staged in shared
                        memory)
-  cat512    (512, 1)   union_unstaged (X read from global memory) and K2
+  cat512    (512, 1)   union_unstaged (K2's walk of the live form, X read
+                       from global memory) and K2
   cat1024   (1024, 1)  the same pair
   pair1024  (1024, 2)
   quad1024  (1024, 4)
@@ -20,15 +21,17 @@ which are now (1024, 2): that file no longer measures what the names say.)
         [--out PATH] [--grid N]
 
 Per variant and m: time, pct of the kernel's own roofline (the bytes it
-moves over the copy bandwidth measured in the same run: exp_union2.py:130's
-for the unstaged kernel, which reads the full layout; the live form's,
-timing.union_bytes, for K2) and of the CSR bound (the CSR's bytes at 3.35
-TB/s), true nnz/s, stored MB and n_chunks, the max relative error against
-scipy's K @ X in f64 and against the plain version (the run fails above
-1e-5 of the reference's max), the plain version's time, and
-torch.sparse.mm on the CSR as the library line. One layout is built at a
-time and freed after. Runs on the card unless --device cpu is given (then
-the plain versions run and nothing is timed). Writes JSON to --out (default
+moves over the copy bandwidth measured in the same run: the live form's,
+timing.union_bytes, for both kernels, which read only it; the reference's
+own_bytes, exp_union2.py:130's full layout, is kept beside) and of the CSR
+bound (the CSR's bytes at 3.35 TB/s), true nnz/s, stored MB and n_chunks,
+the max relative error against scipy's K @ X in f64 and against the plain
+version (the run fails above 1e-5 of the reference's max, or where
+union_unstaged is not bit for bit K2: `bitwise_equal_k2`), the plain
+version's time, and torch.sparse.mm on the CSR as the library line. One
+layout is built at a time and freed after. Runs on the card unless
+--device cpu is given (then the plain versions run and nothing is timed).
+Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_union2_results.json).
 """
 
@@ -125,8 +128,9 @@ def run(grid: int = 24, ms=(8, 9), device="cuda") -> dict:
                     library_ms=median_ms(lambda: torch.sparse.mm(lib, Xn)),
                     bound_ms=b_ms, bound_by=b_by, own_bytes=own_bytes(A, m),
                     live_bytes=union_bytes(A, 1, m)[0])
+            outs = {}
             for kind, fn in kernels_of(name).items():
-                Y = fn(A, X)
+                Y = outs[kind] = fn(A, X)
                 err = float(np.abs(Y[:n].cpu().numpy() - ref).max()
                             / ref_scale)
                 abs_err = (Y - want).abs().max().item()
@@ -139,18 +143,23 @@ def run(grid: int = 24, ms=(8, 9), device="cuda") -> dict:
                        "rel_err": abs_err / scale}
                 if timed:
                     ms_ = median_ms(lambda: fn(A, X))
-                    # K2 reads the live form, the unstaged kernel the
-                    # full layout
-                    nbytes = per_m["live_bytes" if kind == "staged"
-                                   else "own_bytes"]
+                    # both kernels read the live form; the reference's
+                    # own_bytes (the full layout) stays in the record
+                    nbytes = per_m["live_bytes"]
                     row.update(
                         ms=ms_, time_s=ms_ * 1e-3,
                         pct=100 * nbytes / bw / (ms_ * 1e-3),
                         pct_csr_bound=100 * per_m["bound_ms"] / ms_,
                         nnz_per_s=nnz / (ms_ * 1e-3))
                 per_m[kind] = row
+            if "unstaged" in outs:  # K2's walk and order: bit for bit K2
+                same = torch.equal(outs["unstaged"], outs["staged"])
+                per_m["unstaged"]["bitwise_equal_k2"] = same
+                if not same:
+                    raise AssertionError(f"{name} m={m}: union_unstaged is "
+                                         "not bit for bit K2 (highest)")
             entry[f"m{m}"] = per_m
-            del X, want
+            del X, want, outs
         results["variants"][name] = entry
         del A
         if timed:

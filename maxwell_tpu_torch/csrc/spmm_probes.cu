@@ -8,23 +8,22 @@
 // RCM brick's K, nbr = 4,768 block rows of S = 64 slots of 8 x 8 blocks,
 // as the transposed value panel blocks2d (nbr b, S b) f32 (row r b + i,
 // column s b + k: 78.1 MB), cols (nbr, S) int32, X (rows, m) f32 at m in
-// {8, 32, 64, 128}. A tile is R = 16 block rows, 128 output rows; one block
-// of 16 warps per tile in the gathering variants, so that neighbours on the
-// ladder below differ in one thing only.
+// {8, 32, 64, 128}. A tile is R = 16 block rows, 128 output rows; one warp
+// per block row in the gathering variants (the _hi ones in blocks of 8
+// warps, half a tile; the _def ones in blocks of 16), so that neighbours on
+// the ladder below differ in one thing only.
 //
-//   bsr_f32<UNSTAGED>   v5_batched_hi (:260-291, pallas_call :277,
+//   bsr_hi<UNSTAGED>    v5_batched_hi (:260-291, pallas_call :277,
 //                       HIGHEST): Y = A X, warp w owns block row w of the
 //                       tile; per slot, the (8, m) X slice is read from
-//                       global memory (L2) into registers as it is used,
-//                       true f32 FMAs. Lane l owns columns 4 (l % (m/4)) ..
-//                       +3 of 8 / (32 / (m/4)) rows (at m 8: one row and
-//                       half the slot's k, the halves summed by a shuffle).
-//   bsr_f32<PANEL>      v1_panel_hi (:111-142, :127, HIGHEST): as v5_hi,
-//                       but each row's gathered X panel is first staged in
-//                       shared memory (v1's VMEM scratch, :116), in chunks
-//                       of 2 slots (16 X rows) at every m: a whole (S b, m)
-//                       panel per warp (16 KB to 256 KB) does not fit.
-//   bsr_f32<SMEM_COLS>  v6_smem_hi (:226-258, :244): as v5_hi, but the
+//                       global memory (L1/L2) into registers as it is used,
+//                       products on 3xTF32 mma.sync m16n8k8 (see below).
+//   bsr_hi<PANEL>       v1_panel_hi (:111-142, :127, HIGHEST): as v5_hi,
+//                       but each row's gathered X slices are first staged
+//                       in shared memory (v1's VMEM scratch, :116), through
+//                       a per-warp cp.async ring: a whole (S b, m) panel
+//                       per warp (16 KB to 256 KB) does not fit.
+//   bsr_hi<SMEM_COLS>   v6_smem_hi (:226-258, :244): as v5_hi, but the
 //                       tile's (R, S) cols are staged in shared memory once,
 //                       before the loop (the TPU's SMEM block).
 //   bsr_bf16<false>     v5_batched_def (:277, DEFAULT): as v5_hi, but the
@@ -34,8 +33,9 @@
 //                       Y^T = Xg^T V^T: the block row's 8 rows are the
 //                       instruction's n8, X's columns its m16 (at m 8 half
 //                       the m16 rows are zero); a k16 step is two slots.
-//   bsr_bf16<true>      v2_panel_def (:127, DEFAULT): as v5_def, with v1's
-//                       staged 2-slot chunks (one k16 step each).
+//   bsr_bf16<true>      v2_panel_def (:127, DEFAULT): as v5_def, with each
+//                       warp's X panel staged in 2-slot chunks (one k16
+//                       step each) by plain loads between two __syncwarp.
 //   stream_kernel       v3_stream (:144-171, :159): as v2_def without the
 //                       gather: every block row's values @ the fixed panel
 //                       X[0:S b], one transposed product per 8-row block
@@ -59,7 +59,9 @@
 // about it: the values are streamed once, with 16-byte loads marked
 // evict-first (__ldcs) in the gathering variants, by TMA into a ring of
 // stages in v3/v3b; X slices (32 m bytes, contiguous) are read with 16-byte
-// loads in the f32 variants, as aligned scalars in the mma fragments. Every
+// loads in the _hi variants (each lane's columns contiguous), as aligned
+// scalars in the _def fragments. The _hi products run on the tensor cores
+// at f32 grade (3xTF32), so what is left is the X gather. Every
 // output is written once by one thread: no atomics, runs repeat bit for
 // bit.
 
@@ -69,13 +71,15 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "tf32x3.cuh"  // split_tf32, mma_tf32
+
 namespace {
 
 constexpr int kR = 16;              // block rows per tile
 constexpr int kB = 8;               // rows and columns of a block
 constexpr int kWarps = kR;          // one warp per block row
 constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 2;           // slots per staged chunk (v1, v2)
+constexpr int kChunk = 2;           // slots per staged chunk (v2)
 constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
 
 enum { kUnstaged = 0, kPanel = 1, kSmemCols = 2 };
@@ -93,12 +97,6 @@ __device__ __forceinline__ float ld(const float* p) {
   return SMEM ? *p : __ldg(p);
 }
 
-template <bool SMEM>
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return SMEM ? *reinterpret_cast<const float4*>(p)
-              : __ldg(reinterpret_cast<const float4*>(p));
-}
-
 // Warp-private chunk of kChunk slots of block row r's X panel: 16 rows of
 // m floats at stride XS, read with 16-byte loads
 template <int M, int XS>
@@ -112,94 +110,360 @@ __device__ __forceinline__ void stage_chunk(const Params& p,
     const int f = e - kk * CG;
     const int64_t c = __ldg(crow + s0 + kk / kB);
     *reinterpret_cast<float4*>(panel + kk * XS + 4 * f) =
-        ld4<false>(p.x + (c * kB + kk % kB) * M + 4 * f);
+        __ldg(reinterpret_cast<const float4*>(p.x + (c * kB + kk % kB) * M) +
+              f);
   }
   __syncwarp();
 }
 
-template <int M, int MODE>
-__global__ void __launch_bounds__(kThreads)
-bsr_f32_kernel(const Params p) {
-  constexpr int CG = M / 4;                   // lanes across a row of X
-  constexpr int RG = 32 / CG;                 // row groups of lanes
-  constexpr int KS = RG >= 8 ? RG / 8 : 1;    // k splits (m 8: 2)
-  constexpr int RPL = RG >= 8 ? 1 : 8 / RG;   // rows per lane
-  constexpr int KPL = kB / KS;                // k per lane
-  constexpr int XS = M + 4;                   // staged panel row stride
-  constexpr int STEP = MODE == kPanel ? kChunk : 1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t r = (int64_t)blockIdx.x * kR + warp;
-  const int64_t ld_v = p.S * kB;
-  const int cg = lane % CG;
-  const int rg = lane / CG;
-  const int i0 = KS > 1 ? rg % kB : rg;
-  const int k0 = KS > 1 ? (rg / kB) * KPL : 0;
-  const int32_t* crow = p.cols + r * p.S;
-  int32_t* scols = reinterpret_cast<int32_t*>(smem);
-  float* panel = reinterpret_cast<float*>(smem) + warp * kChunk * kB * XS;
-  if (MODE == kSmemCols) {
-    const int32_t* tc = p.cols + (int64_t)blockIdx.x * kR * p.S;
-    for (int i = threadIdx.x; i < kR * p.S; i += kThreads)
-      scols[i] = __ldg(tc + i);
-    __syncthreads();
+// ---------------------------------------------------------------------------
+// v5_batched_hi, v1_panel_hi, v6_smem_hi: 3xTF32 mma.sync, one warp per
+// block row
+// ---------------------------------------------------------------------------
+//
+// The product is taken transposed, Y^T = Xg^T V^T, as K8's
+// (csrc/bsr_spmm.cu): per slot one mma.sync m16n8k8 group per 16 columns,
+// the block row's 8 rows the n8, the slot's 8 X rows the k8 (PTX k = t <->
+// X row 2t, k = t + 4 <-> 2t + 1, permuted alike in A and B), three passes
+// (lo_x hi_v, hi_x lo_v, hi_x hi_v; helpers in tf32x3.cuh). Lane (g, t)
+// loads V[g][2t .. 2t + 1] of each slot as one 8-byte load and splits it
+// once for every m-tile. The m16 rows are a permutation of X's columns:
+// m-tile mt = 2 i + h's rows g and g + 8 are columns 32 i + 4 g + 2 h and
+// + 1, so lane (g, t) holds, of its two X rows 8 c + 2t and 8 c + 2t + 1,
+// the m / 32 float4s at columns 32 i + 4 g (at m 128 eight per slot in
+// place of 32 4-byte values), and stores its outputs as float4s, the 8
+// lanes g of a row on 128 contiguous bytes. At m 8 lane g holds column g
+// and the rows g + 8 are zero, as in K8. The three modes differ in one
+// thing each:
+//   v5 (UNSTAGED)   X fragments from global memory (L1/L2) into registers
+//                   as they are used; the row's columns 32 slots at a time
+//                   by one coalesced warp load, broadcast by __shfl_sync;
+//                   the next step's (U slots) values and X loads go out
+//                   before the current step's mma; from m 32 each quarter
+//                   warp loads one X row's 128 contiguous bytes, and the
+//                   fragment values are exchanged by __shfl_sync
+//   v6 (SMEM_COLS)  as v5, the block's (16, S) columns staged in shared
+//                   memory once, before the loop, each slot's read there
+//   v1 (PANEL)      as v5, but each warp stages its row's X slices in
+//                   shared memory through a ring of NST stages of SL slots
+//                   (Hi<m>), with 16-byte cp.async (L1-allocating, as v5's
+//                   loads), NST - 1 stages ahead of the product;
+//                   fragments are read from shared memory in the same
+//                   column map. A slot's 8 rows sit even rows first (row 2t
+//                   at place t, 2t + 1 at 4 + t) and each row's 16-byte
+//                   chunks are XOR-swizzled by 2t, so that the 8 lanes of a
+//                   quarter warp read 8 distinct bank groups (m 8: the 32
+//                   lanes 32 distinct banks). Stages: m 8 four of 4 slots,
+//                   m 32 and 64 three of 2, m 128 three of 1 (2-slot stages
+//                   at m 128 would leave one block per SM): 32 / 48 / 96 /
+//                   96 KB a block of 8 warps.
+// The three share one geometry, blocks of 8 warps (kHiWarps), one warp per
+// block row. v5 and v6 differ in where a slot's column is read; v5 and v1
+// in whether X passes through shared memory (v1 also takes the columns on
+// the copy side, NST - 1 stages ahead, and at m 32 asks the compiler for 3
+// blocks per SM where v5 keeps its 4-slot step in registers). Every mode
+// computes all S slots (the reference's v5/v1/v6 do), writes each output
+// once from one thread, and repeats bit for bit.
+
+// A _hi block is half a tile: 8 warps, one per block row (two blocks of 16
+// warps' registers would not fit an SM from m 32 on, and the smaller block
+// lets up to 3 (m 32, 64) or 2 (m 128) share one)
+constexpr int kHiWarps = 8;
+
+template <int M>
+struct Hi {
+  static_assert(M == 8 || M == 32 || M == 64 || M == 128,
+                "the f32 ladder is built for m 8, 32, 64, 128");
+  static constexpr int MT = M >= 16 ? M / 16 : 1;  // m16 tiles
+  static constexpr int W = M >= 16 ? M / 8 : 1;    // columns a lane holds
+  static constexpr int LC = M >= 16 ? 4 : 1;       // lane g's first: LC g
+  static constexpr int U = M <= 32 ? 4 : 1;        // v5/v6 step (slots)
+  static constexpr int NST = M == 8 ? 4 : 3;       // v1 ring stages
+  static constexpr int SL = M == 8 ? 4 : M == 128 ? 1 : 2;  // slots a stage
+  static constexpr int kStageFloats = SL * kB * M;
+  // v1's dynamic shared memory: every warp's ring
+  static constexpr size_t kPanelBytes =
+      (size_t)kHiWarps * NST * kStageFloats * sizeof(float);
+  // blocks per SM asked of the compiler (registers), by mode: v5/v6 at m 32
+  // keep their 4-slot step in registers, one 8-warp block at a time
+  static constexpr int min_blocks(int mode) {
+    return M == 8 ? 4 : M == 128 ? 2 : (M == 32 && mode != kPanel) ? 1 : 3;
   }
-  const float* vrow = p.v + (r * kB + i0) * ld_v + k0;
-  float acc[RPL][4];
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// D += A B, 3xTF32: A's four values (X columns of rows g and g + 8 at k
+// t and t + 4) split here, B's (the lane's two values) split by the caller
+__device__ __forceinline__ void mma_x3(float (&d)[4], float a0, float a1,
+                                       float a2, float a3, uint32_t bh0,
+                                       uint32_t bh1, uint32_t bl0,
+                                       uint32_t bl1) {
+  uint32_t ah[4], al[4];
+  split_tf32(a0, ah[0], al[0]);
+  split_tf32(a1, ah[1], al[1]);
+  split_tf32(a2, ah[2], al[2]);
+  split_tf32(a3, ah[3], al[3]);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// one slot: D += X rows (2t, 2t + 1) x the lane's values; x[h][4 i + c] is
+// column 32 i + 4 g + c, m-tile 2 i + c / 2, row g + 8 (c % 2)
+template <int M>
+__device__ __forceinline__ void hi_slot(float (&d)[Hi<M>::MT][4], float2 v,
+                                        const float (&x)[2][Hi<M>::W]) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(v.x, bh0, bl0);
+  split_tf32(v.y, bh1, bl1);
+  if constexpr (M == 8) {  // m-tile rows g + 8: no such columns
+    mma_x3(d[0], x[0][0], 0.f, x[1][0], 0.f, bh0, bh1, bl0, bl1);
+  } else {
 #pragma unroll
-  for (int t = 0; t < RPL; ++t) acc[t][0] = acc[t][1] = acc[t][2] =
-      acc[t][3] = 0.f;
-  for (int64_t s0 = 0; s0 < p.S; s0 += STEP) {
-    if (MODE == kPanel) stage_chunk<M, XS>(p, crow, s0, panel, lane);
+    for (int mt = 0; mt < Hi<M>::MT; ++mt)
+      mma_x3(d[mt], x[0][2 * mt], x[0][2 * mt + 1], x[1][2 * mt],
+             x[1][2 * mt + 1], bh0, bh1, bl0, bl1);
+  }
+}
+
+// v5 / v6: the row's S slots in steps of U; the next step's values and X
+// float4s go into registers before the current step's mma. From m 32 the
+// X float4s are loaded by lane 8 t' + g' (rows 2t' and 2t' + 1, columns
+// 32 i + 4 g'), so that the 8 lanes of a quarter warp read one row's 128
+// contiguous bytes: X rows are multiples of 128 bytes, and lane (g, t)'s
+// own four rows at one column would fall in the same banks (4-way). Lane
+// (g, t) takes its fragment values from lane 8 t + g by __shfl_sync as the
+// step is computed.
+template <int M, int MODE>
+__device__ __forceinline__ void hi_direct(const Params& p, int64_t r,
+                                          const int32_t* scols, int lane,
+                                          float (&d)[Hi<M>::MT][4]) {
+  using H = Hi<M>;
+  constexpr int U = H::U, W = H::W;
+  const int g = lane >> 2, t = lane & 3;
+  const int S = (int)p.S;
+  const int32_t* crow = p.cols + r * p.S;
+  const float* vrow = p.v + (r * kB + g) * p.S * kB + 2 * t;
+  // the lane's first X element of a slot's slice: m 8 its own (row 2t,
+  // column g), from m 32 the loader's (row 2t', column 4 g')
+  const float* xl =
+      M == 8 ? p.x + (int64_t)2 * t * M + g
+             : p.x + (int64_t)2 * (lane >> 3) * M + 4 * (lane & 7);
+  const int src = 8 * t + g;  // the loader of lane (g, t)'s values
+  int col_cur = 0, col_nxt = 0;  // v5: columns of slots 32 i .. 32 i + 31
+  if (MODE == kUnstaged) {
+    col_cur = lane < S ? __ldg(crow + lane) : 0;
+    col_nxt = 32 + lane < S ? __ldg(crow + 32 + lane) : 0;
+  }
+  auto load_step = [&](int s, float2 (&vs)[U], float (&xs)[U][2][W]) {
 #pragma unroll
-    for (int sl = 0; sl < STEP; ++sl) {
-      const int64_t s = s0 + sl;
-      const float* xs;
-      int64_t xstride;
-      if (MODE == kPanel) {
-        xs = panel + sl * kB * XS + 4 * cg;
-        xstride = XS;
-      } else {
-        const int64_t c =
-            MODE == kSmemCols ? scols[warp * p.S + s] : __ldg(crow + s);
-        xs = p.x + c * kB * M + 4 * cg;
-        xstride = M;
-      }
+    for (int u = 0; u < U; ++u) {
+      vs[u] = __ldcs(reinterpret_cast<const float2*>(vrow + (s + u) * kB));
+      const int c = MODE == kSmemCols
+                        ? scols[s + u]
+                        : __shfl_sync(0xffffffffu, col_cur, (s + u) & 31);
+      const float* xr = xl + (int64_t)c * kB * M;
 #pragma unroll
-      for (int kq = 0; kq < KPL / 4; ++kq) {
-        float4 vq[RPL];
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (M == 8) {
+          xs[u][h][0] = __ldg(xr + h * M);
+        } else {
 #pragma unroll
-        for (int t = 0; t < RPL; ++t)
-          vq[t] = __ldcs(reinterpret_cast<const float4*>(
-              vrow + t * RG * ld_v + s * kB + 4 * kq));
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 xv =
-              ld4<MODE == kPanel>(xs + (k0 + 4 * kq + q) * xstride);
-#pragma unroll
-          for (int t = 0; t < RPL; ++t) {
-            const float a = q == 0 ? vq[t].x : q == 1 ? vq[t].y
-                          : q == 2 ? vq[t].z : vq[t].w;
-            acc[t][0] = fmaf(a, xv.x, acc[t][0]);
-            acc[t][1] = fmaf(a, xv.y, acc[t][1]);
-            acc[t][2] = fmaf(a, xv.z, acc[t][2]);
-            acc[t][3] = fmaf(a, xv.w, acc[t][3]);
+          for (int i = 0; i < W / 4; ++i) {
+            const float4 q = __ldg(
+                reinterpret_cast<const float4*>(xr + h * M + 32 * i));
+            xs[u][h][4 * i] = q.x; xs[u][h][4 * i + 1] = q.y;
+            xs[u][h][4 * i + 2] = q.z; xs[u][h][4 * i + 3] = q.w;
           }
         }
       }
     }
-  }
-  if (KS > 1) {  // the two k halves: lanes kB * CG apart
+  };
+  float2 v[U];
+  float x[U][2][W];
+  load_step(0, v, x);
+  for (int s = 0;; s += U) {
+    const bool more = s + U < S;
+    float2 vn[U];
+    float xn[U][2][W];
+    if (more) {
+      if (MODE == kUnstaged && ((s + U) & 31) == 0) {
+        col_cur = col_nxt;
+        const int sc = s + U + 32 + lane;
+        col_nxt = sc < S ? __ldg(crow + sc) : 0;
+      }
+      load_step(s + U, vn, xn);
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[0][j] += __shfl_xor_sync(0xffffffffu, acc[0][j], kB * CG);
-  }
-  if (k0 == 0) {
+    for (int u = 0; u < U; ++u) {
+      if constexpr (M == 8) {
+        hi_slot<M>(d, v[u], x[u]);
+      } else {
+        float xf[2][W];
 #pragma unroll
-    for (int t = 0; t < RPL; ++t)
-      *reinterpret_cast<float4*>(p.y + (r * kB + i0 + t * RG) * M + 4 * cg) =
-          make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < W; ++i)
+            xf[h][i] = __shfl_sync(0xffffffffu, x[u][h][i], src);
+        hi_slot<M>(d, v[u], xf);
+      }
+    }
+    if (!more) break;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      v[u] = vn[u];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < W; ++i) x[u][h][i] = xn[u][h][i];
+    }
+  }
+}
+
+// v1: the warp's ring of staged X slices (see above)
+template <int M>
+__device__ __forceinline__ void hi_panel(const Params& p, int64_t r,
+                                         float* ring, int lane,
+                                         float (&d)[Hi<M>::MT][4]) {
+  using H = Hi<M>;
+  constexpr int NST = H::NST, SL = H::SL;
+  constexpr int CPR = M / 4;               // 16-byte chunks of a row
+  constexpr int CPS = kB * CPR;            // of a slot
+  constexpr int PER_LANE = SL * CPS / 32;  // copies per lane and stage
+  static_assert(SL * CPS % 32 == 0, "a stage is whole warp copies");
+  const int g = lane >> 2, t = lane & 3;
+  const int S = (int)p.S;
+  const int nstage = S / SL;
+  const int32_t* crow = p.cols + r * p.S;
+  const float* vrow = p.v + (r * kB + g) * p.S * kB + 2 * t;
+  // copy side: columns of slots 32 i .. 32 i + 31 (a stage lies in one)
+  int col_cur = lane < S ? __ldg(crow + lane) : 0;
+  int col_nxt = 32 + lane < S ? __ldg(crow + 32 + lane) : 0;
+  auto stage_copies = [&](int k) {
+    if (k > 0 && (k * SL & 31) == 0) {
+      col_cur = col_nxt;
+      const int sc = k * SL + 32 + lane;
+      col_nxt = sc < S ? __ldg(crow + sc) : 0;
+    }
+    float* buf = ring + (k % NST) * H::kStageFloats;
+#pragma unroll
+    for (int n = 0; n < PER_LANE; ++n) {
+      const int e = lane + 32 * n;
+      const int j = e / CPS, row = (e % CPS) / CPR, ch = e % CPR;
+      const int c = __shfl_sync(0xffffffffu, col_cur, (k * SL + j) & 31);
+      const int pos = (row & 1) * 4 + (row >> 1);
+      const int sw = M == 8 ? ch : ch ^ ((pos & 3) << 1);
+      cp_async16(buf + (j * kB + pos) * M + 4 * sw,
+                 p.x + ((int64_t)c * kB + row) * M + 4 * ch);
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < NST - 1; ++k) {
+    if (k < nstage) stage_copies(k);
+    cp_async_commit();
+  }
+  float2 v[SL];
+#pragma unroll
+  for (int j = 0; j < SL; ++j)
+    v[j] = __ldcs(reinterpret_cast<const float2*>(vrow + j * kB));
+  for (int k = 0; k < nstage; ++k) {
+    if (k + NST - 1 < nstage) stage_copies(k + NST - 1);
+    cp_async_commit();
+    const bool more = k + 1 < nstage;
+    float2 vn[SL];
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < SL; ++j)
+        vn[j] = __ldcs(reinterpret_cast<const float2*>(
+            vrow + ((k + 1) * SL + j) * kB));
+    }
+    cp_async_wait<NST - 1>();
+    __syncwarp();  // every lane's copies of stage k have landed
+    const float* buf = ring + (k % NST) * H::kStageFloats;
+#pragma unroll
+    for (int j = 0; j < SL; ++j) {
+      float x[2][H::W];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* rowp = buf + (j * kB + 4 * h + t) * M;  // row 2t + h
+        if constexpr (M == 8) {
+          x[h][0] = rowp[g];
+        } else {
+#pragma unroll
+          for (int i = 0; i < H::W / 4; ++i) {
+            const int ch = (8 * i + g) ^ (t << 1);
+            const float4 q = *reinterpret_cast<const float4*>(rowp + 4 * ch);
+            x[h][4 * i] = q.x; x[h][4 * i + 1] = q.y;
+            x[h][4 * i + 2] = q.z; x[h][4 * i + 3] = q.w;
+          }
+        }
+      }
+      hi_slot<M>(d, v[j], x);
+    }
+    __syncwarp();  // every lane is done with this stage before its refill
+    if (!more) break;
+#pragma unroll
+    for (int j = 0; j < SL; ++j) v[j] = vn[j];
+  }
+}
+
+template <int M, int MODE>
+__global__ void __launch_bounds__(kHiWarps * 32, Hi<M>::min_blocks(MODE))
+bsr_hi_kernel(const Params p) {
+  using H = Hi<M>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t r = (int64_t)blockIdx.x * kHiWarps + warp;
+  int32_t* scols = reinterpret_cast<int32_t*>(smem);
+  if (MODE == kSmemCols) {
+    const int32_t* tc = p.cols + (int64_t)blockIdx.x * kHiWarps * p.S;
+    for (int i = threadIdx.x; i < kHiWarps * p.S; i += kHiWarps * 32)
+      scols[i] = __ldg(tc + i);
+    __syncthreads();
+  }
+  float d[H::MT][4];
+#pragma unroll
+  for (int mt = 0; mt < H::MT; ++mt)
+    d[mt][0] = d[mt][1] = d[mt][2] = d[mt][3] = 0.f;
+  if (MODE == kPanel)
+    hi_panel<M>(p, r,
+                reinterpret_cast<float*>(smem) + warp * H::NST *
+                                                     H::kStageFloats,
+                lane, d);
+  else
+    hi_direct<M, MODE>(p, r, scols + warp * p.S, lane, d);
+
+  // rows 2t and 2t + 1 of the block row: the float4s at columns 32 i + 4 g
+  float* y0 = p.y + (r * kB + 2 * t) * M + g * H::LC;
+  if constexpr (M == 8) {
+    y0[0] = d[0][0];
+    y0[M] = d[0][1];
+  } else {
+#pragma unroll
+    for (int i = 0; i < H::W / 4; ++i) {
+      *reinterpret_cast<float4*>(y0 + 32 * i) =
+          make_float4(d[2 * i][0], d[2 * i][2], d[2 * i + 1][0],
+                      d[2 * i + 1][2]);
+      *reinterpret_cast<float4*>(y0 + M + 32 * i) =
+          make_float4(d[2 * i][1], d[2 * i][3], d[2 * i + 1][1],
+                      d[2 * i + 1][3]);
+    }
   }
 }
 
@@ -940,9 +1204,10 @@ onedot_kernel(const __grid_constant__ CUtensorMap map, const StreamParams p) {
   }
 }
 
+// blocks of `warps` block rows (16 to a tile for the _def kernels)
 template <typename Kernel>
 int launch(Kernel kernel, const Params& p, int64_t tiles, size_t smem,
-           cudaStream_t stream) {
+           cudaStream_t stream, int warps = kWarps) {
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -950,20 +1215,20 @@ int launch(Kernel kernel, const Params& p, int64_t tiles, size_t smem,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<(unsigned)tiles, kThreads, smem, stream>>>(p);
+  kernel<<<(unsigned)(tiles * kR / warps), warps * 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int M>
 int f32_m(const Params& p, int64_t tiles, int64_t mode, cudaStream_t st) {
-  constexpr size_t chunk = (size_t)kWarps * kChunk * kB * (M + 4) * 4;
   if (mode == kUnstaged)
-    return launch(bsr_f32_kernel<M, kUnstaged>, p, tiles, 0, st);
-  if (mode == kPanel) return launch(bsr_f32_kernel<M, kPanel>, p, tiles,
-                                    chunk, st);
+    return launch(bsr_hi_kernel<M, kUnstaged>, p, tiles, 0, st, kHiWarps);
+  if (mode == kPanel)
+    return launch(bsr_hi_kernel<M, kPanel>, p, tiles, Hi<M>::kPanelBytes, st,
+                  kHiWarps);
   if (mode == kSmemCols)
-    return launch(bsr_f32_kernel<M, kSmemCols>, p, tiles,
-                  (size_t)kR * p.S * 4, st);
+    return launch(bsr_hi_kernel<M, kSmemCols>, p, tiles,
+                  (size_t)kHiWarps * p.S * 4, st, kHiWarps);
   return (int)cudaErrorInvalidValue;
 }
 

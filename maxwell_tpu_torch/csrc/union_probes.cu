@@ -29,51 +29,35 @@
 // 8-byte B fragment reads hit distinct banks.
 //
 // K15b, union_unstaged (exp_union2.py:63-109, the "cat" kernel): the same
-// Y = A @ X as K2 (csrc/bellunion_spmm.cu) on a BELLUnion layout, with the
-// gathered X rows read straight from global memory through the read-only
-// path (a lane's four value lanes read four consecutive X rows, with
-// 16-byte loads when m is 4, 8, 12 or 16), without staging each chunk's X
-// block in shared memory. The TPU probe set or accumulated each output tile
-// by `first`; here one block walks a tile's chunks in order (tile_ptr ..
-// tile_end) and keeps the sums in registers across chunks: no atomics,
-// deterministic. Its geometry is the first K2 kernel's (16 warps x 4 rows,
-// half a tile per block, every stored value streamed); it differed from
-// that kernel in the staging, and so needs no barrier per chunk and one
-// warp sum per tile instead of one per chunk.
+// Y = A @ X as K2 "highest" (csrc/bellunion_spmm.cu) on a BELLUnion layout,
+// differing from it in one thing only: how X is gathered. It reads what K2
+// reads, the layout's live form (the live 8 x 16 sub-blocks compacted, and
+// sb_ptr, sb_run, xr_ptr, xr_run), and walks what K2's "highest" walk
+// walks (one warp per 8-row group, the tile's chunks in order, the group's
+// live sub-blocks in order, K2's FMA order and shuffles), so the two agree
+// bit for bit; but it stages nothing: no shared memory, no cp.async, no
+// barrier, each warp on its own. Lane 4 g + i's four X rows of a sub-block
+// are the run's lanes 16 q + 4i .. + 3 through ucols, four consecutive rows
+// starting at a multiple of 4 (b % 4 == 0), so at m <= 12 they are one
+// 16-byte-aligned run of 4 m floats: m 16-byte loads through the read-only
+// path (L1-cached; X, 1.4 MB at m 9, stays in L2 and a tile's 16 warps
+// share it in L1). Where m % 4 == 0 the quads' blocks meet in the same
+// banks: at m 8 each lane loads one float4 of one quad's 128 bytes and the
+// quads take theirs by shuffles, at m 4 and 12 two quads read their blocks
+// in rotated order (load_x). Wider X is walked in passes of 8 columns, with
+// 16-byte loads where m % 4 == 0. The chain sb_run -> xr_run -> ucols -> X
+// goes out a window (4 sub-blocks) ahead, one hop at a time, with the next
+// window's values. A tile's 16 warps go in two blocks of 8 (no block-wide
+// step), three blocks to an SM at m <= 9. (The TPU probe set or accumulated
+// each output tile by `first`; one warp keeps its sums in registers across
+// chunks: no atomics.) Bound: device-memory bandwidth on the live values
+// (49.4 MB of the (1024, 2) layout's 245.9 MB at 24^3).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-// union_unstaged's geometry: 16 warps own 4 rows each, half a tile per block
-constexpr int kWarps = 16;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kBlocksPerTile = 128 / kRowsPerBlock;
-constexpr int kThreads = kWarps * 32;
-
-struct UnstagedParams {
-  const float* vals;   // (NC * 128, cl) value stream a
-  const int32_t* ucols;
-  const int32_t* tile_ptr;
-  const int32_t* tile_end;  // nullable: tile_ptr[t + 1]
-  const float* x;      // (rows >= n_cols_padded, m) row-major
-  float* y;            // (n_tiles * 128, m)
-  int64_t m, cl, b, pack;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
 
 __device__ __forceinline__ uint16_t bf16_bits(__nv_bfloat16 h) {
   return *reinterpret_cast<uint16_t*>(&h);
@@ -287,115 +271,260 @@ int launch_panel(Kernel kernel, const PanelParams& p, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// Columns [0, ms) of four consecutive X rows (xr: the first row's first
-// column of the slice, row stride m) through the read-only path: 16-byte
-// loads where a row is one whole slice (m = MS, a multiple of 4; the rows
-// start at multiples of 4, so the loads are aligned), else one float at a
-// time; columns from ms on are 0.
-template <int MS>
-__device__ __forceinline__ void load_x_rows(const float* xr, int64_t m,
-                                            int ms, float (&xv)[4][MS]) {
-  if constexpr (MS % 4 == 0) {
-    if (m == MS) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < MS; j += 4) {
-          const float4 q =
-              __ldg(reinterpret_cast<const float4*>(xr + i * MS + j));
-          xv[i][j] = q.x;
-          xv[i][j + 1] = q.y;
-          xv[i][j + 2] = q.z;
-          xv[i][j + 3] = q.w;
-        }
-      return;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < MS; ++j)
-      xv[i][j] = j < ms ? __ldg(xr + i * m + j) : 0.f;
+// K15b walks K2's groups: one warp per 8-row group, 16 per 128-row tile;
+// with nothing shared, a tile's warps go in two blocks of 8, so that three
+// blocks (24 warps) fit an SM at m <= 9
+constexpr int kGroups = 16;
+constexpr int kUWarps = 8;    // row groups (warps) of a block
+constexpr int kUThreads = 32 * kUWarps;
+constexpr int kWin = 4;       // sub-blocks whose X rows one step finds
+constexpr int kNarrow = 12;   // widest m taken as one contiguous X block
+constexpr int kWideCols = 8;  // X columns per pass above kNarrow
+
+struct UnstagedParams {
+  const float4* vals;        // live sub-blocks, lane l of i at [32 i + l]
+  const int32_t* sb_ptr;     // (NC * 16 + 1)
+  const int32_t* sb_run;     // per sub-block: its run's place in xr_run
+  const int32_t* xr_ptr;     // (NC + 1)
+  const int32_t* xr_run;     // run index within the chunk
+  const int32_t* ucols;
+  const int32_t* tile_ptr;
+  const int32_t* tile_end;   // nullable: tile_ptr[t + 1]
+  const float* x;            // (rows >= n_cols_padded, m) row-major
+  float* y;                  // (n_tiles * 128, m)
+  int64_t m, cl, b;
+};
+
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// Rows [64 half, 64 half + 64) of output tile t, MS columns at a time: the
-// tile's chunks in order, each lane's sums kept across chunks, one warp sum
-// per (row, column) at the end.
-template <int MS>
-__global__ void __launch_bounds__(kThreads)
+// Lane 4 g + i's four X rows (xr: the first one, columns from the pass's
+// first), columns [0, ms) as xv[row][column]. Narrow (m = M <= kNarrow):
+// the four rows are 4 M contiguous floats, 16-byte aligned (the first row
+// is a multiple of 4), M 16-byte loads. At m 4 and 12 two quads' blocks
+// start at the same offset modulo 128 bytes (a quad's rows are 16 m bytes,
+// the two quads of a block column follow each other), so their loads at
+// one index would hit the same banks: quads 2 and 3 read theirs from
+// float4 2 on, and each value is selected back from the register that
+// holds it. (m 8, where all four would meet, is loaded by the kernel.) Wide:
+// kWideCols columns of each row, 16-byte loads where m % 4 == 0 (VEC),
+// else one float at a time.
+template <int M, bool WIDE, bool VEC>
+__device__ __forceinline__ void load_x(const float* xr, int64_t m, int ms,
+                                       int i,
+                                       float (&xv)[4][WIDE ? kWideCols : M]) {
+  if constexpr (!WIDE) {
+    constexpr bool ROT = M % 4 == 0;
+    const int rot = ROT ? 2 * (i >> 1) : 0;
+    float4 f[M];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int at = k + rot < M ? k + rot : k + rot - M;
+      f[k] = __ldg(reinterpret_cast<const float4*>(xr) + at);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        const int n = (r * M + j) / 4, c = (r * M + j) % 4;
+        if constexpr (ROT)
+          xv[r][j] = (i & 2) ? comp(f[(n + M - 2) % M], c) : comp(f[n], c);
+        else
+          xv[r][j] = comp(f[n], c);
+      }
+  } else if constexpr (VEC) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int h = 0; h < kWideCols / 4; ++h) {
+        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (4 * h < ms)
+          q = __ldg(reinterpret_cast<const float4*>(xr + r * m) + h);
+        xv[r][4 * h] = q.x; xv[r][4 * h + 1] = q.y;
+        xv[r][4 * h + 2] = q.z; xv[r][4 * h + 3] = q.w;
+      }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < kWideCols; ++j)
+        xv[r][j] = j < ms ? __ldg(xr + r * m + j) : 0.f;
+  }
+}
+
+// Up to kWin consecutive live sub-blocks of one chunk and row group: lane
+// 4 p + i holds the first X row of sub-block p for lane quad i. k == k1:
+// none.
+struct UWin {
+  int64_t k;
+  int w, s1, xp;
+};
+
+// Output tile t, row group w (block 2 t + w / 8, warp w % 8): K2's
+// "highest" walk (csrc/bellunion_tile.cuh) with X read from global memory.
+// Per pass of MS columns: the tile's chunks in order, each chunk's live
+// sub-blocks of the group in order; lane 4 g + i sums row g's products over
+// its value lanes 4i .. 4i + 3 for each column, in K2's order
+// (products_f32), and two xor shuffles finish each sum (store_f32). So the
+// result equals K2's bit for bit. The sub-blocks go in windows of kWin; a
+// window's X rows come from one shuffle each, and the next window's chain
+// (sb_run, then xr_run, then ucols, one hop at a time between the current
+// window's products) and its values (each into the register the current
+// sub-block frees) go out while the current window computes.
+template <int M, bool WIDE, bool VEC>
+__global__ void __launch_bounds__(kUThreads, !WIDE && M <= 9 ? 3 : 2)
 union_unstaged_kernel(const UnstagedParams p) {
-  constexpr int RP = MS > 8 ? 2 : 4;
-  const int64_t t = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
+  constexpr int MS = WIDE ? kWideCols : M;
+  const int64_t t = blockIdx.x / (kGroups / kUWarps);
   const int lane = threadIdx.x & 31;
-  const int r0 = blockIdx.y * kRowsPerBlock + warp * kRowsPerWarp;
+  const int grp =
+      (int)(blockIdx.x % (kGroups / kUWarps)) * kUWarps + (threadIdx.x >> 5);
+  const int qi = lane & 3, pl = lane >> 2;
   const int64_t k0 = p.tile_ptr[t];
   const int64_t k1 = p.tile_end ? p.tile_end[t] : p.tile_ptr[t + 1];
-  const int64_t cl = p.cl;
-  const int64_t CG = cl / p.b;
-  const int64_t run = p.pack * p.b;  // X rows per aligned run
-  const float* vals = p.vals;
+  const int64_t CG = p.cl / p.b;
+  const int b = (int)p.b;
+  const int64_t m = p.m;
 
-  for (int64_t j0 = 0; j0 < p.m; j0 += MS) {
-    const int ms = (int)((p.m - j0) < MS ? (p.m - j0) : MS);
-#pragma unroll 1
-    for (int pass = 0; pass < kRowsPerWarp / RP; ++pass) {
-      const int64_t rp = r0 + pass * RP;  // first row of the pass in a tile
-      float acc[RP][MS];
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int j = 0; j < MS; ++j) acc[r][j] = 0.f;
+  // the first window of the first chunk from k on whose group range is
+  // not empty
+  auto first_win = [&](int64_t k) {
+    UWin w{k1, 0, 0, 0};
+    for (; k < k1; ++k) {
+      const int s = __ldg(p.sb_ptr + k * kGroups + grp);
+      const int e = __ldg(p.sb_ptr + k * kGroups + grp + 1);
+      if (s < e) {
+        w.k = k; w.w = s; w.s1 = e; w.xp = __ldg(p.xr_ptr + k);
+        break;
+      }
+    }
+    return w;
+  };
+  auto next_win = [&](const UWin& w) {
+    if (w.w + kWin < w.s1) {
+      UWin n = w;
+      n.w += kWin;
+      return n;
+    }
+    return first_win(w.k + 1);
+  };
+  auto count = [&](const UWin& w) {
+    return w.k < k1 ? (w.s1 - w.w < kWin ? w.s1 - w.w : kWin) : 0;
+  };
 
-      for (int64_t k = k0; k < k1; ++k) {
-        const int32_t* uc = p.ucols + k * CG;
-        const size_t row_base = ((size_t)k * 128 + rp) * cl;
-#pragma unroll 2
-        for (int64_t c = 4 * lane; c < cl; c += 128) {
-          const int64_t g = c / run;
-          // four consecutive X rows (c .. c + 3 lie in one run)
-          const float* xr =
-              p.x + ((int64_t)__ldg(uc + g * p.pack) * p.b + (c - g * run)) *
-                        p.m + j0;
-          float v[RP][4];
+  for (int64_t j0 = 0; j0 < m; j0 += MS) {
+    const int ms = WIDE ? (int)(m - j0 < MS ? m - j0 : MS) : M;
+    float acc[MS];
 #pragma unroll
-          for (int r = 0; r < RP; ++r)
-            load4(vals + row_base + r * cl + c, v[r]);
+    for (int j = 0; j < MS; ++j) acc[j] = 0.f;
+
+    UWin cur = first_win(k0);
+    int rb = 0;  // lane 4 p + i: sub-block p's first X row for quad i
+    float4 val[kWin];
+    {
+      const int n = count(cur);
+      if (pl < n) {
+        const int c = 16 * __ldg(p.xr_run + cur.xp +
+                                 __ldg(p.sb_run + cur.w + pl)) + 4 * qi;
+        rb = __ldg(p.ucols + cur.k * CG + c / b) * b + c % b;
+      }
+#pragma unroll
+      for (int q = 0; q < kWin; ++q)
+        if (q < n) val[q] = __ldcs(p.vals + (int64_t)32 * (cur.w + q) + lane);
+    }
+    UWin nxt = next_win(cur);
+    while (cur.k < k1) {
+      const int nw = count(cur), nn = count(nxt);
+      int sbr = 0, q = 0, ucv = 0, c = 0;
+      if (pl < nn) sbr = __ldg(p.sb_run + nxt.w + pl);
+#pragma unroll
+      for (int u = 0; u < kWin; ++u) {
+        if (u == kWin / 4 && pl < nn) q = __ldg(p.xr_run + nxt.xp + sbr);
+        if (u == kWin / 2) {
+          c = 16 * q + 4 * qi;
+          if (pl < nn) ucv = __ldg(p.ucols + nxt.k * CG + c / b);
+        }
+        if (u < nw) {
           float xv[4][MS];
-          load_x_rows<MS>(xr, p.m, ms, xv);
+          if constexpr (M == 8 && !WIDE) {
+            // all four quads' blocks start at one offset modulo 128 bytes:
+            // lane 8 i' + k loads float4 k of quad i''s 128 bytes (a quarter
+            // warp one block, no two lanes on one bank), and lane 4 g + i
+            // takes its quad's eight by shuffles from lanes 8 i .. 8 i + 7
+            const int rq = __shfl_sync(0xffffffffu, rb, 4 * u + (lane >> 3));
+            const float4 f = __ldg(
+                reinterpret_cast<const float4*>(p.x + (int64_t)rq * 8) +
+                (lane & 7));
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const int from = 8 * qi + k;
+              float* row = &xv[k / 2][4 * (k % 2)];
+              row[0] = __shfl_sync(0xffffffffu, f.x, from);
+              row[1] = __shfl_sync(0xffffffffu, f.y, from);
+              row[2] = __shfl_sync(0xffffffffu, f.z, from);
+              row[3] = __shfl_sync(0xffffffffu, f.w, from);
+            }
+          } else {
+            const int row = __shfl_sync(0xffffffffu, rb, 4 * u + qi);
+            load_x<M, WIDE, VEC>(p.x + (int64_t)row * m + j0, m, ms, qi,
+                                 xv);
+          }
+          const float4 a = val[u];
+          if (u < nn)
+            val[u] = __ldcs(p.vals + (int64_t)32 * (nxt.w + u) + lane);
 #pragma unroll
           for (int j = 0; j < MS; ++j) {
             if (j < ms) {
-#pragma unroll
-              for (int r = 0; r < RP; ++r)
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                  acc[r][j] = fmaf(v[r][i], xv[i][j], acc[r][j]);
+              acc[j] = fmaf(a.x, xv[0][j], acc[j]);
+              acc[j] = fmaf(a.y, xv[1][j], acc[j]);
+              acc[j] = fmaf(a.z, xv[2][j], acc[j]);
+              acc[j] = fmaf(a.w, xv[3][j], acc[j]);
             }
           }
+        } else if (u < nn) {
+          val[u] = __ldcs(p.vals + (int64_t)32 * (nxt.w + u) + lane);
         }
       }
+      rb = ucv * b + c % b;
+      cur = nxt;
+      nxt = next_win(cur);
+    }
 
-      float* yr = p.y + (t * 128 + rp) * p.m + j0;
+    // K2's store_f32: the four lanes of row g sum their partials; lane i
+    // writes the columns j = i mod 4
+    float* y = p.y + (t * 128 + 8 * grp + pl) * m + j0;
 #pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int j = 0; j < MS; ++j) {
-          if (j < ms) {
-            const float s = warp_sum(acc[r][j]);
-            if (lane == 0) yr[r * p.m + j] = s;
-          }
-        }
+    for (int j = 0; j < MS; ++j) {
+      if (j < ms) {
+        float s = acc[j];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if ((j & 3) == qi) y[j] = s;
+      }
     }
   }
 }
 
-template <int MS>
-int launch_unstaged_ms(const UnstagedParams& p, int64_t n_tiles,
-                       cudaStream_t stream) {
-  const dim3 grid((unsigned)n_tiles, kBlocksPerTile);
-  union_unstaged_kernel<MS><<<grid, kThreads, 0, stream>>>(p);
+template <int M, bool WIDE, bool VEC>
+int launch_unstaged(const UnstagedParams& p, int64_t n_tiles,
+                    cudaStream_t stream) {
+  union_unstaged_kernel<M, WIDE, VEC>
+      <<<(unsigned)(n_tiles * (kGroups / kUWarps)), kUThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// m <= kNarrow: the kernel for exactly m columns; wider: passes of
+// kWideCols columns, 16-byte X loads where m % 4 == 0
+template <int M>
+int unstaged_m(const UnstagedParams& p, int64_t n_tiles, cudaStream_t st) {
+  if constexpr (M > kNarrow) {
+    return p.m % 4 == 0 ? launch_unstaged<0, true, true>(p, n_tiles, st)
+                        : launch_unstaged<0, true, false>(p, n_tiles, st);
+  } else {
+    if (p.m == M) return launch_unstaged<M, false, false>(p, n_tiles, st);
+    return unstaged_m<M + 1>(p, n_tiles, st);
+  }
 }
 
 }  // namespace
@@ -436,24 +565,24 @@ extern "C" int union_panel_bf16(const void* idx, const void* va,
   return launch_panel(union_panel_bf16_kernel, p, smem, (cudaStream_t)stream);
 }
 
-extern "C" int union_unstaged_f32(const void* vals, const void* ucols,
+extern "C" int union_unstaged_f32(const void* vals, const void* sb_ptr,
+                                  const void* sb_run, const void* xr_ptr,
+                                  const void* xr_run, const void* ucols,
                                   const void* tile_ptr, const void* tile_end,
                                   const void* x, void* y, int64_t n_tiles,
                                   int64_t m, int64_t cl, int64_t b,
-                                  int64_t pack, void* stream) {
+                                  void* stream) {
   UnstagedParams p;
-  p.vals = static_cast<const float*>(vals);
+  p.vals = static_cast<const float4*>(vals);
+  p.sb_ptr = static_cast<const int32_t*>(sb_ptr);
+  p.sb_run = static_cast<const int32_t*>(sb_run);
+  p.xr_ptr = static_cast<const int32_t*>(xr_ptr);
+  p.xr_run = static_cast<const int32_t*>(xr_run);
   p.ucols = static_cast<const int32_t*>(ucols);
   p.tile_ptr = static_cast<const int32_t*>(tile_ptr);
   p.tile_end = static_cast<const int32_t*>(tile_end);
   p.x = static_cast<const float*>(x);
   p.y = static_cast<float*>(y);
-  p.m = m; p.cl = cl; p.b = b; p.pack = pack;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (m == 1) return launch_unstaged_ms<1>(p, n_tiles, s);
-  if (m == 2) return launch_unstaged_ms<2>(p, n_tiles, s);
-  if (m <= 4) return launch_unstaged_ms<4>(p, n_tiles, s);
-  if (m <= 8) return launch_unstaged_ms<8>(p, n_tiles, s);
-  if (m <= 12) return launch_unstaged_ms<12>(p, n_tiles, s);
-  return launch_unstaged_ms<16>(p, n_tiles, s);
+  p.m = m; p.cl = cl; p.b = b;
+  return unstaged_m<1>(p, n_tiles, (cudaStream_t)stream);
 }

@@ -53,7 +53,7 @@ _SIGNATURES = {
     # union_probes.cu
     "union_panel_f32": [_P] * 5 + [_I] * 4 + [_P],
     "union_panel_bf16": [_P] * 4 + [_I] * 4 + [_P],
-    "union_unstaged_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "union_unstaged_f32": [_P] * 10 + [_I] * 4 + [_P],
     # grid_probes.cu
     "grid_copy_f32": [_P] * 2 + [_I] * 2 + [_P],
     "grid_steps_f32": [_P] * 3 + [_I] * 2 + [_P],

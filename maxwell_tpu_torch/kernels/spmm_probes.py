@@ -9,9 +9,11 @@ multiple of 4) of 8 x 8 blocks, as the transposed value panel V = blocks2d
 (nbr, S) int32; X (rows, m) f32 with m in {8, 32, 64, 128}; Y (nbr b, m).
 
     v5_batched_hi(V, cols, X)    Y = A X: per slot, X[8 c : 8 c + 8] read
-                                 from global memory, f32 FMAs
-    v1_panel_hi(V, cols, X)      the same, each row's X panel staged in
-                                 shared memory in 2-slot chunks
+                                 from global memory, products on 3xTF32
+                                 mma.sync (f32 grade)
+    v1_panel_hi(V, cols, X)      the same, each row's X slices staged in
+                                 shared memory through a per-warp cp.async
+                                 ring (PANEL_RING)
     v6_smem_hi(V, cols, X)       v5_hi with the tile's cols staged in
                                  shared memory
     v5_batched_def(V, cols, X)   v5 with bf16 operands (nearest even) and
@@ -60,6 +62,20 @@ def panel_values(blocks: torch.Tensor) -> torch.Tensor:
 # Ring<onedot>: a stage is one (rows, 32 f32) box per unit of a step, v3
 # three of 16 units' (16 rows), v3b four of two units' (64 rows)
 STREAM_RING = {False: (3, 16 * 16 * 32 * 4), True: (4, 2 * 64 * 32 * 4)}
+
+
+# v1_panel_hi: each of a block's 8 warps (HI_WARPS, half a tile) stages its
+# row's X slices through a ring of (stages, slots a stage), as
+# csrc/spmm_probes.cu's Hi<m> lays it out (a slot is 8 X rows of m f32); m
+# 128 takes 1-slot stages, so that two blocks share an SM
+HI_WARPS = 8
+PANEL_RING = {8: (4, 4), 32: (3, 2), 64: (3, 2), 128: (3, 1)}
+
+
+def panel_smem(m: int) -> int:
+    """Shared memory of a v1_panel_hi block at width m: 8 warps' rings."""
+    stages, slots = PANEL_RING[m]
+    return HI_WARPS * stages * slots * B * m * 4
 
 
 def stream_smem(S: int, m: int, onedot: bool) -> int:
@@ -223,7 +239,8 @@ def _tensor_map(ptr, device, nbr, S, onedot):
 
 def v5_batched_hi(V, cols, X):
     """K15c v5_batched_hi (exp_spmm.py:260-291, HIGHEST): the unstaged
-    baseline, X slices from L2 into registers, f32 FMAs."""
+    baseline, X slices from L1/L2 into registers, products on 3xTF32
+    mma.sync."""
     if X.device.type == "cpu":
         return v5_batched_hi_ref(V, cols, X)
     Y = _product("spmm_probe_f32", V, cols, X, 0)
@@ -233,9 +250,15 @@ def v5_batched_hi(V, cols, X):
 
 def v1_panel_hi(V, cols, X):
     """K15c v1_panel_hi (exp_spmm.py:111-142, HIGHEST): v5_hi with each
-    row's X panel staged in shared memory."""
+    row's X slices staged in shared memory; a width whose ring does not fit
+    in SMEM_LIMIT is refused (ValueError), never taken unstaged."""
     if X.device.type == "cpu":
         return v1_panel_hi_ref(V, cols, X)
+    m = X.shape[1] if X.dim() == 2 else 0
+    if m in PANEL_RING and panel_smem(m) > SMEM_LIMIT:
+        raise ValueError(f"v1_panel_hi at m = {m}: the staging ring takes "
+                         f"{panel_smem(m)} bytes of shared memory, more "
+                         f"than {SMEM_LIMIT}")
     Y = _product("spmm_probe_f32", V, cols, X, 1)
     v1_panel_hi.launches += 1
     return Y

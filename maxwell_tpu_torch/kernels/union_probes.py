@@ -21,9 +21,11 @@ cols (T, UC) and rcols (T, UC // 8) are int32 block-row starts, vals
 
 K15b, union_unstaged(A, X) (maxwell_tpu/bench/exp_union2.py's "cat"
 kernel): Y = A @ X on a BELLUnion layout, the same product as K2
-(kernels/spmm.py::bellunion_matmat, "highest"), with the gathered X rows
-read from global memory instead of a chunk's X block staged in shared
-memory. Any chunk width that is a multiple of 128, any pack, any m.
+(kernels/spmm.py::bellunion_matmat, "highest") on the same live form, in
+K2's order of operations (so bit for bit equal to it), with the gathered X
+rows read from global memory instead of a chunk's X runs staged in shared
+memory. Any chunk width that is a multiple of 128, any pack, b a multiple
+of 4, any m.
 
 A wrapper given CUDA tensors checks them and launches its kernel
 (csrc/union_probes.cu) or raises; given CPU tensors it runs the plain
@@ -210,22 +212,23 @@ def u2_km(rcols, vals, vals_b, X):
 def union_unstaged(A: BELLUnion, X: torch.Tensor) -> torch.Tensor:
     """K15b (exp_union2.py:63-109): Y = A @ X (stream a, f32), X
     (rows <= n_cols_padded, m) zero-padded to n_cols_padded rows, read
-    from global memory by the kernel; Y (n_padded, m). The layout checks
-    and padding are K2's."""
+    from global memory by the kernel; Y (n_padded, m). It reads the
+    layout's live form, as K2 does, with K2's checks: a layout without it
+    raises."""
     if X.device.type == "cpu":
         return union_unstaged_ref(A, X)
-    vals = spmm._streams(A, "a", "highest")[0][0]  # the full stream
-    spmm._check_layout(A, X, [vals], torch.float32)
+    pairs = spmm._live_pairs(A, "a", "highest")
+    spmm._check_cuda(A, X, pairs)
+    if A.b % 4:  # a lane's four X rows must be consecutive
+        raise ValueError(f"union_unstaged needs b % 4 == 0, got b = {A.b}")
     Xp = spmm._pad_rows(X, A.n_cols_padded)
     if Xp.data_ptr() % 16:  # its rows are read with 16-byte loads
         raise ValueError("X must be 16-byte aligned")
     Y = torch.empty((A.n_padded, X.shape[1]), dtype=torch.float32,
                     device=X.device)
-    _launch("union_unstaged_f32", Xp, vals.data_ptr(),
-            A.ucols.data_ptr(), A.tile_ptr.data_ptr(),
-            None if A.tile_end is None else A.tile_end.data_ptr(),
-            Xp.data_ptr(), Y.data_ptr(), A.n_tiles, X.shape[1], A.cl, A.b,
-            A.pack)
+    _launch("union_unstaged_f32", Xp, pairs[0][0].data_ptr(),
+            *spmm._tables(A), Xp.data_ptr(), Y.data_ptr(), A.n_tiles,
+            X.shape[1], A.cl, A.b)
     union_unstaged.launches += 1
     return Y
 

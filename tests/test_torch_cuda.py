@@ -659,11 +659,14 @@ def test_cuda_union_panel_kernels_match_plain(cuda_device, T, UC):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cl,pack", [(512, 1), (1024, 1), (1024, 2),
                                      (1024, 4), (512, 2), (128, 1)])
-@pytest.mark.parametrize("m", [1, 8, 9, 17])
+@pytest.mark.parametrize("m", [1, 8, 9, 17, 33])
 def test_cuda_union_unstaged_matches_plain(cuda_device, cl, pack, m):
-    """K15b's unstaged kernel against its plain version and against K2 on
-    the same layout (1e-5 of max|plain|), and bit for bit itself over two
-    launches (one block walks a tile's chunks in order: no atomics)."""
+    """K15b's unstaged kernel against its plain version (1e-5 of
+    max|plain|), bit for bit against K2 "highest" on the same layout (the
+    same walk of the live form in the same order of operations; at m 33
+    five 8-column passes, the last one ragged), and bit for bit itself over
+    two launches (one warp walks a row group's chunks in order: no
+    atomics)."""
     cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
     A = BELLUnion.from_csr(cav.K, chunk_lanes=cl, pack=pack,
                            device=cuda_device)
@@ -676,7 +679,7 @@ def test_cuda_union_unstaged_matches_plain(cuda_device, cl, pack, m):
     torch.cuda.synchronize()
     scale = want.abs().max()
     assert ((got - want).abs().max() / scale).item() <= 1e-5
-    assert ((got - staged).abs().max() / scale).item() <= 1e-5
+    assert torch.equal(got, staged)
     assert torch.equal(got, again)
     assert up.counts()["union_unstaged"] == 2
 
@@ -766,16 +769,17 @@ def test_cuda_probe_wrappers_raise(cuda_device):
 
 
 def _spmm_probe_case(case, m, device):
-    """(V, cols, X) of a blocked-ELL probe case: a small brick's K (S 32)
-    or a random layout of 5 tiles with S = 20 slots, X with 8 rows beyond
-    the last block row."""
+    """(V, cols, X) of a blocked-ELL probe case: a small brick's K (S 32),
+    or a random layout of 5 tiles ("random") or of 300 tiles ("many": more
+    block rows than 132 SMs x 64 warps) with S = 20 slots, X with 8 rows
+    beyond the last block row."""
     if case == "brick":
         cav = PermutedProblem(BrickCavity3D(nx=5, ny=5, nz=6))
         A = BSRMatrix.from_csr(cav.K, block=8, device=device)
         V, cols = spp.panel_values(A.blocks), A.cols
     else:
         rng = np.random.default_rng(7)
-        nbr, S = 5 * 16, 20
+        nbr, S = (5 if case == "random" else 300) * 16, 20
         V = torch.from_numpy(rng.standard_normal((nbr * 8, S * 8)).astype(
             np.float32)).to(device)
         cols = torch.from_numpy(rng.integers(0, nbr + 1, (nbr, S)).astype(
@@ -787,15 +791,19 @@ def _spmm_probe_case(case, m, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["brick", "random"])
+@pytest.mark.parametrize("case", ["brick", "random", "many"])
 @pytest.mark.parametrize("m", [8, 32, 64, 128])
 def test_cuda_spmm_probes_match_plain(cuda_device, case, m):
     """K15c's eight kernels against their plain versions (1e-5 of
     max|plain|; the _def variants and v3/v3b against the product of
     bf16-rounded operands) at each m, on the 5x5x6 brick's K (3 tiles, S
-    32) and on a random layout (5 tiles, S 20, X one block row taller than
-    the layout); each launched once, no plain version called."""
+    32), on a random layout (5 tiles, S 20, X one block row taller than
+    the layout) and on one of 300 tiles (more block rows than the card
+    holds warps at once); the three _hi variants (3xTF32 mma.sync) bit for
+    bit across two launches, the others launched once; no plain version
+    called."""
     V, cols, X = _spmm_probe_case(case, m, cuda_device)
+    hi = ("v1_panel_hi", "v5_batched_hi", "v6_smem_hi")
     spp.reset_counts()
     for kern in spp.KERNELS:
         name = kern.__name__
@@ -806,12 +814,15 @@ def test_cuda_spmm_probes_match_plain(cuda_device, case, m):
         else:
             args = (V, cols, X)
         got, want = kern(*args), spp.PLAIN_OF[kern](*args)
+        again = kern(*args) if name in hi else got
         torch.cuda.synchronize()
         assert got.shape == want.shape == (V.shape[0], m), name
         assert ((got - want).abs().max()
                 / want.abs().max()).item() <= 1e-5, name
+        assert torch.equal(got, again), name
     c = spp.counts()
-    assert all(c[fn.__name__] == 1 for fn in spp.KERNELS)
+    assert all(c[fn.__name__] == (2 if fn.__name__ in hi else 1)
+               for fn in spp.KERNELS)
     assert not any(c[fn.__name__] for fn in spp.PLAIN)
 
 

@@ -209,6 +209,28 @@ def test_stream_refuses_a_panel_past_the_limit(onedot, m):
     assert not any(spp.counts().values())
 
 
+@pytest.mark.parametrize("m", [8, 32, 64, 128])
+def test_panel_ring_staged_at_every_m(monkeypatch, m):
+    """v1_panel_hi stages its X slices at every m at S 64 (the 24^3 K's
+    slots): each of a block's 8 warps (half a tile) keeps a ring of at least
+    two stages of whole slots (8 X rows of m f32) that divide S, within the
+    H100's 232,448 bytes; with a limit one byte below its ring, the width is
+    refused with ValueError before any build or launch (meta tensors stand
+    in for CUDA ones), never taken unstaged."""
+    stages, slots = spp.PANEL_RING[m]
+    assert stages >= 2 and 64 % slots == 0 and spp.HI_WARPS * 2 == R
+    need = spp.panel_smem(m)
+    assert need == 8 * stages * slots * B * m * 4 <= spp.SMEM_LIMIT
+    monkeypatch.setattr(spp, "SMEM_LIMIT", need - 1)
+    V = _meta((R * B, 64 * B))
+    cols = _meta((R, 64), torch.int32)
+    X = _meta((R * B + B, m))
+    spp.reset_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        spp.v1_panel_hi(V, cols, X)
+    assert not any(spp.counts().values())
+
+
 @pytest.mark.parametrize("m", [8, 128])
 @pytest.mark.parametrize("name", ["v3_stream", "v3b_onedot"])
 def test_stream_library_calls_match_plain(port_layout, name, m):

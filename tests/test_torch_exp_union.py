@@ -9,6 +9,7 @@ the production union kernel the probe's "cat" variant reproduces
 (bellunion_matmat_pallas in interpret mode) on the reference's own layout.
 The CUDA kernels themselves are tested in test_torch_cuda.py."""
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -252,13 +253,19 @@ def test_panel_wrappers_reject_bad_device_input(bad):
     assert not any(up.counts().values())
 
 
-@pytest.mark.parametrize("bad", ["f64", "non_contiguous"])
+@pytest.mark.parametrize("bad", ["f64", "non_contiguous", "no_live"])
 def test_unstaged_wrapper_rejects_bad_device_input(rcm_K, bad):
+    """The kernel path (meta tensors stand in for CUDA ones) raises
+    ValueError before any launch: f64 or non-contiguous X, or a layout
+    without the live form the kernel reads (K2's refusal)."""
     A = BELLUnion.from_csr(rcm_K, device="cpu")
+    X = _meta((A.n_padded, 8))
     if bad == "f64":
         X = _meta((A.n_padded, 8), torch.float64)
-    else:
+    elif bad == "non_contiguous":
         X = _meta((8, A.n_padded)).T
+    else:
+        A = dataclasses.replace(A, live=None)
     up.reset_counts()
     with pytest.raises(ValueError):
         up.union_unstaged(A, X)
