@@ -1706,12 +1706,13 @@ def phase_union_probes():
     probe scripts' own run() (no subprocess): K15a (exp_union.run, T 298,
     UC 128: u0_hi, u0_def, u1_runs, u2_km) and K15b (exp_union2.run on the
     24^3 RCM K: six layouts, m in {8, 9}, union_unstaged beside K2). The
-    probe scripts hold every kernel against its plain version (1e-5 of
-    max|plain|; u0_def against the plain product of bf16-rounded operands)
-    and K15b against scipy (1e-5), and raise past it; their oracles are
-    uncounted. Counts are zeroed just before and read just after: every
-    probe kernel launched, no plain version called. One JSON line per
-    variant. Returns (stats of the kernels line, counts)."""
+    probe scripts hold every kernel and K15a's library calls against
+    their plain versions (1e-5 of max|plain|; u0_def against the plain
+    product of bf16-rounded operands, its TF32 and bf16-output library
+    calls at 1e-2) and K15b against scipy (1e-5), and raise past it; their
+    oracles are uncounted. Counts are zeroed just before and read just
+    after: every probe kernel launched, no plain version called. One JSON
+    line per variant. Returns (stats of the kernels line, counts)."""
     from maxwell_tpu_torch.bench import exp_union, exp_union2
     from maxwell_tpu_torch.kernels import union_probes as up
 
@@ -1744,7 +1745,8 @@ def phase_union_probes():
         raise AssertionError(f"plain versions ran on the card: {stray}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     stats = {name: {"max_abs_err": r1[name]["max_abs_err"],
-                    **{k: r1[name][k] for k in keys}} for name in panel}
+                    **{k: r1[name][k] for k in (*keys, "library_bf16_ms")
+                       if k in r1[name]}} for name in panel}
     # the kernels line reports the unstaged kernel on the reference's
     # production layout (1024, 2) at the probe's m = 8
     pm = r2["variants"]["pair1024"]["m8"]
@@ -1816,9 +1818,9 @@ def phase_spmm_and_gather_probes():
     their full default sizes through the probe scripts' own run(). The
     scripts hold every kernel and every library call against its plain
     version (1e-5 of max|plain|; the _def variants against the product of
-    bf16-rounded operands, the bf16-output library calls at 1e-2, K12 also
-    against (K + M) X in f64) and raise past it; their oracles are
-    uncounted. Counts are zeroed just before and read just after: every
+    bf16-rounded operands, the TF32 and bf16-output library calls at 1e-2,
+    K12 also against (K + M) X in f64) and raise past it; their oracles
+    are uncounted. Counts are zeroed just before and read just after: every
     probe kernel launched, no plain version called. One JSON line per
     variant. Returns (stats of the kernels line, counts); a K15c variant
     reports m 8 with m 32, 64 and 128 beside."""
@@ -1852,12 +1854,13 @@ def phase_spmm_and_gather_probes():
     if stray:
         raise AssertionError(f"plain versions ran on the card: {stray}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    stats = {name: {k: r2[name][k] for k in keys} for name in GATHER_PROBES}
+            "library_ms", "library_bf16_ms")
+    stats = {name: {k: r2[name][k] for k in keys if k in r2[name]}
+             for name in GATHER_PROBES}
     for name in SPMM_PROBES:
         stats[name] = {
-            **{k: r1["m8"][name][k] for k in keys},
-            **{w: {k: r1[w][name][k] for k in keys}
+            **{k: r1["m8"][name][k] for k in keys if k in r1["m8"][name]},
+            **{w: {k: r1[w][name][k] for k in keys if k in r1[w][name]}
                for w in widths if w != "m8"}}
     return stats, {name: counts[name] for name in mine}
 
@@ -1957,11 +1960,12 @@ def main():
     paths = {**MAIN_PATH, **{name: "off-path" for name in OFF_PATH},
              **PROBES}
     # other widths: m 8 (K8), m 9 (K15f), m 32, 64, 128 (K15c); the empty
-    # launch's time beside K6 and K10, and K6's copy unit
+    # launch's time beside K6 and K10, K6's copy unit, and the bf16 probes'
+    # library call on operands rounded beforehand
     log({"kernels": [{**entry(name), "path": path,
                       **{w: stats[name][w] for w in (
                           "m1", "m8", "m9", "m32", "m64", "m128",
-                          "launch_floor_ms", "unit_bytes")
+                          "launch_floor_ms", "unit_bytes", "library_bf16_ms")
                          if w in stats[name]}}
                      for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")

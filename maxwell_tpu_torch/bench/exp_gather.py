@@ -11,8 +11,9 @@ layout, and gathers of single elements from a tile staged in shared memory.
                  staged per block; out g[0:8] + g[P-8:P]
   g3_taa1        4,096 gathers g[j, p] = X^T[j, idx[j, p]] from X^T[:, 0:P]
                  staged per block, written whole
-  g3w_taa1_wide  g3 from the tile's own (8, 4096) source block (128 KB
-                 staged), the 4,096 gathers the reference keeps
+  g3w_taa1_wide  g3 from the tile's own (8, 4096) source block, the
+                 4,096 gathers the reference keeps, straight from global
+                 memory (one warp per source row, nothing staged)
 
 g0, g1 and g4 gather 256 KB of slices per tile (78.1 MB at T 298); g2, g3
 and g3w 4,096 elements per tile.
@@ -26,10 +27,14 @@ from numpy's default_rng(0) in its order. Per variant: ms (median of 20
 launches), per_tile_ns (the reference's metric), plain_ms, gathered_GBps
 (the gathered bytes over the time), bound_ms / bound_by at the card's
 published rates (the inputs the variant reads by design once, and its
-output once), library_ms of one PyTorch call computing the same function
-(`library` says what it includes and excludes), and the max error against
-the plain version (the run fails above 1e-5 of max|plain|, for the
-library call too, 1e-4 for embedding_bag's sums of up to 1,024 rows).
+output once; for g3w the kept index columns and the distinct 32-byte
+source sectors its kept gathers touch, counted from idx by
+`touched_sectors`, with the old count of the whole source as
+bytes_staged beside), library_ms of one PyTorch call computing the same
+function (`library` says what it includes and excludes), and the max
+error against the plain version (the run fails above 1e-5 of max|plain|,
+for the library call too, 1e-4 for embedding_bag's sums of up to 1,024
+rows).
 Runs on the card unless --device cpu is given; there the plain versions
 run and nothing is timed. Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_gather_results.json); never the
@@ -73,6 +78,14 @@ def make_inputs(T: int, S: int, seed: int = 0) -> dict:
     idx1w = rng.integers(0, W, size=(T * M, W), dtype=np.int32)
     XTW = rng.standard_normal((T * M, W)).astype(np.float32)
     return dict(cols=cols, X=X, idx0=idx0, idx1=idx1, idx1w=idx1w, XTW=XTW)
+
+
+def touched_sectors(idx: torch.Tensor, P: int) -> int:
+    """The 32-byte sectors (8 f32) of each row's source that the row's
+    first P indices touch, summed over the rows: per row the distinct
+    idx // 8 among idx[:, :P] (a row of W floats starts on a sector)."""
+    s = torch.sort(idx[:, :P].long() // 8, dim=1).values
+    return int(s.shape[0] + (s[:, 1:] != s[:, :-1]).sum())
 
 
 def window_view(X: torch.Tensor, rows: int) -> torch.Tensor:
@@ -178,8 +191,9 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
         "T": T, "S": S, "R": R, "b": B, "m": M, "P": P, "W": W, "n": n,
         "slice_bytes": slices, "element_bytes": elems,
         "bound": "bytes of the inputs the variant reads by design once "
-                 "(cols it reads, X or X[0:P] or the staged sources, idx "
-                 "it reads) and of its output once, at 3.35 TB/s",
+                 "(cols it reads, X or X[0:P] or the staged source, idx "
+                 "it reads; g3w: the source's 32-byte sectors its kept "
+                 "gathers touch) and of its output once, at 3.35 TB/s",
     }
     y128 = T * R * B * M * f4
     half_cols = nbr * (S // 2) * f4
@@ -199,7 +213,8 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
         "g3_taa1": (gpr.g3_taa1, (t["idx1"], t["XT"]),
                     elems + M * P * f4 + elems, 0, elems),
         "g3w_taa1_wide": (gpr.g3w_taa1_wide, (t["idx1w"], t["XTW"], P),
-                          elems + t["XTW"].numel() * f4 + elems, 0, elems),
+                          elems + 32 * touched_sectors(t["idx1w"], P)
+                          + elems, 0, elems),
     }
     for name, (kern, args, nbytes, adds, gathered) in variants.items():
         plain = gpr.PLAIN_OF[kern]
@@ -225,6 +240,8 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
                        gathered_bytes=gathered,
                        gathered_GBps=gathered / ms / 1e6,
                        library_ms=median_ms(call))
+            if name == "g3w_taa1_wide":  # staging each tile's source
+                row["bytes_staged"] = elems + t["XTW"].numel() * f4 + elems
         results[name] = row
     return results
 

@@ -36,10 +36,11 @@ v3b), roofline_ms and pct_roofline (the reference's yardsticks over the
 copy bandwidth measured in the same run: the layout roofline
 exp_spmm.py:106-108, for v7 the pairs roofline :309-311, for v9 the fused
 roofline :346-349), and library_ms of one PyTorch call (`library` says
-what it includes and excludes; v3 and v3b also library_bf16_ms, the call
-on operands rounded to bf16 beforehand, `library_bf16`). Runs on the card
-unless --device cpu is given; there the plain versions run and nothing is
-timed. Writes JSON to --out (default
+what it includes and excludes; the bf16 variants' on the f32 operands the
+kernels read, TF32 allowed for that call, and beside it library_bf16_ms,
+the call on operands rounded to bf16 beforehand, `library_bf16`). Runs on
+the card unless --device cpu is given; there the plain versions run and
+nothing is timed. Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_spmm_results.json); never the
 reference's exp_spmm_results.json.
 """
@@ -54,12 +55,19 @@ import torch
 import torch.nn.functional as F
 
 from maxwell_tpu_torch.bench.exp_gather import LIB_TOL_SUM, bag_sum
-from maxwell_tpu_torch.bench.exp_union import PROBE_DIR, device_of, write
+from maxwell_tpu_torch.bench.exp_union import (
+    LIB_TOL_BF16,
+    PROBE_DIR,
+    device_of,
+    held,
+    write,
+)
 from maxwell_tpu_torch.bench.timing import (
     bound_ms,
     copy_bandwidth,
     median_ms,
     torch_csr,
+    with_tf32,
 )
 from maxwell_tpu_torch.kernels import bellpairs_spmm as kp
 from maxwell_tpu_torch.kernels import bsr_spmm
@@ -68,9 +76,6 @@ from maxwell_tpu_torch.sparse import bsr as _bsr
 from maxwell_tpu_torch.utils.precision import fp32_true
 
 TOL = 1e-5  # of max|plain|: f32 sums in another order than the plain's
-# a library call with a bf16 output rounds each entry to 8 bits (2^-9
-# relative): held to the plain version at 1e-2 of max|plain|
-LIB_TOL_BF16 = 1e-2
 GRID = 24
 MS = spp.MS
 R, B = spp.R, spp.B
@@ -105,26 +110,19 @@ def library(name, V, cols, X, Kcsr, n):
                 "rows of Y are zero)", lambda: torch.sparse.mm(Kcsr, Xn),
                 lambda out: F.pad(out, (0, 0, 0, nbr * B - n)), TOL)
     if name in DEF:
-        Vb = V.view(nbr, B, S * B).bfloat16()
-        Pb = spp.gathered_panel(cols, X).bfloat16()
-        return ("torch.bmm of bf16 operands on the panel gathered and "
-                "rounded beforehand (excludes the gather; bf16 output)",
-                lambda: torch.bmm(Vb, Pb),
-                lambda out: out.float().reshape(nbr * B, m), LIB_TOL_BF16)
+        Vf = V.view(nbr, B, S * B)
+        P = spp.gathered_panel(cols, X)
+        return ("torch.bmm on the f32 values and the f32 panel gathered "
+                "beforehand, TF32 allowed for this call (reads the "
+                "kernels' value bytes; excludes the gather)",
+                with_tf32(lambda: torch.bmm(Vf, P)),
+                lambda out: out.reshape(nbr * B, m), LIB_TOL_BF16)
     if name in STREAM:
         Xs = X[:S * B]
-
-        def call():
-            prev = torch.backends.cuda.matmul.allow_tf32
-            torch.backends.cuda.matmul.allow_tf32 = True
-            try:
-                return torch.matmul(V, Xs)
-            finally:
-                torch.backends.cuda.matmul.allow_tf32 = prev
-
         return ("torch.matmul(blocks2d, X[:S b]) on the probe's f32 "
                 "operands, TF32 allowed for this call (reads the kernels' "
-                "bytes)", call, lambda out: out, LIB_TOL_BF16)
+                "bytes)", with_tf32(lambda: torch.matmul(V, Xs)),
+                lambda out: out, LIB_TOL_BF16)
     if name == "v4_gather":
         call, as_plain = bag_sum(cols, X, S, B)
         return ("F.embedding_bag sum over X viewed as (nbr, 8 m) slices, "
@@ -133,24 +131,26 @@ def library(name, V, cols, X, Kcsr, n):
     raise KeyError(name)
 
 
-def library_bf16(V, X):
-    """(what, call, as_plain, tol) of the stream variants' second library
-    call: torch.matmul on operands rounded to bf16 beforehand, which reads
-    half the kernels' value bytes."""
-    Vb, Xb = V.bfloat16(), X[:V.shape[1]].bfloat16()
-    return ("torch.matmul(blocks2d, X[:S b]) with both operands rounded to "
-            "bf16 beforehand (reads half the value bytes; bf16 output)",
-            lambda: torch.matmul(Vb, Xb), lambda out: out.float(),
-            LIB_TOL_BF16)
-
-
-def _held(name, got, want, tol=TOL):
-    scale = want.abs().max().item()
-    err = (got - want).abs().max().item()
-    if got.shape != want.shape or not err <= tol * scale:
-        raise AssertionError(f"{name}: max error {err:.3e} > {tol} * "
-                             f"{scale:.3e} against the plain version")
-    return err, scale
+def library_bf16(name, V, cols, X):
+    """(what, call, as_plain, tol) of a bf16 variant's second library call
+    (DEF and STREAM): the first call on operands rounded to bf16
+    beforehand, which reads half the kernels' value bytes."""
+    if name in DEF:
+        nbr, S = cols.shape
+        Vb = V.view(nbr, B, S * B).bfloat16()
+        Pb = spp.gathered_panel(cols, X).bfloat16()
+        return ("torch.bmm of bf16 operands on the panel gathered and "
+                "rounded beforehand (reads half the value bytes; excludes "
+                "the gather; bf16 output)", lambda: torch.bmm(Vb, Pb),
+                lambda out: out.float().reshape(nbr * B, X.shape[1]),
+                LIB_TOL_BF16)
+    if name in STREAM:
+        Vb, Xb = V.bfloat16(), X[:V.shape[1]].bfloat16()
+        return ("torch.matmul(blocks2d, X[:S b]) with both operands rounded "
+                "to bf16 beforehand (reads half the value bytes; bf16 "
+                "output)", lambda: torch.matmul(Vb, Xb),
+                lambda out: out.float(), LIB_TOL_BF16)
+    raise KeyError(name)
 
 
 @fp32_true
@@ -201,7 +201,7 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
             args = args_of(name, V, cols, X)
             plain = spp.PLAIN_OF[kern]
             got, want = kern(*args), plain(*args)
-            err, scale = _held(name, got, want)
+            err, scale = held(name, got, want)
             row = {"max_abs_err": err, "rel_err": err / scale}
             if name in HI:  # one writer per output, no atomics
                 row["bitwise_repeat"] = torch.equal(got, kern(*args))
@@ -215,12 +215,13 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
                 del f32
             what, call, as_plain, tol = library(name, V, cols, X, Kcsr, n)
             row["library"] = what
-            row["library_max_abs_err"] = _held(
+            row["library_max_abs_err"] = held(
                 f"{name} library", as_plain(call()), want, tol)[0]
-            if name in STREAM:
-                what2, call2, as_plain2, tol2 = library_bf16(V, X)
+            if name in DEF + STREAM:
+                what2, call2, as_plain2, tol2 = library_bf16(
+                    name, V, cols, X)
                 row["library_bf16"] = what2
-                row["library_bf16_max_abs_err"] = _held(
+                row["library_bf16_max_abs_err"] = held(
                     f"{name} library_bf16", as_plain2(call2()), want,
                     tol2)[0]
             if timed:
@@ -240,7 +241,7 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
                            operations=ops, roofline_ms=roof,
                            pct_roofline=100 * roof / ms_,
                            library_ms=median_ms(call))
-                if name in STREAM:
+                if name in DEF + STREAM:
                     row["library_bf16_ms"] = median_ms(call2)
             res[name] = row
             del got, want
@@ -263,9 +264,9 @@ def _beside(A, AP, X, KM, m, roofs, bw) -> dict:
         raise AssertionError(f"v9_km: relative error {err9:.3e} against "
                              f"(K + M) X in f64")
     out = {
-        "v0_current": {"kernel": "K8 bsr_matmat", "max_abs_err": _held(
+        "v0_current": {"kernel": "K8 bsr_matmat", "max_abs_err": held(
             "v0_current", y0, _bsr.bsr_matmat_ref(A, X))[0]},
-        "v7_pairs": {"kernel": "K11 bellpairs_matmat", "max_abs_err": _held(
+        "v7_pairs": {"kernel": "K11 bellpairs_matmat", "max_abs_err": held(
             "v7_pairs", y7, kp._pairs(AP, X, "a"))[0]},
         "v9_km": {"kernel": "K12 bellpairs_km_matmat",
                   "rel_err_vs_f64": err9},

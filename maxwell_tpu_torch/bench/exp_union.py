@@ -18,10 +18,16 @@ numpy's default_rng(0) in its order. Per variant: time_s, per_tile_ns and
 pct_roof (the reference's byte counts, exp_union.py:52-53, over the copy
 bandwidth measured in the same run), the bound at the card's published
 rates, the max error against the plain version (the run fails above 1e-5
-of max|plain|), the plain version's time, and one torch.bmm on the panel
-gathered beforehand (the library line; it excludes the gather). Runs on
-the card unless --device cpu is given; there the plain versions run and
-nothing is timed. Writes JSON to --out (default
+of max|plain|), the plain version's time, the kernel's launch shape
+(`launch`: grid, warps a block, shared memory, resident blocks per SM),
+and library_ms of one torch.bmm on the panel gathered beforehand
+(`library` says what it includes and excludes; u0_def's on the f32
+operands the kernel reads, TF32 allowed for that call, and beside it
+library_bf16_ms, the call on operands rounded to bf16 beforehand,
+`library_bf16`). Every library call is held to the plain version too
+(1e-5 of max|plain|; TF32 or a bf16 output 1e-2), on the CPU as well.
+Runs on the card unless --device cpu is given; there the plain versions
+run and nothing is timed. Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_union_results.json).
 """
 
@@ -34,14 +40,30 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from maxwell_tpu_torch.bench.timing import bound_ms, copy_bandwidth, median_ms
+from maxwell_tpu_torch.bench.timing import (
+    bound_ms,
+    copy_bandwidth,
+    median_ms,
+    with_tf32,
+)
 from maxwell_tpu_torch.kernels import union_probes as up
 from maxwell_tpu_torch.utils.precision import fp32_true
 
 PROBE_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "maxwell_tpu_torch" / "probes")
 TOL = 1e-5  # of max|plain|: f32 sums in another order than the bmm's
+# a library call in TF32 (10-bit mantissas) or with a bf16 output (8 bits:
+# 2^-9 relative per entry) against a plain version of bf16 operands: held
+# at 1e-2 of max|plain|
+LIB_TOL_BF16 = 1e-2
 B = M = 8
+# name: (index key, run, value streams, bf16)
+VARIANTS = {
+    "u0_hi": ("cols", 8, 1, False),
+    "u0_def": ("cols", 8, 1, True),
+    "u1_runs": ("rcols", 64, 1, False),
+    "u2_km": ("rcols", 64, 2, False),
+}
 
 
 def make_inputs(T: int, UC: int, seed: int = 0) -> dict:
@@ -57,6 +79,64 @@ def make_inputs(T: int, UC: int, seed: int = 0) -> dict:
     return dict(cols=cols, rcols=rcols, X=X, vals=vals, vals_b=vals_b, n=n)
 
 
+def _rows(out, X):
+    """(T, 128, 8) tile products -> Y with X's rows, those from 128 T on
+    zero, as the plain version lays it out."""
+    Y = torch.zeros_like(X)
+    Y[: out.shape[0] * 128] = out.reshape(-1, M)
+    return Y
+
+
+def library(name, t, T, K):
+    """(what, call, as_plain, tol) of one PyTorch call computing the
+    variant's function: the call runs on operands formed beforehand (the
+    panel gathered by index); as_plain maps its output onto the plain
+    version's (untimed); tol is the bound against the plain version, of
+    max|plain|."""
+    key, run_len, streams, bf16 = VARIANTS[name]
+    X, V = t["X"], t["vals"].view(T, 128, K)
+    P = X[up.panel_rows(t[key], run_len)]  # (T, K, 8)
+    if streams == 2:  # both streams in one call: (T, 256, 8)
+        Vl = torch.cat([V, t["vals_b"].view(T, 128, K)], dim=1)
+        return ("torch.bmm of the K and M values stacked (T, 256, K) on "
+                "the panel gathered beforehand (excludes the gather; Yk + "
+                "Ym summed after, untimed)", lambda: torch.bmm(Vl, P),
+                lambda out: _rows(out[:, :128] + out[:, 128:], X), TOL)
+    if bf16:
+        return ("torch.bmm on the f32 values and the f32 panel gathered "
+                "beforehand, TF32 allowed for this call (reads the "
+                "kernel's bytes; excludes the gather)",
+                with_tf32(lambda: torch.bmm(V, P)), lambda out: _rows(out, X),
+                LIB_TOL_BF16)
+    return ("torch.bmm on the panel gathered beforehand (excludes the "
+            "gather)", lambda: torch.bmm(V, P), lambda out: _rows(out, X),
+            TOL)
+
+
+def library_bf16(t, T, K):
+    """(what, call, as_plain, tol) of u0_def's second library call:
+    torch.bmm on operands rounded to bf16 beforehand, which reads half the
+    kernel's value bytes."""
+    X = t["X"]
+    Vb = t["vals"].view(T, 128, K).bfloat16()
+    Pb = X[up.panel_rows(t["cols"], 8)].bfloat16()
+    return ("torch.bmm of bf16 operands rounded beforehand on the panel "
+            "gathered beforehand (reads half the kernel's value bytes; "
+            "excludes the gather; bf16 output)", lambda: torch.bmm(Vb, Pb),
+            lambda out: _rows(out.float(), X), LIB_TOL_BF16)
+
+
+def held(name, got, want, tol=TOL):
+    """(max|got - want|, max|want|), raising unless got has want's shape
+    and lies within tol of max|want|."""
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if got.shape != want.shape or not err <= tol * scale:
+        raise AssertionError(f"{name}: max error {err:.3e} > {tol} * "
+                             f"{scale:.3e} against the plain version")
+    return err, scale
+
+
 def device_of(device) -> torch.device:
     """The device to run on; a CUDA device that is not there raises (no
     fall-back to the CPU)."""
@@ -70,8 +150,9 @@ def device_of(device) -> torch.device:
 
 @fp32_true
 def run(T: int = 298, UC: int = 128, device="cuda") -> dict:
-    """Every variant at (T, UC) on `device`; raises if a kernel disagrees
-    with its plain version. Returns the results as a dict."""
+    """Every variant at (T, UC) on `device`; raises if a kernel or a
+    library call disagrees with its plain version. Returns the results as
+    a dict."""
     dev = device_of(device)
     if UC % 8:
         raise ValueError(f"UC = {UC} must be a multiple of 8 (u1's runs)")
@@ -94,53 +175,49 @@ def run(T: int = 298, UC: int = 128, device="cuda") -> dict:
                        roof1_s=results["roof1_bytes"] / bw,
                        roof2_s=results["roof2_bytes"] / bw)
 
-    V = vals.view(T, 128, K)
-    variants = {
-        # name: (kernel, index, run, value streams, bf16)
-        "u0_hi": (lambda: up.u0_hi(cols, vals, X), cols, 8, (vals,), False),
-        "u0_def": (lambda: up.u0_def(cols, vals, X), cols, 8, (vals,), True),
-        "u1_runs": (lambda: up.u1_runs(rcols, vals, X), rcols, 64, (vals,),
-                    False),
-        "u2_km": (lambda: up.u2_km(rcols, vals, vals_b, X), rcols, 64,
-                  (vals, vals_b), False),
+    kernels = {
+        "u0_hi": lambda: up.u0_hi(cols, vals, X),
+        "u0_def": lambda: up.u0_def(cols, vals, X),
+        "u1_runs": lambda: up.u1_runs(rcols, vals, X),
+        "u2_km": lambda: up.u2_km(rcols, vals, vals_b, X),
     }
-    for name, (kern, idx, run_len, streams, bf16) in variants.items():
-        vb = streams[1] if len(streams) > 1 else None
+    for name, kern in kernels.items():
+        key, run_len, streams, bf16 = VARIANTS[name]
+        idx = t[key]
+        vb = vals_b if streams == 2 else None
 
         def plain(idx=idx, run_len=run_len, bf16=bf16, vb=vb):
             return up.panel_plain(idx, vals, X, run_len, bf16=bf16, vals_b=vb)
 
-        got, want = kern(), plain()
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        if not err <= TOL * scale:
-            raise AssertionError(f"{name}: max error {err:.3e} > {TOL} * "
-                                 f"{scale:.3e} against the plain version")
+        want = plain()
+        err, scale = held(name, kern(), want)
         row = {"max_abs_err": err, "rel_err": err / scale}
+        what, call, as_plain, tol = library(name, t, T, K)
+        row.update(library=what, library_max_abs_err=held(
+            f"{name} library", as_plain(call()), want, tol)[0])
+        call2 = None
+        if bf16:
+            what2, call2, as_plain2, tol2 = library_bf16(t, T, K)
+            row.update(library_bf16=what2, library_bf16_max_abs_err=held(
+                f"{name} library_bf16", as_plain2(call2()), want, tol2)[0])
         if timed:
-            P = X[up.panel_rows(idx, run_len)]  # (T, K, 8), gathered once
-            if bf16:
-                Vl, Pl = V.bfloat16(), P.bfloat16()
-            elif vb is not None:  # both streams in one call: (T, 256, 8)
-                Vl, Pl = torch.cat([V, vb.view(T, 128, K)], dim=1), P
-            else:
-                Vl, Pl = V, P
             ms = median_ms(kern)
             roof = results["roof2_s" if vb is not None else "roof1_s"]
-            nbytes = (len(streams) * vals.numel() * 4 + idx.numel() * 4
+            nbytes = (streams * vals.numel() * 4 + idx.numel() * 4
                       + 2 * X.numel() * 4)
-            b_ms, b_by = bound_ms(nbytes, 2 * len(streams) * vals.numel() * M,
+            b_ms, b_by = bound_ms(nbytes, 2 * streams * vals.numel() * M,
                                   "bf16" if bf16 else "f32")
             row.update(
                 time_s=ms * 1e-3, per_tile_ns=ms * 1e6 / T,
                 pct_roof=100 * roof / (ms * 1e-3), ms=ms,
                 plain_ms=median_ms(plain), bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, library_ms=median_ms(lambda: torch.bmm(Vl, Pl)),
-                library="torch.bmm on the panel gathered beforehand "
-                        "(excludes the gather)"
-                        + ("; bf16 operands" if bf16 else "")
-                        + ("; K over M stacked" if vb is not None else ""))
-            del P, Vl, Pl
+                bytes=nbytes, library_ms=median_ms(call),
+                launch=up.panel_launch_shape(
+                    T, K, "bf16" if bf16 else
+                    "f32_fused" if vb is not None else "f32"))
+            if call2 is not None:
+                row["library_bf16_ms"] = median_ms(call2)
+        del call, call2
         results[name] = row
     return results
 

@@ -5,6 +5,9 @@ the port's counterpart of maxwell_tpu/bench/exp_gather.py::timeit_chain.
     copy_bandwidth(device)   bytes/s of one 256 MB elementwise read + write,
                              the denominator of every "% of own roofline"
     bound_ms(bytes, flops, kind)   the least time the card could take
+    with_tf32(fn)            fn with TF32 allowed for its matmuls only: a
+                             library call on f32 operands at the rate of
+                             the probes' bf16 kernels
     csr_bytes(A, m)          bytes a CSR product with an (n, m) block moves
     union_bytes(A, s, m)     bytes a union kernel call reads and writes, on
                              the live form and on the full layout
@@ -69,6 +72,21 @@ def bound_ms(nbytes, flops, kind):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOPS_PER_S[kind] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def with_tf32(fn):
+    """A call of fn() with torch.backends.cuda.matmul.allow_tf32 set for
+    its duration, the caller's setting restored after."""
+
+    def call():
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    return call
 
 
 def csr_bytes(A, m: int) -> int:

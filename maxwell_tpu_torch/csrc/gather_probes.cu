@@ -34,18 +34,29 @@
 //                        gather is dead code: all P m are live loads.
 //   taa1                 g3_taa1 (:164-187, :176): X^T[:, 0:P] staged in
 //                        shared memory; g[j, p] = src[j, idx[j, p]],
-//                        written whole, (m, P) per tile. With the tile's
-//                        own (m, 4096) block of XTW as the source (128 KB
-//                        of dynamic shared memory), g3w_taa1_wide
-//                        (:189-216, :204); it gathers only the m P
-//                        elements the reference keeps (:200), so it
-//                        differs from g3 in the source's width alone.
+//                        written whole, (m, P) per tile.
+//   taa1_wide            g3w_taa1_wide (:189-216, :204): g3 with the
+//                        tile's own (m, 4096) block of XTW as the source,
+//                        the m P elements the reference keeps (:200).
+//                        Staging that block (128 KB a tile) left one
+//                        block per SM, 2.26 rounds of tiles, a barrier
+//                        between staging and gathering, and all 39 MB of
+//                        source read for 63% of its 32-byte sectors. So
+//                        nothing is staged: one warp per source row (8 T
+//                        rows), lane l issues its P / 128 index loads
+//                        (int4, coalesced: 512 bytes a warp load) first,
+//                        then its 4 P / 128 scalar gathers from the row's
+//                        16 KB through L1, then its float4 stores. One
+//                        warp a block, every block resident at once
+//                        (2,384 warps at T 298, 18 or 19 on each SM).
 //   g5_floor (:241-254, :247) is grid_copy_f32 of csrc/grid_probes.cu.
 //
 // Bounds (bytes over 3.35 TB/s): g0/g1/g4 read cols and X once (1.2 MB
 // each) and write 1.2 MB (g4 9.8 MB); their 78.1 MB of gathered slices come
 // from L2 (X is 1.2 MB). g2/g3 read 4.9 MB of indices and write 76 KB /
-// 4.9 MB; g3w also stages 39 MB of source. What the design does about it:
+// 4.9 MB; g3w reads 4.9 MB of kept indices, the source's 32-byte sectors
+// its gathers touch (24.7 MB at T 298) and writes 4.9 MB. What the design
+// does about it:
 // slices are read with 16-byte loads, a warp reading whole slices (two at
 // a time at 256 B), summed in registers across the tile's slots, one
 // shared-memory reduction across the 16 warps at the end; indices are read
@@ -187,6 +198,38 @@ taa1_kernel(const float* __restrict__ x, int64_t row_stride,
   }
 }
 
+// One warp per source row (row `row` of x and of idx, `width` floats and
+// indices): g[row, p] = x[row, idx[row, p]] for p < P, P a multiple of 4,
+// in chunks of 512 columns: a lane's four int4 index loads, then its 16
+// gathers, then its four float4 stores
+__global__ void __launch_bounds__(32)
+taa1_wide_kernel(const float* __restrict__ x,
+                 const int32_t* __restrict__ idx, float* __restrict__ y,
+                 int width, int P) {
+  const int64_t row = blockIdx.x;
+  const int lane = threadIdx.x;
+  const float* src = x + row * width;
+  const int32_t* ir = idx + row * width;
+  float* out = y + row * P;
+  for (int p0 = 4 * lane; p0 < P; p0 += 512) {
+    int4 k[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (p0 + 128 * i < P)  // read once: evict first
+        k[i] = __ldcs(reinterpret_cast<const int4*>(ir + p0 + 128 * i));
+    float4 g[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (p0 + 128 * i < P)
+        g[i] = make_float4(__ldg(src + k[i].x), __ldg(src + k[i].y),
+                           __ldg(src + k[i].z), __ldg(src + k[i].w));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (p0 + 128 * i < P)
+        __stcs(reinterpret_cast<float4*>(out + p0 + 128 * i), g[i]);
+  }
+}
+
 int set_smem(const void* kernel, size_t smem) {
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem <= 48 * 1024) return 0;
@@ -264,5 +307,17 @@ extern "C" int gather_taa1_f32(const void* x, int64_t row_stride,
       static_cast<const float*>(x), row_stride, tile_stride, (int)width,
       static_cast<const int32_t*>(idx), idx_stride, static_cast<float*>(y),
       (int)m, (int)P);
+  return (int)cudaGetLastError();
+}
+
+// g3w: rows = 8 T source rows of `width` floats (x) and indices (idx, the
+// same shape), y (rows, P)
+extern "C" int gather_taa1_wide_f32(const void* x, const void* idx, void* y,
+                                    int64_t rows, int64_t width, int64_t P,
+                                    void* stream) {
+  if (rows < 1 || P % 4 || width % 4) return (int)cudaErrorInvalidValue;
+  taa1_wide_kernel<<<(unsigned)rows, 32, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<const int32_t*>(idx),
+      static_cast<float*>(y), (int)width, (int)P);
   return (int)cudaGetLastError();
 }

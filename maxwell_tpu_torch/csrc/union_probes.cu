@@ -7,7 +7,7 @@
 // 128-row tiles reads one row idx[t] of run starts (the TPU's (8, UC) SMEM
 // block at t // 8, row t % 8, is that row), gathers the (K, 8) panel
 //     panel[k] = X[idx[t, k / run] * 8 + k % run]        (8 columns)
-// once into shared memory, and writes
+// into shared memory, and writes
 //     Y[128t + r] = sum_k vals[128t + r, k] * panel[k]     (rows >= 128T: 0)
 //   union_panel_f32   true f32 FMAs: u0_hi (run 8), u1_runs (run 64), and
 //                     with a second value stream u2_km (Y = Yk + Ym)
@@ -15,18 +15,43 @@
 //                     to bf16 (nearest even), products summed in f32 by
 //                     mma.sync m16n8k16 (n = 8 is the panel's width)
 // Bound: device-memory bandwidth (a (128, K) f32 value block per tile,
-// 512 KB at K = 1024, for 128 x 8 outputs). Design: one block per tile
-// streams its values once with 16-byte loads; the panel is read from
-// shared memory. f32: eight warps own 16 rows each, four (two with two
-// streams) rows per register pass, each lane a stride of the row; one
-// reduce-scatter of the lane partials per pass leaves lane l with entry l,
-// so a warp writes 4 x 8 contiguous outputs. bf16: a warp owns one 16-row
-// mma tile and walks K in steps of 16. Within a step, thread (g, tig) holds
-// k = 4 tig .. 4 tig + 3 of both operands instead of the PTX fragment's
-// k = 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: one permutation of k applied
-// to A and B leaves the product unchanged, and A then loads as one 16-byte
-// read per row. The bf16 panel's columns are padded by 16 values so the
-// 8-byte B fragment reads hit distinct banks.
+// 512 KB at K = 1024, for 128 x 8 outputs; 156 MB at T 298).
+//
+// How the rows reach the SMs. One block per tile put T 298 tiles on 132
+// SMs in 2.26 rounds; the f32 kernel (166 registers, its lane partials in
+// local memory) held one 8-warp block per SM, so its tiles ran in three
+// waves. Here the 128 T rows are cut into 16-row units (8 T: 2,384 at T
+// 298), one warp's rows (the f32 route's passes, or one mma tile for
+// bf16). A persistent grid of G blocks takes them in contiguous ranges:
+// block b the units [U b / G, U (b + 1) / G), warp w of its W the w-th of
+// W contiguous shares. G is the SM count and W = min(20, ceil(U / G)): at
+// most 96 registers a thread, so one block per SM (the occupancy API's
+// count). So every block, and so every SM, holds the same count of units
+// to within one: at T 298, 132 blocks of 19 warps, 18 or 19 units on
+// each, one unit a warp, all in one wave. A block gathers the panel of every tile its units touch (at
+// most 4 at T 298: 128 KB f32, 66.5 KB bf16) once, four rows a thread at
+// a time (bf16: two), while the first rows of each warp are on their way
+// to L2 (a bulk prefetch: a pass of f32 rows, 512 bytes of each bf16 row)
+// and its first ring step to registers; then one barrier, after which no
+// warp waits for another. Where a block's tiles would not fit the 227 KB,
+// G grows until they do (then no longer one wave).
+// Each warp streams its rows with 16-byte evict-first loads through a ring
+// of D steps in registers (f32: 4 steps of two float4, bf16: 2 of eight),
+// across its passes and units without a bubble, and writes each output
+// once. A warp load brings 512 bytes of a row (f32), or four loads issued
+// together bring 256-byte runs of 16 rows (bf16: runs of 64 bytes, one per
+// step, were 44% slower). f32: two rows a pass (u2_km: one row of both
+// streams), each lane a stride of 4 columns in 128; one reduce-scatter of
+// the lane partials per pass leaves lane l with entry l, so a warp writes
+// 16 (8) contiguous outputs. bf16: a warp walks K in steps of 64 on its
+// mma tile, four mma k-steps of 16. Within an mma k-step, thread (g, tig)
+// holds k = 4 tig .. 4 tig + 3 of both operands instead of the PTX
+// fragment's k = 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: one permutation
+// of k applied to A and B leaves the product unchanged, and A then loads
+// as one 16-byte read per row. The bf16 panel's columns are padded by 16
+// values so the 8-byte B fragment reads hit distinct banks.
+// union_panel_shape reports a launch's G, W, shared memory and resident
+// blocks per SM.
 //
 // K15b, union_unstaged (exp_union2.py:63-109, the "cat" kernel): the same
 // Y = A @ X as K2 "highest" (csrc/bellunion_spmm.cu) on a BELLUnion layout,
@@ -63,10 +88,14 @@ __device__ __forceinline__ uint16_t bf16_bits(__nv_bfloat16 h) {
   return *reinterpret_cast<uint16_t*>(&h);
 }
 
-constexpr int kPanelWarps = 8;
-constexpr int kPanelThreads = kPanelWarps * 32;  // one block per tile
-constexpr int kM = 8;                            // panel width (b = m = 8)
-constexpr int kBf16Pad = 16;                     // bf16 panel column padding
+constexpr int kM = 8;              // panel width (b = m = 8)
+constexpr int kBf16Pad = 16;       // bf16 panel column padding
+constexpr int kUnitRows = 16;      // a unit: one warp's rows, an mma tile
+constexpr int kUnitsPerTile = 128 / kUnitRows;
+constexpr int kPanelMaxWarps = 20; // 640 threads: <= 96 registers
+constexpr int kF32Depth = 4;       // ring steps (D - 1 in flight)
+constexpr int kBf16Depth = 2;
+constexpr int64_t kPanelSmemLimit = 232448;  // a block's on the H100
 
 struct PanelParams {
   const int32_t* idx;  // (T, K / run) run starts, in 8-row blocks of X
@@ -77,40 +106,112 @@ struct PanelParams {
   int64_t T, K, run, rows;
 };
 
+// tiles that units [ua, ub) touch
+__host__ __device__ __forceinline__ int64_t tiles_of(int64_t ua,
+                                                     int64_t ub) {
+  return ub > ua ? (ub - 1) / kUnitsPerTile - ua / kUnitsPerTile + 1 : 0;
+}
+
+// The calling warp's units [u0, u1), its block's first tile t0 (the panel
+// in slot 0) and the block's tile count nt
+struct Split {
+  int64_t u0, u1, t0, nt;
+};
+
+__device__ __forceinline__ Split split_of(const PanelParams& p) {
+  const int64_t U = p.T * kUnitsPerTile, G = gridDim.x, b = blockIdx.x;
+  const int64_t ua = U * b / G, ub = U * (b + 1) / G;
+  const int64_t W = blockDim.x >> 5, w = threadIdx.x >> 5, n = ub - ua;
+  return {ua + n * w / W, ua + n * (w + 1) / W, ua / kUnitsPerTile,
+          tiles_of(ua, ub)};
+}
+
 // rows [128 T, rows) of Y are zero, as the reference's jnp.pad makes them
 __device__ __forceinline__ void zero_tail(const PanelParams& p) {
   if (blockIdx.x != 0) return;
   for (int64_t i = p.T * 128 * kM + threadIdx.x; i < p.rows * kM;
-       i += kPanelThreads)
+       i += blockDim.x)
     p.y[i] = 0.f;
 }
 
-// Gather tile t's panel into shared memory, column-major with stride S:
-// thread i reads one 16-byte half of the 32-byte X row of panel row
-// k = i % K and writes its four columns. f32, or bf16 bits rounded to
-// nearest even.
+// The panels of the block's tiles t0 .. t0 + nt - 1 into slots 0 .. nt - 1
+// of shared memory, each column-major with stride S (a slot is 8 S
+// values): item i of the nt K is panel row k = i % K of slot i / K; a
+// thread reads the run starts of four items (bf16: two), then their
+// 32-byte X rows, then writes their eight columns. f32, or bf16 bits
+// rounded to nearest even.
 template <bool BF16>
-__device__ __forceinline__ void gather_panel(const PanelParams& p, int64_t t,
-                                             void* panel, int64_t S) {
-  const int64_t K = p.K;
-  const int32_t* row = p.idx + t * (K / p.run);
-  for (int64_t i = threadIdx.x; i < 2 * K; i += kPanelThreads) {
-    const int64_t h = i / K;
-    const int64_t k = i - h * K;
-    const int64_t q = k / p.run;
-    const int64_t src = (int64_t)row[q] * 8 + (k - q * p.run);
-    const float4 v =
-        __ldg(reinterpret_cast<const float4*>(p.x + src * kM) + h);
-    const float f[4] = {v.x, v.y, v.z, v.w};
+__device__ __forceinline__ void gather_panels(const PanelParams& p,
+                                              const Split& s, void* panel,
+                                              int64_t S) {
+  constexpr int kBatch = BF16 ? 2 : 4;  // bf16: its ring holds 64 registers
+  const int K = (int)p.K, run = (int)p.run, n = (int)s.nt * K;
+  const int stride = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * stride) {
+    int32_t start[kBatch];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int64_t at = (4 * h + c) * S + k;
-      if (BF16)
-        static_cast<uint16_t*>(panel)[at] =
-            bf16_bits(__float2bfloat16_rn(f[c]));
-      else
-        static_cast<float*>(panel)[at] = f[c];
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * stride;
+      if (i < n)
+        start[u] = __ldg(p.idx + (s.t0 + i / K) * (K / run) + i % K / run);
     }
+    float4 lo[kBatch], hi[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int k = (i0 + u * stride) % K;
+      if (i0 + u * stride < n) {
+        const float4* src = reinterpret_cast<const float4*>(
+            p.x + ((int64_t)start[u] * 8 + k % run) * kM);
+        lo[u] = __ldg(src);
+        hi[u] = __ldg(src + 1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * stride;
+      if (i < n) {
+        const float f[kM] = {lo[u].x, lo[u].y, lo[u].z, lo[u].w,
+                             hi[u].x, hi[u].y, hi[u].z, hi[u].w};
+        const int64_t at0 = (int64_t)(i / K) * kM * S + i % K;
+#pragma unroll
+        for (int j = 0; j < kM; ++j) {
+          if (BF16)
+            static_cast<uint16_t*>(panel)[at0 + j * S] =
+                bf16_bits(__float2bfloat16_rn(f[j]));
+          else
+            static_cast<float*>(panel)[at0 + j * S] = f[j];
+        }
+      }
+    }
+  }
+}
+
+// `bytes` (a multiple of 16) from the 16-byte aligned global address a into
+// L2, with no register or barrier: a warp's first rows stream in while its
+// block gathers the panels
+__device__ __forceinline__ void prefetch_l2(const float* a, int64_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+               :
+               : "l"(a), "r"((uint32_t)bytes)
+               : "memory");
+}
+
+// One trade step of warp_reduce_scatter and those after it: keep half of
+// the S * 2 entries and trade the other half with the partner lane (the
+// steps are a template recursion, so that every loop has a constant trip
+// count: a bound that depends on an unrolled outer loop left the array
+// indexed at run time, in local memory)
+template <int S, int N>
+__device__ __forceinline__ void reduce_trade(float (&v)[N], int lane) {
+  if constexpr (S >= 1) {
+    const bool upper = lane & S;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const float send = upper ? v[i] : v[i + S];
+      const float keep = upper ? v[i + S] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+    }
+    reduce_trade<S / 2>(v, lane);
   }
 }
 
@@ -125,85 +226,100 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[N],
   for (int o = 16; o >= N; o >>= 1)
 #pragma unroll
     for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
-#pragma unroll
-  for (int s = N / 2; s >= 1; s >>= 1) {
-    const bool upper = lane & s;
-#pragma unroll
-    for (int i = 0; i < s; ++i) {
-      const float send = upper ? v[i] : v[i + s];
-      const float keep = upper ? v[i + s] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, s);
-    }
-  }
+  reduce_trade<N / 2>(v, lane);
   return v[0];
 }
 
-// RP rows of one or two value streams against the f32 panel: acc[r * 8 + j]
-template <int RP, bool FUSED>
-__device__ __forceinline__ void panel_pass(const PanelParams& p,
-                                           const float* xs, int64_t row0,
-                                           int lane, float (&acc)[RP * kM]) {
+__device__ __forceinline__ void fma4(float& s, const float4& a,
+                                     const float4& x) {
+  s = fmaf(a.x, x.x, s);
+  s = fmaf(a.y, x.y, s);
+  s = fmaf(a.z, x.z, s);
+  s = fmaf(a.w, x.w, s);
+}
+
+// f32: a warp walks its rows in passes of RP rows (FUSED: one row of both
+// streams), each pass in steps of 128 columns, lane l columns 4 l .. 4 l + 3
+// of a step; the load stream runs D - 1 steps ahead of the compute stream
+// through ring[D], across passes and units. At a pass's last step the lane
+// partials (FUSED: Yk's plus Ym's) are reduce-scattered and written.
+template <bool FUSED>
+__global__ void __launch_bounds__(kPanelMaxWarps * 32, 1)
+union_panel_f32_kernel(const PanelParams p) {
+  constexpr int RP = FUSED ? 1 : 2;  // rows per pass
+  constexpr int NV = 2;              // value float4s per step and lane
+  constexpr int NA = RP * kM;        // lane partials per stream
+  constexpr int D = kF32Depth;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float* xs = reinterpret_cast<const float*>(smem);
+  const Split s = split_of(p);
+  const int lane = threadIdx.x & 31;
   const int64_t K = p.K;
-  float accb[RP * kM];
+  const int SP = (int)((K + 127) >> 7);  // steps per pass
+  const int64_t rend = s.u1 * kUnitRows;
+  int64_t lrow = s.u0 * kUnitRows, crow = lrow;  // load / compute pass
+  int ls = 0, cs = 0;                            // their steps
+  float4 ring[D][NV];
+  float acc[NA], accb[NA];
 #pragma unroll
-  for (int i = 0; i < RP * kM; ++i) acc[i] = accb[i] = 0.f;
-#pragma unroll 2
-  for (int64_t c = 4 * lane; c < K; c += 128) {
-    float4 xv[kM];
+  for (int i = 0; i < NA; ++i) acc[i] = accb[i] = 0.f;
+
+  auto load = [&](float4 (&v)[NV]) {
+    if (lrow >= rend) return;
+    const int64_t c = (int64_t)ls * 128 + 4 * lane;
 #pragma unroll
-    for (int j = 0; j < kM; ++j)
-      xv[j] = *reinterpret_cast<const float4*>(xs + j * K + c);
-#pragma unroll
-    for (int r = 0; r < RP; ++r) {
-      const float4 a =
-          __ldcs(reinterpret_cast<const float4*>(p.va + (row0 + r) * K + c));
-      float4 b = a;
-      if (FUSED)
-        b = __ldcs(
-            reinterpret_cast<const float4*>(p.vb + (row0 + r) * K + c));
+    for (int i = 0; i < NV; ++i) {
+      const float* src =
+          FUSED ? (i ? p.vb : p.va) + lrow * K : p.va + (lrow + i) * K;
+      v[i] = c < K ? __ldcs(reinterpret_cast<const float4*>(src + c))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (++ls == SP) {
+      ls = 0;
+      lrow += RP;
+    }
+  };
+  auto step = [&](const float4 (&v)[NV]) {
+    const int64_t c = (int64_t)cs * 128 + 4 * lane;
+    if (c < K) {
+      const float* xt = xs + ((crow >> 7) - s.t0) * kM * K + c;
 #pragma unroll
       for (int j = 0; j < kM; ++j) {
-        float& s = acc[r * kM + j];
-        s = fmaf(a.x, xv[j].x, s);
-        s = fmaf(a.y, xv[j].y, s);
-        s = fmaf(a.z, xv[j].z, s);
-        s = fmaf(a.w, xv[j].w, s);
-        if (FUSED) {
-          float& u = accb[r * kM + j];
-          u = fmaf(b.x, xv[j].x, u);
-          u = fmaf(b.y, xv[j].y, u);
-          u = fmaf(b.z, xv[j].z, u);
-          u = fmaf(b.w, xv[j].w, u);
+        const float4 x = *reinterpret_cast<const float4*>(xt + j * K);
+#pragma unroll
+        for (int r = 0; r < RP; ++r) {
+          fma4(acc[r * kM + j], v[FUSED ? 0 : r], x);
+          if (FUSED) fma4(accb[r * kM + j], v[1], x);
         }
       }
     }
-  }
-  if (FUSED)
+    if (++cs == SP) {
+      if (FUSED)
 #pragma unroll
-    for (int i = 0; i < RP * kM; ++i) acc[i] += accb[i];  // Yk + Ym
-}
+        for (int i = 0; i < NA; ++i) acc[i] += accb[i];  // Yk + Ym
+      const float y = warp_reduce_scatter<NA>(acc, lane);
+      if (lane < NA) p.y[crow * kM + lane] = y;  // rows crow .. + RP
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = accb[i] = 0.f;
+      cs = 0;
+      crow += RP;
+    }
+  };
 
-template <bool FUSED>
-__global__ void __launch_bounds__(kPanelThreads)
-union_panel_f32_kernel(const PanelParams p) {
-  // rows per register pass: RP * 8 partial sums per lane and stream
-  constexpr int RP = FUSED ? 2 : 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  const int64_t t = blockIdx.x;
   zero_tail(p);
-  gather_panel<false>(p, t, xs, p.K);
+  if (lane < NV && lrow < rend)  // the first pass's rows: 2 K floats each
+    prefetch_l2(FUSED ? (lane ? p.vb : p.va) + lrow * K
+                      : p.va + (lrow + lane) * K, 4 * K);
+#pragma unroll
+  for (int d = 0; d < D - 1; ++d) load(ring[d]);  // in flight while gathering
+  gather_panels<false>(p, s, smem, K);
   __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll 1
-  for (int pass = 0; pass < 16 / RP; ++pass) {
-    const int64_t row0 = t * 128 + warp * 16 + pass * RP;
-    float acc[RP * kM];
-    panel_pass<RP, FUSED>(p, xs, row0, lane, acc);
-    const float s = warp_reduce_scatter<RP * kM>(acc, lane);
-    if (lane < RP * kM) p.y[row0 * kM + lane] = s;  // rows row0 .. +RP
+  while (crow < rend) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      load(ring[(d + D - 1) % D]);
+      if (crow < rend) step(ring[d]);
+    }
   }
 }
 
@@ -225,52 +341,143 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kPanelThreads)
+// bf16: a warp walks its units, each one mma tile, in steps of 64 columns
+// (four mma k-steps: per lane four 16-byte loads of each of rows g and
+// g + 8, which the warp issues together as 256-byte runs of its 16 rows),
+// the next step's loads in flight through ring[D] while one computes
+__global__ void __launch_bounds__(kPanelMaxWarps * 32, 1)
 union_panel_bf16_kernel(const PanelParams p) {
+  constexpr int D = kBf16Depth;
+  constexpr int KS = 4;  // mma k-steps per step
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* xb = reinterpret_cast<uint16_t*>(smem);
-  const int64_t S = p.K + kBf16Pad;
-  const int64_t t = blockIdx.x;
-  zero_tail(p);
-  gather_panel<true>(p, t, xb, S);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(smem);
+  const Split s = split_of(p);
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;    // fragment row (and B column)
-  const int tig = lane & 3;   // thread in group: k = 4 tig .. 4 tig + 3
-  const int64_t row = t * 128 + warp * 16 + g;
-  const float* v0 = p.va + row * p.K + 4 * tig;
-  const float* v1 = v0 + 8 * p.K;  // row g + 8
-  const uint16_t* xg = xb + g * S + 4 * tig;
+  const int g = lane >> 2;   // fragment row (and B column)
+  const int tig = lane & 3;  // thread in group: k = 4 tig .. 4 tig + 3
+  const int64_t K = p.K, S = K + kBf16Pad;
+  const int SK = (int)((K + 16 * KS - 1) / (16 * KS));  // steps per unit
+  int64_t lu = s.u0, cu = s.u0;  // load / compute unit
+  int lk = 0, ck = 0;            // their steps
+  float4 ring[D][2 * KS];
   float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int64_t k0 = 0; k0 < p.K; k0 += 16) {
-    const float4 a = __ldcs(reinterpret_cast<const float4*>(v0 + k0));
-    const float4 b = __ldcs(reinterpret_cast<const float4*>(v1 + k0));
-    const uint2 x = *reinterpret_cast<const uint2*>(xg + k0);
-    // registers 0/2: row g, k pairs (4tig, +1)/(+2, +3); 1/3: row g + 8
-    mma_bf16(d, pack_bf16(a.x, a.y), pack_bf16(b.x, b.y),
-             pack_bf16(a.z, a.w), pack_bf16(b.z, b.w), x.x, x.y);
+
+  auto load = [&](float4 (&v)[2 * KS]) {
+    if (lu >= s.u1) return;
+    const int64_t k0 = (int64_t)16 * KS * lk;
+    const float* v0 = p.va + (lu * kUnitRows + g) * K + k0 + 4 * tig;
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      if (k0 + 16 * j < K) {
+        v[2 * j] = __ldcs(reinterpret_cast<const float4*>(v0 + 16 * j));
+        v[2 * j + 1] = __ldcs(  // row g + 8
+            reinterpret_cast<const float4*>(v0 + 8 * K + 16 * j));
+      }
+    if (++lk == SK) {
+      lk = 0;
+      ++lu;
+    }
+  };
+  auto step = [&](const float4 (&v)[2 * KS]) {
+    const int64_t k0 = (int64_t)16 * KS * ck;
+    const uint16_t* xg =
+        xb + ((cu >> 3) - s.t0) * kM * S + g * S + k0 + 4 * tig;
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      if (k0 + 16 * j < K) {
+        const uint2 x = *reinterpret_cast<const uint2*>(xg + 16 * j);
+        const float4 &a = v[2 * j], &b = v[2 * j + 1];
+        // registers 0/2: row g, k pairs (4tig, +1)/(+2, +3); 1/3: g + 8
+        mma_bf16(d, pack_bf16(a.x, a.y), pack_bf16(b.x, b.y),
+                 pack_bf16(a.z, a.w), pack_bf16(b.z, b.w), x.x, x.y);
+      }
+    if (++ck == SK) {
+      float* y = p.y + (cu * kUnitRows + g) * kM + 2 * tig;
+      *reinterpret_cast<float2*>(y) = make_float2(d[0], d[1]);
+      *reinterpret_cast<float2*>(y + 8 * kM) = make_float2(d[2], d[3]);
+      d[0] = d[1] = d[2] = d[3] = 0.f;
+      ck = 0;
+      ++cu;
+    }
+  };
+
+  zero_tail(p);
+  if (lane < kUnitRows && lu < s.u1)  // the first unit's rows: 128 columns
+    prefetch_l2(p.va + (lu * kUnitRows + lane) * K, 4 * (K < 128 ? K : 128));
+#pragma unroll
+  for (int i = 0; i < D - 1; ++i) load(ring[i]);  // in flight while gathering
+  gather_panels<true>(p, s, smem, S);
+  __syncthreads();
+  while (cu < s.u1) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      load(ring[(i + D - 1) % D]);
+      if (cu < s.u1) step(ring[i]);
+    }
   }
-  float* y = p.y + row * kM + 2 * tig;
-  *reinterpret_cast<float2*>(y) = make_float2(d[0], d[1]);
-  *reinterpret_cast<float2*>(y + 8 * kM) = make_float2(d[2], d[3]);
+}
+
+// A panel launch's shape: grid G, warps W a block, dynamic shared memory
+// and the resident blocks per SM (the occupancy API's count)
+struct PanelShape {
+  int64_t grid, warps, smem, per_sm;
+};
+
+// G = the SM count, raised until every block's tiles fit in shared memory;
+// W = min(kPanelMaxWarps, ceil(U / G)). One block per SM: the occupancy
+// API must find room for one (where U > G W it finds no more: 20 warps of
+// 94-96 registers fill the register file)
+template <typename Kernel>
+int panel_shape(Kernel kernel, int64_t T, int64_t slot_bytes,
+                PanelShape& L) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t U = T * kUnitsPerTile, fit = kPanelSmemLimit / slot_bytes;
+  if (U < 1 || fit < 2) return (int)cudaErrorInvalidValue;
+  // a range of n units spans at most (n + 6) / 8 + 1 tiles
+  const int64_t most = kUnitsPerTile * (fit - 1) + 1;
+  const int64_t G = (U + most - 1) / most > sms ? (U + most - 1) / most
+                                                 : (int64_t)sms;
+  const int64_t w = (U + G - 1) / G;
+  int64_t nt = 0;
+  for (int64_t b = 0; b < G; ++b) {
+    const int64_t n = tiles_of(U * b / G, U * (b + 1) / G);
+    nt = n > nt ? n : nt;
+  }
+  L.grid = G;
+  L.warps = w < kPanelMaxWarps ? w : kPanelMaxWarps;
+  L.smem = nt * slot_bytes;
+  e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)L.smem);
+  int occ = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, kernel, (int)(32 * L.warps), (size_t)L.smem);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  L.per_sm = occ;
+  return 0;
 }
 
 template <typename Kernel>
-int launch_panel(Kernel kernel, const PanelParams& p, size_t smem,
+int launch_panel(Kernel kernel, const PanelParams& p, int64_t slot_bytes,
                  cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(kernel),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<(unsigned)p.T, kPanelThreads, smem, stream>>>(p);
+  PanelShape L;
+  const int e = panel_shape(kernel, p.T, slot_bytes, L);
+  if (e) return e;
+  kernel<<<(unsigned)L.grid, (unsigned)(32 * L.warps), (size_t)L.smem,
+           stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+int64_t f32_slot(int64_t K) { return (int64_t)kM * K * sizeof(float); }
+int64_t bf16_slot(int64_t K) {
+  return (int64_t)kM * (K + kBf16Pad) * sizeof(uint16_t);
+}
 // K15b walks K2's groups: one warp per 8-row group, 16 per 128-row tile;
 // with nothing shared, a tile's warps go in two blocks of 8, so that three
 // blocks (24 warps) fit an SM at m <= 9
@@ -544,10 +751,9 @@ extern "C" int union_panel_f32(const void* idx, const void* va,
   p.x = static_cast<const float*>(x);
   p.y = static_cast<float*>(y);
   p.T = T; p.K = K; p.run = run; p.rows = rows;
-  const size_t smem = (size_t)kM * K * sizeof(float);
-  return vb ? launch_panel(union_panel_f32_kernel<true>, p, smem,
+  return vb ? launch_panel(union_panel_f32_kernel<true>, p, f32_slot(K),
                            (cudaStream_t)stream)
-            : launch_panel(union_panel_f32_kernel<false>, p, smem,
+            : launch_panel(union_panel_f32_kernel<false>, p, f32_slot(K),
                            (cudaStream_t)stream);
 }
 
@@ -561,10 +767,30 @@ extern "C" int union_panel_bf16(const void* idx, const void* va,
   p.x = static_cast<const float*>(x);
   p.y = static_cast<float*>(y);
   p.T = T; p.K = K; p.run = run; p.rows = rows;
-  const size_t smem = (size_t)kM * (K + kBf16Pad) * sizeof(uint16_t);
-  return launch_panel(union_panel_bf16_kernel, p, smem, (cudaStream_t)stream);
+  return launch_panel(union_panel_bf16_kernel, p, bf16_slot(K),
+                      (cudaStream_t)stream);
 }
 
+// The launch shape of union_panel_f32 (kind 0; kind 1 with two streams) or
+// union_panel_bf16 (kind 2) at (T, K): out = {grid, warps a block, dynamic
+// shared memory bytes, resident blocks per SM}
+extern "C" int union_panel_shape(int64_t kind, int64_t T, int64_t K,
+                                 void* out) {
+  PanelShape L;
+  int e;
+  if (kind == 0)
+    e = panel_shape(union_panel_f32_kernel<false>, T, f32_slot(K), L);
+  else if (kind == 1)
+    e = panel_shape(union_panel_f32_kernel<true>, T, f32_slot(K), L);
+  else if (kind == 2)
+    e = panel_shape(union_panel_bf16_kernel, T, bf16_slot(K), L);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (e) return e;
+  int64_t* o = static_cast<int64_t*>(out);
+  o[0] = L.grid; o[1] = L.warps; o[2] = L.smem; o[3] = L.per_sm;
+  return 0;
+}
 extern "C" int union_unstaged_f32(const void* vals, const void* sb_ptr,
                                   const void* sb_run, const void* xr_ptr,
                                   const void* xr_run, const void* ucols,

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "union_panel_f32": [_P] * 5 + [_I] * 4 + [_P],
     "union_panel_bf16": [_P] * 4 + [_I] * 4 + [_P],
     "union_unstaged_f32": [_P] * 10 + [_I] * 4 + [_P],
+    "union_panel_shape": [_I] * 3 + [_P],
     # grid_probes.cu
     "grid_copy_f32": [_P] * 2 + [_I] * 2 + [_P],
     "grid_steps_f32": [_P] * 3 + [_I] * 2 + [_P],
@@ -66,6 +67,7 @@ _SIGNATURES = {
     "gather_sum_f32": [_P] * 3 + [_I] * 7 + [_P],
     "gather_taa0_f32": [_P] * 3 + [_I] * 4 + [_P],
     "gather_taa1_f32": [_P] + [_I] * 3 + [_P, _I, _P] + [_I] * 3 + [_P],
+    "gather_taa1_wide_f32": [_P] * 3 + [_I] * 3 + [_P],
     # spmm_probes.cu
     "spmm_probe_f32": [_P] * 4 + [_I] * 4 + [_P],
     "spmm_probe_bf16": [_P] * 4 + [_I] * 4 + [_P],

@@ -30,7 +30,8 @@ cols (16 T, S) int32 are block columns, X (n, 8) f32 with n = 128 T.
 blocked-ELL probe's v4_gather (kernels/spmm_probes.py) launches it.
 
 A wrapper given CUDA tensors checks them and launches its kernel
-(csrc/gather_probes.cu; g5: csrc/grid_probes.cu) or raises; given CPU
+(csrc/gather_probes.cu: g3 `taa1`, g3w `taa1_wide`; g5:
+csrc/grid_probes.cu) or raises; given CPU
 tensors it runs the plain version (`*_ref`). Each wrapper counts its
 launches in `.launches`, each plain version its calls in `.calls`.
 `PLAIN_OF` maps each wrapper to the plain arithmetic without a count: the
@@ -304,14 +305,6 @@ def g2_taa0(idx, X, P):
     return Y
 
 
-def _taa1(idx, src, row_stride, tile_stride, width, P):
-    T = idx.shape[0] // M
-    Y = torch.empty((M * T, P), dtype=torch.float32, device=src.device)
-    launch("gather_taa1_f32", src, row_stride, tile_stride, width, idx,
-            idx.shape[1], Y, T, M, P)
-    return Y
-
-
 def _check_taa1(idx, src, width, P):
     check_operands(idx, src, dtypes=(torch.int32, torch.float32))
     if idx.dim() != 2 or idx.shape[0] % M or not idx.shape[0] or \
@@ -335,14 +328,17 @@ def g3_taa1(idx, XT):
         raise ValueError(f"XT must be ({M}, n >= {P}), n a multiple of 4, "
                          f"got {tuple(XT.shape)}")
     _check_taa1(idx, XT, P, P)
-    Y = _taa1(idx, XT, XT.shape[1], 0, P, P)
+    T = idx.shape[0] // M
+    Y = torch.empty((M * T, P), dtype=torch.float32, device=XT.device)
+    launch("gather_taa1_f32", XT, XT.shape[1], 0, P, idx, P, Y, T, M, P)
     g3_taa1.launches += 1
     return Y
 
 
 def g3w_taa1_wide(idx, XTW, P):
     """K15e g3w_taa1_wide (exp_gather.py:189-216): g3 from the tile's own
-    (8, W) source block, W = XTW.shape[1]."""
+    (8, W) source block, W = XTW.shape[1]; its kernel stages nothing (one
+    warp per source row gathers from global memory)."""
     if XTW.device.type == "cpu":
         return g3w_taa1_wide_ref(idx, XTW, P)
     if XTW.dim() != 2 or tuple(XTW.shape) != tuple(idx.shape):
@@ -350,7 +346,9 @@ def g3w_taa1_wide(idx, XTW, P):
                          f"{tuple(XTW.shape)}")
     W = XTW.shape[1]
     _check_taa1(idx, XTW, W, P)
-    Y = _taa1(idx, XTW, W, M * W, W, P)
+    Y = torch.empty((idx.shape[0], P), dtype=torch.float32,
+                    device=XTW.device)
+    launch("gather_taa1_wide_f32", XTW, idx, Y, idx.shape[0], W, P)
     g3w_taa1_wide.launches += 1
     return Y
 

@@ -17,7 +17,9 @@ zero (the reference's jnp.pad):
                                    streams: Y = Yk + Ym
 
 cols (T, UC) and rcols (T, UC // 8) are int32 block-row starts, vals
-(128 T, K = 8 UC) f32, X (rows >= 128 T, 8) f32.
+(128 T, K = 8 UC) f32, X (rows >= 128 T, 8) f32; K at most MAX_K (two
+tiles' panels in a block's shared memory). The kernels spread the rows
+over the SMs in 16-row units on a persistent grid (`panel_launch_shape`).
 
 K15b, union_unstaged(A, X) (maxwell_tpu/bench/exp_union2.py's "cat"
 kernel): Y = A @ X on a BELLUnion layout, the same product as K2
@@ -44,6 +46,12 @@ from maxwell_tpu_torch.kernels.bsr_spmm import _launch
 from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 
 PANEL_WIDTH = 8  # the probe's b = m = 8
+# a block of the panel kernels holds the panels of at least two tiles in
+# the H100's 232,448 bytes of shared memory: f32 8 K floats each, bf16
+# 8 (K + 16) values of 2 bytes
+SMEM_LIMIT = 232448
+MAX_K = {False: SMEM_LIMIT // (2 * 8 * 4),
+         True: SMEM_LIMIT // (2 * 8 * 2) - 16}
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +125,7 @@ def union_unstaged_ref(A: BELLUnion, X: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_panel(idx, vals, X, run, vals_b=None) -> None:
+def _check_panel(idx, vals, X, run, vals_b=None, bf16=False) -> None:
     if X.dtype != torch.float32 or any(
             v.dtype != torch.float32 for v in (vals, vals_b) if v is not None):
         raise ValueError("the panel kernels take f32 X and values, got "
@@ -128,6 +136,9 @@ def _check_panel(idx, vals, X, run, vals_b=None) -> None:
     T, K = idx.shape[0], idx.shape[1] * run
     if K % 16:
         raise ValueError(f"K = {K} must be a multiple of 16")
+    if K > MAX_K[bf16]:
+        raise ValueError(f"K = {K} > {MAX_K[bf16]}: two panels leave a "
+                         "block's shared memory")
     for v in (vals, vals_b):
         if v is not None and tuple(v.shape) != (128 * T, K):
             raise ValueError(f"values must be ({128 * T}, {K}), got "
@@ -149,7 +160,7 @@ def _check_panel(idx, vals, X, run, vals_b=None) -> None:
 def _panel_cuda(name, idx, vals, X, run, vals_b=None):
     from maxwell_tpu_torch.kernels import _build
 
-    _check_panel(idx, vals, X, run, vals_b)
+    _check_panel(idx, vals, X, run, vals_b, name == "union_panel_bf16")
     Y = torch.empty_like(X)
     T, K = idx.shape[0], idx.shape[1] * run
     lib = _build.load()
@@ -167,6 +178,24 @@ def _panel_cuda(name, idx, vals, X, run, vals_b=None):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return Y
+
+
+def panel_launch_shape(T: int, K: int, kind: str = "f32") -> dict:
+    """The launch the panel kernel of `kind` ("f32", "f32_fused" for u2_km,
+    "bf16") makes at (T, K) on the current card: grid (blocks), warps a
+    block, dynamic shared memory bytes and resident blocks per SM (the
+    occupancy API's count); see csrc/union_probes.cu. Needs the card."""
+    import ctypes
+
+    from maxwell_tpu_torch.kernels import _build
+
+    kinds = ("f32", "f32_fused", "bf16")
+    out = (ctypes.c_int64 * 4)()
+    rc = _build.load().union_panel_shape(kinds.index(kind), T, K,
+                                         ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"union_panel_shape: CUDA error {rc}")
+    return dict(zip(("grid", "warps", "smem", "blocks_per_sm"), out))
 
 
 def u0_hi(cols, vals, X):

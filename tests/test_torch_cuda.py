@@ -626,12 +626,15 @@ def test_cuda_dist_solve_matches_cpu_plain(cuda_device, kernel, impl):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,UC", [(10, 16), (37, 32)])
+@pytest.mark.parametrize("T,UC", [(10, 16), (37, 32), (300, 16), (900, 16)])
 def test_cuda_union_panel_kernels_match_plain(cuda_device, T, UC):
     """K15a's kernels against their plain versions on the probe's own
-    inputs at small sizes (T > 8 and not a multiple of 8): 1e-5 of
+    inputs (T > 8 and not a multiple of 8; T 300 not a multiple of the SM
+    count; at T 900 more 16-row units than the persistent grid has warps,
+    so warps walk several units and blocks several tiles): 1e-5 of
     max|plain| (u0_def: against the plain product of bf16-rounded
-    operands), rows from 128 T on zero."""
+    operands), rows from 128 T on zero, and two launches bit for bit
+    equal (each output written once by one thread)."""
     d = exp_union.make_inputs(T, UC)
     t = {k: torch.from_numpy(v).to(cuda_device) for k, v in d.items()
          if k != "n"}
@@ -639,21 +642,29 @@ def test_cuda_union_panel_kernels_match_plain(cuda_device, T, UC):
                                                "vals_b", "X"))
     up.reset_counts()
     cases = [
-        (up.u0_hi(cols, vals, X), up.panel_plain(cols, vals, X, 8)),
-        (up.u0_def(cols, vals, X),
+        (lambda: up.u0_hi(cols, vals, X), up.panel_plain(cols, vals, X, 8)),
+        (lambda: up.u0_def(cols, vals, X),
          up.panel_plain(cols, vals, X, 8, bf16=True)),
-        (up.u1_runs(rcols, vals, X), up.panel_plain(rcols, vals, X, 64)),
-        (up.u2_km(rcols, vals, vb, X),
+        (lambda: up.u1_runs(rcols, vals, X),
+         up.panel_plain(rcols, vals, X, 64)),
+        (lambda: up.u2_km(rcols, vals, vb, X),
          up.panel_plain(rcols, vals, X, 64, vals_b=vb)),
     ]
-    torch.cuda.synchronize()
-    for got, want in cases:
+    for call, want in cases:
+        got, again = call(), call()
+        torch.cuda.synchronize()
         assert got.shape == X.shape
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
         assert not got[128 * T:].any()
+        assert torch.equal(got, again)
     c = up.counts()
-    assert all(c[fn.__name__] == 1 for fn in up.KERNELS[:4])
+    assert all(c[fn.__name__] == 2 for fn in up.KERNELS[:4])
     assert not any(c[fn.__name__] for fn in up.PLAIN)
+    for kind in ("f32", "f32_fused", "bf16"):
+        shape = up.panel_launch_shape(T, 8 * UC, kind)
+        assert shape["blocks_per_sm"] >= 1 and shape["smem"] > 0
+        if T == 900:
+            assert 8 * T > shape["grid"] * shape["warps"], (kind, shape)
 
 
 @pytest.mark.cuda
@@ -862,12 +873,12 @@ def test_cuda_stream_probes_persistent(cuda_device, tiles, S, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,S", [(10, 64), (37, 20)])
+@pytest.mark.parametrize("T,S", [(10, 64), (37, 20), (300, 64)])
 def test_cuda_gather_probes_match_plain(cuda_device, T, S):
     """K15e's seven kernels against their plain versions on the probe's
-    own draws at small T and a ragged S (1e-5 of max|plain|), and g5
-    bit for bit against K15d's e0; each launched once, no plain version
-    called."""
+    own draws at small T, a ragged S and T 300 (1e-5 of max|plain|;
+    g3w_taa1_wide, a gather, bit for bit), and g5 bit for bit against
+    K15d's e0; each launched once, no plain version called."""
     t = {k: torch.from_numpy(v).to(cuda_device)
          for k, v in exp_gather.make_inputs(T, S).items()}
     X = t["X"]
@@ -887,6 +898,8 @@ def test_cuda_gather_probes_match_plain(cuda_device, T, S):
         assert got.shape == want.shape, kern.__name__
         assert ((got - want).abs().max()
                 / want.abs().max()).item() <= 1e-5, kern.__name__
+        if kern is gpr.g3w_taa1_wide:
+            assert torch.equal(got, want)
     assert torch.equal(gpr.g5_floor(X, T), gp.e0_grid1(X, T))
     c = gpr.counts()
     assert c["g5_floor"] == 2 and gp.counts()["e0_grid1"] == 1

@@ -155,6 +155,30 @@ def test_library_call_matches_plain(data, name):
     assert (got - want).abs().max() <= tol * want.abs().max()
 
 
+def test_touched_sectors_counts_distinct_sectors(data):
+    """touched_sectors (g3w's bound) against a brute-force count of the
+    distinct 32-byte sectors (8 floats) each row's first P indices touch:
+    on rows built to repeat indices inside one sector, to hit one sector
+    only and to hit every sector of a short row, and on the probe's own
+    draws, where it is about 1 - e^-1 of the row's 512 sectors."""
+    def brute(idx, P):
+        return sum(len({int(v) // 8 for v in row[:P]}) for row in idx)
+
+    idx = np.zeros((3, 24), dtype=np.int32)
+    idx[0, :8] = [3, 5, 3, 7, 0, 8, 15, 16]  # sectors {0, 1, 2}
+    idx[1] = 9  # one sector
+    idx[2, :16] = np.arange(16) * 8  # 16 sectors, the rest sector 0
+    for P in (4, 8, 16, 24):
+        assert exp_gather.touched_sectors(torch.from_numpy(idx), P) == \
+            brute(idx, P)
+    assert exp_gather.touched_sectors(torch.from_numpy(idx), 8) == 3 + 1 + 8
+    draws = data["idx1w"]
+    n = exp_gather.touched_sectors(torch.from_numpy(draws), P)
+    assert n == brute(draws, P)
+    share = n / (draws.shape[0] * W / 8)
+    assert abs(share - (1 - np.exp(-P / (W / 8)))) < 0.01
+
+
 def _digest(name):
     path = os.path.join(ROOT, name)
     if not os.path.exists(path):

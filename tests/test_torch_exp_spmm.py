@@ -232,20 +232,24 @@ def test_panel_ring_staged_at_every_m(monkeypatch, m):
 
 
 @pytest.mark.parametrize("m", [8, 128])
-@pytest.mark.parametrize("name", ["v3_stream", "v3b_onedot"])
+@pytest.mark.parametrize("name", ["v3_stream", "v3b_onedot", "v2_panel_def",
+                                  "v5_batched_def"])
 def test_stream_library_calls_match_plain(port_layout, name, m):
-    """The stream variants' two library calls: torch.matmul on the probe's
-    own f32 operands (TF32 allowed for that call only, the setting restored
-    after) and on operands rounded to bf16 beforehand; both within 1e-2 of
-    max|plain|."""
+    """The bf16 variants' two library calls (the stream variants' and the
+    _def rungs'): one PyTorch call on the probe's own f32 operands (TF32
+    allowed for that call only, the setting restored after) and the same
+    on operands rounded to bf16 beforehand; both within 1e-2 of max|plain|
+    (the plain product of bf16-rounded operands for the _def rungs)."""
     K, A = port_layout
     X = torch.from_numpy(_x(A.n_padded, m))
     V = spp.panel_values(A.blocks)
-    want = spp.stream_plain(V, X)
+    want = spp.PLAIN_OF[getattr(spp, name)](*exp_spmm.args_of(
+        name, V, A.cols, X))
     prev = torch.backends.cuda.matmul.allow_tf32
     what, call, as_plain, tol = exp_spmm.library(
         name, V, A.cols, X, torch_csr(K, "cpu"), A.n)
-    what2, call2, as_plain2, tol2 = exp_spmm.library_bf16(V, X)
+    what2, call2, as_plain2, tol2 = exp_spmm.library_bf16(name, V, A.cols,
+                                                          X)
     assert "f32" in what and "bf16" in what2
     for c, ap, t in ((call, as_plain, tol), (call2, as_plain2, tol2)):
         got = ap(c())
@@ -283,8 +287,10 @@ def test_probe_on_cpu_writes_only_out(tmp_path, monkeypatch):
             assert res[name]["library"]
         for name in ("v2_panel_def", "v5_batched_def"):
             assert 0 < res[name]["rel_err_vs_f32"] < 2e-2
-        for name in ("v3_stream", "v3b_onedot"):
+        for name in ("v3_stream", "v3b_onedot", "v2_panel_def",
+                     "v5_batched_def"):
             assert res[name]["library_bf16"]
+            assert "f32" in res[name]["library"]
         assert res["v0_current"]["max_abs_err"] == 0.0
         assert res["v7_pairs"]["max_abs_err"] == 0.0
         assert res["v9_km"]["rel_err_vs_f64"] < 1e-5

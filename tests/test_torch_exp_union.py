@@ -114,6 +114,34 @@ def test_u0_def_rounds_operands_to_bf16(data):
     assert 1e-4 < diff <= 2e-2
 
 
+@pytest.mark.parametrize("name", [*exp_union.VARIANTS, "u0_def_bf16"])
+def test_library_call_matches_plain(data, name):
+    """Each variant's library call (the one PyTorch call the probe times
+    beside its kernel) computes the plain version's function within its
+    stated bound: the f32 bmm calls 1e-5 of max|plain|; u0_def's call on
+    the f32 operands (TF32 allowed for that call only, the setting restored
+    after) and its second call on operands rounded to bf16 beforehand
+    (`u0_def_bf16`, a bf16 output) 1e-2 against the plain product of
+    bf16-rounded operands."""
+    t = _torch(data)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    if name == "u0_def_bf16":
+        what, call, as_plain, tol = exp_union.library_bf16(t, T, 8 * UC)
+        name = "u0_def"
+        assert "bf16" in what
+    else:
+        what, call, as_plain, tol = exp_union.library(name, t, T, 8 * UC)
+    key, run, streams, bf16 = exp_union.VARIANTS[name]
+    want = up.panel_plain(t[key], t["vals"], t["X"], run, bf16=bf16,
+                          vals_b=t["vals_b"] if streams == 2 else None)
+    got = as_plain(call())
+    assert what and got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= tol * want.abs().max()
+    assert tol == (exp_union.LIB_TOL_BF16 if bf16 else exp_union.TOL)
+    assert not got[128 * T:].any()
+    assert torch.backends.cuda.matmul.allow_tf32 == prev
+
+
 def test_inputs_are_the_reference_draws():
     """make_inputs draws the reference's arrays in its order
     (exp_union.py:40-48)."""
@@ -191,6 +219,9 @@ def test_probes_on_cpu_write_only_out(tmp_path, monkeypatch):
     assert r1["device"] == r2["device"] == "cpu"
     for name in ("u0_hi", "u0_def", "u1_runs", "u2_km"):
         assert r1[name]["rel_err"] == 0.0 and "time_s" not in r1[name]
+        assert r1[name]["library"] and "launch" not in r1[name]
+    assert r1["u0_def"]["library_bf16"]
+    assert "f32" in r1["u0_def"]["library"]
     assert list(r2["variants"]) == list(exp_union2.VARIANTS)
     for name, v in r2["variants"].items():
         assert (v["chunk_lanes"], v["pack"]) == exp_union2.VARIANTS[name]
@@ -217,7 +248,8 @@ def _meta(shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("bad", ["f64_x", "wide_x", "short_x", "vals_shape",
-                                 "k_not_16", "idx_int64", "non_contiguous"])
+                                 "k_not_16", "k_past_smem", "idx_int64",
+                                 "non_contiguous"])
 def test_panel_wrappers_reject_bad_device_input(bad):
     """A tensor that is not on the CPU takes the kernel path, which checks
     its input before any build or launch (meta tensors stand in for CUDA
@@ -239,6 +271,11 @@ def test_panel_wrappers_reject_bad_device_input(bad):
     elif bad == "k_not_16":
         idx, ridx = _meta((Tm, 1), torch.int32), _meta((Tm, 1), torch.int32)
         vals = _meta((128 * Tm, 8))
+    elif bad == "k_past_smem":  # two panels leave a block's shared memory
+        UCb = (up.MAX_K[True] + 16) // 8
+        idx = _meta((Tm, UCb), torch.int32)
+        ridx = _meta((Tm, UCb // 8), torch.int32)
+        vals = _meta((128 * Tm, 8 * UCb))
     elif bad == "idx_int64":
         idx, ridx = idx.long(), ridx.long()
     else:
