@@ -59,8 +59,10 @@ Phases, in order; any failure raises and the process exits non-zero:
                time-to-1e-8 row), counts zeroed just before and read just
                after; residuals verified with an f64 pencil afterwards
   6. stencil   the tap-stencil kernel against its plain version at 64^3,
-               modes K, M, KM at m in {1, 9}, timed as in phase 3 (the
-               library call: torch.sparse.mm on the CSR of the same taps)
+               modes K, M, KM at m in {1, 9, 17} on the PEC and an
+               all-ones mask, and fused K/M at m 171 (two column passes),
+               timed as in phase 3 (the library call: torch.sparse.mm on
+               the CSR of the same taps)
   7. dielectric  configs/config7_dielectric.json through the CLI on cuda
   8. bsr kernels  the blocked-ELL kernels (SpMM, windowed SpMM, SpMV)
                against their plain versions on K and M of the 24^3 and 16^3
@@ -130,8 +132,12 @@ Phases, in order; any failure raises and the process exits non-zero:
                exp_gather.run (T 298, S 64: g0-g5, g3w), counts zeroed
                just before and read just after; every probe kernel (and
                its library call) within 1e-5 of max|plain| (the _def
-               variants against bf16-rounded operands), launched, and no
-               plain version called; one JSON line per variant
+               variants against bf16-rounded operands; those and the
+               _hi rungs bit for bit across two runs), launched, and no
+               plain version called; one JSON line per variant, and a
+               def_launch line: v2_panel_def's unit, pass width, largest
+               union and shared memory, both _def rungs' registers and
+               resident blocks per SM at each m
  21. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
@@ -634,8 +640,10 @@ def stencil_csr(pencil, want_K, want_M):
 def phase_stencil_kernels(pencil):
     """The tap-stencil kernel against its plain version at the 64^3 shapes,
     on the PEC mask and on an all-ones one (the mask is data: zero only on
-    the padding rows), at m 1, 9 and 17. Returns the stats of the main
-    path's case (fused K/M at m = 9, PEC)."""
+    the padding rows), at m 1, 9 and 17, then fused K/M on the PEC mask at
+    m 171 (two column passes, each launch in place at X's row stride).
+    Returns the stats of the main path's case (fused K/M at m = 9, PEC),
+    with the m 171 case's under "m171"."""
     from maxwell_tpu_torch.kernels import stencil_taps as kst
 
     dev = torch.device("cuda")
@@ -652,12 +660,16 @@ def phase_stencil_kernels(pencil):
     st = {"max_abs_err": 0.0}
     for mask_kind, mask in (("pec", pencil.mask), ("ones", ones)):
         rows = mask.sum().item()  # unmasked rows compute, masked skip
-        for m in (1, 9, 17):
+        for m in (1, 9, 17, 171):
+            if m == 171 and mask_kind != "pec":
+                continue
             # random on every row, masked and padding ones too: the kernel
             # applies both masks itself
             X = torch.from_numpy(
                 rng.standard_normal((n_pad, m)).astype(np.float32)).to(dev)
             for mode, (want_K, want_M) in STENCIL_MODES.items():
+                if m == 171 and mode != "KM":
+                    continue
                 kern = lambda: kst.stencil_taps(
                     X, mask, pencil.taps, pencil.shape, want_K, want_M)
                 plain = lambda: kst.stencil_taps_ref(
@@ -693,6 +705,12 @@ def phase_stencil_kernels(pencil):
                     # LOBPCG's fused W apply
                     st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by, library_ms=library_ms)
+                if m == 171:
+                    st["m171"] = {
+                        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": library_ms,
+                        "passes": [list(p) for p in kst.column_passes(m)]}
     del libs
     torch.cuda.empty_cache()
     return st
@@ -1841,6 +1859,10 @@ def phase_spmm_and_gather_probes():
         for name, row in r1[w].items():
             log({"probe": "exp_spmm", "variant": name, "m": int(w[1:]),
                  **row})
+    # the _def rungs' launch: v2's unit, pass width, largest union and
+    # shared memory; both rungs' registers and resident blocks per SM
+    log({"def_launch": {name: {w: r1[w][name]["launch"] for w in widths}
+                        for name in ("v2_panel_def", "v5_batched_def")}})
     log({"phase": "exp_gather", "seconds": t2 - t1,
          **{k: v for k, v in r2.items() if k not in GATHER_PROBES}})
     for name in GATHER_PROBES:
@@ -1964,7 +1986,7 @@ def main():
     # library call on operands rounded beforehand
     log({"kernels": [{**entry(name), "path": path,
                       **{w: stats[name][w] for w in (
-                          "m1", "m8", "m9", "m32", "m64", "m128",
+                          "m1", "m8", "m9", "m32", "m64", "m128", "m171",
                           "launch_floor_ms", "unit_bytes", "library_bf16_ms")
                          if w in stats[name]}}
                      for name, path in paths.items()]})

@@ -3,14 +3,16 @@ maxwell_tpu/bench/exp_spmm.py on the RCM brick's K (24^3: n = 38,088, 4,768
 block rows of S = 64 slots, a 78.1 MB value panel). It splits the cost of
 K8 (the blocked-ELL SpMM) into the value stream, the X gather and the
 product's shape, as a ladder of kernels that each differ from their
-neighbour in one thing (16 warps per 128-row tile; v3 and v3b stream the
-values persistently, one block per SM):
+neighbour in one thing (blocks of 8 warps, one per block row; v3 and v3b
+stream the values persistently, one block per SM):
 
   v5_batched_hi   Y = A X, X slices read from L1/L2 as used, 3xTF32 mma
   v1_panel_hi     v5_hi with each row's X panel staged in shared memory
   v6_smem_hi      v5_hi with the tile's cols staged in shared memory
-  v5_batched_def  v5 with bf16 operands, mma.sync m16n8k16 (transposed)
-  v2_panel_def    v1 with bf16 operands
+  v5_batched_def  v5 with bf16 operands, mma.sync m16n8k16 (transposed),
+                  X by 16-byte loads
+  v2_panel_def    v5_def with X through shared memory: per 8-row unit the
+                  union of its block columns, each slice staged once
   v3_stream       no gather: each block row @ the fixed panel X[0 : S b]
   v3b_onedot      v3's function as one (64, S b) product per 64 rows
   v4_gather       the gather alone: per tile the sum of its slices
@@ -27,9 +29,11 @@ The layout is the port's BSRMatrix.from_csr (its slot order follows
 scipy's builder, not the reference's); X is drawn from numpy's
 default_rng(m). Per variant and m: ms (median of 20 launches), plain_ms,
 max_abs_err against the plain version (the run fails above 1e-5 of
-max|plain|, or where a _hi variant's second run differs from its first,
-`bitwise_repeat`; the _def variants against the plain product of bf16-rounded
-operands, with their error against the f32 product beside), bound_ms /
+max|plain|, or where a _hi or _def variant's second run differs from its
+first, `bitwise_repeat`; the _def variants against the plain product of
+bf16-rounded operands, with their error against the f32 product beside, and
+their launch: v2's unit, pass width, largest union and shared memory, on
+the card the registers and resident blocks of both), bound_ms /
 bound_by at the card's published rates (the probe's inputs once: values,
 cols, X, Y; 2 nbr b S b m operations at f32 for _hi, bf16 for _def, v3,
 v3b), roofline_ms and pct_roofline (the reference's yardsticks over the
@@ -203,11 +207,12 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
             got, want = kern(*args), plain(*args)
             err, scale = held(name, got, want)
             row = {"max_abs_err": err, "rel_err": err / scale}
-            if name in HI:  # one writer per output, no atomics
+            if name in HI + DEF:  # one writer per output, no atomics
                 row["bitwise_repeat"] = torch.equal(got, kern(*args))
                 if not row["bitwise_repeat"]:
                     raise AssertionError(f"{name}: two runs differ")
             if name in DEF:
+                row["launch"] = _def_launch(name, cols, X, timed)
                 f32 = spp.product_plain(V, cols, X)
                 row["err_vs_f32"] = (got - f32).abs().max().item()
                 row["rel_err_vs_f32"] = (row["err_vs_f32"]
@@ -248,6 +253,23 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
         res.update(_beside(A, AP, X, KM, m, roofs, bw))
         results[f"m{m}"] = res
     return results
+
+
+def _def_launch(name, cols, X, timed) -> dict:
+    """A _def rung's launch at X's width: v2's host plan (unit, pass width,
+    passes, largest union, shared memory), and on the card the kernel's
+    warps, registers, local memory and resident blocks per SM."""
+    m = X.shape[1]
+    if name == "v5_batched_def":
+        out = {"rows_a_warp": 1}
+        shape = ("v5", m, 0)
+    else:
+        out = spp.union_plan(spp.largest_union(cols)[0], cols.shape[1], m,
+                             X.shape[0])
+        shape = ("v2", out["pass_width"], out["smem"], out["passes"])
+    if timed:
+        out.update(spp.def_launch_shape(*shape))
+    return out
 
 
 def _beside(A, AP, X, KM, m, roofs, bw) -> dict:

@@ -9,9 +9,9 @@
 // as the transposed value panel blocks2d (nbr b, S b) f32 (row r b + i,
 // column s b + k: 78.1 MB), cols (nbr, S) int32, X (rows, m) f32 at m in
 // {8, 32, 64, 128}. A tile is R = 16 block rows, 128 output rows; one warp
-// per block row in the gathering variants (the _hi ones in blocks of 8
-// warps, half a tile; the _def ones in blocks of 16), so that neighbours on
-// the ladder below differ in one thing only.
+// per block row in the gathering variants (v2_def: two, a half of its
+// steps each), so that neighbours on the ladder below differ in one thing
+// only.
 //
 //   bsr_hi<UNSTAGED>    v5_batched_hi (:260-291, pallas_call :277,
 //                       HIGHEST): Y = A X, warp w owns block row w of the
@@ -26,16 +26,21 @@
 //   bsr_hi<SMEM_COLS>   v6_smem_hi (:226-258, :244): as v5_hi, but the
 //                       tile's (R, S) cols are staged in shared memory once,
 //                       before the loop (the TPU's SMEM block).
-//   bsr_bf16<false>     v5_batched_def (:277, DEFAULT): as v5_hi, but the
+//   def_direct          v5_batched_def (:277, DEFAULT): as v5_hi, but the
 //                       f32 values and X slices are rounded to bf16 (nearest
 //                       even) in registers and multiplied by mma.sync
 //                       m16n8k16 into f32. The product is taken transposed,
 //                       Y^T = Xg^T V^T: the block row's 8 rows are the
 //                       instruction's n8, X's columns its m16 (at m 8 half
-//                       the m16 rows are zero); a k16 step is two slots.
-//   bsr_bf16<true>      v2_panel_def (:127, DEFAULT): as v5_def, with each
-//                       warp's X panel staged in 2-slot chunks (one k16
-//                       step each) by plain loads between two __syncwarp.
+//                       the m16 rows are zero); a k16 step is two slots. X
+//                       by 16-byte loads in the _hi column map, the step
+//                       loop unrolled (see below).
+//   union_def           v2_panel_def (:127, DEFAULT): as v5_def, but X
+//                       passes through shared memory: a block per unit of 8
+//                       block rows stages the sorted union of the unit's
+//                       block columns once, in bf16, built in the kernel
+//                       from cols (bitmap, prefix popcount), in passes of
+//                       32 columns (see below).
 //   stream_kernel       v3_stream (:144-171, :159): as v2_def without the
 //                       gather: every block row's values @ the fixed panel
 //                       X[0:S b], one transposed product per 8-row block
@@ -49,8 +54,7 @@
 //                       product's shape.
 //                       Both are persistent (one block per SM), take the
 //                       values through a TMA ring and stage the panel once
-//                       per block in bf16 (see below); the other variants
-//                       keep one block of 16 warps per tile.
+//                       per block in bf16 (see below).
 //
 // Bounds (at the card's published rates, the probe's inputs once): 78.1 MB
 // of values dominate at m 8 (~0.024 ms by bytes); at m 128 the 5.0 GFLOP
@@ -59,11 +63,14 @@
 // about it: the values are streamed once, with 16-byte loads marked
 // evict-first (__ldcs) in the gathering variants, by TMA into a ring of
 // stages in v3/v3b; X slices (32 m bytes, contiguous) are read with 16-byte
-// loads in the _hi variants (each lane's columns contiguous), as aligned
-// scalars in the _def fragments. The _hi products run on the tensor cores
-// at f32 grade (3xTF32), so what is left is the X gather. Every
-// output is written once by one thread: no atomics, runs repeat bit for
-// bit.
+// loads (each lane's columns contiguous); v2_def reads each of a unit's
+// distinct slices once (the union of its 8 rows' columns: 84 of 512 slots
+// on average at 24^3), so its X traffic from L2 falls 6x where every other
+// gathering variant moves a slice per slot (1.25 GB at m 128). The _hi
+// products run on the tensor cores at f32 grade (3xTF32), so what is left
+// is the X gather. Every output is written once by one thread: no atomics
+// on an output (v2_def's bitmap takes atomicOr in shared memory, whose
+// result does not depend on the order), runs repeat bit for bit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,9 +84,6 @@ namespace {
 
 constexpr int kR = 16;              // block rows per tile
 constexpr int kB = 8;               // rows and columns of a block
-constexpr int kWarps = kR;          // one warp per block row
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 2;           // slots per staged chunk (v2)
 constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
 
 enum { kUnstaged = 0, kPanel = 1, kSmemCols = 2 };
@@ -90,31 +94,8 @@ struct Params {
   const float* x;       // (rows, m)
   float* y;             // (nbr b, m)
   int64_t S;
+  int64_t nbr;
 };
-
-template <bool SMEM>
-__device__ __forceinline__ float ld(const float* p) {
-  return SMEM ? *p : __ldg(p);
-}
-
-// Warp-private chunk of kChunk slots of block row r's X panel: 16 rows of
-// m floats at stride XS, read with 16-byte loads
-template <int M, int XS>
-__device__ __forceinline__ void stage_chunk(const Params& p,
-                                            const int32_t* crow, int64_t s0,
-                                            float* panel, int lane) {
-  constexpr int CG = M / 4;
-  __syncwarp();
-  for (int e = lane; e < kChunk * kB * CG; e += 32) {
-    const int kk = e / CG;
-    const int f = e - kk * CG;
-    const int64_t c = __ldg(crow + s0 + kk / kB);
-    *reinterpret_cast<float4*>(panel + kk * XS + 4 * f) =
-        __ldg(reinterpret_cast<const float4*>(p.x + (c * kB + kk % kB) * M) +
-              f);
-  }
-  __syncwarp();
-}
 
 // ---------------------------------------------------------------------------
 // v5_batched_hi, v1_panel_hi, v6_smem_hi: 3xTF32 mma.sync, one warp per
@@ -485,37 +466,56 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// ---------------------------------------------------------------------------
+// v5_batched_def, v2_panel_def: bf16 mma.sync m16n8k16, one warp per block
+// row, blocks of 8 warps
+// ---------------------------------------------------------------------------
+//
 // Fragments: thread (g = lane / 4, tig = lane % 4) holds k = 4 tig .. 4 tig
 // + 3 of a k16 step in the PTX positions 2 tig, 2 tig + 1, 2 tig + 8, 2 tig
 // + 9, in A and B alike (one permutation of k leaves the product as it
-// is), so that a value row's four k load as one float4.
+// is), so that a value row's four k load as one float4. A k16 step is two
+// slots: lane tig's k are rows 4 (tig % 2) .. 4 (tig % 2) + 3 of slot
+// 2 ks + tig / 2. The product is taken transposed, Y^T (m x 8) += Xg^T V^T:
+// a D tile's rows are X columns, its columns the block row's rows 2 tig,
+// 2 tig + 1.
 //
-// One k16 step of the transposed product Y^T (m x 8) += Xg^T V^T: xr holds
-// the thread's four X rows (row q at xr + q xs) of the step, b0/b1 its V
-// row g's four k. D tile mt: rows = X columns 16 mt + g (+ 8), columns =
-// the block row's rows 2 tig, 2 tig + 1.
-template <int M, bool SMEM>
-__device__ __forceinline__ void xt_step(float (&d)[M >= 16 ? M / 16 : 1][4],
-                                        const float* xr, int64_t xs, int g,
-                                        uint32_t b0, uint32_t b1) {
-  constexpr int MT = M >= 16 ? M / 16 : 1;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int j = 16 * mt + g;
-    const uint32_t a0 = pack_bf16(ld<SMEM>(xr + j), ld<SMEM>(xr + xs + j));
-    const uint32_t a2 =
-        pack_bf16(ld<SMEM>(xr + 2 * xs + j), ld<SMEM>(xr + 3 * xs + j));
-    uint32_t a1 = 0, a3 = 0;  // m 8: X columns 8 .. 15 do not exist
-    if (M >= 16) {
-      a1 = pack_bf16(ld<SMEM>(xr + j + 8), ld<SMEM>(xr + xs + j + 8));
-      a3 = pack_bf16(ld<SMEM>(xr + 2 * xs + j + 8),
-                     ld<SMEM>(xr + 3 * xs + j + 8));
-    }
-    mma_bf16(d[mt], a0, a1, a2, a3, b0, b1);
-  }
+// Column map of the _def rungs: m-tiles 2 i and 2 i + 1 take X columns
+// 32 i + 4 g .. 32 i + 4 g + 3: tile 2 i + h's row g is column 32 i + 4 g +
+// 2 h and its row g + 8 the column after (bsr_hi_kernel's map). One float4
+// of an X row at column 32 i + 4 g gives lane (g, tig) both tiles' A
+// fragments, with no shuffle (a0, a2 from .x of rows q, q + 1 and q + 2,
+// q + 3; a1, a3 from .y; tile 2 i + 1 from .z, .w), and Y is stored as
+// float4s in the same map, the 8 lanes g of a row on 128 contiguous bytes.
+// (v3's stream keeps the plain map, xt_store: tile mt's row g is column
+// 16 mt + g, its row g + 8 column 16 mt + g + 8.)
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  mma_bf16(d, a.x, a.y, a.z, a.w, b0, b1);
 }
 
-// Y rows r b + 2 tig, r b + 2 tig + 1 of the transposed product's D tiles
+// The A fragments of m-tiles 2 i (lo) and 2 i + 1 (hi) from the lane's
+// four X rows' float4s at column 32 i + 4 g
+__device__ __forceinline__ void pack_tiles(const float4 (&f)[4], uint4& lo,
+                                           uint4& hi) {
+  lo = make_uint4(pack_bf16(f[0].x, f[1].x), pack_bf16(f[0].y, f[1].y),
+                  pack_bf16(f[2].x, f[3].x), pack_bf16(f[2].y, f[3].y));
+  hi = make_uint4(pack_bf16(f[0].z, f[1].z), pack_bf16(f[0].w, f[1].w),
+                  pack_bf16(f[2].z, f[3].z), pack_bf16(f[2].w, f[3].w));
+}
+
+// Y rows 2 tig and 2 tig + 1 at columns c .. c + 3 from tiles 2 i (lo) and
+// 2 i + 1 (hi) of the map; y0 is row 2 tig's column c, ld the row stride
+__device__ __forceinline__ void store_tiles(float* y0, int64_t ld,
+                                            const float (&lo)[4],
+                                            const float (&hi)[4]) {
+  *reinterpret_cast<float4*>(y0) = make_float4(lo[0], lo[2], hi[0], hi[2]);
+  *reinterpret_cast<float4*>(y0 + ld) =
+      make_float4(lo[1], lo[3], hi[1], hi[3]);
+}
+
+// Y rows r b + 2 tig, r b + 2 tig + 1 of v3's D tiles, in the plain map
 template <int M>
 __device__ __forceinline__ void xt_store(float* y, int64_t r,
                                          float (&d)[M >= 16 ? M / 16 : 1][4],
@@ -534,38 +534,377 @@ __device__ __forceinline__ void xt_store(float* y, int64_t r,
   }
 }
 
-template <int M, bool STAGED>
-__global__ void __launch_bounds__(kThreads)
-bsr_bf16_kernel(const Params p) {
-  constexpr int MT = M >= 16 ? M / 16 : 1;
-  constexpr int XS = M + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
+// v5_batched_def: X from global memory (L1/L2) into registers as it is
+// used. Lane (g, tig) loads its four k rows of a step as one float4 each
+// per 32 columns (m 128: 16 LDG.128 a step, each covering four whole
+// 128-byte rows, where the scalar fragments took 64 4-byte loads of four
+// lines each); at m 8 one scalar per row, column g (the m16 rows 8 .. 15
+// are zero). The row's columns are read 32 slots at a time by one
+// coalesced warp load and broadcast by __shfl_sync (hi_direct's way), so no
+// step waits on its own column load. The step loop is unrolled Def<m>::UNR
+// times and nothing else is staged by hand: the compiler then issues the
+// next steps' value and X loads before the current step's mma.sync. (Rings
+// of registers written out by hand, values 2-4 steps and X 1-2 steps
+// ahead, measured slower at every m on an H100: they cost the registers
+// that set how many rows' loads are in flight.) One warp per
+// block row; the block size and the registers a thread may take are set
+// per m for the most resident warps: 48 an SM at m 8 (blocks of 16), 40 at
+// m 32, 24 at m 64, 16 at m 128 (blocks of 8); csrc's spmm_def_shape
+// reports registers and blocks. It computes all S slots, as the
+// reference's v5 does.
+template <int M>
+struct Def {
+  static_assert(M == 8 || M == 32 || M == 64 || M == 128,
+                "the bf16 rungs are built for m 8, 32, 64, 128");
+  static constexpr int MT = M >= 16 ? M / 16 : 1;  // m16 tiles
+  static constexpr int NQ = M >= 32 ? M / 32 : 1;  // float4s of a row
+  static constexpr int UNR = M == 8 || M == 128 ? 4 : 2;  // steps unrolled
+  static constexpr int kWarps = M == 8 ? 16 : 8;   // a block's block rows
+  static constexpr int kMinBlocks = M == 8 ? 3 : M == 32 ? 5 : M == 64 ? 3
+                                                                        : 2;
+};
+
+template <int M>
+__global__ void __launch_bounds__(Def<M>::kWarps * 32, Def<M>::kMinBlocks)
+def_direct_kernel(const Params p) {
+  using D = Def<M>;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int64_t r = (int64_t)blockIdx.x * kR + warp;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t r = (int64_t)blockIdx.x * D::kWarps + warp;
+  const int S = (int)p.S;
+  const int nstep = S / 2;
   const int32_t* crow = p.cols + r * p.S;
-  float* panel = reinterpret_cast<float*>(smem) + warp * kChunk * kB * XS;
-  const float* vg = p.v + (r * kB + g) * p.S * kB + 4 * tig;
-  float d[MT][4];
+  const float* vrow = p.v + (r * kB + g) * p.S * kB + 4 * t;
+  // the lane's first X element of a slot's slice: row 4 (t % 2), column g
+  // (m 8) or 4 g
+  const float* xl = p.x + (int64_t)4 * (t & 1) * M + (M == 8 ? g : 4 * g);
+  const int half = t >> 1;  // the lane's slot of a step: 2 ks + half
+  int col_cur = lane < S ? __ldg(crow + lane) : 0;  // slots 32 j .. + 31
+  int col_nxt = 32 + lane < S ? __ldg(crow + 32 + lane) : 0;
+  float d[D::MT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) d[mt][0] = d[mt][1] = d[mt][2] =
-      d[mt][3] = 0.f;
-  for (int64_t ks = 0; ks < p.S / kChunk; ++ks) {  // slots 2 ks, 2 ks + 1
-    if (STAGED) stage_chunk<M, XS>(p, crow, ks * kChunk, panel, lane);
-    const float4 v = __ldcs(reinterpret_cast<const float4*>(vg + ks * 16));
-    const uint32_t b0 = pack_bf16(v.x, v.y);
-    const uint32_t b1 = pack_bf16(v.z, v.w);
-    if (STAGED) {
-      // chunk row 8 (tig / 2) + 4 (tig % 2) + q = 4 tig + q
-      xt_step<M, true>(d, panel + 4 * tig * XS, XS, g, b0, b1);
+  for (int mt = 0; mt < D::MT; ++mt)
+    d[mt][0] = d[mt][1] = d[mt][2] = d[mt][3] = 0.f;
+#pragma unroll (Def<M>::UNR)
+  for (int ks = 0; ks < nstep; ++ks) {
+    if (ks > 0 && (ks & 15) == 0) {  // slots 2 ks .. 2 ks + 31
+      col_cur = col_nxt;
+      const int sc = 2 * ks + 32 + lane;
+      col_nxt = sc < S ? __ldg(crow + sc) : 0;
+    }
+    const int c = __shfl_sync(0xffffffffu, col_cur, (2 * ks + half) & 31);
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(vrow + ks * 16));
+    const float* xr = xl + (int64_t)c * kB * M;
+    const uint32_t b0 = pack_bf16(v.x, v.y), b1 = pack_bf16(v.z, v.w);
+    if constexpr (M == 8) {
+      float xs[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xs[q] = __ldg(xr + q * M);
+      mma_bf16(d[0], make_uint4(pack_bf16(xs[0], xs[1]), 0u,
+                                pack_bf16(xs[2], xs[3]), 0u), b0, b1);
     } else {
-      const int64_t c = __ldg(crow + ks * kChunk + (tig >> 1));
-      xt_step<M, false>(d, p.x + (c * kB + 4 * (tig & 1)) * M, M, g, b0, b1);
+#pragma unroll
+      for (int i = 0; i < D::NQ; ++i) {  // a column pair of tiles
+        float4 f[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          f[q] = __ldg(reinterpret_cast<const float4*>(xr + q * M + 32 * i));
+        uint4 lo, hi;
+        pack_tiles(f, lo, hi);
+        mma_bf16(d[2 * i], lo, b0, b1);
+        mma_bf16(d[2 * i + 1], hi, b0, b1);
+      }
     }
   }
-  xt_store<M>(p.y, r, d, g, tig);
+  float* y0 = p.y + (r * kB + 2 * t) * M;
+  if constexpr (M == 8) {
+    y0[g] = d[0][0];
+    y0[M + g] = d[0][1];
+  } else {
+#pragma unroll
+    for (int i = 0; i < D::NQ; ++i)
+      store_tiles(y0 + 32 * i + 4 * g, M, d[2 * i], d[2 * i + 1]);
+  }
+}
+
+// v2_panel_def: X passes through shared memory, staged once per unit. A
+// block takes a unit of kUnit = 8 block rows and stages the sorted union
+// of the unit's block columns, each X slice once, rounded to bf16 once
+// (the same bits as rounding at each use):
+// - the union is built in the block from the probe's own cols: a bitmap
+//   over X's block columns (atomicOr: the bits set, in any order, are the
+//   same), a prefix popcount over its words (warp 0), which gives each
+//   column its place in sorted order, the union's columns (ucol) and each
+//   of the unit's 8 S slots' place, in shared memory (v6 keeps its columns
+//   there too);
+// - the host sizes shared memory for the largest union of the cols it is
+//   given (kernels/spmm_probes.py union_plan), and a unit whose union
+//   exceeds that capacity writes nothing past it: it records its size in
+//   *status and returns, and the wrapper raises;
+// - columns go in passes of W = 32 (m 8: one pass of 8), run back to back
+//   in the block. The first pass reads the values (f32, __ldcs) and, where
+//   more passes follow (MULTI: a build of its own, so that the one-pass
+//   builds carry none of it), writes each lane's packed bf16 B registers
+//   of each step to a scratch stream (8 bytes a lane, a warp's 256
+//   contiguous bytes a step: half the f32 bytes, no conversions), which
+//   the later passes read back (__ldcg, L2; the same thread wrote them).
+//   The first VA steps' values go out before the union is built, and
+//   before each later pass's staging. A pass stages the union's slices at
+//   its columns: entry u's 8 rows x W columns
+//   as W 16-byte chunks, chunk 2 cp + h of column pair cp (columns 2 cp,
+//   2 cp + 1) holding rows 4 h .. 4 h + 3 as the four A registers of a
+//   lane (k rows 4 h, 4 h + 1 of column 2 cp; of 2 cp + 1; rows 4 h + 2,
+//   4 h + 3 of each), copied with 16-byte loads. At W 32 lane (g, tig)
+//   reads column pairs 2 g and 2 g + 1 (the two tiles of the map) with one
+//   LDS.128 each; lanes of the step's second slot read them in the other
+//   order, so that the 8 lanes of a phase fall on 8 distinct chunks of a
+//   128-byte line (entries are 512 bytes). At W 8 lane g reads pair g % 4,
+//   and lanes g >= 4 repeat lanes g - 4.
+// - A row's S / 2 steps are split between two warps (16 warps a block, a
+//   warp per row and half): each walks its half with the values by
+//   float4, VA steps ahead, the slots' places from shared memory, the
+//   A fragments from the panel, the same m16n8k16 transposed product as
+//   v5_def; the second half's warp leaves its sums in shared memory and
+//   the first adds them to its own (first half + second half, in that
+//   order) and stores. A row's chain of dependent steps is half as long,
+//   and a pass's staging has 512 threads. Two blocks an SM while the panel
+//   of the largest union fits twice (24^3: 162 entries, 93 KB at W 32);
+//   one block's staging overlaps the other's products.
+constexpr int kUnit = 8;        // block rows of a v2_def unit
+constexpr int kUnitWarps = 16;  // v2_def: two warps (step halves) a row
+// v2_def: value steps in flight, by build (the multi-pass build keeps
+// fewer, which its 64 registers a thread hold without spilling)
+template <bool MULTI>
+constexpr int kVAhead = MULTI ? 3 : 4;
+constexpr int kStageItems = 1;  // v2_def: staging items a thread in flight
+
+struct UnionParams {
+  const float* v;       // blocks2d (nbr b, S b)
+  const int32_t* cols;  // (nbr, S)
+  const float* x;       // (rows, m)
+  float* y;             // (nbr b, m)
+  int* status;          // the largest union that did not fit, else 0
+  uint2* bs;            // (nbr, S / 2, 32) B registers for later passes
+  int S, m, cap, nwords;
+};
+
+// shared memory of a v2_def block: the panel (cap entries of 16 W bytes),
+// the second halves' sums (8 rows x 32 lanes x 8), the bitmap and its
+// prefix (nwords each), the places of the unit's 8 S slots, the union's
+// columns (cap), its size
+size_t union_smem(int W, int64_t cap, int64_t nwords, int64_t S) {
+  return (size_t)cap * 16 * W + (size_t)kUnit * 32 * 8 * 4 +
+         8 * (size_t)nwords + 4 * (size_t)kUnit * S + 4 * (size_t)cap + 16;
+}
+
+// The union's slices at columns j0 .. j0 + W - 1 into the panel: item (u,
+// quad qd, h) takes rows 4 h .. 4 h + 3 of entry u at columns 4 qd .. 4 qd
+// + 3 (four 16-byte loads; the 16 items of an entry's half rows cover 128
+// contiguous bytes of a row) into the chunks of pairs 2 qd and 2 qd + 1
+template <int W>
+__device__ __forceinline__ void stage_union(const float* __restrict__ x,
+                                            int m, int j0,
+                                            const int* ucol, int nu,
+                                            uint4* panel) {
+  constexpr int PER = W / 2;  // items of an entry
+  constexpr int NT = kUnitWarps * 32;
+  const int total = nu * PER;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kStageItems * NT) {
+    float4 f[kStageItems][4];
+#pragma unroll
+    for (int b = 0; b < kStageItems; ++b) {
+      const int e = e0 + b * NT;
+      if (e < total) {
+        const int u = e / PER, qd = (e % PER) >> 1, h = e & 1;
+        const float* src =
+            x + ((int64_t)ucol[u] * kB + 4 * h) * m + j0 + 4 * qd;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          f[b][q] = __ldg(reinterpret_cast<const float4*>(src + q * m));
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kStageItems; ++b) {
+      const int e = e0 + b * NT;
+      if (e < total) {
+        const int u = e / PER, qd = (e % PER) >> 1, h = e & 1;
+        uint4 lo, hi;
+        pack_tiles(f[b], lo, hi);
+        panel[u * W + 4 * qd + h] = lo;      // pair 2 qd
+        panel[u * W + 4 * qd + 2 + h] = hi;  // pair 2 qd + 1
+      }
+    }
+  }
+}
+
+template <int W, bool MULTI>
+__global__ void __launch_bounds__(kUnitWarps * 32, 2)
+union_def_kernel(const UnionParams p) {
+  static_assert(W == 8 || W == 32, "v2_def passes are 8 or 32 columns");
+  constexpr int NT = kUnitWarps * 32;
+  constexpr int MT = W / 16 > 0 ? W / 16 : 1;
+  constexpr int VA = kVAhead<MULTI>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* panel = reinterpret_cast<uint4*>(smem);
+  // the second halves' sums: [row][lane][tile]
+  float4* part = reinterpret_cast<float4*>(smem + (size_t)p.cap * 16 * W);
+  uint32_t* bitmap = reinterpret_cast<uint32_t*>(part + kUnit * 32 * 2);
+  int* prefix = reinterpret_cast<int*>(bitmap + p.nwords);
+  int* places = prefix + p.nwords;
+  int* ucol = places + kUnit * p.S;
+  int* count = ucol + p.cap;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row = warp & (kUnit - 1), kh = warp / kUnit;  // row, step half
+  const int g = lane >> 2, t = lane & 3, h = t & 1, half = t >> 1;
+  const int nslot = kUnit * p.S;
+  const int nh = p.S / 4;  // steps of a half (S is a multiple of 4)
+  const int k1 = kh * nh;  // the warp's first step
+  const int32_t* ucols = p.cols + (int64_t)blockIdx.x * nslot;
+  const int64_t r = (int64_t)blockIdx.x * kUnit + row;
+  const float* vrow = p.v + (r * kB + g) * (int64_t)p.S * kB + 4 * t;
+  // the row's B registers of step ks, for the passes after the first
+  // MULTI: passes follow the first (m > W), which read the B words the
+  // first leaves in the scratch stream
+  uint2* brow = MULTI ? p.bs + r * (p.S / 2) * 32 + lane : nullptr;
+  // the first steps' values, in flight from here (f32, read once)
+  float4 vf[VA];
+#pragma unroll
+  for (int u = 0; u < VA; ++u)
+    vf[u] = u < nh ? __ldcs(reinterpret_cast<const float4*>(
+                         vrow + (k1 + u) * 16))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the union: bitmap, prefix popcount, columns, places
+  for (int w = tid; w < p.nwords; w += NT) bitmap[w] = 0u;
+  __syncthreads();
+  for (int i = tid; i < nslot; i += NT) {
+    const int c = __ldg(ucols + i);
+    atomicOr(bitmap + (c >> 5), 1u << (c & 31));
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int per = (p.nwords + 31) / 32;
+    const int w0 = min(lane * per, p.nwords), w1 = min(w0 + per, p.nwords);
+    int sum = 0;
+    for (int w = w0; w < w1; ++w) sum += __popc(bitmap[w]);
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += n;
+    }
+    int run = incl - sum;
+    for (int w = w0; w < w1; ++w) {
+      prefix[w] = run;
+      run += __popc(bitmap[w]);
+    }
+    if (lane == 31) *count = incl;
+  }
+  __syncthreads();
+  const int nu = *count;
+  if (nu > p.cap) {  // more entries than the host sized the panel for
+    if (tid == 0) atomicMax(p.status, nu);
+    return;
+  }
+  for (int w = tid; w < p.nwords; w += NT) {
+    uint32_t bits = bitmap[w];
+    int e = prefix[w];
+    while (bits) {
+      ucol[e++] = 32 * w + __ffs(bits) - 1;
+      bits &= bits - 1u;
+    }
+  }
+  for (int i = tid; i < nslot; i += NT) {
+    const int c = __ldg(ucols + i);
+    places[i] = prefix[c >> 5] +
+                __popc(bitmap[c >> 5] & ((1u << (c & 31)) - 1u));
+  }
+  __syncthreads();
+
+  // the passes
+  const int* pl = places + row * p.S + half;
+  float4* mine = part + (row * 32 + lane) * 2;
+  for (int j0 = 0; j0 < p.m; j0 += W) {
+    uint2 vb[VA];       // a later pass: its first steps' B words
+    if (MULTI && j0 > 0) {  // in flight while it stages
+#pragma unroll
+      for (int u = 0; u < VA; ++u)
+        vb[u] = u < nh ? __ldcg(brow + (k1 + u) * 32) : make_uint2(0u, 0u);
+    }
+    stage_union<W>(p.x, p.m, j0, ucol, nu, panel);
+    __syncthreads();
+    float d[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      d[mt][0] = d[mt][1] = d[mt][2] = d[mt][3] = 0.f;
+    // step ks on the B words b0, b1: the slots' entries, two (W 8: one)
+    // mma.sync
+    auto step = [&](int ks, uint32_t b0, uint32_t b1) {
+      const uint4* ent = panel + pl[2 * ks] * W;
+      if constexpr (W == 32) {
+        const uint4 q0 = ent[2 * (2 * g + half) + h];
+        const uint4 q1 = ent[2 * (2 * g + (half ^ 1)) + h];
+        mma_bf16(d[0], half ? q1 : q0, b0, b1);
+        mma_bf16(d[1], half ? q0 : q1, b0, b1);
+      } else {
+        mma_bf16(d[0], ent[2 * (g & 3) + h], b0, b1);
+      }
+    };
+    if (j0 == 0) {  // the values, packed, and kept for the later passes
+      for (int k0 = 0; k0 < nh; k0 += VA) {
+#pragma unroll
+        for (int u = 0; u < VA; ++u) {
+          const int ks = k0 + u;
+          if (ks >= nh) break;
+          const float4 v = vf[u];
+          if (ks + VA < nh)
+            vf[u] = __ldcs(reinterpret_cast<const float4*>(
+                vrow + (k1 + ks + VA) * 16));
+          const uint32_t b0 = pack_bf16(v.x, v.y), b1 = pack_bf16(v.z, v.w);
+          if constexpr (MULTI) brow[(k1 + ks) * 32] = make_uint2(b0, b1);
+          step(k1 + ks, b0, b1);
+        }
+      }
+    } else if constexpr (MULTI) {  // the B words of the first pass
+      for (int k0 = 0; k0 < nh; k0 += VA) {
+#pragma unroll
+        for (int u = 0; u < VA; ++u) {
+          const int ks = k0 + u;
+          if (ks >= nh) break;
+          const uint2 b = vb[u];
+          if (ks + VA < nh)
+            vb[u] = __ldcg(brow + (k1 + ks + VA) * 32);
+          step(k1 + ks, b.x, b.y);
+        }
+      }
+    }
+    if (kh == 1) {  // the second half's sums, for the first half's warp
+      mine[0] = make_float4(d[0][0], d[0][1], d[0][2], d[0][3]);
+      if constexpr (W == 32)
+        mine[1] = make_float4(d[1][0], d[1][1], d[1][2], d[1][3]);
+    }
+    __syncthreads();
+    if (kh == 0) {
+      const float4 s0 = mine[0];
+      d[0][0] += s0.x; d[0][1] += s0.y; d[0][2] += s0.z; d[0][3] += s0.w;
+      if constexpr (W == 32) {
+        const float4 s1 = mine[1];
+        d[1][0] += s1.x; d[1][1] += s1.y; d[1][2] += s1.z; d[1][3] += s1.w;
+      }
+      float* y0 = p.y + (r * kB + 2 * t) * (int64_t)p.m + j0;
+      if constexpr (W == 32) {
+        store_tiles(y0 + 4 * g, p.m, d[0], d[1]);
+      } else if (g < 4) {
+        *reinterpret_cast<float2*>(y0 + 2 * g) =
+            make_float2(d[0][0], d[0][2]);
+        *reinterpret_cast<float2*>(y0 + p.m + 2 * g) =
+            make_float2(d[0][1], d[0][3]);
+      }
+    }
+    __syncthreads();  // the panel and the sums are refilled by the next pass
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -592,10 +931,11 @@ bsr_bf16_kernel(const Params p) {
 //
 // A box is 32 f32 columns (128 B, the swizzle's span) of a unit's value
 // rows: a chunk, two k16 steps. Values are read as float4: the row's k 4 t
-// .. 4 t + 3 of the step, the permuted k order of xt_step. In the swizzled
-// box, lanes g and g + 1 read the same four 16-byte chunks of either step;
-// so lanes with odd g read their second step first, which puts the 8 lanes
-// of a phase on 8 chunks, and a select puts the steps back in order.
+// .. 4 t + 3 of the step, the _def fragments' permuted k order. In the
+// swizzled box, lanes g and g + 1 read the same four 16-byte chunks of
+// either step; so lanes with odd g read their second step first, which
+// puts the 8 lanes of a phase on 8 chunks, and a select puts the steps
+// back in order.
 
 constexpr int kBoxCols = 32;   // f32 columns of a TMA box: 128 B
 constexpr int kV3Warps = 16;   // v3: consumer warps
@@ -800,8 +1140,9 @@ __device__ __forceinline__ void release(uint32_t empty) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
 }
 
-// v3: X[0 : P]^T as mma.sync A fragments in xt_step's order: for k16 step
-// kb and 16-column tile mt, lane (g, t)'s {a0, a2, a1, a3} (16 B; at m 8,
+// v3: X[0 : P]^T as mma.sync A fragments in the _def fragment order (in
+// the plain column map, xt_store's): for k16 step kb and 16-column tile
+// mt, lane (g, t)'s {a0, a2, a1, a3} (16 B; at m 8,
 // where X's columns 8 .. 15 do not exist, {a0, a2}, 8 B) in slot
 // (kb MT + mt) 32 + xt_slot(g, t). A thread takes column n of a k16 step
 // (16 loads, the warp's 32 columns side by side) and writes one 8-byte
@@ -1204,10 +1545,10 @@ onedot_kernel(const __grid_constant__ CUtensorMap map, const StreamParams p) {
   }
 }
 
-// blocks of `warps` block rows (16 to a tile for the _def kernels)
+// blocks of kHiWarps block rows (half a tile)
 template <typename Kernel>
 int launch(Kernel kernel, const Params& p, int64_t tiles, size_t smem,
-           cudaStream_t stream, int warps = kWarps) {
+           cudaStream_t stream) {
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1215,28 +1556,68 @@ int launch(Kernel kernel, const Params& p, int64_t tiles, size_t smem,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<(unsigned)(tiles * kR / warps), warps * 32, smem, stream>>>(p);
+  kernel<<<(unsigned)(tiles * kR / kHiWarps), kHiWarps * 32, smem,
+           stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int M>
 int f32_m(const Params& p, int64_t tiles, int64_t mode, cudaStream_t st) {
   if (mode == kUnstaged)
-    return launch(bsr_hi_kernel<M, kUnstaged>, p, tiles, 0, st, kHiWarps);
+    return launch(bsr_hi_kernel<M, kUnstaged>, p, tiles, 0, st);
   if (mode == kPanel)
-    return launch(bsr_hi_kernel<M, kPanel>, p, tiles, Hi<M>::kPanelBytes, st,
-                  kHiWarps);
+    return launch(bsr_hi_kernel<M, kPanel>, p, tiles, Hi<M>::kPanelBytes, st);
   if (mode == kSmemCols)
     return launch(bsr_hi_kernel<M, kSmemCols>, p, tiles,
-                  (size_t)kHiWarps * p.S * 4, st, kHiWarps);
+                  (size_t)kHiWarps * p.S * 4, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// v5_def: blocks of Def<M>::kWarps block rows
 template <int M>
-int bf16_m(const Params& p, int64_t tiles, int64_t staged, cudaStream_t st) {
-  constexpr size_t chunk = (size_t)kWarps * kChunk * kB * (M + 4) * 4;
-  return staged ? launch(bsr_bf16_kernel<M, true>, p, tiles, chunk, st)
-                : launch(bsr_bf16_kernel<M, false>, p, tiles, 0, st);
+int def_m(const Params& p, cudaStream_t st) {
+  if (p.nbr % Def<M>::kWarps) return (int)cudaErrorInvalidValue;
+  def_direct_kernel<M><<<(unsigned)(p.nbr / Def<M>::kWarps),
+                         Def<M>::kWarps * 32, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// v2_def's kernel for pass width W (8 or 32), one pass or several
+// (multi), with smem bytes of shared memory allowed; nullptr for another W
+using UnionKernel = void (*)(const UnionParams);
+
+UnionKernel union_kernel(int64_t W, bool multi, size_t smem,
+                         cudaError_t* e) {
+  UnionKernel k = nullptr;
+  if (W == 8 && !multi) k = union_def_kernel<8, false>;
+  if (W == 8 && multi) k = union_def_kernel<8, true>;
+  if (W == 32 && !multi) k = union_def_kernel<32, false>;
+  if (W == 32 && multi) k = union_def_kernel<32, true>;
+  *e = k == nullptr || smem > (size_t)kSmemLimit ? cudaErrorInvalidValue
+                                                  : cudaSuccess;
+  if (*e == cudaSuccess && smem > 48 * 1024)
+    *e = cudaFuncSetAttribute(reinterpret_cast<const void*>(k),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+  return k;
+}
+
+// registers, local memory and resident blocks per SM of a kernel launched
+// with `threads` threads and smem bytes of dynamic shared memory
+template <typename Kernel>
+int kernel_shape(Kernel k, int threads, size_t smem, int64_t* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(k));
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads,
+                                                      smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = threads / 32;
+  out[1] = a.numRegs;
+  out[2] = (int64_t)a.localSizeBytes;
+  out[3] = per_sm;
+  return 0;
 }
 
 template <int M, bool ONEDOT>
@@ -1297,10 +1678,10 @@ EncodeTiled encode_tiled() {
 }
 
 Params params(const void* v, const void* cols, const void* x, void* y,
-              int64_t S) {
+              int64_t S, int64_t nbr) {
   return Params{static_cast<const float*>(v),
                 static_cast<const int32_t*>(cols),
-                static_cast<const float*>(x), static_cast<float*>(y), S};
+                static_cast<const float*>(x), static_cast<float*>(y), S, nbr};
 }
 
 }  // namespace
@@ -1315,7 +1696,7 @@ Params params(const void* v, const void* cols, const void* x, void* y,
 extern "C" int spmm_probe_f32(const void* v, const void* cols, const void* x,
                               void* y, int64_t nbr, int64_t S, int64_t m,
                               int64_t mode, void* stream) {
-  const Params p = params(v, cols, x, y, S);
+  const Params p = params(v, cols, x, y, S, nbr);
   const int64_t tiles = nbr / kR;
   cudaStream_t st = (cudaStream_t)stream;
   if (m == 8) return f32_m<8>(p, tiles, mode, st);
@@ -1325,19 +1706,72 @@ extern "C" int spmm_probe_f32(const void* v, const void* cols, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
-// staged 0: v5_batched_def, 1: v2_panel_def
+// v5_batched_def
 extern "C" int spmm_probe_bf16(const void* v, const void* cols,
                                const void* x, void* y, int64_t nbr,
-                               int64_t S, int64_t m, int64_t staged,
-                               void* stream) {
-  const Params p = params(v, cols, x, y, S);
-  const int64_t tiles = nbr / kR;
+                               int64_t S, int64_t m, void* stream) {
+  const Params p = params(v, cols, x, y, S, nbr);
   cudaStream_t st = (cudaStream_t)stream;
-  if (m == 8) return bf16_m<8>(p, tiles, staged, st);
-  if (m == 32) return bf16_m<32>(p, tiles, staged, st);
-  if (m == 64) return bf16_m<64>(p, tiles, staged, st);
-  if (m == 128) return bf16_m<128>(p, tiles, staged, st);
+  if (m == 8) return def_m<8>(p, st);
+  if (m == 32) return def_m<32>(p, st);
+  if (m == 64) return def_m<64>(p, st);
+  if (m == 128) return def_m<128>(p, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// v2_panel_def: one block of kUnitWarps warps per 8-block-row unit, passes
+// of W (8 or 32, dividing m) columns, a panel of cap union entries (the
+// largest union of these cols); x_rows: X's rows (the bitmap covers x_rows
+// / 8 block columns); status: a device int a unit with a larger union
+// raises to its size (the wrapper reads it); bs: scratch of nbr S / 2 x 32
+// uint2 where m > W (else unused). Needs nbr % 8 == 0 and S % 4 == 0.
+extern "C" int spmm_union_bf16(const void* v, const void* cols,
+                               const void* x, void* y, void* status,
+                               void* bs, int64_t nbr, int64_t S, int64_t m,
+                               int64_t x_rows, int64_t cap, int64_t W,
+                               void* stream) {
+  const int64_t nwords = (x_rows / kB + 31) / 32;
+  if (W <= 0 || m % W || nbr % kUnit || S % 4 || cap < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = union_smem((int)W, cap, nwords, S);
+  cudaError_t e;
+  const UnionKernel k = union_kernel(W, m > W, smem, &e);
+  if (e != cudaSuccess) return (int)e;
+  const UnionParams p{static_cast<const float*>(v),
+                      static_cast<const int32_t*>(cols),
+                      static_cast<const float*>(x), static_cast<float*>(y),
+                      static_cast<int*>(status), static_cast<uint2*>(bs),
+                      (int)S, (int)m, (int)cap, (int)nwords};
+  k<<<(unsigned)(nbr / kUnit), kUnitWarps * 32, smem,
+      (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The launch of a _def rung on this card into out (int64[4]): warps a
+// block, registers a thread, local memory bytes a thread, resident blocks
+// per SM. kind 0: v5_batched_def at width m (smem unused); kind 1 (2):
+// v2_panel_def in one pass (several) of m columns (8 or 32) with smem
+// bytes of shared memory.
+extern "C" int spmm_def_shape(int64_t kind, int64_t m, int64_t smem,
+                              void* out) {
+  int64_t* o = static_cast<int64_t*>(out);
+  if (kind == 0) {
+    if (m == 8)
+      return kernel_shape(def_direct_kernel<8>, Def<8>::kWarps * 32, 0, o);
+    if (m == 32)
+      return kernel_shape(def_direct_kernel<32>, Def<32>::kWarps * 32, 0, o);
+    if (m == 64)
+      return kernel_shape(def_direct_kernel<64>, Def<64>::kWarps * 32, 0, o);
+    if (m == 128)
+      return kernel_shape(def_direct_kernel<128>, Def<128>::kWarps * 32, 0,
+                          o);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kind != 1 && kind != 2) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  const UnionKernel k = union_kernel(m, kind == 2, (size_t)smem, &e);
+  if (e != cudaSuccess) return (int)e;
+  return kernel_shape(k, kUnitWarps * 32, (size_t)smem, o);
 }
 
 // The tensor map of the value panel V (nbr b, S b) f32 for v3_stream

@@ -59,7 +59,14 @@
 //   rows.
 // - Three modes by template: K, M, and fused K+M, which reads each staged
 //   input once and writes both outputs.
-// - 32-bit index arithmetic: the wrapper checks n_padded * m < 2^31.
+// - A launch takes at most 170 columns (a staged row is at most two
+//   elements a thread, 3 m <= 512). A wider X goes in column passes of
+//   near-equal width (kernels/stencil_taps.py column_passes: m 171 is 86 +
+//   85), one launch each, which reads and writes its own columns in place:
+//   the plan's ld is the row stride of X and the outputs (the whole X's
+//   width; ld = m in a single launch), and the wrapper offsets the
+//   pointers to the pass's first column. Nothing is copied out and back.
+// - 32-bit index arithmetic: the wrapper checks n_padded * ld < 2^31.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,6 +138,7 @@ __host__ __device__ constexpr int col_rows(int c, bool last) {
 
 struct Plan {
   int m, n, n_padded;
+  int ld;  // row stride of x, yk, ym (floats): m, or the whole X's width
   int tile_z, chunk_x;
   int grid_z, grid_y, grid_x;
   int threads;
@@ -198,11 +206,11 @@ stencil_taps_kernel(const float* __restrict__ x,
   const int m = p.m;
   const int tiles = p.grid_z * p.grid_y * p.grid_x;
   if ((int)blockIdx.x >= tiles) {  // padding rows n .. n_padded: zero
-    const int i = p.n * m + ((int)blockIdx.x - tiles) * p.threads +
-                  (int)threadIdx.x;
-    if (i < p.n_padded * m) {
-      if (WANT_K) yk[i] = 0.0f;
-      if (WANT_M) ym[i] = 0.0f;
+    const int i = ((int)blockIdx.x - tiles) * p.threads + (int)threadIdx.x;
+    if (i < (p.n_padded - p.n) * m) {
+      const int e = (p.n + i / m) * p.ld + i % m;
+      if (WANT_K) yk[e] = 0.0f;
+      if (WANT_M) ym[e] = 0.0f;
     }
     return;
   }
@@ -245,7 +253,7 @@ stencil_taps_kernel(const float* __restrict__ x,
           const bool ok = stage_on[k] && yin && z >= 0 && z < Z;
           const int q = p.off[beta] + (xp * Y + y) * Z + z;
           xv[beta][row][k] =
-              ok ? __ldg(x + q * m + (el[k] - lz[k] * m)) : 0.0f;
+              ok ? __ldg(x + q * p.ld + (el[k] - lz[k] * m)) : 0.0f;
           mv[beta][row][k] = ok ? __ldg(mask + q) : 0.0f;
         }
       }
@@ -300,8 +308,8 @@ stencil_taps_kernel(const float* __restrict__ x,
           if (y >= Y) break;
           const int row = p.off[A] + (xc * Y + y) * Z + z;
           const float mk = __ldg(mask + row);
-          if (WANT_K) yk[row * m + j] = acc[A][0][r] * mk;
-          if (WANT_M) ym[row * m + j] = acc[A][1][r] * mk;
+          if (WANT_K) yk[row * p.ld + j] = acc[A][0][r] * mk;
+          if (WANT_M) ym[row * p.ld + j] = acc[A][1][r] * mk;
         }
       }
     }
@@ -338,14 +346,15 @@ int launch_modes(const Plan& p, unsigned blocks, float* yk, float* ym,
 // (f32) are HOST arrays from kernels/stencil_taps.py StencilPlan.header()
 // and .arrays(): plan holds m, n, n_padded, tile_y, tile_z, chunk_x,
 // grid_z, grid_y, grid_x, pad_blocks, threads, row_stride, plane,
-// smem_bytes, the component dims (9), offsets (4), the box (3), and the
+// smem_bytes, ld, the component dims (9), offsets (4), the box (3), and the
 // column and tap counts; cols holds per column (beta, dx, dz, first tap,
 // tap count, offset in the staged tile), then per tap (alpha, dy); coef
-// (cK, cM) per tap. x, mask, yk, ym are device pointers; yk or ym may be
-// null when that operator is not wanted (not both). Returns
+// (cK, cM) per tap. x, mask, yk, ym are device pointers, x, yk and ym at
+// the launch's first column (rows ld floats apart); yk or ym may be null
+// when that operator is not wanted (not both). Returns
 // cudaGetLastError() after the launch (0 on success), 1 for a plan the
-// kernel does not take (tile_y, threads, row length, shared memory, or a
-// tap pattern other than the hex element's).
+// kernel does not take (tile_y, threads, row length, shared memory, a row
+// stride under m, or a tap pattern other than the hex element's).
 extern "C" int stencil_taps_f32(const void* x, const void* mask, void* yk,
                                 void* ym, const void* plan, const void* cols,
                                 const void* coef, void* stream) {
@@ -360,7 +369,8 @@ extern "C" int stencil_taps_f32(const void* x, const void* mask, void* yk,
   const int pad_blocks = h[9];
   p.threads = h[10]; p.rs = h[11]; p.plane = h[12];
   const size_t smem = (size_t)h[13];
-  const int32_t* d = h + 14;
+  p.ld = h[14];
+  const int32_t* d = h + 15;
   for (int a = 0; a < 3; ++a)
     for (int i = 0; i < 3; ++i) p.dims[a][i] = d[3 * a + i];
   for (int i = 0; i < 4; ++i) p.off[i] = d[9 + i];
@@ -368,7 +378,7 @@ extern "C" int stencil_taps_f32(const void* x, const void* mask, void* yk,
   const int ncols = d[16], ntaps = d[17];
   if (tile_y != kTileY || p.threads % 32 || p.threads > kMaxThreads ||
       p.rs != (p.tile_z + 2) * p.m || p.rs > 2 * p.threads ||
-      p.plane != kRows * p.rs ||
+      p.plane != kRows * p.rs || p.ld < p.m ||
       smem != (size_t)kRing * 3 * p.plane * sizeof(float) ||
       ncols != kNumCols || ntaps != kNumTaps)
     return 1;

@@ -70,7 +70,9 @@ _SIGNATURES = {
     "gather_taa1_wide_f32": [_P] * 3 + [_I] * 3 + [_P],
     # spmm_probes.cu
     "spmm_probe_f32": [_P] * 4 + [_I] * 4 + [_P],
-    "spmm_probe_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "spmm_probe_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    "spmm_union_bf16": [_P] * 6 + [_I] * 6 + [_P],
+    "spmm_def_shape": [_I] * 3 + [_P],
     "spmm_stream_tensor_map": [_P] + [_I] * 3 + [_P],
     "spmm_stream_bf16": [_P] * 3 + [_I] * 4 + [_P],
 }

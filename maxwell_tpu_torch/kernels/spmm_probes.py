@@ -18,8 +18,14 @@ multiple of 4) of 8 x 8 blocks, as the transposed value panel V = blocks2d
                                  shared memory
     v5_batched_def(V, cols, X)   v5 with bf16 operands (nearest even) and
                                  f32 sums (the TPU's DEFAULT precision),
-                                 mma.sync m16n8k16
-    v2_panel_def(V, cols, X)     v1 with bf16 operands
+                                 mma.sync m16n8k16, X by 16-byte loads
+    v2_panel_def(V, cols, X)     v5_def with X through shared memory: per
+                                 unit of UNIT block rows the union of its
+                                 block columns, each X slice staged once
+                                 in bf16, in passes of PASS columns
+                                 (`union_plan`); the later passes read the
+                                 values' bf16 B registers from a scratch
+                                 stream the first wrote
     v3_stream(V, X)              every block row's values @ the fixed panel
                                  X[0 : S b], bf16 operands
     v3b_onedot(V, X)             the same function, one (128, S b) product
@@ -49,6 +55,8 @@ from maxwell_tpu_torch.kernels import gather_probes as gpr
 R, B = 16, 8  # block rows per tile, block size
 MS = gpr.SLICE_MS  # the widths the kernels are built for
 SMEM_LIMIT = 232448  # a block's shared memory on the H100
+UNIT = 8  # v2_panel_def: block rows of a unit (a block, two warps a row)
+PASS = 32  # v2_panel_def: columns of a pass from m 32 (m 8: one pass of 8)
 
 
 def panel_values(blocks: torch.Tensor) -> torch.Tensor:
@@ -85,6 +93,71 @@ def stream_smem(S: int, m: int, onedot: bool) -> int:
     barrier per stage."""
     stages, stage = STREAM_RING[onedot]
     return 1024 + stages * stage + S * B * m * 2 + 2 * stages * 8
+
+
+def union_sizes(cols) -> torch.Tensor:
+    """(nbr / UNIT,) the number of distinct block columns of each unit of
+    UNIT block rows: the entries of its v2_panel_def panel."""
+    nbr, S = cols.shape
+    u = cols.reshape(nbr // UNIT, UNIT * S).sort(dim=1).values
+    return 1 + (u[:, 1:] != u[:, :-1]).sum(dim=1)
+
+
+def largest_union(cols) -> tuple:
+    """(the largest union of a unit of cols, whether it was reckoned now):
+    reckoned once per tensor version (a device reduction and a sync), kept
+    on the tensor like the probes' range checks, so that a timed repeat
+    launches the kernel alone."""
+    hit = getattr(cols, "_union_largest", None)
+    if hit is not None and hit[0] == cols._version:
+        return hit[1], False
+    largest = int(union_sizes(cols).max())
+    cols._union_largest = (cols._version, largest)
+    return largest, True
+
+
+def union_smem(W: int, cap: int, S: int, x_rows: int) -> int:
+    """Shared memory of a v2_panel_def block (csrc's union_smem): a panel
+    of cap entries of 8 rows x W bf16, the second step halves' sums (UNIT
+    rows x 32 lanes x 8 f32), the bitmap over X's x_rows / 8 block columns
+    and its prefix (a word each per 32), the places of the unit's UNIT S
+    slots, the union's columns, its size."""
+    nwords = -(-(x_rows // B) // 32)
+    return (cap * 16 * W + UNIT * 32 * 8 * 4 + 8 * nwords + 4 * UNIT * S
+            + 4 * cap + 16)
+
+
+def union_plan(largest: int, S: int, m: int, x_rows: int) -> dict:
+    """v2_panel_def's launch for the largest union of the cols it is given:
+    passes of PASS columns (8 at m 8) where that panel fits a block's
+    shared memory, else of 8; raises where neither fits."""
+    for W in ((8,) if m == 8 else (PASS, 8)):
+        smem = union_smem(W, largest, S, x_rows)
+        if smem <= SMEM_LIMIT:
+            return {"unit": UNIT, "pass_width": W, "passes": m // W,
+                    "largest_union": largest, "smem": smem}
+    raise ValueError(f"v2_panel_def: a union of {largest} block columns "
+                     f"takes {union_smem(8, largest, S, x_rows)} bytes of "
+                     f"shared memory at 8 columns a pass, more than "
+                     f"{SMEM_LIMIT}")
+
+
+def def_launch_shape(kind: str, m: int, smem: int = 0,
+                     passes: int = 1) -> dict:
+    """The launch of a _def rung on the current card ("v5" at width m,
+    "v2" in `passes` passes of m columns with smem bytes): warps a block,
+    registers and local memory bytes a thread, resident blocks per SM (the
+    occupancy API's count); see csrc/spmm_probes.cu spmm_def_shape. Needs
+    the card."""
+    from maxwell_tpu_torch.kernels import _build
+
+    code = {"v5": 0, "v2": 1 if passes == 1 else 2}[kind]
+    out = (ctypes.c_int64 * 4)()
+    rc = _build.load().spmm_def_shape(code, m, smem, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"spmm_def_shape: CUDA error {rc}")
+    return dict(zip(("warps", "registers", "local_bytes", "blocks_per_sm"),
+                    out))
 
 
 # ---------------------------------------------------------------------------
@@ -199,11 +272,43 @@ def _check(V, X, cols=None) -> int:
     return m
 
 
-def _product(name, V, cols, X, flag):
+def _product(name, V, cols, X, *flag):
     m = _check(V, X, cols)
     Y = torch.empty((V.shape[0], m), dtype=torch.float32, device=X.device)
     gpr.launch(name, V, cols, X, Y, V.shape[0] // B, V.shape[1] // B, m,
-               flag)
+               *flag)
+    return Y
+
+
+_STATUS = {}  # device -> int32 [1]: the largest union a launch refused
+
+
+def _union(V, cols, X):
+    """v2_panel_def's launch: sized for the largest union of cols (reckoned
+    once per cols version); on that first launch the kernel's own check
+    (a unit whose union exceeds the panel records its size and writes
+    nothing past it) is read back and raised."""
+    m = _check(V, X, cols)
+    nbr, S = cols.shape
+    largest, fresh = largest_union(cols)
+    plan = union_plan(largest, S, m, X.shape[0])
+    status = _STATUS.get(X.device)
+    if status is None:
+        status = _STATUS[X.device] = torch.zeros(
+            1, dtype=torch.int32, device=X.device)
+    if fresh:
+        status.zero_()
+    Y = torch.empty((V.shape[0], m), dtype=torch.float32, device=X.device)
+    # the first pass's bf16 B registers for the later passes: 8 bytes a
+    # lane, step and block row
+    scratch = None if plan["passes"] == 1 else torch.empty(
+        (nbr, S // 2, 32, 2), dtype=torch.int32, device=X.device)
+    gpr.launch("spmm_union_bf16", V, cols, X, Y, status, scratch, nbr, S, m,
+               X.shape[0], largest, plan["pass_width"])
+    if fresh and int(status.item()):
+        raise RuntimeError(f"v2_panel_def: a unit's union of "
+                           f"{int(status.item())} block columns exceeds the "
+                           f"panel's {largest}")
     return Y
 
 
@@ -276,20 +381,21 @@ def v6_smem_hi(V, cols, X):
 
 def v5_batched_def(V, cols, X):
     """K15c v5_batched_def (exp_spmm.py:260-291, DEFAULT): v5 with bf16
-    operands through mma.sync."""
+    operands through mma.sync, X by 16-byte loads."""
     if X.device.type == "cpu":
         return v5_batched_def_ref(V, cols, X)
-    Y = _product("spmm_probe_bf16", V, cols, X, 0)
+    Y = _product("spmm_probe_bf16", V, cols, X)
     v5_batched_def.launches += 1
     return Y
 
 
 def v2_panel_def(V, cols, X):
-    """K15c v2_panel_def (exp_spmm.py:111-142, DEFAULT): v1 with bf16
-    operands through mma.sync."""
+    """K15c v2_panel_def (exp_spmm.py:111-142, DEFAULT): X staged in shared
+    memory, each unit's union of X slices once, in bf16; a union whose
+    panel does not fit is refused (ValueError), never taken unstaged."""
     if X.device.type == "cpu":
         return v2_panel_def_ref(V, cols, X)
-    Y = _product("spmm_probe_bf16", V, cols, X, 1)
+    Y = _union(V, cols, X)
     v2_panel_def.launches += 1
     return Y
 

@@ -14,11 +14,14 @@ to the outputs after them; padding rows come out zero.
 Given CUDA tensors the wrapper checks them and launches the kernel
 (csrc/stencil_taps.cu) or raises; `stencil_plan` is what the launch needs
 from the host (the tile for m, the taps' offsets in the staged tile), and
-the CPU tests apply it in torch. Given CPU tensors it runs the plain
+the CPU tests apply it in torch. A launch takes at most MAX_PASS columns
+(a staged row is at most two elements a thread); a wider X goes in
+`column_passes`, each launch reading and writing its columns in place
+through the row stride `ld`. Given CPU tensors it runs the plain
 version `stencil_taps_ref`, which the CPU tests hold against the JAX package
 and the chip smoke holds the kernel against. The wrapper counts its
-launches in `stencil_taps.launches`, the plain version its calls in
-`stencil_taps_ref.calls`.
+launches (one a column pass) in `stencil_taps.launches`, the plain version
+its calls in `stencil_taps_ref.calls`.
 """
 
 from __future__ import annotations
@@ -99,6 +102,7 @@ def taps_plain(X, mask, taps, shape, want_K=True, want_M=False):
 TILE_Y = 4  # output y rows per block (kTileY in the kernel)
 RING = 3  # staged x-planes per input component: x - 1, x, x + 1
 MAX_THREADS = 256  # a block's threads: one staged element of a row each
+MAX_PASS = 2 * MAX_THREADS // 3  # columns of a launch: 3 m <= 2 MAX_THREADS
 BLOCK_REGS = 80  # registers a thread (the kernel's launch bounds, 256 x 3)
 SMS = 132  # the H100's streaming multiprocessors
 SM_SMEM = 233472  # shared memory of an SM (228 KB), 1 KB of it per block
@@ -109,7 +113,7 @@ WAVES = 2  # blocks to aim for: two waves of what fits on the card at once
 # the plan's integer header, in the order the kernel reads it
 PLAN_FIELDS = ("m", "n", "n_padded", "tile_y", "tile_z", "chunk_x", "grid_z",
                "grid_y", "grid_x", "pad_blocks", "threads", "row_stride",
-               "plane", "smem_bytes")
+               "plane", "smem_bytes", "ld")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,9 +129,10 @@ class StencilPlan:
     slot(x + dx) * 3 plane + col_off[c] + k row_stride + (lz + 1) m + j,
     and its tap (alpha, dy) reads staged row r + 1 + dy."""
 
-    m: int
+    m: int  # columns of the launch (its column pass)
     n: int
     n_padded: int
+    ld: int  # row stride of X and the outputs, floats (m of one launch)
     dims: tuple  # (X, Y, Z) of the Ex, Ey, Ez grids
     offs: tuple  # first row of each component, then n
     box: tuple  # (X, Y, Z) extent of the common box of positions
@@ -185,9 +190,26 @@ def blocks_per_sm(smem: int, threads: int) -> int:
                SM_REGS // (threads * BLOCK_REGS))
 
 
+def column_passes(m: int) -> tuple:
+    """(first column, width) of each launch for an X of m columns: the
+    fewest passes of at most MAX_PASS columns, their widths as even as they
+    can be (m 171: 86 + 85), since the tile's shape follows the width."""
+    k = _cdiv(int(m), MAX_PASS)
+    base, extra = divmod(int(m), k)
+    out, j0 = [], 0
+    for i in range(k):
+        w = base + (i < extra)
+        out.append((j0, w))
+        j0 += w
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=32)
-def stencil_plan(shape, m: int, taps, n_padded: int) -> StencilPlan:
-    """The tap kernel's launch plan for an (nx, ny, nz) brick at width m.
+def stencil_plan(shape, m: int, taps, n_padded: int,
+                 ld: int | None = None) -> StencilPlan:
+    """The tap kernel's launch plan for an (nx, ny, nz) brick at width m,
+    the columns of one launch, in rows of ld floats (m by default; the
+    whole X's width when the launch is one of its column passes).
 
     Tiles: tile_z is the widest z extent whose staged row (tile_z + 2) m
     fits MAX_THREADS threads and whose block fits two to an SM's shared
@@ -200,9 +222,13 @@ def stencil_plan(shape, m: int, taps, n_padded: int) -> StencilPlan:
     element's pattern of 99 taps in 21 columns (csrc/stencil_taps.cu
     col_of, tap_of) and refuses another."""
     m = int(m)
-    if not 1 <= m <= 2 * MAX_THREADS // 3:
-        raise ValueError(f"the tap kernel takes a staged row of 3 m <= "
-                         f"{2 * MAX_THREADS} floats, got m = {m}")
+    ld = m if ld is None else int(ld)
+    if not 1 <= m <= MAX_PASS:
+        raise ValueError(f"a tap kernel launch takes a staged row of 3 m <= "
+                         f"{2 * MAX_THREADS} floats, got m = {m} (wider X "
+                         f"goes in column_passes)")
+    if ld < m:
+        raise ValueError(f"row stride {ld} < m {m}")
     dims = tuple(tuple(d) for d in component_shapes(shape))
     sizes = [a * b * c for a, b, c in dims]
     offs = tuple(int(v) for v in np.cumsum([0] + sizes))
@@ -239,7 +265,8 @@ def stencil_plan(shape, m: int, taps, n_padded: int) -> StencilPlan:
             col_off.append(b * plane + dz * m)
         columns[-1] = (*columns[-1][:4], columns[-1][4] + 1)
     return StencilPlan(
-        m=m, n=n, n_padded=int(n_padded), dims=dims, offs=offs, box=box,
+        m=m, n=n, n_padded=int(n_padded), ld=ld, dims=dims, offs=offs,
+        box=box,
         tile_y=TILE_Y, tile_z=tile_z, chunk_x=chunk_x, grid_z=grid_z,
         grid_y=grid_y, grid_x=grid_x,
         pad_blocks=_cdiv((n_padded - n) * m, threads), threads=threads,
@@ -251,8 +278,8 @@ def stencil_plan(shape, m: int, taps, n_padded: int) -> StencilPlan:
 
 def stencil_taps(X, mask, taps, shape, want_K=True, want_M=False):
     """(K @ X or None, M @ X or None) of the tap stencil, both (n_padded, m).
-    On a CUDA device the kernel runs (f32 only); on the CPU the plain
-    version."""
+    On a CUDA device the kernel runs (f32 only), one launch per column pass
+    of at most MAX_PASS columns; on the CPU the plain version."""
     if not (want_K or want_M):
         raise ValueError("want_K or want_M must be set")
     if X.device.type == "cpu":
@@ -277,22 +304,26 @@ def stencil_taps(X, mask, taps, shape, want_K=True, want_M=False):
         raise ValueError(f"mask on {mask.device}, X on {X.device}")
     from maxwell_tpu_torch.kernels import _build
 
-    plan = stencil_plan(tuple(shape), X.shape[1], taps, X.shape[0])
-    head = plan.header()
-    cols, coef = plan.arrays()
+    m = X.shape[1]
+    plans = [(j0, stencil_plan(tuple(shape), w, taps, X.shape[0], m))
+             for j0, w in column_passes(m)]
     YK = torch.empty_like(X) if want_K else None
     YM = torch.empty_like(X) if want_M else None
+    lib = _build.load()
     with torch.cuda.device(X.device):
-        rc = _build.load().stencil_taps_f32(
-            X.data_ptr(), mask.data_ptr(),
-            YK.data_ptr() if want_K else None,
-            YM.data_ptr() if want_M else None,
-            head.ctypes.data, cols.ctypes.data, coef.ctypes.data,
-            torch.cuda.current_stream(X.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"stencil_taps launch failed: error {rc}")
-    stencil_taps.launches += 1
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        for j0, plan in plans:  # each pass in place: its columns, stride m
+            head = plan.header()
+            cols, coef = plan.arrays()
+            rc = lib.stencil_taps_f32(
+                X.data_ptr() + 4 * j0, mask.data_ptr(),
+                YK.data_ptr() + 4 * j0 if want_K else None,
+                YM.data_ptr() + 4 * j0 if want_M else None,
+                head.ctypes.data, cols.ctypes.data, coef.ctypes.data, stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"stencil_taps launch failed: error {rc}")
+            stencil_taps.launches += 1
     return YK, YM
 
 

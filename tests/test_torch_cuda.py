@@ -213,19 +213,21 @@ def _check_stencil(p, got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask_kind", ["pec", "ones"])
 @pytest.mark.parametrize("mode", ["K", "M", "KM"])
-@pytest.mark.parametrize("m", [1, 3, 9, 17, 86])
+@pytest.mark.parametrize("m", [1, 3, 9, 17, 86, 171, 256, 341])
 def test_cuda_stencil_kernel_matches_plain(cuda_device, m, mode, mask_kind):
     """An odd (7, 6, 5) grid: the three component grids have different
     shapes, so the staging of every grid's edges is exercised (m 86: six
-    z tiles, two staged elements a thread). X is random on masked and
-    padding rows too: the kernel applies both masks, which are data (the
-    PEC mask, or all ones)."""
+    z tiles, two staged elements a thread; m 171, 256, 341: two or three
+    column passes, each launch in place at X's row stride). X is random on
+    masked and padding rows too: the kernel applies both masks, which are
+    data (the PEC mask, or all ones)."""
     p, mask, X = _stencil_case(cuda_device, m, mask_kind)
     want_K, want_M = mode != "M", mode != "K"
     kst.reset_counts()
     got = kst.stencil_taps(X, mask, p.taps, p.shape, want_K, want_M)
     want = kst.stencil_taps_ref(X, mask, p.taps, p.shape, want_K, want_M)
-    assert kst.counts() == {"stencil_taps": 1, "stencil_taps_ref": 1}
+    assert kst.counts() == {"stencil_taps": len(kst.column_passes(m)),
+                            "stencil_taps_ref": 1}
     _check_stencil(p, got, want)
 
 
@@ -810,11 +812,12 @@ def test_cuda_spmm_probes_match_plain(cuda_device, case, m):
     bf16-rounded operands) at each m, on the 5x5x6 brick's K (3 tiles, S
     32), on a random layout (5 tiles, S 20, X one block row taller than
     the layout) and on one of 300 tiles (more block rows than the card
-    holds warps at once); the three _hi variants (3xTF32 mma.sync) bit for
-    bit across two launches, the others launched once; no plain version
-    called."""
+    holds warps at once); the three _hi variants (3xTF32 mma.sync) and the
+    two _def rungs bit for bit across two launches, the others launched
+    once; no plain version called."""
     V, cols, X = _spmm_probe_case(case, m, cuda_device)
-    hi = ("v1_panel_hi", "v5_batched_hi", "v6_smem_hi")
+    hi = ("v1_panel_hi", "v5_batched_hi", "v6_smem_hi", "v2_panel_def",
+          "v5_batched_def")
     spp.reset_counts()
     for kern in spp.KERNELS:
         name = kern.__name__
@@ -835,6 +838,77 @@ def test_cuda_spmm_probes_match_plain(cuda_device, case, m):
     assert all(c[fn.__name__] == (2 if fn.__name__ in hi else 1)
                for fn in spp.KERNELS)
     assert not any(c[fn.__name__] for fn in spp.PLAIN)
+
+
+def _union_case(case, m, device):
+    """(V, cols, X, S) of 2 tiles for v2_panel_def's extremes. "S52",
+    "S64": every unit's 8 S block columns distinct, the largest union an
+    8-row unit can have (S 52: 416 entries, a panel of 32 columns within
+    232,448 bytes, one block an SM; S 64: 512 entries, passes of 8
+    columns). "S68": columns drawn from 200 (passes of 32), 34 steps a
+    row, 17 a warp (not a multiple of the 4 value steps in flight)."""
+    S = int(case[1:])
+    rng = np.random.default_rng(S)
+    nbr = 32
+    if case == "S68":
+        cols = rng.integers(0, 200, (nbr, S))
+    else:
+        cols = rng.permutation(nbr * S).reshape(nbr, S)
+    cols = torch.from_numpy(cols.astype(np.int32)).to(device)
+    V = torch.from_numpy(rng.standard_normal((nbr * 8, S * 8)).astype(
+        np.float32)).to(device)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (nbr * S * 8 + 8, m)).astype(np.float32)).to(device)
+    return V, cols, X, S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 32, 64, 128])
+@pytest.mark.parametrize("case", ["S52", "S64", "S68"])
+def test_cuda_union_def_largest_union(cuda_device, monkeypatch, case, m):
+    """v2_panel_def where every unit's union is as large as the unit
+    allows (8 S distinct block columns): the largest panel the host plans
+    (S 52: 416 entries at 32 columns a pass, 220 KB) and the passes of 8
+    (S 64, 512 entries: up to 16 passes), and a row's step halves ragged
+    against its value steps in flight (S 68), against the
+    plain product of bf16-rounded operands (1e-5 of max|plain|), bit for
+    bit across two launches; v5_batched_def beside. With the kernel told
+    of a panel one entry smaller than every unit's union, each unit
+    writes nothing and the largest union's size is recorded, which the
+    wrapper raises."""
+    V, cols, X, S = _union_case(case, m, cuda_device)
+    largest = spp.largest_union(cols)[0]
+    plan = spp.union_plan(largest, S, m, X.shape[0])
+    if case != "S68":
+        assert largest == 8 * S
+    assert plan["pass_width"] == (8 if case == "S64" or m == 8 else 32)
+    assert plan["smem"] <= spp.SMEM_LIMIT
+    want = spp.product_def_plain(V, cols, X)
+    spp.reset_counts()
+    for kern in (spp.v2_panel_def, spp.v5_batched_def):
+        got, again = kern(V, cols, X), kern(V, cols, X)
+        torch.cuda.synchronize()
+        assert ((got - want).abs().max()
+                / want.abs().max()).item() <= 1e-5, kern.__name__
+        assert torch.equal(got, again), kern.__name__
+    c = spp.counts()
+    assert c["v2_panel_def"] == c["v5_batched_def"] == 2
+    assert not c["v2_panel_def_ref"] and not c["v5_batched_def_ref"]
+    shape = spp.def_launch_shape("v2", plan["pass_width"], plan["smem"],
+                                 plan["passes"])
+    assert shape["warps"] == 16 and shape["blocks_per_sm"] >= 1
+    status = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    Y = torch.zeros((V.shape[0], m), device=cuda_device)
+    short = int(spp.union_sizes(cols).min()) - 1
+    scratch = torch.empty((cols.shape[0], S // 2, 32, 2), dtype=torch.int32,
+                          device=cuda_device)
+    gpr.launch("spmm_union_bf16", V, cols, X, Y, status, scratch,
+               cols.shape[0], S, m, X.shape[0], short, 8)
+    torch.cuda.synchronize()
+    assert int(status.item()) == largest and not Y.any()
+    monkeypatch.setattr(spp, "largest_union", lambda c: (short, True))
+    with pytest.raises(RuntimeError, match="exceeds"):
+        spp.v2_panel_def(V, cols, X)
 
 
 def _stream_case(tiles, S, m, device):

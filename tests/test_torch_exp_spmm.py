@@ -296,6 +296,19 @@ def test_probe_on_cpu_writes_only_out(tmp_path, monkeypatch):
         assert res["v9_km"]["rel_err_vs_f64"] < 1e-5
 
 
+def test_profile_def_needs_the_card(monkeypatch, tmp_path):
+    """The _def rungs' profile times kernels: without a visible card it
+    raises before any build, and writes nothing."""
+    from maxwell_tpu_torch.bench import profile_def
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_def.main(["--out", str(tmp_path / "p.json")])
+    with pytest.raises(RuntimeError, match="needs the card"):
+        profile_def.run(5, device="cpu")
+    assert not (tmp_path / "p.json").exists()
+
+
 def test_probe_defaults_to_the_card(monkeypatch, tmp_path):
     """Without --device the probe runs on the card; with none visible it
     raises (no fall-back to the CPU) and writes nothing."""
@@ -365,3 +378,340 @@ def test_counts_reset(layout):
     assert sum(c.values()) == 2
     spp.reset_counts()
     assert not any(spp.counts().values())
+
+
+# ---------------------------------------------------------------------------
+# The _def rungs' maps (csrc/spmm_probes.cu def_direct_kernel and
+# union_def_kernel), emulated in torch lane by lane: which X elements and
+# values each lane of a warp holds in its mma.sync m16n8k16 registers, the
+# product those registers make under PTX's fragment layout, and where each
+# lane stores its sums. The kernels themselves run in test_torch_cuda.py.
+# ---------------------------------------------------------------------------
+
+LG = torch.arange(8)[:, None]  # lane g = lane / 4
+LT = torch.arange(4)[None, :]  # lane t = lane % 4
+
+
+def _fragment_index():
+    """(A rows, A cols, B rows, B cols, D rows, D cols) of each lane
+    register half, as PTX lays out m16n8k16: A (8 g, 4 t, 4 regs, 2), B
+    (8, 4, 2, 2), D (8, 4, 4)."""
+    g = torch.arange(8)[:, None, None, None]
+    t = torch.arange(4)[None, :, None, None]
+    reg = torch.arange(4)[None, None, :, None]
+    e = torch.arange(2)[None, None, None, :]
+    a_row = (g + 8 * (reg % 2)).expand(8, 4, 4, 2)
+    a_col = (2 * t + e + 8 * (reg // 2)).expand(8, 4, 4, 2)
+    b_row = (2 * t + e + 8 * reg[..., :2, :]).expand(8, 4, 2, 2)
+    b_col = g.expand(8, 4, 2, 2)
+    d_row = (g[..., 0] + 8 * (reg[..., 0] // 2)).expand(8, 4, 4)
+    d_col = (2 * t[..., 0] + reg[..., 0] % 2).expand(8, 4, 4)
+    return [i.reshape(-1) for i in (a_row, a_col, b_row, b_col, d_row,
+                                    d_col)]
+
+
+FRAG = _fragment_index()
+
+
+def _mma(d, a, b):
+    """d (N, 8, 4, 4) += the m16n8k16 product of A registers a (N, 8, 4,
+    4, 2) and B registers b (N, 8, 4, 2, 2), in f64."""
+    N = a.shape[0]
+    A = torch.zeros((N, 16, 16), dtype=torch.float64)
+    Bm = torch.zeros((N, 16, 8), dtype=torch.float64)
+    A[:, FRAG[0], FRAG[1]] = a.reshape(N, -1).double()
+    Bm[:, FRAG[2], FRAG[3]] = b.reshape(N, -1).double()
+    D = torch.bmm(A, Bm)
+    return d + D[:, FRAG[4], FRAG[5]].reshape(N, 8, 4, 4)
+
+
+def _b_regs(V, S, ks):
+    """Lane (g, t)'s B registers of step ks: its value row g's float4 at
+    column 16 ks + 4 t, (.x, .y) and (.z, .w)."""
+    nbr = V.shape[0] // B
+    Vr = V.bfloat16().float().view(nbr, B, S * B)
+    cols = 16 * ks + 4 * LT + torch.arange(4)[:, None, None]  # (4, 1, 4)
+    v = Vr[:, :, cols[:, 0, :]]  # (nbr, 8 g, 4 j, 4 t)
+    v = v.permute(0, 1, 3, 2)  # (nbr, 8, 4 t, 4 j)
+    return v.reshape(nbr, 8, 4, 2, 2)
+
+
+def _regs_from_quads(f):
+    """A registers of tiles 2 i (lo) and 2 i + 1 (hi) from the lane's four
+    rows' float4s f (..., 4 rows, 4 columns): pack_tiles."""
+    lo = torch.stack([torch.stack([f[..., 0, j], f[..., 1, j]], -1)
+                      if r < 2 else
+                      torch.stack([f[..., 2, j], f[..., 3, j]], -1)
+                      for r, j in ((0, 0), (1, 1), (2, 0), (3, 1))], -2)
+    hi = torch.stack([torch.stack([f[..., 0, j], f[..., 1, j]], -1)
+                      if r < 2 else
+                      torch.stack([f[..., 2, j], f[..., 3, j]], -1)
+                      for r, j in ((0, 2), (1, 3), (2, 2), (3, 3))], -2)
+    return lo, hi
+
+
+def _store(Y, writes, r_rows, col0, lo, hi=None):
+    """Lane (g, t)'s stores of rows 2 t, 2 t + 1: store_tiles at columns
+    col0 (N, 8, 4) .. + 3 from tiles lo and hi, or (hi None) the W-8 pair
+    (d0, d2) / (d1, d3) at col0 .. + 1."""
+    for row_off, k in ((0, 0), (1, 1)):
+        rows = (r_rows[:, None, None] * B + 2 * LT + row_off).expand_as(col0)
+        vals = [lo[..., k], lo[..., k + 2]]
+        if hi is not None:
+            vals += [hi[..., k], hi[..., k + 2]]
+        for j, val in enumerate(vals):
+            Y[rows, col0 + j] = val.float()
+            writes[rows, col0 + j] += 1
+
+
+def emulate_v5_def(V, cols, X):
+    """(Y, writes) of def_direct_kernel: lane (g, t) loads its four k rows
+    of a step as a float4 each per 32 columns (m 8: column g alone, the
+    m16 rows 8 .. 15 zero), packs tiles 2 i, 2 i + 1, and stores float4s
+    at column 32 i + 4 g."""
+    nbr, S = cols.shape
+    m = X.shape[1]
+    Xb = X.bfloat16().float()
+    MT = max(1, m // 16)
+    d = [torch.zeros((nbr, 8, 4, 4), dtype=torch.float64)
+         for _ in range(MT)]
+    for ks in range(S // 2):
+        c = cols[:, 2 * ks + (LT >> 1)].long()  # (nbr, 1, 4)
+        rows = (8 * c + 4 * (LT & 1))[..., None] + torch.arange(4)
+        rows = rows.expand(nbr, 8, 4, 4)  # (nbr, g, t, q)
+        b = _b_regs(V, S, ks)
+        if m == 8:
+            x = Xb[rows, LG[..., None].expand(nbr, 8, 4, 4)]
+            z = torch.zeros_like(x[..., 0])
+            a = torch.stack([torch.stack([x[..., 0], x[..., 1]], -1),
+                             torch.stack([z, z], -1),
+                             torch.stack([x[..., 2], x[..., 3]], -1),
+                             torch.stack([z, z], -1)], -2)
+            d[0] = _mma(d[0], a, b)
+            continue
+        for i in range(m // 32):
+            colq = (32 * i + 4 * LG[..., None, None]
+                    + torch.arange(4))  # (8, 1, 1, 4)
+            f = Xb[rows[..., None], colq.expand(nbr, 8, 4, 4, 4)]
+            lo, hi = _regs_from_quads(f)
+            d[2 * i] = _mma(d[2 * i], lo, b)
+            d[2 * i + 1] = _mma(d[2 * i + 1], hi, b)
+    Y = torch.full((nbr * B, m), float("nan"))
+    writes = torch.zeros((nbr * B, m), dtype=torch.int32)
+    r = torch.arange(nbr)
+    if m == 8:
+        col0 = LG.expand(8, 4)[None].expand(nbr, 8, 4)
+        for row_off, k in ((0, 0), (1, 1)):
+            rows = (r[:, None, None] * B + 2 * LT + row_off).expand(nbr, 8, 4)
+            Y[rows, col0] = d[0][..., k].float()
+            writes[rows, col0] += 1
+        return Y, writes
+    for i in range(m // 32):
+        col0 = (32 * i + 4 * LG).expand(8, 4)[None].expand(nbr, 8, 4)
+        _store(Y, writes, r, col0, d[2 * i], d[2 * i + 1])
+    return Y, writes
+
+
+def emulate_union_map(cols, x_rows):
+    """Per unit of 8 block rows, as union_def_kernel builds it: the bitmap
+    over X's x_rows / 8 block columns in 32-bit words, each word's prefix
+    popcount, the union's columns word by word (ucol) and each of the
+    unit's 8 S slots' place. Returns [(ucol, places)] by unit."""
+    nwords = -(-(x_rows // B) // 32)
+    bit = torch.arange(32)
+    out = []
+    for unit in cols.reshape(cols.shape[0] // 8, -1).long():
+        # atomicOr of bit c % 32 into word c / 32: the same words in any
+        # order
+        flags = torch.zeros((nwords, 32), dtype=torch.bool)
+        flags[unit >> 5, unit & 31] = True
+        words = (flags.long() << bit).sum(1)
+        pop = ((words[:, None] >> bit) & 1).sum(1)
+        prefix = torch.cumsum(pop, 0) - pop
+        # word w's set bits in order from place prefix[w]
+        ucol = torch.full((int(pop.sum()),), -1, dtype=torch.int64)
+        rank = torch.cumsum(flags.long(), 1) - flags.long()
+        ucol[(prefix[:, None] + rank)[flags]] = (
+            32 * torch.arange(nwords)[:, None] + bit)[flags]
+        below = words[unit >> 5] & ((1 << (unit & 31)) - 1)
+        places = prefix[unit >> 5] + ((below[:, None] >> bit) & 1).sum(1)
+        out.append((ucol, places))
+    return out
+
+
+def emulate_v2_def(V, cols, X, W):
+    """(Y, writes) of union_def_kernel at pass width W: per unit and pass,
+    the panel staged item by item (rows 4 h .. 4 h + 3 of entry u at
+    columns 4 qd .. + 3 into chunks 4 qd + h and 4 qd + 2 + h), each lane
+    reading its chunks through its slots' places (W 32: pairs 2 g + half
+    first, then the other; W 8: pair g % 4), the products of each half of
+    a row's steps (its two warps) added first half + second, the stores."""
+    nbr, S = cols.shape
+    m = X.shape[1]
+    Xb = X.bfloat16().float()
+    Y = torch.full((nbr * B, m), float("nan"))
+    writes = torch.zeros((nbr * B, m), dtype=torch.int32)
+    MT = max(1, W // 16)
+    for unit, (ucol, places) in enumerate(emulate_union_map(cols,
+                                                           X.shape[0])):
+        nu = ucol.numel()
+        r = unit * 8 + torch.arange(8)
+        pl = places.view(8, S)
+        for j0 in range(0, m, W):
+            panel = torch.full((nu, W, 4, 2), float("nan"))
+            for u in range(nu):
+                for qd in range(W // 4):
+                    for h in range(2):
+                        f = Xb[8 * ucol[u] + 4 * h + torch.arange(4),
+                               j0 + 4 * qd: j0 + 4 * qd + 4]
+                        lo, hi = _regs_from_quads(f)
+                        panel[u, 4 * qd + h] = lo
+                        panel[u, 4 * qd + 2 + h] = hi
+            # each row's steps in two halves (two warps), summed after
+            halves = []
+            Vu = V[unit * 64:(unit + 1) * 64]
+            for k1 in (0, S // 4):
+                d = [torch.zeros((8, 8, 4, 4), dtype=torch.float64)
+                     for _ in range(MT)]
+                for ks in range(k1, k1 + S // 4):
+                    half, h = LT >> 1, LT & 1
+                    u = pl[:, 2 * ks + half].expand(8, 8, 4)  # (row, g, t)
+                    b = _b_regs(Vu, S, ks)
+                    if W == 32:
+                        g = LG.expand(8, 4)
+                        q0 = panel[u, 2 * (2 * g + half) + h]
+                        q1 = panel[u, 2 * (2 * g + (half ^ 1)) + h]
+                        sel = (half == 1)[..., None, None]
+                        d[0] = _mma(d[0], torch.where(sel, q1, q0), b)
+                        d[1] = _mma(d[1], torch.where(sel, q0, q1), b)
+                    else:
+                        d[0] = _mma(d[0], panel[u, 2 * (LG % 4) + h], b)
+                halves.append(d)
+            d = [a.float() + b.float() for a, b in zip(*halves)]
+            if W == 32:
+                col0 = (j0 + 4 * LG).expand(8, 4)[None].expand(8, 8, 4)
+                _store(Y, writes, r, col0, d[0], d[1])
+            else:
+                g4 = torch.arange(4)
+                col0 = (j0 + 2 * g4[:, None]).expand(4, 4)[None].expand(
+                    8, 4, 4)
+                _store(Y, writes, r, col0, d[0][:, :4])
+    return Y, writes
+
+
+def _spmm_layout(case):
+    """(V, cols, X rows) of a layout of test_cuda_spmm_probes_match_plain
+    (the 5x5x6 brick's K; a random one of 5 tiles, S 20; one of 300 tiles)
+    or "distinct": 2 tiles of S 64 whose units' 8 S block columns are all
+    distinct (the largest union a unit can have)."""
+    rng = np.random.default_rng(7)
+    if case == "brick":
+        cav = PermutedProblem(BrickCavity3D(nx=5, ny=5, nz=6))
+        A = BSRMatrix.from_csr(cav.K, block=8, device="cpu")
+        return spp.panel_values(A.blocks), A.cols, A.n_padded + 8
+    if case == "distinct":
+        nbr, S = 32, 64
+        cols = torch.from_numpy(rng.permutation(nbr * S).astype(
+            np.int32)).view(nbr, S)
+    else:
+        nbr, S = (5 if case == "random" else 300) * 16, 20
+        cols = torch.from_numpy(rng.integers(0, nbr + 1, (nbr, S)).astype(
+            np.int32))
+    V = torch.from_numpy(rng.standard_normal((nbr * 8, S * 8)).astype(
+        np.float32))
+    return V, cols, 8 * (int(cols.max()) + 2)
+
+
+@pytest.mark.parametrize("case", ["brick", "random", "many", "distinct"])
+def test_union_map_is_each_units_sorted_union(case):
+    """v2_panel_def's union map, as the kernel builds it from cols
+    (bitmap, prefix popcount over its words, the union's columns word by
+    word, each slot's place), equals torch.unique of each unit's 8 S block
+    columns exactly; every slot's place holds its own column, so the slice
+    the panel stages there is X[8 c : 8 c + 8]; the host's largest union is
+    the largest of them."""
+    V, cols, x_rows = _spmm_layout(case)
+    X = torch.arange(x_rows, dtype=torch.float32)[:, None].expand(
+        x_rows, 8).contiguous()
+    units = cols.reshape(cols.shape[0] // 8, -1).long()
+    maps = emulate_union_map(cols, x_rows)
+    for unit, (ucol, places) in zip(units, maps):
+        assert torch.equal(ucol, torch.unique(unit))
+        assert torch.equal(ucol[places], unit)
+        panel = X.view(-1, 8, 8)[ucol]
+        for c, p in zip(unit.tolist(), places.tolist()):
+            assert torch.equal(panel[p], X[8 * c: 8 * c + 8])
+    sizes = torch.tensor([u.numel() for u, _ in maps])
+    assert torch.equal(spp.union_sizes(cols), sizes)
+    largest, fresh = spp.largest_union(cols)
+    assert fresh and largest == int(sizes.max())
+    assert spp.largest_union(cols) == (largest, False)  # cached
+    cols[0, 0] = cols[0, 0]  # a write: reckoned again
+    assert spp.largest_union(cols)[1]
+    if case == "distinct":
+        assert largest == 8 * cols.shape[1]
+
+
+def test_union_plan_at_the_probe_layout():
+    """At the 24^3 probe layout (4,768 block rows, S 64) the largest 8-row
+    union is 162 block columns (mean 84.4): at m 8 one pass of 8, from m
+    32 passes of 32, each panel within the H100's 232,448 bytes, twice to
+    an SM; where a union does not fit at 32 columns the passes are 8 wide,
+    and where it does not fit at 8 the width is refused."""
+    prob = PermutedProblem(BrickCavity3D(nx=24, ny=24, nz=24))
+    A = BSRMatrix.from_csr(prob.K.tocsr(), block=8, device="cpu")
+    sizes = spp.union_sizes(A.cols).double()
+    largest = spp.largest_union(A.cols)[0]
+    assert largest == 162 and abs(sizes.mean().item() - 84.43) < 0.01
+    for m in spp.MS:
+        plan = spp.union_plan(largest, A.slots, m, A.n_padded)
+        W = 8 if m == 8 else 32
+        assert plan == {"unit": 8, "pass_width": W, "passes": m // W,
+                        "largest_union": 162,
+                        "smem": spp.union_smem(W, 162, 64, A.n_padded)}
+        assert plan["smem"] == 162 * 16 * W + 8192 + 8 * 149 \
+            + 4 * 8 * 64 + 4 * 162 + 16
+        assert 2 * (plan["smem"] + 1024) <= 233472 <= 2 * spp.SMEM_LIMIT
+    assert spp.union_plan(512, 64, 128, A.n_padded)["pass_width"] == 8
+    assert spp.union_plan(416, 52, 128, 8 * 834)["pass_width"] == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        spp.union_plan(2048, 256, 32, A.n_padded)
+
+
+@pytest.mark.parametrize("m", [8, 32, 64, 128])
+@pytest.mark.parametrize("case", ["brick", "random"])
+def test_v5_def_map_emulated_matches_plain(case, m):
+    """def_direct_kernel's column and store map in torch: each lane's four
+    k rows of a step as a float4 per 32 columns (m 8: column g), tiles 2 i
+    and 2 i + 1 packed from .x/.y and .z/.w, the PTX m16n8k16 product, Y
+    stored as float4s at column 32 i + 4 g: every Y element written once,
+    the product within 1e-5 of max|plain| of product_def_plain."""
+    V, cols, x_rows = _spmm_layout(case)
+    X = torch.from_numpy(_x(x_rows, m))
+    Y, writes = emulate_v5_def(V, cols, X)
+    assert torch.equal(writes, torch.ones_like(writes))
+    want = spp.product_def_plain(V, cols, X)
+    assert (Y - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("case,m,W", [("brick", 8, 8), ("brick", 64, 32),
+                                      ("random", 32, 32),
+                                      ("random", 128, 32),
+                                      ("distinct", 32, 8)])
+def test_v2_def_panel_emulated_matches_plain(case, m, W):
+    """union_def_kernel's panel and reads in torch: per unit and pass the
+    union's slices staged into 16-byte chunks item by item, each lane's
+    chunks through its slots' places (W 32 in the swapped order of the
+    step's second slot), the PTX product over each half of a row's steps,
+    the halves added, the stores (W 8: lanes g < 4):
+    every Y element written once, within 1e-5 of max|plain| of
+    product_def_plain; the passes the host plans for the layout."""
+    V, cols, x_rows = _spmm_layout(case)
+    X = torch.from_numpy(_x(x_rows, m))
+    plan = spp.union_plan(spp.largest_union(cols)[0], cols.shape[1], m,
+                          x_rows)
+    assert plan["pass_width"] == W and plan["passes"] == m // W
+    Y, writes = emulate_v2_def(V, cols, X, W)
+    assert torch.equal(writes, torch.ones_like(writes))
+    want = spp.product_def_plain(V, cols, X)
+    assert (Y - want).abs().max() <= 1e-5 * want.abs().max()

@@ -9,7 +9,10 @@ interpret mode within 1e-5 of max|plain| (the bound the chip smoke holds
 the kernel to; the sums run in another order), on an odd (7, 6, 5) grid
 whose three component grids differ, at m 1, 9, 17 and 86 (86: several z
 tiles, two staged elements a thread), for K, M and fused K/M, on PEC and
-all-ones masks, with X random on masked and padding rows.
+all-ones masks, with X random on masked and padding rows. Past 170
+columns the wrapper launches in column passes (`column_passes`), each in
+place through the row stride `ld`: the split and the passes applied one
+by one are held the same way at m 171 and 256.
 The kernel itself is tested on the card in test_torch_cuda.py."""
 
 import re
@@ -30,18 +33,24 @@ torch.set_num_threads(1)
 TOL = 1e-5  # chip_smoke.py's TOL["stencil"]
 GRID = (7, 6, 5)
 WIDTHS = (1, 9, 17, 86)
+WIDE = (171, 256)  # two column passes each
 MODES = {"K": (True, False), "M": (False, True), "KM": (True, True)}
 
 
-def apply_plan(plan, X, mask, want_K, want_M):
-    """(YK, YM, writes) as the kernel computes them under `plan`; writes
-    counts how often each output element was written."""
-    m, rs, P = plan.m, plan.row_stride, plan.plane
+def apply_plan(plan, X, mask, want_K, want_M, j0=0, acc_out=None):
+    """(YK, YM, writes) as the kernel computes them under `plan`, for the
+    launch whose first column is j0 of the (n_padded, plan.ld) block X;
+    writes counts how often each output element was written. acc_out:
+    (YK, YM, writes) flat buffers of an earlier pass to write into."""
+    m, rs, P, ld = plan.m, plan.row_stride, plan.plane, plan.ld
     ty_rows = plan.tile_y + 2
     xf, mf = X.reshape(-1), mask
-    outs = [torch.full((plan.n_padded * m,), float("nan")) if w else None
-            for w in (want_K, want_M)]
-    writes = torch.zeros(plan.n_padded * m, dtype=torch.int32)
+    if acc_out is None:
+        outs = [torch.full((plan.n_padded * ld,), float("nan")) if w
+                else None for w in (want_K, want_M)]
+        writes = torch.zeros(plan.n_padded * ld, dtype=torch.int32)
+    else:
+        *outs, writes = acc_out
     e = torch.arange(rs)  # a staged row's elements
     o = torch.arange(plan.tile_z * m)  # an output row's elements
     r = torch.arange(plan.tile_y)[:, None]
@@ -61,7 +70,8 @@ def apply_plan(plan, X, mask, want_K, want_M):
                     ok = (0 <= xp < Xb and 0 <= y < Yb) & (z >= 0) & (z < Zb)
                     q = plan.offs[beta] + (xp * Yb + y) * Zb + z
                     q = torch.where(ok, q, 0)
-                    val = torch.where(ok, xf[q * m + e % m] * mf[q], 0.0)
+                    val = torch.where(ok, xf[q * ld + j0 + e % m] * mf[q],
+                                      0.0)
                     ring[slot * 3 * P + beta * P + row * rs + e] = val
 
         stage(xb - 1)
@@ -84,19 +94,35 @@ def apply_plan(plan, X, mask, want_K, want_M):
                 y = y0 + r
                 ok = (z < Za) & (y < Ya) & (xc < Xa)
                 rows = plan.offs[A] + (xc * Ya + y) * Za + z
-                idx = (rows * m + o % m)[ok]
+                idx = (rows * ld + j0 + o % m)[ok]
                 writes[idx] += 1
                 for op, out in enumerate(outs):
                     if out is not None:
                         out[idx] = (acc[A, op] * mf[rows])[ok]
-    pad = torch.arange(plan.n * m, plan.n_padded * m)
+    pad_rows = torch.arange(plan.n, plan.n_padded)[:, None]
+    pad = (pad_rows * ld + j0 + torch.arange(m)).reshape(-1)
     assert plan.pad_blocks * plan.threads >= pad.numel()
     writes[pad] += 1
     for out in outs:
         if out is not None:
             out[pad] = 0.0
-    shaped = [None if y is None else y.reshape(plan.n_padded, m) for y in outs]
+    shaped = [None if y is None else y.reshape(plan.n_padded, ld)
+              for y in outs]
     return shaped[0], shaped[1], writes
+
+
+def apply_passes(port, X, mask, want_K, want_M):
+    """The wrapper's launches on the (n_padded, m) block X: one plan per
+    column pass, in rows of m floats, each applied in place."""
+    m = X.shape[1]
+    acc = None
+    for j0, w in kst.column_passes(m):
+        plan = kst.stencil_plan(port.shape, w, port.taps, port.n_padded, m)
+        assert (plan.m, plan.ld) == (w, m)
+        YK, YM, writes = apply_plan(plan, X, mask, want_K, want_M, j0, acc)
+        acc = [None if y is None else y.reshape(-1) for y in (YK, YM)]
+        acc.append(writes)
+    return YK, YM, writes
 
 
 @pytest.fixture(scope="module")
@@ -114,12 +140,13 @@ def setup():
     out = {}
     for kind, mask in (("pec", port.mask.numpy()), ("ones", ones)):
         # random on every row, masked and padding ones too
+        wide = max(WIDE)
         X = np.random.default_rng(len(kind)).standard_normal(
-            (port.n_padded, max(WIDTHS))).astype(np.float32)
+            (port.n_padded, wide)).astype(np.float32)
         grids = ref._to_grids(jnp.asarray(X * mask[:, None]))
-        got = stencil_taps_pallas(grids, ref.taps, max(WIDTHS), True, True,
+        got = stencil_taps_pallas(grids, ref.taps, wide, True, True,
                                   interpret=True)
-        want = [np.asarray(ref._from_grids(*comp, max(WIDTHS)))
+        want = [np.asarray(ref._from_grids(*comp, wide))
                 * mask[:, None] for comp in got]
         out[kind] = (port, torch.from_numpy(mask), X, want)
     return out
@@ -148,6 +175,56 @@ def test_plan_applied_matches_plain_and_pallas(setup, mask_kind, m, mode):
         assert (got - want).abs().max().item() <= TOL * scale
         jw = jax_want[:, :m]
         assert np.abs(got.numpy() - jw).max() <= TOL * np.abs(jw).max()
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("m", WIDE)
+@pytest.mark.parametrize("mask_kind", ["pec", "ones"])
+def test_passes_applied_match_plain_and_pallas(setup, mask_kind, m, mode):
+    """Past 170 columns: the wrapper's column passes applied one by one,
+    each plan in rows of m floats reading and writing its own columns in
+    place, against the plain version and the JAX kernel in interpret mode
+    (1e-5 of max|plain|); every output element written once."""
+    port, mask, X, want_jax = setup[mask_kind]
+    want_K, want_M = MODES[mode]
+    assert len(kst.column_passes(m)) == 2
+    Xm = torch.from_numpy(X[:, :m].copy())
+    YK, YM, writes = apply_passes(port, Xm, mask, want_K, want_M)
+    assert torch.equal(writes, torch.ones_like(writes))
+    plain = kst.taps_plain(Xm, mask, port.taps, port.shape, want_K, want_M)
+    for got, want, jax_want in zip((YK, YM), plain, want_jax):
+        assert (got is None) == (want is None)
+        if got is None:
+            continue
+        assert got.shape == (port.n_padded, m) and not got[port.n:].any()
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= TOL * scale
+        jw = jax_want[:, :m]
+        assert np.abs(got.numpy() - jw).max() <= TOL * np.abs(jw).max()
+
+
+@pytest.mark.parametrize("m", [1, 9, 170, 171, 256, 340, 341, 1000])
+def test_column_passes_cover_every_column_once(m):
+    """The split of X's m columns into launches: consecutive, every column
+    once, none wider than 170, none narrower than half the widest (m 171
+    is 86 + 85, not 170 + 1), one pass up to 170, the fewest passes past
+    it; each pass's plan fits the kernel and keeps the whole X's stride."""
+    passes = kst.column_passes(m)
+    assert len(passes) == -(-m // kst.MAX_PASS) and kst.MAX_PASS == 170
+    assert [j0 for j0, _ in passes] == list(
+        np.cumsum([0] + [w for _, w in passes[:-1]]))
+    assert sum(w for _, w in passes) == m
+    widest = max(w for _, w in passes)
+    assert widest <= 170 and 2 * min(w for _, w in passes) >= widest
+    if m == 171:
+        assert passes == ((0, 86), (86, 85))
+    p = StencilPencil3D.build(nx=6, ny=5, nz=4, dtype=torch.float32,
+                              device="cpu")
+    for _, w in passes:
+        plan = kst.stencil_plan(p.shape, w, p.taps, p.n_padded, m)
+        assert plan.m == w and plan.ld == m
+        assert plan.header()[kst.PLAN_FIELDS.index("ld")] == m
+        assert plan.row_stride == (plan.tile_z + 2) * w <= 2 * plan.threads
 
 
 def test_plan_at_the_solve_shape():
@@ -221,9 +298,13 @@ def test_plan_fits_the_kernel(m):
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
+    """One launch takes at most 170 columns (the wrapper splits wider X
+    into passes), a stride no narrower than its columns, all n rows."""
     p = StencilPencil3D.build(nx=6, ny=5, nz=4, dtype=torch.float32,
                               device="cpu")
     with pytest.raises(ValueError):
         kst.stencil_plan(p.shape, 171, p.taps, p.n_padded)
     with pytest.raises(ValueError):
         kst.stencil_plan(p.shape, 9, p.taps, p.n - 1)
+    with pytest.raises(ValueError):
+        kst.stencil_plan(p.shape, 9, p.taps, p.n_padded, 8)
