@@ -125,7 +125,10 @@ Phases, in order; any failure raises and the process exits non-zero:
                just before and read just after; every probe kernel (and
                conv3d) within 1e-5 of max|plain| (p5/p6 also of p1/p3's),
                launched, and no plain version called; one JSON line per
-               variant
+               variant, and a shift_launch line: the shift kernel's
+               window, x-chunk, shared memory, bytes staged beside the
+               field's, registers and resident blocks per SM, per case and
+               m
  20. spmm and gather probes  slice 8 through the probe scripts' run():
                exp_spmm.run (the 24^3 RCM K's blocked-ELL layout at m in
                {8, 32, 64, 128}: v1-v6, then K8, K11 and K12 beside) and
@@ -134,10 +137,14 @@ Phases, in order; any failure raises and the process exits non-zero:
                its library call) within 1e-5 of max|plain| (the _def
                variants against bf16-rounded operands; those and the
                _hi rungs bit for bit across two runs), launched, and no
-               plain version called; one JSON line per variant, and a
+               plain version called; one JSON line per variant, a
                def_launch line: v2_panel_def's unit, pass width, largest
                union and shared memory, both _def rungs' registers and
-               resident blocks per SM at each m
+               resident blocks per SM at each m, and a gather_launch line:
+               gather_sum's grid, the blocks' slot counts, cut tiles, tile
+               union sizes, slice bytes read and those of the unions,
+               registers and resident blocks per SM (g0, g1, g4; v4 at
+               each m)
  21. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
@@ -1801,6 +1808,12 @@ def phase_grid_and_stencil_probes():
         log({"probe": "exp_grid", "variant": name, **r1[name]})
     log({"phase": "exp_stencil2", "seconds": t2 - t1, "grid": r2["grid"],
          "k4": r2["k4"]})
+    # the shift kernel's launch per case and m: window, chunk, shared
+    # memory, bytes staged beside the field's, registers, blocks per SM
+    log({"shift_launch": {
+        **{f"p{k}": {f"m{m}": r2[f"m{m}"][f"p{k}"]["launch"] for m in (8, 9)}
+           for k in range(7)},
+        "p3_same_outputs": r2["k4"]["p3_same_outputs"]["launch"]}})
     for m in (8, 9):
         res = r2[f"m{m}"]
         log({"probe": "exp_stencil2", "m": m,
@@ -1826,6 +1839,11 @@ def phase_grid_and_stencil_probes():
             "max_abs_err": max(m8["max_abs_err"], m9["max_abs_err"]),
             **{key: m8[key] for key in keys},
             "m9": {key: m9[key] for key in ("max_abs_err", *keys)}}
+    # p3 on the grid-91 field (K4's output count), with its byte bound
+    p3 = r2["k4"]["p3_same_outputs"]
+    stats["shift_p3"]["p3_grid91"] = {
+        key: p3[key] for key in ("grid", "max_abs_err", "ms", "bound_ms",
+                                 "bound_by")}
     return stats, {name: counts[name] for name in mine}
 
 
@@ -1865,6 +1883,12 @@ def phase_spmm_and_gather_probes():
                         for name in ("v2_panel_def", "v5_batched_def")}})
     log({"phase": "exp_gather", "seconds": t2 - t1,
          **{k: v for k, v in r2.items() if k not in GATHER_PROBES}})
+    # gather_sum's launch: grid, the blocks' slot counts, cut tiles, union
+    # sizes, slice bytes and the unions', registers, blocks per SM
+    log({"gather_launch": {
+        **{name: r2[name]["launch"]
+           for name in ("g0_slices", "g1_slices2x", "g4_lane_ds")},
+        "v4_gather": {w: r1[w]["v4_gather"]["launch"] for w in widths}}})
     for name in GATHER_PROBES:
         log({"probe": "exp_gather", "variant": name, **r2[name]})
 
@@ -1877,8 +1901,8 @@ def phase_spmm_and_gather_probes():
         raise AssertionError(f"plain versions ran on the card: {stray}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_bf16_ms")
-    stats = {name: {k: r2[name][k] for k in keys if k in r2[name]}
-             for name in GATHER_PROBES}
+    stats = {name: {k: r2[name][k] for k in (*keys, "l2_floor_ms")
+                    if k in r2[name]} for name in GATHER_PROBES}
     for name in SPMM_PROBES:
         stats[name] = {
             **{k: r1["m8"][name][k] for k in keys if k in r1["m8"][name]},
@@ -1987,7 +2011,8 @@ def main():
     log({"kernels": [{**entry(name), "path": path,
                       **{w: stats[name][w] for w in (
                           "m1", "m8", "m9", "m32", "m64", "m128", "m171",
-                          "launch_floor_ms", "unit_bytes", "library_bf16_ms")
+                          "launch_floor_ms", "unit_bytes", "library_bf16_ms",
+                          "l2_floor_ms", "p3_grid91")
                          if w in stats[name]}}
                      for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")

@@ -31,10 +31,15 @@ output once; for g3w the kept index columns and the distinct 32-byte
 source sectors its kept gathers touch, counted from idx by
 `touched_sectors`, with the old count of the whole source as
 bytes_staged beside), library_ms of one PyTorch call computing the same
-function (`library` says what it includes and excludes), and the max
+function (`library` says what it includes and excludes), for g0, g1 and g4
+l2_floor_ms (their slices' bytes over the L2 read rate the run measures,
+bench/timing.py l2_read_rate, l2_read_GBps: the byte bound lies under the
+launch floor) and `launch` (gather_sum's plan: grid, the blocks'
+slot counts, union sizes, bytes; registers and resident blocks), and the max
 error against the plain version (the run fails above 1e-5 of max|plain|,
 for the library call too, 1e-4 for embedding_bag's sums of up to 1,024
-rows).
+rows; g0, g1 and g4 also where a second run differs from the first,
+`bitwise_repeat`).
 Runs on the card unless --device cpu is given; there the plain versions
 run and nothing is timed. Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_gather_results.json); never the
@@ -51,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from maxwell_tpu_torch.bench.exp_union import PROBE_DIR, device_of, write
-from maxwell_tpu_torch.bench.timing import bound_ms, median_ms
+from maxwell_tpu_torch.bench.timing import bound_ms, l2_read_rate, median_ms
 from maxwell_tpu_torch.kernels import gather_probes as gpr
 from maxwell_tpu_torch.utils.precision import fp32_true
 
@@ -63,6 +68,9 @@ LIB_TOL_SUM = 1e-4
 T_REF, S_REF = 298, 64
 W = 4096  # g3w's source width (exp_gather.py:190)
 R, B, M = gpr.R, gpr.B, gpr.M
+# gather_sum's variants: (rows of a slice, slots read: all or half, X^T)
+SUMS = {"g0_slices": (B, 1, False), "g1_slices2x": (2 * B, 2, False),
+        "g4_lane_ds": (2 * B, 2, True)}
 
 
 def make_inputs(T: int, S: int, seed: int = 0) -> dict:
@@ -166,6 +174,15 @@ def library(name, t, T, S):
     raise KeyError(name)
 
 
+def sum_launch(cols, m, rows, slots, transposed) -> dict:
+    """gather_sum's launch on the card for these cols: the plan's summary
+    (gpr.GatherPlan.summary) and the kernel's registers, local memory and
+    resident blocks per SM."""
+    sms = torch.cuda.get_device_properties(cols.device).multi_processor_count
+    plan = gpr.gather_plan(cols, m, sms, rows, slots, transposed)
+    return {**plan.summary(cols), **gpr.launch_shape(plan)}
+
+
 @fp32_true
 def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
     """Every variant at T tiles of S slots on `device`; raises if a kernel
@@ -195,6 +212,8 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
                  "it reads; g3w: the source's 32-byte sectors its kept "
                  "gathers touch) and of its output once, at 3.35 TB/s",
     }
+    if timed:  # the slices of g0, g1, g4 come from L2: their floor
+        results["l2_read_GBps"] = l2_read_rate(dev) / 1e9
     y128 = T * R * B * M * f4
     half_cols = nbr * (S // 2) * f4
     # name: (kernel, args, bytes, additions, gathered bytes)
@@ -231,6 +250,10 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
                                  f" > {tol} * {scale:.3e}")
         row = {"max_abs_err": err, "rel_err": err / scale,
                "library": what, "library_max_abs_err": lib_err}
+        if name in SUMS:  # fixed summation order: runs repeat bit for bit
+            row["bitwise_repeat"] = torch.equal(got, kern(*args))
+            if not row["bitwise_repeat"]:
+                raise AssertionError(f"{name}: two runs differ")
         if timed:
             ms = median_ms(lambda: kern(*args))
             b_ms, b_by = bound_ms(nbytes, adds, "f32")
@@ -242,6 +265,11 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
                        library_ms=median_ms(call))
             if name == "g3w_taa1_wide":  # staging each tile's source
                 row["bytes_staged"] = elems + t["XTW"].numel() * f4 + elems
+            if name in SUMS:
+                rows, half, xt = SUMS[name]
+                row["l2_floor_ms"] = gathered / (
+                    results["l2_read_GBps"] * 1e9) * 1e3
+                row["launch"] = sum_launch(t["cols"], M, rows, S // half, xt)
         results[name] = row
     return results
 

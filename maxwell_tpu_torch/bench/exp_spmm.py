@@ -29,8 +29,8 @@ The layout is the port's BSRMatrix.from_csr (its slot order follows
 scipy's builder, not the reference's); X is drawn from numpy's
 default_rng(m). Per variant and m: ms (median of 20 launches), plain_ms,
 max_abs_err against the plain version (the run fails above 1e-5 of
-max|plain|, or where a _hi or _def variant's second run differs from its
-first, `bitwise_repeat`; the _def variants against the plain product of
+max|plain|, or where a _hi, _def or v4_gather run differs from its first,
+`bitwise_repeat`; the _def variants against the plain product of
 bf16-rounded operands, with their error against the f32 product beside, and
 their launch: v2's unit, pass width, largest union and shared memory, on
 the card the registers and resident blocks of both), bound_ms /
@@ -58,7 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from maxwell_tpu_torch.bench.exp_gather import LIB_TOL_SUM, bag_sum
+from maxwell_tpu_torch.bench.exp_gather import LIB_TOL_SUM, bag_sum, sum_launch
 from maxwell_tpu_torch.bench.exp_union import (
     LIB_TOL_BF16,
     PROBE_DIR,
@@ -207,10 +207,12 @@ def run(grid: int = GRID, ms=MS, device="cuda") -> dict:
             got, want = kern(*args), plain(*args)
             err, scale = held(name, got, want)
             row = {"max_abs_err": err, "rel_err": err / scale}
-            if name in HI + DEF:  # one writer per output, no atomics
+            if name in HI + DEF + ("v4_gather",):  # runs repeat bit for bit
                 row["bitwise_repeat"] = torch.equal(got, kern(*args))
                 if not row["bitwise_repeat"]:
                     raise AssertionError(f"{name}: two runs differ")
+            if name == "v4_gather" and timed:
+                row["launch"] = sum_launch(cols, m, B, S, False)
             if name in DEF:
                 row["launch"] = _def_launch(name, cols, X, timed)
                 f32 = spp.product_plain(V, cols, X)

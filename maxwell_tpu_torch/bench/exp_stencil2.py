@@ -16,7 +16,9 @@ it (exp_stencil2.py:101-105); the output is (NX, Y, ZM). m 8 is the
 reference's default, m 9 the LOBPCG block of the 64^3 stencil solve. Per
 case and m: ms (median of 20 launches), ns_per_output, plain_ms, bound_ms /
 bound_by and pct_bound at the card's published rates (the field read once
-and the output written once; 2 x 33 flops per output at the f32 rate), and
+and the output written once; 2 x 33 flops per output at the f32 rate),
+`launch` (the kernel's plan: window, chunk, grid, shared memory, the bytes
+it stages beside the field's; registers and resident blocks per SM), and
 the max error against the plain version (the run fails above 1e-5 of
 max|plain|; p5 is also held to p1's plain output and p6 to p3's).
 library_ms: every case is one 3-D convolution of the field with a 3 x 3 x 3
@@ -25,7 +27,8 @@ along z, so one F.conv3d call (TF32 off) computes it; it is held to the
 plain version at the same tolerance. Then K4 (the fused K/M tap apply,
 csrc/stencil_taps.cu) on the grid^3 stencil pencil at m 9, timed beside p3
 on a field with as many outputs (per output, K4 reads X and the mask at
-each of its taps and writes both K and M; p3 reads the field once per tap).
+each of its taps and writes both K and M; p3 reads the field once per tap),
+with p3's bound and launch there.
 Runs on the card unless --device cpu is given; there the plain versions and
 the convolution run and nothing is timed. Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_stencil2_results.json).
@@ -116,19 +119,31 @@ def _k4(grid: int, dev: torch.device, timed: bool) -> dict:
     p3_out = (g3 + 2) ** 3 * m
     p3_err, _ = _check(f"p3 at grid {g3}", sp.shift_probe("p3", field, m),
                        sp.shift_plain("p3", field, m))
+    p3_bytes = (field.numel() + (g3 + 2) ** 3 * m) * 4
     row = {"grid": grid, "m": m, "n_padded": pencil.n_padded,
            "outputs": outputs, "max_abs_err": err,
            "p3_same_outputs": {"grid": g3, "outputs": p3_out,
-                               "max_abs_err": p3_err}}
+                               "max_abs_err": p3_err, "bytes": p3_bytes}}
     if timed:
         row["ms"] = median_ms(kern)
         row["ns_per_output"] = row["ms"] * 1e6 / outputs
         t = median_ms(lambda: sp.shift_probe("p3", field, m))
-        row["p3_same_outputs"].update(ms=t, ns_per_output=t * 1e6 / p3_out)
+        b_ms, b_by = bound_ms(p3_bytes, 2 * 33 * p3_out, "f32")
+        row["p3_same_outputs"].update(
+            ms=t, ns_per_output=t * 1e6 / p3_out, bound_ms=b_ms,
+            bound_by=b_by, launch=shift_launch("p3", field, m))
         row["k4_over_p3_per_output"] = (row["ns_per_output"]
                                         / row["p3_same_outputs"]
                                         ["ns_per_output"])
     return row
+
+
+def shift_launch(case, field, m) -> dict:
+    """The shift kernel's launch on the card for this field: the plan's
+    summary (sp.ShiftPlan.summary) and the kernel's registers, local
+    memory and resident blocks per SM."""
+    plan = sp.field_plan(case, field, m)
+    return {**plan.summary(), **sp.launch_shape(plan)}
 
 
 @fp32_true
@@ -177,7 +192,8 @@ def run(grid: int = 64, ms=(8, 9), device="cuda") -> dict:
                            bound_ms=b_ms, bound_by=b_by,
                            pct_bound=100 * b_ms / t,
                            library_ms=median_ms(
-                               lambda: library(field, W, m)))
+                               lambda: library(field, W, m)),
+                           launch=shift_launch(case, field, m))
             res[case] = row
         del plains
         results[f"m{m}"] = res

@@ -4,6 +4,8 @@ the port's counterpart of maxwell_tpu/bench/exp_gather.py::timeit_chain.
     median_ms(fn)            median of n launches of fn, CUDA events
     copy_bandwidth(device)   bytes/s of one 256 MB elementwise read + write,
                              the denominator of every "% of own roofline"
+    l2_read_rate(device)     bytes/s the SMs read from L2: every block
+                             re-reads one 1.2 MB buffer
     bound_ms(bytes, flops, kind)   the least time the card could take
     with_tf32(fn)            fn with TF32 allowed for its matmuls only: a
                              library call on f32 operands at the rate of
@@ -29,6 +31,8 @@ LAUNCHES = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FLOPS_PER_S = {"f32": 67e12, "bf16": 989e12}  # H100 SXM dense peaks
 COPY_BYTES = 256 * 2**20
+L2_BYTES = 1_220_608  # the K15e probe's X at T 298 (38,144 rows of 8 f32)
+L2_BLOCKS_PER_SM = 8  # blocks of 256 threads: 2,048 threads an SM
 
 
 def median_ms(fn, n: int = LAUNCHES) -> float:
@@ -64,6 +68,26 @@ def copy_bandwidth(device="cuda", nbytes: int = COPY_BYTES) -> float:
     y = torch.empty_like(x)
     ms = median_ms(lambda: torch.add(x, 1.0, out=y))
     return 2 * nbytes / (ms * 1e-3)
+
+
+def l2_read_rate(device="cuda", nbytes: int = L2_BYTES) -> float:
+    """Bytes per second the SMs read from L2: L2_BLOCKS_PER_SM blocks an SM
+    each read the whole of one nbytes f32 buffer through L2 (ld.global.cg,
+    L1 bypassed; the buffer stays L2-resident after the first launch),
+    csrc/gather_probes.cu l2_read_f32; the rate a gather whose slices come
+    from L2 cannot beat."""
+    from maxwell_tpu_torch.kernels import gather_probes as gpr
+
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"a device rate needs a CUDA device, not {device}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    x = torch.ones(nbytes // 4, dtype=torch.float32, device=device)
+    out = torch.empty(sms * L2_BLOCKS_PER_SM, dtype=torch.float32,
+                      device=device)
+    ms = median_ms(lambda: gpr.l2_read(x, out))
+    if out[0].item() != nbytes // 4:
+        raise AssertionError("l2_read_f32 did not read the whole buffer")
+    return out.numel() * nbytes / (ms * 1e-3)
 
 
 def bound_ms(nbytes, flops, kind):

@@ -27,7 +27,11 @@ cols (16 T, S) int32 are block columns, X (n, 8) f32 with n = 128 T.
                                the kernel of K15d's e0_grid1
 
 `gather_sum(cols, X)` is g0's kernel at any m in {8, 32, 64, 128}; the
-blocked-ELL probe's v4_gather (kernels/spmm_probes.py) launches it.
+blocked-ELL probe's v4_gather (kernels/spmm_probes.py) launches it. g0, g1,
+g4 and v4 share its body, launched as `gather_plan` says: a persistent grid
+of SUM_BLOCKS blocks an SM, the T R slots cut into near-equal ranges
+(`ranges`), every slice read from L2 (through L1, which serves a tile's
+repeated block columns).
 
 A wrapper given CUDA tensors checks them and launches its kernel
 (csrc/gather_probes.cu: g3 `taa1`, g3w `taa1_wide`; g5:
@@ -41,6 +45,10 @@ probe's path.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
+import numpy as np
 import torch
 
 R, B, M = 16, 8, 8  # block rows per tile, block size, the probe's width
@@ -216,6 +224,173 @@ def launch(name, *args):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+# gather_sum's launch (csrc/gather_probes.cu): a persistent grid of
+# SUM_BLOCKS blocks of SUM_WARPS warps an SM, the slot list cut into near-
+# equal ranges of whole groups of 4 slots
+SUM_WARPS = 8
+SUM_BLOCKS = 2  # resident blocks an SM (the kernel's launch bounds)
+GROUP = 4  # slots of an index group (one int4), the ranges' unit
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """gather_sum's launch (see gather_plan). Block b sums the slots
+    ranges()[b] .. ranges()[b + 1] of the T R slots in (tile, block row,
+    slot) order, tile piece by tile piece; a tile cut by a range boundary
+    is summed piece by piece and the pieces added in range order."""
+
+    T: int
+    S: int
+    slots: int  # read from each cols row, its first (S or S / 2)
+    rows: int  # of a slice: 8 (g0, v4) or 16 (g1, g4)
+    m: int
+    transposed: bool  # g4: slices of X^T
+    grid: int  # blocks
+    sms: int
+
+    @property
+    def n(self) -> int:
+        """Slots of a tile."""
+        return R * self.slots
+
+    @property
+    def groups(self) -> int:
+        return self.T * self.n // GROUP
+
+    def ranges(self) -> np.ndarray:
+        """(grid + 1,) the first slot of each block's range, then T n: the
+        kernel's range_start, 4 floor(b groups / grid)."""
+        b = np.arange(self.grid + 1, dtype=np.int64)
+        return GROUP * (b * self.groups // self.grid)
+
+    def block_of(self, e):
+        """The block whose range holds slot e (the kernel's block_of)."""
+        e = np.asarray(e, dtype=np.int64)
+        return ((e // GROUP + 1) * self.grid + self.groups - 1) \
+            // self.groups - 1
+
+    def cut_tiles(self) -> int:
+        """Tiles that two or more ranges share."""
+        t = np.arange(self.T, dtype=np.int64)
+        return int((self.block_of((t + 1) * self.n - 1)
+                    != self.block_of(t * self.n)).sum())
+
+    @property
+    def slice_bytes(self) -> int:
+        """A slice: rows x m floats, or of X^T m rows of 16."""
+        return 4 * self.m * (16 if self.transposed else self.rows)
+
+    def summary(self, cols=None) -> dict:
+        """The launch as the probes record it: grid and threads; the
+        blocks' slot counts (least, most, mean, the most's excess over the
+        mean in %); cut tiles; the slice bytes every slot reads (from L2,
+        or L1 where a tile repeats a block column). Given the plan's cols,
+        also the tiles' union sizes (tile_unions: least, mean, largest) and
+        union_bytes, their slices (each distinct slice of a tile once)."""
+        loads = np.diff(self.ranges())
+        out = {"grid": self.grid, "threads": 32 * SUM_WARPS,
+               "block_slots": {"min": int(loads.min()),
+                               "max": int(loads.max()),
+                               "mean": float(loads.mean()),
+                               "max_over_mean_pct": float(
+                                   100 * (loads.max() / loads.mean() - 1))},
+               "cut_tiles": self.cut_tiles(),
+               "bytes_slices": self.T * self.n * self.slice_bytes}
+        if cols is not None:
+            u = tile_unions(cols, self.slots)
+            out["unions"] = {"min": min(u), "mean": sum(u) / self.T,
+                             "max": max(u), "slots": self.n}
+            out["union_bytes"] = sum(u) * self.slice_bytes
+        return out
+
+
+def tile_unions(cols, slots: int) -> tuple:
+    """(T,) distinct block columns among each tile's R rows' first `slots`
+    slots (one sort on cols' device): the probes' record of how often a
+    tile repeats a slice."""
+    T = cols.shape[0] // R
+    u = cols[:, :slots].reshape(T, R * slots).sort(dim=1).values
+    sizes = 1 + (u[:, 1:] != u[:, :-1]).sum(dim=1)
+    return tuple(int(v) for v in sizes.cpu())
+
+
+def gather_plan(cols, m: int, sms: int, rows: int = B, slots=None,
+                transposed: bool = False) -> GatherPlan:
+    """gather_sum's launch for cols (16 T, S) at width m on a card of `sms`
+    SMs, reading each row's first `slots` slots (all by default) as slices
+    of `rows` rows (transposed: of X^T): SUM_BLOCKS blocks an SM, at most
+    one a group of 4 slots."""
+    T, S = cols.shape[0] // R, cols.shape[1]
+    slots = S if slots is None else int(slots)
+    groups = T * R * slots // GROUP
+    return GatherPlan(T=T, S=S, slots=slots, rows=rows, m=int(m),
+                      transposed=bool(transposed),
+                      grid=min(int(sms) * SUM_BLOCKS, groups), sms=int(sms))
+
+
+def launch_shape(plan: GatherPlan) -> dict:
+    """The plan's launch on the current card: registers and local memory
+    bytes a thread, resident blocks per SM (the occupancy API's count),
+    the SM count and a block's shared memory; see csrc/gather_probes.cu
+    gather_sum_shape. Needs the card."""
+    from maxwell_tpu_torch.kernels import _build
+
+    out = (ctypes.c_int64 * 5)()
+    rc = _build.load().gather_sum_shape(
+        plan.rows, plan.m, int(plan.transposed), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"gather_sum_shape: error {rc}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "sms",
+                     "smem"), out))
+
+
+def l2_read(x, out):
+    """Every one of out.numel() blocks reads x (f32, a multiple of 4
+    floats) through L2 and adds its sum to its float of out, zeroed here:
+    bench/timing.py's L2 read rate. Ports no TPU kernel; uncounted."""
+    if x.dtype != torch.float32 or x.numel() % 4 or not x.is_contiguous():
+        raise ValueError("x must be contiguous f32, a multiple of 4 floats")
+    check_operands(x, out, dtypes=(torch.float32, torch.float32))
+    out.zero_()
+    launch("l2_read_f32", x, out, x.numel() // 4, out.numel())
+    return out
+
+
+_COUNTERS = {}  # (device, stream) -> int32 [>= T], zero between launches
+
+
+def run_plan(plan: GatherPlan, cols, X, Y, x_stride: int = 0) -> None:
+    """gather_sum's launch of `plan` on checked CUDA operands into Y:
+    scratch rows for the cut tiles, and the tiles' counters of the current
+    stream (zero between launches: the kernel leaves them so, and the
+    launches of one stream run in turn). A launch that fails drops its
+    stream's counters, so that the next starts from fresh zeros."""
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    key = (X.device, stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < plan.T:
+        counters = torch.zeros(max(plan.T, 1024), dtype=torch.int32,
+                               device=X.device)
+        _COUNTERS[key] = counters
+    scratch = torch.empty((2 * plan.grid, plan.slice_bytes // 4),
+                          dtype=torch.float32, device=X.device)
+    try:
+        launch("gather_sum_f32", cols, X, Y, scratch, counters, plan.T,
+               plan.S, plan.slots, plan.rows, plan.m, int(plan.transposed),
+               x_stride, plan.grid)
+    except RuntimeError:
+        del _COUNTERS[key]
+        raise
+
+
+def _sum_launch(cols, X, Y, slots, rows, transposed, x_stride):
+    """gather_sum on checked CUDA operands: its plan, then its launch."""
+    m = X.shape[0] if transposed else X.shape[1]
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    run_plan(gather_plan(cols, m, sms, rows, slots, transposed), cols, X, Y,
+             x_stride)
+
+
 def gather_sum(cols, X) -> torch.Tensor:
     """g0's kernel at any m in SLICE_MS on CUDA tensors: the (8, m) sum of
     each tile's R S slices X[8 c : 8 c + 8], tiled R times. Uncounted: the
@@ -228,7 +403,7 @@ def gather_sum(cols, X) -> torch.Tensor:
     check_cols(cols, X.shape[0], cols.shape[1], B)
     T, S = cols.shape[0] // R, cols.shape[1]
     Y = torch.empty((TILE * T, m), dtype=torch.float32, device=X.device)
-    launch("gather_sum_f32", cols, X, Y, T, S, S, B, m, 0, 0)
+    _sum_launch(cols, X, Y, S, B, False, 0)
     return Y
 
 
@@ -259,7 +434,7 @@ def g1_slices2x(cols, Xp):
     check_cols(cols, Xp.shape[0], cols.shape[1] // 2, 2 * B)
     T, S = cols.shape[0] // R, cols.shape[1]
     Y = torch.empty((TILE * T, M), dtype=torch.float32, device=Xp.device)
-    launch("gather_sum_f32", cols, Xp, Y, T, S, S // 2, 2 * B, M, 0, 0)
+    _sum_launch(cols, Xp, Y, S // 2, 2 * B, False, 0)
     g1_slices2x.launches += 1
     return Y
 
@@ -277,8 +452,7 @@ def g4_lane_ds(cols, XTp):
     T, S = cols.shape[0] // R, cols.shape[1]
     Y = torch.empty((M * T, 2 * B * S), dtype=torch.float32,
                     device=XTp.device)
-    launch("gather_sum_f32", cols, XTp, Y, T, S, S // 2, 2 * B, M, 1,
-            XTp.shape[1])
+    _sum_launch(cols, XTp, Y, S // 2, 2 * B, True, XTp.shape[1])
     g4_lane_ds.launches += 1
     return Y
 

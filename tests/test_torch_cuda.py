@@ -727,19 +727,24 @@ def test_cuda_grid_probes_match_plain(cuda_device, T, live):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid,m", [(3, 1), (3, 8), (5, 9), (4, 17),
-                                    (70, 16)])
+                                    (70, 16), (64, 8)])
 def test_cuda_shift_probes_match_plain(cuda_device, grid, m):
     """K15f's seven cases against their plain versions (1e-5 of
     max|plain|), p5 against p1's plain output and p6 against p3's, on the
     probe's own field at small and ragged sizes (ZM = (grid + 2) m from 15
-    to 1,152 lanes: one warp, partial warps, rows longer than a block);
-    each case launched once, no plain version called."""
+    to 1,152 lanes: one warp, partial warps, rows longer than a block; grid
+    3 at m 1 stages its windows in 4-byte copies, 64 at m 8 in 16-byte
+    ones); each case launched twice, bit for bit, no plain version
+    called."""
     field = torch.from_numpy(exp_stencil2.make_field(grid, m)).to(
         cuda_device)
+    plan = spr.field_plan("p3", field, m)
+    assert plan.vec == int((grid + 4) * m % 4 == 0)
     spr.reset_counts()
     plain = {c: spr.shift_plain(c, field, m) for c in spr.CASES}
     for case in spr.CASES:
-        got = spr.shift_probe(case, field, m)
+        got, again = spr.shift_probe(case, field, m), \
+            spr.shift_probe(case, field, m)
         torch.cuda.synchronize()
         want = plain[exp_stencil2.SAME_AS.get(case, case)]
         assert got.shape == want.shape == (grid + 2, grid + 2,
@@ -747,8 +752,9 @@ def test_cuda_shift_probes_match_plain(cuda_device, grid, m):
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
         assert ((got - plain[case]).abs().max()
                 / plain[case].abs().max()).item() <= 1e-5
+        assert torch.equal(got, again), case
     c = spr.counts()
-    assert all(c[f"shift_{k}"] == 1 and c[f"shift_{k}_ref"] == 0
+    assert all(c[f"shift_{k}"] == 2 and c[f"shift_{k}_ref"] == 0
                for k in spr.CASES)
 
 
@@ -952,7 +958,9 @@ def test_cuda_gather_probes_match_plain(cuda_device, T, S):
     """K15e's seven kernels against their plain versions on the probe's
     own draws at small T, a ragged S and T 300 (1e-5 of max|plain|;
     g3w_taa1_wide, a gather, bit for bit), and g5 bit for bit against
-    K15d's e0; each launched once, no plain version called."""
+    K15d's e0; each launched twice, bit for bit (gather_sum's ranges cut
+    tiles at every T, and its blocks' slot counts lie within one group of
+    4 of each other), no plain version called."""
     t = {k: torch.from_numpy(v).to(cuda_device)
          for k, v in exp_gather.make_inputs(T, S).items()}
     X = t["X"]
@@ -964,21 +972,79 @@ def test_cuda_gather_probes_match_plain(cuda_device, T, S):
             gpr.g3_taa1: (t["idx1"], X.T.contiguous()),
             gpr.g3w_taa1_wide: (t["idx1w"], t["XTW"], P),
             gpr.g5_floor: (X, T)}
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = gpr.gather_plan(t["cols"], 8, sms)
+    assert plan.cut_tiles() > 0 and np.ptp(np.diff(plan.ranges())) <= 4
     gpr.reset_counts()
     gp.reset_counts()
     for kern, a in args.items():
-        got, want = kern(*a), gpr.PLAIN_OF[kern](*a)
+        got, again = kern(*a), kern(*a)
+        want = gpr.PLAIN_OF[kern](*a)
         torch.cuda.synchronize()
         assert got.shape == want.shape, kern.__name__
         assert ((got - want).abs().max()
                 / want.abs().max()).item() <= 1e-5, kern.__name__
+        assert torch.equal(got, again), kern.__name__
         if kern is gpr.g3w_taa1_wide:
             assert torch.equal(got, want)
     assert torch.equal(gpr.g5_floor(X, T), gp.e0_grid1(X, T))
     c = gpr.counts()
-    assert c["g5_floor"] == 2 and gp.counts()["e0_grid1"] == 1
-    assert all(c[fn.__name__] == 1 for fn in gpr.KERNELS[:-1])
+    assert c["g5_floor"] == 3 and gp.counts()["e0_grid1"] == 1
+    assert all(c[fn.__name__] == 2 for fn in gpr.KERNELS[:-1])
     assert not any(c[fn.__name__] for fn in gpr.PLAIN)
+
+
+@pytest.fixture(scope="module")
+def brick24_cols():
+    """The 24^3 RCM brick K's blocked-ELL cols (v4_gather's layout) and X
+    rows, on the CPU."""
+    cav = PermutedProblem(BrickCavity3D(nx=24, ny=24, nz=24))
+    A = BSRMatrix.from_csr(cav.K, block=8, device="cpu")
+    return A.cols, A.n_padded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 32, 64, 128])
+def test_cuda_v4_gather_staged(cuda_device, brick24_cols, m):
+    """v4_gather on the 24^3 layout (each tile's 1,024 slots on 124
+    distinct slices on average), on the persistent grid of two blocks an
+    SM with tiles cut between ranges, agrees with its plain version within
+    1e-5 of max|plain|, bit for bit across two launches."""
+    cols, rows = brick24_cols
+    cols = cols.to(cuda_device)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (rows, m)).astype(np.float32)).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = gpr.gather_plan(cols, m, sms)
+    assert plan.grid == 2 * sms and plan.cut_tiles() > 0
+    spp.reset_counts()
+    got, again = spp.v4_gather(cols, X), spp.v4_gather(cols, X)
+    want = gpr.sum_plain(cols, X)
+    torch.cuda.synchronize()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert torch.equal(got, again)
+    assert spp.counts()["v4_gather"] == 2 and not spp.counts()[
+        "v4_gather_ref"]
+
+
+@pytest.mark.cuda
+def test_cuda_gather_sum_counters_per_stream(cuda_device):
+    """gather_sum keeps its cut tiles' counters per stream: launches on a
+    side stream and on the current one each get their own buffer, left
+    zero, and give the same output bit for bit."""
+    t = {k: torch.from_numpy(v).to(cuda_device)
+         for k, v in exp_gather.make_inputs(37, 20).items()}
+    want = gpr.gather_sum(t["cols"], t["X"])
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        got = gpr.gather_sum(t["cols"], t["X"])
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    mine = [v for (dev, _), v in gpr._COUNTERS.items()
+            if dev == t["X"].device]
+    assert len(mine) >= 2 and not any(int(v.abs().sum()) for v in mine)
 
 
 @pytest.mark.cuda

@@ -318,3 +318,161 @@ def test_counts_reset(data):
     assert sum(c.values()) == 2
     gpr.reset_counts()
     assert not any(gpr.counts().values())
+
+
+# ---------------------------------------------------------------------------
+# gather_plan: the persistent split of gather_sum's kernel
+# ---------------------------------------------------------------------------
+
+PLAN_CASES = [(10, 64, 132, None), (37, 20, 132, None), (37, 20, 132, 10),
+              (300, 64, 132, 32), (298, 64, 132, None), (1, 4, 132, None),
+              (5, 8, 7, 4)]  # (T, S, sms, slots read)
+
+
+def _cols(T, S, seed=3):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, T * R + 1, (T * R, S)).astype(
+        np.int32))
+
+
+@pytest.mark.parametrize("T,S,sms,slots", PLAN_CASES)
+def test_gather_plan_ranges_cover_every_slot_once(T, S, sms, slots):
+    """The ranges tile the T R slots' list in order: they start at 0, end
+    at T n, are multiples of the 4-slot group and none is empty; the
+    kernel's block_of gives each slot the range that holds it, and a cut
+    tile's pieces are the blocks from block_of(first) to block_of(last)."""
+    plan = gpr.gather_plan(_cols(T, S), 8, sms, slots=slots)
+    r = plan.ranges()
+    total = T * R * plan.slots
+    assert r[0] == 0 and r[-1] == total and len(r) == plan.grid + 1
+    assert np.all(r % gpr.GROUP == 0) and np.all(np.diff(r) > 0)
+    assert plan.grid == min(gpr.SUM_BLOCKS * sms, total // 4)
+    e = np.arange(total)
+    owner = np.searchsorted(r, e, side="right") - 1
+    np.testing.assert_array_equal(plan.block_of(e), owner)
+    hits = np.zeros(total, np.int64)
+    for b in range(plan.grid):
+        hits[r[b]:r[b + 1]] += 1
+    assert np.all(hits == 1)
+
+
+@pytest.mark.parametrize("T,S,sms,slots", PLAN_CASES)
+def test_gather_plan_block_loads_are_even(T, S, sms, slots):
+    """Every block's slot count lies within one 4-slot group of every
+    other's: no SM is more than a group over the mean."""
+    plan = gpr.gather_plan(_cols(T, S), 8, sms, slots=slots)
+    loads = np.diff(plan.ranges())
+    assert loads.max() - loads.min() <= gpr.GROUP
+
+
+@pytest.mark.parametrize("T,S,slots", [(10, 64, None), (37, 20, 10),
+                                       (12, 16, 8)])
+def test_gather_plan_unions_are_numpy_unique(T, S, slots):
+    """The plan's union sizes are numpy.unique's count of each tile's
+    block columns (the first `slots` of its R rows), on random and on
+    repeating columns."""
+    for cols in (_cols(T, S), _cols(T, S) % 5):
+        plan = gpr.gather_plan(cols, 8, 132, slots=slots)
+        k = plan.slots
+        want = [len(np.unique(cols[R * t:R * (t + 1), :k].numpy()))
+                for t in range(T)]
+        assert list(gpr.tile_unions(cols, k)) == want
+        s = plan.summary(cols)
+        assert s["union_bytes"] == sum(want) * 4 * B * 8
+        assert s["unions"]["max"] == max(want) and "unions" not in \
+            plan.summary()
+
+
+@pytest.fixture(scope="module")
+def brick24_cols():
+    from maxwell_tpu_torch.problems import BrickCavity3D
+    from maxwell_tpu_torch.sparse.bsr import BSRMatrix
+    from maxwell_tpu_torch.sparse.reorder import PermutedProblem
+
+    cav = PermutedProblem(BrickCavity3D(nx=24, ny=24, nz=24))
+    return BSRMatrix.from_csr(cav.K, block=8, device="cpu").cols
+
+
+@pytest.mark.parametrize("m", gpr.SLICE_MS)
+def test_gather_plan_stages_the_rcm_layout(brick24_cols, m):
+    """v4_gather's 24^3 RCM layout (124 distinct block columns of a tile's
+    1,024 slots on average) on the persistent grid of two blocks an SM,
+    its slots within one group of even; the summary records what staging
+    each tile's union once would read beside what the slots read (at most
+    half: the kernel reads every slot, L1 serving the repeats)."""
+    plan = gpr.gather_plan(brick24_cols, m, 132)
+    s = plan.summary(brick24_cols)
+    assert plan.grid == 264 and s["unions"]["max"] == 247
+    assert plan.m == m and plan.n == 1024
+    assert s["block_slots"]["max"] - s["block_slots"]["min"] <= gpr.GROUP
+    assert s["bytes_slices"] == plan.T * 1024 * 8 * m * 4
+    assert s["union_bytes"] <= 0.5 * s["bytes_slices"]
+
+
+@pytest.mark.parametrize("rows,slots,transposed", [(8, None, False),
+                                                   (16, 32, False),
+                                                   (16, 32, True)])
+def test_gather_plan_streams_the_probe_draws(rows, slots, transposed):
+    """g0, g1 and g4 on make_inputs(298, 64): about 90% of a tile's slots
+    distinct, so the unions' slices are nearly all the slots read; 264
+    blocks, every one within a group of the others' slot count."""
+    cols = torch.from_numpy(exp_gather.make_inputs(298, 64)["cols"])
+    plan = gpr.gather_plan(cols, 8, 132, rows, slots, transposed)
+    s = plan.summary(cols)
+    assert s["unions"]["min"] > 0.85 * plan.n
+    assert s["union_bytes"] > 0.85 * s["bytes_slices"]
+    assert plan.grid == 264 and s["block_slots"]["max_over_mean_pct"] < 1
+
+
+def _split_sum(cols, X, plan):
+    """gather_sum's arithmetic by the plan: each block's range summed tile
+    piece by tile piece (a piece's slices in slot order), a cut tile's
+    pieces added in range order, the (8, m) sums tiled R times."""
+    T, m, n = plan.T, X.shape[1], plan.n
+    c = cols[:, :plan.slots].reshape(-1).long()
+    slices = X[:X.shape[0] // B * B].view(-1, B, m)[c]  # slot order
+    r = plan.ranges()
+    pieces = {}
+    for b in range(plan.grid):
+        for t in range(r[b] // n, -(-r[b + 1] // n)):
+            a, z = max(r[b], t * n), min(r[b + 1], (t + 1) * n)
+            acc = torch.zeros((B, m), dtype=X.dtype)
+            for e in range(a, z):
+                acc = acc + slices[e]
+            pieces.setdefault(t, []).append(acc)
+    out = []
+    for t in range(T):
+        s = pieces[t][0]
+        for p in pieces[t][1:]:
+            s = s + p
+        out.append(s.repeat(R, 1))
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("sms", [132, 4, 3])
+def test_gather_split_matches_plain_and_probe_body(data, sms):
+    """The split's arithmetic (range pieces, combined in range order) on
+    the probe's draws at T 10 agrees with sum_plain and with the probe's
+    g0 body (jnp, per grid step) within 1e-5 of max|ref|; at every SM
+    count some tiles are cut between ranges."""
+    t = _tensors(data)
+    plan = gpr.gather_plan(t["cols"], M, sms)
+    assert plan.cut_tiles() > 0
+    got = _split_sum(t["cols"], t["X"], plan)
+    want = gpr.sum_plain(t["cols"], t["X"])
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    ref = _reference("g0_slices", data)
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_profile_shift_gather_needs_the_card(monkeypatch, tmp_path):
+    """The two kernels' profile times them: without a visible card it
+    raises and writes nothing; asked for the CPU it refuses."""
+    from maxwell_tpu_torch.bench import profile_shift_gather
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_shift_gather.main(["--out", str(tmp_path / "p.json")])
+    assert not (tmp_path / "p.json").exists()
+    with pytest.raises(RuntimeError, match="needs the card"):
+        profile_shift_gather.run(device="cpu")

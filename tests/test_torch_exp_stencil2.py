@@ -212,3 +212,128 @@ def test_counts_reset():
     assert sum(c.values()) == 2
     sp.reset_counts()
     assert not any(sp.counts().values())
+
+
+# ---------------------------------------------------------------------------
+# shift_plan: the windows the kernel stages
+# ---------------------------------------------------------------------------
+
+SMS = 132  # the H100 SXM's SMs
+
+@pytest.mark.parametrize("grid", [3, 5, 64, 70])
+@pytest.mark.parametrize("m", [1, 8, 9, 17])
+def test_shift_plan_windows_cover_every_output_once(grid, m):
+    """Every output (i, y, z) of the (grid + 2)^3 m field lies in exactly
+    one block's window, for a one-plane case and a three-plane one; no
+    cut into x-chunks with two blocks an SM (where NX allows) gives the
+    busiest SM fewer staged window-planes, each
+    block's shared memory stays within 232,448 bytes and two blocks or
+    more fit an SM."""
+    n = grid + 2
+    for case in ("p1", "p3"):
+        plan = sp.shift_plan(n, n, n * m, m, case, SMS)
+        hits = np.zeros((n, n, n * m), np.int8)
+        for x0, x1, y0, y1, z0, z1 in sp.shift_windows(plan):
+            assert x1 > x0 and y1 > y0 and z1 > z0
+            hits[x0:x1, y0:y1, z0:z1] += 1
+        assert np.all(hits == 1)
+        assert 2 * (plan.smem_bytes + 1024) <= 233472  # 2 blocks an SM
+        tiles = plan.grid_z * plan.grid_y
+
+        def load(g):  # staged window-planes of the busiest SM
+            return -(-tiles * g // SMS) * (-(-n // g) + plan.slots - 2)
+
+        least = min(n, -(-2 * SMS // tiles))
+        assert plan.grid_x >= least
+        assert all(load(plan.grid_x) <= load(g) for g in range(least, n + 1))
+        assert plan.threads % 32 == 0 and plan.tz <= plan.threads <= 256
+        assert plan.w >= plan.tz + 2 * m and plan.w % 4 == 0
+        assert plan.slots == (4 if case == "p3" else 2)
+        assert plan.vec == int((n * m + 2 * m) % 4 == 0)
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+@pytest.mark.parametrize("case", ["p0", "p3"])
+def test_shift_plan_follows_the_sm_count(sms, case):
+    """The x-chunks come from the card's SM count: at 64^3, m 8 the plan's
+    cut gives every SM two blocks at least and its busiest SM the fewest
+    staged window-planes of any such cut at that count; the windows do
+    not depend on it."""
+    n = 66
+    plan = sp.shift_plan(n, n, n * 8, 8, case, sms)
+    tiles = plan.grid_z * plan.grid_y
+    halo = plan.slots - 2
+
+    def load(g):
+        return -(-tiles * g // sms) * (-(-n // g) + halo)
+
+    least = min(n, -(-2 * sms // tiles))
+    assert plan.grid_x >= least and plan.blocks >= 2 * sms
+    assert all(load(plan.grid_x) <= load(g) for g in range(least, n + 1))
+    base = sp.shift_plan(n, n, n * 8, 8, case, SMS)
+    assert (plan.ty, plan.tz, plan.w, plan.slots) == (base.ty, base.tz,
+                                                      base.w, base.slots)
+
+
+def _windowed(case, field, m, plan):
+    """The kernel's arithmetic by the plan: each block's outputs computed
+    from its staged halo slice alone (planes x0 .. x1 + 1, rows y0 .. y1 +
+    1, lanes z0 .. z1 + 2m - 1 of the field), as shift_plain computes
+    them."""
+    NX, Y, ZM = plan.NX, plan.Y, plan.ZM
+    out = torch.full((NX, Y, ZM), float("nan"))
+    for x0, x1, y0, y1, z0, z1 in sp.shift_windows(plan):
+        halo = field[x0:x1 + 2, y0:y1 + 2, z0:z1 + 2 * m]
+        out[x0:x1, y0:y1, z0:z1] = sp.shift_plain(case, halo, m)
+    return out
+
+
+@pytest.mark.parametrize("grid,m", [(3, 1), (5, 9), (4, 17), (12, 3)])
+@pytest.mark.parametrize("case", sp.CASES)
+def test_windowed_arithmetic_is_shift_plain(case, grid, m):
+    """Each window computed from its staged halo slice alone equals the
+    plain version bit for bit: the windows read nothing outside their
+    halo."""
+    field = torch.from_numpy(exp_stencil2.make_field(grid, m))
+    n = grid + 2
+    plan = sp.shift_plan(n, n, n * m, m, case, SMS)
+    assert plan.blocks > 1
+    got = _windowed(case, field, m, plan)
+    assert torch.equal(got, sp.shift_plain(case, field, m))
+
+
+@pytest.mark.parametrize("grid,m", SIZES)
+@pytest.mark.parametrize("case", sp.CASES)
+def test_windowed_arithmetic_matches_pallas_interpret(reference, grid, m,
+                                                      case):
+    """The windowed arithmetic against the reference kernel in interpret
+    mode: within 1e-5 of max|ref|."""
+    field = torch.from_numpy(exp_stencil2.make_field(grid, m))
+    n = grid + 2
+    plan = sp.shift_plan(n, n, n * m, m, case, SMS)
+    got = _windowed(case, field, m, plan)
+    want = reference[grid, m, case]
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_shift_plan_stages_the_halo_bytes():
+    """staged_bytes counts what the kernel copies, here by hand: a 4 x 4 x
+    32 output at m 8 is one 4-row, 32-lane window per plane in 4 chunks of
+    one plane; a staged row is 48 lanes (192 bytes, 16-byte copies), a
+    plane 6 rows; p6 stages 3 planes per chunk. At m 3 (rows of 18 + 6
+    lanes, 33 floats apart) the copies are 4-byte ones: 24 lanes a row."""
+    for case, planes in (("p0", 1), ("p6", 3)):
+        plan = sp.shift_plan(4, 4, 32, 8, case, SMS)
+        assert (plan.vec, plan.ty, plan.tz, plan.grid_x) == (1, 4, 32, 4)
+        assert plan.staged_bytes == 4 * planes * 6 * 192
+        plan = sp.shift_plan(4, 4, 27, 3, case, SMS)
+        assert (plan.vec, plan.tz) == (0, 28)
+        assert plan.staged_bytes == 4 * planes * 6 * (27 + 6) * 4
+
+
+def test_shift_plan_refuses_what_the_kernel_cannot_take():
+    for m in (0, 32):
+        with pytest.raises(ValueError):
+            sp.shift_plan(6, 6, 6 * max(m, 1), m, "p0", SMS)
+    with pytest.raises(ValueError, match="case"):
+        sp.shift_plan(6, 6, 12, 2, "p7", SMS)
