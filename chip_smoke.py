@@ -125,10 +125,12 @@ Phases, in order; any failure raises and the process exits non-zero:
                just before and read just after; every probe kernel (and
                conv3d) within 1e-5 of max|plain| (p5/p6 also of p1/p3's),
                launched, and no plain version called; one JSON line per
-               variant, and a shift_launch line: the shift kernel's
-               window, x-chunk, shared memory, bytes staged beside the
-               field's, registers and resident blocks per SM, per case and
-               m
+               variant, a grid_launch line (e3's gather_sum plan, e4's
+               and e5's row plans: grid, warps, stages, the blocks' rows
+               or slots, registers, resident blocks per SM) and a
+               shift_launch line: the shift kernel's window, x-chunk,
+               shared memory, bytes staged beside the field's, registers
+               and resident blocks per SM, per case and m
  20. spmm and gather probes  slice 8 through the probe scripts' run():
                exp_spmm.run (the 24^3 RCM K's blocked-ELL layout at m in
                {8, 32, 64, 128}: v1-v6, then K8, K11 and K12 beside) and
@@ -263,6 +265,8 @@ SOURCE = {
     **{name: "maxwell_tpu_torch/csrc/union_probes.cu" for name in (
         "u0_hi", "u0_def", "u1_runs", "u2_km", "union_unstaged")},
     **dict.fromkeys(GRID_PROBES, "maxwell_tpu_torch/csrc/grid_probes.cu"),
+    # e3 is gather_sum<16, 8>, the body of g1
+    "e3_acc424": "maxwell_tpu_torch/csrc/gather_probes.cu",
     **dict.fromkeys(SHIFT_PROBES,
                     "maxwell_tpu_torch/csrc/stencil_probes.cu"),
     **dict.fromkeys(SPMM_PROBES, "maxwell_tpu_torch/csrc/spmm_probes.cu"),
@@ -1804,6 +1808,10 @@ def phase_grid_and_stencil_probes():
     torch.cuda.empty_cache()
     log({"phase": "exp_grid", "seconds": t1 - t0,
          **{k: v for k, v in r1.items() if k not in GRID_PROBES}})
+    # e3-e5's launch: gather_sum's plan (e3) and the row plans (e4, e5):
+    # grid, the blocks' slots or rows, registers, blocks per SM
+    log({"grid_launch": {name: r1[name]["launch"]
+                         for name in exp_grid.GATHERS}})
     for name in GRID_PROBES:
         log({"probe": "exp_grid", "variant": name, **r1[name]})
     log({"phase": "exp_stencil2", "seconds": t2 - t1, "grid": r2["grid"],
@@ -1831,7 +1839,8 @@ def phase_grid_and_stencil_probes():
         raise AssertionError(f"plain versions ran on the card: {stray}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     stats = {name: {"max_abs_err": r1[name]["max_abs_err"],
-                    **{k: r1[name][k] for k in keys}}
+                    **{k: r1[name][k] for k in (*keys, "l2_floor_ms")
+                       if k in r1[name]}}
              for name in GRID_PROBES}
     for k in range(7):
         m8, m9 = r2["m8"][f"p{k}"], r2["m9"][f"p{k}"]

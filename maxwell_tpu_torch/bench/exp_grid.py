@@ -8,9 +8,12 @@ per row, and the full pair-panel product:
   e2_grid6_when  one block per tile, six chunk steps that stop at the
                  tile's live count (3)
   e3_acc424      the tile's 16 x 24 pair slices of X summed in registers
-  e4_cat424      the same slices staged per block row, then summed
+                 (gather_sum's even split of the slots)
+  e4_cat424      the same slices staged per block row, then summed (rows
+                 spread evenly over the SMs, cp.async rings)
   e5_cat424_mm   the full product: per block row the 24 live (8, 16)
-                 value panels @ their X slices (K11's arithmetic)
+                 value panels @ their X slices (K11's arithmetic; value
+                 boxes by bulk copies, slices by cp.async, into rings)
 
     python -m maxwell_tpu_torch.bench.exp_grid [T] [--device cuda|cpu]
         [--out PATH]
@@ -28,6 +31,11 @@ overlapping 16-row windows for e3/e4, one torch.bmm on the panel gathered
 beforehand for e5; `library` says what each includes and excludes), and
 the max error against the plain version (the run fails above 1e-5 of
 max|plain|, the library call's too, at 1e-4 for the embedding_bag sums).
+e3-e5 also record bitwise_repeat (a second launch equal bit for bit, or
+the run fails), launch (their plan's summary with registers, local memory
+and resident blocks per SM) and l2_floor_ms (their slices' bytes over the
+L2 read rate this run measures, bench/timing.py l2_read_rate; l2_read_GBps
+at the top).
 Then, at the reference's T 298 only, K11
 (bellpairs_matmat) at m 8 on the 24^3 RCM brick's K, timed beside e5: its
 4,768 block rows of 48 pair slots are the probe's 298 tiles, so at another
@@ -52,7 +60,8 @@ from maxwell_tpu_torch.bench.exp_gather import (
     window_view,
 )
 from maxwell_tpu_torch.bench.exp_union import PROBE_DIR, device_of, write
-from maxwell_tpu_torch.bench.timing import bound_ms, median_ms
+from maxwell_tpu_torch.bench.timing import bound_ms, l2_read_rate, median_ms
+from maxwell_tpu_torch.kernels import gather_probes as gpr
 from maxwell_tpu_torch.kernels import grid_probes as gp
 from maxwell_tpu_torch.utils.precision import fp32_true
 
@@ -60,6 +69,8 @@ TOL = 1e-5  # of max|plain|: f32 sums in another order than the plain's
 LIVE = 3  # live chunks per tile (the 24^3 matrix has ~3.3)
 T_REF = 298  # the reference's tiles: the block rows of K11_GRID^3's K
 K11_GRID = 24
+# the gathering variants, by their launch's kind
+GATHERS = {"e3_acc424": "sum", "e4_cat424": "cat", "e5_cat424_mm": "cat_mm"}
 
 
 def make_inputs(T: int, seed: int = 0) -> dict:
@@ -133,6 +144,8 @@ def run(T: int = T_REF, device="cuda") -> dict:
         "Cp": gp.CP, "LIVE": LIVE, "nbr": nbr, "n": nbr * gp.B,
         "slice_bytes": slice_bytes, "live_value_bytes": live_vals,
     }
+    if timed:  # the slices of e3-e5 come from L2: their floor
+        results["l2_read_GBps"] = l2_read_rate(dev) / 1e9
     # name: (kernel, plain args, bytes, flops, gathered bytes)
     variants = {
         "e0_grid1": (gp.e0_grid1, (X, T), block + y_bytes, 0, T * block),
@@ -166,6 +179,10 @@ def run(T: int = T_REF, device="cuda") -> dict:
                                  f" > {tol} * {scale:.3e}")
         row = {"max_abs_err": err, "rel_err": err / scale, "library": what,
                "library_max_abs_err": lib_err}
+        if name in GATHERS:  # fixed summation order: runs repeat bit for bit
+            row["bitwise_repeat"] = torch.equal(got, kern(*args))
+            if not row["bitwise_repeat"]:
+                raise AssertionError(f"{name}: two runs differ")
         if timed:
             ms = median_ms(lambda: kern(*args))
             b_ms, b_by = bound_ms(nbytes, flops, "f32")
@@ -175,11 +192,27 @@ def run(T: int = T_REF, device="cuda") -> dict:
                        flops=flops, gathered_bytes=gathered,
                        gathered_GBps=gathered / ms / 1e6,
                        library_ms=median_ms(call))
+            if name in GATHERS:
+                row["l2_floor_ms"] = slice_bytes / (
+                    results["l2_read_GBps"] * 1e9) * 1e3
+                row["launch"] = launch(name, cols)
         results[name] = row
     if T == T_REF:
         results["k11"] = _k11(K11_GRID, dev, timed,
                               results["e5_cat424_mm"].get("ms"))
     return results
+
+
+def launch(name, cols) -> dict:
+    """The variant's launch on the card for these cols at LIVE: its plan's
+    summary and the kernel's registers, local memory and resident blocks
+    per SM (e3: gather_sum's plan, e4/e5: the row plan)."""
+    sms = torch.cuda.get_device_properties(cols.device).multi_processor_count
+    if name == "e3_acc424":
+        plan = gp.acc_plan(cols, LIVE, sms)
+        return {**plan.summary(cols), **gpr.launch_shape(plan)}
+    plan = gp.row_plan(cols.shape[0], LIVE, sms, GATHERS[name])
+    return {**plan.summary(), **gp.rows_shape(plan)}
 
 
 def library(name, t, T):

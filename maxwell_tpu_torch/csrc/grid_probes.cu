@@ -1,5 +1,5 @@
 // BELLPairs per-tile cost probes for NVIDIA Hopper (sm_90a): the H100
-// counterparts of the six TPU kernels inside main() of
+// counterparts of the TPU kernels inside main() of
 // maxwell_tpu/bench/exp_grid.py (K15d). No solver calls them; the probe
 // script maxwell_tpu_torch/bench/exp_grid.py does.
 //
@@ -20,31 +20,52 @@
 //                 grid axis j is a sequential loop; here it is a loop inside
 //                 the block that stops at the tile's live count, as K11 stops
 //                 at its live pair count (no blocks racing on one output).
-//   grid_acc      e3_acc424 (:124-141, :133): the (16, 8) sum of the tile's
-//                 16 x 24 X slices, summed in registers as they arrive,
-//                 written tiled 8 times. 8 warps per tile, as grid_cat, so
-//                 that e3 against e4 differs in the staging alone.
 //   grid_cat      e4_cat424 (:143-170, :162): per block row r and chunk c,
-//                 the row's 8 slices are first staged in shared memory (the
-//                 TPU's concatenated panel), then summed per row; the tile's
-//                 output is the first 128 rows of the (16 x 16, 8) stack,
-//                 i.e. rows r < 8. Rows 8-15 are staged as the reference
-//                 concatenates them; their sums are not needed.
-//   grid_cat_mm   e5_cat424_mm (:172-199, :189): Y_r = sum over the 24 live
+//                 the row's 8 slices are staged in shared memory (the TPU's
+//                 concatenated panel), then summed; the tile's output is the
+//                 first 128 rows of the (16 x 16, 8) stack, i.e. rows r < 8.
+//                 Rows 8-15 are staged as the reference concatenates them
+//                 (the slice count stays e3's); their sums are not needed.
+//   grid_cat_mm   e5_cat424_mm (:172-199, :189): Y_r = sum over the live
 //                 slots of the (8, 16) value panel @ the (16, 8) X slice,
-//                 true f32 FMAs, one warp per block row as in K11.
+//                 true f32 FMAs.
+// e3_acc424 (:124-141, :133), the tile's 16 x 24 slices summed, is
+// gather_sum<16, 8> of csrc/gather_probes.cu (g1's function on the first
+// LIVE * Cp slots), launched by kernels/grid_probes.py.
 //
 // Bounds (the function's bytes over 3.35 TB/s): e0-e4 write 1.2 MB of Y and
 // read 4 KB (e0-e2) or X once (1.2 MB, e3/e4); their 58.6 MB of gathered
-// slices at T 298 come from L2. e5 must read the 24 live panels of every
-// block row, 58.6 MB of the 117 MB value stream, for 0.23 GFLOP: bytes.
-// What the design does about it: e0-e2 have nothing to move and measure the
-// per-block and per-step cost; e3/e4 gather with 16-byte loads, a warp per
-// slice (32 lanes x 16 bytes = 512 bytes); e5 reads each value panel with
-// one 16-byte load per lane (the panel's rows 3 KB apart, the pattern whose
-// rate the probe measures) and the X slice as two 16-byte loads per row.
-// Every output is written once by one thread: no atomics, runs repeat bit
-// for bit.
+// slices at T 298 come from L2, whose read rate bounds them first. e5 must
+// read the 24 live panels of every block row, 58.6 MB of the 117 MB value
+// stream, for 0.23 GFLOP (0.0035 ms at the f32 peak): bytes.
+//
+// e4 and e5 share a walk (the host plan: kernels/grid_probes.py row_plan).
+// A persistent grid, one block an SM, cuts the nbr block rows into
+// near-equal ranges, block b rows [b nbr / grid, (b + 1) nbr / grid); warp
+// w of W takes the range's rows w, w + W, ... (e4 16 warps, e5 8). A warp
+// walks its rows' chunks (8 slots each) in order through a ring of 2 chunk
+// stages of its own in shared memory, one chunk ahead of the one it sums.
+// A row's
+// columns come in one coalesced warp load (two where it has more than 32
+// slots) when the walk's copies reach the row before, and each chunk's
+// eight are broadcast with __shfl_sync: no copy waits on a column load
+// inside the walk. Each output row is written once by one warp, in a fixed
+// order of additions, with no atomics: runs repeat bit for bit.
+// - e4: lane l copies float4 l of each slice by a 16-byte cp.async (L2 to
+//   shared memory, no registers), so it sums only what it copied itself:
+//   cp.async.wait_group, no barrier. A stage is 8 slices, 4 KB.
+// - e5: a stage is the chunk's (8 rows x 128 f32) value box, eight 512-byte
+//   runs 16 Q floats apart, and its 8 X slices, 8 KB. The value runs come
+//   by one-dimensional bulk copies (cp.async.bulk, the TMA engine; lanes
+//   0-7 a run each, evict-first) and the slices by 16-byte cp.async (a warp
+//   instruction a slice), both completing on the stage's mbarrier. Lane
+//   (k = lane / 2, h = lane % 2) reads slot q's
+//   X row k, columns 4 h .. 4 h + 3 (the slice's float4 `lane`: a warp
+//   read of 512 distinct bytes) and the eight values V[i, 16 q + k] (16
+//   distinct words a warp read), and keeps the (8, 4) partial sum over its
+//   k in registers: 32 FMAs a slot. At a row's end a reduce-scatter over
+//   the 16 k-lanes (30 shuffles) leaves each lane two outputs, written as
+//   one float2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,10 +76,12 @@ constexpr int kR = 16;                  // block rows per tile
 constexpr int kB = 8;                   // rows per block row
 constexpr int kCp = 8;                  // pair slots per chunk
 constexpr int kTileF4 = kR * kB * 8 / 4;  // float4 of a (128, 8) tile: 256
-constexpr int kSliceF4 = 2 * kB * 8 / 4;  // float4 of a (16, 8) slice: 32
-constexpr int kAccWarps = 8;            // grid_acc: warps per tile, as grid_cat
-constexpr int kCatThreads = 256;        // grid_cat: 8 warps per tile
-constexpr int kMmWarps = 8;             // grid_cat_mm: block rows per block
+constexpr int kSlice = 2 * kB * 8;      // floats of a (16, 8) slice: 128
+constexpr int kChunk = kCp * kSlice;    // floats of a chunk's 8 slices: 1 K
+constexpr int kMaxSlots = 64;           // a row's columns: two per lane
+constexpr int kCatWarps = 16;           // warps of an e4 block
+constexpr int kMmWarps = 8;             // warps of an e5 block
+constexpr int kStages = 2;              // chunk stages of a warp's ring
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -83,119 +106,341 @@ grid_steps_kernel(const int32_t* __restrict__ nch,
   y[(size_t)t * kTileF4 + threadIdx.x] = acc;
 }
 
-// warp w sums slices w, w + 8, ...; lane l holds float4 l of the slice
-__global__ void __launch_bounds__(kAccWarps * 32)
-grid_acc_kernel(const int32_t* __restrict__ cols,
-                const float4* __restrict__ x, float4* __restrict__ y,
-                int64_t Q, int live_slots) {
-  __shared__ float4 part[kAccWarps][kSliceF4];
-  const int64_t t = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int32_t* crow = cols + t * kR * Q;
-  const int n = kR * live_slots;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int s = warp; s < n; s += kAccWarps) {
-    const int r = s / live_slots;
-    const int q = s - r * live_slots;
-    const int64_t c = __ldg(crow + r * Q + q);
-    acc = add4(acc, __ldg(x + c * (kB * 8 / 4) + lane));
-  }
-  part[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    float4 s = part[0][lane];
-#pragma unroll
-    for (int w = 1; w < kAccWarps; ++w) s = add4(s, part[w][lane]);
-    part[0][lane] = s;
-  }
-  __syncthreads();
-  // the (16, 8) sum tiled 8 times down the tile's 128 rows
-  for (int f = threadIdx.x; f < kTileF4; f += kAccWarps * 32)
-    y[t * kTileF4 + f] = part[0][f % kSliceF4];
+// ---------------------------------------------------------------------------
+// e4 / e5: the block-row walk
+// ---------------------------------------------------------------------------
+
+struct RowParams {
+  const int32_t* cols;  // (nbr, Q)
+  const float* vals;    // (8 nbr, 16 Q), e5 only
+  const float* x;       // (rows, 8)
+  float* y;             // (128 T, 8) = (8 nbr, 8)
+  int64_t nbr;
+  int64_t Q;
+  int live;  // chunks of 8 slots a row reads
+};
+
+// a row's first `slots` columns: lane l holds slots l and 32 + l
+struct RowCols {
+  int a, b;
+};
+
+__device__ __forceinline__ RowCols load_cols(const RowParams& p, int64_t r,
+                                             int lane) {
+  const int32_t* c = p.cols + r * p.Q;
+  const int slots = kCp * p.live;
+  RowCols rc;
+  rc.a = lane < slots ? __ldg(c + lane) : 0;
+  rc.b = 32 + lane < slots ? __ldg(c + 32 + lane) : 0;
+  return rc;
 }
 
-// per chunk: stage the (16 rows, 8 slots, 32 float4) panel, then warp w sums
-// row w across the slots
-__global__ void __launch_bounds__(kCatThreads)
-grid_cat_kernel(const int32_t* __restrict__ cols,
-                const float4* __restrict__ x, float4* __restrict__ y,
-                int64_t Q, int live) {
-  extern __shared__ float4 panel[];  // [kR][kCp][kSliceF4], 64 KB
-  const int64_t t = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int32_t* crow = cols + t * kR * Q;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c = 0; c < live; ++c) {
-#pragma unroll 4
-    for (int i = threadIdx.x; i < kR * kCp * kSliceF4; i += kCatThreads) {
-      const int f = i % kSliceF4;
-      const int q = (i / kSliceF4) % kCp;
-      const int r = i / (kSliceF4 * kCp);
-      const int64_t col = __ldg(crow + r * Q + c * kCp + q);
-      panel[i] = __ldg(x + col * (kB * 8 / 4) + f);
-    }
-    __syncthreads();
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int q = 0; q < kCp; ++q)
-      a = add4(a, panel[(warp * kCp + q) * kSliceF4 + lane]);
-    acc = add4(acc, a);
-    __syncthreads();
-  }
-  // rows r < 8 of the stack are the tile's output
-  y[t * kTileF4 + warp * kSliceF4 + lane] = acc;
+// slot 8 chunk + q's column, from the lane that holds it (every lane calls
+// with the same chunk; a chunk lies wholly in a or in b)
+__device__ __forceinline__ int chunk_col(const RowCols& rc, int chunk,
+                                         int q) {
+  return __shfl_sync(0xffffffffu, chunk < 4 ? rc.a : rc.b,
+                     (kCp * chunk + q) & 31);
 }
 
-// one warp per block row: lane (i = lane / 4, k0 = 4 (lane % 4)) takes row i
-// of each value panel, columns k0 .. k0 + 3, and X rows k0 .. k0 + 3 of the
-// slice; two xor shuffles finish the sums, lane 4 i writes row i
-__global__ void __launch_bounds__(kMmWarps * 32)
-grid_cat_mm_kernel(const int32_t* __restrict__ cols,
-                   const float* __restrict__ vals,
-                   const float4* __restrict__ x, float4* __restrict__ y,
-                   int64_t Q, int live_slots) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t r = (int64_t)blockIdx.x * kMmWarps + warp;
-  const int i = lane >> 2;
-  const int k0 = (lane & 3) * 4;
-  const float* va = vals + (r * kB + i) * (Q * 2 * kB) + k0;
-  const int32_t* crow = cols + r * Q;
-  float acc[8];
+// The warp's share of the block's row range and its walk: item n is chunk
+// n % live of the warp's row n / live.
+struct Walk {
+  int64_t first;  // the warp's first row
+  int W;          // the block's warps: the stride between its rows
+  int rows;       // the warp's rows
+  int live;
+  int items;
+
+  __device__ Walk(const RowParams& p, int warp) {
+    W = blockDim.x >> 5;
+    const int64_t r0 = (int64_t)blockIdx.x * p.nbr / gridDim.x;
+    const int64_t r1 = ((int64_t)blockIdx.x + 1) * p.nbr / gridDim.x;
+    first = r0 + warp;
+    rows = first < r1 ? (int)((r1 - 1 - first) / W + 1) : 0;
+    live = p.live;
+    items = rows * live;
+  }
+  __device__ int64_t row(int k) const { return first + (int64_t)k * W; }
+};
+
+// The walk's column registers: the row whose chunks are being copied, and
+// the one after it, loaded when the copies reach the first
+struct ColRing {
+  RowCols cur, nxt;
+
+  __device__ void start(const RowParams& p, const Walk& w, int lane) {
+    cur = RowCols{0, 0};
+    nxt = w.rows > 0 ? load_cols(p, w.row(0), lane) : RowCols{0, 0};
+  }
+  // before the copies of item n (n in increasing order)
+  __device__ void advance(const RowParams& p, const Walk& w, int n,
+                          int lane) {
+    const int k = n / w.live;
+    if (n - k * w.live != 0) return;
+    cur = nxt;
+    if (k + 1 < w.rows) nxt = load_cols(p, w.row(k + 1), lane);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// e4: warp-private ring of NS chunk panels [NS][8 slices][32 float4]
+__global__ void __launch_bounds__(kCatWarps * 32)
+grid_cat_kernel(const RowParams p) {
+  constexpr int NS = kStages;
+  extern __shared__ __align__(128) float4 panels[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Walk w(p, warp);
+  float4* ring = panels + (size_t)warp * NS * kCp * 32;
+  const float4* x4 = reinterpret_cast<const float4*>(p.x);
+  ColRing cr;
+  cr.start(p, w, lane);
+
+  auto copy_item = [&](int n) {
+    cr.advance(p, w, n, lane);
+    const int c = n % w.live;
+    const uint32_t dst = smem_u32(ring + (n % NS) * kCp * 32 + lane);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < live_slots; ++s) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(va + s * 2 * kB));
-    const float4* xr = x + ((int64_t)__ldg(crow + s) * kB + k0) * 2;
-    const float vk[4] = {v.x, v.y, v.z, v.w};
+    for (int q = 0; q < kCp; ++q) {
+      const int64_t col = chunk_col(cr.cur, c, q);
+      cp_async16(dst + q * 32 * 16, x4 + col * (kB * 8 / 4) + lane);
+    }
+  };
+
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float4 a = __ldg(xr + 2 * k);
-      const float4 b = __ldg(xr + 2 * k + 1);
-      acc[0] = fmaf(vk[k], a.x, acc[0]);
-      acc[1] = fmaf(vk[k], a.y, acc[1]);
-      acc[2] = fmaf(vk[k], a.z, acc[2]);
-      acc[3] = fmaf(vk[k], a.w, acc[3]);
-      acc[4] = fmaf(vk[k], b.x, acc[4]);
-      acc[5] = fmaf(vk[k], b.y, acc[5]);
-      acc[6] = fmaf(vk[k], b.z, acc[6]);
-      acc[7] = fmaf(vk[k], b.w, acc[7]);
+  for (int n = 0; n < NS - 1; ++n) {
+    if (n < w.items) copy_item(n);
+    cp_async_commit();  // empty groups keep the count
+  }
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int n = 0; n < w.items; ++n) {
+    // the stage of item n - 1, summed by this lane alone, takes n + NS - 1
+    if (n + NS - 1 < w.items) copy_item(n + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // item n's copies have landed
+    const int k = n / w.live;
+    const int c = n - k * w.live;
+    const int64_t r = w.row(k);
+    const int rr = (int)(r % kR);
+    if (rr < kR / 2) {  // rows 8-15 are staged, their sums not needed
+      const float4* s = ring + (n % NS) * kCp * 32 + lane;
+#pragma unroll
+      for (int q = 0; q < kCp; ++q) acc = add4(acc, s[q * 32]);
+      if (c == w.live - 1) {
+        // the tile's rows 16 rr .. 16 rr + 15: the (16, 8) sum
+        reinterpret_cast<float4*>(p.y)[((r / kR) * kR * kB + rr * 2 * kB) *
+                                           2 + lane] = acc;
+        acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
   }
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// a one-dimensional bulk copy (TMA engine) of `bytes` (a multiple of 16)
+// from global to shared memory, completing on the barrier, under an L2
+// cache policy
+__device__ __forceinline__ void bulk_copy_hint(uint32_t dst, const void* src,
+                                               uint32_t bytes, uint32_t bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+// one step of e5's reduce-scatter: the lanes with bit H keep the upper H
+// of their first 2 H values, the others the lower H, each adding its
+// partner's (lane ^ H) copy of the half it keeps, into acc[0 .. H)
+template <int H>
+__device__ __forceinline__ void reduce_half(float (&acc)[32], int lane) {
+  const bool up = lane & H;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 1);
-    acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 2);
+  for (int v = 0; v < H; ++v) {
+    const float send = up ? acc[v] : acc[v + H];
+    const float keep = up ? acc[v + H] : acc[v];
+    acc[v] = keep + __shfl_xor_sync(0xffffffffu, send, H);
   }
-  if ((lane & 3) == 0) {
-    float4* yr = y + (r * kB + i) * 2;
-    yr[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    yr[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+}
+
+constexpr int kMmStage = 2 * kChunk;  // floats: the value box, the slices
+
+// cp.async's completion as one arrival on the barrier (counted in its
+// init: noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// e5: warp-private ring of NS stages [value box 8 x 128][8 slices], then
+// the warps' barriers
+__global__ void __launch_bounds__(kMmWarps * 32, 1)
+grid_cat_mm_kernel(const RowParams p) {
+  constexpr int NS = kStages;
+  extern __shared__ __align__(128) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Walk w(p, warp);
+  float* ring = smem + (size_t)warp * NS * kMmStage;
+  const uint32_t bars =
+      smem_u32(smem + (size_t)w.W * NS * kMmStage) + warp * NS * 8;
+  if (lane == 0) {
+    // arrivals a phase: the expect_tx, and each lane's cp.async
+    for (int s = 0; s < NS; ++s) mbar_init(bars + 8 * s, 33);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncwarp();
+  uint64_t policy;  // the values are read once
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  const int64_t vrow = 2 * kB * p.Q;  // floats of a value row
+  constexpr int kRun = kCp * 2 * kB;   // floats of a value row's chunk run
+  ColRing cr;
+  cr.start(p, w, lane);
+
+  auto copy_item = [&](int n) {
+    cr.advance(p, w, n, lane);
+    const int k = n / w.live;
+    const int c = n - k * w.live;
+    const int s = n % NS;
+    const uint32_t bar = bars + 8 * s;
+    const uint32_t st = smem_u32(ring + (size_t)s * kMmStage);
+    const float* vsrc = p.vals + w.row(k) * kB * vrow + c * kRun;
+    __syncwarp();  // every lane is done with the stage's last item
+    if (lane == 0) mbar_expect_tx(bar, kChunk * 4);
+    __syncwarp();
+    if (lane < kB)
+      bulk_copy_hint(st + lane * kRun * 4, vsrc + lane * vrow, kRun * 4, bar,
+                     policy);
+#pragma unroll
+    for (int q = 0; q < kCp; ++q) {
+      const int64_t col = chunk_col(cr.cur, c, q);
+      cp_async16(st + (kChunk + q * kSlice + 4 * lane) * 4,
+                 p.x + col * kB * 8 + 4 * lane);
+    }
+    cp_async_arrive(bar);
+  };
+
+  for (int n = 0; n < NS - 1 && n < w.items; ++n) copy_item(n);
+  const int kk = lane >> 1;  // the lane's k of each slot
+  float acc[32];
+#pragma unroll
+  for (int v = 0; v < 32; ++v) acc[v] = 0.f;
+  for (int n = 0; n < w.items; ++n) {
+    if (n + NS - 1 < w.items) copy_item(n + NS - 1);
+    const int s = n % NS;
+    mbar_wait(bars + 8 * s, (uint32_t)((n / NS) & 1));
+    const float* V = ring + (size_t)s * kMmStage;
+    const float* Xs = V + kChunk;
+#pragma unroll
+    for (int q = 0; q < kCp; ++q) {
+      const float4 xv = *reinterpret_cast<const float4*>(Xs + q * kSlice +
+                                                         4 * lane);
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        const float v = V[i * kCp * 2 * kB + q * 2 * kB + kk];
+        acc[4 * i + 0] = fmaf(v, xv.x, acc[4 * i + 0]);
+        acc[4 * i + 1] = fmaf(v, xv.y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(v, xv.z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(v, xv.w, acc[4 * i + 3]);
+      }
+    }
+    const int k = n / w.live;
+    if (n - k * w.live != w.live - 1) continue;
+    // reduce-scatter over the k-lanes (lane bits 1-4): lane ends with
+    // values 2 (lane >> 1) and + 1, i.e. row lane >> 2, columns 4 (lane &
+    // 1) + 2 ((lane >> 1) & 1) and + 1
+    reduce_half<16>(acc, lane);
+    reduce_half<8>(acc, lane);
+    reduce_half<4>(acc, lane);
+    reduce_half<2>(acc, lane);
+    const int64_t r = w.row(k);
+    const int j = 4 * (lane & 1) + 2 * ((lane >> 1) & 1);
+    *reinterpret_cast<float2*>(p.y + (r * kB + (lane >> 2)) * 8 + j) =
+        make_float2(acc[0], acc[1]);
+#pragma unroll
+    for (int v = 0; v < 32; ++v) acc[v] = 0.f;
+  }
+}
+
+// kind 0: e4 (grid_cat), 1: e5 (grid_cat_mm)
+const void* row_kernel(int64_t kind) {
+  switch (kind) {
+    case 0: return reinterpret_cast<const void*>(grid_cat_kernel);
+    case 1: return reinterpret_cast<const void*>(grid_cat_mm_kernel);
+    default: return nullptr;
+  }
+}
+
+int row_warps(int64_t kind) { return kind == 0 ? kCatWarps : kMmWarps; }
+
+// a launch's shared memory: the warps' rings (and e5's barriers)
+size_t row_smem(int64_t kind) {
+  return kind == 0 ? (size_t)kCatWarps * kStages * kChunk * 4
+                   : (size_t)kMmWarps * kStages * (kMmStage * 4 + 8);
+}
+
+int launch_rows(int64_t kind, const RowParams& p, int64_t grid,
+                cudaStream_t stream) {
+  const void* k = row_kernel(kind);
+  if (!k || grid < 1 || grid > p.nbr || p.live < 1 ||
+      kCp * p.live > kMaxSlots || kCp * p.live > p.Q)
+    return 1;
+  const size_t smem = row_smem(kind);
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {const_cast<RowParams*>(&p)};
+  e = cudaLaunchKernel(k, dim3((unsigned)grid),
+                       dim3((unsigned)(32 * row_warps(kind))), args, smem,
+                       stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -220,34 +465,54 @@ extern "C" int grid_steps_f32(const void* nch, const void* x, void* y,
   return (int)cudaGetLastError();
 }
 
-extern "C" int grid_acc_f32(const void* cols, const void* x, void* y,
-                            int64_t T, int64_t Q, int64_t live_slots,
-                            void* stream) {
-  grid_acc_kernel<<<(unsigned)T, kAccWarps * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(cols), static_cast<const float4*>(x),
-      static_cast<float4*>(y), Q, (int)live_slots);
-  return (int)cudaGetLastError();
-}
-
+// e4 and e5 as kernels/grid_probes.py row_plan launches them: grid blocks
+// (<= nbr) of 16 (e4) or 8 (e5) warps, each warp a ring of 2 stages.
+// Return 1 for a launch the kernels do not take (live outside [1, 8] or
+// past Q, a grid outside [1, nbr]).
 extern "C" int grid_cat_f32(const void* cols, const void* x, void* y,
-                            int64_t T, int64_t Q, int64_t live, void* stream) {
-  const int smem = kR * kCp * kSliceF4 * (int)sizeof(float4);
-  const cudaError_t e = cudaFuncSetAttribute(
-      grid_cat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  grid_cat_kernel<<<(unsigned)T, kCatThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(cols), static_cast<const float4*>(x),
-      static_cast<float4*>(y), Q, (int)live);
-  return (int)cudaGetLastError();
+                            int64_t nbr, int64_t Q, int64_t live,
+                            int64_t grid, void* stream) {
+  RowParams p{static_cast<const int32_t*>(cols), nullptr,
+              static_cast<const float*>(x), static_cast<float*>(y), nbr, Q,
+              (int)live};
+  return launch_rows(0, p, grid, (cudaStream_t)stream);
 }
 
 extern "C" int grid_cat_mm_f32(const void* cols, const void* vals,
-                               const void* x, void* y, int64_t T, int64_t Q,
-                               int64_t live_slots, void* stream) {
-  grid_cat_mm_kernel<<<(unsigned)(T * kR / kMmWarps), kMmWarps * 32, 0,
-                       (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(cols), static_cast<const float*>(vals),
-      static_cast<const float4*>(x), static_cast<float4*>(y), Q,
-      (int)live_slots);
-  return (int)cudaGetLastError();
+                               const void* x, void* y, int64_t nbr, int64_t Q,
+                               int64_t live, int64_t grid, void* stream) {
+  RowParams p{static_cast<const int32_t*>(cols),
+              static_cast<const float*>(vals), static_cast<const float*>(x),
+              static_cast<float*>(y), nbr, Q, (int)live};
+  return launch_rows(1, p, grid, (cudaStream_t)stream);
+}
+
+// The e4 (kind 0) or e5 (kind 1) launch on the current card: out =
+// {registers a thread, local memory bytes a thread, resident blocks per SM
+// (the occupancy API's count at the launch's shared memory), SMs, dynamic
+// shared memory bytes a block, warps a block}
+extern "C" int grid_rows_shape(int64_t kind, void* out) {
+  const void* k = row_kernel(kind);
+  if (!k) return 1;
+  const size_t smem = row_smem(kind);
+  cudaFuncAttributes a;
+  cudaError_t c = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (c == cudaSuccess) c = cudaFuncGetAttributes(&a, k);
+  int occ = 0, dev = 0, sms = 0;
+  if (c == cudaSuccess)
+    c = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, k, 32 * row_warps(kind), smem);
+  if (c == cudaSuccess) c = cudaGetDevice(&dev);
+  if (c == cudaSuccess)
+    c = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (c != cudaSuccess) return (int)c;
+  int64_t* o = static_cast<int64_t*>(out);
+  o[0] = a.numRegs;
+  o[1] = (int64_t)a.localSizeBytes;
+  o[2] = occ;
+  o[3] = sms;
+  o[4] = (int64_t)smem;
+  o[5] = row_warps(kind);
+  return 0;
 }

@@ -58,9 +58,9 @@ _SIGNATURES = {
     # grid_probes.cu
     "grid_copy_f32": [_P] * 2 + [_I] * 2 + [_P],
     "grid_steps_f32": [_P] * 3 + [_I] * 2 + [_P],
-    "grid_acc_f32": [_P] * 3 + [_I] * 3 + [_P],
-    "grid_cat_f32": [_P] * 3 + [_I] * 3 + [_P],
-    "grid_cat_mm_f32": [_P] * 4 + [_I] * 3 + [_P],
+    "grid_cat_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "grid_cat_mm_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "grid_rows_shape": [_I, _P],
     # stencil_probes.cu
     "shift_probe_f32": [_P] * 2 + [_I, _P, _I, _P],
     "shift_probe_shape": [_I] * 3 + [_P],

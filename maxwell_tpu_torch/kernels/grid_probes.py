@@ -23,17 +23,30 @@ X (rows, 8) f32; a pair slice of X is X[8 c : 8 c + 16].
                                    live slots s of vals[8r:8r+8, 16s:16s+16]
                                    @ X[8 cols[r, s] : +16], f32
 
+e4 and e5 run on a persistent grid that `row_plan` sizes: one block an
+SM, the block rows cut into near-equal ranges, each warp a share of its
+block's rows walked through a ring of chunk stages in shared memory. e3 is
+gather_sum<16, 8> of csrc/gather_probes.cu (g1's function on the first
+live * 8 slots), launched as `gather_probes.gather_plan` says.
+
 A wrapper given CUDA tensors checks them and launches its kernel
-(csrc/grid_probes.cu) or raises; given CPU tensors it runs the plain
-version (`*_ref`). Each wrapper counts its launches in `.launches`, each
-plain version its calls in `.calls`. `PLAIN_OF` maps each wrapper to the
-plain arithmetic without a count: the probe script's oracles, whose
-comparison launches do not count as the probe's path.
+(csrc/grid_probes.cu; e3: csrc/gather_probes.cu) or raises; given CPU
+tensors it runs the plain version (`*_ref`). Each wrapper counts its
+launches in `.launches`, each plain version its calls in `.calls`.
+`PLAIN_OF` maps each wrapper to the plain arithmetic without a count: the
+probe script's oracles, whose comparison launches do not count as the
+probe's path.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
+import numpy as np
 import torch
+
+from maxwell_tpu_torch.kernels import gather_probes as gpr
 
 R, B, M, CP = 16, 8, 8, 8  # block rows per tile, block size, X width, slots
 NCH = 6  # chunk steps of the reference's (T, 6) grids
@@ -188,6 +201,129 @@ def check_cols(cols, X, live) -> None:
     cols._grid_probe_cols_ok = key
 
 
+# e4 / e5's launch (csrc/grid_probes.cu, where these are compile-time
+# constants): one block an SM, each warp a ring of 2 chunk stages (e4 4 KB
+# a stage, e5 8 KB)
+ROW_WARPS = {"cat": 16, "cat_mm": 8}
+ROW_STAGES = 2
+STAGE_BYTES = {"cat": CP * 2 * B * M * 4, "cat_mm": 2 * CP * 2 * B * M * 4}
+KIND = {"cat": 0, "cat_mm": 1}  # the C entries' kind
+MAX_SLOTS = 64  # a row's columns ride in two registers a lane
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """e4's ("cat") or e5's ("cat_mm") launch (see row_plan). Block b
+    takes the block rows starts()[b] .. starts()[b + 1]; its warp w the
+    rows starts()[b] + w + k warps of them (rows()), each walked chunk by
+    chunk through the warp's ring."""
+
+    kind: str
+    nbr: int  # block rows (16 T)
+    live: int  # chunks of 8 slots a row reads
+    grid: int  # blocks
+    sms: int
+
+    @property
+    def warps(self) -> int:
+        return ROW_WARPS[self.kind]
+
+    @property
+    def stages(self) -> int:
+        return ROW_STAGES
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def smem(self) -> int:
+        """A block's dynamic shared memory: the warps' rings, and e5's
+        barriers (8 bytes a stage)."""
+        per = STAGE_BYTES[self.kind] + (8 if self.kind == "cat_mm" else 0)
+        return self.warps * self.stages * per
+
+    def starts(self) -> np.ndarray:
+        """(grid + 1,) the first row of each block's range, then nbr: the
+        kernel's b nbr / grid."""
+        b = np.arange(self.grid + 1, dtype=np.int64)
+        return b * self.nbr // self.grid
+
+    def rows(self, b: int, w: int) -> np.ndarray:
+        """The block rows of block b's warp w, in the order it walks them."""
+        s = self.starts()
+        return np.arange(s[b] + w, s[b + 1], self.warps, dtype=np.int64)
+
+    def summary(self) -> dict:
+        """The launch as the probe records it: grid, warps, threads,
+        stages, shared memory, the blocks' and warps' row counts (least,
+        most, mean)."""
+        per_block = np.diff(self.starts())
+        per_warp = np.concatenate([
+            np.full(self.warps, n // self.warps)
+            + (np.arange(self.warps) < n % self.warps) for n in per_block])
+        return {"grid": self.grid, "warps": self.warps,
+                "threads": self.threads, "stages": self.stages,
+                "smem": self.smem,
+                "block_rows": {"min": int(per_block.min()),
+                               "max": int(per_block.max()),
+                               "mean": float(per_block.mean())},
+                "warp_rows": {"min": int(per_warp.min()),
+                              "max": int(per_warp.max()),
+                              "mean": float(per_warp.mean())}}
+
+
+def row_plan(nbr: int, live: int, sms: int, kind: str) -> RowPlan:
+    """e4's or e5's launch for nbr block rows reading `live` chunks each on
+    a card of `sms` SMs: one block an SM, at most one a row."""
+    if kind not in KIND:
+        raise ValueError(f"kind must be one of {tuple(KIND)}, got {kind!r}")
+    plan = RowPlan(kind=kind, nbr=int(nbr), live=int(live),
+                   grid=min(int(sms), int(nbr)), sms=int(sms))
+    if not 1 <= plan.live * CP <= MAX_SLOTS or plan.grid < 1:
+        raise ValueError(f"no launch: {plan}")
+    return plan
+
+
+def rows_shape(plan: RowPlan) -> dict:
+    """The plan's launch on the current card: registers and local memory
+    bytes a thread, resident blocks per SM (the occupancy API's count at
+    its shared memory), the SM count, the shared memory and the warps a
+    block, as the kernel was built; see csrc/grid_probes.cu
+    grid_rows_shape. Raises where the build and the plan disagree. Needs
+    the card."""
+    from maxwell_tpu_torch.kernels import _build
+
+    out = (ctypes.c_int64 * 6)()
+    rc = _build.load().grid_rows_shape(KIND[plan.kind],
+                                       ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"grid_rows_shape: error {rc}")
+    shape = dict(zip(("registers", "local_bytes", "blocks_per_sm", "sms",
+                      "smem", "warps"), out))
+    if (shape["smem"], shape["warps"]) != (plan.smem, plan.warps):
+        raise RuntimeError(f"the {plan.kind} kernel was built for "
+                           f"{shape['warps']} warps and {shape['smem']} "
+                           f"bytes, the plan has {plan.warps} and "
+                           f"{plan.smem}")
+    return shape
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def run_rows(plan: RowPlan, cols, X, vals=None):
+    """e4's (vals None) or e5's launch of `plan` on checked CUDA operands
+    into a new (8 nbr, 8) Y. Uncounted: the wrappers that launch it
+    count."""
+    T = cols.shape[0] // R
+    ints = (plan.nbr, cols.shape[1], plan.live, plan.grid)
+    if plan.kind == "cat":
+        return _launch("grid_cat_f32", X, T, (cols, X), ints)
+    return _launch("grid_cat_mm_f32", X, T, (cols, vals, X), ints)
+
+
 def _launch(name, X, T, inputs, ints):
     """csrc/grid_probes.cu's `name`(*inputs, Y, *ints, stream) into a new
     (128 T, 8) Y; raises on a CUDA error."""
@@ -237,40 +373,48 @@ def e2_grid6_when(nch, X):
     return Y
 
 
+def acc_plan(cols, live, sms):
+    """e3's launch: gather_sum's plan over the first live * 8 slots of each
+    row, 16-row slices at m 8."""
+    return gpr.gather_plan(cols, M, sms, rows=2 * B, slots=live * CP)
+
+
 def e3_acc424(cols, X, live):
     """K15d e3_acc424 (exp_grid.py:124-141): the tile's X slices summed in
-    registers as they arrive."""
+    registers as they arrive, on gather_sum's even split of the slots."""
     if X.device.type == "cpu":
         return e3_acc424_ref(cols, X, live)
     T = cols.shape[0] // R
     _check(X, T, cols=cols, live=live)
-    Y = _launch("grid_acc_f32", X, T, (cols, X),
-                (T, cols.shape[1], live * CP))
+    Y = torch.empty((TILE * T, M), dtype=torch.float32, device=X.device)
+    gpr.run_plan(acc_plan(cols, live, _sms(X.device)), cols, X, Y)
     e3_acc424.launches += 1
     return Y
 
 
 def e4_cat424(cols, X, live):
     """K15d e4_cat424 (exp_grid.py:143-170): each row's slices staged in
-    shared memory per chunk, then summed."""
+    shared memory per chunk by cp.async, then summed."""
     if X.device.type == "cpu":
         return e4_cat424_ref(cols, X, live)
     T = cols.shape[0] // R
     _check(X, T, cols=cols, live=live)
-    Y = _launch("grid_cat_f32", X, T, (cols, X), (T, cols.shape[1], live))
+    Y = run_rows(row_plan(cols.shape[0], live, _sms(X.device), "cat"),
+                 cols, X)
     e4_cat424.launches += 1
     return Y
 
 
 def e5_cat424_mm(cols, vals, X, live):
     """K15d e5_cat424_mm (exp_grid.py:172-199): K11's arithmetic at the
-    probe's shape, one warp per block row, f32 FMAs."""
+    probe's shape, f32 FMAs on value boxes (bulk copies) and X slices
+    (cp.async) brought into shared memory."""
     if X.device.type == "cpu":
         return e5_cat424_mm_ref(cols, vals, X, live)
     T = cols.shape[0] // R
     _check(X, T, cols=cols, live=live, vals=vals)
-    Y = _launch("grid_cat_mm_f32", X, T, (cols, vals, X),
-                (T, cols.shape[1], live * CP))
+    Y = run_rows(row_plan(cols.shape[0], live, _sms(X.device), "cat_mm"),
+                 cols, X, vals)
     e5_cat424_mm.launches += 1
     return Y
 

@@ -704,7 +704,9 @@ def test_cuda_grid_probes_match_plain(cuda_device, T, live):
     """K15d's six kernels against their plain versions on the probe's own
     draws at small T (> 8, not a multiple of 8), with 1 to 6 live chunks
     and ragged live counts for e2 (0 to 7, clamped at 6): 1e-5 of
-    max|plain|; each launched once, no plain version called."""
+    max|plain|; e0-e2 launched once, the gathers e3-e5 twice and bit for
+    bit (fixed orders of additions, no atomics), no plain version
+    called."""
     d = exp_grid.make_inputs(T)
     t = {k: torch.from_numpy(v).to(cuda_device) for k, v in d.items()}
     cols, X, vals = t["cols"], t["X"], t["vals"]
@@ -714,15 +716,40 @@ def test_cuda_grid_probes_match_plain(cuda_device, T, live):
             gp.e2_grid6_when: (nch, X), gp.e3_acc424: (cols, X, live),
             gp.e4_cat424: (cols, X, live),
             gp.e5_cat424_mm: (cols, vals, X, live)}
+    gathers = (gp.e3_acc424, gp.e4_cat424, gp.e5_cat424_mm)
     gp.reset_counts()
     for kern, a in args.items():
         got, want = kern(*a), gp.PLAIN_OF[kern](*a)
         torch.cuda.synchronize()
         assert got.shape == want.shape == (128 * T, 8)
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+        if kern in gathers:
+            assert torch.equal(got, kern(*a)), kern.__name__
     c = gp.counts()
-    assert all(c[fn.__name__] == 1 for fn in gp.KERNELS)
+    assert all(c[fn.__name__] == (2 if fn in gathers else 1)
+               for fn in gp.KERNELS)
     assert not any(c[fn.__name__] for fn in gp.PLAIN)
+
+
+@pytest.mark.cuda
+def test_cuda_e5_all_slots_live(cuda_device):
+    """e5 with all 48 slots of every row live (6 chunks) at the probe's T
+    298: 1e-5 of max|plain|, and the plan's launch repeated (uncounted)
+    equal to the wrapper's bit for bit; one count per wrapper call."""
+    d = exp_grid.make_inputs(exp_grid.T_REF)
+    cols, X, vals = (torch.from_numpy(d[k]).to(cuda_device)
+                     for k in ("cols", "X", "vals"))
+    live = gp.NCH
+    gp.reset_counts()
+    got = gp.e5_cat424_mm(cols, vals, X, live)
+    want = gp.cat_mm_plain(cols, vals, X, live)
+    torch.cuda.synchronize()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = gp.row_plan(cols.shape[0], live, sms, "cat_mm")
+    for _ in range(2):
+        assert torch.equal(gp.run_rows(plan, cols, X, vals), got)
+    assert gp.counts()["e5_cat424_mm"] == 1
 
 
 @pytest.mark.cuda

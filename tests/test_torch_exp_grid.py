@@ -300,3 +300,106 @@ def test_counts_reset(data):
     assert sum(c.values()) == 2
     gp.reset_counts()
     assert not any(gp.counts().values())
+
+
+@pytest.mark.parametrize("kind", ["cat", "cat_mm"])
+@pytest.mark.parametrize("Tn", [10, 37, 298])
+def test_row_plan_covers_every_block_row_once(kind, Tn):
+    """e4's and e5's row plan on a 132-SM card: every block row walked by
+    exactly one warp of one block, the blocks' row counts within 1 of each
+    other, and so the warps' of a block; the summary says the same."""
+    plan = gp.row_plan(R * Tn, LIVE, 132, kind)
+    assert plan.grid == min(132, R * Tn)
+    per_block = np.diff(plan.starts())
+    assert per_block.sum() == R * Tn and per_block.max() - per_block.min() <= 1
+    walked = []
+    for b in range(plan.grid):
+        counts = [len(plan.rows(b, w)) for w in range(plan.warps)]
+        assert max(counts) - min(counts) <= 1 and sum(counts) == per_block[b]
+        for w in range(plan.warps):
+            walked.extend(plan.rows(b, w).tolist())
+    assert sorted(walked) == list(range(R * Tn))
+    s = plan.summary()
+    assert s["block_rows"]["max"] == per_block.max()
+    assert s["warp_rows"]["max"] == max(
+        len(plan.rows(b, w)) for b in range(plan.grid)
+        for w in range(plan.warps))
+    assert s["smem"] == plan.smem <= 232448  # a block's on the H100
+
+
+@pytest.mark.parametrize("live", [1, 3, 6])
+def test_e3_plan_covers_each_live_slot_once(live):
+    """e3's gather_sum plan (16-row slices, the first live * 8 of 48 slots
+    of each row): its ranges cut the T 16 live * 8 slot list into
+    near-equal whole groups, every slot in exactly one range, and the
+    slot list maps onto cols' first live * 8 columns of each row."""
+    cols = torch.from_numpy(exp_grid.make_inputs(T)["cols"])
+    plan = gp.acc_plan(cols, live, 132)
+    assert (plan.rows, plan.m, plan.slots, plan.S) == (16, 8, live * CP, 48)
+    n = T * R * live * CP
+    starts = plan.ranges()
+    assert starts[0] == 0 and starts[-1] == n
+    assert (np.diff(starts) > 0).all() and not (starts % 4).any()
+    assert np.diff(starts).max() - np.diff(starts).min() <= 4
+    e = np.arange(n)
+    owner = plan.block_of(e)
+    assert ((starts[owner] <= e) & (e < starts[owner + 1])).all()
+    row, col = e // plan.slots, e % plan.slots
+    assert col.max() == live * CP - 1 and row.max() == T * R - 1
+
+
+@pytest.mark.parametrize("live", [1, 3, 6])
+def test_e5_lane_map_emulated(data, live):
+    """e5's lane arithmetic (csrc/grid_probes.cu grid_cat_mm_kernel)
+    emulated in torch on the probe's draws: lane (k = lane / 2, h = lane %
+    2) sums V[i, 16 q + k] X-slice[k, 4 h .. 4 h + 3] over the row's slots,
+    then the reduce-scatter over lane bits 1-4 leaves row lane / 4, columns
+    4 (lane & 1) + 2 ((lane >> 1) & 1) + {0, 1}: the plain product within
+    1e-6 of its max."""
+    t = _torch(data)
+    cols, X, vals = t["cols"], t["X"], t["vals"]
+    nbr, Q = cols.shape
+    slots = live * CP
+    lane = torch.arange(32)
+    kk, h = lane // 2, lane % 2
+    V = vals.view(nbr, B, Q, 2 * B)[:, :, :slots]  # (nbr, 8, slots, 16)
+    S = gp.slices(cols, X, slots)  # (nbr, slots, 16, 8)
+    vk = V[:, :, :, kk]  # (nbr, 8, slots, 32 lanes)
+    xk = S[:, :, kk].reshape(nbr, slots, 32, 2, 4)[
+        :, :, torch.arange(32), h]  # (nbr, slots, 32, 4)
+    acc = torch.einsum("nisl,nslj->nlij", vk, xk).reshape(nbr, 32, 32)
+    for step in (16, 8, 4, 2):
+        up = (lane & step).bool()[None, :, None]
+        lo, hi = acc[:, :, :step], acc[:, :, step:2 * step]
+        send, keep = torch.where(up, lo, hi), torch.where(up, hi, lo)
+        acc = keep + send[:, lane ^ step]
+    Y = torch.zeros(nbr, B, 8)
+    j = 4 * (lane & 1) + 2 * ((lane >> 1) & 1)
+    Y[:, lane >> 2, j] = acc[:, :, 0]
+    Y[:, lane >> 2, j + 1] = acc[:, :, 1]
+    want = gp.cat_mm_plain(cols, vals, X, live).view(nbr, B, 8)
+    assert (Y - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.parametrize("bad", [dict(live=9), dict(live=0), dict(nbr=0),
+                                 dict(sms=0), dict(kind="acc")])
+def test_row_plan_refuses_what_the_kernels_do_not_take(bad):
+    """live past 64 slots (the column registers) or under one chunk, no
+    block rows, no SMs (an empty grid), an unknown kind."""
+    args = dict(nbr=R * 298, live=LIVE, sms=132, kind="cat_mm")
+    args.update(bad)
+    with pytest.raises(ValueError):
+        gp.row_plan(**args)
+
+
+def test_profile_grid_needs_the_card(monkeypatch, tmp_path):
+    """The plan profile times kernels: without a card it raises and writes
+    nothing; on the CPU device too."""
+    from maxwell_tpu_torch.bench import profile_grid
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        profile_grid.main(["--out", str(tmp_path / "p.json")])
+    assert not (tmp_path / "p.json").exists()
+    with pytest.raises(RuntimeError, match="needs the card"):
+        profile_grid.run(device="cpu")
