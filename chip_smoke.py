@@ -146,7 +146,11 @@ Phases, in order; any failure raises and the process exits non-zero:
                gather_sum's grid, the blocks' slot counts, cut tiles, tile
                union sizes, slice bytes read and those of the unions,
                registers and resident blocks per SM (g0, g1, g4; v4 at
-               each m)
+               each m), and a taa_launch line: g2's and g3's grid, units,
+               the blocks' unit counts, registers, local and shared
+               memory; g2, g3, g3w and g5 bit for bit their plain versions
+               and across two runs; g2, g3 and g5 also timed by a chain of
+               launches (chain_ms) beside both launch floors
  21. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
@@ -177,6 +181,7 @@ import torch  # noqa: E402
 from maxwell_tpu_torch.bench.timing import (  # noqa: E402
     bound_ms,
     csr_bytes,
+    launch_floor_ms,
     median_ms,
     torch_csr,
     union_bytes,
@@ -334,12 +339,6 @@ BELLPAIRS_WIDTHS = (1, 2, 3, 9, 16, 17, 33)
 
 def log(obj):
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
-
-
-def launch_floor_ms() -> float:
-    """Median time of an empty launch on the card: below a few
-    microseconds the launch itself sets a kernel's pace."""
-    return median_ms(lambda: torch.cuda._sleep(0))
 
 
 def nvidia_smi_line() -> str:
@@ -1867,8 +1866,10 @@ def phase_spmm_and_gather_probes():
     K12 also against (K + M) X in f64) and raise past it; their oracles
     are uncounted. Counts are zeroed just before and read just after: every
     probe kernel launched, no plain version called. One JSON line per
-    variant. Returns (stats of the kernels line, counts); a K15c variant
-    reports m 8 with m 32, 64 and 128 beside."""
+    variant, and the gather kernels' launches (gather_launch, taa_launch).
+    Returns (stats of the kernels line, counts); a K15c variant reports m 8
+    with m 32, 64 and 128 beside, g2, g3 and g5 their chain_ms and both
+    launch floors."""
     from maxwell_tpu_torch.bench import exp_gather, exp_spmm
 
     reset_all_counts()
@@ -1898,6 +1899,16 @@ def phase_spmm_and_gather_probes():
         **{name: r2[name]["launch"]
            for name in ("g0_slices", "g1_slices2x", "g4_lane_ds")},
         "v4_gather": {w: r1[w]["v4_gather"]["launch"] for w in widths}}})
+    # g2's and g3's launch at the probe's shape: grid, units and the
+    # blocks' unit counts, registers, local and shared memory
+    from maxwell_tpu_torch.kernels import gather_probes as gpr
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    taa = {}
+    for name, kind in (("g2_taa0", "taa0"), ("g3_taa1", "taa1")):
+        plan = gpr.taa_plan(kind, r2["T"], r2["P"], sms)
+        taa[name] = {**plan.summary(), **gpr.taa_shape(plan)}
+    log({"taa_launch": taa})
     for name in GATHER_PROBES:
         log({"probe": "exp_gather", "variant": name, **r2[name]})
 
@@ -1910,8 +1921,9 @@ def phase_spmm_and_gather_probes():
         raise AssertionError(f"plain versions ran on the card: {stray}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_bf16_ms")
-    stats = {name: {k: r2[name][k] for k in (*keys, "l2_floor_ms")
-                    if k in r2[name]} for name in GATHER_PROBES}
+    stats = {name: {k: r2[name][k] for k in (
+        *keys, "l2_floor_ms", "chain_ms", "launch_floor_ms",
+        "chain_floor_ms") if k in r2[name]} for name in GATHER_PROBES}
     for name in SPMM_PROBES:
         stats[name] = {
             **{k: r1["m8"][name][k] for k in keys if k in r1["m8"][name]},
@@ -2020,8 +2032,9 @@ def main():
     log({"kernels": [{**entry(name), "path": path,
                       **{w: stats[name][w] for w in (
                           "m1", "m8", "m9", "m32", "m64", "m128", "m171",
-                          "launch_floor_ms", "unit_bytes", "library_bf16_ms",
-                          "l2_floor_ms", "p3_grid91")
+                          "launch_floor_ms", "chain_ms", "chain_floor_ms",
+                          "unit_bytes", "library_bf16_ms", "l2_floor_ms",
+                          "p3_grid91")
                          if w in stats[name]}}
                      for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")

@@ -8,9 +8,10 @@ layout, and gathers of single elements from a tile staged in shared memory.
   g1_slices2x    the sum of its R S / 2 (16, 8) slices (512 B each)
   g4_lane_ds     g1's slices from X^T: 8 rows of 16 floats (64 B each)
   g2_taa0        4,096 gathers g[p, j] = X[idx[p, j], j] from X[0:P]
-                 staged per block; out g[0:8] + g[P-8:P]
+                 staged once per block of a persistent grid; out g[0:8] +
+                 g[P-8:P]
   g3_taa1        4,096 gathers g[j, p] = X^T[j, idx[j, p]] from X^T[:, 0:P]
-                 staged per block, written whole
+                 staged once per block, written whole
   g3w_taa1_wide  g3 from the tile's own (8, 4096) source block, the
                  4,096 gathers the reference keeps, straight from global
                  memory (one warp per source row, nothing staged)
@@ -24,7 +25,8 @@ and g3w 4,096 elements per tile.
 T tiles (default 298), S slots (default 64), R 16, b = m = 8, P = S b;
 the inputs are the reference's (exp_gather.py:64-196), every array drawn
 from numpy's default_rng(0) in its order. Per variant: ms (median of 20
-launches), per_tile_ns (the reference's metric), plain_ms, gathered_GBps
+launches, each timed by its own pair of CUDA events), per_tile_ns (the
+reference's metric), plain_ms, gathered_GBps
 (the gathered bytes over the time), bound_ms / bound_by at the card's
 published rates (the inputs the variant reads by design once, and its
 output once; for g3w the kept index columns and the distinct 32-byte
@@ -35,11 +37,16 @@ function (`library` says what it includes and excludes), for g0, g1 and g4
 l2_floor_ms (their slices' bytes over the L2 read rate the run measures,
 bench/timing.py l2_read_rate, l2_read_GBps: the byte bound lies under the
 launch floor) and `launch` (gather_sum's plan: grid, the blocks'
-slot counts, union sizes, bytes; registers and resident blocks), and the max
-error against the plain version (the run fails above 1e-5 of max|plain|,
-for the library call too, 1e-4 for embedding_bag's sums of up to 1,024
-rows; g0, g1 and g4 also where a second run differs from the first,
-`bitwise_repeat`).
+slot counts, union sizes, bytes; registers and resident blocks), for g5, g2
+and g3 chain_ms (bench/timing.py: 200 launches back to back between one
+pair of events, the time over 200, median of 5; the reference's
+timeit_chain also times chains of launches) beside launch_floor_ms and
+chain_floor_ms (an empty launch on each timer, also at the top level), and
+the max error against the plain version (the run fails above 1e-5 of
+max|plain|, for the library call too, 1e-4 for embedding_bag's sums of up
+to 1,024 rows; g0, g1 and g4 also where a second run differs from the
+first, `bitwise_repeat`; g2, g3, g3w and g5, gathers and copies, unless
+both runs equal the plain version bit for bit).
 Runs on the card unless --device cpu is given; there the plain versions
 run and nothing is timed. Writes JSON to --out (default
 build/maxwell_tpu_torch/probes/exp_gather_results.json); never the
@@ -56,7 +63,9 @@ import torch
 import torch.nn.functional as F
 
 from maxwell_tpu_torch.bench.exp_union import PROBE_DIR, device_of, write
-from maxwell_tpu_torch.bench.timing import bound_ms, l2_read_rate, median_ms
+from maxwell_tpu_torch.bench.timing import (bound_ms, chain_floor_ms,
+                                            chain_ms, l2_read_rate,
+                                            launch_floor_ms, median_ms)
 from maxwell_tpu_torch.kernels import gather_probes as gpr
 from maxwell_tpu_torch.utils.precision import fp32_true
 
@@ -71,6 +80,10 @@ R, B, M = gpr.R, gpr.B, gpr.M
 # gather_sum's variants: (rows of a slice, slots read: all or half, X^T)
 SUMS = {"g0_slices": (B, 1, False), "g1_slices2x": (2 * B, 2, False),
         "g4_lane_ds": (2 * B, 2, True)}
+# gathers and copies: a run equals the plain version bit for bit
+EXACT = ("g5_floor", "g2_taa0", "g3_taa1", "g3w_taa1_wide")
+# timed by a chain of launches too, beside both floors
+CHAINED = ("g5_floor", "g2_taa0", "g3_taa1")
 
 
 def make_inputs(T: int, S: int, seed: int = 0) -> dict:
@@ -214,6 +227,8 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
     }
     if timed:  # the slices of g0, g1, g4 come from L2: their floor
         results["l2_read_GBps"] = l2_read_rate(dev) / 1e9
+        results["launch_floor_ms"] = launch_floor_ms()
+        results["chain_floor_ms"] = chain_floor_ms()
     y128 = T * R * B * M * f4
     half_cols = nbr * (S // 2) * f4
     # name: (kernel, args, bytes, additions, gathered bytes)
@@ -250,10 +265,14 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
                                  f" > {tol} * {scale:.3e}")
         row = {"max_abs_err": err, "rel_err": err / scale,
                "library": what, "library_max_abs_err": lib_err}
-        if name in SUMS:  # fixed summation order: runs repeat bit for bit
+        if name in SUMS or name in EXACT:  # fixed order or no sum at all
             row["bitwise_repeat"] = torch.equal(got, kern(*args))
             if not row["bitwise_repeat"]:
                 raise AssertionError(f"{name}: two runs differ")
+        if name in EXACT:
+            row["bitwise_plain"] = torch.equal(got, want)
+            if not row["bitwise_plain"]:
+                raise AssertionError(f"{name}: not the plain version's bits")
         if timed:
             ms = median_ms(lambda: kern(*args))
             b_ms, b_by = bound_ms(nbytes, adds, "f32")
@@ -263,6 +282,10 @@ def run(T: int = T_REF, S: int = S_REF, device="cuda") -> dict:
                        gathered_bytes=gathered,
                        gathered_GBps=gathered / ms / 1e6,
                        library_ms=median_ms(call))
+            if name in CHAINED:
+                row.update(chain_ms=chain_ms(lambda: kern(*args)),
+                           launch_floor_ms=results["launch_floor_ms"],
+                           chain_floor_ms=results["chain_floor_ms"])
             if name == "g3w_taa1_wide":  # staging each tile's source
                 row["bytes_staged"] = elems + t["XTW"].numel() * f4 + elems
             if name in SUMS:

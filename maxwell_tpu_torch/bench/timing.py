@@ -2,6 +2,10 @@
 the port's counterpart of maxwell_tpu/bench/exp_gather.py::timeit_chain.
 
     median_ms(fn)            median of n launches of fn, CUDA events
+    chain_ms(fn)             n back-to-back launches between one pair of
+                             events, over n (median of 5 such chains)
+    launch_floor_ms()        median_ms of an empty launch
+    chain_floor_ms()         chain_ms of an empty launch
     copy_bandwidth(device)   bytes/s of one 256 MB elementwise read + write,
                              the denominator of every "% of own roofline"
     l2_read_rate(device)     bytes/s the SMs read from L2: every block
@@ -23,11 +27,15 @@ device has no such number, and the timers raise there.
 from __future__ import annotations
 
 import statistics
+import time
 
 import numpy as np
 import torch
 
 LAUNCHES = 20
+CHAIN, CHAIN_RUNS = 200, 5  # launches a chain, chains a chain_ms
+SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock
+CLOCK_HZ = 2.0e9  # above the H100's boost clock (1.98 GHz): cycles -> s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FLOPS_PER_S = {"f32": 67e12, "bf16": 989e12}  # H100 SXM dense peaks
 COPY_BYTES = 256 * 2**20
@@ -45,7 +53,7 @@ def median_ms(fn, n: int = LAUNCHES) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clock
+    torch.cuda._sleep(SLEEP_CYCLES)
     pairs = []
     for _ in range(n):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -56,6 +64,56 @@ def median_ms(fn, n: int = LAUNCHES) -> float:
         pairs.append((e0, e1))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def chain_ms(fn, n: int = CHAIN, runs: int = CHAIN_RUNS) -> float:
+    """Median over `runs` chains of n back-to-back launches of fn, each
+    chain timed by one pair of CUDA events, its time over n: launches
+    queued behind one another, so that one's tail may overlap the next
+    one's start, as in maxwell_tpu/bench/exp_gather.py's timeit_chain.
+    A device-side sleep queued first, four times as long as the host took
+    to enqueue n launches, holds the chain back until all of it is queued;
+    raises if the sleep ran out before the host had queued the last
+    launch (the host's rate would be timed)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chain_ms times on a CUDA device; none is visible")
+    for _ in range(3):
+        fn()
+    host_s = 0.0  # the slower of two dry chains' enqueue
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_s = max(host_s, time.perf_counter() - t0)
+    cycles = max(SLEEP_CYCLES, int(4 * host_s * CLOCK_HZ))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        if e0.query():
+            raise RuntimeError(f"chain_ms: the sleep of {cycles} cycles ran "
+                               f"out before the host queued {n} launches")
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
+
+
+def launch_floor_ms() -> float:
+    """median_ms of an empty launch: below a few microseconds the launch
+    itself sets a kernel's pace on that timer."""
+    return median_ms(lambda: torch.cuda._sleep(0))
+
+
+def chain_floor_ms() -> float:
+    """chain_ms of an empty launch: what a launch costs in a chain."""
+    return chain_ms(lambda: torch.cuda._sleep(0))
 
 
 def copy_bandwidth(device="cuda", nbytes: int = COPY_BYTES) -> float:

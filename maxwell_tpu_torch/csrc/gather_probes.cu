@@ -25,14 +25,14 @@
 //                        16) sum is tiled S times along the row to (m,
 //                        16 S). The one change from g1: the layout.
 //                        All three on one body (below).
-//   taa0                 g2_taa0 (:137-162, :151): X[0:P] staged in shared
-//                        memory once per block; per tile, idx (P, m) read
-//                        coalesced, g[p, j] = src[idx[p, j], j] for all
-//                        P m elements into shared memory, then the tile's
-//                        (8, m) output g[lo : lo + 8] + g[hi : hi + 8]
-//                        with lo = 0, hi = P - 8 (the reference's :147).
-//                        The 16 output rows are kernel arguments, so no
-//                        gather is dead code: all P m are live loads.
+//   taa0                 g2_taa0 (:137-162, :151): per tile, idx (P, m)
+//                        read coalesced, g[p, j] = X[idx[p, j], j] for all
+//                        P m elements from X[0:P] staged in shared memory,
+//                        and the tile's (8, m) output g[lo : lo + 8] +
+//                        g[hi : hi + 8] with lo = 0, hi = P - 8 (the
+//                        reference's :147). The 16 output rows are kernel
+//                        arguments, and every gather is a volatile shared
+//                        load, so none is dead code: all P m execute.
 //   taa1                 g3_taa1 (:164-187, :176): X^T[:, 0:P] staged in
 //                        shared memory; g[j, p] = src[j, idx[j, p]],
 //                        written whole, (m, P) per tile.
@@ -87,8 +87,23 @@
 //   repeats (PERF.md 7).
 // Every output is written once by one thread: runs repeat bit for bit.
 //
-// g2/g3 (taa0, taa1): sources staged with 16-byte loads, indices read with
-// 16-byte loads, coalesced, one block per tile.
+// taa0/taa1's design (the host plan: kernels/gather_probes.py taa_plan):
+// - Persistent and even: the T tiles' index rows are cut into units (taa0
+//   8 rows of a tile, taa1 one source row of P indices), block b of the
+//   grid (kTaaBlocks blocks of 8 warps an SM) takes units b units / grid ..
+//   (b + 1) units / grid, a contiguous run of idx. One block per tile left
+//   298 tiles on 132 SMs, 3 on some SMs and 2 on others.
+// - The source (8 P floats, 16 KB at P 512) staged once per block by 16-
+//   byte cp.async, not once per tile (L2 reads 4.9 MB -> grid x 16 KB),
+//   and a thread's first kTaaBatch int4 index loads (evict first) issued
+//   before the wait on it: the index reads from device memory overlap the
+//   staging; every index of the SM's share in flight at once at T 298.
+// - taa0 reads its components in a per-lane order that spreads a warp's
+//   gathers over the 32 banks (see taa0_kernel); taa1's staged rows lie
+//   contiguous, banks k % 32.
+// Bounds (bytes): the indices once (4.9 MB at T 298), the source once,
+// the output once; the time is mostly the launch and one trip to device
+// memory.
 //
 // l2_read_f32 ports no TPU kernel: it re-reads one buffer that lies in L2
 // from every block, the rate the slices' reads cannot beat
@@ -101,12 +116,32 @@ namespace {
 
 constexpr int kR = 16;              // block rows per tile
 constexpr int kB = 8;               // rows per block row
-constexpr int kWarps = 16;          // warps of a taa0 / taa1 block
-constexpr int kThreads = kWarps * 32;
 constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
+constexpr int kTaaThreads = 256;    // threads of a taa0 / taa1 block
+constexpr int kTaaBlocks = 2;       // resident blocks an SM: the plan's grid
+constexpr int kTaaBatch = 8;        // int4 index loads a thread has in flight
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -301,59 +336,162 @@ gather_sum_kernel(const SumParams p) {
   }
 }
 
-// P rows of M = 8 floats: src staged once, each tile's P x 8 gathers
-// written to shared memory, then rows lo .. lo + 7 plus hi .. hi + 7 out
-__global__ void __launch_bounds__(kThreads)
-taa0_kernel(const int4* __restrict__ idx, const float4* __restrict__ x,
-            float* __restrict__ y, int P, int lo, int hi) {
-  constexpr int M = 8;
-  extern __shared__ float smem[];
-  float* src = smem;       // [P][8]
-  float* g = smem + P * M;  // [P][8]
-  const int64_t t = blockIdx.x;
-  for (int i = threadIdx.x; i < P * M / 4; i += kThreads)
-    reinterpret_cast<float4*>(src)[i] = __ldg(x + i);
-  __syncthreads();
-  const int4* it = idx + t * P * M / 4;
-  for (int i = threadIdx.x; i < P * M / 4; i += kThreads) {
-    const int4 k = __ldg(it + i);
-    const int j = (4 * i) % M;  // the column of the first of the four
-    reinterpret_cast<float4*>(g)[i] =
-        make_float4(src[k.x * M + j], src[k.y * M + j + 1],
-                    src[k.z * M + j + 2], src[k.w * M + j + 3]);
-  }
-  __syncthreads();
-  if (threadIdx.x < kB * M)
-    y[t * kB * M + threadIdx.x] =
-        g[lo * M + threadIdx.x] + g[hi * M + threadIdx.x];
+// ---------------------------------------------------------------------------
+// taa0 / taa1
+// ---------------------------------------------------------------------------
+
+struct TaaParams {
+  const int4* idx;     // taa0 (T P, 8), taa1 (8 T, P): int4s in row order
+  const float* x;      // taa0 X (rows, 8); taa1 X^T (8, row_stride)
+  float4* y;           // taa0 (8 T, 8); taa1 (8 T, P)
+  int64_t row_stride;  // taa1: floats between X^T's rows
+  int64_t units;       // the split's units, unit4 int4s each
+  int64_t unit4;
+  int P;
+  int lo, hi;          // taa0: the output rows g[lo + r] + g[hi + r]
+};
+
+// block b's int4s: units b units / grid .. (b + 1) units / grid
+__device__ __forceinline__ int64_t taa_start(int64_t b, const TaaParams& p) {
+  return b * p.units / gridDim.x * p.unit4;
 }
 
-// M rows of `width` floats staged (row j of the source at src + t *
-// tile_stride + j * row_stride), then g[j, p] = src[j, idx[j, p]] for
-// p < P, idx row j at idx + (t M + j) * idx_stride
-__global__ void __launch_bounds__(kThreads)
-taa1_kernel(const float* __restrict__ x, int64_t row_stride,
-            int64_t tile_stride, int width, const int32_t* __restrict__ idx,
-            int64_t idx_stride, float* __restrict__ y, int M, int P) {
-  extern __shared__ float src[];  // [M][width]
-  const int64_t t = blockIdx.x;
-  const int w4 = width / 4;
-  for (int i = threadIdx.x; i < M * w4; i += kThreads) {
-    const int j = i / w4;
-    reinterpret_cast<float4*>(src)[i] = __ldg(reinterpret_cast<const float4*>(
-        x + t * tile_stride + j * row_stride) + (i - j * w4));
+// the 8 P floats of the source, 16-byte cp.async: taa0 X[0:P] as it lies
+// (row-major [P][8]), taa1 X^T[j, 0:P] row after row ([8][P])
+template <bool TRANSPOSED>
+__device__ __forceinline__ void taa_stage(const TaaParams& p, uint32_t dst) {
+  const int p4 = p.P / 4;
+  for (int f = threadIdx.x; f < 2 * p.P; f += kTaaThreads) {
+    const float* src = p.x + 4 * (int64_t)f;
+    if (TRANSPOSED) {
+      const int j = f / p4;
+      src = p.x + j * p.row_stride + 4 * (f - j * p4);
+    }
+    cp_async16(dst + 16 * f, src);
   }
-  __syncthreads();
-  const int p4 = P / 4;
-  for (int i = threadIdx.x; i < M * p4; i += kThreads) {
-    const int j = i / p4;
-    const int p = 4 * (i - j * p4);
-    const int64_t row = t * M + j;
-    const int4 k =
-        __ldg(reinterpret_cast<const int4*>(idx + row * idx_stride + p));
-    const float* s = src + j * width;
-    reinterpret_cast<float4*>(y + row * P + p)[0] =
-        make_float4(s[k.x], s[k.y], s[k.z], s[k.w]);
+  cp_async_commit();
+}
+
+// A gather that ptxas may neither drop nor predicate: taa0 reads every
+// element, its output keeps two rows of them
+__device__ __forceinline__ float lds_kept(uint32_t addr) {
+  float v;
+  asm volatile("ld.volatile.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// (a, b, c, d) -> element c ^ s in place c: s's bit 0 swaps neighbours,
+// bit 1 swaps pairs (its own inverse)
+template <typename V>
+__device__ __forceinline__ void xor_order(V& a, V& b, V& c, V& d, int s) {
+  V t;
+  if (s & 1) { t = a; a = b; b = t; t = c; c = d; d = t; }
+  if (s & 2) { t = a; a = c; c = t; t = b; b = d; d = t; }
+}
+
+// g2: every g[p, j] = X[idx[t P + p, j], j] gathered from X[0:P] staged
+// row-major ([P][8], 32 bytes a row) once per block. A thread's index int4
+// is row p's columns 4 h .. 4 h + 3, h = tid & 1 (a block's range starts
+// at an even int4). The 4 LDS of an int4 take its components in the
+// lane's order c ^ s, s = (lane >> 1) & 3: the bank of (k, j) is 8 (k %
+// 4) + j, so in a fixed order a warp's 32 random rows fall on 8 banks
+// (2 h x 4 k % 4); in the lane's order on all 32 (4 lanes a bank on
+// average, as 32 random rows over 32 banks). Every gather is an
+// ld.volatile.shared (lds_kept): all P m of a tile execute, 4 unpredicated
+// LDS an int4 in the SASS, and none is stored: the values of rows lo ..
+// lo + 7 stay in registers, and the thread holding row lo + r also
+// gathers row hi + r (its index int4 loaded beside the batch's) and
+// writes (lo + r) + (hi + r). The rows of hi are gathered twice, 64
+// elements a tile. No barrier after the gathers, no shared g.
+__global__ void __launch_bounds__(kTaaThreads, kTaaBlocks)
+taa0_kernel(const TaaParams p) {
+  extern __shared__ __align__(16) float4 taa_src[];
+  const int tid = threadIdx.x, h = tid & 1, s = (threadIdx.x >> 1) & 3;
+  const int64_t a = taa_start(blockIdx.x, p);
+  const int64_t z = taa_start(blockIdx.x + 1, p);
+  const uint32_t base = smem_u32(taa_src);
+  taa_stage<false>(p, base);
+  uint32_t col[4];  // byte offset of round c's column, 4 h + (c ^ s)
+#pragma unroll
+  for (int c = 0; c < 4; ++c) col[c] = base + 4 * (4 * h + (c ^ s));
+  const uint32_t P = p.P;
+
+  // batches of kTaaBatch int4s a thread; the first batch's index loads
+  // go out before the wait: the index reads overlap the staging
+  for (int64_t i0 = a + tid; i0 - tid < z; i0 += kTaaBatch * kTaaThreads) {
+    int4 k[kTaaBatch], kh[kTaaBatch];
+    uint32_t d[kTaaBatch];  // row - lo: < 8 where the int4 feeds the output
+#pragma unroll
+    for (int b = 0; b < kTaaBatch; ++b) {
+      const int64_t i = i0 + b * kTaaThreads;
+      d[b] = 8;
+      if (i < z) {
+        k[b] = __ldcs(p.idx + i);  // read once: evict first
+        const uint32_t row = (uint32_t)(i >> 1), t = row / P;
+        d[b] = row - t * P - (uint32_t)p.lo;
+        if (d[b] < 8)
+          kh[b] = __ldg(p.idx + 2 * ((int64_t)t * P + p.hi + d[b]) + h);
+      }
+    }
+    if (i0 == a + tid) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int b = 0; b < kTaaBatch; ++b) {
+      const int64_t i = i0 + b * kTaaThreads;
+      if (i >= z) continue;
+      int r0 = k[b].x, r1 = k[b].y, r2 = k[b].z, r3 = k[b].w;
+      xor_order(r0, r1, r2, r3, s);
+      float v0 = lds_kept(col[0] + 32 * r0), v1 = lds_kept(col[1] + 32 * r1),
+            v2 = lds_kept(col[2] + 32 * r2), v3 = lds_kept(col[3] + 32 * r3);
+      if (d[b] < 8) {
+        xor_order(v0, v1, v2, v3, s);
+        const float* g = reinterpret_cast<const float*>(taa_src) + 4 * h;
+        const int64_t t = (uint32_t)(i >> 1) / P;
+        p.y[2 * (8 * t + d[b]) + h] = make_float4(
+            v0 + g[8 * kh[b].x], v1 + g[8 * kh[b].y + 1],
+            v2 + g[8 * kh[b].z + 2], v3 + g[8 * kh[b].w + 3]);
+      }
+    }
+  }
+}
+
+// g3: g[u, p] = X^T[u % 8, idx[u, p]] for the idx rows u of the block's
+// units (one row of P indices a unit on the plan's split), X^T[:, 0:P]
+// staged once per block ([8][P]: a warp's lanes read one row at random
+// columns, banks k % 32). Int4 index loads (evict first), the 4 gathers,
+// float4 stores (evict first) at the int4's own place: y is (8 T, P) as
+// idx is.
+__global__ void __launch_bounds__(kTaaThreads, kTaaBlocks)
+taa1_kernel(const TaaParams p) {
+  extern __shared__ __align__(16) float4 taa_src[];
+  const int tid = threadIdx.x;
+  const int64_t a = taa_start(blockIdx.x, p);
+  const int64_t z = taa_start(blockIdx.x + 1, p);
+  taa_stage<true>(p, smem_u32(taa_src));
+  const float* src = reinterpret_cast<const float*>(taa_src);
+  const uint32_t p4 = p.P / 4;
+
+  for (int64_t i0 = a + tid; i0 - tid < z; i0 += kTaaBatch * kTaaThreads) {
+    int4 k[kTaaBatch];
+#pragma unroll
+    for (int b = 0; b < kTaaBatch; ++b) {
+      const int64_t i = i0 + b * kTaaThreads;
+      if (i < z) k[b] = __ldcs(p.idx + i);
+    }
+    if (i0 == a + tid) {  // as in taa0: the first batch's loads are out
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int b = 0; b < kTaaBatch; ++b) {
+      const int64_t i = i0 + b * kTaaThreads;
+      if (i >= z) continue;
+      const float* row = src + (((uint32_t)i / p4) & 7) * p.P;
+      __stcs(p.y + i, make_float4(row[k[b].x], row[k[b].y], row[k[b].z],
+                                  row[k[b].w]));
+    }
   }
 }
 
@@ -524,30 +662,95 @@ extern "C" int l2_read_f32(const void* x, void* out, int64_t n4,
   return (int)cudaGetLastError();
 }
 
-extern "C" int gather_taa0_f32(const void* idx, const void* x, void* y,
-                               int64_t T, int64_t P, int64_t lo, int64_t hi,
-                               void* stream) {
-  const size_t smem = 2 * (size_t)P * 8 * sizeof(float);
-  const int e = set_smem(reinterpret_cast<const void*>(taa0_kernel), smem);
+// The taa launch of kernels/gather_probes.py taa_plan: `grid` blocks of
+// kTaaThreads, the index rows (taa0 P a tile, taa1 8) cut into units of
+// unit_rows rows, block b taking units b units / grid .. (b + 1) units /
+// grid, 32 P bytes of dynamic shared memory. Returns 1 for a launch the
+// kernels do not take, else the launch's error code.
+namespace {
+
+int launch_taa(const void* kernel, TaaParams p, int64_t T, int64_t rows,
+               int64_t row4, int64_t unit_rows, int64_t grid, void* stream) {
+  if (T < 1 || p.P < 4 || p.P % 4 || unit_rows < 1 ||
+      (T * rows) % unit_rows || 32 * (int64_t)p.P > kSmemLimit)
+    return 1;
+  p.units = T * rows / unit_rows;
+  p.unit4 = unit_rows * row4;
+  if (grid < 1 || grid > p.units) return 1;
+  const size_t smem = 32 * (size_t)p.P;
+  const int e = set_smem(kernel, smem);
   if (e) return e;
-  taa0_kernel<<<(unsigned)T, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const int4*>(idx), static_cast<const float4*>(x),
-      static_cast<float*>(y), (int)P, (int)lo, (int)hi);
-  return (int)cudaGetLastError();
+  void* args[] = {&p};
+  return (int)cudaLaunchKernel(kernel, dim3((unsigned)grid),
+                               dim3(kTaaThreads), args, smem,
+                               (cudaStream_t)stream);
 }
 
+}  // namespace
+
+// g2: idx (T P, 8) int32, x (>= P, 8) f32, y (8 T, 8): y[8 t + r] =
+// g[lo + r] + g[hi + r], 0 <= lo, hi <= P - 8
+extern "C" int gather_taa0_f32(const void* idx, const void* x, void* y,
+                               int64_t T, int64_t P, int64_t lo, int64_t hi,
+                               int64_t unit_rows, int64_t grid,
+                               void* stream) {
+  if (P < 8 || lo < 0 || hi < 0 || lo > P - 8 || hi > P - 8) return 1;
+  TaaParams p{};
+  p.idx = static_cast<const int4*>(idx);
+  p.x = static_cast<const float*>(x);
+  p.y = static_cast<float4*>(y);
+  p.P = (int)P;
+  p.lo = (int)lo;
+  p.hi = (int)hi;
+  return launch_taa(reinterpret_cast<const void*>(taa0_kernel), p, T, P, 2,
+                    unit_rows, grid, stream);
+}
+
+// g3: x X^T (8, row_stride) f32, idx (8 T, P) int32, y (8 T, P)
 extern "C" int gather_taa1_f32(const void* x, int64_t row_stride,
-                               int64_t tile_stride, int64_t width,
-                               const void* idx, int64_t idx_stride, void* y,
-                               int64_t T, int64_t m, int64_t P, void* stream) {
-  const size_t smem = (size_t)m * width * sizeof(float);
-  const int e = set_smem(reinterpret_cast<const void*>(taa1_kernel), smem);
-  if (e) return e;
-  taa1_kernel<<<(unsigned)T, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), row_stride, tile_stride, (int)width,
-      static_cast<const int32_t*>(idx), idx_stride, static_cast<float*>(y),
-      (int)m, (int)P);
-  return (int)cudaGetLastError();
+                               const void* idx, void* y, int64_t T,
+                               int64_t P, int64_t unit_rows, int64_t grid,
+                               void* stream) {
+  if (row_stride < P || row_stride % 4) return 1;
+  TaaParams p{};
+  p.idx = static_cast<const int4*>(idx);
+  p.x = static_cast<const float*>(x);
+  p.y = static_cast<float4*>(y);
+  p.row_stride = row_stride;
+  p.P = (int)P;
+  return launch_taa(reinterpret_cast<const void*>(taa1_kernel), p, T, kB,
+                    P / 4, unit_rows, grid, stream);
+}
+
+// The taa0 (kind 0) or taa1 (kind 1) launch at panel P on the current card:
+// out = {registers a thread, local memory bytes a thread, resident blocks
+// per SM at its 32 P bytes of shared memory (the occupancy API's count),
+// SMs, dynamic shared memory bytes a block, threads a block}
+extern "C" int gather_taa_shape(int64_t kind, int64_t P, void* out) {
+  const void* k = kind == 0 ? reinterpret_cast<const void*>(taa0_kernel)
+                : kind == 1 ? reinterpret_cast<const void*>(taa1_kernel)
+                            : nullptr;
+  const size_t smem = 32 * (size_t)P;
+  if (!k || P < 4 || smem > (size_t)kSmemLimit) return 1;
+  cudaFuncAttributes a;
+  int occ = 0, dev = 0, sms = 0;
+  cudaError_t c = (cudaError_t)set_smem(k, smem);
+  if (c == cudaSuccess) c = cudaFuncGetAttributes(&a, k);
+  if (c == cudaSuccess)
+    c = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k, kTaaThreads,
+                                                      smem);
+  if (c == cudaSuccess) c = cudaGetDevice(&dev);
+  if (c == cudaSuccess)
+    c = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (c != cudaSuccess) return (int)c;
+  int64_t* o = static_cast<int64_t*>(out);
+  o[0] = a.numRegs;
+  o[1] = (int64_t)a.localSizeBytes;
+  o[2] = occ;
+  o[3] = sms;
+  o[4] = (int64_t)smem;
+  o[5] = kTaaThreads;
+  return 0;
 }
 
 // g3w: rows = 8 T source rows of `width` floats (x) and indices (idx, the

@@ -68,8 +68,9 @@ _SIGNATURES = {
     "gather_sum_f32": [_P] * 5 + [_I] * 8 + [_P],
     "gather_sum_shape": [_I] * 3 + [_P],
     "l2_read_f32": [_P] * 2 + [_I] * 2 + [_P],
-    "gather_taa0_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "gather_taa1_f32": [_P] + [_I] * 3 + [_P, _I, _P] + [_I] * 3 + [_P],
+    "gather_taa0_f32": [_P] * 3 + [_I] * 6 + [_P],
+    "gather_taa1_f32": [_P, _I, _P, _P] + [_I] * 4 + [_P],
+    "gather_taa_shape": [_I] * 2 + [_P],
     "gather_taa1_wide_f32": [_P] * 3 + [_I] * 3 + [_P],
     # spmm_probes.cu
     "spmm_probe_f32": [_P] * 4 + [_I] * 4 + [_P],

@@ -33,8 +33,13 @@ of SUM_BLOCKS blocks an SM, the T R slots cut into near-equal ranges
 (`ranges`), every slice read from L2 (through L1, which serves a tile's
 repeated block columns).
 
+g2 and g3 (`taa0`, `taa1`) run as `taa_plan` says: a persistent grid of
+TAA_BLOCKS blocks an SM, the tiles' index rows cut into units (g2 8 rows
+of a tile, g3 one source row of P indices) and split evenly, each block
+staging the source once.
+
 A wrapper given CUDA tensors checks them and launches its kernel
-(csrc/gather_probes.cu: g3 `taa1`, g3w `taa1_wide`; g5:
+(csrc/gather_probes.cu: g2 `taa0`, g3 `taa1`, g3w `taa1_wide`; g5:
 csrc/grid_probes.cu) or raises; given CPU
 tensors it runs the plain version (`*_ref`). Each wrapper counts its
 launches in `.launches`, each plain version its calls in `.calls`.
@@ -47,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -356,6 +362,140 @@ def l2_read(x, out):
     return out
 
 
+# taa0 / taa1's launch (csrc/gather_probes.cu): a persistent grid of
+# TAA_BLOCKS blocks of TAA_THREADS threads an SM, the tiles' index rows cut
+# into units, each block a contiguous run of them; 32 P bytes of staged
+# source a block
+TAA_THREADS = 256
+TAA_BLOCKS = 2  # resident blocks an SM (the kernels' launch bounds)
+TAA_SMEM = 232_448  # a block's shared memory on the H100
+TAA_MAX_P = TAA_SMEM // 32  # 7,264: the staged 8 P floats fit one block
+TAA_KINDS = {"taa0": 0, "taa1": 1}  # g2, g3
+
+
+@dataclasses.dataclass(frozen=True)
+class TaaPlan:
+    """g2's ("taa0") or g3's ("taa1") launch (see taa_plan). A tile has
+    tile_rows index rows (taa0 the P rows of idx (T P, 8), taa1 the 8 rows
+    of idx (8 T, P)), cut into units of unit_rows rows; block b takes the
+    units starts()[b] .. starts()[b + 1], a contiguous run of idx."""
+
+    kind: str
+    T: int
+    P: int
+    unit_rows: int
+    grid: int  # blocks
+    sms: int
+
+    @property
+    def tile_rows(self) -> int:
+        return self.P if self.kind == "taa0" else M
+
+    @property
+    def units(self) -> int:
+        return self.T * self.tile_rows // self.unit_rows
+
+    @property
+    def smem(self) -> int:
+        """A block's dynamic shared memory: the staged 8 P floats."""
+        return 32 * self.P
+
+    def starts(self) -> np.ndarray:
+        """(grid + 1,) block b's first unit, then the unit count: the
+        kernels' b units // grid."""
+        b = np.arange(self.grid + 1, dtype=np.int64)
+        return b * self.units // self.grid
+
+    def rows_of(self, u: int) -> tuple:
+        """(tile, first row, end row) of unit u, rows within the tile."""
+        per = self.tile_rows // self.unit_rows
+        t, q = divmod(int(u), per)
+        return t, q * self.unit_rows, (q + 1) * self.unit_rows
+
+    def extra_rows(self, u: int, lo: int = 0, hi: int | None = None) -> list:
+        """taa0: the rows hi + r that unit u gathers beyond its own, one
+        for each of its rows lo + r (r < 8), whose output (lo + r) + (hi +
+        r) it writes; taa1: none."""
+        if self.kind != "taa0":
+            return []
+        hi = self.P - B if hi is None else hi
+        _, a, z = self.rows_of(u)
+        return [hi + p - lo for p in range(max(a, lo), min(z, lo + B))]
+
+    def summary(self) -> dict:
+        """The launch as the probes record it: grid, threads, units and
+        their rows, the blocks' unit counts (least, most, mean, the most's
+        excess over the mean in %) and the shared memory a block."""
+        loads = np.diff(self.starts())
+        return {"grid": self.grid, "threads": TAA_THREADS,
+                "units": self.units, "unit_rows": self.unit_rows,
+                "block_units": {"min": int(loads.min()),
+                                "max": int(loads.max()),
+                                "mean": float(loads.mean()),
+                                "max_over_mean_pct": float(
+                                    100 * (loads.max() / loads.mean() - 1))},
+                "smem": self.smem}
+
+
+@functools.lru_cache(maxsize=64)
+def taa_plan(kind: str, T: int, P: int, sms: int) -> TaaPlan:
+    """g2's ("taa0") or g3's ("taa1") launch for T tiles at panel P on a
+    card of `sms` SMs: units of 8 rows of a tile for taa0 (4 where 8 does
+    not divide P), of one source row of P indices for taa1; TAA_BLOCKS
+    blocks an SM, at most one a unit (from P 3,620 one block an SM holds
+    the staged source, and the grid runs in two rounds). Cached: a timed
+    repeat launches the kernel alone."""
+    if kind not in TAA_KINDS:
+        raise ValueError(f"kind must be one of {tuple(TAA_KINDS)}, got "
+                         f"{kind!r}")
+    if T < 1 or P < 4 or P % 4 or P > TAA_MAX_P or sms < 1:
+        raise ValueError(f"T = {T} and the SMs {sms} must be >= 1 and P = "
+                         f"{P} a multiple of 4 in [4, {TAA_MAX_P}]")
+    unit_rows = (B if P % B == 0 else 4) if kind == "taa0" else 1
+    plan = TaaPlan(kind=kind, T=int(T), P=int(P), unit_rows=unit_rows,
+                   grid=1, sms=int(sms))
+    return dataclasses.replace(plan, grid=min(TAA_BLOCKS * int(sms),
+                                              plan.units))
+
+
+def taa_shape(plan: TaaPlan) -> dict:
+    """The plan's kernel on the current card at its shared memory:
+    registers and local memory bytes a thread, resident blocks per SM (the
+    occupancy API's count), the SM count, shared memory and threads a
+    block; see csrc/gather_probes.cu gather_taa_shape. Raises where the
+    build and the plan disagree. Needs the card."""
+    from maxwell_tpu_torch.kernels import _build
+
+    out = (ctypes.c_int64 * 6)()
+    rc = _build.load().gather_taa_shape(TAA_KINDS[plan.kind], plan.P,
+                                        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"gather_taa_shape: error {rc}")
+    shape = dict(zip(("registers", "local_bytes", "blocks_per_sm", "sms",
+                      "smem", "threads"), out))
+    if (shape["smem"], shape["threads"]) != (plan.smem, TAA_THREADS):
+        raise RuntimeError(f"the {plan.kind} kernel takes {shape['threads']}"
+                           f" threads and {shape['smem']} bytes, the plan "
+                           f"{TAA_THREADS} and {plan.smem}")
+    return shape
+
+
+def run_taa(plan: TaaPlan, idx, src, Y, lo: int = 0, hi=None) -> None:
+    """taa0's (src X, output rows lo and hi, hi P - 8 by default) or
+    taa1's (src X^T) launch of `plan` on checked CUDA operands into Y."""
+    if plan.kind == "taa0":
+        hi = plan.P - B if hi is None else hi
+        launch("gather_taa0_f32", idx, src, Y, plan.T, plan.P, lo, hi,
+               plan.unit_rows, plan.grid)
+    else:
+        launch("gather_taa1_f32", src, src.shape[1], idx, Y, plan.T, plan.P,
+               plan.unit_rows, plan.grid)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 _COUNTERS = {}  # (device, stream) -> int32 [>= T], zero between launches
 
 
@@ -386,9 +526,8 @@ def run_plan(plan: GatherPlan, cols, X, Y, x_stride: int = 0) -> None:
 def _sum_launch(cols, X, Y, slots, rows, transposed, x_stride):
     """gather_sum on checked CUDA operands: its plan, then its launch."""
     m = X.shape[0] if transposed else X.shape[1]
-    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-    run_plan(gather_plan(cols, m, sms, rows, slots, transposed), cols, X, Y,
-             x_stride)
+    run_plan(gather_plan(cols, m, _sms(X.device), rows, slots, transposed),
+             cols, X, Y, x_stride)
 
 
 def gather_sum(cols, X) -> torch.Tensor:
@@ -459,14 +598,14 @@ def g4_lane_ds(cols, XTp):
 
 def g2_taa0(idx, X, P):
     """K15e g2_taa0 (exp_gather.py:137-162): per-element gathers down the
-    rows of the staged X[0:P]."""
+    rows of the staged X[0:P], on taa_plan's split."""
     if X.device.type == "cpu":
         return g2_taa0_ref(idx, X, P)
     _check_m8(X)
     check_operands(idx, X, dtypes=(torch.int32, torch.float32))
-    if P < B or P % 4 or X.shape[0] < P:
-        raise ValueError(f"P = {P} must be a multiple of 4, >= 8 and <= "
-                         f"X's {X.shape[0]} rows")
+    if P < B or P % 4 or X.shape[0] < P or P > TAA_MAX_P:
+        raise ValueError(f"P = {P} must be a multiple of 4, >= 8, <= "
+                         f"{TAA_MAX_P} and <= X's {X.shape[0]} rows")
     if idx.dim() != 2 or idx.shape[1] != M or idx.shape[0] % P or \
             not idx.shape[0]:
         raise ValueError(f"idx must be (T {P}, {M}), got "
@@ -474,7 +613,7 @@ def g2_taa0(idx, X, P):
     check_range(idx, P - 1, "idx")
     T = idx.shape[0] // P
     Y = torch.empty((B * T, M), dtype=torch.float32, device=X.device)
-    launch("gather_taa0_f32", idx, X, Y, T, P, 0, P - B)
+    run_taa(taa_plan("taa0", T, P, _sms(X.device)), idx, X, Y)
     g2_taa0.launches += 1
     return Y
 
@@ -493,7 +632,8 @@ def _check_taa1(idx, src, width, P):
 
 def g3_taa1(idx, XT):
     """K15e g3_taa1 (exp_gather.py:164-187): per-element gathers along the
-    columns of the staged X^T[:, 0:P], P = idx.shape[1]."""
+    columns of the staged X^T[:, 0:P], P = idx.shape[1], on taa_plan's
+    split."""
     if XT.device.type == "cpu":
         return g3_taa1_ref(idx, XT)
     P = idx.shape[1] if idx.dim() == 2 else 0
@@ -501,10 +641,13 @@ def g3_taa1(idx, XT):
             XT.shape[1] < P:
         raise ValueError(f"XT must be ({M}, n >= {P}), n a multiple of 4, "
                          f"got {tuple(XT.shape)}")
+    if P > TAA_MAX_P:
+        raise ValueError(f"P = {P} leaves a block's shared memory: at most "
+                         f"{TAA_MAX_P}")
     _check_taa1(idx, XT, P, P)
     T = idx.shape[0] // M
     Y = torch.empty((M * T, P), dtype=torch.float32, device=XT.device)
-    launch("gather_taa1_f32", XT, XT.shape[1], 0, P, idx, P, Y, T, M, P)
+    run_taa(taa_plan("taa1", T, P, _sms(XT.device)), idx, XT, Y)
     g3_taa1.launches += 1
     return Y
 

@@ -980,14 +980,16 @@ def test_cuda_stream_probes_persistent(cuda_device, tiles, S, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,S", [(10, 64), (37, 20), (300, 64)])
+@pytest.mark.parametrize("T,S", [(10, 64), (37, 20), (300, 64), (298, 64),
+                                 (1, 16), (133, 64), (299, 64)])
 def test_cuda_gather_probes_match_plain(cuda_device, T, S):
     """K15e's seven kernels against their plain versions on the probe's
-    own draws at small T, a ragged S and T 300 (1e-5 of max|plain|;
-    g3w_taa1_wide, a gather, bit for bit), and g5 bit for bit against
-    K15d's e0; each launched twice, bit for bit (gather_sum's ranges cut
-    tiles at every T, and its blocks' slot counts lie within one group of
-    4 of each other), no plain version called."""
+    own draws at small T, a ragged S, the probe's T 298 and T 1 (S 16: g2
+    and g3 read P = 8 S <= X's 128 T rows), 133, 299, 300 (1e-5 of
+    max|plain|; the gathers g2, g3 and g3w bit for bit), and
+    g5 bit for bit against K15d's e0; each launched twice, bit for bit
+    (gather_sum's ranges cut tiles at every T, and its blocks' slot counts
+    lie within one group of 4 of each other), no plain version called."""
     t = {k: torch.from_numpy(v).to(cuda_device)
          for k, v in exp_gather.make_inputs(T, S).items()}
     X = t["X"]
@@ -1012,13 +1014,85 @@ def test_cuda_gather_probes_match_plain(cuda_device, T, S):
         assert ((got - want).abs().max()
                 / want.abs().max()).item() <= 1e-5, kern.__name__
         assert torch.equal(got, again), kern.__name__
-        if kern is gpr.g3w_taa1_wide:
-            assert torch.equal(got, want)
+        if kern in (gpr.g2_taa0, gpr.g3_taa1, gpr.g3w_taa1_wide):
+            assert torch.equal(got, want), kern.__name__
     assert torch.equal(gpr.g5_floor(X, T), gp.e0_grid1(X, T))
     c = gpr.counts()
     assert c["g5_floor"] == 3 and gp.counts()["e0_grid1"] == 1
     assert all(c[fn.__name__] == 2 for fn in gpr.KERNELS[:-1])
     assert not any(c[fn.__name__] for fn in gpr.PLAIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["taa0", "taa1"])
+@pytest.mark.parametrize("T,P", [(3, gpr.TAA_MAX_P), (5, 3616), (2, 3620),
+                                 (7, 12), (298, 512)])
+def test_cuda_taa_plans_match_plain(cuda_device, kind, T, P):
+    """g2's and g3's kernels bit for bit their plain versions, launched
+    twice the same, on the wrappers' plan (the largest P the wrappers take,
+    7,264: one block an SM resident, the grid in two rounds; the last P
+    with two, 3,616; P 12, units of 4 rows) and, at T 298, on the plans the
+    profile times beside it: whole tiles a block, one block per tile, 1 and
+    4 blocks an SM; g2 also with output rows lo 4, hi 20 (its rows lo .. lo
+    + 7 span two units)."""
+    rng = np.random.default_rng(P)
+    X = torch.from_numpy(rng.standard_normal((P + 8, 8)).astype(
+        np.float32)).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if kind == "taa0":
+        idx = torch.from_numpy(rng.integers(0, P, (T * P, 8), dtype=np.int32)
+                               ).to(cuda_device)
+        src, kern = X, gpr.g2_taa0
+        want = gpr.taa0_plain(idx, X, P)
+        args = (idx, X, P)
+    else:
+        idx = torch.from_numpy(rng.integers(0, P, (T * 8, P), dtype=np.int32)
+                               ).to(cuda_device)
+        src, kern = X.T.contiguous(), gpr.g3_taa1
+        want = gpr.taa1_plain(idx, src)
+        args = (idx, src)
+    gpr.reset_counts()
+    got, again = kern(*args), kern(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert gpr.counts()[kern.__name__] == 2
+    plan = gpr.taa_plan(kind, T, P, sms)
+    assert plan.grid == min(gpr.TAA_BLOCKS * sms, plan.units)
+    shape = gpr.taa_shape(plan)
+    assert shape["local_bytes"] == 0
+    assert shape["blocks_per_sm"] >= (2 if P <= 3616 else 1)
+    if P != 512:
+        return
+    tile = plan.tile_rows
+    plans = [dataclasses.replace(plan, unit_rows=tile,
+                                 grid=min(2 * sms, T)),
+             dataclasses.replace(plan, unit_rows=tile, grid=T)]
+    plans += [dataclasses.replace(plan, grid=min(k * sms, plan.units))
+              for k in (1, 4)]
+    for pl in plans:
+        Y = torch.full_like(want, float("nan"))
+        gpr.run_taa(pl, idx, src, Y)
+        torch.cuda.synchronize()
+        assert torch.equal(Y, want), pl
+    if kind == "taa0":
+        g = torch.gather(X[:P], 0, idx.long()).view(T, P, 8)
+        Y = torch.empty_like(want)
+        gpr.run_taa(plan, idx, X, Y, lo=4, hi=20)
+        torch.cuda.synchronize()
+        assert torch.equal(Y, (g[:, 4:12] + g[:, 20:28]).reshape(-1, 8))
+
+
+@pytest.mark.cuda
+def test_cuda_chain_ms_times_a_chain(cuda_device):
+    """chain_ms times back-to-back launches on the card: an empty launch
+    costs less in a chain than alone (median_ms), and a kernel at least
+    the chain floor."""
+    from maxwell_tpu_torch.bench import timing
+
+    floor = timing.chain_floor_ms()
+    assert 0 < floor < timing.launch_floor_ms()
+    X = torch.ones((1 << 20, 8), device=cuda_device)
+    assert timing.chain_ms(lambda: X.mul_(1.0)) >= floor
 
 
 @pytest.fixture(scope="module")
@@ -1080,7 +1154,8 @@ def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
     not built for, f64 values, a slot count not a multiple of 4, a block
     column whose slice leaves X, a short X for the fixed panel, a panel
     that with the value ring leaves shared memory (S 96 at m 128), idx out
-    of range for g2 and g3, a misaligned or non-contiguous X."""
+    of range for g2 and g3, a g2 or g3 panel past 7,264 rows (its staged
+    source leaves shared memory), a misaligned or non-contiguous X."""
     V, cols, X = _spmm_probe_case("random", 8, cuda_device)
     far = cols.clone()
     far[3, 7] = X.shape[0] // 8
@@ -1090,6 +1165,10 @@ def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
     bad0[5, 3] = 512
     bad1 = t["idx1"].clone()
     bad1[2, 9] = -1
+    Pbig = gpr.TAA_MAX_P + 4  # the staged source leaves shared memory
+    Xbig = torch.zeros((Pbig, 8), device=cuda_device)
+    big0 = torch.zeros((Pbig, 8), dtype=torch.int32, device=cuda_device)
+    big1 = torch.zeros((8, Pbig), dtype=torch.int32, device=cuda_device)
     wide = torch.zeros((128, 96 * 8), device=cuda_device)  # S 96
     Xwide = torch.zeros((96 * 8, 128), device=cuda_device)
     spp.reset_counts()
@@ -1104,6 +1183,8 @@ def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
                  lambda: spp.v4_gather(cols, X.view(-1)[1:-7].view(-1, 8)),
                  lambda: gpr.g2_taa0(bad0, t["X"], 512),
                  lambda: gpr.g3_taa1(bad1, t["X"].T.contiguous()),
+                 lambda: gpr.g2_taa0(big0, Xbig, Pbig),
+                 lambda: gpr.g3_taa1(big1, Xbig.T.contiguous()),
                  lambda: gpr.g0_slices(t["cols"], t["X"].T.contiguous().T)):
         with pytest.raises(ValueError):
             call()

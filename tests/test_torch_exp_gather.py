@@ -222,7 +222,7 @@ def _meta(shape, dtype=torch.float32):
 @pytest.mark.parametrize("bad", ["f64_x", "wide_x", "cols_int64",
                                  "cols_rows", "odd_slots", "idx0_shape",
                                  "idx1_cols", "xtw_shape", "non_contiguous",
-                                 "m_not_built"])
+                                 "m_not_built", "p_too_large"])
 def test_wrappers_reject_bad_device_input(bad):
     """A tensor that is not on the CPU takes the kernel path, which checks
     its input before any build or launch (meta tensors stand in for CUDA
@@ -256,15 +256,21 @@ def test_wrappers_reject_bad_device_input(bad):
         idx1 = _meta((Tm * M, P - 2), torch.int32)
     elif bad == "xtw_shape":
         XTW = _meta((Tm * M, W - 4))
+    elif bad == "p_too_large":  # the staged source leaves shared memory
+        Pbig = gpr.TAA_MAX_P + 4
+        X, XT = _meta((Pbig, M)), _meta((M, Pbig))
+        idx0 = _meta((Tm * Pbig, M), torch.int32)
+        idx1 = _meta((Tm * M, Pbig), torch.int32)
     elif bad == "non_contiguous":
         X = _meta((M, n)).T
         Xp = _meta((M, n + B)).T
         XTp, XT = _meta((n + B, M)).T, _meta((n, M)).T
         XTW = _meta((W, Tm * M)).T
+    P0 = Pbig if bad == "p_too_large" else P
     calls = {"g0_slices": lambda: gpr.g0_slices(cols, X),
              "g1_slices2x": lambda: gpr.g1_slices2x(cols, Xp),
              "g4_lane_ds": lambda: gpr.g4_lane_ds(cols, XTp),
-             "g2_taa0": lambda: gpr.g2_taa0(idx0, X, P),
+             "g2_taa0": lambda: gpr.g2_taa0(idx0, X, P0),
              "g3_taa1": lambda: gpr.g3_taa1(idx1, XT),
              "g3w_taa1_wide": lambda: gpr.g3w_taa1_wide(idx1w, XTW, P),
              "gather_sum": lambda: gpr.gather_sum(cols, _meta((n, 16)))}
@@ -275,7 +281,8 @@ def test_wrappers_reject_bad_device_input(bad):
            "cols_int64": slices, "cols_rows": slices, "odd_slots": slices,
            "idx0_shape": ["g2_taa0"], "idx1_cols": ["g3_taa1"],
            "xtw_shape": ["g3w_taa1_wide"], "non_contiguous": NAMES[:-1],
-           "m_not_built": ["gather_sum"]}[bad]
+           "m_not_built": ["gather_sum"],
+           "p_too_large": ["g2_taa0", "g3_taa1"]}[bad]
     gpr.reset_counts()
     for name in hit:
         with pytest.raises(ValueError):
@@ -476,3 +483,174 @@ def test_profile_shift_gather_needs_the_card(monkeypatch, tmp_path):
     assert not (tmp_path / "p.json").exists()
     with pytest.raises(RuntimeError, match="needs the card"):
         profile_shift_gather.run(device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# taa_plan: the persistent split of g2's and g3's kernels
+# ---------------------------------------------------------------------------
+
+TAA_TS, TAA_SMS = (1, 2, 133, 298, 299), (1, 7, 132)
+TAA_CASES = [(kind, T, sms) for kind in gpr.TAA_KINDS for T in TAA_TS
+             for sms in TAA_SMS]
+
+
+@pytest.mark.parametrize("kind,T,sms", TAA_CASES)
+def test_taa_plan_covers_every_unit_of_every_tile_once(kind, T, sms):
+    """The blocks' unit ranges tile the unit list in order, none empty,
+    and the units' rows cover every index row of every tile exactly once
+    (taa0: P = 512 rows a tile in units of 8; taa1: 8 rows of P indices,
+    a unit each)."""
+    plan = gpr.taa_plan(kind, T, P, sms)
+    r = plan.starts()
+    assert r[0] == 0 and r[-1] == plan.units and np.all(np.diff(r) > 0)
+    assert plan.grid == min(gpr.TAA_BLOCKS * sms, plan.units)
+    hits = np.zeros((T, plan.tile_rows), np.int64)
+    for b in range(plan.grid):
+        for u in range(r[b], r[b + 1]):
+            t, a, z = plan.rows_of(u)
+            hits[t, a:z] += 1
+    assert np.all(hits == 1)
+
+
+@pytest.mark.parametrize("kind,T,sms", TAA_CASES)
+def test_taa_plan_blocks_hold_at_most_one_unit_over_the_mean(kind, T, sms):
+    """No block holds more than one unit above the mean, nor fewer than
+    one below it; the summary says so in %."""
+    plan = gpr.taa_plan(kind, T, P, sms)
+    loads = np.diff(plan.starts())
+    mean = plan.units / plan.grid
+    assert loads.max() <= mean + 1 and loads.min() >= mean - 1
+    s = plan.summary()
+    assert s["block_units"]["max"] == loads.max()
+    assert s["units"] == plan.units and s["smem"] == 32 * P
+
+
+@pytest.mark.parametrize("T", TAA_TS)
+@pytest.mark.parametrize("sms", TAA_SMS)
+def test_taa_plan_gives_the_lo_unit_rows_hi(T, sms):
+    """g2: in every tile the unit that holds row lo (lo 0: its first unit)
+    is given rows hi .. hi + 7 and no other unit any; with lo 4 the rows
+    lo .. lo + 7 span two units, and each is given the hi rows of its own
+    part, hi + 0 .. hi + 3 and hi + 4 .. hi + 7."""
+    plan = gpr.taa_plan("taa0", T, P, sms)
+    per = P // plan.unit_rows
+    for lo, hi in ((0, P - B), (4, 100)):
+        for t in range(T):
+            given = {u % per: plan.extra_rows(u, lo, hi)
+                     for u in range(t * per, (t + 1) * per)}
+            holders = {u: rows for u, rows in given.items() if rows}
+            if lo == 0:
+                assert holders == {0: list(range(hi, hi + B))}
+            else:
+                assert holders == {0: list(range(hi, hi + 4)),
+                                   1: list(range(hi + 4, hi + B))}
+    assert gpr.taa_plan("taa1", T, P, sms).extra_rows(0) == []
+
+
+def _taa_walk(plan, idx, src, lo=0, hi=None):
+    """The kernels' arithmetic by the plan, block by block, a unit at a
+    time: taa0 gathers each unit's rows from X[0:P] and, for its rows lo +
+    r, the rows hi + r it is given, writing (lo + r) + (hi + r); taa1
+    gathers each unit's rows from X^T[:, 0:P]. Rows no unit writes stay
+    NaN."""
+    P_ = plan.P
+    r = plan.starts()
+    if plan.kind == "taa0":
+        hi = P_ - B if hi is None else hi
+        Xs, cols = src[:P_], torch.arange(M)
+        Y = torch.full((B * plan.T, M), float("nan"))
+        for b in range(plan.grid):
+            for u in range(r[b], r[b + 1]):
+                t, a, z = plan.rows_of(u)
+                g = Xs[idx[t * P_ + a:t * P_ + z].long(), cols]
+                mine = range(max(a, lo), min(z, lo + B))
+                for p, q in zip(mine, plan.extra_rows(u, lo, hi)):
+                    gh = Xs[idx[t * P_ + q].long(), cols]
+                    Y[t * B + p - lo] = g[p - a] + gh
+        return Y
+    Y = torch.full((M * plan.T, P_), float("nan"))
+    for b in range(plan.grid):
+        for u in range(r[b], r[b + 1]):
+            t, a, z = plan.rows_of(u)
+            for row in range(t * M + a, t * M + z):
+                Y[row] = src[row % M, :P_][idx[row].long()]
+    return Y
+
+
+def _taa_inputs(T, P_, seed=5):
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.standard_normal((P_ + 24, M)).astype(
+        np.float32))
+    idx0 = torch.from_numpy(rng.integers(0, P_, (T * P_, M), dtype=np.int32))
+    idx1 = torch.from_numpy(rng.integers(0, P_, (T * M, P_), dtype=np.int32))
+    return X, idx0, idx1
+
+
+@pytest.mark.parametrize("T", (1, 2, 133))
+@pytest.mark.parametrize("sms", TAA_SMS)
+def test_taa_walk_matches_plain(T, sms):
+    """The walk of the plan's units (P 64: 8 units a tile for g2, 8 rows a
+    tile for g3) equals taa0_plain and taa1_plain bit for bit; with other
+    output rows (lo 4, hi 20) it equals the two-row sum at those rows."""
+    P_ = 64
+    X, idx0, idx1 = _taa_inputs(T, P_)
+    XT = X.T.contiguous()
+    plan0 = gpr.taa_plan("taa0", T, P_, sms)
+    plan1 = gpr.taa_plan("taa1", T, P_, sms)
+    assert torch.equal(_taa_walk(plan0, idx0, X), gpr.taa0_plain(idx0, X,
+                                                                  P_))
+    assert torch.equal(_taa_walk(plan1, idx1, XT), gpr.taa1_plain(idx1, XT))
+    g = torch.gather(X[:P_], 0, idx0.long()).view(T, P_, M)
+    want = (g[:, 4:4 + B] + g[:, 20:20 + B]).reshape(-1, M)
+    assert torch.equal(_taa_walk(plan0, idx0, X, 4, 20), want)
+
+
+@pytest.mark.parametrize("name", ["g2_taa0", "g3_taa1"])
+@pytest.mark.parametrize("sms", (7, 132))
+def test_taa_walk_matches_probe_body(data, name, sms):
+    """On the probe's own draws (T 10, P 512) the walk of the plan's units
+    equals the reference's kernel body (take_along_axis in jnp, per grid
+    step, exp_gather.py:144-147 and :169-172) bit for bit."""
+    t = _tensors(data)
+    if name == "g2_taa0":
+        got = _taa_walk(gpr.taa_plan("taa0", T, P, sms), t["idx0"], t["X"])
+    else:
+        got = _taa_walk(gpr.taa_plan("taa1", T, P, sms), t["idx1"], t["XT"])
+    np.testing.assert_array_equal(got.numpy(), _reference(name, data))
+
+
+def test_taa_plan_at_the_probe_shape():
+    """T 298, P 512 on 132 SMs: 264 blocks; g2 19,072 units of 8 rows (at
+    most 73 a block, mean 72.2), g3 2,384 source rows (at most 10, mean
+    9.03). Plans are cached. P 7,264 is the largest a block takes; units
+    of 4 rows where 8 do not divide P."""
+    p0 = gpr.taa_plan("taa0", 298, 512, 132)
+    p1 = gpr.taa_plan("taa1", 298, 512, 132)
+    assert p0 is gpr.taa_plan("taa0", 298, 512, 132)
+    assert (p0.grid, p0.units, p0.unit_rows) == (264, 19_072, 8)
+    assert (p1.grid, p1.units, p1.unit_rows) == (264, 2_384, 1)
+    assert p0.summary()["block_units"]["max"] == 73
+    assert p1.summary()["block_units"]["max"] == 10
+    assert gpr.taa_plan("taa1", 3, gpr.TAA_MAX_P, 132).grid == 24
+    assert gpr.taa_plan("taa0", 2, 12, 132).unit_rows == 4
+    for bad in (gpr.TAA_MAX_P + 4, 6, 0):
+        with pytest.raises(ValueError):
+            gpr.taa_plan("taa0", 2, bad, 132)
+    with pytest.raises(ValueError):
+        gpr.taa_plan("taa2", 2, 64, 132)
+
+
+@pytest.mark.parametrize("timer", ["chain_ms", "chain_floor_ms",
+                                   "launch_floor_ms", "median_ms"])
+def test_timers_need_the_card(monkeypatch, timer):
+    """chain_ms, as median_ms, times on a CUDA device: with none visible it
+    raises and launches nothing (no CPU time under a device metric)."""
+    from maxwell_tpu_torch.bench import timing
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = getattr(timing, timer)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        fn(lambda: calls.append(1)) if timer in ("chain_ms",
+                                                 "median_ms") else fn()
+    assert not calls
