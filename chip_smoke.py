@@ -36,7 +36,12 @@ probes and check that they ran through the kernels:
   slice 8, the blocked-ELL SpMM and X-gather probes (K15c, K15e): the probe
     scripts maxwell_tpu_torch.bench.exp_spmm and exp_gather at their full
     default sizes, each probe kernel against its plain version, K8, K11 and
-    K12 timed beside the first.
+    K12 timed beside the first;
+  slice 9, the distributed stencil road: the tap kernel on the ghost-
+    extended slabs of the 64^3 brick in 8 slabs against the plain slab
+    apply, the 8-slab f32 lobpcg_dist with the distributed spectral
+    preconditioner and refine_dw_dist to 1e-8 through it, and configs
+    4_stencil and 5 through the CLI.
 
     python3 chip_smoke.py
 
@@ -151,7 +156,23 @@ Phases, in order; any failure raises and the process exits non-zero:
                memory; g2, g3, g3w and g5 bit for bit their plain versions
                and across two runs; g2, g3 and g5 also timed by a chain of
                launches (chain_ms) beside both launch floors
- 21. result    an {"off_main_path": [...]} line for the kernels no solver
+ 21. dist stencil kernels  the tap kernel (K4) on ghost-extended slabs:
+               the 64^3 brick in 8 slabs, each slab's block a (10, 64, 64)
+               brick, the slab apply (8 launches a column pass, the blocks'
+               build and the owned planes' extraction included) against
+               the plain slab apply, modes K, M, KM at m in {1, 9, 171},
+               each apply and the plain one timed on the device alone
+               (device_ms) and the apply also by median_ms, beside the
+               one-brick K4 at 64^3 and torch.sparse.mm on the stacked
+               CSR of each mode (on both timers)
+ 22. dist stencil solve  slice 9 at 64^3 in 8 slabs: f32 lobpcg_dist with
+               DistSpectralShift (alpha 15, nev 5, maxiter 60, tol 2e-6,
+               stall_window 10, seeded start) and refine_dw_dist to 1e-8,
+               counts zeroed just before and read just after; residuals
+               verified with the one-device f64 pencil afterwards
+ 23. dist stencil cli  configs 4_stencil and 5 through the CLI as written
+               (f64: the plain slab apply, no launch)
+ 24. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -180,6 +201,7 @@ import torch  # noqa: E402
 # the card's timers and bounds (H100 SXM rates), shared with the probes
 from maxwell_tpu_torch.bench.timing import (  # noqa: E402
     bound_ms,
+    device_ms,
     csr_bytes,
     launch_floor_ms,
     median_ms,
@@ -1932,6 +1954,227 @@ def phase_spmm_and_gather_probes():
     return stats, {name: counts[name] for name in mine}
 
 
+def stacked_csr(dp, A, blocks):
+    """The CSR of a one-device operator A (rows in `blocks` stacked copies
+    of the global stencil layout, padded) moved to the slab pencil's stacked
+    layout: read each global column from the stacked row that
+    gather_vector reads, write each stacked row from its global row. On
+    vectors whose interface copies agree it is the slab apply's function:
+    the library call's operand."""
+    import scipy.sparse as sp
+
+    idx, valid = (t.cpu().numpy() for t in dp._scatter_idx())
+    rows = np.nonzero(valid)[0]
+    G, n_pad = dp.global_rows, A.shape[1]
+    R = sp.csr_matrix((np.ones(rows.size), (rows, idx[rows])),
+                      shape=(G, n_pad))
+    src = np.empty(dp.n_full, np.int64)
+    src[idx[rows]] = rows  # the last copy wins, as in gather_vector
+    C = sp.csr_matrix((np.ones(dp.n_full), (np.arange(dp.n_full), src)),
+                      shape=(n_pad, G))
+    return (sp.block_diag([R] * blocks) @ A @ C).tocsr()
+
+
+def phase_dist_stencil_kernels():
+    """The tap kernel K4 on ghost-extended slabs: the 64^3 vacuum PEC brick
+    in 8 slabs (cells 8: each slab's extended block a (10, 64, 64) brick),
+    the slab apply through K4 (8 launches a column pass, with the extended
+    blocks' build and the owned planes' extraction) against the plain slab
+    apply on the same card, modes K, M, KM at m 1, 9 and 171, within 1e-5
+    of max|plain|; each timed beside the plain slab apply, the one-brick K4
+    at 64^3 and one torch.sparse.mm on the mode's stacked CSR, each CSR
+    checked on a vector with agreeing interface copies. Returns the stats
+    of fused K/M at m 9, with "m1" and "m171". The slab apply's ms and
+    plain_ms and the library's library_ms are device_ms (each call queued
+    whole behind a device sleep: the device's time); call_ms and
+    library_call_ms are median_ms (the host's enqueue included)."""
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+    from maxwell_tpu_torch.kernels import stencil_taps as kst
+    from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
+
+    g = STENCIL_GRID
+    dev = torch.device("cuda")
+    dp = DistStencilPencil3D.build(nx=g, ny=g, nz=g, D=SHARDS,
+                                   dtype=torch.float32, device=dev)
+    one = StencilPencil3D.build(nx=g, ny=g, nz=g, dtype=torch.float32,
+                                device=dev)
+    t0 = time.perf_counter()
+    libs = {mode: torch_csr(stacked_csr(dp, stencil_csr(one, *want),
+                                        want[0] + want[1]), dev)
+            for mode, want in STENCIL_MODES.items()}
+    log({"phase": "dist_stencil_csr", "seconds": time.perf_counter() - t0,
+         "nnz": {mode: A.values().numel() for mode, A in libs.items()}})
+    # each CSR is the slab apply's function on a vector whose interface
+    # copies agree (the layout maps', make_block's)
+    Xc = dp.make_block(3, torch.Generator(dev).manual_seed(3))
+    for mode, (want_K, want_M) in STENCIL_MODES.items():
+        Yl = torch.sparse.mm(libs[mode], Xc)
+        Yk = torch.cat([Y for Y in dp._taps_apply_slab(Xc, want_K, want_M)
+                        if Y is not None])
+        lib_err = (Yl - Yk).abs().max().item()
+        if not lib_err <= TOL["stencil"] * Yk.abs().max().item():
+            raise AssertionError(f"stacked CSR {mode} off: {lib_err:.3e}")
+    taps_per_row = np.mean([len(t) for t in dp.taps])
+    rows = dp.mask.sum().item()
+    rng = np.random.default_rng(2)
+    G = dp.global_rows
+    st = {"max_abs_err": 0.0, "slabs": dp.D, "ext_shape": list(dp.ext_shape),
+          "n_full": dp.n_full, "global_rows": G}
+    for m in (1, 9, 171):
+        # random on every row (masked, padding and both interface copies)
+        X = torch.from_numpy(
+            rng.standard_normal((G, m)).astype(np.float32)).to(dev)
+        Xone = torch.from_numpy(
+            rng.standard_normal((one.n_padded, m)).astype(np.float32)).to(dev)
+        for mode, (want_K, want_M) in STENCIL_MODES.items():
+            kern = lambda: dp._taps_apply_slab(X, want_K, want_M)
+            plain = lambda: dp._taps_apply_plain(X, want_K, want_M)
+            kst.reset_counts()
+            got = kern()
+            torch.cuda.synchronize()
+            if kst.counts() != {"stencil_taps": dp.D * len(
+                    kst.column_passes(m)), "stencil_taps_ref": 0}:
+                raise AssertionError(f"slab apply counts: {kst.counts()}")
+            want = plain()
+            pairs = [(a, b) for a, b in zip(got, want) if b is not None]
+            abs_err = max((a - b).abs().max().item() for a, b in pairs)
+            scale = max(b.abs().max().item() for _, b in pairs)
+            if not abs_err <= TOL["stencil"] * scale:
+                raise AssertionError(
+                    f"slab stencil_taps {mode} m={m}: max error {abs_err:.3e}"
+                    f" > {TOL['stencil']} * {scale:.3e}")
+            # an apply is tens (plain: hundreds) of launches, the host's
+            # enqueue longer than the device's work at m <= 9: time each
+            # call queued whole behind a device sleep (the device's time),
+            # and the slab apply by median_ms too (what a caller waits,
+            # the host's enqueue included)
+            ms, plain_ms = device_ms(kern), device_ms(plain)
+            call_ms = median_ms(kern)
+            one_ms = median_ms(lambda: kst.stencil_taps(
+                Xone, one.mask, one.taps, one.shape, want_K, want_M))
+            # the library call on both timers: device_ms beside ms,
+            # median_ms beside call_ms
+            lib = libs[mode]
+            library_ms = device_ms(lambda: torch.sparse.mm(lib, X))
+            library_call_ms = median_ms(lambda: torch.sparse.mm(lib, X))
+            ops = len(pairs)
+            nbytes = G * m * 4 + G * 4 + ops * G * m * 4
+            flops = ops * rows * taps_per_row * 2 * m
+            b_ms, b_by = bound_ms(nbytes, flops, "f32")
+            row = {"max_abs_err": abs_err, "rel_err": abs_err / scale,
+                   "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
+                   "single_brick_ms": one_ms,
+                   "library_ms": library_ms,
+                   "library_call_ms": library_call_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "bytes": nbytes,
+                   "launches_per_apply": dp.D * len(kst.column_passes(m))}
+            log({"kernel": "stencil_taps", "route": "slab", "mode": mode,
+                 "m": m, **row})
+            st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+            if mode == "KM" and m == 9:
+                st.update(row)
+            elif mode == "KM":
+                st[f"m{m}"] = row
+            del got, want
+        del X, Xone
+    del libs, lib
+    torch.cuda.empty_cache()
+    return st
+
+
+def phase_dist_stencil_solve():
+    """The reference bench's `dist time_to_1e8_64` row in 8 slabs: the 64^3
+    vacuum PEC brick as a slab pencil, f32 lobpcg_dist with the distributed
+    spectral preconditioner (alpha 15, nev 5, maxiter 60, tol 2e-6,
+    stall_window 10, a seeded start block), then refine_dw_dist to 1e-8;
+    counts zeroed just before, read just after. Gates: f64-verified
+    residual <= 2e-8 against the one-device f64 pencil, eigenvalues within
+    0.5% of the analytic ones, stencil_taps launched on the path."""
+    from maxwell_tpu_torch.dist import make_mesh
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+    from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
+    from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
+    from maxwell_tpu_torch.solvers.refine_device import refine_dw_dist
+
+    g = STENCIL_GRID
+    mesh = make_mesh(SHARDS, "cuda")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    dp = DistStencilPencil3D.build(nx=g, ny=g, nz=g, D=SHARDS,
+                                   dtype=torch.float32, device="cuda")
+    X0 = dp.make_block(NEV + 4, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res32 = lobpcg_dist(dp, mesh, nev=NEV, maxiter=60, tol=2e-6,
+                        precond="spectral", precond_alpha=15.0,
+                        stall_window=10, X0=X0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lobpcg_counts = all_counts()
+    ref = refine_dw_dist(dp, mesh, res32.eigenvectors, tol=1e-8)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = all_counts()
+
+    verified = f64_residuals(ref.eigenvectors, ref.eigenvalues)
+    exact = cavity_eigenvalues_3d(1.0, 1.0, 1.0, NEV)
+    rel = np.abs(np.sort(ref.eigenvalues) - exact) / exact
+    launches = lobpcg_counts["stencil_taps"]
+    out = {
+        "phase": "dist_stencil_solve", "grid": g, "slabs": SHARDS,
+        "n_full": dp.n_full, "global_rows": dp.global_rows,
+        "setup_s": t1 - t0, "lobpcg_s": t2 - t1, "refine_s": t3 - t2,
+        "wall_s": t3 - t0, "lobpcg_iterations": res32.iterations,
+        "lobpcg_max_res": float(res32.residuals.max()),
+        "refine_sweeps": ref.iterations - 1, "converged": ref.converged,
+        "eigenvalues": [float(v) for v in ref.eigenvalues],
+        "analytic_rel_err": [float(v) for v in rel],
+        "residuals_dw": [float(v) for v in ref.residuals],
+        "residuals_f64_verified": [float(v) for v in verified],
+        "stencil_taps_launches_lobpcg": launches,
+        "launches_per_lobpcg_iteration": launches / max(res32.iterations, 1),
+        "counts": {k: v for k, v in counts.items() if v},
+    }
+    log(out)
+    if not ref.converged or ref.residuals.max() > 1e-8:
+        raise AssertionError(f"refine_dw_dist not converged: {ref.residuals}")
+    if not verified.max() <= 2e-8:
+        raise AssertionError(f"f64-verified residuals {verified}")
+    if not np.all(np.isfinite(ref.eigenvectors)) or (
+        ref.eigenvectors.shape != (dp.n_full, NEV)
+    ):
+        raise AssertionError("refined eigenvectors: shape or values")
+    if not rel.max() <= 5e-3:
+        raise AssertionError(f"eigenvalues off the analytic modes: {rel}")
+    if counts["stencil_taps"] <= 0 or counts["stencil_taps_ref"] != 0:
+        raise AssertionError(f"slab stencil path counts: {counts}")
+    return out
+
+
+def phase_dist_stencil_cli():
+    """Configs 4_stencil (32^3, 8 slabs, nev 5) and 5 (32^3, 8 slabs, nev
+    20 in stages of 10, each stage polished by refine_dw_dist) through the
+    CLI on cuda as written: f64, so the plain slab apply (the tap kernel is
+    f32), and no kernel launched. Returns {config: (report, wall s)}."""
+    out = {}
+    for name in ("config4_stencil", "config5"):
+        rc, rep, cnt, wall = run_cli(os.path.join(CONFIGS, f"{name}.json"))
+        log({"phase": "dist_stencil_cli", "config": name, "rc": rc,
+             "wall_s": wall,
+             **{k: rep.get(k) for k in (
+                 "converged", "iterations", "n", "t_solve_s", "t_refine_s",
+                 "eigenvalues", "residuals", "analytic_rel_err")},
+             "counts": {k: v for k, v in cnt.items() if v}})
+        if rc != 0 or not rep["converged"] or max(rep["residuals"]) > 1e-8:
+            raise AssertionError(f"{name} through the CLI: {rep}")
+        if max(rep["analytic_rel_err"]) > 2.5e-2:
+            raise AssertionError(f"{name} vs analytic: {rep}")
+        if any(cnt.values()):
+            raise AssertionError(f"{name} (f64) launched: {cnt}")
+        out[name] = (rep, wall)
+    return out
+
+
 def timed(fn, *args):
     """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
     t0 = time.perf_counter()
@@ -1990,6 +2233,13 @@ def main():
     stats.update(probe_stats)
     probe_stats, probe3_counts = timed(phase_spmm_and_gather_probes)
     stats.update(probe_stats)
+    slab = timed(phase_dist_stencil_kernels)
+    slab_solve = timed(phase_dist_stencil_solve)
+    timed(phase_dist_stencil_cli)
+    # the tap kernel's second path: the slab apply in the 8-slab solve
+    stats["stencil_taps"]["slab"] = {
+        **slab, "launches": slab_solve["counts"]["stencil_taps"],
+        "path": "solve: lobpcg_dist + refine_dw_dist, 64^3 in 8 slabs"}
 
     launches = {**counts, "stencil_taps": stencil_counts["stencil_taps"],
                 "bsr_matmat": bsr_counts["bsr_matmat"],
@@ -2034,7 +2284,7 @@ def main():
                           "m1", "m8", "m9", "m32", "m64", "m128", "m171",
                           "launch_floor_ms", "chain_ms", "chain_floor_ms",
                           "unit_bytes", "library_bf16_ms", "l2_floor_ms",
-                          "p3_grid91")
+                          "p3_grid91", "slab")
                          if w in stats[name]}}
                      for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")

@@ -2,8 +2,10 @@
 LOBPCG iterations (spectral preconditioner) after a warm-up, then one
 `refine_dw`, each timed on the host clock and traced with torch.profiler
 (device time by kernel, top rows printed, and the tap kernel's total).
+With --slabs D the same on the slab-sharded pencil in D slabs:
+lobpcg_dist with DistSpectralShift, then refine_dw_dist.
 
-    python -m maxwell_tpu_torch.bench.profile_stencil
+    python -m maxwell_tpu_torch.bench.profile_stencil [--slabs 8]
 
 Needs a CUDA device.
 """
@@ -52,7 +54,36 @@ def timed(label, fn, rows):
     return out
 
 
+def main_slabs(D: int):
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+    from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
+    from maxwell_tpu_torch.solvers.refine_device import refine_dw_dist
+
+    p = DistStencilPencil3D.build(nx=GRID, ny=GRID, nz=GRID, D=D,
+                                  dtype=torch.float32, device="cuda")
+    kw = dict(nev=5, precond="spectral", precond_alpha=15.0)
+    lobpcg_dist(p, None, maxiter=3, tol=1e-30, **kw)  # warm-up
+    timed(f"lobpcg_dist ({D} slabs), 10 iterations",
+          lambda: lobpcg_dist(p, None, maxiter=10, tol=1e-30, **kw), 15)
+    r = lobpcg_dist(p, None, maxiter=60, tol=2e-6, stall_window=10, **kw)
+    refine_dw_dist(p, None, r.eigenvectors, tol=1e-8)  # warm-up
+    out = timed(f"refine_dw_dist ({D} slabs)",
+                lambda: refine_dw_dist(p, None, r.eigenvectors, tol=1e-8),
+                10)
+    print(f"refine_dw_dist sweeps: {out.iterations - 1}, "
+          f"max residual {out.residuals.max():.2e}")
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--slabs", type=int, default=1,
+                    help="slab-sharded pencil in this many slabs (1: the "
+                    "one-device pencil)")
+    args = ap.parse_args()
+    if args.slabs > 1:
+        return main_slabs(args.slabs)
     p = StencilPencil3D.build(nx=GRID, ny=GRID, nz=GRID, dtype=torch.float32,
                               device="cuda")
     pc = spectral_preconditioner(p, alpha=15.0)

@@ -4,6 +4,10 @@ the port's counterpart of maxwell_tpu/bench/exp_gather.py::timeit_chain.
     median_ms(fn)            median of n launches of fn, CUDA events
     chain_ms(fn)             n back-to-back launches between one pair of
                              events, over n (median of 5 such chains)
+    device_ms(fn)            median of n calls, each queued whole behind its
+                             own device sleep: the device's time for a call
+                             of many launches that the host enqueues slower
+                             than the device runs them
     launch_floor_ms()        median_ms of an empty launch
     chain_floor_ms()         chain_ms of an empty launch
     copy_bandwidth(device)   bytes/s of one 256 MB elementwise read + write,
@@ -102,6 +106,47 @@ def chain_ms(fn, n: int = CHAIN, runs: int = CHAIN_RUNS) -> float:
                                f"out before the host queued {n} launches")
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
+
+
+def device_ms(fn, n: int = 10, tries: int = 4) -> float:
+    """Median of n calls of fn, each on its own: a device-side sleep (8
+    times the host's enqueue time of one call, 10 ms at least) holds the
+    call back until all of its launches are queued, and a pair of CUDA
+    events times it. For a call of tens or hundreds of launches, whose
+    host enqueue outlasts the device's work, this is the device's time;
+    a chain of such calls would fill the card's launch queue while the
+    sleep runs (chain_ms raises then). A call whose sleep ran out before
+    the host had queued it (the host stalled) is timed again behind a
+    sleep twice as long; after `tries` such calls this raises."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms times on a CUDA device; none is visible")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    cycles = max(SLEEP_CYCLES, int(8 * (time.perf_counter() - t0) * CLOCK_HZ))
+    times = []
+    while len(times) < n:
+        for _ in range(tries):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            e0.record()
+            fn()
+            e1.record()
+            queued = not e0.query()
+            torch.cuda.synchronize()
+            if queued:
+                times.append(e0.elapsed_time(e1))
+                break
+            cycles *= 2
+        else:
+            raise RuntimeError(f"device_ms: the sleep ran out before the "
+                               f"host queued the call, {tries} times (last "
+                               f"{cycles // 2} cycles)")
     return statistics.median(times)
 
 

@@ -8,14 +8,18 @@ the solver kinds "lobpcg", "lanczos" and "tr_lanczos" (`ncv`,
 the matrix-free operator (`storage.operator == "stencil"`: StencilPencil2D
 / StencilPencil3D, with materials), and "lobpcg_dist" on the assembled
 problems (`dist.n_shards` row shards, `storage.kernel` "auto", "ref",
-"union" or "pallas"; config 4). A distributed run builds the mesh its
-config names, all shards on the one device: the reference clamps the shard
-count to the visible devices, since a JAX mesh needs a device per shard.
-With refinement, PEC 3D stencil pencils refine to tol on the device
-(`refine_dw`), other stencil pencils by warm-started f64 LOBPCG on the CPU
-(`refine_f64_pencil`), and assembled problems by host f64 RQI
-(`refine_f64`). "shift_invert", the distributed stencil operator and tet
-meshes raise NotImplementedError naming their ROADMAP.md slice.
+"union" or "pallas"; config 4) and on the slab-sharded matrix-free operator
+(`storage.operator == "stencil"`, brick3d only: DistStencilPencil3D with
+the distributed spectral preconditioner; configs 4_stencil and 5). A
+distributed run builds the mesh its config names, all shards on the one
+device: the reference clamps the shard count to the visible devices, since
+a JAX mesh needs a device per shard. With refinement, PEC 3D stencil
+pencils refine to tol on the device (`refine_dw`; slab-sharded ones
+`refine_dw_dist`, for a staged `batch` run each stage's block before it
+joins the deflation basis), other stencil pencils by warm-started f64
+LOBPCG on the CPU (`refine_f64_pencil`), and assembled problems by host f64
+RQI (`refine_f64`). "shift_invert" and tet meshes raise
+NotImplementedError naming their ROADMAP.md slice.
 
 Prints the per-iteration history as JSON lines, then a final JSON report
 (eigenvalues, residuals, iterations, converged, timings, n, and the
@@ -156,32 +160,58 @@ def _lobpcg(pencil, scfg, nev, maxiter, tol, args, stall_window):
     )
 
 
-def _lobpcg_dist(problem, cfg, scfg, block, kernel, dtype, device, nev,
-                 maxiter, tol, args, want_refine):
+def build_dist_stencil(pcfg, D, dtype, block, device):
+    """The slab-sharded matrix-free pencil of a "brick3d" problem block
+    (vacuum: the CLI passes no materials, as the reference's does)."""
+    if pcfg.get("kind") != "brick3d":
+        raise ValueError("distributed stencil operator is 3D-only")
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+
+    return DistStencilPencil3D.build(
+        a=pcfg.get("a", 1.0), b=pcfg.get("b", 1.0), c_len=pcfg.get("c", 1.0),
+        nx=pcfg.get("nx", 8), ny=pcfg.get("ny", 8), nz=pcfg.get("nz", 8),
+        D=D, dtype=dtype, block=block or 8, device=device,
+    )
+
+
+def _lobpcg_dist(dp, mesh, scfg, dtype, nev, maxiter, tol, full_tol, args,
+                 want_refine):
     """The distributed LOBPCG of the reference CLI (maxwell_tpu/cli/run.py:
-    213-291, assembled operators): `dist.n_shards` row shards on the one
-    device, shifted-CG preconditioner, and an f32 solve that a refinement
-    follows cut at its floor (stall_window 15)."""
+    213-291) on a row-sharded or slab-sharded pencil, and an f32 solve that
+    a refinement follows cut at its floor (stall_window 15). A staged run
+    (`batch` < nev) of a vacuum slab-sharded pencil with refinement polishes
+    each stage's block to full_tol (`refine_dw_dist`) before it joins the
+    deflation basis. Returns (result, polished): polished is True when the
+    stages were refined, so no final refinement is needed. The reference
+    also skips the final refinement when the hook exists but no stage ran
+    (batch >= nev); here that run is refined at the end."""
     import torch
 
-    from maxwell_tpu_torch.dist import make_mesh, partition_problem
     from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
 
-    mesh = make_mesh(cfg.get("dist", {}).get("n_shards", 1), device)
-    dp = partition_problem(problem, mesh.D, block=block, kernel=kernel,
-                           dtype=dtype, mesh=mesh)
-    return lobpcg_dist(
+    batch = scfg.get("batch")
+    stage_polish = None
+    if (want_refine and batch is not None and batch < nev
+            and getattr(dp, "taps_dw", None) is not None):
+        from maxwell_tpu_torch.solvers.refine_device import refine_dw_dist
+
+        def stage_polish(r):
+            return refine_dw_dist(dp, mesh, r.eigenvectors, tol=full_tol)
+
+    res = lobpcg_dist(
         dp, mesh, nev=nev, m=scfg.get("block_size"), maxiter=maxiter,
         tol=tol, precond_alpha=scfg.get("precond_alpha"),
         precond_iters=scfg.get("precond_iters", 20),
         precond=scfg.get("precond", "auto"), checkpoint=args.checkpoint,
-        checkpoint_every=args.checkpoint_every, batch=scfg.get("batch"),
+        checkpoint_every=args.checkpoint_every, batch=batch,
         stall_window=scfg.get(
             "stall_window",
             15 if want_refine and dtype == torch.float32 else 0,
         ),
+        stage_polish=stage_polish,
         log_every=scfg.get("log_every", 0),
     )
+    return res, stage_polish is not None
 
 
 def _single_device(pencil, kind, scfg, nev, maxiter, tol, args, f32_refine):
@@ -257,11 +287,6 @@ def main(argv=None):
     if kind not in ("lobpcg", "lanczos", "tr_lanczos", "lobpcg_dist"):
         raise ValueError(f"unknown solver {kind!r}")
     use_stencil = stg.get("operator") == "stencil"
-    if kind == "lobpcg_dist" and use_stencil:
-        raise NotImplementedError(
-            "the distributed stencil operator is not ported yet (ROADMAP.md: "
-            "the distributed stencil half of slice 6)"
-        )
     dtype = {"f32": torch.float32, "f64": torch.float64}[
         stg.get("dtype", "f64")
     ]
@@ -291,9 +316,21 @@ def main(argv=None):
     from maxwell_tpu_torch.solvers.operator import Pencil
 
     t0 = time.perf_counter()
+    dp = None
     if kind == "lobpcg_dist":
-        res = _lobpcg_dist(problem, cfg, scfg, block, kernel, dtype, device,
-                           nev, maxiter, tol, args, want_refine)
+        from maxwell_tpu_torch.dist import make_mesh, partition_problem
+
+        mesh = make_mesh(cfg.get("dist", {}).get("n_shards", 1), device)
+        if use_stencil:
+            dp = build_dist_stencil(pcfg, mesh.D, dtype, block, device)
+        else:
+            dp = partition_problem(problem, mesh.D, block=block,
+                                   kernel=kernel, dtype=dtype, mesh=mesh)
+        res, polished = _lobpcg_dist(dp, mesh, scfg, dtype, nev, maxiter,
+                                     tol, full_tol, args, want_refine)
+        if polished:
+            # each stage was refined to full_tol before it was deflated
+            want_refine = False
     else:
         if use_stencil:
             pencil = build_stencil(pcfg, dtype, block, device)
@@ -316,7 +353,14 @@ def main(argv=None):
         )
 
         t0 = time.perf_counter()
-        if use_stencil and refine_dw_supports(pencil):
+        if kind == "lobpcg_dist" and use_stencil:
+            # double-word RQI on the slabs (vacuum slab pencils)
+            from maxwell_tpu_torch.solvers.refine_device import (
+                refine_dw_dist,
+            )
+
+            ref = refine_dw_dist(dp, mesh, res.eigenvectors, tol=full_tol)
+        elif use_stencil and refine_dw_supports(pencil):
             # double-word RQI on the device: PEC 3D stencil pencils, vacuum
             # (exact spectral shift solves) and loaded (block MINRES)
             ref = refine_dw(pencil, res.eigenvectors, tol=full_tol)
@@ -357,7 +401,8 @@ def main(argv=None):
         "converged": res.converged,
         "t_setup_s": t_setup,
         "t_solve_s": t_solve,
-        "n": int(pencil.n if use_stencil else problem.n_edges),
+        "n": int(dp.n_full if kind == "lobpcg_dist" and use_stencil
+                 else pencil.n if use_stencil else problem.n_edges),
     }
     if t_refine is not None:
         report["t_refine_s"] = t_refine

@@ -1,6 +1,7 @@
-"""Row-sharded distributed pencils (maxwell_tpu/dist/): the block-row
-partitioner, the stacked-view DistPencil with its halo exchange, and the
-shard mesh. All shards live in one process on one device."""
+"""Distributed pencils (maxwell_tpu/dist/): the block-row partitioner, the
+stacked-view DistPencil with its halo exchange, the slab-sharded
+matrix-free DistStencilPencil3D (dist/stencil_dist.py), and the shard mesh.
+All shards live in one process on one device."""
 
 from maxwell_tpu_torch.dist.mesh import (  # noqa: F401
     Mesh,

@@ -276,14 +276,27 @@ def stencil_plan(shape, m: int, taps, n_padded: int,
         coef=tuple((float(t[5]), float(t[6])) for t in flat))
 
 
-def stencil_taps(X, mask, taps, shape, want_K=True, want_M=False):
+def stencil_taps(X, mask, taps, shape, want_K=True, want_M=False, out=None):
     """(K @ X or None, M @ X or None) of the tap stencil, both (n_padded, m).
     On a CUDA device the kernel runs (f32 only), one launch per column pass
-    of at most MAX_PASS columns; on the CPU the plain version."""
+    of at most MAX_PASS columns; on the CPU the plain version. out: None, or
+    (YK, YM) tensors shaped and typed like X (contiguous; None where not
+    wanted) that the results are written into and returned as."""
     if not (want_K or want_M):
         raise ValueError("want_K or want_M must be set")
+    if out is not None:
+        for o, want in zip(out, (want_K, want_M)):
+            if want and (o is None or o.shape != X.shape or o.dtype != X.dtype
+                         or o.device != X.device or not o.is_contiguous()):
+                raise ValueError(
+                    "out must hold a contiguous tensor shaped and typed like "
+                    f"X {tuple(X.shape)} {X.dtype} for each wanted output")
     if X.device.type == "cpu":
-        return stencil_taps_ref(X, mask, taps, shape, want_K, want_M)
+        Y = stencil_taps_ref(X, mask, taps, shape, want_K, want_M)
+        if out is None:
+            return Y
+        return tuple(None if y is None else o.copy_(y)
+                     for o, y in zip(out, Y))
     if X.dtype != torch.float32 or mask.dtype != torch.float32:
         raise ValueError(
             f"the stencil_taps kernel takes f32 X and mask, got {X.dtype} "
@@ -307,8 +320,10 @@ def stencil_taps(X, mask, taps, shape, want_K=True, want_M=False):
     m = X.shape[1]
     plans = [(j0, stencil_plan(tuple(shape), w, taps, X.shape[0], m))
              for j0, w in column_passes(m)]
-    YK = torch.empty_like(X) if want_K else None
-    YM = torch.empty_like(X) if want_M else None
+    if out is None:
+        out = tuple(torch.empty_like(X) if w else None
+                    for w in (want_K, want_M))
+    YK, YM = (o if w else None for o, w in zip(out, (want_K, want_M)))
     lib = _build.load()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream

@@ -1,26 +1,37 @@
 """Distributed solvers (maxwell_tpu/solvers/dist_solve.py): the
 single-device LOBPCG and Lanczos loops run unchanged on a row-sharded
-DistPencil, whose stacked view supplies the per-shard reductions and the
-halo exchanges — device count really is a mesh property.
+DistPencil or a slab-sharded DistStencilPencil3D, whose stacked views
+supply the per-shard reductions and the halo or ghost-plane exchanges —
+device count really is a mesh property.
 
 The reference shard_maps its loops over a JAX device mesh; here all shards
 live on one device (dist/mesh.py), so a mesh argument only names the shard
 count and is checked against the pencil. Start blocks are in the pencil's
-stacked layout (rows in its RCM order, zero past row n), as the reference's
-`make_block` draws them; eigenvectors come back in the problem's own
-ordering (`extract_vectors`). The reference's `return_device` (a TPU tunnel
-handoff) is not ported.
+stacked layout (a DistPencil's rows in its RCM order, zero past row n; a
+DistStencilPencil3D's slabs), as the reference's `make_block` draws them;
+eigenvectors come back in the problem's own ordering (`extract_vectors`).
+The reference's `return_device` (a TPU tunnel handoff) is not ported.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from maxwell_tpu_torch.dist.partition import DistPencil
+from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
 from maxwell_tpu_torch.solvers.lobpcg import lobpcg_run
 from maxwell_tpu_torch.solvers.results import EigenResult, merge_stages
 from maxwell_tpu_torch.utils.precision import fp32_true
+
+
+def _spectral_serves(dpencil) -> bool:
+    """Whether "auto" takes the distributed spectral preconditioner: a
+    vacuum slab-sharded stencil pencil."""
+    return (isinstance(dpencil, DistStencilPencil3D)
+            and dpencil.inv_mu is None and dpencil.eps is None)
 
 
 def _check_mesh(dpencil: DistPencil, mesh) -> None:
@@ -77,10 +88,12 @@ def lobpcg_dist(
     checkpoint_every > 0 also writes per-shard snapshots `{checkpoint}
     .shard{d}` every k iterations, which a resume reassembles when the
     exit-time file is missing.
-    precond: "auto" and "cg" take the shifted-CG sweeps when precond_alpha
-    is given (the exact distributed spectral preconditioner of the
-    reference's "auto" serves slab-sharded stencil pencils, not ported yet);
-    "spectral" raises.
+    precond: "auto" takes the exact distributed spectral (K + alpha M)^-1
+    (solvers/spectral.DistSpectralShift, alpha = precond_alpha or 15.0) on
+    a vacuum slab-sharded stencil pencil (DistStencilPencil3D), chosen by
+    the pencil's type, and otherwise the shifted-CG sweeps when
+    precond_alpha is given; "cg" forces the sweeps; "spectral" requires the
+    spectral solve and raises where DistSpectralShift.build does.
     deflate_Q: (n, q) converged eigenvectors in the problem's ordering to
     hard-deflate. batch < nev: solve in stages of `batch` pairs, each
     stage's block hard-deflated from the next; stage_polish: a hook
@@ -91,11 +104,6 @@ def lobpcg_dist(
     _check_mesh(dpencil, mesh)
     if precond not in ("auto", "cg", "spectral"):
         raise ValueError(f"unknown precond {precond!r}")
-    if precond == "spectral":
-        raise NotImplementedError(
-            "the distributed spectral preconditioner (DistSpectralShift) "
-            "serves the distributed stencil pencil, which is not ported yet "
-            "(ROADMAP.md: the distributed stencil half of slice 6)")
     if batch is not None and batch < nev:
         return _lobpcg_dist_staged(
             dpencil, nev=nev, batch=batch, m=m, maxiter=maxiter, tol=tol,
@@ -128,7 +136,14 @@ def lobpcg_dist(
     X0 = dpencil.project(X0)
 
     pc = None
-    if precond_alpha is not None:
+    if precond == "spectral" or (precond == "auto"
+                                 and _spectral_serves(dpencil)):
+        from maxwell_tpu_torch.solvers.spectral import DistSpectralShift
+
+        sol = DistSpectralShift.build(
+            dpencil, 15.0 if precond_alpha is None else precond_alpha)
+        pc = functools.partial(sol.solve, dpencil)
+    elif precond_alpha is not None:
         from maxwell_tpu_torch.solvers.precond import (
             shifted_cg_preconditioner,
         )

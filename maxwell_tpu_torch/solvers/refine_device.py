@@ -27,7 +27,12 @@ same trip-count rule: stop one sweep after the pre-update residual first
 reaches tol (that sweep's update is applied), at most min(max_sweeps, 5)
 sweeps for vacuum pencils and min(max_sweeps, 8) for loaded ones.
 
-Not ported yet: refine_dw_dist (slice 4).
+refine_dw_dist is the same refinement on the slab-sharded vacuum stencil
+pencil (dist/stencil_dist.py) in its stacked view: double-word slab tap
+applies, the distributed spectral shift solve, and cross-slab double-word
+sums taken in a fixed slab order (`_dw_allsum_pairs`: a plain sum would
+round each word on its own and lose the pair's accuracy). It works in f32
+pairs whatever the pencil's dtype.
 """
 
 from __future__ import annotations
@@ -66,8 +71,8 @@ def _rq_and_residual(pencil, Xh, Xl):
 
 
 def _sweep(pencil, sol, Xh, Xl, sigma_rel, inner_iters, exact):
-    """One refinement sweep: the pre-update (theta, residual) and the
-    updated dw block."""
+    """One refinement sweep: the updated dw block and the pre-update
+    residual."""
     th, tl, res, Rh, Rl = _rq_and_residual(pencil, Xh, Xl)
     sigma = th * (1.0 - sigma_rel)
     mk = pencil.mask[:, None]
@@ -89,7 +94,7 @@ def _sweep(pencil, sol, Xh, Xl, sigma_rel, inner_iters, exact):
     # injects ~1e-7 direction noise; the final Rayleigh-Ritz restores
     # M-orthonormality
     Xh, Xl = tf.dw_add(Xh, Xl, -W, torch.zeros_like(W))
-    return Xh, Xl, th, tl, res
+    return Xh, Xl, res
 
 
 def _grams(pencil, Xh, Xl):
@@ -126,11 +131,41 @@ def _robust_geig(A, B):
         return th, Cf, n_drop
 
 
-def _rotate_final(pencil, Xh, Xl, Ch, Cl):
-    """RR rotation and the fresh dw residual."""
+def _sweep_loop(step, Xh, Xl, n_sweeps, tol):
+    """Run step(Xh, Xl) -> (Xh, Xl, res) and stop one sweep after the
+    pre-update residual first measures <= tol (that sweep's update is still
+    applied, so the final residual lands well below tol), at most n_sweeps;
+    one host read of the (m,) residual per sweep. Returns (Xh, Xl, sweeps,
+    hist)."""
+    sweeps, res_max = 0, float("inf")
+    while sweeps < n_sweeps and res_max > tol:
+        Xh, Xl, res = step(Xh, Xl)
+        res_max = float(torch.max(res))  # the per-sweep host read
+        sweeps += 1
+    hist = [{
+        "iter": sweeps - 1,
+        "max_rel_res": res_max,
+        "note": "pre-update residual of the LAST sweep",
+    }]
+    return Xh, Xl, sweeps, hist
+
+
+def _final_rr(pencil, Xh, Xl, grams, rq):
+    """Final Rayleigh-Ritz: separate degenerate clusters, f64-exact on the
+    (m, m) pencil of the dw Grams `grams(pencil, Xh, Xl)`; the rotation is
+    applied in dw on the device and `rq(pencil, Xh, Xl)` gives the fresh
+    theta and residual. Returns (Xh, Xl, theta f64, res f64 host)."""
+    Ah, Al, Bh, Bl = grams(pencil, Xh, Xl)
+    A = tf.dw_to_f64(Ah, Al)
+    B = tf.dw_to_f64(Bh, Bl)
+    _, C, n_drop = _robust_geig(0.5 * (A + A.T), 0.5 * (B + B.T))
+    Ch, Cl = (torch.from_numpy(v).to(Xh.device) for v in tf.dw_from_f64(C))
     Xh, Xl = tf.dw_matmul_small(Xh, Xl, Ch, Cl)
-    th, tl, res, _, _ = _rq_and_residual(pencil, Xh, Xl)
-    return Xh, Xl, th, tl, res
+    th, tl, res, _, _ = rq(pencil, Xh, Xl)
+    res = res.cpu().numpy().astype(np.float64)
+    if n_drop:
+        res[-n_drop:] = np.inf  # zeroed collapsed columns: unconverged
+    return Xh, Xl, tf.dw_to_f64(th, tl), res
 
 
 def refine_dw_supports(pencil) -> bool:
@@ -181,39 +216,144 @@ def refine_dw(
     Xh[: X.shape[0]] = X
     Xl = torch.zeros_like(Xh)
 
-    # stop one sweep after the pre-update residual first measures <= tol
-    # (that sweep's update is still applied, so the final residual lands
-    # well below tol)
-    n_sweeps = min(max_sweeps, 5 if exact else 8)
-    sweeps, res_max = 0, float("inf")
-    while sweeps < n_sweeps and res_max > tol:
-        Xh, Xl, th, tl, res = _sweep(
-            pencil, sol, Xh, Xl, sigma_rel, inner_iters, exact
-        )
-        res_max = float(torch.max(res))  # the per-sweep host read
-        sweeps += 1
-    hist = [{
-        "iter": sweeps - 1,
-        "max_rel_res": res_max,
-        "note": "pre-update residual of the LAST sweep",
-    }]
+    def step(Xh, Xl):
+        return _sweep(pencil, sol, Xh, Xl, sigma_rel, inner_iters, exact)
 
-    # final Rayleigh-Ritz: separate degenerate clusters, f64-exact on the
-    # (m, m) pencil; rotation applied in dw on the device
-    Ah, Al, Bh, Bl = _grams(pencil, Xh, Xl)
-    A = tf.dw_to_f64(Ah, Al)
-    B = tf.dw_to_f64(Bh, Bl)
-    theta64, C, n_drop = _robust_geig(0.5 * (A + A.T), 0.5 * (B + B.T))
-    Ch, Cl = (torch.from_numpy(v).to(device) for v in tf.dw_from_f64(C))
-    Xh, Xl, th, tl, res = _rotate_final(pencil, Xh, Xl, Ch, Cl)
-    theta = tf.dw_to_f64(th, tl)
-    res = res.cpu().numpy().astype(np.float64)
-    if n_drop:
-        res[-n_drop:] = np.inf  # zeroed collapsed columns: unconverged
+    Xh, Xl, sweeps, hist = _sweep_loop(
+        step, Xh, Xl, min(max_sweeps, 5 if exact else 8), tol)
+    Xh, Xl, theta, res = _final_rr(pencil, Xh, Xl, _grams, _rq_and_residual)
     hist.append({"iter": len(hist), "max_rel_res": float(res.max())})
     return EigenResult(
         eigenvalues=theta,
         eigenvectors=tf.dw_to_f64(Xh, Xl)[: pencil.n],
+        residuals=res,
+        iterations=sweeps + 1,
+        converged=bool(res.max() <= tol),
+        history=hist,
+    )
+
+
+# --- the slab-sharded refinement ---------------------------------------------
+def _dw_allsum_pairs(h, l):
+    """Exact cross-slab sum of per-slab dw pairs (D, ...): the D pairs
+    dw-added in slab order (the reference all-gathers them and does the
+    same)."""
+    ah, al = h[0], l[0]
+    for d in range(1, h.shape[0]):
+        ah, al = tf.dw_add(ah, al, h[d], l[d])
+    return ah, al
+
+
+def _slab_dot_cols(p, xh, xl, yh, yl):
+    """Per-slab dw column dots of stacked (D n_loc_pad, m) blocks: (D, m)
+    pairs, each slab's rows summed pairwise as tf.dw_dot_cols sums them."""
+    ph, pl = tf.dw_mul(xh, xl, yh, yl)
+    shape = (p.D, p.n_loc_pad, ph.shape[1])
+    return tf.dw_sum(ph.reshape(shape), pl.reshape(shape), dim=1)
+
+
+def _rq_and_residual_dist(p, Xh, Xl):
+    """theta (dw), scaled residual norms, and the dw residual block of the
+    stacked block. The ownership weights (0/1, exact multiplies) count
+    each replicated interface row once."""
+    (KXh, KXl), (MXh, MXl) = p.KM_mm_dw(Xh, Xl)
+    w = p.w_dot.to(Xh.dtype)[:, None]
+    nh, nl = _dw_allsum_pairs(*_slab_dot_cols(p, Xh * w, Xl * w, KXh, KXl))
+    dh, dl = _dw_allsum_pairs(*_slab_dot_cols(p, Xh * w, Xl * w, MXh, MXl))
+    th, tl = _dw_div_cols(nh, nl, dh, dl)
+    tMh, tMl = tf.dw_mul(MXh, MXl, th[None, :], tl[None, :])
+    Rh, Rl = tf.dw_add(KXh, KXl, -tMh, -tMl)
+
+    def gnorm(A):
+        return torch.sqrt(p._slab_sums(w * A * A))
+
+    res = gnorm(Rh) / torch.clamp(gnorm(KXh) + torch.abs(th) * gnorm(MXh),
+                                  min=1e-30)
+    return th, tl, res, Rh, Rl
+
+
+def _dist_grams_local(p, Xh, Xl):
+    """The (m, m) dw Gram pairs X^T K X and X^T M X: per-slab pairs,
+    summed across the slabs exactly."""
+    (KXh, KXl), (MXh, MXl) = p.KM_mm_dw(Xh, Xl)
+    w = p.w_dot.to(Xh.dtype)[:, None]
+    xh_t, xl_t = (Xh * w).T, (Xl * w).T  # (m, rows)
+    m = Xh.shape[1]
+    out = []
+    for Yh, Yl in ((KXh, KXl), (MXh, MXl)):
+        cols_h, cols_l = [], []
+        for j in range(m):
+            ph, pl = tf.dw_mul(xh_t, xl_t, Yh[:, j][None, :],
+                               Yl[:, j][None, :])
+            shape = (m, p.D, p.n_loc_pad)
+            gh, gl = tf.dw_sum(ph.reshape(shape), pl.reshape(shape), dim=2)
+            cols_h.append(gh)  # (m, D)
+            cols_l.append(gl)
+        # (D, m, m) per-slab Grams, column j of slab d at [d, :, j]
+        gh = torch.stack(cols_h, dim=2).transpose(0, 1)
+        gl = torch.stack(cols_l, dim=2).transpose(0, 1)
+        out.append(_dw_allsum_pairs(gh, gl))
+    return (*out[0], *out[1])
+
+
+def refine_dw_dist(
+    dpencil,
+    mesh,
+    X,
+    tol: float = 1e-8,
+    max_sweeps: int = 6,
+    sigma_rel: float = 3e-3,
+) -> EigenResult:
+    """Refine approximate eigenvectors of a vacuum slab-sharded stencil
+    pencil (DistStencilPencil3D with taps_dw) to `tol` relative residual on
+    its device: the double-word RQI of refine_dw with dw slab tap applies,
+    exact cross-slab dw sums and per-column distributed spectral shift
+    solves. The host reads the (m,) residual per sweep and solves one
+    (m, m) f64 eigh.
+
+    mesh: None or the pencil's mesh (dist/mesh.py; checked against D).
+    X: a host (n_full, m) block in the global stencil ordering, or a
+    (global_rows, m) tensor in the stacked layout. Returns the eigenvectors
+    in the global ordering, reconstructed in f64 on the host."""
+    from maxwell_tpu_torch.solvers.dist_solve import _check_mesh
+    from maxwell_tpu_torch.solvers.spectral import DistSpectralShift
+
+    if getattr(dpencil, "taps_dw", None) is None:
+        raise ValueError("refine_dw_dist needs the vacuum slab tap pencil")
+    _check_mesh(dpencil, mesh)
+    device = dpencil.device
+    sol = DistSpectralShift.build(dpencil, alpha=0.0, dtype=torch.float32)
+    if torch.is_tensor(X) and X.dim() == 2 and (
+        X.shape[0] == dpencil.global_rows
+    ):
+        Xh = X.to(device=device, dtype=torch.float32)  # stacked layout
+    else:
+        if torch.is_tensor(X):
+            X = X.cpu().numpy()
+        X = np.asarray(X, np.float32)
+        if X.ndim == 1:
+            X = X[:, None]
+        Xh = dpencil.inject_vectors(X).to(torch.float32)
+    Xl = torch.zeros_like(Xh)
+
+    mk = dpencil.mask.to(Xh.dtype)[:, None]
+
+    def step(Xh, Xl):
+        th, _, res, Rh, _ = _rq_and_residual_dist(dpencil, Xh, Xl)
+        W = sol.solve_sigma(dpencil, Rh, th * (1.0 - sigma_rel)) * mk
+        Xh, Xl = tf.dw_add(Xh, Xl, -W, torch.zeros_like(W))
+        return Xh, Xl, res
+
+    # the reference's trip count: at most max_sweeps (no cap of 5)
+    Xh, Xl, sweeps, hist = _sweep_loop(step, Xh, Xl, max_sweeps, tol)
+    Xh, Xl, theta, res = _final_rr(
+        dpencil, Xh, Xl, _dist_grams_local, _rq_and_residual_dist)
+    hist.append({"iter": len(hist), "max_rel_res": float(res.max())})
+    vecs = tf.dw_to_f64(dpencil.extract_vectors(Xh),
+                        dpencil.extract_vectors(Xl))
+    return EigenResult(
+        eigenvalues=theta,
+        eigenvectors=vecs,
         residuals=res,
         iterations=sweeps + 1,
         converged=bool(res.max() <= tol),

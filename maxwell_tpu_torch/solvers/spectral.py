@@ -24,7 +24,10 @@ true f32 (no TF32: `fp32_true`), as the reference runs them under
 Precision.HIGHEST outside any kernel. For loaded PEC cavities the vacuum
 solve is an approximate preconditioner.
 
-Not ported yet: DistSpectralShift (the slab-sharded solve, slice 4).
+DistSpectralShift is the same solve on the slab-sharded stencil pencil
+(dist/stencil_dist.py) in its stacked view: the y/z transforms are local to
+each slab, and the x transform's global contraction is the sum, in slab
+order, of each slab's ownership-weighted partial (the reference's psum).
 """
 
 from __future__ import annotations
@@ -199,6 +202,156 @@ class SpectralShiftSolver:
             [Yx.reshape(-1, m), Yy.reshape(-1, m), Yz.reshape(-1, m)]
         )
         out = torch.nn.functional.pad(out, (0, 0, 0, self.n_padded - self.n))
+        return out[:, 0] if vec else out
+
+
+# --- slab transforms: grids (D, X, Y, Z, m), one per slab --------------------
+def x_rows(A_full: torch.Tensor, rows: int, step: int, D: int):
+    """(D, rows, k) view of each slab's rows of a replicated 1D transform:
+    slab d's rows d step .. d step + rows - 1 (the reference's
+    dynamic_slice)."""
+    return A_full.unfold(0, rows, step)[:D].transpose(1, 2)
+
+
+def tr_yz(G, Ay, Az):
+    """Each slab's y and z contractions: out[d, i, l, p, m] =
+    sum A_y[j, l] A_z[q, p] G[d, i, j, q, m]."""
+    G = torch.einsum("jl,dijqm->dilqm", Ay, G)
+    return torch.einsum("qp,dilqm->dilpm", Az, G)
+
+
+def tr_x_sum(G, Axl):
+    """The global x contraction: each slab's partial sum_i Axl[d, i, k]
+    G[d, i], then the D partials added in slab order (the psum)."""
+    return torch.einsum("dik,dijqm->dkjqm", Axl, G).sum(dim=0)
+
+
+def tr_x_local(H, Axl):
+    """The inverse x transform onto each slab's planes: out[d, r] =
+    sum_k Axl[d, r, k] H[k] (H replicated over the slabs)."""
+    return torch.einsum("drk,kjqm->drjqm", Axl, H)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistSpectralShift:
+    """(K + alpha M)^-1 for the slab-sharded vacuum PEC stencil pencil
+    (dist/stencil_dist.DistStencilPencil3D): the distributed LOBPCG
+    preconditioner and the distributed refinement's shift solve.
+
+    The y/z transforms are local to each slab. The x transform is a global
+    contraction: each slab contracts its own x-planes (ownership-weighted,
+    so a replicated interface plane counts once) against its rows of the
+    replicated 1D matrices, and the D partial mode grids are summed in slab
+    order; the inverse transform back to each slab's planes is then local,
+    and the two copies of an interface plane agree by construction. Each
+    slab here applies its y/z transforms to its own planes before the x
+    contraction, the reference after it: the same linear map, with D times
+    fewer y/z products in the stacked view.
+
+    Sx_full, Sy_full, Sz_full: the sine matrices with zero rows at the
+    Dirichlet boundary nodes, so a slab's rows are a plain slice."""
+
+    Sx_full: torch.Tensor  # (nx+1, nx-1)
+    Sy_full: torch.Tensor  # (ny+1, ny-1)
+    Sz_full: torch.Tensor  # (nz+1, nz-1)
+    Ux: torch.Tensor  # (nx, nx)
+    Uy: torch.Tensor
+    Uz: torch.Tensor
+    sigx: torch.Tensor
+    sigy: torch.Tensor
+    sigz: torch.Tensor
+    alpha: float
+    nx: int
+    ny: int
+    nz: int
+    cells: int
+
+    @staticmethod
+    def build(sp, alpha: float, dtype: torch.dtype | None = None):
+        """From a DistStencilPencil3D, vacuum only (materials raise
+        ValueError); another pencil raises AttributeError, as the
+        reference's build does on an assembled DistPencil (it has no
+        materials fields)."""
+        from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+
+        if not isinstance(sp, DistStencilPencil3D):
+            raise AttributeError(
+                f"{type(sp).__name__} is not a slab-sharded stencil pencil "
+                f"(no inv_mu/eps): the distributed spectral solve needs a "
+                f"DistStencilPencil3D")
+        if sp.inv_mu is not None or sp.eps is not None:
+            raise ValueError("distributed spectral solve is vacuum-only")
+        hx, hy, hz = sp.ax / sp.nx, sp.by / sp.ny, sp.cz / sp.nz
+        Sx, Ux, sigx = _axis_1d(sp.nx, hx)
+        Sy, Uy, sigy = _axis_1d(sp.ny, hy)
+        Sz, Uz, sigz = _axis_1d(sp.nz, hz)
+
+        def full(S, n):
+            F = np.zeros((n + 1, n - 1))
+            F[1:n] = S
+            return F
+
+        t = lambda v: torch.as_tensor(v, dtype=dtype or sp.dtype,
+                                      device=sp.device)
+        return DistSpectralShift(
+            Sx_full=t(full(Sx, sp.nx)), Sy_full=t(full(Sy, sp.ny)),
+            Sz_full=t(full(Sz, sp.nz)), Ux=t(Ux), Uy=t(Uy), Uz=t(Uz),
+            sigx=t(sigx), sigy=t(sigy), sigz=t(sigz),
+            alpha=float(alpha), nx=sp.nx, ny=sp.ny, nz=sp.nz,
+            cells=sp.cells,
+        )
+
+    def solve(self, sp, R: torch.Tensor) -> torch.Tensor:
+        """(K + alpha M)^-1 R on the stacked layout, R (D n_loc_pad[, m])."""
+        return self._solve_alpha(sp, R, self.alpha)
+
+    def solve_sigma(self, sp, R: torch.Tensor,
+                    sigma: torch.Tensor) -> torch.Tensor:
+        """(K - sigma_j M)^-1 R[:, j] per column on the stacked layout: the
+        distributed refinement's inner solve."""
+        return self._solve_alpha(sp, R, -sigma[None, None, None, :])
+
+    @fp32_true
+    def _solve_alpha(self, sp, R: torch.Tensor, alpha) -> torch.Tensor:
+        vec = R.dim() == 1
+        Rl = R[:, None] if vec else R
+        c, ny, nz, D = self.cells, self.ny, self.nz, sp.D
+        mk = sp.mask.to(Rl.dtype)
+        # ownership-weighted so the slab sum counts interface planes once
+        ex, ey, ez = sp._to_grids(Rl * (mk * sp.w_dot.to(Rl.dtype))[:, None])
+        Uxl = x_rows(self.Ux, c, c, D)  # (D, c, nx)
+        Sxl = x_rows(self.Sx_full, c + 1, c, D)  # (D, c+1, nx-1)
+        Syi = self.Sy_full[1:ny]  # interior rows (ny-1, ny-1)
+        Szi = self.Sz_full[1:nz]
+        # forward: interior y/z slices and transforms per slab, then the
+        # x contraction summed over the slabs: replicated mode grids
+        rx = tr_x_sum(tr_yz(ex[:, :, 1:ny, 1:nz], Syi, Szi), Uxl)
+        ry = tr_x_sum(tr_yz(ey[:, :, :, 1:nz], self.Uy, Szi), Sxl)
+        rz = tr_x_sum(tr_yz(ez[:, :, 1:ny, :], Syi, self.Uz), Sxl)
+
+        pad = lambda g, px, py, pz: torch.nn.functional.pad(
+            g, (0, 0, pz, 0, py, 0, px, 0))
+        Rx = pad(rx, 0, 1, 1)
+        Ry = pad(ry, 1, 0, 1)
+        Rz = pad(rz, 1, 1, 0)
+        sx_ = self.sigx[:, None, None, None]
+        sy_ = self.sigy[None, :, None, None]
+        sz_ = self.sigz[None, None, :, None]
+        beta = alpha + sx_**2 + sy_**2 + sz_**2
+        dot = sx_ * Rx + sy_ * Ry + sz_ * Rz
+        coef = dot / (alpha * beta)
+        Hx = (Rx / beta + sx_ * coef)[:, 1:, 1:]
+        Hy = (Ry / beta + sy_ * coef)[1:, :, 1:]
+        Hz = (Rz / beta + sz_ * coef)[1:, 1:, :]
+
+        # inverse: each slab's planes from the replicated mode grids
+        wx = tr_yz(tr_x_local(Hx, Uxl), Syi.T, Szi.T)
+        wy = tr_yz(tr_x_local(Hy, Sxl), self.Uy.T, Szi.T)
+        wz = tr_yz(tr_x_local(Hz, Sxl), Syi.T, self.Uz.T)
+        P = torch.nn.functional.pad
+        out = sp._from_grids(P(wx, (0, 0, 1, 1, 1, 1)), P(wy, (0, 0, 1, 1)),
+                             P(wz, (0, 0, 0, 0, 1, 1)))
+        out = out * mk[:, None]
         return out[:, 0] if vec else out
 
 

@@ -260,6 +260,94 @@ def test_cuda_stencil_slice_matches_cpu_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 9, 171])
+@pytest.mark.parametrize("mode", ["K", "M", "KM"])
+def test_cuda_dist_stencil_k4_route_matches_plain(cuda_device, m, mode):
+    """The slab-sharded tap apply on the card: K4 on each slab's
+    ghost-extended block (a (cells + 2, ny, nz) brick; m 171 in two column
+    passes) against the plain slab apply on the same card, within 1e-5 of
+    max|plain|; one launch per slab and pass, no plain call."""
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+
+    p = DistStencilPencil3D.build(nx=16, ny=7, nz=5, D=4,
+                                  dtype=torch.float32, device=cuda_device)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (p.global_rows, m)).astype(np.float32)).to(cuda_device)
+    want_K, want_M = mode != "M", mode != "K"
+    kst.reset_counts()
+    got = p._taps_apply_slab(X, want_K, want_M)
+    assert kst.counts() == {"stencil_taps": p.D * len(kst.column_passes(m)),
+                            "stencil_taps_ref": 0}
+    want = p._taps_apply_plain(X, want_K, want_M)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            err = (g - w).abs().max() / w.abs().max()
+            assert err.item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_dist_stencil_slice_matches_cpu_plain(cuda_device):
+    """The 16^3 slab road to 1e-8 in 8 slabs (f32 lobpcg_dist with the
+    distributed spectral preconditioner, then refine_dw_dist) through K4
+    on the card, against the same road through the plain slab apply on
+    the CPU; the card's path launched K4."""
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+    from maxwell_tpu_torch.solvers.refine_device import refine_dw_dist
+
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        p = DistStencilPencil3D.build(nx=16, ny=16, nz=16, D=8,
+                                      dtype=torch.float32, device=dev)
+        X0 = p.inject_vectors(np.random.default_rng(3).standard_normal(
+            (p.n_full, 8)))
+        kst.reset_counts()
+        r32 = lobpcg_dist(p, None, nev=4, maxiter=60, tol=1e-5,
+                          stall_window=10, X0=X0)
+        out[dev.type] = (refine_dw_dist(p, None, r32.eigenvectors, tol=1e-8),
+                         kst.counts())
+    (gpu, gpu_counts), (cpu, _) = out["cuda"], out["cpu"]
+    assert gpu.converged and gpu.residuals.max() <= 1e-8
+    np.testing.assert_allclose(gpu.eigenvalues, cpu.eigenvalues, rtol=1e-9)
+    assert gpu_counts["stencil_taps"] > 0
+    assert gpu_counts["stencil_taps_ref"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_dist_stencil_f64_takes_the_plain_apply(cuda_device):
+    """An f64 slab pencil on the card applies by the plain version (the
+    tap kernel is f32): no launch, the CPU's result."""
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+
+    p = DistStencilPencil3D.build(nx=8, ny=5, nz=4, D=4,
+                                  dtype=torch.float64, device=cuda_device)
+    q = DistStencilPencil3D.build(nx=8, ny=5, nz=4, D=4,
+                                  dtype=torch.float64, device="cpu")
+    X = q.make_block(3)
+    kst.reset_counts()
+    K, M = p.KM_mm(X.to(cuda_device))
+    assert kst.counts() == {"stencil_taps": 0, "stencil_taps_ref": 0}
+    Kc, Mc = q.KM_mm(X)
+    torch.testing.assert_close(K.cpu(), Kc, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(M.cpu(), Mc, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_config4_stencil(cuda_device, capsys, tmp_path):
+    """configs/config4_stencil.json (f64, 8 slabs, refine) at 16^3 through
+    the CLI on the card."""
+    with open(os.path.join(CONFIGS, "config4_stencil.json")) as f:
+        cfg = json.load(f)
+    cfg["problem"].update(nx=16, ny=16, nz=16)
+    path = tmp_path / "config4_stencil_16.json"
+    path.write_text(json.dumps(cfg))
+    assert port_cli.main([str(path), "--device", "cuda"]) == 0
+    rep = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+           if l.startswith("{")][-1]
+    assert rep["converged"] and max(rep["residuals"]) <= 1e-8
+
+
+@pytest.mark.cuda
 def test_cuda_cli_config7(cuda_device, capsys, tmp_path):
     """configs/config7_dielectric.json (loaded cavity, field taps, on-device
     dw refinement) at 8^3 through the CLI on the card."""
@@ -1093,6 +1181,31 @@ def test_cuda_chain_ms_times_a_chain(cuda_device):
     assert 0 < floor < timing.launch_floor_ms()
     X = torch.ones((1 << 20, 8), device=cuda_device)
     assert timing.chain_ms(lambda: X.mul_(1.0)) >= floor
+
+
+@pytest.mark.cuda
+def test_cuda_device_ms_times_a_call_of_many_launches(cuda_device):
+    """device_ms times one call of 400 small launches on the device alone:
+    under the host's enqueue time of the call, and about 400 launches in a
+    chain."""
+    import time
+
+    from maxwell_tpu_torch.bench import timing
+
+    X = torch.ones((1024, 8), device=cuda_device)
+
+    def call():
+        for _ in range(400):
+            X.mul_(1.0)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ms = timing.device_ms(call)
+    assert 0 < ms < host_ms
+    assert ms >= 400 * timing.chain_floor_ms() / 2
 
 
 @pytest.fixture(scope="module")

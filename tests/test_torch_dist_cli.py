@@ -87,8 +87,17 @@ def test_cli_config4_staged_batch(config4, tmp_path, capsys):
 
 
 def test_cli_dist_stencil_refused(tmp_path):
-    path = _write(tmp_path, {"problem": {"kind": "brick3d"},
+    """The distributed stencil operator runs (test_torch_refine_dw_dist.py);
+    what it refuses, as the reference does: a 2D problem, and a shard count
+    that does not divide nx."""
+    path = _write(tmp_path, {"problem": {"kind": "rect2d"},
                              "solver": {"kind": "lobpcg_dist"},
                              "storage": {"operator": "stencil"}}, "c4s")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="3D-only"):
+        port_cli.main([path, "--device", "cpu"])
+    path = _write(tmp_path, {"problem": {"kind": "brick3d", "nx": 6},
+                             "solver": {"kind": "lobpcg_dist"},
+                             "storage": {"operator": "stencil"},
+                             "dist": {"n_shards": 4}}, "c4s_odd")
+    with pytest.raises(ValueError, match="divisible"):
         port_cli.main([path, "--device", "cpu"])

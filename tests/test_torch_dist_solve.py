@@ -140,9 +140,10 @@ def test_lobpcg_dist_staged_batch_matches_reference(mesh, brick6):
 
 def test_lobpcg_dist_staged_spectral_raises(brick6):
     """A staged run asks for the caller's preconditioner as the unstaged
-    one does: "spectral" raises the same refusal."""
+    one does: "spectral" on an assembled pencil raises what the reference's
+    DistSpectralShift.build raises there (AttributeError)."""
     _, port = brick6
-    with pytest.raises(NotImplementedError, match="DistSpectralShift"):
+    with pytest.raises(AttributeError, match="DistStencilPencil3D"):
         lobpcg_dist(port, None, nev=4, batch=2, precond="spectral")
 
 
@@ -214,8 +215,14 @@ def test_lobpcg_single_device_staged_batch_matches_reference():
 
 
 def test_unported_distributed_paths_raise(brick6):
-    _, port = brick6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from maxwell_tpu.solvers.spectral import DistSpectralShift as RefShift
+
+    ref, port = brick6
+    # the distributed spectral solve serves slab-sharded stencil pencils:
+    # on an assembled pencil the reference's build raises AttributeError
+    with pytest.raises(AttributeError):
+        RefShift.build(ref, 15.0)
+    with pytest.raises(AttributeError):
         lobpcg_dist(port, None, nev=2, precond="spectral")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         shift_invert_lanczos_dist(port, None, sigma=1.0)

@@ -641,7 +641,8 @@ def test_taa_plan_at_the_probe_shape():
 
 
 @pytest.mark.parametrize("timer", ["chain_ms", "chain_floor_ms",
-                                   "launch_floor_ms", "median_ms"])
+                                   "launch_floor_ms", "median_ms",
+                                   "device_ms"])
 def test_timers_need_the_card(monkeypatch, timer):
     """chain_ms, as median_ms, times on a CUDA device: with none visible it
     raises and launches nothing (no CPU time under a device metric)."""
@@ -651,6 +652,6 @@ def test_timers_need_the_card(monkeypatch, timer):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fn = getattr(timing, timer)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        fn(lambda: calls.append(1)) if timer in ("chain_ms",
-                                                 "median_ms") else fn()
+        fn(lambda: calls.append(1)) if timer in (
+            "chain_ms", "median_ms", "device_ms") else fn()
     assert not calls

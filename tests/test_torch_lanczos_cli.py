@@ -92,12 +92,17 @@ def test_cli_tr_lanczos_f64(config1, tmp_path, capsys):
 
 @pytest.mark.parametrize("kind", ["shift_invert", "lobpcg_dist"])
 def test_cli_unported_kinds_raise(tmp_path, kind):
-    """shift_invert is refused; lobpcg_dist is ported for the assembled
-    operator and refused for the distributed stencil operator."""
+    """shift_invert is refused; lobpcg_dist on the distributed stencil
+    operator takes brick3d problems only and raises the reference CLI's
+    ValueError ("3D-only") for a rect2d."""
     cfg = {"problem": {"kind": "rect2d"}, "solver": {"kind": kind}}
     if kind == "lobpcg_dist":
         cfg["storage"] = {"operator": "stencil"}
     path = tmp_path / "c.json"
     path.write_text(json.dumps(cfg))
+    if kind == "lobpcg_dist":
+        with pytest.raises(ValueError, match="3D-only"):
+            port_cli.main([str(path), "--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main([str(path), "--device", "cpu"])

@@ -207,6 +207,28 @@ def test_kernel_wrapper_counts_plain_calls_on_cpu():
         kst.stencil_taps(X, port.mask, port.taps, port.shape, False, False)
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+def test_kernel_wrapper_writes_into_out(mode):
+    """`out=` gives the wrapper's results in the caller's tensors, bit for
+    bit those it allocates itself; an out that does not fit X raises."""
+    want_K, want_M = MODES[mode]
+    _, port, _ = _pencils((4, 4, 4), "f32")
+    X = torch.from_numpy(_block(port, 3, 53, np.float32))
+    args = (X, port.mask, port.taps, port.shape, want_K, want_M)
+    out = tuple(torch.full_like(X, np.nan) if w else None
+                for w in (want_K, want_M))
+    got = kst.stencil_taps(*args, out=out)
+    for g, o, w in zip(got, out, kst.stencil_taps(*args)):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g is o
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+    with pytest.raises(ValueError):
+        kst.stencil_taps(*args, out=(X[:-1], X[:-1]))
+    with pytest.raises(ValueError):
+        kst.stencil_taps(*args, out=(None, None))
+
+
 @pytest.mark.parametrize("bc", ["pec", "pmc"])
 @pytest.mark.parametrize("op", ["K_mm", "M_mm", "project"])
 def test_stencil2d_matches_reference(bc, op):
