@@ -41,7 +41,15 @@ probes and check that they ran through the kernels:
     extended slabs of the 64^3 brick in 8 slabs against the plain slab
     apply, the 8-slab f32 lobpcg_dist with the distributed spectral
     preconditioner and refine_dw_dist to 1e-8 through it, and configs
-    4_stencil and 5 through the CLI.
+    4_stencil and 5 through the CLI;
+  slice 10, shift-invert and tets: the level-scheduled triangular solve
+    (level_solve, one launch a factor solve) against its plain version on
+    the 128^2 rectangle's LDL^T factors and config 3's splu factors; config
+    3 through the CLI (f64, LDL^T); the 128^2 rectangle on an f32 union
+    pencil with the LDL^T backend, refined to 1e-8 on the host; the 64^3
+    stencil brick with the MINRES backend through the tap kernel; the
+    distributed MINRES shift-invert on 8 row shards and 8 slabs against
+    the one-device port; config 6 (tet mesh) through the CLI.
 
     python3 chip_smoke.py
 
@@ -172,7 +180,29 @@ Phases, in order; any failure raises and the process exits non-zero:
                verified with the one-device f64 pencil afterwards
  23. dist stencil cli  configs 4_stencil and 5 through the CLI as written
                (f64: the plain slab apply, no launch)
- 24. result    an {"off_main_path": [...]} line for the kernels no solver
+ 24. tri solve kernels  level_solve against level_solve_plain on the 128^2
+               rectangle's LDL^T L and L^T at sigma 45 (32,512 levels) and
+               config 3's splu L and U, f32 and f64, m in {1, 4}: backward
+               error within the substitution bound, within 16 times the
+               chain's measured rounding growth of the plain version, two
+               runs bit for bit; device_ms, the plain
+               version's time, the byte bound, the level count, the launch
+               floor and torch.triangular_solve on the factor as a sparse
+               CSR tensor (wall_ms: it synchronizes)
+ 25. si solve  config 3 through the CLI (f64; golden rect2d_16x16 nearest
+               sigma to 1e-8; 2 level_solve launches a Lanczos step); the
+               128^2 rectangle on an f32 union pencil, LDL^T, sigma 45, nev
+               4, 40 steps, then refine_f64 to 1e-8 (factor, apply and
+               solve times; residuals before and after; 2 launches an
+               apply); the 64^3 stencil brick with MINRES (sigma 60, nev 3,
+               30 steps) through the tap kernel, within 2e-3 of 6 pi^2
+ 26. si dist   shift_invert_lanczos_dist at f32 on the 16x16 rectangle in 8
+               row shards (union + "rdma_overlap": K5) and the 16^3 brick in
+               8 slabs (K4 on the slabs), and thick_restart_lanczos_dist(
+               mode="shift_invert") on the rectangle, each within 1e-4 of
+               the one-device port from the same start vector
+ 27. tet cli   config 6 through the CLI (f64), against a dense eigh to 1e-8
+ 28. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -269,6 +299,8 @@ REPLACES = {
        for name, line in SPMM_PROBES.items()},
     **{name: f"maxwell_tpu/bench/exp_gather.py:{line}"
        for name, line in GATHER_PROBES.items()},
+    # not a Pallas kernel: the reference's jnp lax.fori_loop over the levels
+    "level_solve": "maxwell_tpu/kernels/tri_solve.py:149",
 }
 SOURCE = {
     "bellunion_matmat": "maxwell_tpu_torch/csrc/bellunion_spmm.cu",
@@ -302,6 +334,7 @@ SOURCE = {
     # the gather-only rung is g0's kernel; g5 is K15d's e0 kernel
     "v4_gather": "maxwell_tpu_torch/csrc/gather_probes.cu",
     "g5_floor": "maxwell_tpu_torch/csrc/grid_probes.cu",
+    "level_solve": "maxwell_tpu_torch/csrc/tri_solve.cu",
 }
 # what each path launches. solve(): the fused apply (LOBPCG's W, the
 # preconditioner's CG) and the single-stream apply (projector, initial
@@ -330,6 +363,7 @@ MAIN_PATH = {
     "union_interior_overlap": "solve: lobpcg_dist union + rdma_overlap, "
                               "24^3 in 8 shards",
     "ring_shift": "solve: lobpcg_dist pallas + rdma, 24^3 in 8 shards",
+    "level_solve": "solve: shift_invert_lanczos ldlt, 128^2 f32 union",
 }
 # off every solve path: 0 launches there (the off_main_path line says what
 # else launched them)
@@ -540,11 +574,13 @@ def _kernel_modules():
         spmm_probes,
         stencil_probes,
         stencil_taps,
+        tri_solve,
         union_probes,
     )
 
     return (spmm, stencil_taps, bsr_spmm, bellpairs_spmm, halo, union_probes,
-            grid_probes, stencil_probes, spmm_probes, gather_probes)
+            grid_probes, stencil_probes, spmm_probes, gather_probes,
+            tri_solve)
 
 
 def all_counts():
@@ -620,8 +656,9 @@ def phase_solve(problem):
         if counts[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
     for name in REPLACES:
-        if counts[name + "_ref"] != 0 or check_counts[name + "_ref"] != 0:
-            raise AssertionError(f"plain {name}_ref ran on the card")
+        plain = name + ("_plain" if name == "level_solve" else "_ref")
+        if counts[plain] != 0 or check_counts[plain] != 0:
+            raise AssertionError(f"plain {plain} ran on the card")
     if check_counts["bellunion_matvec"] != 2 * NEV:
         raise AssertionError(f"residual check launches: {check_counts}")
     return counts, check_counts
@@ -2175,6 +2212,446 @@ def phase_dist_stencil_cli():
     return out
 
 
+SI_GRID = 128  # slice 10: the reference probe's 2D shift-invert row
+SI_SIGMA = 45.0  # config 3's shift
+SI_STENCIL_SIGMA = 60.0  # the probe's 64^3 stencil row: near 6 pi^2
+SI_WIDTHS = (1, 4)
+
+
+def _factor_csr(S):
+    """The triangular factor of S (diagonal and off-diagonal entries) as a
+    scipy CSR, for the library call."""
+    import scipy.sparse as sp
+
+    n = S.n
+    cols = S.cols.cpu().numpy()
+    rows = np.broadcast_to(S.rows.cpu().numpy()[:, :, None], cols.shape)
+    vals = S.vals.cpu().double().numpy()
+    keep = cols < n
+    T = sp.csr_matrix((vals[keep], (rows[keep], cols[keep])), shape=(n, n))
+    return (T + sp.diags(S.diag.cpu().double().numpy())).tocsr()
+
+
+def wall_ms(fn, n: int = 3) -> float:
+    """Median host time of n calls, each between two synchronizes: for a
+    call that synchronizes on its own (the library's sparse triangular
+    solve), which the device-side sleep of device_ms cannot hold back."""
+    times = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def phase_tri_solve_kernels():
+    """The level-scheduled triangular solve (level_solve) against its plain
+    version on the 128^2 rectangle's LDL^T factors L and L^T at sigma 45
+    (chains of 32,512 levels) and config 3's splu factors L and U, at f32
+    and f64 and m in {1, 4}. Two gates on every case: (1) the kernel's
+    componentwise backward error (tri_solve.backward_error) at most 2, the
+    bound substitution meets in any summation order; (2) the kernel within
+    max(16 g, 8) eps max|x| of the plain version in the same dtype, g =
+    max|plain_f32 - plain_f64| / (eps_f32 max|x|), how far rounding grows
+    along this chain for these inputs (the f32 LDL^T solve at 128^2 is
+    off the f64 one by 5e-5 to 4.5e-3). Two kernel runs must agree bit for
+    bit. Each case timed on the device alone (device_ms, one launch a
+    call), the plain version by its one call between synchronizes
+    (host-bound: about 7 launches a level), beside the byte bound, the
+    level count, the launch floor and the library call:
+    torch.triangular_solve on the factor as a sparse CSR tensor, timed by
+    wall_ms (it synchronizes). Returns the kernels-line stats."""
+    import scipy.sparse.linalg as spla
+
+    from maxwell_tpu_torch.kernels import tri_solve
+    from maxwell_tpu_torch.problems import RectCavity2D
+
+    dev = torch.device("cuda")
+    floor = launch_floor_ms()
+    big = RectCavity2D(nx=SI_GRID, ny=SI_GRID)
+    A = (big.K - SI_SIGMA * big.M).tocsr()
+    small = RectCavity2D(nx=16, ny=16)
+    A3 = (small.K - SI_SIGMA * small.M).tocsc()
+    factors = {}
+    for dt in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        d = tri_solve.SparseLDLTDevice.factor(A, dtype=dt, device=dev)
+        torch.cuda.synchronize()
+        log({"phase": "tri_factor", "grid": SI_GRID, "n": d.n,
+             "dtype": str(dt), "factor_s": time.perf_counter() - t0,
+             "levels": d.L.n_levels, "L_shape": list(d.L.cols.shape),
+             "Lt_shape": list(d.Lt.cols.shape)})
+        lu = tri_solve.SparseLUDevice.from_splu(spla.splu(A3), dtype=dt,
+                                                device=dev)
+        for key, S in (((f"ldlt{SI_GRID}", "L"), d.L),
+                       ((f"ldlt{SI_GRID}", "Lt"), d.Lt),
+                       (("config3_splu", "L"), lu.L),
+                       (("config3_splu", "U"), lu.U)):
+            factors.setdefault(key, {})[dt] = S
+        del d, lu
+
+    rng = np.random.default_rng(0)
+    cases = {}
+    stats = {"max_abs_err": 0.0, "launch_floor_ms": floor}
+    for (prob, fac), by_dtype in factors.items():
+        n = by_dtype[torch.float64].n
+        B4 = torch.from_numpy(rng.standard_normal((n, 4))).to(dev)
+        plain, plain_ms = {}, {}
+        for dt, S in by_dtype.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain[dt] = tri_solve.level_solve_plain(S, B4.to(dt))
+            torch.cuda.synchronize()
+            plain_ms[dt] = (time.perf_counter() - t0) * 1e3
+        p64 = plain[torch.float64]
+        growth = ((plain[torch.float32].double() - p64).abs().max().item()
+                  / (torch.finfo(torch.float32).eps * p64.abs().max().item()))
+        for dt, S in by_dtype.items():
+            dname = "f64" if dt == torch.float64 else "f32"
+            eps = torch.finfo(dt).eps
+            dsz = torch.finfo(dt).bits // 8
+            lib_T = torch_csr(_factor_csr(S), dev, dt)
+            live = int(S.cnt.sum())
+            for m in SI_WIDTHS:
+                Bm = B4[:, :m].to(dt).contiguous()
+                got = tri_solve.level_solve(S, Bm)
+                again = tri_solve.level_solve(S, Bm)
+                torch.cuda.synchronize()
+                want = plain[dt][:, :m]
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                tol = max(16 * growth, 8) * eps * scale
+                berr = tri_solve.backward_error(S, Bm, got)
+                label = f"{prob} {fac} {dname} m={m}"
+                if not berr <= 2:
+                    raise AssertionError(f"level_solve {label}: backward "
+                                         f"error {berr:.3g} of its bound")
+                if not err <= tol:
+                    raise AssertionError(f"level_solve {label}: max error "
+                                         f"{err:.3e} > {tol:.3e}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"level_solve {label}: two runs "
+                                         f"differ")
+                ms = device_ms(lambda: tri_solve.level_solve(S, Bm), n=5)
+                # each live value and column once, the rows' ids and
+                # counts, the level counts, 1/diag, B read and X written
+                nbytes = (live * (4 + dsz) + n * 8 + S.n_levels * 4
+                          + n * dsz + 2 * n * m * dsz)
+                flops = 2 * live * m + 2 * n * m
+                b_ms, b_by = bound_ms(nbytes, flops, dname)
+                upper = not S.lower
+                lib = torch.triangular_solve(Bm, lib_T, upper=upper).solution
+                torch.cuda.synchronize()
+                library_ms = wall_ms(
+                    lambda: torch.triangular_solve(Bm, lib_T, upper=upper))
+                row = {"kernel": "level_solve", "factor": f"{prob} {fac}",
+                       "dtype": dname, "m": m, "n": n, "levels": S.n_levels,
+                       "shape": list(S.cols.shape), "live_slots": live,
+                       "max_abs_err": err, "rel_err": err / scale,
+                       "tol_rel": tol / scale, "growth": growth,
+                       "backward_error": berr, "bitwise_repeat": True,
+                       "ms": ms, "us_per_level": ms * 1e3 / S.n_levels,
+                       "plain_ms": plain_ms[dt], "bound_ms": b_ms,
+                       "bound_by": b_by, "bytes": nbytes,
+                       "launch_floor_ms": floor, "library_ms": library_ms,
+                       "library_rel_err":
+                           (lib - got).abs().max().item() / scale}
+                log(row)
+                cases[f"{prob}_{fac}_{dname}_m{m}"] = {
+                    k: row[k] for k in ("levels", "rel_err", "ms",
+                                        "plain_ms", "bound_ms",
+                                        "library_ms")}
+                stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                # the shape the main path gives the kernel: the 128^2 f32
+                # shift-invert apply, one vector
+                if (prob, fac, dname, m) == (f"ldlt{SI_GRID}", "L", "f32",
+                                             1):
+                    stats.update(ms=ms, plain_ms=plain_ms[dt],
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=library_ms, levels=S.n_levels)
+    stats["cases"] = cases
+    return stats
+
+
+def phase_si_solve():
+    """Slice 10's shift-invert solves, counts zeroed just before each and
+    read just after:
+    (a) config 3 through the CLI as written (f64, 16x16, sigma 45, the
+        LDL^T backend: level_solve in f64), against golden rect2d_16x16's
+        four eigenvalues nearest sigma to 1e-8;
+    (b) the 128^2 rectangle on an f32 union pencil, backend "ldlt" with the
+        problem's K and M, sigma 45, nev 4, maxiter 40, tol 1e-6, then
+        refine_f64 to 1e-8 on the host: factor, apply (device_ms) and solve
+        times, residuals before and after, two level_solve launches an
+        apply; the refined eigenvalues within 1e-3 of the analytic ones
+        nearest sigma (the 128^2 discretization error is ~1e-4);
+    (c) the 64^3 stencil pencil with the MINRES backend (sigma 60, nev 3,
+        maxiter 30, tol 1e-5), its applies through the tap kernel; its
+        eigenvalues within 2e-3 of 6 pi^2, the triple mode nearest sigma
+        (the 64^3 discretization error is 6e-4).
+    Returns {"cli": counts, "ldlt": counts, "stencil": counts}."""
+    from maxwell_tpu_torch.problems import RectCavity2D
+    from maxwell_tpu_torch.problems.analytic import te_eigenvalues_2d
+    from maxwell_tpu_torch.problems.golden import golden_eigenvalues
+    from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
+    from maxwell_tpu_torch.solvers.operator import Pencil
+    from maxwell_tpu_torch.solvers.refine import refine_f64
+    from maxwell_tpu_torch.solvers.shift_invert import (
+        build_shift_invert_op,
+        shift_invert_lanczos,
+    )
+
+    def nearest(vals, sigma, k):
+        vals = np.asarray(vals)
+        return np.sort(vals[np.argsort(np.abs(vals - sigma))[:k]])
+
+    out = {}
+    # (a)
+    path = os.path.join(CONFIGS, "config3.json")
+    with open(path) as f:
+        steps = json.load(f)["solver"]["maxiter"]
+    rc, rep, cnt, wall = run_cli(path)
+    golden, _, _ = golden_eigenvalues("rect2d_16x16")
+    want = nearest(golden, SI_SIGMA, 4)
+    rel = np.abs(np.sort(rep["eigenvalues"]) - want) / want
+    log({"phase": "si_cli", "config": "config3", "rc": rc, "wall_s": wall,
+         **{k: rep.get(k) for k in ("converged", "iterations", "n",
+                                    "t_solve_s", "eigenvalues",
+                                    "residuals")},
+         "golden_rel_err": [float(v) for v in rel],
+         "counts": {k: v for k, v in cnt.items() if v}})
+    if rc != 0 or not rep["converged"] or max(rep["residuals"]) > 1e-8:
+        raise AssertionError(f"config3 through the CLI: {rep}")
+    if not rel.max() <= 1e-8:
+        raise AssertionError(f"config3 vs golden: {rel}")
+    if cnt["level_solve"] != 2 * steps or cnt["level_solve_plain"]:
+        raise AssertionError(f"config3 counts: {cnt}")
+    out["cli"] = cnt
+
+    # (b)
+    cav = RectCavity2D(nx=SI_GRID, ny=SI_GRID)
+    KM = (cav.K, cav.M)
+    t0 = time.perf_counter()
+    pencil = Pencil.from_problem(cav, kernel="union", dtype=torch.float32,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = build_shift_invert_op(pencil, SI_SIGMA, backend="ldlt", KM=KM)
+    torch.cuda.synchronize()
+    factor_s = time.perf_counter() - t0
+    x = pencil.project(torch.randn(pencil.n_padded, device="cuda",
+                                   generator=torch.Generator(
+                                       "cuda").manual_seed(1)))
+    # host clock: the apply's projector (CG on the nodal system) reads its
+    # residual on the host, so device_ms's sleep cannot hold it back
+    apply_ms = wall_ms(lambda: op(x))
+    del op
+    maxiter = 40
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = shift_invert_lanczos(
+        pencil, SI_SIGMA, nev=4, maxiter=maxiter, tol=1e-6, backend="ldlt",
+        KM=KM, generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = all_counts()
+    t0 = time.perf_counter()
+    ref = refine_f64(cav, res.eigenvectors, theta=res.eigenvalues, tol=1e-8)
+    refine_s = time.perf_counter() - t0
+    exact = nearest(te_eigenvalues_2d(1.0, 1.0, 20), SI_SIGMA, 4)
+    rel = np.abs(np.sort(ref.eigenvalues) - exact) / exact
+    log({"phase": "si_ldlt", "grid": SI_GRID, "n": cav.n_edges,
+         "dtype": "f32", "kernel": "union", "setup_s": setup_s,
+         "factor_s": factor_s, "apply_ms": apply_ms, "solve_s": solve_s,
+         "refine_s": refine_s, "lanczos_steps": maxiter,
+         "eigenvalues_f32": [float(v) for v in res.eigenvalues],
+         "residuals_f32": [float(v) for v in res.residuals],
+         "eigenvalues": [float(v) for v in ref.eigenvalues],
+         "residuals_refined": [float(v) for v in ref.residuals],
+         "refine_sweeps": ref.iterations, "converged": ref.converged,
+         "analytic_rel_err": [float(v) for v in rel],
+         "level_solve_per_apply": counts["level_solve"] / maxiter,
+         "device": torch.cuda.get_device_name(0),
+         "nvidia_smi": nvidia_smi_line(),
+         "counts": {k: v for k, v in counts.items() if v}})
+    if not ref.converged or ref.residuals.max() > 1e-8:
+        raise AssertionError(f"128^2 shift-invert refine: {ref.residuals}")
+    if not np.all(np.isfinite(ref.eigenvectors)) or (
+            ref.eigenvectors.shape != (cav.n_edges, 4)):
+        raise AssertionError("128^2 shift-invert eigenvectors")
+    if not rel.max() <= 1e-3:
+        raise AssertionError(f"128^2 shift-invert vs analytic: {rel}")
+    if counts["level_solve"] != 2 * maxiter:
+        raise AssertionError(f"level_solve launches: {counts}")
+    stray = {k: v for k, v in counts.items() if v and k.endswith(
+        ("_ref", "_plain"))}
+    if stray:
+        raise AssertionError(f"plain versions ran on the card: {stray}")
+    out["ldlt"] = counts
+    del pencil
+
+    # (c)
+    g = STENCIL_GRID
+    stp = StencilPencil3D.build(nx=g, ny=g, nz=g, dtype=torch.float32,
+                                device="cuda")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = shift_invert_lanczos(
+        stp, SI_STENCIL_SIGMA, nev=3, maxiter=30, tol=1e-5,
+        backend="iterative", generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = all_counts()
+    exact = 6 * np.pi ** 2
+    rel = np.abs(np.asarray(res.eigenvalues) - exact) / exact
+    log({"phase": "si_stencil", "grid": g, "n": stp.n, "dtype": "f32",
+         "solve_s": solve_s, "lanczos_steps": 30,
+         "eigenvalues": [float(v) for v in res.eigenvalues],
+         "residuals": [float(v) for v in res.residuals],
+         "converged": res.converged,
+         "analytic_rel_err": [float(v) for v in rel],
+         "stencil_taps_per_apply": counts["stencil_taps"] / 30,
+         "counts": {k: v for k, v in counts.items() if v}})
+    if not rel.max() <= 2e-3 or not np.all(np.isfinite(res.eigenvectors)):
+        raise AssertionError(f"64^3 MINRES shift-invert: {res}")
+    if counts["stencil_taps"] <= 0 or counts["stencil_taps_ref"]:
+        raise AssertionError(f"64^3 MINRES shift-invert counts: {counts}")
+    out["stencil"] = counts
+    return out
+
+
+def phase_si_dist():
+    """shift_invert_lanczos_dist at f32 on the card, each against the
+    one-device port on the same problem from the same start vector:
+    the 16x16 rectangle in 8 row shards (union pencil, "rdma_overlap": the
+    fused interior SpMM + halo copy, K5), sigma 45, nev 4, maxiter 30; the
+    16^3 brick in 8 slabs (the tap kernel on the ghost-extended slabs),
+    sigma 60, nev 3, maxiter 24; and thick_restart_lanczos_dist(mode=
+    "shift_invert") on the 8-shard rectangle (ncv 20). The f32 MINRES
+    inner solves stop at 16 eps, so the eigenvalues are held to the
+    one-device port's within 1e-4. Counts zeroed just before each
+    distributed run."""
+    from maxwell_tpu_torch.dist import make_mesh, partition_problem
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+    from maxwell_tpu_torch.problems import RectCavity2D
+    from maxwell_tpu_torch.problems.stencil3d import StencilPencil3D
+    from maxwell_tpu_torch.solvers.dist_solve import (
+        shift_invert_lanczos_dist,
+    )
+    from maxwell_tpu_torch.solvers.operator import Pencil
+    from maxwell_tpu_torch.solvers.shift_invert import (
+        iterative_apply,
+        shift_invert_lanczos,
+    )
+    from maxwell_tpu_torch.solvers.trlanczos import (
+        thick_restart_lanczos,
+        thick_restart_lanczos_dist,
+    )
+
+    mesh = make_mesh(SHARDS, "cuda")
+    out = {}
+
+    def check(name, res, one, wall, counts, need):
+        got, want = np.sort(res.eigenvalues), np.sort(one.eigenvalues)
+        rel = np.abs(got - want) / np.abs(want)
+        log({"phase": "si_dist", "case": name, "wall_s": wall,
+             "iterations": res.iterations, "converged": res.converged,
+             "eigenvalues": [float(v) for v in got],
+             "one_device": [float(v) for v in want],
+             "rel_to_one_device": [float(v) for v in rel],
+             "residuals": [float(v) for v in res.residuals],
+             "counts": {k: v for k, v in counts.items() if v}})
+        if not rel.max() <= 1e-4 or not np.all(np.isfinite(
+                res.eigenvectors)):
+            raise AssertionError(f"si dist {name} vs one device: {rel}")
+        if counts[need] <= 0:
+            raise AssertionError(f"si dist {name}: {need} not launched")
+        stray = {k: v for k, v in counts.items() if v and k.endswith(
+            ("_ref", "_plain"))}
+        if stray:
+            raise AssertionError(f"plain versions ran on the card: {stray}")
+        out[name] = counts
+
+    cav = RectCavity2D(nx=16, ny=16)
+    dp = partition_problem(cav, SHARDS, kernel="union", dtype=torch.float32,
+                           halo_impl="rdma_overlap", device="cuda")
+    one = Pencil.from_problem(cav, kernel="union", dtype=torch.float32,
+                              precision="highest", device="cuda")
+    v0 = dp.make_block(1, torch.Generator("cuda").manual_seed(0))[:, 0]
+    v_one = dp.extract_vectors(v0[:, None])[:, 0]
+    want = shift_invert_lanczos(one, 45.0, nev=4, maxiter=30, tol=1e-5,
+                                backend="iterative", v0=v_one)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = shift_invert_lanczos_dist(dp, mesh, sigma=45.0, nev=4, maxiter=30,
+                                    tol=1e-5, v0=v0)
+    torch.cuda.synchronize()
+    check("rect16_8shards", res, want, time.perf_counter() - t0,
+          all_counts(), "union_interior_overlap")
+
+    kw = dict(nev=4, ncv=20, max_restarts=6, tol=1e-5, mode="shift_invert",
+              sigma=45.0)
+    want = thick_restart_lanczos(one, v0=v_one,
+                                 apply_op=iterative_apply(one, 45.0), **kw)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = thick_restart_lanczos_dist(dp, mesh, v0=v0, **kw)
+    torch.cuda.synchronize()
+    check("rect16_8shards_trlanczos", res, want, time.perf_counter() - t0,
+          all_counts(), "union_interior_overlap")
+    del dp, one
+
+    g = 16
+    dps = DistStencilPencil3D.build(nx=g, ny=g, nz=g, D=SHARDS,
+                                    dtype=torch.float32, device="cuda")
+    stp = StencilPencil3D.build(nx=g, ny=g, nz=g, dtype=torch.float32,
+                                device="cuda")
+    v0 = dps.make_block(1, torch.Generator("cuda").manual_seed(0))[:, 0]
+    v_one = dps.extract_vectors(v0[:, None])[:, 0]
+    want = shift_invert_lanczos(stp, 60.0, nev=3, maxiter=24, tol=1e-5,
+                                backend="iterative", v0=v_one)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = shift_invert_lanczos_dist(dps, mesh, sigma=60.0, nev=3,
+                                    maxiter=24, tol=1e-5, v0=v0)
+    torch.cuda.synchronize()
+    check(f"brick{g}_8slabs", res, want, time.perf_counter() - t0,
+          all_counts(), "stencil_taps")
+    return out
+
+
+def phase_tet_cli():
+    """Config 6 (the jiggled 6^3 tet mesh, f64 LOBPCG) through the CLI on
+    cuda, held to a dense scipy.linalg.eigh of its assembled K, M to
+    1e-8. Returns (report, counts)."""
+    import scipy.linalg
+
+    from maxwell_tpu_torch.cli.run import build_problem
+
+    path = os.path.join(CONFIGS, "config6_tet.json")
+    rc, rep, cnt, wall = run_cli(path)
+    with open(path) as f:
+        cav = build_problem(json.load(f)["problem"])
+    w = scipy.linalg.eigh(cav.K.toarray(), cav.M.toarray(), eigvals_only=True)
+    dense = np.sort(w[w > 1e-6])[: len(rep["eigenvalues"])]
+    rel = np.abs(np.asarray(rep["eigenvalues"]) - dense) / dense
+    log({"phase": "tet_cli", "config": "config6_tet", "rc": rc,
+         "wall_s": wall,
+         **{k: rep.get(k) for k in ("converged", "iterations", "n",
+                                    "t_solve_s", "eigenvalues", "residuals",
+                                    "analytic_rel_err")},
+         "dense_rel_err": [float(v) for v in rel],
+         "counts": {k: v for k, v in cnt.items() if v}})
+    if rc != 0 or not rep["converged"] or max(rep["residuals"]) > 1e-8:
+        raise AssertionError(f"config6 through the CLI: {rep}")
+    if not rel.max() <= 1e-8:
+        raise AssertionError(f"config6 vs dense eigh: {rel}")
+    return rep, cnt
+
+
 def timed(fn, *args):
     """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
     t0 = time.perf_counter()
@@ -2236,6 +2713,14 @@ def main():
     slab = timed(phase_dist_stencil_kernels)
     slab_solve = timed(phase_dist_stencil_solve)
     timed(phase_dist_stencil_cli)
+    stats["level_solve"] = timed(phase_tri_solve_kernels)
+    si_counts = timed(phase_si_solve)
+    timed(phase_si_dist)
+    timed(phase_tet_cli)
+    stats["level_solve"].update(
+        config3_cli_launches=si_counts["cli"]["level_solve"],
+        note="not a Pallas kernel in the reference: a jnp fori_loop over "
+             "the levels")
     # the tap kernel's second path: the slab apply in the 8-slab solve
     stats["stencil_taps"]["slab"] = {
         **slab, "launches": slab_solve["counts"]["stencil_taps"],
@@ -2250,6 +2735,7 @@ def main():
                 "union_interior_overlap":
                     dist_counts["union"]["union_interior_overlap"],
                 "ring_shift": dist_counts["pallas"]["ring_shift"],
+                "level_solve": si_counts["ldlt"]["level_solve"],
                 **{name: probe_counts[name]
                    for name in probes_of("exp_union", "exp_union2")},
                 **probe2_counts, **probe3_counts}
@@ -2266,7 +2752,8 @@ def main():
     bands = ("bands", "col_rows", "full_x_kernel_ms")
     log({"off_main_path": [
         {**entry("bellunion_matvec"),
-         "residual_check_launches": check_counts["bellunion_matvec"]},
+         "residual_check_launches": check_counts["bellunion_matvec"],
+         "si_solve_launches": si_counts["ldlt"]["bellunion_matvec"]},
         entry("bsr_matmat_windowed", *window),
         entry("bellpairs_matmat_windowed", *window),
         entry("bellpairs_matmat_banded", *bands),
@@ -2284,7 +2771,8 @@ def main():
                           "m1", "m8", "m9", "m32", "m64", "m128", "m171",
                           "launch_floor_ms", "chain_ms", "chain_floor_ms",
                           "unit_bytes", "library_bf16_ms", "l2_floor_ms",
-                          "p3_grid91", "slab")
+                          "p3_grid91", "slab", "levels", "cases",
+                          "config3_cli_launches", "note")
                          if w in stats[name]}}
                      for name, path in paths.items()]})
     log(f"nvidia-smi: {nvidia_smi_line()}")

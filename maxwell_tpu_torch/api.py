@@ -24,6 +24,7 @@ def solve(
     nev: int = 5,
     tol: float = 1e-8,
     solver: str = "lobpcg",
+    sigma: float | None = None,
     maxiter: int | None = None,
     dtype: torch.dtype = torch.float64,
     block: int | None = None,
@@ -38,8 +39,10 @@ def solve(
     PermutedProblem) on `device`.
 
     solver: "lobpcg" (preconditioned; the shift is auto-tuned from the
-    analytic oracle when there is one) or "lanczos" (solvers/lanczos.py,
-    maxiter default 300). "shift_invert" is not ported yet.
+    analytic oracle when there is one), "lanczos" (solvers/lanczos.py,
+    maxiter default 300) or "shift_invert" (solvers/shift_invert.py: the
+    nev modes nearest `sigma`, which it needs; maxiter default 60; K -
+    sigma M factored on the host, no refine).
 
     kernel: "auto" — the BELLUnion CUDA kernels ("union") on a CUDA device
     at f32, the plain blocked-ELL apply ("ref") otherwise — or an explicit
@@ -60,18 +63,14 @@ def solve(
     the host reaches tol.
 
     Further keyword arguments go to the solver: lobpcg (stall_window, X0,
-    log_every, ...) or lanczos (v0, generator); an f32 LOBPCG that a refine
+    log_every, ...), lanczos (v0, generator) or shift_invert_lanczos (v0,
+    generator, backend, KM); an f32 LOBPCG that a refine
     follows takes stall_window=15 unless one is given; precond_alpha sets
     LOBPCG's preconditioner shift (default: the smallest analytic
     eigenvalue when the problem has an oracle, else 1).
     """
     device = torch.device(device)
-    if solver == "shift_invert":
-        raise NotImplementedError(
-            "solver='shift_invert' is not ported yet (ROADMAP.md, slice 7: "
-            "shift-invert with the native LDL^T)"
-        )
-    if solver not in ("lobpcg", "lanczos"):
+    if solver not in ("lobpcg", "lanczos", "shift_invert"):
         raise ValueError(f"unknown solver {solver!r}")
     if kernel == "auto":
         kernel = (
@@ -121,6 +120,17 @@ def solve(
         problem, block=block, kernel=kernel, dtype=dtype, device=device
     )
     setup_s = time.perf_counter() - t0
+    if solver == "shift_invert":
+        if sigma is None:
+            raise ValueError("shift_invert needs sigma")
+        from maxwell_tpu_torch.solvers.shift_invert import (
+            shift_invert_lanczos,
+        )
+
+        return shift_invert_lanczos(
+            pencil, sigma=sigma, nev=nev, maxiter=maxiter or 60, tol=tol,
+            **kwargs,
+        )
     # both solvers return host arrays, so the clock stops after the device
     # work
     if solver == "lanczos":

@@ -41,7 +41,8 @@ CHAIN, CHAIN_RUNS = 200, 5  # launches a chain, chains a chain_ms
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock
 CLOCK_HZ = 2.0e9  # above the H100's boost clock (1.98 GHz): cycles -> s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FLOPS_PER_S = {"f32": 67e12, "bf16": 989e12}  # H100 SXM dense peaks
+# H100 SXM dense peaks (NVIDIA's data sheet); f64 outside the tensor cores
+FLOPS_PER_S = {"f32": 67e12, "bf16": 989e12, "f64": 34e12}
 COPY_BYTES = 256 * 2**20
 L2_BYTES = 1_220_608  # the K15e probe's X at T 298 (38,144 rows of 8 f32)
 L2_BLOCKS_PER_SM = 8  # blocks of 256 threads: 2,048 threads an SM
@@ -242,11 +243,11 @@ def union_bytes(A, streams, m):
     return live, fill
 
 
-def torch_csr(A, device):
+def torch_csr(A, device, dtype=torch.float32):
     A = A.tocsr()
     return torch.sparse_csr_tensor(
         torch.from_numpy(A.indptr.astype(np.int64)),
         torch.from_numpy(A.indices.astype(np.int64)),
-        torch.from_numpy(A.data.astype(np.float32)),
+        torch.from_numpy(A.data).to(dtype),
         size=A.shape, device=device,
     )

@@ -2,9 +2,13 @@
 [--device cuda|cpu] [overrides]`.
 
 Takes the JSON configs of maxwell_tpu/cli/run.py (configs/); this port runs
-the solver kinds "lobpcg", "lanczos" and "tr_lanczos" (`ncv`,
-`max_restarts`) on the assembled "rect2d" and "brick3d" problems
-(`storage.kernel`: "auto", "ref", "union", "pallas" or "bellpairs") and on
+the solver kinds "lobpcg", "lanczos", "tr_lanczos" (`ncv`, `max_restarts`)
+and "shift_invert" (`sigma`; K - sigma M factored on the host from the
+assembled matrices, config 3) on the assembled "rect2d", "brick3d" and
+"tet3d" problems (`storage.kernel`: "auto", "ref", "union", "pallas" or
+"bellpairs"; tet3d: a Kuhn-triangulated brick of `n` cubes a side, its
+interior vertices moved by `jiggle` * h normal draws from `seed`, config 6)
+and on
 the matrix-free operator (`storage.operator == "stencil"`: StencilPencil2D
 / StencilPencil3D, with materials), and "lobpcg_dist" on the assembled
 problems (`dist.n_shards` row shards, `storage.kernel` "auto", "ref",
@@ -18,8 +22,8 @@ pencils refine to tol on the device (`refine_dw`; slab-sharded ones
 `refine_dw_dist`, for a staged `batch` run each stage's block before it
 joins the deflation basis), other stencil pencils by warm-started f64
 LOBPCG on the CPU (`refine_f64_pencil`), and assembled problems by host f64
-RQI (`refine_f64`). "shift_invert" and tet meshes raise
-NotImplementedError naming their ROADMAP.md slice.
+RQI (`refine_f64`). A shift-invert on the matrix-free operator raises the
+reference's ValueError (the factorization needs assembled matrices).
 
 Prints the per-iteration history as JSON lines, then a final JSON report
 (eigenvalues, residuals, iterations, converged, timings, n, and the
@@ -93,9 +97,32 @@ def build_problem(cfg):
             mu_r=mu_r,
         )
     if kind == "tet3d":
-        raise NotImplementedError(
-            "tet3d problems are not ported yet (ROADMAP.md, slice 8)"
+        # unstructured tetrahedral Nedelec on a Kuhn-triangulated brick;
+        # "jiggle" moves the interior vertices so the mesh is not a tensor
+        # product (the reference CLI's mesh, the same draws)
+        import numpy as np
+
+        from maxwell_tpu_torch.problems.tetmesh import (
+            TetCavity,
+            brick_tet_mesh,
         )
+
+        a, b, c = cfg.get("a", 1.0), cfg.get("b", 1.0), cfg.get("c", 1.0)
+        n = cfg.get("n", cfg.get("nx", 6))
+        jig = cfg.get("jiggle", 0.0)
+        if jig:
+            verts, tets = brick_tet_mesh(a, b, c, n, n, n)
+            rng = np.random.default_rng(cfg.get("seed", 0))
+            eps = 1e-9
+            interior = np.all(
+                (verts > eps) & (verts < np.array([a, b, c]) - eps), axis=1
+            )
+            verts = verts.copy()
+            verts[interior] += (
+                jig * (a / n) * rng.standard_normal((int(interior.sum()), 3))
+            )
+            return TetCavity(a=a, b=b, c=c, verts=verts, tets=tets)
+        return TetCavity(a=a, b=b, c=c, n=n)
     raise ValueError(f"unknown problem kind {kind!r}")
 
 
@@ -214,8 +241,19 @@ def _lobpcg_dist(dp, mesh, scfg, dtype, nev, maxiter, tol, full_tol, args,
     return res, stage_polish is not None
 
 
-def _single_device(pencil, kind, scfg, nev, maxiter, tol, args, f32_refine):
-    """The config's solver on one pencil."""
+def _single_device(pencil, kind, scfg, nev, maxiter, tol, args, f32_refine,
+                   problem):
+    """The config's solver on one pencil (`problem`: the assembled problem,
+    None for the matrix-free operator)."""
+    if kind == "shift_invert":
+        from maxwell_tpu_torch.solvers.shift_invert import (
+            shift_invert_lanczos,
+        )
+
+        return shift_invert_lanczos(
+            pencil, sigma=scfg.get("sigma", 1.0), nev=nev, maxiter=maxiter,
+            tol=tol, KM=(problem.K, problem.M),  # the assembled matrices
+        )
     if kind == "lanczos":
         from maxwell_tpu_torch.solvers.lanczos import lanczos
 
@@ -279,14 +317,15 @@ def main(argv=None):
     kind = scfg.get("kind", "lobpcg")
     stg = cfg.get("storage", {})
     pcfg = cfg.get("problem", {})
-    if kind == "shift_invert":
-        raise NotImplementedError(
-            "solver kind 'shift_invert' is not ported yet (ROADMAP.md, "
-            "slice 7)"
-        )
-    if kind not in ("lobpcg", "lanczos", "tr_lanczos", "lobpcg_dist"):
+    if kind not in ("lobpcg", "lanczos", "tr_lanczos", "shift_invert",
+                    "lobpcg_dist"):
         raise ValueError(f"unknown solver {kind!r}")
     use_stencil = stg.get("operator") == "stencil"
+    if kind == "shift_invert" and use_stencil:
+        raise ValueError(
+            "shift_invert needs assembled matrices (factorization); "
+            "drop storage.operator=stencil"
+        )
     dtype = {"f32": torch.float32, "f64": torch.float64}[
         stg.get("dtype", "f64")
     ]
@@ -340,7 +379,7 @@ def main(argv=None):
                 device=device,
             )
         res = _single_device(pencil, kind, scfg, nev, maxiter, tol, args,
-                             want_refine and dtype == torch.float32)
+                             want_refine and dtype == torch.float32, problem)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_solve = time.perf_counter() - t0
@@ -406,8 +445,10 @@ def main(argv=None):
     }
     if t_refine is not None:
         report["t_refine_s"] = t_refine
-    if pcfg.get("bc", "pec") == "pec" and not pcfg.get("materials"):
-        # analytic oracle: the smallest PEC modes (none for loaded cavities)
+    if (kind != "shift_invert" and pcfg.get("bc", "pec") == "pec"
+            and not pcfg.get("materials")):
+        # analytic oracle: the smallest PEC modes (none for loaded cavities,
+        # nor for shift-invert, whose modes are those nearest sigma)
         if pcfg.get("kind", "rect2d") == "rect2d":
             from maxwell_tpu_torch.problems.analytic import te_eigenvalues_2d
 

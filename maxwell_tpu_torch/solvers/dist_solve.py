@@ -249,12 +249,40 @@ def lanczos_dist(
     return res
 
 
-def shift_invert_lanczos_dist(dpencil: DistPencil, mesh=None, *args,
-                              **kwargs):
-    """Distributed shift-invert Lanczos: waits for shift-invert."""
-    raise NotImplementedError(
-        "shift_invert_lanczos_dist is not ported yet (ROADMAP.md, slice 7: "
-        "shift-invert)")
+@fp32_true
+def shift_invert_lanczos_dist(
+    dpencil,
+    mesh=None,
+    sigma: float = 0.0,
+    nev: int = 5,
+    maxiter: int = 60,
+    tol: float = 1e-8,
+    v0=None,
+    generator: torch.Generator | None = None,
+    inner_tol: float = 1e-11,
+    inner_iters: int = 400,
+) -> EigenResult:
+    """Distributed shift-invert Lanczos (maxwell_tpu/solvers/dist_solve.py:
+    374-432): the single-device Lanczos on the stacked pencil with the
+    matrix-free MINRES apply (solvers/shift_invert.py), whose every inner
+    step is a sharded K/M apply and per-shard dots. No factorization: works
+    on the row-sharded DistPencil and the slab-sharded DistStencilPencil3D.
+    v0: start vector in the stacked layout (default: make_block(1) from
+    `generator`)."""
+    from maxwell_tpu_torch.solvers.lanczos import lanczos
+    from maxwell_tpu_torch.solvers.shift_invert import iterative_apply
+
+    _check_mesh(dpencil, mesh)
+    if v0 is None:
+        v0 = dpencil.make_block(1, generator)[:, 0]
+    res = lanczos(
+        dpencil, nev=nev, maxiter=maxiter, tol=tol, v0=v0,
+        mode="shift_invert",
+        apply_op=iterative_apply(dpencil, sigma, inner_tol, inner_iters),
+        sigma=sigma,
+    )
+    res.eigenvectors = dpencil.extract_vectors(res.eigenvectors)
+    return res
 
 
 def spmm_dist(dpencil: DistPencil, mesh, X, which: str = "K"):

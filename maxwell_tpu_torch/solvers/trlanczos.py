@@ -16,8 +16,9 @@ total iterations.
   in the preallocated V/MV buffers; the small eigh runs on the host between
   cycles.
 - `thick_restart_lanczos_dist` runs the same cycles on a row-sharded
-  DistPencil (dist/partition.py), whose stacked view supplies the
-  per-shard reductions and halo exchanges.
+  DistPencil (dist/partition.py) or a slab-sharded DistStencilPencil3D,
+  whose stacked view supplies the per-shard reductions and halo exchanges,
+  in direct or shift-invert mode.
 """
 
 from __future__ import annotations
@@ -191,22 +192,29 @@ def thick_restart_lanczos_dist(
     generator: torch.Generator | None = None,
     mode: str = "direct",
     sigma: float = 0.0,
+    inner_tol: float = 1e-11,
+    inner_iters: int = 400,
 ) -> EigenResult:
-    """Distributed thick-restart Lanczos (direct mode) on a DistPencil: the
-    basis is (ncv + 1) stacked vectors, O(n ncv) as on one device. v0: start
-    vector in the stacked layout (default: make_block(1) from `generator`).
-    Eigenvectors come back in the problem's ordering. mode="shift_invert"
-    waits for shift-invert."""
-    if mode != "direct":
-        raise NotImplementedError(
-            "thick_restart_lanczos_dist(mode='shift_invert') is not ported "
-            "yet (ROADMAP.md, slice 7: shift-invert)")
+    """Distributed thick-restart Lanczos on a DistPencil or
+    DistStencilPencil3D: the basis is (ncv + 1) stacked vectors, O(n ncv)
+    as on one device. mode="shift_invert" takes the matrix-free MINRES
+    apply (the operator of shift_invert_lanczos_dist). v0: start vector in
+    the stacked layout (default: make_block(1) from `generator`).
+    Eigenvectors come back in the problem's ordering."""
     from maxwell_tpu_torch.solvers.dist_solve import _check_mesh
 
+    if mode not in ("direct", "shift_invert"):
+        raise ValueError(f"unknown mode {mode!r}")
     _check_mesh(dpencil, mesh)
+    apply_op = None
+    if mode == "shift_invert":
+        from maxwell_tpu_torch.solvers.shift_invert import iterative_apply
+
+        apply_op = iterative_apply(dpencil, sigma, inner_tol, inner_iters)
     if v0 is None:
         v0 = dpencil.make_block(1, generator)[:, 0]
     res = thick_restart_lanczos(dpencil, nev=nev, ncv=ncv,
-                                max_restarts=max_restarts, tol=tol, v0=v0)
+                                max_restarts=max_restarts, tol=tol, v0=v0,
+                                apply_op=apply_op, mode=mode, sigma=sigma)
     res.eigenvectors = dpencil.extract_vectors(res.eigenvectors)
     return res

@@ -1302,3 +1302,65 @@ def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
         with pytest.raises(ValueError):
             call()
     assert not any(spp.counts().values()) and not any(gpr.counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["ldlt", "splu"])
+def test_cuda_level_solve_matches_plain(cuda_device, kind, dtype, m):
+    """level_solve on config 3's factors (16x16, sigma 45): a backward
+    error within the substitution bound (tri_solve.backward_error <= 2);
+    within max(16 g, 8) eps max|x| of the plain version, g the rounding
+    growth of the chain (the f32 plain solve's distance from the f64 one
+    over eps_f32 max|x|); two runs bit for bit equal, one launch a factor
+    solve; the factored solve against scipy."""
+    import scipy.sparse.linalg as spla
+
+    from maxwell_tpu_torch.kernels import tri_solve
+
+    cav = RectCavity2D(nx=16, ny=16)
+    A = (cav.K - 45.0 * cav.M).tocsc()
+
+    def factor(dt):
+        if kind == "ldlt":
+            d = tri_solve.SparseLDLTDevice.factor(A, dtype=dt,
+                                                  device=cuda_device)
+            return d, (d.L, d.Lt)
+        d = tri_solve.SparseLUDevice.from_splu(spla.splu(A), dtype=dt,
+                                               device=cuda_device)
+        return d, (d.L, d.U)
+
+    dev, factors = factor(dtype)
+    _, factors64 = factor(torch.float64)
+    _, factors32 = factor(torch.float32)
+    rng = np.random.default_rng(m)
+    B64 = torch.from_numpy(rng.standard_normal((A.shape[0], m))).to(
+        cuda_device)
+    B = B64.to(dtype)
+    for S, S64, S32 in zip(factors, factors64, factors32):
+        tri_solve.reset_counts()
+        got = tri_solve.level_solve(S, B)
+        again = tri_solve.level_solve(S, B)
+        assert tri_solve.counts() == {"level_solve": 2,
+                                      "level_solve_plain": 0}
+        want = tri_solve.level_solve_plain(S, B)
+        p64 = tri_solve.level_solve_plain(S64, B64)
+        p32 = tri_solve.level_solve_plain(S32, B64.float())
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        growth = ((p32.double() - p64).abs().max().item()
+                  / (torch.finfo(torch.float32).eps * p64.abs().max().item()))
+        tol = max(16 * growth, 8) * torch.finfo(dtype).eps * scale
+        assert (got - want).abs().max().item() <= tol
+        assert tri_solve.backward_error(S, B, got) <= 2
+        assert torch.equal(got, again)
+    x = dev.solve(B).double().cpu().numpy()
+    ref = spla.spsolve(A, B64.cpu().numpy()).reshape(x.shape)
+    rel = np.abs(x - ref).max() / np.abs(ref).max()
+    assert rel <= (1e-10 if dtype == torch.float64 else 1e-3)
+    with pytest.raises(ValueError, match="f32 or f64"):
+        tri_solve.level_solve(factors[0], B.to(torch.float16))
+    with pytest.raises(ValueError, match="factor in"):
+        other_dt = torch.float32 if dtype == torch.float64 else torch.float64
+        tri_solve.level_solve(factors[0], B.to(other_dt))

@@ -224,9 +224,12 @@ def test_unported_distributed_paths_raise(brick6):
         RefShift.build(ref, 15.0)
     with pytest.raises(AttributeError):
         lobpcg_dist(port, None, nev=2, precond="spectral")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shift_invert_lanczos_dist(port, None, sigma=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thick_restart_lanczos_dist(port, None, mode="shift_invert")
+    # the distributed shift-invert runs (test_torch_si_dist.py); a mesh of
+    # another shard count is still refused
+    with pytest.raises(ValueError, match="shards"):
+        shift_invert_lanczos_dist(port, make_mesh(4, "cpu"), sigma=1.0)
+    with pytest.raises(ValueError, match="shards"):
+        thick_restart_lanczos_dist(port, make_mesh(4, "cpu"),
+                                   mode="shift_invert")
     with pytest.raises(ValueError, match="shards"):
         lobpcg_dist(port, make_mesh(4, "cpu"), nev=2)

@@ -92,17 +92,16 @@ def test_cli_tr_lanczos_f64(config1, tmp_path, capsys):
 
 @pytest.mark.parametrize("kind", ["shift_invert", "lobpcg_dist"])
 def test_cli_unported_kinds_raise(tmp_path, kind):
-    """shift_invert is refused; lobpcg_dist on the distributed stencil
-    operator takes brick3d problems only and raises the reference CLI's
-    ValueError ("3D-only") for a rect2d."""
-    cfg = {"problem": {"kind": "rect2d"}, "solver": {"kind": kind}}
-    if kind == "lobpcg_dist":
-        cfg["storage"] = {"operator": "stencil"}
+    """On the matrix-free operator: shift_invert raises the reference CLI's
+    ValueError (it factors assembled matrices) for a brick3d as for a
+    rect2d; lobpcg_dist on the distributed stencil operator takes brick3d
+    problems only and raises the reference CLI's ValueError ("3D-only")
+    for a rect2d."""
+    pkind = "brick3d" if kind == "shift_invert" else "rect2d"
+    cfg = {"problem": {"kind": pkind}, "solver": {"kind": kind},
+           "storage": {"operator": "stencil"}}
     path = tmp_path / "c.json"
     path.write_text(json.dumps(cfg))
-    if kind == "lobpcg_dist":
-        with pytest.raises(ValueError, match="3D-only"):
-            port_cli.main([str(path), "--device", "cpu"])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = "assembled matrices" if kind == "shift_invert" else "3D-only"
+    with pytest.raises(ValueError, match=match):
         port_cli.main([str(path), "--device", "cpu"])

@@ -69,13 +69,17 @@ def test_solve_auto_kernel_on_cpu_is_ref():
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(solver="shift_invert", sigma=1.0),
-               dict(distributed=True, solver="shift_invert", sigma=1.0)],
+    "kwargs,match",
+    [(dict(solver="shift_invert", sigma=1.0, kernel="bellpairs"), "KM="),
+     (dict(distributed=True, solver="shift_invert", sigma=1.0),
+      "LOBPCG only")],
 )
-def test_solve_unported_paths_raise(kwargs):
-    """Shift-invert waits for its slice, on one shard or many (the
-    distributed LOBPCG is ported: test_solve_distributed_lobpcg)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_solve_unported_paths_raise(kwargs, match):
+    """What the reference refuses, the port refuses: a shift-invert
+    factorization of a bellpairs pencil without the assembled matrices, and
+    a distributed shift-invert through solve() (its convenience path is
+    LOBPCG only; shift-invert on one device: test_torch_shift_invert.py)."""
+    with pytest.raises(ValueError, match=match):
         maxwell_tpu_torch.solve(BrickCavity3D(nx=2, ny=2, nz=2),
                                 device="cpu", **kwargs)
 
@@ -177,8 +181,11 @@ def test_cli_config2_matches_reference_cli(capsys, tmp_path):
 
 
 def test_cli_unported_solver_raises(tmp_path):
+    """A shift-invert needs assembled matrices: on the matrix-free
+    operator the CLI raises the reference CLI's ValueError."""
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"problem": {"kind": "rect2d"},
-                                "solver": {"kind": "shift_invert"}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                "solver": {"kind": "shift_invert"},
+                                "storage": {"operator": "stencil"}}))
+    with pytest.raises(ValueError, match="assembled matrices"):
         port_cli.main([str(path), "--device", "cpu"])
