@@ -185,10 +185,11 @@ Phases, in order; any failure raises and the process exits non-zero:
                config 3's splu L and U, f32 and f64, m in {1, 4}: backward
                error within the substitution bound, within 16 times the
                chain's measured rounding growth of the plain version, two
-               runs bit for bit; device_ms, the plain
-               version's time, the byte bound, the level count, the launch
-               floor and torch.triangular_solve on the factor as a sparse
-               CSR tensor (wall_ms: it synchronizes)
+               runs bit for bit; device_ms, the plain version's time, the
+               byte bound, the level count, the launch floor, the 16-warp
+               tag hand-off floor (level_chain), the route and window, and
+               torch.triangular_solve on the factor as a sparse CSR tensor
+               (wall_ms: it synchronizes)
  25. si solve  config 3 through the CLI (f64; golden rect2d_16x16 nearest
                sigma to 1e-8; 2 level_solve launches a Lanczos step); the
                128^2 rectangle on an f32 union pencil, LDL^T, sigma 45, nev
@@ -2260,41 +2261,32 @@ def phase_tri_solve_kernels():
     bit. Each case timed on the device alone (device_ms, one launch a
     call), the plain version by its one call between synchronizes
     (host-bound: about 7 launches a level), beside the byte bound, the
-    level count, the launch floor and the library call:
-    torch.triangular_solve on the factor as a sparse CSR tensor, timed by
-    wall_ms (it synchronizes). Returns the kernels-line stats."""
-    import scipy.sparse.linalg as spla
-
+    level count, the launch floor, the chain floor (tri_solve.level_chain:
+    the 16-warp tag hand-off floor, no loads, over as many positions as
+    the factor has levels), the route (x's window in shared or device memory), the
+    window and the library call: torch.triangular_solve on the factor as a
+    sparse CSR tensor, timed by wall_ms (it synchronizes). Returns the
+    kernels-line stats."""
+    from maxwell_tpu_torch.bench import profile_tri_solve
     from maxwell_tpu_torch.kernels import tri_solve
-    from maxwell_tpu_torch.problems import RectCavity2D
 
     dev = torch.device("cuda")
     floor = launch_floor_ms()
-    big = RectCavity2D(nx=SI_GRID, ny=SI_GRID)
-    A = (big.K - SI_SIGMA * big.M).tocsr()
-    small = RectCavity2D(nx=16, ny=16)
-    A3 = (small.K - SI_SIGMA * small.M).tocsc()
-    factors = {}
-    for dt in (torch.float64, torch.float32):
-        t0 = time.perf_counter()
-        d = tri_solve.SparseLDLTDevice.factor(A, dtype=dt, device=dev)
-        torch.cuda.synchronize()
-        log({"phase": "tri_factor", "grid": SI_GRID, "n": d.n,
-             "dtype": str(dt), "factor_s": time.perf_counter() - t0,
-             "levels": d.L.n_levels, "L_shape": list(d.L.cols.shape),
-             "Lt_shape": list(d.Lt.cols.shape)})
-        lu = tri_solve.SparseLUDevice.from_splu(spla.splu(A3), dtype=dt,
-                                                device=dev)
-        for key, S in (((f"ldlt{SI_GRID}", "L"), d.L),
-                       ((f"ldlt{SI_GRID}", "Lt"), d.Lt),
-                       (("config3_splu", "L"), lu.L),
-                       (("config3_splu", "U"), lu.U)):
-            factors.setdefault(key, {})[dt] = S
-        del d, lu
+    t0 = time.perf_counter()
+    factors = profile_tri_solve.factors(dev)
+    torch.cuda.synchronize()
+    L = factors[(f"ldlt{profile_tri_solve.GRID}", "L")][torch.float64]
+    log({"phase": "tri_factor", "grid": profile_tri_solve.GRID, "n": L.n,
+         "dtypes": ["f64", "f32"], "factor_s": time.perf_counter() - t0,
+         "levels": L.n_levels, "L_shape": list(L.cols.shape),
+         "Lt_shape": list(factors[(f"ldlt{profile_tri_solve.GRID}", "Lt")][
+             torch.float64].cols.shape)})
 
     rng = np.random.default_rng(0)
     cases = {}
     stats = {"max_abs_err": 0.0, "launch_floor_ms": floor}
+    chain_floor = {lv: profile_tri_solve.chain_floor_ms(lv, dev) for lv in
+                   {d[torch.float64].n_levels for d in factors.values()}}
     for (prob, fac), by_dtype in factors.items():
         n = by_dtype[torch.float64].n
         B4 = torch.from_numpy(rng.standard_normal((n, 4))).to(dev)
@@ -2311,7 +2303,6 @@ def phase_tri_solve_kernels():
         for dt, S in by_dtype.items():
             dname = "f64" if dt == torch.float64 else "f32"
             eps = torch.finfo(dt).eps
-            dsz = torch.finfo(dt).bits // 8
             lib_T = torch_csr(_factor_csr(S), dev, dt)
             live = int(S.cnt.sum())
             for m in SI_WIDTHS:
@@ -2335,11 +2326,7 @@ def phase_tri_solve_kernels():
                     raise AssertionError(f"level_solve {label}: two runs "
                                          f"differ")
                 ms = device_ms(lambda: tri_solve.level_solve(S, Bm), n=5)
-                # each live value and column once, the rows' ids and
-                # counts, the level counts, 1/diag, B read and X written
-                nbytes = (live * (4 + dsz) + n * 8 + S.n_levels * 4
-                          + n * dsz + 2 * n * m * dsz)
-                flops = 2 * live * m + 2 * n * m
+                nbytes, flops = profile_tri_solve.work(S, m, dt)
                 b_ms, b_by = bound_ms(nbytes, flops, dname)
                 upper = not S.lower
                 lib = torch.triangular_solve(Bm, lib_T, upper=upper).solution
@@ -2349,6 +2336,9 @@ def phase_tri_solve_kernels():
                 row = {"kernel": "level_solve", "factor": f"{prob} {fac}",
                        "dtype": dname, "m": m, "n": n, "levels": S.n_levels,
                        "shape": list(S.cols.shape), "live_slots": live,
+                       "route": S.route(dt), "window": S.window,
+                       "ring": S.ring(dt),
+                       "chain_floor_ms": chain_floor[S.n_levels],
                        "max_abs_err": err, "rel_err": err / scale,
                        "tol_rel": tol / scale, "growth": growth,
                        "backward_error": berr, "bitwise_repeat": True,
@@ -2360,17 +2350,21 @@ def phase_tri_solve_kernels():
                            (lib - got).abs().max().item() / scale}
                 log(row)
                 cases[f"{prob}_{fac}_{dname}_m{m}"] = {
-                    k: row[k] for k in ("levels", "rel_err", "ms",
-                                        "plain_ms", "bound_ms",
+                    k: row[k] for k in ("levels", "route", "window",
+                                        "rel_err", "ms", "plain_ms",
+                                        "bound_ms", "chain_floor_ms",
                                         "library_ms")}
                 stats["max_abs_err"] = max(stats["max_abs_err"], err)
                 # the shape the main path gives the kernel: the 128^2 f32
                 # shift-invert apply, one vector
-                if (prob, fac, dname, m) == (f"ldlt{SI_GRID}", "L", "f32",
-                                             1):
+                main = (f"ldlt{profile_tri_solve.GRID}", "L", "f32", 1)
+                if (prob, fac, dname, m) == main:
                     stats.update(ms=ms, plain_ms=plain_ms[dt],
                                  bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=library_ms, levels=S.n_levels)
+                                 library_ms=library_ms, levels=S.n_levels,
+                                 window_route=S.route(dt),
+                                 window=S.window,
+                                 chain_floor_ms=chain_floor[S.n_levels])
     stats["cases"] = cases
     return stats
 
@@ -2771,7 +2765,8 @@ def main():
                           "m1", "m8", "m9", "m32", "m64", "m128", "m171",
                           "launch_floor_ms", "chain_ms", "chain_floor_ms",
                           "unit_bytes", "library_bf16_ms", "l2_floor_ms",
-                          "p3_grid91", "slab", "levels", "cases",
+                          "p3_grid91", "slab", "levels", "window",
+                          "window_route", "cases",
                           "config3_cli_launches", "note")
                          if w in stats[name]}}
                      for name, path in paths.items()]})

@@ -80,8 +80,10 @@ _SIGNATURES = {
     "spmm_stream_tensor_map": [_P] + [_I] * 3 + [_P],
     "spmm_stream_bf16": [_P] * 3 + [_I] * 4 + [_P],
     # tri_solve.cu
-    "level_solve_f32": [_P] * 8 + [_I] * 4 + [_P],
-    "level_solve_f64": [_P] * 8 + [_I] * 4 + [_P],
+    "level_solve_f32": [_P] * 10 + [_I] * 3 + [_P],
+    "level_solve_f64": [_P] * 10 + [_I] * 3 + [_P],
+    "level_chain_f32": [_P] + [_I] * 3 + [_P],
+    "level_solve_shape": [_I] * 2 + [_P],
 }
 
 

@@ -8,17 +8,23 @@ more than the highest level of the columns it references), and the rows of
 one level solve in parallel. A factor is stored per level in padded ELL
 form, built once on the host from a scipy CSR factor (`LevelSchedule`, the
 reference's arrays, plus each row slot's live count and each level's live
-rows).
+rows), and as the kernel's compact plan: the rows renumbered in solve order
+(position p is the p-th row solved), each live slot once with its
+dependency as a position, and the window W, the largest distance in solve
+order between a row and a position it reads.
 
     level_solve(S, B)        X = T^-1 B for one factor, (n,) or (n, m)
     level_solve_plain(S, B)  its plain PyTorch version: the reference's loop
                              body (tri_solve.py:149-157) as a Python loop
                              over the levels, with the ghost row n
+    level_chain(n, device)   the hand-off floor probe: n positions handed
+                             on through the kernel's tags, no loads
 
 `level_solve` given CUDA tensors checks them and launches the hand kernel
-(csrc/tri_solve.cu: every level in one launch, f32 or f64) or raises; given
-CPU tensors it runs the plain version. The wrapper counts its launches in
-`.launches`, the plain version its calls in `.calls`.
+(csrc/tri_solve.cu: every row in one launch, f32 or f64, x's window in
+shared memory where its ring fits, else in device memory; `S.route(dtype)`)
+or raises; given CPU tensors it runs the plain version. The wrapper counts
+its launches in `.launches`, the plain version its calls in `.calls`.
 
 `SparseLUDevice` (from scipy's splu) and `SparseLDLTDevice` (the native
 LDL^T after an RCM ordering, maxwell_tpu_torch/native) solve with two
@@ -34,11 +40,24 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+# csrc/tri_solve.cu's compile-time shape, the plan's route and tail
+# (tests/test_torch_tri_solve.py holds them to the source)
+WARPS = 16  # rows in flight a block, one a warp (kWarps)
+TAIL = 15  # the tail: the slots within TAIL positions of a row (kTail)
+SMEM_MAX = 232_448  # shared memory a block may use (kSmemMax)
+
+
+def stage_bytes(dtype: torch.dtype) -> int:
+    """Shared memory of the kernel's tail stage: two buffers a warp of
+    TAIL slots (value and position)."""
+    return 2 * WARPS * TAIL * (torch.finfo(dtype).bits // 8 + 4)
+
 
 @dataclasses.dataclass(frozen=True)
 class LevelSchedule:
     """One triangular factor, level-scheduled with uniform level padding
-    (the reference's layout, maxwell_tpu/kernels/tri_solve.py:29).
+    (the reference's layout, maxwell_tpu/kernels/tri_solve.py:29), and the
+    kernel's compact plan in solve order.
 
     rows: (nL, Rmax) int32, the rows solved per level; padding = n (the
       ghost row), after the level's live rows.
@@ -49,6 +68,18 @@ class LevelSchedule:
     cnt: (nL, Rmax) int32, the live slots of each row slot (0 on padding).
     live: (nL,) int32, the live rows of each level.
     dinv: (n + 1,), 1 / diag and 1 for the ghost row.
+
+    The plan (position p: the p-th row solved, level by level, a level's
+    rows in the order of `rows`):
+    order: (n,) int32, the row at each position.
+    pdinv: (n,), 1 / diag in solve order.
+    ptr: (n + 1,) int32, each position's first slot in dep / dval.
+    dep: (nnz,) int32, each live slot's dependency as a position, ascending
+      within a row (the newest last).
+    dval: (nnz,), its value.
+    tail: (n,) int32, the first slot of each row's tail, the slots whose
+      dependency is within TAIL positions of the row (at most TAIL).
+    window: the largest p - dep over all slots (0 without slots).
     """
 
     rows: torch.Tensor
@@ -60,10 +91,31 @@ class LevelSchedule:
     cnt: torch.Tensor
     live: torch.Tensor
     dinv: torch.Tensor
+    order: torch.Tensor
+    pdinv: torch.Tensor
+    ptr: torch.Tensor
+    dep: torch.Tensor
+    dval: torch.Tensor
+    tail: torch.Tensor
+    window: int
 
     @property
     def n_levels(self) -> int:
         return self.rows.shape[0]
+
+    def ring(self, dtype: torch.dtype) -> int:
+        """Entries of x's ring in shared memory for a solve in dtype: the
+        smallest power of two >= window + WARPS (the window and the rows in
+        flight; the kernel needs window + TAIL + 1), or 0 where
+        its x and tags and the tail stage take more than SMEM_MAX bytes
+        (the global route)."""
+        ring = 1 << (self.window + WARPS - 1).bit_length()
+        nbytes = ring * (torch.finfo(dtype).bits // 8 + 4)
+        return ring if nbytes + stage_bytes(dtype) <= SMEM_MAX else 0
+
+    def route(self, dtype: torch.dtype) -> str:
+        """"shared" (x's window in shared memory) or "global"."""
+        return "shared" if self.ring(dtype) else "global"
 
     @staticmethod
     def from_csr(T: sp.spmatrix, lower: bool,
@@ -118,15 +170,37 @@ class LevelSchedule:
         cols_a[level[e_row], pos_in_level[e_row], e_pos] = e_col
         vals_a[level[e_row], pos_in_level[e_row], e_pos] = e_val
 
+        # the plan: positions in solve order, each row's slots by the
+        # position they read
+        pos = np.empty(n, dtype=np.int64)
+        pos[order_rows] = np.arange(n)
+        e_p, e_d = pos[e_row], pos[e_col]
+        srt = np.lexsort((e_d, e_p))
+        e_p, e_d = e_p[srt], e_d[srt]
+        ptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(e_p, minlength=n), out=ptr[1:])
+        if ptr[-1] > np.iinfo(np.int32).max:
+            raise ValueError(f"{ptr[-1]} off-diagonal entries: the plan's "
+                             f"int32 slot offsets hold at most 2^31 - 1")
+        # each position's first slot within TAIL positions of it
+        tail = ptr[1:] - np.bincount(e_p[e_d >= e_p - TAIL], minlength=n)
+
         def dev(a, dt=None):
             return torch.as_tensor(a, dtype=dt, device=device)
 
         diag_t = dev(diag, dtype)
+        dinv = 1.0 / diag_t
         return LevelSchedule(
             rows=dev(rows_a), cols=dev(cols_a), vals=dev(vals_a, dtype),
             diag=diag_t, n=n, lower=lower, cnt=dev(cnt_a),
             live=dev(lvl_count[:n_levels].astype(np.int32)),
-            dinv=torch.cat([1.0 / diag_t, diag_t.new_ones(1)]),
+            dinv=torch.cat([dinv, diag_t.new_ones(1)]),
+            order=dev(order_rows.astype(np.int32)),
+            pdinv=dinv[dev(order_rows)],
+            ptr=dev(ptr.astype(np.int32)),
+            dep=dev(e_d.astype(np.int32)), dval=dev(e_val[srt], dtype),
+            tail=dev(tail.astype(np.int32)),
+            window=int((e_p - e_d).max()) if len(e_p) else 0,
         )
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
@@ -158,41 +232,86 @@ def level_solve_plain(S: LevelSchedule, B: torch.Tensor) -> torch.Tensor:
 def _check_cuda(S: LevelSchedule, B: torch.Tensor) -> None:
     if B.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"level_solve takes f32 or f64, got {B.dtype}")
-    if S.vals.dtype != B.dtype or S.dinv.dtype != B.dtype:
-        raise ValueError(f"factor in {S.vals.dtype}, B in {B.dtype}")
+    if S.dval.dtype != B.dtype or S.pdinv.dtype != B.dtype:
+        raise ValueError(f"factor in {S.dval.dtype}, B in {B.dtype}")
     if B.dim() != 2 or B.shape[0] != S.n:
         raise ValueError(f"B must be ({S.n}, m), got {tuple(B.shape)}")
-    for t in (S.rows, S.cnt, S.live, S.cols, S.vals, S.dinv):
+    plan = (S.order, S.ptr, S.tail, S.dep, S.dval, S.pdinv)
+    for t in plan:
         if t.device != B.device:
             raise ValueError(f"factor on {t.device}, B on {B.device}")
         if not t.is_contiguous():
             raise ValueError("factor tensors must be contiguous")
-    if any(t.dtype != torch.int32 for t in (S.rows, S.cnt, S.live, S.cols)):
+    if any(t.dtype != torch.int32 for t in plan[:4]):
         raise ValueError("factor index tensors must be int32")
 
 
 def level_solve(S: LevelSchedule, B: torch.Tensor) -> torch.Tensor:
     """X = T^-1 B for the factor S: B (n,) or (n, m). On a CUDA tensor one
-    launch of the hand kernel walks every level (f32 or f64); on a CPU
-    tensor the plain version."""
-    vec = B.dim() == 1
-    Bm = B[:, None] if vec else B
-    if Bm.device.type == "cpu":
-        X = level_solve_plain(S, Bm)
-        return X[:, 0] if vec else X
-    Bm = Bm.contiguous()
-    _check_cuda(S, Bm)
-    X = torch.empty_like(Bm)
+    launch of the hand kernel walks every row (f32 or f64), with x's
+    window in shared memory or, where its ring does not fit, in a scratch
+    of (m, n) values and tags in device memory; on a CPU tensor the plain
+    version."""
     from maxwell_tpu_torch.kernels.bsr_spmm import _launch
 
-    name = ("level_solve_f32" if Bm.dtype == torch.float32
+    vec = B.dim() == 1
+    B = B[:, None] if vec else B
+    if B.device.type == "cpu":
+        X = level_solve_plain(S, B)
+        return X[:, 0] if vec else X
+    B = B.contiguous()
+    _check_cuda(S, B)
+    X = torch.empty_like(B)
+    m = B.shape[1]
+    ring = S.ring(B.dtype)
+    xs = tags = None
+    if not ring:
+        xs = B.new_empty((m, S.n))
+        tags = torch.empty((m, S.n), dtype=torch.int32, device=B.device)
+    name = ("level_solve_f32" if B.dtype == torch.float32
             else "level_solve_f64")
-    _launch(name, Bm, S.rows.data_ptr(), S.cnt.data_ptr(),
-            S.live.data_ptr(), S.cols.data_ptr(), S.vals.data_ptr(),
-            S.dinv.data_ptr(), Bm.data_ptr(), X.data_ptr(), S.n_levels,
-            S.rows.shape[1], S.cols.shape[2], Bm.shape[1])
+    _launch(name, B, S.order.data_ptr(), S.ptr.data_ptr(),
+            S.tail.data_ptr(), S.dep.data_ptr(), S.dval.data_ptr(),
+            S.pdinv.data_ptr(), B.data_ptr(), X.data_ptr(),
+            0 if xs is None else xs.data_ptr(),
+            0 if tags is None else tags.data_ptr(), S.n, ring, m)
     level_solve.launches += 1
     return X[:, 0] if vec else X
+
+
+CHAIN_RING = 512  # level_chain's ring: the 128^2 chains' shared ring
+
+
+def level_chain(n: int, device, warps: int = WARPS) -> torch.Tensor:
+    """The tag hand-off floor probe (csrc/tri_solve.cu level_chain_kernel):
+    n positions taken in turn by `warps` warps (the solve's WARPS by
+    default), each waiting on the one before it through the solve's tags
+    in shared memory, reading its value and publishing it plus one, with
+    no load from device memory. Returns a one-element f32 tensor that
+    holds n once the launch has run. Needs the card; not counted."""
+    from maxwell_tpu_torch.kernels.bsr_spmm import _launch
+
+    out = torch.zeros(1, dtype=torch.float32, device=device)
+    if out.device.type != "cuda":
+        raise ValueError("level_chain is a probe of the card's kernel")
+    _launch("level_chain_f32", out, out.data_ptr(), n, CHAIN_RING, warps)
+    return out
+
+
+def launch_shape(dtype: torch.dtype, route: str) -> dict:
+    """The solve kernel's build for dtype and route on the current card:
+    registers and local bytes a thread."""
+    import ctypes
+
+    from maxwell_tpu_torch.kernels import _build
+
+    out = (ctypes.c_int64 * 2)()
+    rc = _build.load().level_solve_shape(torch.finfo(dtype).bits // 8,
+                                         int(route == "shared"),
+                                         ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"level_solve_shape: CUDA error {rc}")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 def backward_error(S: LevelSchedule, B: torch.Tensor,

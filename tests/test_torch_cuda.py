@@ -1304,17 +1304,42 @@ def test_cuda_spmm_and_gather_probe_wrappers_raise(cuda_device):
     assert not any(spp.counts().values()) and not any(gpr.counts().values())
 
 
+def _wide_factors(dt, device):
+    """A random lower factor of n 20,000 and its reversal (upper) whose
+    windows exceed the shared ring at either dtype: row i reads row i - 10
+    (levels of ten rows) and two rows further back, the last row the
+    first; diagonally dominant, so the f32 solve stays near the f64 one."""
+    from maxwell_tpu_torch.kernels import tri_solve
+
+    rng = np.random.default_rng(5)
+    n = 20_000
+    i = np.arange(10, n)
+    far = rng.integers(0, i - 9, size=(2, len(i)))
+    rows = np.concatenate([i, i, i, [n - 1]])
+    cols = np.concatenate([i - 10, far[0], far[1], [0]])
+    vals = np.concatenate([0.5 * rng.uniform(-1, 1, len(i)),
+                           0.1 * rng.uniform(-1, 1, 2 * len(i)), [0.1]])
+    L = (sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+         + sp.diags(1 + rng.random(n))).tocsr()
+    rev = np.arange(n)[::-1]
+    U = L[rev][:, rev].tocsr()
+    return (tri_solve.LevelSchedule.from_csr(L, True, dt, device),
+            tri_solve.LevelSchedule.from_csr(U, False, dt, device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", ["ldlt", "splu"])
+@pytest.mark.parametrize("kind", ["ldlt", "splu", "wide"])
 def test_cuda_level_solve_matches_plain(cuda_device, kind, dtype, m):
-    """level_solve on config 3's factors (16x16, sigma 45): a backward
-    error within the substitution bound (tri_solve.backward_error <= 2);
-    within max(16 g, 8) eps max|x| of the plain version, g the rounding
-    growth of the chain (the f32 plain solve's distance from the f64 one
-    over eps_f32 max|x|); two runs bit for bit equal, one launch a factor
-    solve; the factored solve against scipy."""
+    """level_solve on config 3's factors (16x16, sigma 45; x's window in
+    shared memory) and on a random lower and upper factor whose window
+    exceeds it (x and the tags in device memory): a backward error within
+    the substitution bound (tri_solve.backward_error <= 2); within max(16
+    g, 8) eps max|x| of the plain version, g the rounding growth of the
+    chain (the f32 plain solve's distance from the f64 one over eps_f32
+    max|x|); two runs bit for bit equal, one launch a factor solve; the
+    factored solve against scipy."""
     import scipy.sparse.linalg as spla
 
     from maxwell_tpu_torch.kernels import tri_solve
@@ -1323,6 +1348,8 @@ def test_cuda_level_solve_matches_plain(cuda_device, kind, dtype, m):
     A = (cav.K - 45.0 * cav.M).tocsc()
 
     def factor(dt):
+        if kind == "wide":
+            return None, _wide_factors(dt, cuda_device)
         if kind == "ldlt":
             d = tri_solve.SparseLDLTDevice.factor(A, dtype=dt,
                                                   device=cuda_device)
@@ -1335,10 +1362,11 @@ def test_cuda_level_solve_matches_plain(cuda_device, kind, dtype, m):
     _, factors64 = factor(torch.float64)
     _, factors32 = factor(torch.float32)
     rng = np.random.default_rng(m)
-    B64 = torch.from_numpy(rng.standard_normal((A.shape[0], m))).to(
+    B64 = torch.from_numpy(rng.standard_normal((factors[0].n, m))).to(
         cuda_device)
     B = B64.to(dtype)
     for S, S64, S32 in zip(factors, factors64, factors32):
+        assert S.route(dtype) == ("global" if kind == "wide" else "shared")
         tri_solve.reset_counts()
         got = tri_solve.level_solve(S, B)
         again = tri_solve.level_solve(S, B)
@@ -1355,12 +1383,30 @@ def test_cuda_level_solve_matches_plain(cuda_device, kind, dtype, m):
         assert (got - want).abs().max().item() <= tol
         assert tri_solve.backward_error(S, B, got) <= 2
         assert torch.equal(got, again)
-    x = dev.solve(B).double().cpu().numpy()
-    ref = spla.spsolve(A, B64.cpu().numpy()).reshape(x.shape)
-    rel = np.abs(x - ref).max() / np.abs(ref).max()
-    assert rel <= (1e-10 if dtype == torch.float64 else 1e-3)
     with pytest.raises(ValueError, match="f32 or f64"):
         tri_solve.level_solve(factors[0], B.to(torch.float16))
     with pytest.raises(ValueError, match="factor in"):
         other_dt = torch.float32 if dtype == torch.float64 else torch.float64
         tri_solve.level_solve(factors[0], B.to(other_dt))
+    if dev is None:
+        return
+    x = dev.solve(B).double().cpu().numpy()
+    ref = spla.spsolve(A, B64.cpu().numpy()).reshape(x.shape)
+    rel = np.abs(x - ref).max() / np.abs(ref).max()
+    assert rel <= (1e-10 if dtype == torch.float64 else 1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_level_chain_and_launch_shape(cuda_device):
+    """The hand-off floor probe hands one value on through 1,000 positions
+    (out = 1,000) with the solve's 16 warps and with 2; the solve kernel
+    builds for both dtypes and routes with no local memory."""
+    from maxwell_tpu_torch.kernels import tri_solve
+
+    assert tri_solve.level_chain(1000, cuda_device).item() == 1000.0
+    assert tri_solve.level_chain(1000, cuda_device, 2).item() == 1000.0
+    for dt in (torch.float32, torch.float64):
+        for route in ("shared", "global"):
+            shape = tri_solve.launch_shape(dt, route)
+            assert shape["registers"] > 0
+            assert shape["local_bytes"] == 0
