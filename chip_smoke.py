@@ -49,7 +49,13 @@ probes and check that they ran through the kernels:
     pencil with the LDL^T backend, refined to 1e-8 on the host; the 64^3
     stencil brick with the MINRES backend through the tap kernel; the
     distributed MINRES shift-invert on 8 row shards and 8 slabs against
-    the one-device port; config 6 (tet mesh) through the CLI.
+    the one-device port; config 6 (tet mesh) through the CLI;
+  slice 11, the surface: the device-resident solve -> refine chain at 64^3
+    through the probe scripts exp_r5chain (one device) and exp_r5dist (1
+    and 8 slabs) with the reference's time_to_1e8 gates, the shift-invert,
+    preconditioner-sweep and double-word probes (exp_r5si, exp_conv,
+    exp_r4chip), the flagship step entry() and the distributed dry run
+    dryrun_multichip(8) on the card.
 
     python3 chip_smoke.py
 
@@ -203,7 +209,34 @@ Phases, in order; any failure raises and the process exits non-zero:
                mode="shift_invert") on the rectangle, each within 1e-4 of
                the one-device port from the same start vector
  27. tet cli   config 6 through the CLI (f64), against a dense eigh to 1e-8
- 28. result    an {"off_main_path": [...]} line for the kernels no solver
+ 28. r5chain   exp_r5chain.run() at 64^3: f32 LOBPCG (the knobs of phase
+               5) -> refine_dw with the block kept on the card
+               (return_device), a cold and one steady run of each, the host
+               round trip beside them, then one extra steady chain under
+               utils/profiling.trace and its top 5 device kernels (an
+               r5chain_top_kernels line); gates: f64-verified residual <=
+               2e-8, eigenvalues within 0.5% of the analytic ones, the
+               device chain's eigenvalues the host chain's to 1e-12, K4
+               launched; counts zeroed just before, read just after
+ 29. r5dist    exp_r5dist.run() at 64^3 in 1 and 8 slabs: lobpcg_dist ->
+               refine_dw_dist with the stacked block kept on the card, a
+               cold and one steady run each, the same gates
+ 30. r5si      exp_r5si.run(solves=False): the 128^2 LDL^T factor (host),
+               its shift-invert apply (level_solve) and the 64^3 MINRES
+               apply (K4), each timed by a chain of applies
+ 31. conv      exp_conv.run() for alpha 15, 16 CG sweeps at 64^3, maxiter
+               20 (K4)
+ 32. r4chip    exp_r4chip.run(): two_prod exact for the five broadcast
+               shapes on the card, the dw sum of 10^6 values, the copy
+               rate, K2 at 24^3 against scipy and its bound, the 64^3 dw
+               tap apply against an f64 apply beside the f32 K4 apply and
+               the spectral shift solve
+ 33. entry     entry() on the card (K1, K2) within 1e-5 of the same step on
+               the CPU; dryrun_multichip(8) on the card, every check true
+               and the bit-for-bit ones 0, K4, K5, K6, K8 and K10 launched;
+               then a {"surface": ...} line: each of phases 28-33's
+               launches per kernel
+ 34. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -238,6 +271,7 @@ from maxwell_tpu_torch.bench.timing import (  # noqa: E402
     median_ms,
     torch_csr,
     union_bytes,
+    wall_ms,
 )
 
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
@@ -2233,20 +2267,6 @@ def _factor_csr(S):
     return (T + sp.diags(S.diag.cpu().double().numpy())).tocsr()
 
 
-def wall_ms(fn, n: int = 3) -> float:
-    """Median host time of n calls, each between two synchronizes: for a
-    call that synchronizes on its own (the library's sparse triangular
-    solve), which the device-side sleep of device_ms cannot hold back."""
-    times = []
-    for _ in range(n + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times[1:]))
-
-
 def phase_tri_solve_kernels():
     """The level-scheduled triangular solve (level_solve) against its plain
     version on the 128^2 rectangle's LDL^T factors L and L^T at sigma 45
@@ -2646,6 +2666,185 @@ def phase_tet_cli():
     return rep, cnt
 
 
+# --- slice 11, the surface: the device-resident chain, the probes, entry --
+R5_SLABS = (1, SHARDS)  # the reference's mesh of one, and config 5's slabs
+TIME_TO_1E8_RES = 2e-8  # the reference's time_to_1e8 gates (bench.py)
+TIME_TO_1E8_EIG = 5e-3
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "maxwell_tpu_torch", "traces")
+
+
+def launched(counts):
+    """The kernels (and plain versions) of a counted window that ran."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _time_to_1e8_gates(label, out):
+    """The reference's time_to_1e8 gates on a chain probe's result."""
+    if not out["converged"] or out["refine_res"] > 1e-8:
+        raise AssertionError(f"{label}: refine not converged: {out}")
+    if not max(out["residuals_f64_verified"]) <= TIME_TO_1E8_RES:
+        raise AssertionError(f"{label}: f64-verified residuals "
+                             f"{out['residuals_f64_verified']}")
+    if not max(out["analytic_rel_err"]) <= TIME_TO_1E8_EIG:
+        raise AssertionError(f"{label}: eigenvalues off the analytic "
+                             f"modes: {out['analytic_rel_err']}")
+
+
+def _check_launched(label, counts, kernels):
+    missing = [k for k in kernels if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not launched: {counts}")
+
+
+def phase_r5chain():
+    """exp_r5chain.run() at 64^3: a cold run and one steady run of f32
+    LOBPCG -> refine_dw with the block kept on the card, the host round
+    trip beside them, then one extra steady chain under profiling.trace
+    (its top 5 device kernels printed); counts zeroed just before, read
+    just after. Gates: the reference's time_to_1e8 gates, the tap kernel
+    launched, the device chain's eigenvalues those of the host chain."""
+    from maxwell_tpu_torch.bench import exp_r5chain
+
+    reset_all_counts()
+    out = exp_r5chain.run(STENCIL_GRID, steady=1, trace_dir=TRACE_DIR)
+    counts = all_counts()
+    log({"phase": "r5chain", **out, "counts": launched(counts)})
+    log({"r5chain_top_kernels": out["top_kernels"]})
+    _time_to_1e8_gates("r5chain", out)
+    if not out["host_vs_device_eig_rel"] <= 1e-12:
+        raise AssertionError(f"device chain vs host chain: {out}")
+    _check_launched("r5chain", counts, ("stencil_taps",))
+    if counts["stencil_taps_ref"]:
+        raise AssertionError(f"r5chain ran the plain taps: {counts}")
+    return counts
+
+
+def phase_r5dist():
+    """exp_r5dist.run() at 64^3 in 1 and 8 slabs: a cold and one steady
+    run of lobpcg_dist -> refine_dw_dist with the stacked block kept on
+    the card; counts zeroed just before each, read just after. Gates: the
+    reference's time_to_1e8 gates, the tap kernel launched."""
+    from maxwell_tpu_torch.bench import exp_r5dist
+
+    out = {}
+    for slabs in R5_SLABS:
+        reset_all_counts()
+        res = exp_r5dist.run(STENCIL_GRID, slabs=slabs, steady=1)
+        counts = all_counts()
+        log({"phase": "r5dist", **res, "counts": launched(counts)})
+        _time_to_1e8_gates(f"r5dist {slabs} slabs", res)
+        _check_launched(f"r5dist {slabs} slabs", counts, ("stencil_taps",))
+        if counts["stencil_taps_ref"]:
+            raise AssertionError(f"r5dist ran the plain taps: {counts}")
+        out[f"slabs{slabs}"] = counts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_r5si():
+    """exp_r5si.run(solves=False): the 128^2 LDL^T factor (host) and the
+    shift-invert apply (two level_solve launches between the union M apply
+    and the projector), the 64^3 MINRES apply through the tap kernel, each
+    timed by a chain of applies; the solves are phases 25 and 26. Counts
+    zeroed just before, read just after."""
+    from maxwell_tpu_torch.bench import exp_r5si
+
+    reset_all_counts()
+    out = exp_r5si.run(solves=False)
+    counts = all_counts()
+    log({"phase": "r5si", **out, "counts": launched(counts)})
+    _check_launched("r5si", counts, ("level_solve", "stencil_taps"))
+    for key in ("si_apply_2d128_s", "si_apply_64_stencil_s"):
+        if not out[key] > 0:
+            raise AssertionError(f"r5si {key}: {out[key]}")
+    return counts
+
+
+def phase_conv():
+    """exp_conv.run() for one combination (alpha 15, 16 CG sweeps) at 64^3
+    with maxiter 20: f32 LOBPCG twice through the tap kernel (every sweep a
+    fused K/M launch); counts zeroed just before, read just after."""
+    from maxwell_tpu_torch.bench import exp_conv
+
+    reset_all_counts()
+    out = exp_conv.run(STENCIL_GRID, maxiter=20, combos=((15.0, 16),))
+    counts = all_counts()
+    row = out[f"g{STENCIL_GRID}_a15_i16"]
+    log({"phase": "conv", **out, "counts": launched(counts)})
+    if not (np.isfinite(row["max_res"]) and row["iterations"] > 0
+            and row["max_res"] < 1.0):
+        raise AssertionError(f"conv: {row}")
+    _check_launched("conv", counts, ("stencil_taps",))
+    return counts
+
+
+def phase_r4chip():
+    """exp_r4chip.run(): two_prod exact (error 0) for the five broadcast
+    shapes on the card and the dw sum of 10^6 values; the copy rate and K2
+    on the 24^3 RCM K at m 8 against scipy and its bound; the 64^3
+    double-word tap apply against an f64 apply, beside the f32 tap kernel
+    and the spectral shift solve. Counts zeroed just before, read after."""
+    from maxwell_tpu_torch.bench import exp_r4chip
+
+    reset_all_counts()
+    out = exp_r4chip.run()
+    counts = all_counts()
+    log({"phase": "r4chip", **out, "counts": launched(counts)})
+    if any(v != 0.0 for v in out["two_prod_err"].values()):
+        raise AssertionError(f"two_prod not exact on the card: {out}")
+    if not (out["dw_sum_err"] <= 1e-9 and out["union_prod"]["err"] <= 1e-5
+            and out["dw_apply_rel_err"] <= 1e-12
+            and out["spectral_sigma_finite"]):
+        raise AssertionError(f"r4chip: {out}")
+    _check_launched("r4chip", counts, ("bellunion_matmat", "stencil_taps"))
+    return counts
+
+
+def phase_entry():
+    """entry() on the card: one LOBPCG iteration on the 32x32 rectangle's
+    union pencil (K1 and K2), its Ritz values within 1e-5 of the same step
+    on the CPU ("ref" pencil, the same X0); then dryrun_multichip(8) on
+    the card, every check true and the bit-for-bit ones 0, with K4, K5,
+    K6, K8 and K10 launched. Counts zeroed just before each, read just
+    after."""
+    from maxwell_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, (pencil, X0) = entry("cuda")
+    reset_all_counts()
+    theta, res = fn(pencil, X0)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    fn_cpu, (p_cpu, X0_cpu) = entry("cpu")
+    theta_cpu, res_cpu = fn_cpu(p_cpu, X0_cpu)
+    rel = float(((theta.cpu() - theta_cpu).abs() / theta_cpu.abs()).max())
+    log({"phase": "entry", "theta": theta.tolist(),
+         "theta_cpu": theta_cpu.tolist(), "theta_rel_err": rel,
+         "residuals": res.tolist(), "counts": launched(counts)})
+    if not rel <= 1e-5 or not torch.isfinite(res).all():
+        raise AssertionError(f"entry on the card vs the CPU: {rel}")
+    _check_launched("entry", counts,
+                    ("bellunion_km_matmat", "bellunion_matmat"))
+    del pencil, X0
+    out = {"entry": counts}
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    checks = dryrun_multichip(SHARDS, "cuda")
+    torch.cuda.synchronize()
+    counts = all_counts()
+    log({"phase": "dryrun", "shards": SHARDS, "checks": checks,
+         "seconds": time.perf_counter() - t0, "counts": launched(counts)})
+    if not all(v is True or v == 0.0 for v in checks.values()):
+        raise AssertionError(f"dryrun_multichip: {checks}")
+    _check_launched("dryrun", counts, (
+        "stencil_taps", "union_interior_overlap", "ring_shift",
+        "bsr_matmat", "bsr_matvec"))
+    out["dryrun"] = counts
+    torch.cuda.empty_cache()
+    return out
+
+
 def timed(fn, *args):
     """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
     t0 = time.perf_counter()
@@ -2711,6 +2910,14 @@ def main():
     si_counts = timed(phase_si_solve)
     timed(phase_si_dist)
     timed(phase_tet_cli)
+    surface = {"r5chain": timed(phase_r5chain), "r5dist": timed(phase_r5dist),
+               "r5si": timed(phase_r5si), "conv": timed(phase_conv),
+               "r4chip": timed(phase_r4chip), **timed(phase_entry)}
+    # the surface phases' launches per kernel (plain versions' calls too)
+    log({"surface": {
+        phase: ({k: launched(c) for k, c in counts.items()}
+                if phase == "r5dist" else launched(counts))
+        for phase, counts in surface.items()}})
     stats["level_solve"].update(
         config3_cli_launches=si_counts["cli"]["level_solve"],
         note="not a Pallas kernel in the reference: a jnp fori_loop over "

@@ -2,9 +2,13 @@
 for NVIDIA Hopper.
 
 The package mirrors maxwell_tpu/ module for module (problems/, sparse/,
-kernels/, solvers/, utils/, api.py, cli/). Plain tensor code is PyTorch; the
-Pallas TPU kernels of the ported path are hand-written CUDA for sm_90a
-(csrc/, built at first use by kernels/_build.py). The package imports
+kernels/, solvers/, utils/ with utils/profiling.py, dist/, native/, api.py,
+cli/, bench/ with the probes), plus entry.py (the flagship step `entry()`
+and the distributed dry run `dryrun_multichip(n)`, the counterparts of
+__graft_entry__.py) and examples/ (the ports of examples/01-04, each a
+`python -m maxwell_tpu_torch.examples.<name>` entry). Plain tensor code is
+PyTorch; the Pallas TPU kernels of the ported path are hand-written CUDA
+for sm_90a (csrc/, built at first use by kernels/_build.py). The package imports
 neither jax nor maxwell_tpu: the JAX package stays the reference that the
 tests hold this port to.
 

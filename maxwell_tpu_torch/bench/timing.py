@@ -8,6 +8,10 @@ the port's counterpart of maxwell_tpu/bench/exp_gather.py::timeit_chain.
                              own device sleep: the device's time for a call
                              of many launches that the host enqueues slower
                              than the device runs them
+    wall_ms(fn)              median host time of n calls, each between two
+                             synchronizes: for a call that synchronizes on
+                             its own (a sparse triangular solve, a Krylov
+                             loop that reads its residual on the host)
     launch_floor_ms()        median_ms of an empty launch
     chain_floor_ms()         chain_ms of an empty launch
     copy_bandwidth(device)   bytes/s of one 256 MB elementwise read + write,
@@ -149,6 +153,22 @@ def device_ms(fn, n: int = 10, tries: int = 4) -> float:
                                f"host queued the call, {tries} times (last "
                                f"{cycles // 2} cycles)")
     return statistics.median(times)
+
+
+def wall_ms(fn, n: int = 3) -> float:
+    """Median host time of n calls (after one warm-up), each between two
+    synchronizes: for a call that synchronizes on its own, which the
+    device-side sleep of device_ms cannot hold back."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("wall_ms times on a CUDA device; none is visible")
+    times = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
 
 
 def launch_floor_ms() -> float:

@@ -9,8 +9,8 @@ live on one device (dist/mesh.py), so a mesh argument only names the shard
 count and is checked against the pencil. Start blocks are in the pencil's
 stacked layout (a DistPencil's rows in its RCM order, zero past row n; a
 DistStencilPencil3D's slabs), as the reference's `make_block` draws them;
-eigenvectors come back in the problem's own ordering (`extract_vectors`).
-The reference's `return_device` (a TPU tunnel handoff) is not ported.
+eigenvectors come back in the problem's own ordering (`extract_vectors`),
+or, with `return_device`, stay on the device in the stacked layout.
 """
 
 from __future__ import annotations
@@ -58,6 +58,20 @@ def _stacked(dpencil: DistPencil, X, width: int) -> torch.Tensor:
     return out
 
 
+def host_vectors(dpencil, vecs) -> np.ndarray:
+    """Eigenvectors of a distributed result as a host array in the
+    problem's ordering: a host array as it is, a stacked device block
+    extracted, a stacked double-word pair (refine_dw_dist's
+    return_device) extracted word by word and summed in f64."""
+    if isinstance(vecs, tuple):
+        from maxwell_tpu_torch.utils.twofloat import dw_to_f64
+
+        return dw_to_f64(*(dpencil.extract_vectors(v) for v in vecs))
+    if torch.is_tensor(vecs):
+        return dpencil.extract_vectors(vecs)
+    return vecs
+
+
 @fp32_true
 def lobpcg_dist(
     dpencil: DistPencil,
@@ -79,6 +93,7 @@ def lobpcg_dist(
     stage_polish=None,
     X0=None,
     log_every: int = 0,
+    return_device: bool = False,
 ) -> EigenResult:
     """Distributed LOBPCG on a row-sharded pencil. Returns a host
     EigenResult with eigenvectors in the problem's ordering.
@@ -100,6 +115,10 @@ def lobpcg_dist(
     EigenResult -> EigenResult applied to each stage's block first.
     X0: start block in the stacked layout (default: make_block from
     `generator`, seed 0 on the pencil's device).
+    return_device: eigenvectors is the stacked (global_rows, nev) tensor on
+    the pencil's device, the layout refine_dw_dist takes without a copy
+    through the host; eigenvalues and residuals stay numpy. The staged
+    path ignores it.
     """
     _check_mesh(dpencil, mesh)
     if precond not in ("auto", "cg", "spectral"):
@@ -178,7 +197,8 @@ def lobpcg_dist(
     res_h = res[:nev].cpu().numpy()
     return EigenResult(
         eigenvalues=theta[:nev].cpu().numpy(),
-        eigenvectors=dpencil.extract_vectors(X[:, :nev]),
+        eigenvectors=(X[:, :nev].contiguous() if return_device
+                      else dpencil.extract_vectors(X[:, :nev])),
         residuals=res_h,
         iterations=prev_iters + it,
         converged=bool(res_h.max() <= tol),
@@ -214,13 +234,13 @@ def _lobpcg_dist_staged(dpencil, nev, batch, m, maxiter, tol, generator,
         if stage_polish is not None:
             res = stage_polish(res)
         vals.append(res.eigenvalues)
-        vecs.append(res.eigenvectors)
+        vecs.append(host_vectors(dpencil, res.eigenvectors))
         resids.append(res.residuals)
         hist.extend({**h, "iter": iters + h["iter"], "stage": stage}
                     for h in res.history)
         iters += res.iterations
-        Q = (res.eigenvectors if Q is None
-             else np.concatenate([Q, res.eigenvectors], axis=1))
+        Q = (vecs[-1] if Q is None
+             else np.concatenate([Q, vecs[-1]], axis=1))
         done += k
         stage += 1
     return merge_stages(vals, vecs, resids, iters, hist, tol)

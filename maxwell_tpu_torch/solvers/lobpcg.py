@@ -251,6 +251,7 @@ def lobpcg(
     stall_window: int = 0,
     batch: int | None = None,
     lock: bool = True,
+    return_device: bool = False,
 ) -> EigenResult:
     """Solve for the `nev` smallest nonzero eigenpairs of K x = lambda M x.
 
@@ -273,6 +274,12 @@ def lobpcg(
     stage s draws its start block from `generator` (default: seed s on the
     pencil's device); X0 and checkpoint are not used there, as in the
     reference.
+    return_device: keep the eigenvector block on the pencil's device:
+    eigenvectors is the (n_padded, nev) tensor X[:, :nev] in the padded
+    layout (the best iterate where the stall cut took it), the handoff
+    refine_dw takes without a copy through the host. Eigenvalues and
+    residuals stay numpy. The staged `batch` path ignores it: its stages
+    join on the host.
     """
     if batch is not None and batch < nev:
         return _lobpcg_staged(
@@ -347,7 +354,8 @@ def lobpcg(
     res_h = res.cpu().numpy()[:nev]
     return EigenResult(
         eigenvalues=theta.cpu().numpy()[:nev],
-        eigenvectors=X[:n, :nev].cpu().numpy(),
+        eigenvectors=(X[:, :nev].contiguous() if return_device
+                      else X[:n, :nev].cpu().numpy()),
         residuals=res_h,
         iterations=prev_iters + it,
         converged=bool(res_h.max() <= tol),

@@ -184,16 +184,21 @@ def refine_dw(
     max_sweeps: int | None = None,
     sigma_rel: float = 3e-3,
     inner_iters: int = 32,
+    return_device: bool = False,
 ) -> EigenResult:
     """Refine approximate eigenvectors X of a PEC stencil pencil to `tol`
     relative residual on the pencil's device (see module doc).
 
     X: the f32 block of the f32 LOBPCG (residuals ~1e-3..1e-5), a host
-    (n, m) array or an (n, m) / (n_padded, m) tensor. Vacuum pencils
-    (taps_dw) use the exact per-column spectral shift solve per sweep;
-    loaded PEC pencils (dw field taps) solve each sweep's correction by
-    preconditioned block MINRES (`inner_iters` steps). Returns the
-    eigenvectors reconstructed in f64 on the host, (n, m)."""
+    (n, m) array or an (n, m) tensor, or the padded (n_padded, m) device
+    tensor of lobpcg(..., return_device=True), which is used as it is (no
+    copy, never through the host). Vacuum pencils (taps_dw) use the exact
+    per-column spectral shift solve per sweep; loaded PEC pencils (dw field
+    taps) solve each sweep's correction by preconditioned block MINRES
+    (`inner_iters` steps). Returns the eigenvectors reconstructed in f64 on
+    the host, (n, m); with return_device=True the on-device double-word
+    pair (Xh, Xl), each (n_padded, m) f32, and only the (m,) eigenvalues
+    and residuals come to the host."""
     from maxwell_tpu_torch.solvers.spectral import SpectralShiftSolver
 
     if not refine_dw_supports(pencil):
@@ -209,11 +214,16 @@ def refine_dw(
         alpha=0.0 if exact else 15.0, n_padded=pencil.n_padded,
         dtype=torch.float32, device=device,
     )
-    X = torch.as_tensor(X).to(device=device, dtype=torch.float32)
-    if X.dim() == 1:
-        X = X[:, None]
-    Xh = X.new_zeros((pencil.n_padded, X.shape[1]))
-    Xh[: X.shape[0]] = X
+    if torch.is_tensor(X) and X.dim() == 2 and (
+        X.shape[0] == pencil.n_padded
+    ):
+        Xh = X.to(device=device, dtype=torch.float32)  # padded: as it is
+    else:
+        X = torch.as_tensor(X).to(device=device, dtype=torch.float32)
+        if X.dim() == 1:
+            X = X[:, None]
+        Xh = X.new_zeros((pencil.n_padded, X.shape[1]))
+        Xh[: X.shape[0]] = X
     Xl = torch.zeros_like(Xh)
 
     def step(Xh, Xl):
@@ -225,7 +235,8 @@ def refine_dw(
     hist.append({"iter": len(hist), "max_rel_res": float(res.max())})
     return EigenResult(
         eigenvalues=theta,
-        eigenvectors=tf.dw_to_f64(Xh, Xl)[: pencil.n],
+        eigenvectors=((Xh, Xl) if return_device
+                      else tf.dw_to_f64(Xh, Xl)[: pencil.n]),
         residuals=res,
         iterations=sweeps + 1,
         converged=bool(res.max() <= tol),
@@ -303,6 +314,7 @@ def refine_dw_dist(
     tol: float = 1e-8,
     max_sweeps: int = 6,
     sigma_rel: float = 3e-3,
+    return_device: bool = False,
 ) -> EigenResult:
     """Refine approximate eigenvectors of a vacuum slab-sharded stencil
     pencil (DistStencilPencil3D with taps_dw) to `tol` relative residual on
@@ -313,8 +325,11 @@ def refine_dw_dist(
 
     mesh: None or the pencil's mesh (dist/mesh.py; checked against D).
     X: a host (n_full, m) block in the global stencil ordering, or a
-    (global_rows, m) tensor in the stacked layout. Returns the eigenvectors
-    in the global ordering, reconstructed in f64 on the host."""
+    (global_rows, m) tensor in the stacked layout (lobpcg_dist's
+    return_device), used as it is. Returns the eigenvectors in the global
+    ordering, reconstructed in f64 on the host; with return_device=True
+    the on-device double-word pair (Xh, Xl) in the stacked layout, and only
+    the (m,) eigenvalues and residuals come to the host."""
     from maxwell_tpu_torch.solvers.dist_solve import _check_mesh
     from maxwell_tpu_torch.solvers.spectral import DistSpectralShift
 
@@ -349,8 +364,8 @@ def refine_dw_dist(
     Xh, Xl, theta, res = _final_rr(
         dpencil, Xh, Xl, _dist_grams_local, _rq_and_residual_dist)
     hist.append({"iter": len(hist), "max_rel_res": float(res.max())})
-    vecs = tf.dw_to_f64(dpencil.extract_vectors(Xh),
-                        dpencil.extract_vectors(Xl))
+    vecs = (Xh, Xl) if return_device else tf.dw_to_f64(
+        dpencil.extract_vectors(Xh), dpencil.extract_vectors(Xl))
     return EigenResult(
         eigenvalues=theta,
         eigenvectors=vecs,

@@ -13,7 +13,9 @@ class EigenResult:
     """Result of a (generalized) eigensolve K x = lambda M x.
 
     eigenvalues: (nev,) ascending.
-    eigenvectors: (n, nev) — M-orthonormal columns.
+    eigenvectors: (n, nev) — M-orthonormal columns, a host array; with a
+    solver's return_device=True the device tensor in the pencil's padded
+    or stacked layout, or the double-word pair (Xh, Xl) of two of them.
     residuals: (nev,) final relative residuals ||K x - lambda M x|| / scale.
     iterations: outer iterations taken.
     history: optional per-iteration metrics (list of dicts, JSON-able).
@@ -22,7 +24,7 @@ class EigenResult:
     """
 
     eigenvalues: np.ndarray
-    eigenvectors: np.ndarray
+    eigenvectors: Any
     residuals: np.ndarray
     iterations: int
     converged: bool

@@ -63,6 +63,12 @@ def two_prod(a, b):
 # ---------------------------------------------------------------------------
 
 
+def dw_renorm(h, l):
+    """Re-establish |l| <= ulp(h)/2 (fast_two_sum; |h| >= |l| holds for
+    every producer below)."""
+    return fast_two_sum(h, l)
+
+
 def dw_add(xh, xl, yh, yl):
     """(x + y) to relative error ~3u^2 (AccurateDWPlusDW, sans branches)."""
     sh, sl = two_sum(xh, yh)
@@ -71,6 +77,15 @@ def dw_add(xh, xl, yh, yl):
     vh, vl = fast_two_sum(sh, c)
     w = tl + vl
     return fast_two_sum(vh, w)
+
+
+def dw_neg(xh, xl):
+    return -xh, -xl
+
+
+def dw_scale_pow2(xh, xl, s):
+    """Multiply by an exact power of two (error-free)."""
+    return xh * s, xl * s
 
 
 def dw_mul_f(xh, xl, c):

@@ -1410,3 +1410,26 @@ def test_cuda_level_chain_and_launch_shape(cuda_device):
             shape = tri_solve.launch_shape(dt, route)
             assert shape["registers"] > 0
             assert shape["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_device_resident_chain_matches_host_chain(cuda_device):
+    """lobpcg -> refine_dw with return_device on the 16^3 stencil brick
+    (the tap kernel), against the host round trip from the same start: the
+    same refined eigenvalues to 1e-12 relative, both to 1e-8."""
+    from maxwell_tpu_torch.bench import exp_r5chain
+
+    res = exp_r5chain.run(16, steady=1, device="cuda")
+    assert res["host_vs_device_eig_rel"] <= 1e-12
+    assert res["converged"] and res["refine_host_res"] <= 1e-8
+    assert max(res["residuals_f64_verified"]) <= 2e-8
+
+
+@pytest.mark.cuda
+def test_cuda_two_prod_exact_for_every_broadcast(cuda_device):
+    from maxwell_tpu_torch.bench.exp_r4chip import exactness
+
+    out = exactness(cuda_device, np.random.default_rng(7))
+    assert len(out["two_prod_err"]) == 5
+    assert all(v == 0.0 for v in out["two_prod_err"].values()), out
+    assert out["dw_sum_err"] <= 1e-9

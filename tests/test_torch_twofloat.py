@@ -126,3 +126,38 @@ def test_dw_from_to_f64_match_reference():
         ref_tf.dw_to_f64(rh, rl),
     )
     assert np.abs(tf.dw_to_f64(h, l) - x).max() <= U2 * np.abs(x).max()
+
+
+def test_dw_renorm_matches_reference():
+    """fast_two_sum of a pair whose low word is not yet within half an ulp
+    of its high word: the same words as the reference's."""
+    h = _rand(2000, 11).astype(np.float32)
+    l = (_rand(2000, 12) * 1e-3).astype(np.float32)
+    got = _port(tf.dw_renorm, h, l)
+    want = _ref(ref_tf.dw_renorm, h, l)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert np.all(np.abs(got[1]) <= np.spacing(np.abs(got[0]).astype(
+        np.float32)).astype(np.float64) / 2)
+
+
+def test_dw_neg_matches_reference():
+    h, l, _ = _pair(_rand(1000, 13))
+    got = _port(tf.dw_neg, h, l)
+    want = _ref(ref_tf.dw_neg, h, l)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[0], -h.astype(np.float64))
+
+
+@pytest.mark.parametrize("s", [0.25, 2.0, 1024.0, 2.0**-20])
+def test_dw_scale_pow2_matches_reference(s):
+    h, l, x = _pair(_rand(1000, 14))
+    sc = np.float32(s)
+    got = tf.dw_scale_pow2(torch.from_numpy(h), torch.from_numpy(l),
+                           torch.tensor(sc))
+    want = ref_tf.dw_scale_pow2(jnp.asarray(h), jnp.asarray(l), sc)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # error-free: the pair's value times s exactly
+    np.testing.assert_array_equal(tf.dw_to_f64(*got), x * s)
