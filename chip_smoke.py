@@ -55,7 +55,14 @@ probes and check that they ran through the kernels:
     and 8 slabs) with the reference's time_to_1e8 gates, the shift-invert,
     preconditioner-sweep and double-word probes (exp_r5si, exp_conv,
     exp_r4chip), the flagship step entry() and the distributed dry run
-    dryrun_multichip(8) on the card.
+    dryrun_multichip(8) on the card;
+  slice 12, the assembled road across processes: the 24^3 RCM brick in 8
+    row shards over P = 2 and 4 processes sharing the card (one context
+    each, time-sliced), the cross-process ring shift (K6) and fused
+    interior SpMM + halo copy (K5) pushing into the neighbours' IPC-mapped
+    buffers, held bit for bit to the plain transport and to one process;
+    lobpcg_dist on both pencils on 2 and 4 processes, twice each; config 4
+    through the CLI with --procs 4; dryrun_multichip(8, procs=4).
 
     python3 chip_smoke.py
 
@@ -236,7 +243,31 @@ Phases, in order; any failure raises and the process exits non-zero:
                and the bit-for-bit ones 0, K4, K5, K6, K8 and K10 launched;
                then a {"surface": ...} line: each of phases 28-33's
                launches per kernel
- 34. result    an {"off_main_path": [...]} line for the kernels no solver
+ 34. procs kernels  the compute mode (nvidia-smi; with Exclusive_Process
+               more than one context cannot share the card, and phases
+               34-36 run one process only, saying so on a line); then on
+               P = 2 and 4 processes (dist/procs.py, one spawn each for
+               phases 34 and 35) and on one: K6 (both layouts) and K5 (both
+               streams) at m 9 and 1 on the 8-shard 24^3 brick, each rank's
+               kernel bit for bit the plain transport (a peer copy_ into
+               the neighbours' mapped buffers) and K5's products bit for
+               bit K2, the gathered halos and products bit for bit one
+               process's; per exchange (rank 0) the kernel's device time
+               (torch.profiler), the whole exchange's and the plain
+               transport's host time, the barrier wait, bytes and bound
+ 35. procs solves  lobpcg_dist at phase 16's knobs on the union
+               ("rdma_overlap") and blocked-ELL ("rdma") pencils on P = 2
+               and 4 processes, twice (bitwise equal; the second traced for
+               each rank's device busy time), the eigenvalues within 1e-6
+               relative of the one-process run's, K5 or K6 launched in every
+               rank (counts zeroed just before each run, read just after),
+               no plain version on the card; wall time, barrier waits and
+               idle share
+ 36. procs cli    config 4 as written through the CLI with --procs 4
+               (eigenvalues within 1e-8 of phase 17's one-process run) and
+               dryrun_multichip(8, procs=4): the row-sharded branches on 4
+               processes, every check true and the bit-for-bit ones 0
+ 37. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -281,6 +312,7 @@ STENCIL_GRID = 64  # slice 2: n = 811,200 edges
 BSR_GRID = 24  # slice 3: the blocked-ELL solve, n = 38,088
 BANDED_GRID = 48  # slices 4, 5: the banded forms, n = 318,096
 SHARDS = 8  # slice 5: the distributed road's row shards (config 4's count)
+PROCS = (2, 4)  # slice 12: processes sharing the card (D / P shards each)
 NEV = 5
 # f32 summation order differs from the plain version's (cuBLAS bmm +
 # index_add_ for the union kernels, another tap order and FMA contraction
@@ -1656,7 +1688,8 @@ def phase_dist_solves(problem, pencils):
     "pallas" + "rdma", each run twice (bitwise equal), counts zeroed just
     before each run and read just after; their eigenvalues against the
     one-device 24^3 union solve's; then thick_restart_lanczos_dist on the
-    8-shard 16x16 rectangle ("pallas" + "rdma"). Returns {name: counts}."""
+    8-shard 16x16 rectangle ("pallas" + "rdma"). Returns ({name: counts},
+    {kernel: the lobpcg_dist eigenvalues})."""
     import maxwell_tpu_torch
     from maxwell_tpu_torch.dist import partition_problem
     from maxwell_tpu_torch.problems import RectCavity2D
@@ -1674,7 +1707,7 @@ def phase_dist_solves(problem, pencils):
     log({"phase": "dist_single_reference", "grid": GRID,
          "converged": one.converged, "iterations": one.iterations,
          "eigenvalues": [float(v) for v in one.eigenvalues]})
-    out = {}
+    out, eigenvalues = {}, {}
     required = {"union": ("union_interior_overlap", "bellunion_matmat"),
                 "pallas": ("ring_shift", "bsr_matmat")}
     for kernel, dp in pencils.items():
@@ -1724,6 +1757,7 @@ def phase_dist_solves(problem, pencils):
         if stray:
             raise AssertionError(f"plain versions ran on the card: {stray}")
         out[kernel] = counts
+        eigenvalues[kernel] = res.eigenvalues
 
     cav = RectCavity2D(nx=16, ny=16)
     dp = partition_problem(cav, SHARDS, kernel="pallas", dtype=torch.float32,
@@ -1749,7 +1783,7 @@ def phase_dist_solves(problem, pencils):
     if counts["ring_shift"] <= 0 or counts["bsr_matvec"] <= 0:
         raise AssertionError(f"dist thick-restart Lanczos counts: {counts}")
     out["trlanczos"] = counts
-    return out
+    return out, eigenvalues
 
 
 def phase_dist_cli():
@@ -1790,6 +1824,7 @@ def phase_dist_cli():
     rel = np.abs(np.asarray(reports["b"]["eigenvalues"]) - ev_a) / ev_a
     if not rel.max() <= 1e-8:
         raise AssertionError(f"config 4 (b) vs (a): {rel}")
+    return reports
 
 
 def phase_bellpairs_cli():
@@ -2845,6 +2880,240 @@ def phase_entry():
     return out
 
 
+# --- slice 12, the assembled road across processes ------------------------
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def _interior_nnz(problem, D, shards):
+    """Stored nonzeros of K and M in the interior parts (columns among the
+    shard's own rows) of the first `shards` of D row shards."""
+    import scipy.sparse as sp
+
+    n = problem.K.shape[0]
+    n_pad = -(-n // (D * 128)) * (D * 128)
+    Lb = n_pad // D
+    total = 0
+    for A in (problem.K, problem.M):
+        C = sp.coo_matrix(A)
+        keep = (C.row // Lb == C.col // Lb) & (C.row < shards * Lb)
+        total += int(keep.sum())
+    return total
+
+
+def _procs_entry(row, bound, launches):
+    """A kernels-line object for one cross-process kernel at m 9."""
+    b_ms, b_by = bound
+    return {"ms": row["kernel_device_ms"], "exchange_ms": row["exchange_ms"],
+            "plain_ms": row["plain_exchange_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "barrier_wait_ms_per_exchange":
+                row["barrier_wait_ms_per_exchange"],
+            "launches": launches,
+            "note": "ms: the kernel's device time on rank 0 under "
+                    "time-sliced contexts; exchange_ms and plain_ms: a "
+                    "whole exchange's host time, fences included, by the "
+                    "kernel and by the peer copy_ transport"}
+
+
+def _one_process_halos(problem):
+    """The one-process pencils' exchange_bench outputs (the same blocks),
+    without its timings: K5's products and halo section, K6's two
+    layouts, at m 9 and 1."""
+    from maxwell_tpu_torch.dist import partition_problem
+    from maxwell_tpu_torch.dist import rank_tasks as rt
+    from maxwell_tpu_torch.kernels import halo
+
+    out = {}
+    for kernel, impl in (("union", "rdma_overlap"), ("pallas", "rdma")):
+        dp = partition_problem(problem, SHARDS, kernel=kernel, reorder=False,
+                               dtype=torch.float32, halo_impl=impl,
+                               device="cuda")
+        for m in (9, 1):
+            X = rt.block(dp, m, m)
+            if kernel == "union":
+                *Ys, Xh = halo.union_interior_overlap(dp.Ui, X, SHARDS,
+                                                      dp.Hb, "ab")
+                out[("union_interior_overlap_Y", m)] = np.stack(
+                    [Y.cpu().numpy() for Y in Ys])
+                out[("union_interior_overlap", m)] = Xh.cpu().numpy()
+            else:
+                for own, pad in ((True, dp.b), (False, 0)):
+                    out[(f"ring_shift_own{int(own)}", m)] = halo.ring_shift(
+                        X, SHARDS, dp.Hb, own, pad).cpu().numpy()
+        del dp
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_procs(problem, one_eigenvalues):
+    """Phases 34 and 35 (slice 12): see the module docstring; the one
+    process's outputs from its pencils here, its eigenvalues from phase 16.
+    Returns ({kernel: {"procs": {P: entry}}}, the compute mode)."""
+    from maxwell_tpu_torch.dist import procs
+    from maxwell_tpu_torch.dist import rank_tasks as rt
+    from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
+
+    mode = compute_mode()
+    shared = mode != "Exclusive_Process"
+    counts_of = PROCS if shared else (1,)
+    log({"phase": "compute_mode", "compute_mode": mode,
+         "processes_share_the_card": shared, "procs": list(counts_of),
+         "nvidia_smi": nvidia_smi_line()})
+    spec = ("brick", GRID)
+    n = problem.K.shape[0]
+    X0 = np.random.default_rng(5).standard_normal((n, 9))
+    kw = dict(nev=NEV, maxiter=120, tol=1e-5, stall_window=12, X0=X0,
+              precond_alpha=float(cavity_eigenvalues_3d(1.0, 1.0, 1.0,
+                                                        NEV)[0]))
+    runs = {"first": ("lobpcg_dist", kw), "repeat": ("lobpcg_dist", kw)}
+    families = {"union": ("rdma_overlap", "union_interior_overlap"),
+                "pallas": ("rdma", "ring_shift")}
+
+    def calls(P):
+        return [(rt.exchange_bench, (spec, SHARDS, P)),
+                *[(rt.solve_checks, (spec, SHARDS, P, "cuda", kernel, impl,
+                                     "f32", runs, ("repeat",)))
+                  for kernel, (impl, _) in families.items()]]
+
+    results = {}
+    for P in counts_of:
+        t0 = time.perf_counter()
+        results[P] = (rt.sequence(calls(1)) if P == 1
+                      else procs.spawn(rt.sequence, P, calls(P)))
+        torch.cuda.synchronize()
+        log({"phase": "procs_spawn", "procs": P,
+             "seconds": time.perf_counter() - t0,
+             "exchange_bench_s": results[P][0]["seconds"],
+             "solve_s": {f: [r["seconds"] for r in sol.values()]
+                         for f, sol in zip(families, results[P][1:])}})
+
+    # phase 34: the exchanges
+    one = _one_process_halos(problem)
+    kernel_rows = {}
+    for P in counts_of:
+        bench = results[P][0]
+        same = {f"{name} m{m}": bool(np.array_equal(v, one[(name, m)]))
+                for (name, m), v in bench["outputs"].items()}
+        for row in bench["rows"]:
+            m = row["m"]
+            if row["kernel"] == "union_interior_overlap":
+                nnz = _interior_nnz(problem, SHARDS, SHARDS // P)
+                nbytes = (nnz * 8 + 2 * (row["local_rows"] + 1) * 4
+                          + row["bytes_read_x"] * 3 + row["bytes_written"])
+                bound = bound_ms(nbytes, nnz * m * 2, "f32")
+            else:
+                nbytes = row["bytes_read_x"] + row["bytes_written"]
+                bound = bound_ms(nbytes, 0, "f32")
+            row.update(bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+                       bitwise_equal_one_process=same)
+            log({"phase": "procs_kernels", "grid": GRID, "shards": SHARDS,
+                 **row, "nvidia_smi": nvidia_smi_line(),
+                 "contexts": "P processes sharing one card, time-sliced"})
+            if m == 9 and row["kernel"] != "ring_shift_own0":
+                kernel_rows[(row["kernel"].split("_own")[0], P)] = (row,
+                                                                    bound)
+        if not all(same.values()):
+            raise AssertionError(f"{P} processes vs one: {same}")
+
+    # phase 35: the solves
+    launches, stats = {}, {}
+    for P in counts_of:
+        for (family, (impl, kernel)), sol in zip(families.items(),
+                                                 results[P][1:]):
+            first, repeat = sol["first"], sol["repeat"]
+            identical = (first["history"] == repeat["history"]
+                         and np.array_equal(first["eigenvalues"],
+                                            repeat["eigenvalues"])
+                         and np.array_equal(first["eigenvectors"],
+                                            repeat["eigenvectors"]))
+            ev1 = one_eigenvalues[family]
+            rel = np.abs(first["eigenvalues"] - ev1) / np.abs(ev1)
+            per_rank = [c[kernel] for c in first["counts"]]
+            busy = repeat["device_busy_ms"]
+            log({"phase": "procs_solve", "grid": GRID, "shards": SHARDS,
+                 "procs": P, "kernel": family, "halo_impl": impl,
+                 "converged": first["converged"],
+                 "iterations": first["iterations"],
+                 "eigenvalues": first["eigenvalues"].tolist(),
+                 "rel_to_one_process": rel.tolist(),
+                 "residuals": first["residuals"].tolist(),
+                 "repeat_identical": identical,
+                 "wall_s": first["seconds"],
+                 "ms_per_iteration": first["seconds"]
+                 / max(first["iterations"], 1) * 1e3,
+                 "barrier_wait_s": first["wait_s"],
+                 "exchanges": first["exchanges"],
+                 f"{kernel}_launches_per_rank": per_rank,
+                 "traced_wall_s": repeat["seconds"],
+                 "device_busy_ms_per_rank": busy,
+                 "idle_share_per_rank": [
+                     1.0 - b / (repeat["seconds"] * 1e3) for b in busy],
+                 "nvidia_smi": nvidia_smi_line()})
+            if not first["converged"] or first["residuals"].max() > 1e-5:
+                raise AssertionError(f"{family} on {P} processes: "
+                                     f"{first['residuals']}")
+            if not identical:
+                raise AssertionError(f"{family} on {P} processes: two runs "
+                                     "differ")
+            if not rel.max() <= 1e-6:
+                raise AssertionError(f"{family} on {P} processes vs one: "
+                                     f"{rel}")
+            if not all(c > 0 for c in per_rank):
+                raise AssertionError(f"{kernel} not launched in every rank: "
+                                     f"{per_rank}")
+            stray = {k: v for c in first["counts"] for k, v in c.items()
+                     if v and k.endswith("_ref")}
+            if stray:
+                raise AssertionError(f"plain versions ran on the card: "
+                                     f"{stray}")
+            launches[(kernel, P)] = sum(per_rank)
+    for (kernel, P), (row, bound) in kernel_rows.items():
+        if P > 1:
+            stats.setdefault(kernel, {"procs": {}})["procs"][str(P)] = (
+                _procs_entry(row, bound, launches[(kernel, P)]))
+    return stats, mode
+
+
+def phase_procs_cli(reports_one, mode):
+    """Phase 36 (slice 12): config 4 as written through the CLI with
+    --procs 4, against phase 17's one-process run; dryrun_multichip(8,
+    procs=4)."""
+    from maxwell_tpu_torch.cli import run as cli
+    from maxwell_tpu_torch.entry import dryrun_multichip
+
+    P = PROCS[-1] if mode != "Exclusive_Process" else 1
+    path = os.path.join(CONFIGS, "config4.json")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([path, "--device", "cuda", "--procs", str(P)])
+    wall = time.perf_counter() - t0
+    rep = json.loads(out.getvalue().strip().splitlines()[-1])
+    ev1 = np.asarray(reports_one["a"]["eigenvalues"])
+    rel = np.abs(np.asarray(rep["eigenvalues"]) - ev1) / ev1
+    log({"phase": "procs_cli", "config": "config4", "procs": P, "rc": rc,
+         "wall_s": wall, **{k: rep.get(k) for k in (
+             "converged", "iterations", "n", "t_solve_s", "eigenvalues",
+             "residuals", "analytic_rel_err")},
+         "rel_to_one_process": rel.tolist()})
+    if rc != 0 or not rep["converged"] or max(rep["residuals"]) > 1e-8:
+        raise AssertionError(f"config 4 on {P} processes: {rep}")
+    if not rel.max() <= 1e-8:
+        raise AssertionError(f"config 4 on {P} processes vs one: {rel}")
+    t0 = time.perf_counter()
+    checks = dryrun_multichip(SHARDS, "cuda", procs=P)
+    log({"phase": "procs_dryrun", "shards": SHARDS, "procs": P,
+         "checks": checks, "seconds": time.perf_counter() - t0})
+    if not all(v is True or v == 0.0 for v in checks.values()):
+        raise AssertionError(f"dryrun_multichip(procs={P}): {checks}")
+
+
 def timed(fn, *args):
     """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
     t0 = time.perf_counter()
@@ -2893,10 +3162,11 @@ def main():
     timed(phase_bellpairs_cli)
     pencils = timed(_dist_pencils, grid_problem)
     stats.update(timed(phase_dist_kernels, grid_problem, pencils))
-    dist_counts = timed(phase_dist_solves, grid_problem, pencils)
+    dist_counts, dist_eigenvalues = timed(phase_dist_solves, grid_problem,
+                                          pencils)
     del pencils
     torch.cuda.empty_cache()
-    timed(phase_dist_cli)
+    config4_reports = timed(phase_dist_cli)
     probe_stats, probe_counts = timed(phase_union_probes)
     stats.update(probe_stats)
     probe_stats, probe2_counts = timed(phase_grid_and_stencil_probes)
@@ -2918,6 +3188,10 @@ def main():
         phase: ({k: launched(c) for k, c in counts.items()}
                 if phase == "r5dist" else launched(counts))
         for phase, counts in surface.items()}})
+    procs_stats, mode = timed(phase_procs, grid_problem, dist_eigenvalues)
+    timed(phase_procs_cli, config4_reports, mode)
+    for name, st in procs_stats.items():
+        stats[name].update(st)
     stats["level_solve"].update(
         config3_cli_launches=si_counts["cli"]["level_solve"],
         note="not a Pallas kernel in the reference: a jnp fori_loop over "
@@ -2972,8 +3246,8 @@ def main():
                           "m1", "m8", "m9", "m32", "m64", "m128", "m171",
                           "launch_floor_ms", "chain_ms", "chain_floor_ms",
                           "unit_bytes", "library_bf16_ms", "l2_floor_ms",
-                          "p3_grid91", "slab", "levels", "window",
-                          "window_route", "cases",
+                          "p3_grid91", "slab", "procs", "levels",
+                          "window", "window_route", "cases",
                           "config3_cli_launches", "note")
                          if w in stats[name]}}
                      for name, path in paths.items()]})

@@ -17,7 +17,11 @@ problems (`dist.n_shards` row shards, `storage.kernel` "auto", "ref",
 the distributed spectral preconditioner; configs 4_stencil and 5). A
 distributed run builds the mesh its config names, all shards on the one
 device: the reference clamps the shard count to the visible devices, since
-a JAX mesh needs a device per shard. With refinement, PEC 3D stencil
+a JAX mesh needs a device per shard. `--procs P` runs the assembled
+"lobpcg_dist" (config 4) on P processes (dist/procs.py), D / P shards each,
+rank r on cuda:(r % device count) (or the CPU with --device cpu); rank 0's
+history and report are printed, by this process. The slab-sharded and the
+other solver kinds take one process. With refinement, PEC 3D stencil
 pencils refine to tol on the device (`refine_dw`; slab-sharded ones
 `refine_dw_dist`, for a staged `batch` run each stage's block before it
 joins the deflation basis), other stencil pencils by warm-started f64
@@ -275,9 +279,7 @@ def _single_device(pencil, kind, scfg, nev, maxiter, tol, args, f32_refine,
     return _lobpcg(pencil, scfg, nev, maxiter, tol, args, stall)
 
 
-def main(argv=None):
-    import torch
-
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("config", help="path to JSON config")
     ap.add_argument("--nev", type=int, default=None)
@@ -301,8 +303,54 @@ def main(argv=None):
         "--device", default="cuda",
         help="torch device of the solve (default: cuda)",
     )
-    args = ap.parse_args(argv)
+    ap.add_argument(
+        "--procs", type=int, default=1,
+        help="processes of an assembled lobpcg_dist run (default: 1)",
+    )
+    return ap
+
+
+def main(argv=None):
+    """Run the config (on --procs processes) and print its history lines
+    and report."""
+    from maxwell_tpu_torch.dist import procs
+
+    args = _parser().parse_args(argv)
+    if args.procs > 1:
+        with open(args.config) as f:
+            cfg = json.load(f)
+        if (cfg.get("solver", {}).get("kind") != "lobpcg_dist"
+                or cfg.get("storage", {}).get("operator") == "stencil"):
+            raise ValueError(
+                "--procs > 1 runs the assembled lobpcg_dist (config 4) "
+                "only; the slab-sharded and one-device solvers take one "
+                "process")
+        from maxwell_tpu_torch.dist import rank_tasks
+
+        history, report = procs.spawn(rank_tasks.cli, args.procs,
+                                      list(argv or sys.argv[1:]),
+                                      device=args.device)
+    else:
+        history, report = run(argv)
+    for h in history:
+        print(json.dumps(h))
+    print(json.dumps(report))
+    return 0
+
+
+def run(argv=None):
+    """The config's solve on this process: (history, report). Inside a rank
+    of a spawn the mesh spans --procs processes, and only rank 0 refines."""
+    import torch
+
+    from maxwell_tpu_torch.dist import procs
+
+    args = _parser().parse_args(argv)
     device = torch.device(args.device)
+    group = procs.current()
+    rank = 0 if group is None else group.rank
+    if args.procs > 1 and group is not None:
+        device = group.device
 
     with open(args.config) as f:
         cfg = json.load(f)
@@ -359,7 +407,8 @@ def main(argv=None):
     if kind == "lobpcg_dist":
         from maxwell_tpu_torch.dist import make_mesh, partition_problem
 
-        mesh = make_mesh(cfg.get("dist", {}).get("n_shards", 1), device)
+        mesh = make_mesh(cfg.get("dist", {}).get("n_shards", 1), device,
+                         args.procs)
         if use_stencil:
             dp = build_dist_stencil(pcfg, mesh.D, dtype, block, device)
         else:
@@ -385,7 +434,7 @@ def main(argv=None):
     t_solve = time.perf_counter() - t0
 
     t_refine = None
-    if want_refine:
+    if want_refine and rank == 0:
         from maxwell_tpu_torch.solvers.refine_device import (
             refine_dw,
             refine_dw_supports,
@@ -430,9 +479,6 @@ def main(argv=None):
         ref.iterations += res.iterations
         res = ref
 
-    for h in res.history:
-        print(json.dumps(h))
-
     report = {
         "eigenvalues": [float(v) for v in res.eigenvalues],
         "residuals": [float(r) for r in res.residuals],
@@ -463,7 +509,7 @@ def main(argv=None):
         report["analytic_rel_err"] = [
             float(abs(v - e) / e) for v, e in zip(res.eigenvalues, exact)
         ]
-    if args.save_eigenvectors:
+    if args.save_eigenvectors and rank == 0:
         import numpy as np
 
         np.savez(
@@ -473,8 +519,9 @@ def main(argv=None):
             residuals=res.residuals,
         )
         report["eigenvectors_file"] = args.save_eigenvectors
-    print(json.dumps(report))
-    return 0
+    if dp is not None and hasattr(dp, "close"):
+        dp.close()
+    return list(res.history), report
 
 
 if __name__ == "__main__":

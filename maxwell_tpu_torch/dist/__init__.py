@@ -1,7 +1,8 @@
 """Distributed pencils (maxwell_tpu/dist/): the block-row partitioner, the
 stacked-view DistPencil with its halo exchange, the slab-sharded
 matrix-free DistStencilPencil3D (dist/stencil_dist.py), and the shard mesh.
-All shards live in one process on one device."""
+The shards live in one process on one device, or a DistPencil's on P
+processes (dist/procs.py), D / P shards each."""
 
 from maxwell_tpu_torch.dist.mesh import (  # noqa: F401
     Mesh,

@@ -1,11 +1,13 @@
 """The shard mesh of a distributed pencil (maxwell_tpu/dist/mesh.py).
 
 The reference builds a 1-D JAX device mesh, one device per shard, and runs
-its solvers per shard under shard_map. The port holds all D shards of a
-row-sharded pencil in one process on one torch device, in a stacked view
-(dist/partition.py): shard d owns rows [d Lb, (d + 1) Lb) of every vector.
-So a mesh is D shards on a device, and its halo links are the D - 1
-neighbour pairs of that one device: one host, no link crossing hosts.
+its solvers per shard under shard_map. The port holds the D shards of a
+row-sharded pencil in a stacked view (dist/partition.py): shard d owns rows
+[d Lb, (d + 1) Lb) of every vector. One process holds all D on one device
+(procs 1), or P processes (dist/procs.py) hold D / P consecutive shards
+each, on one card or on the cards of one host. So a mesh is D shards over
+P processes, and its halo links are the D - 1 neighbour pairs: one host,
+no link crossing hosts.
 """
 
 from __future__ import annotations
@@ -17,25 +19,51 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """D row shards held on `device`."""
+    """D row shards over `procs` processes; this process is `rank` and
+    holds shards [rank D / procs, (rank + 1) D / procs) on `device`."""
 
     D: int
     device: torch.device
+    procs: int = 1
+    rank: int = 0
+    group: object = dataclasses.field(default=None, compare=False)
 
 
-def make_mesh(n_shards: int = 1, device: str | torch.device = "cuda") -> Mesh:
-    """A 1-D mesh of n_shards row shards on one device (the card unless the
-    caller asks for the CPU). Unlike the reference, the shard count is not
-    bounded by the device count: every shard lives on the same device."""
+def make_mesh(n_shards: int = 1, device: str | torch.device = "cuda",
+              procs: int = 1) -> Mesh:
+    """A 1-D mesh of n_shards row shards over `procs` processes (the
+    reference's visible-device count). procs 1: every shard on `device` (the
+    card unless the caller asks for the CPU), unbounded by the device count.
+    procs > 1: called inside a rank of dist.procs.spawn with that many
+    ranks, on the rank's device (of `device`'s type); n_shards must divide
+    by procs."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-    return Mesh(D=int(n_shards), device=torch.device(device))
+    if procs < 1 or n_shards % procs:
+        raise ValueError(f"{n_shards} shards do not divide over {procs} "
+                         "processes")
+    if procs == 1:
+        return Mesh(D=int(n_shards), device=torch.device(device))
+    from maxwell_tpu_torch.dist.procs import current
+
+    group = current()
+    if group is None or group.procs != procs:
+        raise ValueError(
+            f"a mesh over {procs} processes is made inside a rank of "
+            f"dist.procs.spawn(..., {procs}), not here "
+            f"({'no spawn' if group is None else f'{group.procs} ranks'})")
+    if group.device.type != torch.device(device).type:
+        raise ValueError(f"the rank runs on {group.device}, asked for "
+                         f"{device}")
+    return Mesh(D=int(n_shards), device=group.device, procs=procs,
+                rank=group.rank, group=group)
 
 
 def mesh_topology_report(mesh: Mesh) -> dict:
     """Link classes of the 1-D neighbour (halo) topology, with the
-    reference's keys: every shard on one device of one host, so all D - 1
-    neighbour links are local and none crosses hosts."""
+    reference's keys (a device per shard: every shard on one host, so all
+    D - 1 neighbour links are local and none crosses hosts), and behind
+    them the real ones: `real` {devices: the processes, hosts: 1}."""
     links = max(mesh.D - 1, 0)
     return {
         "devices": mesh.D,
@@ -44,4 +72,5 @@ def mesh_topology_report(mesh: Mesh) -> dict:
         "dcn_links": 0,
         "ici_links": links,
         "dcn_link_positions": [],
+        "real": {"devices": mesh.procs, "hosts": 1},
     }

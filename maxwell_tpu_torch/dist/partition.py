@@ -1,5 +1,5 @@
 """Block-row partitioner and the distributed pencil (maxwell_tpu/dist/
-partition.py), in a stacked view on one device.
+partition.py), in a stacked view, on one process or across processes.
 
 Host side (`partition_problem`): split the assembled K and M into D
 contiguous block-row shards, compute the uniform halo depth H (the largest
@@ -11,14 +11,20 @@ are the reference's.
 
 Device side (`DistPencil`): the reference runs its solvers per shard under
 shard_map, with psum reductions and ppermute (or remote-DMA) halo
-exchanges. Here the D shards live in one process on one device, and the
-pencil works on the STACKED view the reference's shard_map assembles:
-vectors are (D Lb, m) tensors, shard d owns rows [d Lb, (d + 1) Lb), and
-n_padded is D Lb, so the single-device solvers run unchanged on it. A
-reduction takes the per-shard partial sums on a (D, Lb, m) view and sums
-them over the shards: the psum, in a fixed order, without atomics. The
-shards' layouts are stacked into one layout per part whose columns index a
-stacked buffer, so one launch applies every shard:
+exchanges. Here a process holds Dl consecutive shards of the D: all of them
+(one process, on one device), or D / P of them on each of P processes
+(dist/procs.py, a mesh with procs P: shards [d0, d0 + Dl), d0 = rank Dl).
+The pencil works on the STACKED view the reference's shard_map assembles:
+vectors are (Dl Lb, m) tensors, local shard j (global d0 + j) owns rows
+[j Lb, (j + 1) Lb), and n_padded is Dl Lb, so the single-device solvers run
+unchanged on it, in step on every rank. A reduction takes each shard's
+partial sum (one product or sum a shard, the same call whatever P is),
+gathers the D partials of all ranks over the gloo group (host copies) and
+adds them in shard order: the psum, in a fixed order, without atomics, so P
+processes give the one-process view's bits, and every rank the same bits,
+on which it takes its host decisions. The shards' layouts are stacked into
+one layout per part whose columns index a stacked buffer, so one launch
+applies every local shard:
 
   kernel="ref" / "pallas"  blocked-ELL (BSRMatrix): the interior columns
       index the stacked X itself; the boundary columns index the stacked
@@ -34,21 +40,25 @@ stacked buffer, so one launch applies every shard:
       path), through the union kernel (K2).
 
 Halo transports (`halo_impl`), chosen as the reference chooses them:
-  "ppermute"      plain torch (slices and torch.cat): the reference's XLA
-                  collective;
-  "rdma"          the ring-shift kernel (K6, kernels/halo.py);
+  "ppermute"      plain torch (slices and torch.cat; across processes the
+                  link's plain transport, kernels/halo.py HaloLink): the
+                  reference's XLA collective;
+  "rdma"          the ring-shift kernel (K6, kernels/halo.py), across
+                  processes a push into the neighbours' buffers;
   "rdma_overlap"  union pencils: the fused interior SpMM + halo copy (K5);
                   other pencils take the "ppermute" transport, as in the
                   reference.
 A halo deeper than a shard (H > L, tiny or unordered problems) takes the
-gather window (plain torch), and H = 0 (one shard) needs no halo. Synthetic
-`dcn_links` select the reference's DCN-first schedule (plain torch; in one
-process the order of the copies changes nothing, so it equals the plain
-transport bit for bit).
+gather window (plain torch; across processes on an all-gather of X), and
+H = 0 (one shard) needs no halo. Synthetic `dcn_links` select the
+reference's DCN-first schedule (plain torch on the gather window; the order
+of the copies changes nothing, so it equals the plain transport bit for
+bit).
 
 The gradient projector's node vectors are replicated in the reference;
-here they are simply the projector of the whole problem, its G^T summed in
-a fixed order (solvers/deflation.py).
+here they are the projector of the whole problem, its G^T summed per node
+in a fixed order (solvers/deflation.py); across processes each rank holds
+its own rows' edges and G^T sums the ranks' partials in rank order.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ import scipy.sparse as sp
 import torch
 
 from maxwell_tpu_torch.kernels import halo as _halo
+from maxwell_tpu_torch.kernels.halo import HaloLink
 from maxwell_tpu_torch.solvers.cg import cg
 from maxwell_tpu_torch.solvers.deflation import GradientProjector
 from maxwell_tpu_torch.sparse.bsr import BSRMatrix, bsr_matmat_ref
@@ -116,13 +127,15 @@ def _shard_int_bnd_csr(C, D: int, Lb: int, Hb: int, n_pad: int):
 class DistPencil:
     """Row-sharded pencil in the stacked view (see the module docstring).
 
-    K_int, M_int: interior blocked-ELL parts, D L block rows, columns into
+    K_int, M_int: interior blocked-ELL parts, Dl L block rows, columns into
     the stacked X. K_bnd, M_bnd: boundary parts, columns into the stacked
     halo-extended buffer (None without a halo). Ui, Ub: the stacked interior
     and boundary union layouts of kernel="union" (Ub None without a halo).
     perm: the RCM permutation of the problem's rows (None if not
     reordered): vectors are in the permuted order, extract_vectors and
     inject_vectors map them to and from the problem's own order.
+    link: this rank's HaloLink across processes (None in one process);
+    close() releases its buffers.
     """
 
     D: int
@@ -146,6 +159,7 @@ class DistPencil:
     halo_impl: str = "ppermute"
     dcn_links: tuple = ()
     perm: np.ndarray | None = None
+    link: HaloLink | None = dataclasses.field(default=None, compare=False)
 
     # --- shapes -----------------------------------------------------------
     @property
@@ -159,12 +173,37 @@ class DistPencil:
         return self.H * self.b
 
     @property
+    def procs(self) -> int:
+        return 1 if self.link is None else self.link.group.procs
+
+    @property
+    def Dl(self) -> int:
+        """Shards this process holds."""
+        return self.D // self.procs
+
+    @property
+    def d0(self) -> int:
+        """The first of them."""
+        return 0 if self.link is None else self.link.d0
+
+    @property
     def global_rows(self) -> int:
         return self.D * self.Lb
 
     @property
     def n_padded(self) -> int:
-        return self.global_rows
+        """Rows this process holds: the stacked view's."""
+        return self.Dl * self.Lb
+
+    def local(self, X):
+        """This process's rows of a global (global_rows, ...) block."""
+        return X[self.d0 * self.Lb:(self.d0 + self.Dl) * self.Lb]
+
+    def close(self) -> None:
+        """Release the exchange buffers across processes (a collective:
+        every rank calls it)."""
+        if self.link is not None:
+            self.link.close()
 
     @property
     def _values(self) -> torch.Tensor:
@@ -181,16 +220,20 @@ class DistPencil:
     # --- host-side helpers -------------------------------------------------
     def make_block(self, m: int, generator: torch.Generator | None = None):
         """Random start block in the stacked layout, zero past row n
-        (default generator: seed 0 on the pencil's device)."""
+        (default generator: seed 0 on the pencil's device): the global
+        block's draws, this process's rows."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         X0 = torch.randn((self.global_rows, m), generator=generator,
                          dtype=self.dtype, device=generator.device)
         X0[self.n:] = 0.0
-        return X0.to(self.device)
+        return self.local(X0).to(self.device)
 
     def extract_vectors(self, X_stacked) -> np.ndarray:
-        """Stacked rows (tensor or numpy) -> the problem's own ordering."""
+        """Stacked rows (tensor or numpy; across processes this rank's,
+        gathered from every rank) -> the problem's own ordering."""
+        if self.link is not None:
+            X_stacked = self.link.gather(torch.as_tensor(X_stacked))
         X = X_stacked.cpu().numpy() if torch.is_tensor(X_stacked) else (
             np.asarray(X_stacked))
         vecs = X[: self.n]
@@ -206,79 +249,111 @@ class DistPencil:
         X = np.asarray(X_orig)
         if self.perm is not None:
             X = X[self.perm]
-        out = torch.zeros((self.global_rows,) + X.shape[1:], dtype=self.dtype,
-                          device=self.device)
-        out[: self.n] = torch.from_numpy(np.ascontiguousarray(X)).to(
-            device=self.device, dtype=self.dtype)
-        return out
+        X = np.ascontiguousarray(X[: self.n])
+        out = torch.zeros((self.global_rows,) + X.shape[1:], dtype=self.dtype)
+        out[: self.n] = torch.from_numpy(X).to(dtype=self.dtype)
+        return self.local(out).to(self.device)
 
     # --- reductions: per-shard partials, summed over the shards -------------
     def weigh(self, x: torch.Tensor) -> torch.Tensor:
         return x  # block-row sharding has no replicated rows
 
-    def _shard_sums(self, P: torch.Tensor) -> torch.Tensor:
-        """P (D Lb, ...) -> the sum over rows: per-shard sums, then the sum
-        of the D partials."""
-        return P.reshape(self.D, self.Lb, *P.shape[1:]).sum(dim=1).sum(dim=0)
+    def _sum_shards(self, parts) -> torch.Tensor:
+        """The Dl per-shard partials of this process (one call a shard, the
+        same call whatever the process count) -> their sum over all D
+        shards, in shard order: gathered from every rank first."""
+        P = torch.stack(parts)
+        if self.link is not None:
+            P = self.link.gather(P)
+        return P.sum(dim=0)
+
+    def _shards(self, A: torch.Tensor):
+        return A.reshape(self.Dl, self.Lb, *A.shape[1:])
 
     def dot_mm(self, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-        Av = A.reshape(self.D, self.Lb, -1)
-        Bv = B.reshape(self.D, self.Lb, -1)
-        return torch.bmm(Av.transpose(1, 2), Bv).sum(dim=0)
+        """A^T B: one product a shard, summed over the shards (a batched
+        product of the shards runs on few thread blocks on the card,
+        dist/stencil_dist.py DistStencilPencil3D.dot_mm)."""
+        Av = A.reshape(self.Dl, self.Lb, -1)
+        Bv = B.reshape(self.Dl, self.Lb, -1)
+        return self._sum_shards([Av[j].T @ Bv[j] for j in range(self.Dl)])
 
     def dot_cols(self, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-        return self._shard_sums(A * B)
+        P = self._shards(A * B)
+        return self._sum_shards([P[j].sum(dim=0) for j in range(self.Dl)])
 
     def dot_vv(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return self._shard_sums(x * y)
+        return self.dot_cols(x, y)
 
-    def reduce_rows(self, v: torch.Tensor) -> torch.Tensor:
-        return v  # a product over the stacked rows is already global
+    def dot_basis(self, V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """(k,) <- V @ w over the rows, V (k, rows) a basis held by rows,
+        w (rows,): one product a shard, summed over the shards."""
+        Lb = self.Lb
+        return self._sum_shards([V[:, j * Lb:(j + 1) * Lb] @ w[j * Lb:
+                                                               (j + 1) * Lb]
+                                 for j in range(self.Dl)])
 
     def col_norms(self, A: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(torch.clamp(self.dot_cols(A, A), min=0.0))
 
     # --- halo exchange ---------------------------------------------------------
     def _exchange(self, X: torch.Tensor, own: bool, pad_rows: int):
-        """Every shard's halo section through the configured transport (see
-        kernels/halo.py for the layout): per shard [own Lb if own | left Hb
-        | right Hb | pad_rows zeros], stacked."""
+        """Every local shard's halo section through the configured
+        transport (see kernels/halo.py for the layout): per shard [own Lb if
+        own | left Hb | right Hb | pad_rows zeros], stacked."""
         Hb = self.Hb
         if Hb and self.H <= self.L:
             if self.halo_impl == "rdma":
                 return _halo.ring_shift(X.contiguous(), self.D, Hb, own,
-                                        pad_rows)
+                                        pad_rows, self.link)
             if self.dcn_links:
                 return self._exchange_dcn(X, own, pad_rows)
-        # "ppermute" (slices and torch.cat); H > L: the gather window
-        return _halo.ppermute(X, self.D, Hb, own, pad_rows)
+            return _halo.ppermute(X, self.D, Hb, own, pad_rows, self.link)
+        # H > L: the gather window; H = 0: no halo
+        return _halo.assemble(X, self.Dl, *self._window(X), own, pad_rows)
+
+    def _window(self, X: torch.Tensor, gather: bool = False):
+        """(Dl, Hb, m) left and right halos of the local shards through the
+        gather window (one process: slices where the halo is shallow and
+        gather is False); across processes on the all-gathered X."""
+        if self.link is None:
+            return _halo.window(X, self.D, self.Hb, gather=gather)
+        sl = slice(self.d0, self.d0 + self.Dl)
+        left, right = _halo.window(self.link.gather(X), self.D, self.Hb,
+                                   gather=True)
+        return left[sl], right[sl]
 
     def _exchange_dcn(self, X, own, pad_rows):
         """The reference's DCN-first schedule: the copies over links that
         cross hosts (positions p of link (p, p + 1) in dcn_links) first,
         then the others; each part is zero where the other copies, so
         their sum is the plain transport's result."""
-        left, right = _halo.window(X, self.D, self.Hb)
+        left, right = self._window(X)
         dcn = set(self.dcn_links)
-        shape = (self.D, 1, 1)
+        shape = (self.Dl, 1, 1)
+        shards = range(self.d0, self.d0 + self.Dl)
         # shard d's left halo comes over link d - 1, its right over link d
-        lmask = torch.tensor([d - 1 in dcn for d in range(self.D)],
+        lmask = torch.tensor([d - 1 in dcn for d in shards],
                              device=X.device).reshape(shape)
-        rmask = torch.tensor([d in dcn for d in range(self.D)],
+        rmask = torch.tensor([d in dcn for d in shards],
                              device=X.device).reshape(shape)
         zero = X.new_zeros(())
         left_d, right_d = (torch.where(lmask, left, zero),
                            torch.where(rmask, right, zero))
         left_i, right_i = (torch.where(~lmask, left, zero),
                            torch.where(~rmask, right, zero))
-        return _halo.assemble(X, self.D, left_d + left_i, right_d + right_i,
+        return _halo.assemble(X, self.Dl, left_d + left_i, right_d + right_i,
                               own, pad_rows)
 
     def exchange_halos(self, X: torch.Tensor) -> torch.Tensor:
-        """Stacked X (D Lb, m) -> the stacked halo-extended buffers, per
-        shard [own Lb | left Hb | right Hb | zero b] rows."""
+        """Stacked X (Dl Lb, m) -> the stacked halo-extended buffers, per
+        shard [own Lb | left Hb | right Hb | zero b] rows (across processes
+        a copy of the registered buffer, which the next exchange
+        overwrites)."""
         vec = X.dim() == 1
         out = self._exchange(X[:, None] if vec else X, True, self.b)
+        if self.link is not None:
+            out = out.clone()
         return out[:, 0] if vec else out
 
     def exchange_halos_reference(self, X: torch.Tensor) -> torch.Tensor:
@@ -286,8 +361,8 @@ class DistPencil:
         transport."""
         vec = X.dim() == 1
         Xl = X[:, None] if vec else X
-        left, right = _halo.window(Xl, self.D, self.Hb, gather=True)
-        out = _halo.assemble(Xl, self.D, left, right, True, self.b)
+        out = _halo.assemble(Xl, self.Dl, *self._window(Xl, gather=True),
+                             True, self.b)
         return out[:, 0] if vec else out
 
     def halo_checksum(self, X: torch.Tensor) -> torch.Tensor:
@@ -333,7 +408,7 @@ class DistPencil:
         if (self.halo_impl == "rdma_overlap" and self.Ub is not None
                 and self.H <= self.L):
             *Ys, Xh = _halo.union_interior_overlap(
-                self.Ui, Xl, self.D, self.Hb, streams)
+                self.Ui, Xl, self.D, self.Hb, streams, self.link)
         else:
             Ys = [bellunion_matmat(self.Ui, Xl, s) for s in streams]
             Xh = None
@@ -373,10 +448,37 @@ class DistPencil:
                                  maxiter=self.proj_iters)
 
 
-def _stacked_bsr(blocks, cols, D, dtype, device) -> BSRMatrix:
+def _stacked_bsr(blocks, cols, dtype, device) -> BSRMatrix:
     n = blocks.shape[0] * blocks.shape[2]
     return BSRMatrix._from_numpy(blocks, cols, n, None, None, 0, dtype,
                                  device, True)
+
+
+def _local_shards(D: int, group) -> tuple[int, int]:
+    """(Dl, d0): the shards a process holds, and the first of them."""
+    if group is None:
+        return D, 0
+    if D % group.procs:
+        raise ValueError(f"{D} shards do not divide over {group.procs} "
+                         "processes")
+    Dl = D // group.procs
+    return Dl, group.rank * Dl
+
+
+def _projector(G, Dl: int, d0: int, Lb: int, dtype, device, group):
+    """The gradient projector of a process's rows [d0 Lb, (d0 + Dl) Lb):
+    its edges' rows of G (all of them in one process); across processes
+    G^T sums the ranks' partials (solvers/deflation.py)."""
+    if group is None:
+        return GradientProjector.from_gradient(G, Dl * Lb, dtype=dtype,
+                                               device=device)
+    rows = sp.csr_matrix(G)[d0 * Lb:(d0 + Dl) * Lb]
+    return GradientProjector.from_gradient(rows, Dl * Lb, dtype=dtype,
+                                           device=device, group=group)
+
+
+def _link(group, D: int, Lb: int, Hb: int) -> HaloLink | None:
+    return None if group is None else HaloLink(group, D, Lb, Hb)
 
 
 def partition_problem(
@@ -393,21 +495,24 @@ def partition_problem(
 ) -> DistPencil:
     """Host-side partitioner: problem (RectCavity2D / BrickCavity3D) -> a
     row-sharded DistPencil on the mesh's device (else `device`, default
-    the card).
+    the card). On a mesh over P processes every rank runs the same host
+    partition and keeps its own shards [rank D / P, (rank + 1) D / P).
 
     reorder=True applies RCM so halos are shallow; the permutation is kept
     on the pencil (`perm`). dcn_links: positions p whose link (p, p + 1)
     crosses hosts (a test seam, as in the reference; a mesh of shards on
-    one device has none, mesh_topology_report).
+    one host has none, mesh_topology_report).
     """
     if kernel not in _KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
     if halo_impl not in _HALO_IMPLS:
         raise ValueError(f"unknown halo_impl {halo_impl!r}")
+    group = None
     if mesh is not None:
         if mesh.D != n_shards:
             raise ValueError(f"mesh has {mesh.D} shards, asked for {n_shards}")
         device = mesh.device
+        group = mesh.group
     device = torch.device("cuda" if device is None else device)
     dcn_links = tuple(dcn_links or ())
     if block is None:
@@ -420,7 +525,7 @@ def partition_problem(
         perm = problem.perm
     if kernel == "union":
         return _partition_union(problem, n_shards, block, dtype, halo_impl,
-                                dcn_links, device, perm)
+                                dcn_links, device, perm, group)
     D, b = n_shards, block
     row_tile = max(128 // b, 1)
     K, M = (
@@ -467,8 +572,12 @@ def partition_problem(
     # split interior (own-row columns) from boundary (halo columns), then
     # point the columns at the stacked buffers: interior into the stacked X
     # (a padding slot, zero valued, reads the shard's first row), boundary
-    # into the stacked halo-extended buffer (L + 2H + 1 block rows a shard)
-    shard = np.repeat(np.arange(D), L)[:, None]
+    # into the stacked halo-extended buffer (L + 2H + 1 block rows a shard);
+    # a process keeps its own shards' block rows, its columns counted from
+    # its first shard
+    Dl, d0 = _local_shards(D, group)
+    shard = np.repeat(np.arange(D), L)[:, None] - d0
+    mine = slice(d0 * L, (d0 + Dl) * L)
 
     def split(blocks_np, cols_np, nz):
         cols_local = remap(cols_np, nz)
@@ -490,23 +599,23 @@ def partition_problem(
             return bi, ci
 
         bi, ci = pack(int_mask, L)
-        A_int = _stacked_bsr(bi, np.where(ci < L, ci, 0) + shard * L, D,
-                             dtype, device)
+        ci = np.where(ci < L, ci, 0) + shard * L
+        A_int = _stacked_bsr(bi[mine], ci[mine], dtype, device)
         A_bnd = None
         if H:
             bb, cb = pack(bnd_mask, L + 2 * H)
-            A_bnd = _stacked_bsr(bb, cb + shard * (L + 2 * H + 1), D, dtype,
-                                 device)
+            cb = cb + shard * (L + 2 * H + 1)
+            A_bnd = _stacked_bsr(bb[mine], cb[mine], dtype, device)
         return A_int, A_bnd
 
     K_int, K_bnd = split(K_blocks_np, K_cols_np, nz_K)
     M_int, M_bnd = split(M_blocks_np, M_cols_np, nz_M)
-    proj = GradientProjector.from_gradient(problem.G, nbr * b, dtype=dtype,
-                                           device=device)
+    proj = _projector(problem.G, Dl, d0, L * b, dtype, device, group)
     return DistPencil(
         D=D, L=L, H=H, b=b, n=problem.K.shape[0], n_nodes=proj.n_nodes,
         proj=proj, kernel=kernel, K_int=K_int, K_bnd=K_bnd, M_int=M_int,
         M_bnd=M_bnd, halo_impl=halo_impl, dcn_links=dcn_links, perm=perm,
+        link=_link(group, D, L * b, H * b),
     )
 
 
@@ -549,12 +658,14 @@ def _stack_union(us, col_rows: int):
 
 
 def _partition_union(problem, n_shards, block, dtype, halo_impl, dcn_links,
-                     device, perm):
+                     device, perm, group=None):
     """kernel="union" partitioner (maxwell_tpu/dist/partition.py:724): per
     shard, a square interior union layout and a rectangular boundary one
     (columns = the [left | right] halo section), both carrying K and M as
     two value streams on one union pattern; chunk counts padded to the
-    per-shard maximum (rounded up to 8), then stacked."""
+    per-shard maximum over all D shards (rounded up to 8), then this
+    process's shards stacked (the others' are built on the host only for
+    their chunk counts)."""
     from maxwell_tpu_torch.sparse.bellunion import BELLUnion
 
     if dtype != torch.float32:
@@ -574,16 +685,20 @@ def _partition_union(problem, n_shards, block, dtype, halo_impl, dcn_links,
     Ki, Kb = _shard_int_bnd_csr(Kc, D, Lb, Hb, n_pad)
     Mi, Mb = _shard_int_bnd_csr(Mc, D, Lb, Hb, n_pad)
 
+    Dl, d0 = _local_shards(D, group)
+
     def build(Ks, Ms, ncols, cl, pack):
         us = [
             BELLUnion.from_csr(
                 Ks[d], block=b, dtype=dtype, B=Ms[d], ncols=ncols,
-                chunk_lanes=cl, pack=pack, device=device,
+                chunk_lanes=cl, pack=pack,
+                device=device if d0 <= d < d0 + Dl else "cpu",
             )
             for d in range(D)
         ]
         NC = _round_up(max(u.n_chunks for u in us), 8)
-        return _stack_union([u.pad_chunks(NC) for u in us], ncols)
+        return _stack_union([u.pad_chunks(NC) for u in us[d0:d0 + Dl]],
+                            ncols)
 
     # the reference's layout choice: cl 1024 with pack 2 where it fits
     u_cl = min(1024, max(128, _round_up(Lb, 128)))
@@ -595,10 +710,9 @@ def _partition_union(problem, n_shards, block, dtype, halo_impl, dcn_links,
         ub_pack = 2 if (ub_cl // b) % 2 == 0 else 1
         Ub = build(Kb, Mb, 2 * Hb, ub_cl, ub_pack)
 
-    proj = GradientProjector.from_gradient(problem.G, n_pad, dtype=dtype,
-                                           device=device)
+    proj = _projector(problem.G, Dl, d0, Lb, dtype, device, group)
     return DistPencil(
         D=D, L=L, H=H, b=b, n=n, n_nodes=proj.n_nodes, proj=proj,
         kernel="union", Ui=Ui, Ub=Ub, halo_impl=halo_impl,
-        dcn_links=dcn_links, perm=perm,
+        dcn_links=dcn_links, perm=perm, link=_link(group, D, Lb, Hb),
     )

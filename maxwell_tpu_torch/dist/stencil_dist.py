@@ -187,8 +187,8 @@ class DistStencilPencil3D:
     def dot_vv(self, x, y):
         return self._slab_sums(x * self.weigh(y))
 
-    def reduce_rows(self, v):
-        return v  # a product over the stacked rows is already global
+    def dot_basis(self, V, w):
+        return V @ self.weigh(w)  # over the stacked rows: already global
 
     def col_norms(self, A):
         return torch.sqrt(torch.clamp(self.dot_cols(A, A), min=0.0))

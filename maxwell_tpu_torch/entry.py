@@ -6,11 +6,13 @@ entry(device): (fn, (pencil, X0)) — one LOBPCG iteration (SpMM, SVQB,
 Rayleigh-Ritz) on the 32x32 RectCavity2D pencil at f32, m 8: the union
 CUDA kernels (K1, K2) on the card, the plain blocked-ELL apply on the CPU.
 
-dryrun_multichip(n, device): every branch of the reference's distributed
-dry run on n row shards or slabs of one device, on tiny shapes, returning
-its checks (raising on the first that fails).
+dryrun_multichip(n, device, procs=1): every branch of the reference's
+distributed dry run on n row shards or slabs, on tiny shapes, returning its
+checks (raising on the first that fails); the row-sharded branches on
+`procs` processes (dist/procs.py), the slab ones in this process.
 
-    python -m maxwell_tpu_torch.entry [--shards 8] [--device cuda|cpu]
+    python -m maxwell_tpu_torch.entry [--shards 8] [--procs 1]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -56,35 +58,36 @@ def _free(dev):
         torch.cuda.empty_cache()
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> dict:
+def dryrun_multichip(n_devices: int, device="cuda", procs: int = 1) -> dict:
     """One distributed LOBPCG step (and the other distributed solvers) on
     n_devices shards of `device`, through every branch of
     __graft_entry__.dryrun_multichip: the blocked-ELL pencil ("pallas":
     K8 SpMM, K10 SpMV) with slice halos, with the ring shift ("rdma", K6)
     and with the DCN-first schedule; the union pencil, plain and with the
     fused interior SpMM + halo copy ("rdma_overlap", K5); the staged
-    `batch` solve; the slab pencil (K4 on its ghost-extended slabs);
-    lanczos_dist; thick_restart_lanczos_dist; refine_dw_dist; the
-    device-resident chain (lobpcg_dist -> refine_dw_dist with
-    return_device); the staged solve with stage_polish.
+    `batch` solve; lanczos_dist; thick_restart_lanczos_dist (these, the
+    assembled branches, on `procs` processes, dist/procs.py); then in this
+    process the slab pencil (K4 on its ghost-extended slabs);
+    refine_dw_dist; the device-resident chain (lobpcg_dist ->
+    refine_dw_dist with return_device); the staged solve with
+    stage_polish.
 
     Returns {check: True} for each step, and the max |difference| of the
-    bit-for-bit comparisons (0.0); raises AssertionError on the first
-    failure."""
-    from maxwell_tpu_torch.dist import make_mesh, partition_problem
-    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
-    from maxwell_tpu_torch.problems import RectCavity2D
-    from maxwell_tpu_torch.solvers.dist_solve import (
-        lanczos_dist,
-        lobpcg_dist,
-        spmm_dist,
-    )
-    from maxwell_tpu_torch.solvers.refine_device import refine_dw_dist
-    from maxwell_tpu_torch.solvers.trlanczos import thick_restart_lanczos_dist
+    bit-for-bit comparisons (0.0, the largest over the ranks); raises on
+    the first failure (AssertionError; across processes RankError with
+    it)."""
+    if procs > 1:
+        from maxwell_tpu_torch.dist.procs import spawn
 
-    dev = torch.device(device)
-    mesh = make_mesh(n_devices, dev)
-    f32 = torch.float32
+        checks = spawn(assembled_branches, procs, n_devices, device, procs,
+                       device=device)
+    else:
+        checks = assembled_branches(n_devices, device)
+    checks.update(_slab_branches(n_devices, device))
+    return checks
+
+
+def _checker(n_devices, group):
     checks = {}
 
     def check(name, ok, value=None):
@@ -95,11 +98,43 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
 
     def same(name, a, b):
         diff = float((a - b).abs().max())
+        if group is not None:
+            diff = max(group.all_gather_object(diff))
         check(name, diff == 0.0, diff)
 
-    def nev_of(res, k):
-        return res.eigenvalues.shape == (k,) and bool(
-            np.all(np.isfinite(res.eigenvalues)))
+    return checks, check, same
+
+
+def _nev_of(res, k):
+    return res.eigenvalues.shape == (k,) and bool(
+        np.all(np.isfinite(res.eigenvalues)))
+
+
+def assembled_branches(n_devices: int, device="cuda", procs: int = 1
+                       ) -> dict:
+    """The row-sharded branches of dryrun_multichip on this process's
+    shards of a mesh over `procs` processes (called in each rank of a
+    spawn when procs > 1)."""
+    from maxwell_tpu_torch.dist import (
+        make_mesh,
+        mesh_topology_report,
+        partition_problem,
+    )
+    from maxwell_tpu_torch.problems import RectCavity2D
+    from maxwell_tpu_torch.solvers.dist_solve import (
+        lanczos_dist,
+        lobpcg_dist,
+        spmm_dist,
+    )
+    from maxwell_tpu_torch.solvers.trlanczos import thick_restart_lanczos_dist
+
+    mesh = make_mesh(n_devices, torch.device(device), procs)
+    dev = mesh.device
+    f32 = torch.float32
+    checks, check, same = _checker(n_devices, mesh.group)
+    check("mesh_processes",
+          mesh_topology_report(mesh)["real"] == {"devices": procs,
+                                                 "hosts": 1})
 
     # tiny shapes; grids chosen so each shard still has real halo traffic
     cav = RectCavity2D(nx=16, ny=16)
@@ -107,21 +142,14 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     dp = partition_problem(cav, n_devices, block=8, kernel="pallas",
                            dtype=f32, mesh=mesh)
     check("lobpcg_dist_pallas",
-          nev_of(lobpcg_dist(dp, mesh, precond_alpha=10.0, **lob), 2))
-
-    sp = DistStencilPencil3D.build(nx=2 * n_devices, ny=4, nz=3,
-                                   D=n_devices, dtype=f32, device=dev)
-    check("lobpcg_dist_slab",
-          nev_of(lobpcg_dist(sp, mesh, precond_alpha=15.0, **lob), 2))
-    del sp
-
+          _nev_of(lobpcg_dist(dp, mesh, precond_alpha=10.0, **lob), 2))
     check("lanczos_dist",
-          nev_of(lanczos_dist(dp, mesh, nev=2, maxiter=6, tol=1e-30), 2))
+          _nev_of(lanczos_dist(dp, mesh, nev=2, maxiter=6, tol=1e-30), 2))
 
     dp_u = partition_problem(cav, n_devices, kernel="union", dtype=f32,
                              mesh=mesh)
     check("lobpcg_dist_union",
-          nev_of(lobpcg_dist(dp_u, mesh, precond_alpha=10.0, **lob), 2))
+          _nev_of(lobpcg_dist(dp_u, mesh, precond_alpha=10.0, **lob), 2))
 
     # the ring-shift transport must give the slice transport's product bit
     # for bit, and its halo checksum against the gather oracle must be 0
@@ -131,8 +159,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
                      generator=torch.Generator().manual_seed(1)).to(dev)
     same("spmm_rdma_vs_ppermute", spmm_dist(dp_rd, mesh, Xh, which="K"),
          spmm_dist(dp, mesh, Xh, which="K"))
-    err = float(dp_rd.halo_checksum(Xh))
+    err = float(dp_rd.halo_checksum(dp_rd.local(Xh)))
+    if mesh.group is not None:
+        err = max(mesh.group.all_gather_object(err))
     check("halo_checksum", err == 0.0, err)
+    dp_rd.close()
     del dp_rd
 
     # the fused interior SpMM + halo copy against the union path, where
@@ -144,6 +175,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         same("spmm_rdma_overlap_vs_union",
              spmm_dist(dp_ov, mesh, Xu, which="K"),
              spmm_dist(dp_u, mesh, Xu, which="K"))
+    dp_ov.close()
+    dp_u.close()
     del dp_ov, dp_u
     _free(dev)
 
@@ -152,12 +185,37 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         cav, n_devices, block=8, kernel="pallas", dtype=f32,
         dcn_links=(n_devices // 2,) if n_devices > 1 else (), mesh=mesh)
     check("lobpcg_dist_dcn",
-          nev_of(lobpcg_dist(dp_dcn, mesh, precond_alpha=10.0, **lob), 2))
+          _nev_of(lobpcg_dist(dp_dcn, mesh, precond_alpha=10.0, **lob), 2))
     del dp_dcn
 
-    check("lobpcg_dist_staged", nev_of(lobpcg_dist(
+    check("lobpcg_dist_staged", _nev_of(lobpcg_dist(
         dp, mesh, nev=4, batch=2, maxiter=3, tol=1e-30,
         precond_alpha=10.0), 4))
+    check("thick_restart_lanczos_dist", _nev_of(thick_restart_lanczos_dist(
+        dp, mesh, nev=2, ncv=8, max_restarts=2, tol=1e-30), 2))
+    dp.close()
+    del dp
+    _free(dev)
+    return checks
+
+
+def _slab_branches(n_devices: int, device) -> dict:
+    """The slab-sharded branches of dryrun_multichip, in this process."""
+    from maxwell_tpu_torch.dist import make_mesh
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+    from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
+    from maxwell_tpu_torch.solvers.refine_device import refine_dw_dist
+
+    dev = torch.device(device)
+    mesh = make_mesh(n_devices, dev)
+    f32 = torch.float32
+    checks, check, _ = _checker(n_devices, None)
+    lob = dict(nev=2, m=4, maxiter=2, tol=1e-30)
+    sp = DistStencilPencil3D.build(nx=2 * n_devices, ny=4, nz=3,
+                                   D=n_devices, dtype=f32, device=dev)
+    check("lobpcg_dist_slab",
+          _nev_of(lobpcg_dist(sp, mesh, precond_alpha=15.0, **lob), 2))
+    del sp
 
     sp2 = DistStencilPencil3D.build(nx=2 * n_devices, ny=4, nz=3,
                                     D=n_devices, dtype=f32, device=dev)
@@ -165,11 +223,6 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
                      precond_alpha=15.0)
     ref = refine_dw_dist(sp2, mesh, r0.eigenvectors, tol=1e-8, max_sweeps=2)
     check("refine_dw_dist", ref.eigenvalues.shape[0] == 2)
-
-    check("thick_restart_lanczos_dist", nev_of(thick_restart_lanczos_dist(
-        dp, mesh, nev=2, ncv=8, max_restarts=2, tol=1e-30), 2))
-    del dp
-    _free(dev)
 
     # the device-resident chain: the block stays on the device between the
     # stages, only (m,) results reach the host
@@ -200,13 +253,15 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shards", type=int, default=8)
+    ap.add_argument("--procs", type=int, default=1)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     fn, (pencil, X0) = entry(args.device)
     theta, res = fn(pencil, X0)
     print(json.dumps({"entry_theta": theta.tolist(),
                       "entry_residuals": res.tolist()}))
-    print(json.dumps({"dryrun": dryrun_multichip(args.shards, args.device)}))
+    print(json.dumps({"dryrun": dryrun_multichip(args.shards, args.device,
+                                                 args.procs)}))
     return 0
 
 

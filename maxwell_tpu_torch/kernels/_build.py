@@ -48,8 +48,12 @@ _SIGNATURES = {
     # stencil_taps.cu
     "stencil_taps_f32": [_P] * 8,
     # halo.cu
-    "ring_shift": [_P] * 2 + [_I] * 7 + [_P],
-    "union_overlap_f32": [_P] * 13 + [_I] * 9 + [_P],
+    "ring_shift": [_P] * 4 + [_I] * 9 + [_P],
+    "union_overlap_f32": [_P] * 15 + [_I] * 12 + [_P],
+    "ipc_alloc": [_I] * 2 + [_P] * 2,
+    "ipc_open": [_P, _I, _P],
+    "ipc_close": [_P, _I],
+    "ipc_free": [_P, _I],
     # union_probes.cu
     "union_panel_f32": [_P] * 5 + [_I] * 4 + [_P],
     "union_panel_bf16": [_P] * 4 + [_I] * 4 + [_P],

@@ -7,11 +7,26 @@ kernels' wrappers and their plain PyTorch versions.
 
 replace `ring_shift` (as `exchange_halos_rdma` calls it) and
 `union_interior_overlap` of maxwell_tpu/kernels/halo_rdma.py, the TPU's
-remote-DMA kernels. Here the D shards of a distributed pencil are held by one
-process on one card in the stacked view: X is (D * Lb, m), shard d its rows
-[d * Lb, (d + 1) * Lb). A shard's left halo is the previous shard's last Hb
-rows, its right halo the next shard's first Hb rows; the chain ends get
-zeros, written, not left as the buffer held them.
+remote-DMA kernels. The D shards of a distributed pencil are held in the
+stacked view: X is (D * Lb, m), shard d its rows [d * Lb, (d + 1) * Lb). A
+shard's left halo is the previous shard's last Hb rows, its right halo the
+next shard's first Hb rows; the chain ends get zeros, written, not left as
+the buffer held them.
+
+One process may hold all D shards (link=None), or P processes hold D / P
+each (dist/procs.py): then X is the rank's (D/P * Lb, m) rows and `link`,
+a HaloLink, names the rank's place and owns its exchange buffers. Across
+processes the kernels push: the rank's first and last Hb rows go straight
+into its neighbours' outputs, which each rank allocates once per output
+shape with a cudaMalloc of its own, exports as an IPC handle, and opens
+from its neighbours over the gloo group (csrc/halo.cu). An exchange then
+returns the rank's registered buffer, valid until its next exchange of the
+same shape. Around each such exchange the link synchronizes the stream and
+meets the other ranks at a barrier, before (no neighbour still reads the
+buffer a push overwrites) and after (no rank reads before every push has
+landed); `HaloLink.wait_s` is the time spent in those barriers. The plain
+transport between ranks is a peer `copy_` into the mapped buffers on the
+card, and gloo's isend/irecv on the CPU.
 
 `ring_shift` returns, per shard, [own Lb rows if own | left Hb | right Hb |
 pad_rows zero rows] stacked over the shards: with own and pad_rows = b, the
@@ -45,8 +60,12 @@ its kernel launches in `.launches`, each plain version its calls in
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import dataclasses
 import functools
 import math
+import time
 
 import torch
 
@@ -107,27 +126,34 @@ def assemble(X: torch.Tensor, D: int, left: torch.Tensor,
 
 
 def ppermute(X: torch.Tensor, D: int, Hb: int, own: bool = False,
-             pad_rows: int = 0) -> torch.Tensor:
+             pad_rows: int = 0, link: "HaloLink | None" = None
+             ) -> torch.Tensor:
     """The plain transport (the reference's ppermute exchange): window and
-    assemble. Not counted: it is a transport of its own, not only the ring
-    shift's plain version."""
+    assemble; across processes (link) the link's plain transport. Not
+    counted: it is a transport of its own, not only the ring shift's plain
+    version."""
+    if link is not None:
+        return link.ppermute(X, own, pad_rows)
     _shards(X, D, Hb)
     return assemble(X, D, *window(X, D, Hb), own, pad_rows)
 
 
 def ring_shift_ref(X: torch.Tensor, D: int, Hb: int, own: bool = False,
-                   pad_rows: int = 0) -> torch.Tensor:
+                   pad_rows: int = 0, link: "HaloLink | None" = None
+                   ) -> torch.Tensor:
     """Plain version of ring_shift: the plain transport."""
     ring_shift_ref.calls += 1
-    return ppermute(X, D, Hb, own, pad_rows)
+    return ppermute(X, D, Hb, own, pad_rows, link)
 
 
 def union_interior_overlap_ref(A: BELLUnion, X: torch.Tensor, D: int,
-                               Hb: int, streams: str = "a"):
+                               Hb: int, streams: str = "a",
+                               link: "HaloLink | None" = None):
     """Plain version of union_interior_overlap: the plain union product of
-    each stream, then the plain ring shift."""
+    each stream, then the plain transport."""
     union_interior_overlap_ref.calls += 1
-    return (*_union_ref(A, X, streams, "highest"), ppermute(X, D, Hb))
+    return (*_union_ref(A, X, streams, "highest"),
+            ppermute(X, D, Hb, link=link))
 
 
 # ---------------------------------------------------------------------------
@@ -191,42 +217,273 @@ def copy_unit(plan_unit: int, *tensors: torch.Tensor) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Across processes
+# ---------------------------------------------------------------------------
+
+IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t), checked in csrc/halo.cu
+
+
+def _ipc(name: str, *args) -> None:
+    from maxwell_tpu_torch.kernels import _build
+
+    rc = getattr(_build.load(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+
+
+class _DevicePointer:
+    """A device pointer as __cuda_array_interface__, for torch.as_tensor
+    (a view; the memory stays the HaloLink's)."""
+
+    def __init__(self, ptr: int, shape, dtype: torch.dtype):
+        typestr = {torch.float32: "<f4", torch.float64: "<f8"}[dtype]
+        self.__cuda_array_interface__ = {
+            "shape": tuple(shape), "typestr": typestr,
+            "data": (ptr, False), "version": 2, "strides": None}
+
+
+def _view(ptr: int, shape, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(_DevicePointer(ptr, shape, dtype), device=device)
+
+
+@dataclasses.dataclass
+class _Buffers:
+    out: torch.Tensor
+    left: torch.Tensor | None  # the previous rank's out, mapped here
+    right: torch.Tensor | None  # the next rank's out
+
+
+class HaloLink:
+    """A rank's place in the halo exchange of a pencil of D shards held by
+    `group.procs` processes (dist/procs.py RankGroup), D / procs
+    consecutive shards each, Lb rows a shard, halos Hb rows deep: its
+    registered exchange buffers (on the card) and the order around an
+    exchange. close() releases the buffers; every rank calls it."""
+
+    def __init__(self, group, D: int, Lb: int, Hb: int):
+        if D % group.procs:
+            raise ValueError(f"{D} shards do not divide over {group.procs} "
+                             "processes")
+        self.group = group
+        self.D, self.Lb, self.Hb = D, Lb, Hb
+        self.Dl = D // group.procs
+        self.d0 = group.rank * self.Dl
+        self._buffers: dict[tuple, _Buffers] = {}
+        self._owned: list[int] = []  # pointers this rank allocated
+        self._opened: list[int] = []  # neighbours' pointers it mapped
+        self.exchanges = 0  # exchanges through the registered buffers
+        self.wait_s = 0.0  # host seconds in their barriers
+
+    @property
+    def first(self) -> bool:
+        return self.d0 == 0
+
+    @property
+    def last(self) -> bool:
+        return self.d0 + self.Dl == self.D
+
+    def buffers(self, rows: int, m: int, dtype: torch.dtype) -> _Buffers:
+        """The registered (Dl * rows, m) output of this rank and its
+        neighbours' (None at a chain end), allocated and exchanged on first
+        use: a collective, which every rank reaches in the same order (the
+        ranks run the same program)."""
+        key = (rows, m, dtype)
+        if key in self._buffers:
+            return self._buffers[key]
+        dev = self.group.device
+        if dev.type != "cuda":
+            raise ValueError("registered exchange buffers live on the card")
+        shape = (self.Dl * rows, m)
+        nbytes = self.Dl * rows * m * torch.empty((), dtype=dtype
+                                                  ).element_size()
+        ptr = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+        _ipc("ipc_alloc", nbytes, dev.index, ctypes.byref(ptr), handle)
+        self._owned.append(ptr.value)
+        handles = self.group.all_gather_object(handle.raw)
+        out = _view(ptr.value, shape, dtype, dev)
+        peers = []
+        for r in (self.group.rank - 1, self.group.rank + 1):
+            if not 0 <= r < self.group.procs:
+                peers.append(None)
+                continue
+            peer = ctypes.c_void_p()
+            buf = ctypes.create_string_buffer(handles[r], IPC_HANDLE_BYTES)
+            _ipc("ipc_open", buf, dev.index, ctypes.byref(peer))
+            self._opened.append(peer.value)
+            peers.append(_view(peer.value, shape, dtype, dev))
+        self._buffers[key] = _Buffers(out, *peers)
+        return self._buffers[key]
+
+    def fence(self) -> None:
+        """Synchronize this rank's stream, then meet every rank at a
+        barrier (timed into wait_s)."""
+        if self.group.device.type == "cuda":
+            torch.cuda.current_stream(self.group.device).synchronize()
+        t0 = time.perf_counter()
+        self.group.barrier()
+        self.wait_s += time.perf_counter() - t0
+
+    def gather(self, X: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows, stacked: the (D * Lb, ...) global X."""
+        return self.group.all_gather(X).reshape(-1, *X.shape[1:])
+
+    def _edges(self, X: torch.Tensor):
+        """(previous rank's last Hb rows, next rank's first Hb rows), zeros
+        at the chain ends: gloo isend/irecv (the CPU's plain transport)."""
+        import torch.distributed as dist
+
+        Hb, r = self.Hb, self.group.rank
+        left = X.new_zeros((Hb, X.shape[1]))
+        right = X.new_zeros((Hb, X.shape[1]))
+        ops = []
+        if not self.first:
+            ops += [dist.P2POp(dist.isend, X[:Hb].contiguous(), r - 1),
+                    dist.P2POp(dist.irecv, left, r - 1)]
+        if not self.last:
+            ops += [dist.P2POp(dist.isend, X[-Hb:].contiguous(), r + 1),
+                    dist.P2POp(dist.irecv, right, r + 1)]
+        for req in dist.batch_isend_irecv(ops) if ops else ():
+            req.wait()
+        return left, right
+
+    def ppermute(self, X: torch.Tensor, own: bool, pad_rows: int):
+        """The plain transport between ranks: per local shard [own rows if
+        own | left Hb | right Hb | pad_rows zeros]. On the CPU over gloo
+        into a new tensor; on the card a peer copy_ of this rank's first and
+        last Hb rows into its neighbours' registered buffers, the rest
+        written locally, between two fences."""
+        Dl, Lb, Hb = self.Dl, self.Lb, self.Hb
+        m = X.shape[1]
+        Xv = X.reshape(Dl, Lb, m)
+        if X.device.type == "cpu":
+            left, right = self._edges(X)
+            return assemble(X, Dl, torch.cat([left[None], Xv[:-1, Lb - Hb:]]),
+                            torch.cat([Xv[1:, :Hb], right[None]]), own,
+                            pad_rows)
+        o = Lb if own else 0
+        rows = o + 2 * Hb + pad_rows
+        bufs = self.buffers(rows, m, X.dtype)
+        ov = bufs.out.view(Dl, rows, m)
+        with _fenced(self):
+            if own:
+                ov[:, :o].copy_(Xv)
+            ov[1:, o:o + Hb].copy_(Xv[:-1, Lb - Hb:])
+            ov[:-1, o + Hb:o + 2 * Hb].copy_(Xv[1:, :Hb])
+            ov[:, o + 2 * Hb:].zero_()
+            if self.first:
+                ov[0, o:o + Hb].zero_()
+            else:
+                bufs.left.view(Dl, rows, m)[-1, o + Hb:o + 2 * Hb].copy_(
+                    Xv[0, :Hb])
+            if self.last:
+                ov[-1, o + Hb:o + 2 * Hb].zero_()
+            else:
+                bufs.right.view(Dl, rows, m)[0, o:o + Hb].copy_(
+                    Xv[-1, Lb - Hb:])
+        return bufs.out
+
+    def close(self) -> None:
+        """Unmap the neighbours' buffers, then (after every rank has) free
+        this rank's own. A collective."""
+        if not (self._owned or self._opened):
+            return
+        dev = self.group.device.index
+        self.fence()
+        for ptr in self._opened:
+            _ipc("ipc_close", ptr, dev)
+        self.group.barrier()
+        for ptr in self._owned:
+            _ipc("ipc_free", ptr, dev)
+        self._buffers.clear()
+        self._owned.clear()
+        self._opened.clear()
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
 
+def _local(X: torch.Tensor, D: int, Hb: int, link: HaloLink | None):
+    """(Dl, d0, Lb) of the shards X holds: all D, or the link's."""
+    if link is None:
+        return D, 0, _shards(X, D, Hb)
+    if (D, Hb) != (link.D, link.Hb):
+        raise ValueError(f"D {D}, Hb {Hb}: the link has {link.D}, {link.Hb}")
+    if X.dim() != 2 or X.shape[0] != link.Dl * link.Lb:
+        raise ValueError(f"X must be ({link.Dl} * {link.Lb}, m), got "
+                         f"{tuple(X.shape)}")
+    return link.Dl, link.d0, link.Lb
+
+
+def _output(X: torch.Tensor, rows: int, Dl: int, link: HaloLink | None):
+    """(out, the neighbours' out pointers, the tensors the copy unit must
+    divide): a new (Dl * rows, m) tensor in one process, the link's
+    registered buffers across processes."""
+    if link is None:
+        out = torch.empty((Dl * rows, X.shape[1]), dtype=X.dtype,
+                          device=X.device)
+        return out, (None, None), (X, out)
+    bufs = link.buffers(rows, X.shape[1], X.dtype)
+    peers = (bufs.left, bufs.right)
+    return (bufs.out, tuple(None if t is None else t.data_ptr()
+                            for t in peers),
+            (X, bufs.out, *(t for t in peers if t is not None)))
+
+
+@contextlib.contextmanager
+def _fenced(link: HaloLink | None):
+    """Around a launch that pushes into the neighbours' buffers: a fence
+    before and after (none in one process)."""
+    if link is None:
+        yield
+        return
+    link.fence()
+    yield
+    link.fence()
+    link.exchanges += 1
+
+
 def ring_shift(X: torch.Tensor, D: int, Hb: int, own: bool = False,
-               pad_rows: int = 0) -> torch.Tensor:
-    """Every shard's halo section of the stacked X (D * Lb, m), f32 or f64,
+               pad_rows: int = 0, link: HaloLink | None = None
+               ) -> torch.Tensor:
+    """Every shard's halo section of the stacked X (Dl * Lb, m), f32 or f64,
     in one launch: per shard [own rows if own | left Hb | right Hb |
-    pad_rows zeros], stacked, (D * rows, m)."""
+    pad_rows zeros], stacked, (Dl * rows, m). One process: Dl = D and a new
+    tensor. Across processes (link): this rank's Dl = D / P shards, its
+    first and last rows pushed into its neighbours' registered buffers, and
+    its own registered buffer returned."""
     if X.device.type == "cpu":
-        return ring_shift_ref(X, D, Hb, own, pad_rows)
-    Lb = _shards(X, D, Hb)
+        return ring_shift_ref(X, D, Hb, own, pad_rows, link)
+    Dl, d0, Lb = _local(X, D, Hb, link)
     if X.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"ring_shift takes f32 or f64, got {X.dtype}")
     if not X.is_contiguous():
         raise ValueError("X must be contiguous")
     rows = (Lb if own else 0) + 2 * Hb + pad_rows
-    out = torch.empty((D * rows, X.shape[1]), dtype=X.dtype, device=X.device)
+    out, peers, aligned = _output(X, rows, Dl, link)
     row_bytes = X.shape[1] * X.element_size()
     unit = copy_unit(ring_shift_plan(D, Lb, Hb, own, pad_rows, row_bytes)[0],
-                     X, out)
-    _launch("ring_shift", X, X.data_ptr(), out.data_ptr(), D, Lb, Hb,
-            row_bytes, pad_rows, int(own), unit)
-    ring_shift.launches += 1
+                     *aligned)
+    with _fenced(link):
+        _launch("ring_shift", X, X.data_ptr(), out.data_ptr(), *peers, D,
+                d0, Dl, Lb, Hb, row_bytes, pad_rows, int(own), unit)
+        ring_shift.launches += 1
     return out
 
 
 def union_interior_overlap(A: BELLUnion, X: torch.Tensor, D: int, Hb: int,
-                           streams: str = "a"):
+                           streams: str = "a", link: HaloLink | None = None):
     """(Y_s for each stream s of `streams`, halo): A the stacked interior
-    layout of the D shards (columns index the stacked X), X (D * Lb, m) f32;
-    halo the (D * 2Hb, m) [left | right] section (ring_shift without own
-    rows), written by copy blocks of the same launch."""
+    layout of the Dl shards X holds (columns index the stacked X), X
+    (Dl * Lb, m) f32; halo the (Dl * 2Hb, m) [left | right] section
+    (ring_shift without own rows), written by copy blocks of the same
+    launch; across processes (link) pushed as ring_shift pushes, into the
+    registered buffers."""
     if X.device.type == "cpu":
-        return union_interior_overlap_ref(A, X, D, Hb, streams)
-    Lb = _shards(X, D, Hb)
+        return union_interior_overlap_ref(A, X, D, Hb, streams, link)
+    Dl, d0, Lb = _local(X, D, Hb, link)
     if streams not in ("a", "b", "ab"):
         raise ValueError(f"streams must be 'a', 'b' or 'ab', got {streams!r}")
     pairs = _live_pairs(A, streams, "highest")
@@ -238,14 +495,17 @@ def union_interior_overlap(A: BELLUnion, X: torch.Tensor, D: int, Hb: int,
     m = X.shape[1]
     Ys = [torch.empty((A.n_padded, m), dtype=torch.float32, device=X.device)
           for _ in streams]
-    halo = torch.empty((D * 2 * Hb, m), dtype=torch.float32, device=X.device)
+    halo, peers, aligned = _output(X, 2 * Hb, Dl, link)
     vb = pairs[1][0].data_ptr() if len(pairs) == 2 else None
     yb = Ys[1].data_ptr() if len(Ys) == 2 else None
-    unit = copy_unit(ring_shift_plan(D, Lb, Hb, False, 0, m * 4)[0], X, halo)
-    _launch("union_overlap_f32", X, pairs[0][0].data_ptr(), vb,
-            *_tables(A), X.data_ptr(), Ys[0].data_ptr(), yb, halo.data_ptr(),
-            A.n_tiles, m, A.cl, A.b, A.live.x_max, D, Lb, Hb, unit)
-    union_interior_overlap.launches += 1
+    unit = copy_unit(ring_shift_plan(D, Lb, Hb, False, 0, m * 4)[0],
+                     *aligned)
+    with _fenced(link):
+        _launch("union_overlap_f32", X, pairs[0][0].data_ptr(), vb,
+                *_tables(A), X.data_ptr(), Ys[0].data_ptr(), yb,
+                halo.data_ptr(), *peers, len(streams) - 1, A.n_tiles, m,
+                A.cl, A.b, A.live.x_max, D, d0, Dl, Lb, Hb, unit)
+        union_interior_overlap.launches += 1
     return (*Ys, halo)
 
 

@@ -277,8 +277,8 @@ class StencilPencil3D:
     def dot_vv(self, x, y):
         return torch.dot(x, y)
 
-    def reduce_rows(self, v):
-        return v
+    def dot_basis(self, V, w):
+        return V @ w
 
     def col_norms(self, A):
         return torch.sqrt(torch.clamp(self.dot_cols(A, A), min=0.0))

@@ -11,6 +11,13 @@ row): a gather for G @ phi, and for G^T @ y a gather of each node's
 incident edges and a sum over them. The reference scatter-adds G^T @ y; on
 a CUDA device a scatter-add (index_add_) adds in whatever order its
 atomics land, so two runs of a solve would differ in their last bits.
+
+Across processes (dist/procs.py) a rank holds the edges of its own rows:
+G @ phi stays local (phi, the node vector, is replicated), and G^T @ y is
+each rank's partial over its own edges, the partials added in rank order
+on every rank (the reference's psum-finished scatter,
+maxwell_tpu/dist/partition.py:508-516). That adds a node's edges in
+another order than one process does.
 """
 
 from __future__ import annotations
@@ -52,7 +59,9 @@ class GradientProjector:
 
     head/tail: (n,) int64 node ids per edge (n_nodes = ghost slot for an
     endpoint on the PEC boundary); weight: (n,) signed magnitude 1/h_edge.
-    Vectors are padded to n_padded rows (zero padding preserved).
+    Vectors are padded to n_padded rows (zero padding preserved). group:
+    the RankGroup of a process holding only its own rows' edges (None: all
+    edges).
     """
 
     head: torch.Tensor
@@ -61,6 +70,7 @@ class GradientProjector:
     n: int
     n_nodes: int
     n_padded: int
+    group: object = dataclasses.field(default=None, compare=False)
 
     @functools.cached_property
     def incidence(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,10 +86,12 @@ class GradientProjector:
     @staticmethod
     def from_gradient(
         G: sp.spmatrix, n_padded: int, dtype: torch.dtype = torch.float32,
-        device: str | torch.device = "cuda",
+        device: str | torch.device = "cuda", group=None,
     ) -> "GradientProjector":
         """Build from the assembled discrete gradient (rows = edges, cols =
-        nodes): +w at the head node and -w at the tail node of each edge."""
+        nodes): +w at the head node and -w at the tail node of each edge.
+        group: G holds this process's rows only (see the module
+        docstring)."""
         G = sp.coo_matrix(G)
         n, n_nodes = G.shape
         head = np.full(n, n_nodes, dtype=np.int64)  # default: ghost slot
@@ -97,6 +109,7 @@ class GradientProjector:
             n=n,
             n_nodes=n_nodes,
             n_padded=n_padded,
+            group=group,
         )
 
     @staticmethod
@@ -129,7 +142,8 @@ class GradientProjector:
         w = self.weight if vec else self.weight[:, None]
         wy = torch.cat([w * y, y.new_zeros((1,) + tuple(y.shape[1:]))])
         edges, signs = self.incidence
-        return (wy[edges] * (signs if vec else signs[..., None])).sum(dim=1)
+        out = (wy[edges] * (signs if vec else signs[..., None])).sum(dim=1)
+        return out if self.group is None else self.group.rank_sum(out)
 
     def project(
         self,

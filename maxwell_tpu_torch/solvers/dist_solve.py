@@ -4,13 +4,16 @@ DistPencil or a slab-sharded DistStencilPencil3D, whose stacked views
 supply the per-shard reductions and the halo or ghost-plane exchanges —
 device count really is a mesh property.
 
-The reference shard_maps its loops over a JAX device mesh; here all shards
-live on one device (dist/mesh.py), so a mesh argument only names the shard
-count and is checked against the pencil. Start blocks are in the pencil's
-stacked layout (a DistPencil's rows in its RCM order, zero past row n; a
-DistStencilPencil3D's slabs), as the reference's `make_block` draws them;
-eigenvectors come back in the problem's own ordering (`extract_vectors`),
-or, with `return_device`, stay on the device in the stacked layout.
+The reference shard_maps its loops over a JAX device mesh; here the shards
+live in one process, or a DistPencil's in P processes (dist/procs.py), each
+running these loops on its own shards in step, so a mesh argument only
+names the shard and process counts and is checked against the pencil.
+Start blocks are in the pencil's stacked layout (a DistPencil's rows in its
+RCM order, zero past row n; a DistStencilPencil3D's slabs), as the
+reference's `make_block` draws them, given whole (every rank keeps its own
+rows); eigenvectors come back in the problem's own ordering
+(`extract_vectors`, gathered from every rank), or, with `return_device`,
+stay on the device in the stacked layout (a rank's own rows).
 """
 
 from __future__ import annotations
@@ -34,15 +37,27 @@ def _spectral_serves(dpencil) -> bool:
             and dpencil.inv_mu is None and dpencil.eps is None)
 
 
+def _procs(dpencil) -> int:
+    return getattr(dpencil, "procs", 1)
+
+
+def _one_process(dpencil, what: str) -> None:
+    if _procs(dpencil) > 1:
+        raise ValueError(f"{what} on a pencil across processes is not "
+                         "supported")
+
+
 def _check_mesh(dpencil: DistPencil, mesh) -> None:
-    if mesh is not None and mesh.D != dpencil.D:
+    if mesh is not None and (mesh.D, mesh.procs) != (dpencil.D,
+                                                     _procs(dpencil)):
         raise ValueError(
-            f"mesh has {mesh.D} shards, the pencil {dpencil.D}")
+            f"mesh has {mesh.D} shards over {mesh.procs} processes, the "
+            f"pencil {dpencil.D} over {_procs(dpencil)}")
 
 
 def _stacked(dpencil: DistPencil, X, width: int) -> torch.Tensor:
     """A block in the stacked layout, (global_rows, width) or (n, width),
-    zero past row n, on the pencil's device."""
+    zero past row n, on the pencil's device: this process's rows."""
     if not torch.is_tensor(X):
         X = torch.from_numpy(np.array(X))  # a writable copy
     X = X.to(dtype=dpencil.dtype, device=dpencil.device)
@@ -55,7 +70,7 @@ def _stacked(dpencil: DistPencil, X, width: int) -> torch.Tensor:
     out = torch.zeros((dpencil.global_rows, width), dtype=dpencil.dtype,
                       device=dpencil.device)
     out[: dpencil.n] = X[: dpencil.n]
-    return out
+    return out if _procs(dpencil) == 1 else dpencil.local(out)
 
 
 def host_vectors(dpencil, vecs) -> np.ndarray:
@@ -115,12 +130,15 @@ def lobpcg_dist(
     EigenResult -> EigenResult applied to each stage's block first.
     X0: start block in the stacked layout (default: make_block from
     `generator`, seed 0 on the pencil's device).
-    return_device: eigenvectors is the stacked (global_rows, nev) tensor on
-    the pencil's device, the layout refine_dw_dist takes without a copy
-    through the host; eigenvalues and residuals stay numpy. The staged
-    path ignores it.
+    return_device: eigenvectors is the stacked (n_padded, nev) tensor on
+    the pencil's device (across processes the rank's own rows), the layout
+    refine_dw_dist takes without a copy through the host; eigenvalues and
+    residuals stay numpy. The staged path ignores it.
+    Across processes: no checkpoint (ValueError).
     """
     _check_mesh(dpencil, mesh)
+    if checkpoint is not None:
+        _one_process(dpencil, "a checkpoint")
     if precond not in ("auto", "cg", "spectral"):
         raise ValueError(f"unknown precond {precond!r}")
     if batch is not None and batch < nev:
@@ -264,7 +282,8 @@ def lanczos_dist(
     _check_mesh(dpencil, mesh)
     if v0 is None:
         v0 = dpencil.make_block(1, generator)[:, 0]
-    res = lanczos(dpencil, nev=nev, maxiter=maxiter, tol=tol, v0=v0)
+    res = lanczos(dpencil, nev=nev, maxiter=maxiter, tol=tol, v0=v0,
+                  return_device=True)
     res.eigenvectors = dpencil.extract_vectors(res.eigenvectors)
     return res
 
@@ -286,31 +305,36 @@ def shift_invert_lanczos_dist(
     374-432): the single-device Lanczos on the stacked pencil with the
     matrix-free MINRES apply (solvers/shift_invert.py), whose every inner
     step is a sharded K/M apply and per-shard dots. No factorization: works
-    on the row-sharded DistPencil and the slab-sharded DistStencilPencil3D.
-    v0: start vector in the stacked layout (default: make_block(1) from
+    on the row-sharded DistPencil and the slab-sharded DistStencilPencil3D,
+    in one process (a pencil across processes: ValueError). v0: start
+    vector in the stacked layout (default: make_block(1) from
     `generator`)."""
     from maxwell_tpu_torch.solvers.lanczos import lanczos
     from maxwell_tpu_torch.solvers.shift_invert import iterative_apply
 
     _check_mesh(dpencil, mesh)
+    _one_process(dpencil, "shift-invert")
     if v0 is None:
         v0 = dpencil.make_block(1, generator)[:, 0]
     res = lanczos(
         dpencil, nev=nev, maxiter=maxiter, tol=tol, v0=v0,
         mode="shift_invert",
         apply_op=iterative_apply(dpencil, sigma, inner_tol, inner_iters),
-        sigma=sigma,
+        sigma=sigma, return_device=True,
     )
     res.eigenvectors = dpencil.extract_vectors(res.eigenvectors)
     return res
 
 
 def spmm_dist(dpencil: DistPencil, mesh, X, which: str = "K"):
-    """Sharded Y = K @ X (or M @ X) for a stacked X (global_rows, m)."""
+    """Sharded Y = K @ X (or M @ X) for a stacked X (global_rows, m), or
+    across processes a rank's own rows (n_padded, m); Y the rank's rows."""
     _check_mesh(dpencil, mesh)
     if which not in ("K", "M"):
         raise ValueError(f"which must be 'K' or 'M', got {which!r}")
     if not torch.is_tensor(X):
         X = torch.from_numpy(np.array(X))
     X = X.to(dtype=dpencil.dtype, device=dpencil.device)
+    if _procs(dpencil) > 1 and X.shape[0] == dpencil.global_rows:
+        X = dpencil.local(X)
     return dpencil.K_mm(X) if which == "K" else dpencil.M_mm(X)

@@ -90,7 +90,7 @@ def lanczos_factorization(
         # of V and MV past j are still zero, so the full products need no
         # mask
         for _ in range(2):
-            coeffs = pencil.reduce_rows(MV @ pencil.weigh(w))
+            coeffs = pencil.dot_basis(MV, w)
             w = w - V.T @ coeffs
         if post is not None:
             # roundoff regenerates gradient components that the operator
@@ -196,6 +196,7 @@ def lanczos(
     mode: str = "direct",
     apply_op: Callable | None = None,
     sigma: float = 0.0,
+    return_device: bool = False,
 ) -> EigenResult:
     """Solve K x = lambda M x for the `nev` smallest (direct mode) or the
     `nev` closest-to-sigma (shift-invert mode) eigenpairs.
@@ -205,6 +206,8 @@ def lanczos(
     mode="direct": operator P M^-1 K; eigenvalues are theta directly.
     mode="shift_invert": caller supplies apply_op = P (K-sigma M)^-1 M;
     eigenvalues are sigma + 1/theta, largest |theta| first.
+    return_device: eigenvectors is the (n_padded, nev) Ritz block on the
+    pencil's device (a sharded pencil's stacked rows).
     """
     v = start_vector(pencil, v0, generator)
     if apply_op is None:
@@ -227,7 +230,7 @@ def lanczos(
     res = relative_residuals(pencil, X, lams)
     return EigenResult(
         eigenvalues=np.asarray(lams),
-        eigenvectors=X[: pencil.n].cpu().numpy(),
+        eigenvectors=X if return_device else X[: pencil.n].cpu().numpy(),
         residuals=res,
         iterations=keff,
         converged=bool(np.all(res <= tol)),

@@ -96,15 +96,12 @@ def lobpcg_run(
     tracked = torch.arange(m, device=X.device) < nev
 
     def residuals(KX, MX, theta):
+        # column norms through the pencil's reduction (per-shard partials
+        # on a sharded pencil), so every rank reduces the same way
         R = KX - MX * theta[None, :]
-        loc = torch.stack(
-            [
-                torch.sum(KX * pencil.weigh(KX), dim=0),
-                torch.sum(MX * pencil.weigh(MX), dim=0),
-                torch.sum(R * pencil.weigh(R), dim=0),
-            ]
-        )
-        nKX, nMX, nR = torch.sqrt(torch.clamp(pencil.reduce_rows(loc), min=0.0))
+        loc = torch.stack([pencil.dot_cols(KX, KX), pencil.dot_cols(MX, MX),
+                           pencil.dot_cols(R, R)])
+        nKX, nMX, nR = torch.sqrt(torch.clamp(loc, min=0.0))
         scale = nKX + torch.abs(theta) * nMX
         return R, nR / torch.clamp(scale, min=1e-30)
 

@@ -115,9 +115,9 @@ class Pencil:
         """Inner product of two vectors (a 0-d tensor)."""
         return torch.dot(x, self.weigh(y))
 
-    def reduce_rows(self, v: torch.Tensor) -> torch.Tensor:
-        """Finish a partial row-contraction (identity on one device)."""
-        return v
+    def dot_basis(self, V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """(k,) <- V @ w over the row axis, V (k, n) a basis held by rows."""
+        return V @ self.weigh(w)
 
     def col_norms(self, A: torch.Tensor) -> torch.Tensor:
         """(m,) <- column norms."""

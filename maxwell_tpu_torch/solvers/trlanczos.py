@@ -45,9 +45,9 @@ def _expand_step(apply_op, pencil, V, MV, j, post=None):
     still on the device."""
     w = apply_op(V[j - 1])
     # projection coefficients BEFORE orthogonalization: h = (MV) w
-    h = pencil.reduce_rows(MV @ pencil.weigh(w))  # rows >= j are zero
+    h = pencil.dot_basis(MV, w)  # rows >= j are zero
     for _ in range(2):
-        c = pencil.reduce_rows(MV @ pencil.weigh(w))
+        c = pencil.dot_basis(MV, w)
         w = w - V.T @ c
     if post is not None:
         # nullspace hygiene: roundoff resurrects gradient components
@@ -72,10 +72,11 @@ def thick_restart_lanczos(
     apply_op: Callable | None = None,
     mode: str = "direct",
     sigma: float = 0.0,
+    return_device: bool = False,
 ) -> EigenResult:
     """Smallest (direct) or nearest-sigma (shift_invert apply_op) eigenpairs
-    with an O(n*ncv) memory cap. ncv default: max(2*nev+10, 20). v0 and
-    generator as in lanczos()."""
+    with an O(n*ncv) memory cap. ncv default: max(2*nev+10, 20). v0,
+    generator and return_device as in lanczos()."""
     if ncv is None:
         ncv = max(2 * nev + 10, 20)
     if apply_op is None:
@@ -173,7 +174,7 @@ def thick_restart_lanczos(
     res = relative_residuals(pencil, Xn, lams[:nev])
     return EigenResult(
         eigenvalues=np.asarray(lams[:nev]),
-        eigenvectors=Xn[: pencil.n].cpu().numpy(),
+        eigenvectors=Xn if return_device else Xn[: pencil.n].cpu().numpy(),
         residuals=res,
         iterations=total_iters,
         converged=bool(np.all(res <= 10 * tol)),
@@ -200,14 +201,19 @@ def thick_restart_lanczos_dist(
     as on one device. mode="shift_invert" takes the matrix-free MINRES
     apply (the operator of shift_invert_lanczos_dist). v0: start vector in
     the stacked layout (default: make_block(1) from `generator`).
-    Eigenvectors come back in the problem's ordering."""
-    from maxwell_tpu_torch.solvers.dist_solve import _check_mesh
+    Eigenvectors come back in the problem's ordering. A DistPencil across
+    processes takes the direct mode only (ValueError)."""
+    from maxwell_tpu_torch.solvers.dist_solve import (
+        _check_mesh,
+        _one_process,
+    )
 
     if mode not in ("direct", "shift_invert"):
         raise ValueError(f"unknown mode {mode!r}")
     _check_mesh(dpencil, mesh)
     apply_op = None
     if mode == "shift_invert":
+        _one_process(dpencil, "shift-invert")
         from maxwell_tpu_torch.solvers.shift_invert import iterative_apply
 
         apply_op = iterative_apply(dpencil, sigma, inner_tol, inner_iters)
@@ -215,6 +221,7 @@ def thick_restart_lanczos_dist(
         v0 = dpencil.make_block(1, generator)[:, 0]
     res = thick_restart_lanczos(dpencil, nev=nev, ncv=ncv,
                                 max_restarts=max_restarts, tol=tol, v0=v0,
-                                apply_op=apply_op, mode=mode, sigma=sigma)
+                                apply_op=apply_op, mode=mode, sigma=sigma,
+                                return_device=True)
     res.eigenvectors = dpencil.extract_vectors(res.eigenvectors)
     return res

@@ -716,6 +716,25 @@ def test_cuda_dist_solve_matches_cpu_plain(cuda_device, kernel, impl):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+def test_cuda_cross_process_halo_kernels_match_peer_copy(cuda_device, P):
+    """K6 and K5 across P processes sharing the card (dist/procs.py), each
+    pushing its boundary rows into its neighbours' IPC-mapped buffers:
+    exchange_bench raises unless on every rank each kernel equals the
+    peer-copy transport, and K5's products K2, bit for bit; the gathered
+    halos and products equal the one-process pencil's bit for bit."""
+    from maxwell_tpu_torch.dist import procs, rank_tasks
+
+    spec = ("rect", 16)
+    one = rank_tasks.exchange_bench(spec, 8, 1, reps=2)
+    got = procs.spawn(rank_tasks.exchange_bench, P, spec, 8, P, (9, 1), 0,
+                      2, device=cuda_device)
+    assert set(got["outputs"]) == set(one["outputs"])
+    for key, want in one["outputs"].items():
+        assert np.array_equal(got["outputs"][key], want), key
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,UC", [(10, 16), (37, 32), (300, 16), (900, 16)])
 def test_cuda_union_panel_kernels_match_plain(cuda_device, T, UC):
     """K15a's kernels against their plain versions on the probe's own

@@ -173,7 +173,8 @@ def test_mesh_topology_report():
     rep = mesh_topology_report(make_mesh(D, "cpu"))
     assert rep == {"devices": D, "hosts": 1, "neighbor_links": D - 1,
                    "dcn_links": 0, "ici_links": D - 1,
-                   "dcn_link_positions": []}
+                   "dcn_link_positions": [],
+                   "real": {"devices": 1, "hosts": 1}}
     port = partition_problem(RectCavity2D(nx=8, ny=8), D,
                              mesh=make_mesh(D, "cpu"))
     assert port.dcn_links == () and port.device.type == "cpu"
