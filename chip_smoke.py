@@ -62,7 +62,15 @@ probes and check that they ran through the kernels:
     interior SpMM + halo copy (K5) pushing into the neighbours' IPC-mapped
     buffers, held bit for bit to the plain transport and to one process;
     lobpcg_dist on both pencils on 2 and 4 processes, twice each; config 4
-    through the CLI with --procs 4; dryrun_multichip(8, procs=4).
+    through the CLI with --procs 4; dryrun_multichip(8, procs=4), its
+    row-sharded and slab branches on 4 processes;
+  slice 13, the slab road across processes: the 64^3 brick in 8 slabs over
+    P = 2 and 4 processes sharing the card, each rank's ghost-extended
+    blocks filled by its neighbours' pushed edge planes and K4 on each of
+    them, held bit for bit to one process; the device-resident chain
+    (lobpcg_dist -> refine_dw_dist) on P processes with K4 on every rank;
+    configs 4_stencil and 5 through the CLI with --procs 4; the scaling
+    harness (bench/scaling.py) over 1, 2 and 4 processes.
 
     python3 chip_smoke.py
 
@@ -265,9 +273,34 @@ Phases, in order; any failure raises and the process exits non-zero:
                idle share
  36. procs cli    config 4 as written through the CLI with --procs 4
                (eigenvalues within 1e-8 of phase 17's one-process run) and
-               dryrun_multichip(8, procs=4): the row-sharded branches on 4
-               processes, every check true and the bit-for-bit ones 0
- 37. result    an {"off_main_path": [...]} line for the kernels no solver
+               dryrun_multichip(8, procs=4): the row-sharded and slab
+               branches on 4 processes, every check true and the
+               bit-for-bit ones 0
+ 37. procs slab kernels  on P = 2 and 4 processes (one spawn each for
+               phases 37 and 38) and on one: the 64^3 f32 brick in 8
+               slabs at m 9 and 1, each rank's ghost-extended blocks (its
+               neighbours' edge planes pushed into its registered buffer)
+               and K4 on each of them, within 1e-5 of max|plain| of the
+               plain slab apply on every rank, the gathered blocks and
+               outputs bit for bit one process's; per width (rank 0, with
+               every rank's) K4's device time a fused apply
+               (torch.profiler), a whole exchange's host time and its
+               barrier wait, the K4 and plain applies' host time, bytes
+               and bound, and torch.sparse.mm on rank 0's rows of phase
+               21's stacked CSR
+ 38. procs slab solve  exp_r5dist.chain on P = 2 (a cold and a steady run)
+               and 4 (a cold run): lobpcg_dist -> refine_dw_dist with the
+               block kept on the card, the reference's time_to_1e8 gates,
+               K4 launched on every rank (counts zeroed when the rank
+               starts), no plain version on the card; each rank's
+               barrier seconds, exchanges and what its link moved; then at
+               P 4 configs 4_stencil and 5 as written through the CLI's
+               rank path (f64: the plain slab apply across ranks), within
+               1e-9 of phase 23's one-process eigenvalues
+ 39. procs scaling  bench/scaling.run in weak mode over 1, 2 and 4
+               processes: every row with the reference's keys and
+               shared_card, the comm model's prediction rows
+ 40. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -293,6 +326,7 @@ import numpy as np
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 
+from maxwell_tpu_torch.bench.scaling import compute_mode  # noqa: E402
 # the card's timers and bounds (H100 SXM rates), shared with the probes
 from maxwell_tpu_torch.bench.timing import (  # noqa: E402
     bound_ms,
@@ -2082,6 +2116,9 @@ def stacked_csr(dp, A, blocks):
     return (sp.block_diag([R] * blocks) @ A @ C).tocsr()
 
 
+SLAB_KM_CSR = {}  # the 8-slab 64^3 fused K/M stacked CSR (scipy), phase 21
+
+
 def phase_dist_stencil_kernels():
     """The tap kernel K4 on ghost-extended slabs: the 64^3 vacuum PEC brick
     in 8 slabs (cells 8: each slab's extended block a (10, 64, 64) brick),
@@ -2106,9 +2143,12 @@ def phase_dist_stencil_kernels():
     one = StencilPencil3D.build(nx=g, ny=g, nz=g, dtype=torch.float32,
                                 device=dev)
     t0 = time.perf_counter()
-    libs = {mode: torch_csr(stacked_csr(dp, stencil_csr(one, *want),
-                                        want[0] + want[1]), dev)
+    csrs = {mode: stacked_csr(dp, stencil_csr(one, *want), want[0] + want[1])
             for mode, want in STENCIL_MODES.items()}
+    # phase 37 times the library call on each rank's rows of it
+    SLAB_KM_CSR["KM"] = csrs["KM"]
+    libs = {mode: torch_csr(A, dev) for mode, A in csrs.items()}
+    del csrs
     log({"phase": "dist_stencil_csr", "seconds": time.perf_counter() - t0,
          "nnz": {mode: A.values().numel() for mode, A in libs.items()}})
     # each CSR is the slab apply's function on a vector whose interface
@@ -2883,13 +2923,6 @@ def phase_entry():
 # --- slice 12, the assembled road across processes ------------------------
 
 
-def compute_mode() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def _interior_nnz(problem, D, shards):
     """Stored nonzeros of K and M in the interior parts (columns among the
     shard's own rows) of the first `shards` of D row shards."""
@@ -3112,6 +3145,171 @@ def phase_procs_cli(reports_one, mode):
          "checks": checks, "seconds": time.perf_counter() - t0})
     if not all(v is True or v == 0.0 for v in checks.values()):
         raise AssertionError(f"dryrun_multichip(procs={P}): {checks}")
+    slab = ("lobpcg_dist_slab", "refine_dw_dist", "lobpcg_dist_return_device",
+            "refine_dw_dist_return_device", "stage_polish")
+    if not all(checks.get(k) is True for k in slab):
+        raise AssertionError(f"dryrun_multichip(procs={P}): the slab "
+                             f"branches did not run: {checks}")
+
+
+# --- slice 13, the slab road across processes -----------------------------
+
+SLAB_WIDTHS = (9, 1)  # phase 37: K4's widths on the ranks' slabs
+
+
+def _slab_library_ms(P, m):
+    """torch.sparse.mm of rank 0's rows of the 8-slab 64^3 fused K/M
+    stacked CSR (phase 21's) on a global block: the library call of rank
+    0's fused apply at P processes, device time."""
+    import scipy.sparse as sp
+
+    C = SLAB_KM_CSR["KM"]
+    G = C.shape[1]
+    rows = (G // SHARDS) * (SHARDS // P)
+    lib = torch_csr(sp.vstack([C[:rows], C[G:G + rows]]).tocsr(), "cuda")
+    X = torch.randn((G, m), device="cuda")
+    out = device_ms(lambda: torch.sparse.mm(lib, X))
+    del lib, X
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_procs_slab(mode, stencil_cli_one):
+    """Phases 37 and 38 (slice 13): see the module docstring. One spawn a
+    process count runs the kernel checks (rank_tasks.slab_bench) and the
+    chain (exp_r5dist.chain), and at P 4 configs 4_stencil and 5 through
+    the CLI's rank path; the one process's outputs from slab_bench here,
+    its CLI reports from phase 23. Returns {"procs": {P: the kernels
+    line's entry}} for stencil_taps."""
+    from maxwell_tpu_torch.bench import exp_r5dist
+    from maxwell_tpu_torch.dist import procs
+    from maxwell_tpu_torch.dist import rank_tasks as rt
+
+    g = STENCIL_GRID
+    counts_of = PROCS if mode != "Exclusive_Process" else ()
+    if not counts_of:
+        log({"phase": "procs_slab", "skipped": "Exclusive_Process: one "
+             "context a card, no two ranks can share it"})
+        return {}
+    one = rt.slab_bench(g, SHARDS, 1, SLAB_WIDTHS, 0, 2)["outputs"]
+    torch.cuda.empty_cache()
+    configs = ("config4_stencil", "config5")
+    results = {}
+    for P in counts_of:
+        calls = [(rt.slab_bench, (g, SHARDS, P, SLAB_WIDTHS, 0, 20)),
+                 # P 4 runs the chain once (no steady run)
+                 (exp_r5dist.chain, (g, SHARDS, 1 if P == 2 else 0, "cuda",
+                                     P))]
+        if P == PROCS[-1]:
+            calls += [(rt.cli, ([os.path.join(CONFIGS, f"{name}.json"),
+                                 "--device", "cuda", "--procs", str(P)],))
+                      for name in configs]
+        t0 = time.perf_counter()
+        results[P] = procs.spawn(rt.sequence, P, calls)
+        log({"phase": "procs_slab_spawn", "procs": P,
+             "seconds": time.perf_counter() - t0,
+             "slab_bench_s": results[P][0]["seconds"]})
+
+    # phase 37: the ghost exchange and K4 on the ranks' slabs
+    entries = {}
+    for P in counts_of:
+        bench, chain = results[P][0], results[P][1]
+        same = {f"{name} m{m}": bool(np.array_equal(v, one[(name, m)]))
+                for (name, m), v in bench["outputs"].items()}
+        per_m = {}
+        for row in bench["rows"]:
+            b_ms, b_by = bound_ms(row["bytes"], row["flops"], "f32")
+            lib = _slab_library_ms(P, row["m"])
+            per_m[row["m"]] = {
+                "ms": row["kernel_device_ms_per_apply"],
+                "ms_per_rank": row["kernel_device_ms_per_apply_per_rank"],
+                "exchange_ms": row["exchange_ms"],
+                "barrier_wait_ms_per_exchange":
+                    row["barrier_wait_ms_per_exchange"],
+                "apply_ms": row["apply_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                "max_abs_err": max(row["max_abs_err_per_rank"]),
+                "launches_per_apply": row["launches_per_apply"]}
+            log({"phase": "procs_slab_kernels", "grid": g, "slabs": SHARDS,
+                 **row, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib, "bitwise_equal_one_process": same,
+                 "nvidia_smi": nvidia_smi_line(),
+                 "contexts": "P processes sharing one card, time-sliced"})
+        if not all(same.values()):
+            raise AssertionError(f"slabs on {P} processes vs one: {same}")
+        launches = [c["stencil_taps"] for c in chain["counts_per_rank"]]
+        solves = 1 + (1 if P == 2 else 0)
+        entries[str(P)] = {
+            **per_m[9], "m1": per_m[1], "launches": sum(launches),
+            "launches_per_rank": launches, "solves": solves,
+            "note": "ms: K4's device time a fused apply on rank 0's slabs "
+                    "(torch.profiler, time-sliced contexts); exchange_ms: "
+                    "a whole ghost exchange's host time, fences included; "
+                    "apply_ms and plain_ms: the K4 and plain slab applies' "
+                    "host time, their exchange included; launches: K4 in "
+                    "the chain's solves, all ranks"}
+
+        # phase 38: the 64^3 chain on P processes
+        log({"phase": "procs_slab_solve", "procs": P,
+             **{k: v for k, v in chain.items() if k != "counts_per_rank"},
+             "stencil_taps_launches_per_rank": launches,
+             "counts_per_rank": [launched(c) for c in
+                                 chain["counts_per_rank"]],
+             "nvidia_smi": nvidia_smi_line()})
+        _time_to_1e8_gates(f"r5dist on {P} processes", chain)
+        if not all(n > 0 for n in launches):
+            raise AssertionError(f"K4 not launched on every rank: "
+                                 f"{launches}")
+        stray = {k: v for c in chain["counts_per_rank"] for k, v in c.items()
+                 if v and k.endswith("_ref")}
+        if stray:
+            raise AssertionError(f"plain versions ran on the card: {stray}")
+        if P == PROCS[-1]:
+            for name, (hist, rep) in zip(configs, results[P][2:]):
+                rep1 = stencil_cli_one[name][0]
+                rel = (np.abs(np.asarray(rep["eigenvalues"])
+                              - np.asarray(rep1["eigenvalues"]))
+                       / np.abs(rep1["eigenvalues"]))
+                log({"phase": "procs_slab_cli", "config": name, "procs": P,
+                     **{k: rep.get(k) for k in (
+                         "converged", "iterations", "n", "t_solve_s",
+                         "t_refine_s", "eigenvalues", "residuals",
+                         "analytic_rel_err")},
+                     "history_length": len(hist),
+                     "rel_to_one_process": rel.tolist()})
+                if not rep["converged"] or max(rep["residuals"]) > 1e-8:
+                    raise AssertionError(f"{name} on {P} processes: {rep}")
+                if not rel.max() <= 1e-9:
+                    raise AssertionError(f"{name} on {P} processes vs one: "
+                                         f"{rel}")
+    return {"procs": entries}
+
+
+def phase_procs_scaling(mode):
+    """Phase 39 (slice 13): bench/scaling.run in weak mode (the reference's
+    defaults: 8 x-cells a slab, 16 x 16, nev 4, maxiter 40) over 1, 2 and
+    4 processes, one slab each; rows on a shared card must say so, and the
+    comm model's prediction rows must be there."""
+    from maxwell_tpu_torch.bench import scaling
+
+    counts = (1, *PROCS) if mode != "Exclusive_Process" else (1,)
+    t0 = time.perf_counter()
+    rep = scaling.run("weak", procs=counts, device="cuda")
+    log({"phase": "procs_scaling", "seconds": time.perf_counter() - t0,
+         **rep, "nvidia_smi": nvidia_smi_line()})
+    keys = ("devices", "grid", "n", "nnz_eff", "t_km_apply_s", "nnz_per_s",
+            "t_solve_s", "t_iter_s", "solve_iters", "max_res", "efficiency",
+            "dcn_links", "hosts", "shared_card")
+    for row in rep["rows"]:
+        if any(k not in row for k in keys):
+            raise AssertionError(f"scaling row without the keys: {row}")
+        if row["shared_card"] != (row["procs"] > torch.cuda.device_count()):
+            raise AssertionError(f"scaling row's shared_card: {row}")
+        if not (np.isfinite(row["t_solve_s"]) and row["solve_iters"] > 0
+                and np.isfinite(row["max_res"])):
+            raise AssertionError(f"scaling row: {row}")
+    if not rep["predicted_weak_scaling"]:
+        raise AssertionError("scaling: no prediction rows")
 
 
 def timed(fn, *args):
@@ -3175,7 +3373,7 @@ def main():
     stats.update(probe_stats)
     slab = timed(phase_dist_stencil_kernels)
     slab_solve = timed(phase_dist_stencil_solve)
-    timed(phase_dist_stencil_cli)
+    stencil_cli_one = timed(phase_dist_stencil_cli)
     stats["level_solve"] = timed(phase_tri_solve_kernels)
     si_counts = timed(phase_si_solve)
     timed(phase_si_dist)
@@ -3192,6 +3390,9 @@ def main():
     timed(phase_procs_cli, config4_reports, mode)
     for name, st in procs_stats.items():
         stats[name].update(st)
+    stats["stencil_taps"].update(timed(phase_procs_slab, mode,
+                                       stencil_cli_one))
+    timed(phase_procs_scaling, mode)
     stats["level_solve"].update(
         config3_cli_launches=si_counts["cli"]["level_solve"],
         note="not a Pallas kernel in the reference: a jnp fori_loop over "

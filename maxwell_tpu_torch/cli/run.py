@@ -17,11 +17,13 @@ problems (`dist.n_shards` row shards, `storage.kernel` "auto", "ref",
 the distributed spectral preconditioner; configs 4_stencil and 5). A
 distributed run builds the mesh its config names, all shards on the one
 device: the reference clamps the shard count to the visible devices, since
-a JAX mesh needs a device per shard. `--procs P` runs the assembled
-"lobpcg_dist" (config 4) on P processes (dist/procs.py), D / P shards each,
-rank r on cuda:(r % device count) (or the CPU with --device cpu); rank 0's
-history and report are printed, by this process. The slab-sharded and the
-other solver kinds take one process. With refinement, PEC 3D stencil
+a JAX mesh needs a device per shard. `--procs P` runs "lobpcg_dist" on P
+processes (dist/procs.py), D / P shards or slabs each, rank r on
+cuda:(r % device count) (or the CPU with --device cpu): the assembled
+road (config 4) and the slab-sharded one (configs 4_stencil and 5, whose
+refinement, `refine_dw_dist`, every rank runs); rank 0's history and
+report are printed, by this process. The other solver kinds take one
+process. With refinement, PEC 3D stencil
 pencils refine to tol on the device (`refine_dw`; slab-sharded ones
 `refine_dw_dist`, for a staged `batch` run each stage's block before it
 joins the deflation basis), other stencil pencils by warm-started f64
@@ -191,9 +193,10 @@ def _lobpcg(pencil, scfg, nev, maxiter, tol, args, stall_window):
     )
 
 
-def build_dist_stencil(pcfg, D, dtype, block, device):
-    """The slab-sharded matrix-free pencil of a "brick3d" problem block
-    (vacuum: the CLI passes no materials, as the reference's does)."""
+def build_dist_stencil(pcfg, mesh, dtype, block):
+    """The slab-sharded matrix-free pencil of a "brick3d" problem block on
+    the mesh (vacuum: the CLI passes no materials, as the reference's
+    does): mesh.D slabs, this process's on its device."""
     if pcfg.get("kind") != "brick3d":
         raise ValueError("distributed stencil operator is 3D-only")
     from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
@@ -201,7 +204,7 @@ def build_dist_stencil(pcfg, D, dtype, block, device):
     return DistStencilPencil3D.build(
         a=pcfg.get("a", 1.0), b=pcfg.get("b", 1.0), c_len=pcfg.get("c", 1.0),
         nx=pcfg.get("nx", 8), ny=pcfg.get("ny", 8), nz=pcfg.get("nz", 8),
-        D=D, dtype=dtype, block=block or 8, device=device,
+        D=mesh.D, dtype=dtype, block=block or 8, mesh=mesh,
     )
 
 
@@ -305,7 +308,8 @@ def _parser():
     )
     ap.add_argument(
         "--procs", type=int, default=1,
-        help="processes of an assembled lobpcg_dist run (default: 1)",
+        help="processes of a lobpcg_dist run, assembled or slab-sharded "
+        "(default: 1)",
     )
     return ap
 
@@ -319,12 +323,10 @@ def main(argv=None):
     if args.procs > 1:
         with open(args.config) as f:
             cfg = json.load(f)
-        if (cfg.get("solver", {}).get("kind") != "lobpcg_dist"
-                or cfg.get("storage", {}).get("operator") == "stencil"):
+        if cfg.get("solver", {}).get("kind") != "lobpcg_dist":
             raise ValueError(
-                "--procs > 1 runs the assembled lobpcg_dist (config 4) "
-                "only; the slab-sharded and one-device solvers take one "
-                "process")
+                "--procs > 1 runs lobpcg_dist (configs 4, 4_stencil and 5) "
+                "only; the one-device solvers take one process")
         from maxwell_tpu_torch.dist import rank_tasks
 
         history, report = procs.spawn(rank_tasks.cli, args.procs,
@@ -340,7 +342,9 @@ def main(argv=None):
 
 def run(argv=None):
     """The config's solve on this process: (history, report). Inside a rank
-    of a spawn the mesh spans --procs processes, and only rank 0 refines."""
+    of a spawn the mesh spans --procs processes; the slab-sharded
+    refinement is a collective every rank runs, the host refinements run
+    on rank 0 only."""
     import torch
 
     from maxwell_tpu_torch.dist import procs
@@ -410,7 +414,7 @@ def run(argv=None):
         mesh = make_mesh(cfg.get("dist", {}).get("n_shards", 1), device,
                          args.procs)
         if use_stencil:
-            dp = build_dist_stencil(pcfg, mesh.D, dtype, block, device)
+            dp = build_dist_stencil(pcfg, mesh, dtype, block)
         else:
             dp = partition_problem(problem, mesh.D, block=block,
                                    kernel=kernel, dtype=dtype, mesh=mesh)
@@ -434,7 +438,9 @@ def run(argv=None):
     t_solve = time.perf_counter() - t0
 
     t_refine = None
-    if want_refine and rank == 0:
+    # refine_dw_dist is a collective; the host refinements need one rank
+    collective = kind == "lobpcg_dist" and use_stencil
+    if want_refine and (rank == 0 or collective):
         from maxwell_tpu_torch.solvers.refine_device import (
             refine_dw,
             refine_dw_supports,

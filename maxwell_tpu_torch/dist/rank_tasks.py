@@ -11,6 +11,9 @@ than the port.
     apply_checks(spec, D, procs, device, cases, widths, seed)
     solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs)
     exchange_bench(spec, D, procs, widths, seed, reps)   (the card)
+    slab_checks(dims, D, procs, device, cases, widths, seed)
+    slab_solve(dims, D, procs, device, lobpcg_kwargs, refine_tol)
+    slab_bench(grid, D, procs, widths, seed, reps)       (the card)
     cli(argv)                                            (cli/run.py)
     sequence(calls)                                      several in one spawn
     raise_on(rank, message)                              the failure drill
@@ -66,17 +69,21 @@ def block(dp, m: int, seed: int) -> torch.Tensor:
     return dp.local(torch.from_numpy(X)).to(dp.device, dp.dtype)
 
 
-def _kernel_counts() -> dict:
-    from maxwell_tpu_torch.kernels import bsr_spmm, halo, spmm
+def _count_modules():
+    from maxwell_tpu_torch.kernels import bsr_spmm, halo, spmm, stencil_taps
 
-    return {k: v for mod in (spmm, bsr_spmm, halo)
+    return (spmm, bsr_spmm, halo, stencil_taps)
+
+
+def kernel_counts() -> dict:
+    """This process's launch counts of the distributed roads' kernels and
+    the call counts of their plain versions."""
+    return {k: v for mod in _count_modules()
             for k, v in mod.counts().items()}
 
 
-def _reset_counts() -> None:
-    from maxwell_tpu_torch.kernels import bsr_spmm, halo, spmm
-
-    for mod in (spmm, bsr_spmm, halo):
+def reset_counts() -> None:
+    for mod in _count_modules():
         mod.reset_counts()
 
 
@@ -145,7 +152,7 @@ def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
     out = {}
     link = dp.link
     for label, (solver, kwargs) in runs.items():
-        _reset_counts()
+        reset_counts()
         w0, e0 = (link.wait_s, link.exchanges) if link else (0.0, 0)
         if dp.device.type == "cuda":
             torch.cuda.synchronize(dp.device)
@@ -159,7 +166,7 @@ def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
             if dp.device.type == "cuda":
                 torch.cuda.synchronize(dp.device)
         seconds = time.perf_counter() - t0
-        mine = {"counts": _kernel_counts(),
+        mine = {"counts": kernel_counts(),
                 "wait_s": link.wait_s - w0 if link else 0.0,
                 "exchanges": link.exchanges - e0 if link else 0}
         if label in traced:
@@ -177,6 +184,22 @@ def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
         }
     dp.close()
     return out
+
+
+def _timed(link, fn, reps):
+    """(median host ms of fn() over `reps` synchronized calls, the barrier
+    wait a exchange of the link over them, 0 without a link)."""
+    w0, e0 = (link.wait_s, link.exchanges) if link else (0.0, 0)
+    torch.cuda.synchronize()
+    t = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append((time.perf_counter() - t0) * 1e3)
+    wait = ((link.wait_s - w0) * 1e3 / max(link.exchanges - e0, 1)
+            if link else 0.0)
+    return float(np.median(t)), wait
 
 
 def exchange_bench(spec, D, procs, widths=(9, 1), seed=0, reps=20):
@@ -202,19 +225,6 @@ def exchange_bench(spec, D, procs, widths=(9, 1), seed=0, reps=20):
         if not all(oks):
             raise AssertionError(f"{name} m={m}: not bit for bit on ranks "
                                  f"{oks}")
-
-    def timed(fn):
-        w0, e0 = (link.wait_s, link.exchanges) if link else (0.0, 0)
-        torch.cuda.synchronize()
-        t = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            t.append((time.perf_counter() - t0) * 1e3)
-        wait = ((link.wait_s - w0) * 1e3 / max(link.exchanges - e0, 1)
-                if link else 0.0)
-        return float(np.median(t)), wait
 
     t0 = time.perf_counter()
     problem = PermutedProblem(build_problem(spec))
@@ -251,8 +261,8 @@ def exchange_bench(spec, D, procs, widths=(9, 1), seed=0, reps=20):
                 agree(f"{name} vs the plain transport", m,
                       bool(torch.equal(got, plain())))
                 outputs[(name, m)] = whole(dp, got)
-                ms, wait_ms = timed(kern)
-                plain_ms, plain_wait_ms = timed(plain)
+                ms, wait_ms = _timed(link, kern, reps)
+                plain_ms, plain_wait_ms = _timed(link, plain, reps)
                 with profiling.trace(None) as prof:
                     for _ in range(reps):
                         kern()
@@ -298,3 +308,245 @@ def raise_on(rank: int, message: str) -> None:
     if group.rank == rank:
         raise ValueError(message)
     group.barrier()
+
+
+# --- the slab-sharded pencil (dist/stencil_dist.py) --------------------------
+
+
+def slab_pencil(dims, D, procs, device, dtype="f64", materials=None):
+    """(mesh, this rank's DistStencilPencil3D) of the brick `dims` (a dict
+    of build's a, b, c_len, nx, ny, nz) in D slabs; materials: (eps_r,
+    mu_r) numpy grids, or None for vacuum."""
+    from maxwell_tpu_torch.dist import make_mesh
+    from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
+
+    eps_r, mu_r = materials if materials is not None else (None, None)
+    mesh = make_mesh(D, device, procs)
+    sp = DistStencilPencil3D.build(**dims, D=D, dtype=DTYPES[dtype],
+                                   eps_r=eps_r, mu_r=mu_r, mesh=mesh)
+    return mesh, sp
+
+
+def slab_whole(sp, T: torch.Tensor) -> np.ndarray:
+    """Every rank's rows of T (the slab pencil's stacked layout), stacked,
+    on the host: not counted in the link's gathers."""
+    T = T.detach()
+    if sp.link is not None:
+        T = sp.link.group.all_gather(T).reshape(-1, *T.shape[1:])
+    return T.cpu().numpy()
+
+
+def slab_block(sp, m: int, seed: int) -> torch.Tensor:
+    """This rank's rows of a global (n_full, m) normal block drawn with
+    numpy from `seed`, injected into the stacked layout (interface copies
+    agree, padding zero)."""
+    rng = np.random.default_rng(seed)
+    return sp.inject_vectors(rng.standard_normal((sp.n_full, m)))
+
+
+def _every(sp, value):
+    return [value] if sp.link is None else sp.link.group.all_gather_object(
+        value)
+
+
+def slab_checks(dims, D, procs, device, cases, widths=(1, 3), seed=0):
+    """For each case (dtype, materials) and width m, on blocks drawn from
+    `seed`: the ghost-extended blocks, the K, M and fused applies, the
+    projection, the reductions (dot_mm, dot_cols, col_norms, dot_vv,
+    dot_basis); on a vacuum pencil also the double-word apply (both words
+    of both operators) and the spectral solves (solve at alpha 6,
+    solve_sigma at per-column shifts). Each rank's link counters, lists
+    over the ranks: around one fused apply "push_bytes_KM" (bytes sent to
+    the neighbours) and "gathers_KM"; the bytes gathered by one projection
+    ("gather_bytes_project") and, vacuum, one spectral solve
+    ("gather_bytes_solve"). {case index: {m: {name: array}}}."""
+    from maxwell_tpu_torch.solvers.spectral import DistSpectralShift
+    from maxwell_tpu_torch.utils import twofloat as tf
+
+    out = {}
+    for i, (dtype, materials) in enumerate(cases):
+        _, sp = slab_pencil(dims, D, procs, device, dtype, materials)
+        res = {}
+        for m in widths:
+            X, Y = slab_block(sp, m, seed + m), slab_block(sp, m,
+                                                           seed + 100 + m)
+            link = sp.link
+
+            def gathered(fn):
+                b0 = link.bytes_gathered if link else 0
+                out = fn()
+                return out, np.asarray(_every(
+                    sp, (link.bytes_gathered - b0) if link else 0))
+
+            p0 = link.bytes_pushed if link else 0
+            g0 = link.gathers if link else 0
+            KM = sp.KM_mm(X)
+            r = {"KM": np.stack([slab_whole(sp, Z) for Z in KM]),
+                 "push_bytes_KM": np.asarray(_every(
+                     sp, (link.bytes_pushed - p0) if link else 0)),
+                 "gathers_KM": np.asarray(_every(
+                     sp, (link.gathers - g0) if link else 0)),
+                 "ext": slab_whole(sp, sp._ext_block(X).reshape(-1, m)),
+                 "K": slab_whole(sp, sp.K_mm(X)),
+                 "M": slab_whole(sp, sp.M_mm(X)),
+                 "project": slab_whole(sp, sp.project(X)),
+                 "gather_bytes_project": gathered(lambda: sp.project(X))[1],
+                 "dot_mm": sp.dot_mm(X, Y).cpu().numpy(),
+                 "dot_cols": sp.dot_cols(X, Y).cpu().numpy(),
+                 "col_norms": sp.col_norms(X).cpu().numpy(),
+                 "dot_vv": sp.dot_vv(X[:, 0], Y[:, 0]).cpu().numpy(),
+                 "dot_basis": sp.dot_basis(X.T, Y[:, 0]).cpu().numpy()}
+            if materials is None:
+                X64 = slab_block(sp, m, seed + 200 + m).double().cpu()
+                Xh, Xl = (torch.from_numpy(w).to(sp.device)
+                          for w in tf.dw_from_f64(X64.numpy()))
+                (Kh, Kl), (Mh, Ml) = sp.KM_mm_dw(Xh, Xl)
+                r["KM_dw"] = np.stack([slab_whole(sp, Z)
+                                       for Z in (Kh, Kl, Mh, Ml)])
+                sol = DistSpectralShift.build(sp, 6.0)
+                W, r["gather_bytes_solve"] = gathered(
+                    lambda: sol.solve(sp, X))
+                r["solve"] = slab_whole(sp, W)
+                sigma = torch.linspace(3.0, 40.0, m, dtype=sp.dtype,
+                                       device=sp.device)
+                r["solve_sigma"] = slab_whole(sp, DistSpectralShift.build(
+                    sp, 0.0).solve_sigma(sp, X, sigma))
+            res[m] = r
+        sp.close()
+        out[i] = res
+    return out
+
+
+def slab_solve(dims, D, procs, device, lobpcg_kwargs, refine_tol=1e-8,
+               dtype="f32", X0=None):
+    """lobpcg_dist on the vacuum slab pencil from X0 (a host (n_full, m)
+    block in the global stencil ordering, carried to each rank's rows by
+    inject_vectors; None: the pencil's make_block), then refine_dw_dist of
+    its block to refine_tol on every rank; counts zeroed just before, read
+    just after. {"eigenvalues", "eigenvectors" (the global ordering),
+    "residuals", "iterations", "history" (the solve's),
+    "refined_eigenvalues", "refined_residuals",
+    "refined_eigenvectors" (the global ordering), "refine_iterations",
+    "counts" (a list over the ranks), "seconds"}."""
+    from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
+    from maxwell_tpu_torch.solvers.refine_device import refine_dw_dist
+
+    mesh, sp = slab_pencil(dims, D, procs, device, dtype)
+    if X0 is not None:
+        lobpcg_kwargs = {**lobpcg_kwargs, "X0": sp.inject_vectors(X0)}
+    reset_counts()
+    t0 = time.perf_counter()
+    res = lobpcg_dist(sp, mesh, **lobpcg_kwargs)
+    ref = refine_dw_dist(sp, mesh, res.eigenvectors, tol=refine_tol)
+    seconds = time.perf_counter() - t0
+    counts = _every(sp, kernel_counts())
+    sp.close()
+    return {"eigenvalues": np.asarray(res.eigenvalues),
+            "eigenvectors": np.asarray(res.eigenvectors),
+            "residuals": np.asarray(res.residuals),
+            "iterations": res.iterations,
+            "history": [h["max_rel_res"] for h in res.history],
+            "refined_eigenvalues": np.asarray(ref.eigenvalues),
+            "refined_residuals": np.asarray(ref.residuals),
+            "refined_eigenvectors": np.asarray(ref.eigenvectors),
+            "refine_iterations": ref.iterations, "converged": ref.converged,
+            "counts": counts, "seconds": seconds}
+
+
+def slab_refusals(dims, D, procs, device, checkpoint_path):
+    """What the slab pencil across processes still refuses: [(call,
+    ValueError message)] for shift-invert and a checkpointed lobpcg_dist
+    (every rank raises, so no collective is left waiting)."""
+    from maxwell_tpu_torch.solvers.dist_solve import (
+        lobpcg_dist,
+        shift_invert_lanczos_dist,
+    )
+
+    mesh, sp = slab_pencil(dims, D, procs, device)
+    out = []
+    for name, call in (
+            ("shift_invert", lambda: shift_invert_lanczos_dist(
+                sp, mesh, sigma=10.0, nev=1, maxiter=2)),
+            ("checkpoint", lambda: lobpcg_dist(
+                sp, mesh, nev=1, maxiter=1, checkpoint=checkpoint_path))):
+        try:
+            call()
+            out.append((name, None))
+        except ValueError as e:
+            out.append((name, str(e)))
+    sp.close()
+    return out
+
+
+def slab_bench(grid, D, procs, widths=(9, 1), seed=0, reps=20):
+    """On the card: the grid^3 f32 brick in D slabs over `procs` ranks.
+    Per width m, on a block random on every row (numpy, seed + m): the
+    ghost exchange (each rank's extended block, its neighbours' edge
+    planes pushed into it) and the tap kernel K4 on each of the rank's
+    extended blocks (fused K/M), within 1e-5 of max|plain| of the plain
+    slab apply on every rank; the gathered blocks and outputs for the
+    caller to hold to one process; and per rank: K4's device time a fused
+    apply (torch.profiler: under time-sliced contexts its span on the
+    card), the host time of a whole exchange (fences included), of a
+    whole K4 apply and of the plain apply, the barrier wait a exchange,
+    K4's launches a apply, and the bytes and operations of the rank's
+    apply for its bound. {"rows": [...] (rank 0's, with the per-rank
+    lists), "outputs": {(name, m): array}, "seconds"}."""
+    from maxwell_tpu_torch.kernels import stencil_taps as kst
+    from maxwell_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    _, sp = slab_pencil(dict(nx=grid, ny=grid, nz=grid), D, procs, "cuda",
+                        "f32")
+    link = sp.link
+
+    rows, outputs = [], {}
+    taps_per_row = float(np.mean([len(t) for t in sp.taps]))
+    live = float(sp.mask.sum())
+    for m in widths:
+        Xg = np.random.default_rng(seed + m).standard_normal(
+            (sp.global_rows, m)).astype(np.float32)
+        X = sp.local(torch.from_numpy(Xg)).to(sp.device)
+        outputs[("ext", m)] = slab_whole(
+            sp, sp._ext_block(X).reshape(-1, m).clone())
+        kst.reset_counts()
+        got = sp._taps_apply_ext(X, True, True)
+        torch.cuda.synchronize()
+        launches = kst.counts()["stencil_taps"]
+        want = sp._taps_apply_plain(X, True, True)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        outputs[("KM", m)] = np.stack([slab_whole(sp, Y) for Y in got])
+        exchange_ms, wait_ms = _timed(link, lambda: sp._ext_block(X), reps)
+        apply_ms, apply_wait_ms = _timed(
+            link, lambda: sp._taps_apply_ext(X, True, True), reps)
+        plain_ms, _ = _timed(
+            link, lambda: sp._taps_apply_plain(X, True, True), reps)
+        with profiling.trace(None) as prof:
+            for _ in range(reps):
+                sp._taps_apply_ext(X, True, True)
+        dev = [k for k in profiling.top_kernels(prof, None)
+               if "stencil_taps" in k["name"]]
+        rows_local = sp.n_padded
+        mine = {"max_abs_err": err, "rel_err": err / scale,
+                "within_tol": err <= 1e-5 * scale,
+                "kernel_device_ms_per_apply":
+                    sum(k["device_ms"] for k in dev) / reps,
+                "launches_per_apply": launches,
+                "exchange_ms": exchange_ms,
+                "barrier_wait_ms_per_exchange": wait_ms,
+                "apply_ms": apply_ms, "apply_barrier_wait_ms": apply_wait_ms,
+                "plain_ms": plain_ms,
+                "bytes": rows_local * m * 4 * 3 + rows_local * 4,
+                "flops": 2 * live * taps_per_row * 2 * m}
+        every = _every(sp, mine)
+        if not all(e["within_tol"] for e in every):
+            raise AssertionError(f"K4 on the slabs m={m}: "
+                                 f"{[e['rel_err'] for e in every]}")
+        rows.append({"m": m, "procs": procs, "grid": grid, "slabs": D,
+                     "local_rows": rows_local, **mine,
+                     **{f"{k}_per_rank": [e[k] for e in every]
+                        for k in mine}})
+    sp.close()
+    return {"rows": rows, "outputs": outputs,
+            "seconds": time.perf_counter() - t0}

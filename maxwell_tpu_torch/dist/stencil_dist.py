@@ -1,5 +1,7 @@
 """Slab-sharded matrix-free 3D pencil (maxwell_tpu/dist/stencil_dist.py),
-in the stacked view of dist/partition.py: all D slabs on one device.
+in the stacked view of dist/partition.py: all D slabs on one device, or
+D / P consecutive slabs on each of P processes (a mesh over P processes,
+dist/procs.py; rank r holds slabs [r Dl, (r + 1) Dl), Dl = D / P).
 
 Decomposition: the x-axis cell range splits into D slabs of `cells` cells.
 Slab d holds its edge fields on local grids
@@ -9,12 +11,26 @@ Slab d holds its edge fields on local grids
     Ez (cells+1, ny+1, nz)     plane is replicated with the right neighbour
 
 and its nodes on (cells+1, ny+1, nz+1). A vector is the stacked
-(D n_loc_pad, m) tensor: slab d owns rows [d n_loc_pad, (d + 1) n_loc_pad),
-[Ex | Ey | Ez | pad] each row-major. Reductions weigh the replicated
-interface plane by zero (`w_dot`, so every edge counts once), take the
-per-slab partial sums and add the D partials in slab order: the psum. A
-ppermute pair of the reference becomes a slice of the neighbouring slab's
-rows, and the chain ends get zero planes.
+(Dl n_loc_pad, m) tensor of a process's slabs: local slab j owns rows
+[j n_loc_pad, (j + 1) n_loc_pad), [Ex | Ey | Ez | pad] each row-major.
+Reductions weigh the replicated interface plane by zero (`w_dot`, so every
+edge counts once), take the per-slab partial sums and add the D partials
+in slab order: the psum. Across processes each rank takes its own slabs'
+partials by the same calls over its Dl slabs, the D partials of all ranks
+are gathered (HaloLink.gather) and added by the same sum. A ppermute pair
+of the reference becomes a slice of the neighbouring slab's rows; across a
+rank boundary the link's transport (kernels/halo.py HaloLink): the chain
+ends get zero planes.
+
+P processes against one: the applies, the ghost planes, the interface sums
+and the row reductions are the same per-slab operations in the same order,
+so on the CPU they agree bit for bit. A batched product over the slab axis
+(the y/z transforms of the fast nodal solve and the spectral solve) is one
+product whose shape holds the slab count, which picks its blocking, and
+`dot_basis` is one product over the stacked rows in one process: these
+agree to rounding (tests/test_torch_dist_stencil_procs.py states the
+bounds). On the card any batched product or reduction may choose its
+kernel by the batch count.
 
 Applies:
   vacuum PEC (`taps`): the gather-form tap apply on ghost-extended slabs.
@@ -28,7 +44,12 @@ Applies:
       extended mask `ext_mask` (the slab's mask on its own planes, the
       copied plane's mask on a ghost plane, zero at the chain ends), one
       launch per slab and column pass, and keeps the owned output planes
-      (Ex 1..c, Ey/Ez 1..c+1). Every CPU apply and every f64 apply runs
+      (Ex 1..c, Ey/Ez 1..c+1). Across processes on the card the rank's
+      extended block is a registered buffer of its link: each neighbour
+      pushes its three edge planes straight into the ghost slots (peer
+      copies between the link's two fences), and K4 reads the block where
+      it lies; on the CPU the planes cross over gloo. Every CPU apply and
+      every f64 apply runs
       the plain version, torch slices in tap order as the reference's jnp:
       a rule on device and dtype, not a fallback; whatever the kernel
       refuses raises.
@@ -50,6 +71,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from maxwell_tpu_torch.kernels.halo import HaloLink
 from maxwell_tpu_torch.kernels.stencil_taps import (
     component_shapes,
     stencil_taps,
@@ -57,7 +79,7 @@ from maxwell_tpu_torch.kernels.stencil_taps import (
 from maxwell_tpu_torch.solvers.cg import cg
 from maxwell_tpu_torch.solvers.spectral import (
     tr_x_local,
-    tr_x_sum,
+    tr_x_parts,
     tr_yz,
     x_rows,
 )
@@ -70,15 +92,17 @@ def _round_up(x, m):
 @dataclasses.dataclass(frozen=True)
 class DistStencilPencil3D:
     """Slab-sharded matrix-free pencil in the stacked view (see the module
-    docstring). Tensors live on the pencil's device (the mask's)."""
+    docstring). Tensors live on the pencil's device (the mask's) and hold
+    this process's Dl slabs; link: its HaloLink across processes (None in
+    one process), close() releases its buffers."""
 
-    mask: torch.Tensor  # (D n_loc_pad,) PEC mask per local edge
-    w_dot: torch.Tensor  # (D n_loc_pad,) ownership weight (iface plane 0)
+    mask: torch.Tensor  # (Dl n_loc_pad,) PEC mask per local edge
+    w_dot: torch.Tensor  # (Dl n_loc_pad,) ownership weight (iface plane 0)
     Ke: torch.Tensor  # (12, 12)
     Me: torch.Tensor
-    node_mask: torch.Tensor  # (D nn_loc,) interior-node mask
-    node_w: torch.Tensor  # (D nn_loc,) node ownership weight
-    # optional per-cell materials, slab-stacked: (D cells, ny, nz)
+    node_mask: torch.Tensor  # (Dl nn_loc,) interior-node mask
+    node_w: torch.Tensor  # (Dl nn_loc,) node ownership weight
+    # optional per-cell materials, slab-stacked: (Dl cells, ny, nz)
     inv_mu: torch.Tensor | None
     eps: torch.Tensor | None
     ax: float
@@ -88,7 +112,7 @@ class DistStencilPencil3D:
     ny: int
     nz: int
     cells: int  # slab width (cells per slab)
-    D: int
+    D: int  # slabs of the whole problem
     n_loc: int  # local edge count (unpadded)
     n_loc_pad: int
     nn_loc: int  # local node count
@@ -105,23 +129,51 @@ class DistStencilPencil3D:
     # _derive_taps) and their f64-accurate (hi, lo) pairs (_derive_taps_dw)
     taps: tuple | None = None
     taps_dw: tuple | None = None
-    # the K4 route's mask of each slab's ghost-extended block (D, n_ext)
+    # the K4 route's mask of each slab's ghost-extended block (Dl, n_ext)
     ext_mask: torch.Tensor | None = None
+    link: HaloLink | None = dataclasses.field(default=None, compare=False)
 
     # --- shapes -------------------------------------------------------------
+    @property
+    def procs(self) -> int:
+        return 1 if self.link is None else self.link.group.procs
+
+    @property
+    def Dl(self) -> int:
+        """Slabs this process holds."""
+        return self.D // self.procs
+
+    @property
+    def d0(self) -> int:
+        """The first of them."""
+        return 0 if self.link is None else self.link.d0
+
     @property
     def global_rows(self) -> int:
         return self.D * self.n_loc_pad
 
     @property
     def n_padded(self) -> int:
-        return self.global_rows
+        """Rows this process holds: the stacked view's."""
+        return self.Dl * self.n_loc_pad
 
     @property
     def n(self) -> int:
-        """Rows the single-device solvers keep: every stacked row (padding
-        rows are zero by the mask); `n_full` is the problem's edge count."""
+        """The stacked view's dimension: every stacked row of the D slabs
+        (padding rows are zero by the mask); `n_full` is the problem's edge
+        count."""
         return self.global_rows
+
+    def local(self, X):
+        """This process's rows of a global (global_rows, ...) block."""
+        return X[self.d0 * self.n_loc_pad:(self.d0 + self.Dl)
+                 * self.n_loc_pad]
+
+    def close(self) -> None:
+        """Release the exchange buffers across processes (a collective:
+        every rank calls it)."""
+        if self.link is not None:
+            self.link.close()
 
     @property
     def n_full(self) -> int:
@@ -163,22 +215,39 @@ class DistStencilPencil3D:
     def weigh(self, x):
         return self.w_dot * x if x.dim() == 1 else self.w_dot[:, None] * x
 
+    def _sum_slabs(self, *parts):
+        """Each of `parts` a (Dl, ...) tensor of this process's per-slab
+        partials -> its sum over all D slabs, added in slab order by one
+        sum over the slab axis. Across processes the partials of every
+        rank are gathered first, all parts in one gather."""
+        if self.link is None:
+            sums = [P.sum(dim=0) for P in parts]
+        else:
+            flat = self.link.gather(torch.cat(
+                [P.reshape(self.Dl, -1) for P in parts], dim=1)).sum(dim=0)
+            sums = [g.view(P.shape[1:]) for g, P in zip(torch.split(
+                flat, [P[0].numel() for P in parts]), parts)]
+        return sums[0] if len(parts) == 1 else sums
+
     def _slab_sums(self, P):
-        """P (D n_loc_pad, ...) -> the sum over rows: per-slab sums, then
-        the sum of the D partials."""
-        return P.reshape(self.D, self.n_loc_pad, *P.shape[1:]).sum(
-            dim=1).sum(dim=0)
+        """P (Dl n_loc_pad, ...) -> the sum over the rows of all D slabs:
+        per-slab sums, then the sum of the D partials."""
+        return self._sum_slabs(P.reshape(self.Dl, self.n_loc_pad,
+                                         *P.shape[1:]).sum(dim=1))
 
     def dot_mm(self, A, B):
         """Each slab's A^T (w B), the D partials added in slab order. One
         product a slab: a batched product of the D slabs gets one thread
         block a slab from cuBLAS (3.6 ms at 64^3 in 8 slabs on the H100,
         PERF.md §5)."""
-        Av = A.reshape(self.D, self.n_loc_pad, -1)
-        Bv = self.weigh(B).reshape(self.D, self.n_loc_pad, -1)
-        out = Av[0].T @ Bv[0]
+        Av = A.reshape(self.Dl, self.n_loc_pad, -1)
+        Bv = self.weigh(B).reshape(self.Dl, self.n_loc_pad, -1)
+        parts = [Av[j].T @ Bv[j] for j in range(self.Dl)]
+        if self.link is not None:
+            parts = self.link.gather(torch.stack(parts))
+        out = parts[0]
         for d in range(1, self.D):
-            out = out + Av[d].T @ Bv[d]
+            out = out + parts[d]
         return out
 
     def dot_cols(self, A, B):
@@ -188,18 +257,27 @@ class DistStencilPencil3D:
         return self._slab_sums(x * self.weigh(y))
 
     def dot_basis(self, V, w):
-        return V @ self.weigh(w)  # over the stacked rows: already global
+        """(k,) <- V @ (w_dot w), V (k, rows) a basis held by rows. In one
+        process one product over the stacked rows; across processes each
+        slab's product, the D partials summed in slab order (so it differs
+        from one process's in the last bits)."""
+        if self.link is None:
+            return V @ self.weigh(w)  # over the stacked rows: already global
+        Vs = V.reshape(V.shape[0], self.Dl, self.n_loc_pad).transpose(0, 1)
+        ws = self.weigh(w).reshape(self.Dl, self.n_loc_pad, 1)
+        return self._sum_slabs(torch.bmm(Vs, ws)[..., 0])
 
     def col_norms(self, A):
         return torch.sqrt(torch.clamp(self.dot_cols(A, A), min=0.0))
 
     # --- grids ---------------------------------------------------------------
     def _to_grids(self, X):
-        """(D n_loc_pad, m) -> the slabs' (D, X, Y, Z, m) component grids."""
-        return self._grid_views(X.reshape(self.D, self.n_loc_pad, -1))
+        """(Dl n_loc_pad, m) -> the slabs' (Dl, X, Y, Z, m) component
+        grids."""
+        return self._grid_views(X.reshape(self.Dl, self.n_loc_pad, -1))
 
     def _grid_views(self, Xs):
-        """The (D, X, Y, Z, m) component views of a (D, n_loc_pad, m)
+        """The (Dl, X, Y, Z, m) component views of a (Dl, n_loc_pad, m)
         buffer (writing them writes the buffer)."""
         c, ny, nz = self.cells, self.ny, self.nz
         shapes = ((c, ny + 1, nz + 1), (c + 1, ny, nz + 1),
@@ -212,20 +290,29 @@ class DistStencilPencil3D:
 
     def _from_grids(self, Ex, Ey, Ez):
         m = Ex.shape[-1]
-        out = torch.cat([g.reshape(self.D, -1, m) for g in (Ex, Ey, Ez)],
+        out = torch.cat([g.reshape(self.Dl, -1, m) for g in (Ex, Ey, Ez)],
                         dim=1)
         out = torch.nn.functional.pad(
             out, (0, 0, 0, self.n_loc_pad - self.n_loc))
-        return out.reshape(self.global_rows, m)
+        return out.reshape(self.n_padded, m)
 
     # --- interface partial-sum exchange --------------------------------------
     def _iface_sum(self, A):
-        """A (D, c+1, ..., m) holds partial sums whose first and last planes
-        are shared with the neighbours: add the neighbour's copy to both
-        (the reference's ppermute pair), so both copies agree."""
+        """A (Dl, c+1, ..., m) holds partial sums whose first and last
+        planes are shared with the neighbours: add the neighbour's copy to
+        both (the reference's ppermute pair), so both copies agree. Across
+        processes one plane crosses each rank boundary each way
+        (HaloLink.swap)."""
         out = A.clone()
         out[1:, 0] += A[:-1, -1]
         out[:-1, -1] += A[1:, 0]
+        link = self.link
+        if link is not None:
+            left, right = link.swap(A[0, 0], A[-1, -1])
+            if not link.first:
+                out[0, 0] += left
+            if not link.last:
+                out[-1, -1] += right
         return out
 
     # --- gather-form tap apply on ghost-extended slabs -----------------------
@@ -240,22 +327,66 @@ class DistStencilPencil3D:
         return views
 
     def _ext_block(self, X):
-        """(D n_loc_pad, m) -> (D, n_ext, m): each slab's ghost-extended
+        """(Dl n_loc_pad, m) -> (Dl, n_ext, m): each slab's ghost-extended
         grids as one flat block of the brick ext_shape, written in one
         pass: the slab's own planes, then one ghost x-plane per component
         and side, what its neighbours send in the reference's two packed
         ppermutes (the left neighbour's Ex[-1], Ey[-2], Ez[-2], the right
-        one's Ex[0], Ey[1], Ez[1]; zeros at the chain ends)."""
-        blk = X.new_empty((self.D, self.n_ext, X.shape[1]))
-        for k, (G, E) in enumerate(zip(self._to_grids(X),
-                                       self._ext_views(blk))):
-            # Ey/Ez: the last local plane is the interface, shared
-            left, right = (-1, 0) if k == 0 else (-2, 1)
-            E[:, 1:-1] = G
-            E[1:, 0] = G[:-1, left]
-            E[:-1, -1] = G[1:, right]
-            E[0, 0] = 0.0
-            E[-1, -1] = 0.0
+        one's Ex[0], Ey[1], Ez[1]; zeros at the chain ends). Across a rank
+        boundary the planes come over the link: on the card the block is
+        the rank's registered buffer (valid until its next exchange of that
+        width), its neighbours' edge planes pushed into its ghost slots; on
+        the CPU they cross over gloo."""
+        link, m, Dl = self.link, X.shape[1], self.Dl
+        on_card = link is not None and X.device.type == "cuda"
+        bufs = (link.buffers(self.n_ext, m, X.dtype) if on_card else None)
+        blk = (bufs.out.view(Dl, self.n_ext, m) if on_card
+               else X.new_empty((Dl, self.n_ext, m)))
+        grids, views = self._to_grids(X), self._ext_views(blk)
+        # what the first slab sends left and the last slab sends right
+        sides = [(-1, 0) if k == 0 else (-2, 1) for k in range(3)]
+        to_left = [G[0, right] for G, (_, right) in zip(grids, sides)]
+        to_right = [G[-1, left] for G, (left, _) in zip(grids, sides)]
+
+        def local():
+            for G, E, (left, right) in zip(grids, views, sides):
+                # Ey/Ez: the last local plane is the interface, shared
+                E[:, 1:-1] = G
+                E[1:, 0] = G[:-1, left]
+                E[:-1, -1] = G[1:, right]
+
+        if link is None:
+            local()
+            for E in views:
+                E[0, 0] = 0.0
+                E[-1, -1] = 0.0
+        elif not on_card:
+            local()
+            flat = lambda ps: torch.cat([p.reshape(-1) for p in ps])
+            left_in, right_in = link.swap(flat(to_left), flat(to_right))
+            start = 0
+            for E in views:
+                size = E[0, 0].numel()
+                E[0, 0] = left_in[start:start + size].view(E[0, 0].shape)
+                E[-1, -1] = right_in[start:start + size].view(
+                    E[-1, -1].shape)
+                start += size
+        else:
+            link.count_push(sum(p.numel() for p in to_left)
+                            * X.element_size())
+            peers = [None if t is None else self._ext_views(
+                t.view(Dl, self.n_ext, m)) for t in (bufs.left, bufs.right)]
+            with link.exchange():
+                local()
+                for k, E in enumerate(views):
+                    if link.first:
+                        E[0, 0] = 0.0
+                    else:
+                        peers[0][k][-1, -1].copy_(to_left[k])
+                    if link.last:
+                        E[-1, -1] = 0.0
+                    else:
+                        peers[1][k][0, 0].copy_(to_right[k])
         return blk
 
     def _owned(self, Y):
@@ -263,23 +394,23 @@ class DistStencilPencil3D:
         rows: Ex planes 1..c, Ey and Ez planes 1..c+1 (extended indices),
         padding rows zero."""
         c, m = self.cells, Y.shape[2]
-        out = Y.new_empty((self.D, self.n_loc_pad, m))
+        out = Y.new_empty((self.Dl, self.n_loc_pad, m))
         out[:, self.n_loc :] = 0.0
         for k, (src, dst) in enumerate(zip(self._ext_views(Y),
                                            self._grid_views(out))):
             dst.copy_(src[:, 1 : c + 1 + (k > 0)])
-        return out.reshape(self.global_rows, m)
+        return out.reshape(self.n_padded, m)
 
     def _taps_apply_ext(self, X, want_K, want_M):
         """The K4 route: the tap kernel on each slab's ghost-extended block
         with the extended mask (kernels/stencil_taps.stencil_taps: the
         kernel on CUDA tensors, its plain version on CPU ones), then the
-        owned planes. X (D n_loc_pad, m)."""
+        owned planes. X (Dl n_loc_pad, m)."""
         blk = self._ext_block(X)
         # each slab's launch writes straight into its rows of one buffer
         bufs = tuple(torch.empty_like(blk) if want else None
                      for want in (want_K, want_M))
-        for d in range(self.D):
+        for d in range(self.Dl):
             stencil_taps(blk[d], self.ext_mask[d], self.taps, self.ext_shape,
                          want_K, want_M,
                          out=tuple(None if b is None else b[d] for b in bufs))
@@ -296,7 +427,7 @@ class DistStencilPencil3D:
         outK, outM = [], []
         for alpha in range(3):
             s_ = grids[alpha].shape[1:4]
-            accK = Xl.new_zeros((self.D,) + tuple(s_) + (m,))
+            accK = Xl.new_zeros((self.Dl,) + tuple(s_) + (m,))
             accM = accK
             for beta, (dx, dy, dz), cK, cM in self.taps[alpha]:
                 sl = P[beta][:, 1 + dx : 1 + dx + s_[0],
@@ -343,14 +474,15 @@ class DistStencilPencil3D:
         Xl = Xl * mk  # mask is 0/1: exact on both words
         m = Xh.shape[1]
         gh = self._to_grids(Xh)
-        gl = self._to_grids(Xl)
         pad = lambda g: torch.nn.functional.pad(g, (0, 0, 1, 1, 1, 1))
-        Ph = [pad(g) for g in self._ext_views(self._ext_block(Xh))]
-        Pl = [pad(g) for g in self._ext_views(self._ext_block(Xl))]
+        # both words in one extended block, so in one exchange
+        ext = self._ext_views(self._ext_block(torch.cat([Xh, Xl], dim=1)))
+        Ph = [pad(g[..., :m]) for g in ext]
+        Pl = [pad(g[..., m:]) for g in ext]
         outK, outM = [], []
         for alpha in range(3):
             s_ = gh[alpha].shape[1:4]
-            z = Xh.new_zeros((self.D,) + tuple(s_) + (m,))
+            z = Xh.new_zeros((self.Dl,) + tuple(s_) + (m,))
             aKh, aKl, aMh, aMl = z, z, z, z
             # coefficient pairs as 0-d device tensors: a Python float would
             # make two_prod split it in f64
@@ -383,7 +515,7 @@ class DistStencilPencil3D:
     def _element_apply_multi(self, E, X, scales=None):
         """Stacked element apply ((12k, 12) E -> k outputs) with one panel
         gather and one interface exchange per output field. scales: per
-        output the per-cell (D cells, ny, nz) material coefficients."""
+        output the per-cell (Dl cells, ny, nz) material coefficients."""
         Xl = X * self.mask[:, None]
         c, ny, nz = self.cells, self.ny, self.nz
         k = E.shape[0] // 12
@@ -398,14 +530,14 @@ class DistStencilPencil3D:
             Ez[:, 0:c, 0:ny, :], Ez[:, 1 : c + 1, 0:ny, :],
             Ez[:, 0:c, 1 : ny + 1, :], Ez[:, 1 : c + 1, 1 : ny + 1, :],
         ]
-        G = torch.stack(panels)  # (12, D, c, ny, nz, m)
+        G = torch.stack(panels)  # (12, Dl, c, ny, nz, m)
         Y = torch.einsum("ab,bdxyzm->adxyzm", E, G)
         outs = []
         for j in range(k):
             Yj = Y[12 * j : 12 * (j + 1)]
             if scales[j] is not None:
-                Yj = Yj * scales[j].reshape(self.D, c, ny, nz)[None, ...,
-                                                               None]
+                Yj = Yj * scales[j].reshape(self.Dl, c, ny, nz)[None, ...,
+                                                                None]
             Yx, Yy, Yz = (torch.zeros_like(g) for g in (Ex, Ey, Ez))
             Yx[:, :, 0:ny, 0:nz] += Yj[0]
             Yx[:, :, 1 : ny + 1, 0:nz] += Yj[1]
@@ -460,12 +592,12 @@ class DistStencilPencil3D:
     def _node_dot(self, x, y):
         w = self.node_w if x.dim() == 1 else self.node_w[:, None]
         P = x * w * y
-        return P.reshape(self.D, self.nn_loc, *P.shape[1:]).sum(dim=1).sum(
-            dim=0)
+        return self._sum_slabs(P.reshape(self.Dl, self.nn_loc,
+                                         *P.shape[1:]).sum(dim=1))
 
     def _node_grid(self, phi):
         c, ny, nz = self.cells, self.ny, self.nz
-        return phi.reshape(self.D, c + 1, ny + 1, nz + 1, phi.shape[1])
+        return phi.reshape(self.Dl, c + 1, ny + 1, nz + 1, phi.shape[1])
 
     def _g_mm(self, phi):
         """(D n_loc_pad, m) <- G phi for slab node vectors (D nn_loc, m):
@@ -488,13 +620,13 @@ class DistStencilPencil3D:
         hx, hy, hz = self.ax / self.nx, self.by / self.ny, self.cz / self.nz
         Ex, Ey, Ez = self._to_grids(yl * self.w_dot[:, None])
         pad = torch.nn.functional.pad
-        Exp = pad(Ex, (0, 0, 0, 0, 0, 0, 1, 1))  # (D, c+2, ny+1, nz+1, m)
+        Exp = pad(Ex, (0, 0, 0, 0, 0, 0, 1, 1))  # (Dl, c+2, ny+1, nz+1, m)
         Eyp = pad(Ey, (0, 0, 0, 0, 1, 1))
         Ezp = pad(Ez, (0, 0, 1, 1))
         acc = (Exp[:, :-1] - Exp[:, 1:]) / hx
         acc = acc + (Eyp[:, :, :-1] - Eyp[:, :, 1:]) / hy
         acc = acc + (Ezp[:, :, :, :-1] - Ezp[:, :, :, 1:]) / hz
-        out = self._iface_sum(acc).reshape(self.D * self.nn_loc, -1)
+        out = self._iface_sum(acc).reshape(self.Dl * self.nn_loc, -1)
         out = out * self.node_mask[:, None]
         return out[:, 0] if vec else out
 
@@ -505,14 +637,14 @@ class DistStencilPencil3D:
         slab order (the reference's psum), so the inverse transform back to
         each slab's planes is local and agrees on the interface copies."""
         ny, nz = self.ny, self.nz
-        c = self.cells
+        c, Dl = self.cells, self.Dl
         G = self._node_grid(r * self.node_w[:, None])[:, :, 1:ny, 1:nz]
-        Vxl = x_rows(self.fpVx_full, c + 1, c, self.D)  # (D, c+1, nx-1)
-        Rt = tr_x_sum(tr_yz(G, self.fpVy, self.fpVz), Vxl)
+        Vxl = x_rows(self.fpVx_full, c + 1, c, Dl, self.d0)  # (Dl, c+1, nx-1)
+        Rt = self._sum_slabs(tr_x_parts(tr_yz(G, self.fpVy, self.fpVz), Vxl))
         Rt = Rt * self.fp_inv_lam[..., None]
         q = tr_yz(tr_x_local(Rt, Vxl), self.fpVy.T, self.fpVz.T)
         out = torch.nn.functional.pad(q, (0, 0, 1, 1, 1, 1))
-        out = out.reshape(self.D * self.nn_loc, -1)
+        out = out.reshape(Dl * self.nn_loc, -1)
         return out * self.node_mask[:, None]
 
     def project(self, X):
@@ -539,9 +671,13 @@ class DistStencilPencil3D:
         a=1.0, b=1.0, c_len=1.0, nx=8, ny=8, nz=8, D=8,
         dtype: torch.dtype = torch.float32, block: int = 8,
         eps_r=None, mu_r=None, device: str | torch.device = "cuda",
+        mesh=None,
     ) -> "DistStencilPencil3D":
         """The reference's build (stencil_dist.py:603), on `device` (the
-        card unless the caller asks for the CPU)."""
+        card unless the caller asks for the CPU), or on the mesh's device
+        with its process count (dist/mesh.py; D slabs over mesh.procs
+        processes): every rank runs the same host build and keeps its own
+        slabs."""
         from maxwell_tpu_torch.problems.cavity3d import hex_element_matrices
         from maxwell_tpu_torch.problems.stencil3d import (
             _derive_taps,
@@ -552,6 +688,12 @@ class DistStencilPencil3D:
 
         if nx % D != 0:
             raise ValueError("nx must be divisible by the shard count")
+        group = None
+        if mesh is not None:
+            if mesh.D != D:
+                raise ValueError(f"mesh has {mesh.D} shards, asked for {D} "
+                                 "slabs")
+            device, group = mesh.device, mesh.group
         cells = nx // D
         hx, hy, hz = a / nx, b / ny, c_len / nz
         Ke, Me = hex_element_matrices(hx, hy, hz)
@@ -592,8 +734,11 @@ class DistStencilPencil3D:
             node_mask[d] = interior.reshape(-1)
             node_w[d] = (interior & (ni != cells)).reshape(-1)
 
+        # across processes the whole problem's slabs are built on the host
+        # and each process keeps its own on its device (_keep)
+        home = device if group is None else "cpu"
         t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
-                                      device=device)
+                                      device=home)
         # per-cell materials: cells are disjoint across slabs, so the plain
         # (D cells, ny, nz) stacking is the slab layout
         inv_mu = None if mu_r is None else t(
@@ -623,12 +768,39 @@ class DistStencilPencil3D:
             n_loc=n_loc, n_loc_pad=n_loc_pad, nn_loc=nn_loc, taps=taps,
             taps_dw=taps_dw, **fp,
         )
-        if taps is None:
-            return p
-        # the K4 route's extended mask: each ghost plane carries the mask
-        # of the plane it copies, zero at the chain ends
-        ext_mask = p._ext_block(p.mask[:, None])[..., 0].contiguous()
-        return dataclasses.replace(p, ext_mask=ext_mask)
+        if taps is not None:
+            # the K4 route's extended mask: each ghost plane carries the
+            # mask of the plane it copies, zero at the chain ends
+            p = dataclasses.replace(p, ext_mask=p._ext_block(
+                p.mask[:, None])[..., 0].contiguous())
+        return p if group is None else p._keep(group, torch.device(device))
+
+    def _keep(self, group, device) -> "DistStencilPencil3D":
+        """This whole-problem pencil's slabs of the process `group` names,
+        on `device`, with the link across processes."""
+        if self.D % group.procs:
+            raise ValueError(f"{self.D} slabs do not divide over "
+                             f"{group.procs} processes")
+        Dl = self.D // group.procs
+        d0 = group.rank * Dl
+
+        def mine(v, per_slab):
+            if v is None:
+                return None
+            if per_slab:
+                v = v.reshape(self.D, -1, *v.shape[1:])[d0:d0 + Dl]
+                v = v.reshape(-1, *v.shape[2:])
+            return v.to(device)
+
+        per_slab = ("mask", "w_dot", "node_mask", "node_w", "inv_mu", "eps",
+                    "ext_mask")
+        fields = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(self)}
+        fields.update({
+            name: mine(v, name in per_slab) for name, v in fields.items()
+            if torch.is_tensor(v)})
+        link = HaloLink(group, self.D, self.n_loc_pad, 0)
+        return DistStencilPencil3D(**{**fields, "link": link})
 
     # --- host-side layout maps -----------------------------------------------
     def _scatter_idx(self):
@@ -649,8 +821,9 @@ class DistStencilPencil3D:
 
     def make_block(self, m: int, generator: torch.Generator | None = None):
         """Random start block drawn in the global stencil layout (so the
-        interface copies agree) and gathered into the stacked layout on the
-        device (default generator: seed 0 on the pencil's device)."""
+        interface copies agree) and gathered into this process's stacked
+        rows on the device (default generator: seed 0 on the pencil's
+        device)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         xg = torch.randn((self.n_full, m), generator=generator,
@@ -659,14 +832,15 @@ class DistStencilPencil3D:
         return xg.to(self.device)[idx] * valid[:, None]
 
     def extract_vectors(self, X_stacked) -> np.ndarray:
-        """Stacked rows (tensor or numpy) -> the global stencil layout."""
+        """Stacked rows (tensor or numpy; across processes this rank's,
+        gathered from every rank) -> the global stencil layout."""
         if torch.is_tensor(X_stacked):
-            X_stacked = X_stacked.cpu().numpy()
+            X_stacked = X_stacked.detach().cpu().numpy()
         return self.gather_vector(np.asarray(X_stacked))
 
     def inject_vectors(self, X_orig) -> torch.Tensor:
-        """Global stencil layout (n_full[, m]) -> the stacked layout on the
-        pencil's device, by a device gather."""
+        """Global stencil layout (n_full[, m]) -> this process's stacked
+        rows on the pencil's device, by a device gather."""
         idx, valid = self._scatter_idx()
         if not torch.is_tensor(X_orig):
             X_orig = torch.from_numpy(np.array(X_orig))
@@ -677,8 +851,9 @@ class DistStencilPencil3D:
         return out[:, 0] if vec else out
 
     def scatter_vector(self, x_full: np.ndarray) -> np.ndarray:
-        """Global StencilPencil3D layout (n_full[, m]) -> stacked
-        (D n_loc_pad[, m]) with consistent interface copies (host)."""
+        """Global StencilPencil3D layout (n_full[, m]) -> this process's
+        stacked rows (Dl n_loc_pad[, m]) with consistent interface copies
+        (host)."""
         nx, ny, nz, c = self.nx, self.ny, self.nz, self.cells
         sxg = nx * (ny + 1) * (nz + 1)
         syg = (nx + 1) * ny * (nz + 1)
@@ -688,23 +863,28 @@ class DistStencilPencil3D:
         Ex = xf[:sxg].reshape(nx, ny + 1, nz + 1, m)
         Ey = xf[sxg : sxg + syg].reshape(nx + 1, ny, nz + 1, m)
         Ez = xf[sxg + syg :].reshape(nx + 1, ny + 1, nz, m)
-        out = np.zeros((self.D, self.n_loc_pad, m), dtype=xf.dtype)
-        for d in range(self.D):
-            x0 = d * c
-            out[d, : self.n_loc] = np.concatenate([
+        out = np.zeros((self.Dl, self.n_loc_pad, m), dtype=xf.dtype)
+        for j in range(self.Dl):
+            x0 = (self.d0 + j) * c
+            out[j, : self.n_loc] = np.concatenate([
                 Ex[x0 : x0 + c].reshape(-1, m),
                 Ey[x0 : x0 + c + 1].reshape(-1, m),
                 Ez[x0 : x0 + c + 1].reshape(-1, m)])
-        out = out.reshape(self.global_rows, m)
+        out = out.reshape(self.n_padded, m)
         return out[:, 0] if x_full.ndim == 1 else out
 
     def gather_vector(self, x_stacked: np.ndarray) -> np.ndarray:
-        """Inverse of scatter_vector (host; the right slab's copy of an
-        interface plane wins, as in the reference)."""
+        """Inverse of scatter_vector (host; across processes every rank's
+        rows gathered first; the right slab's copy of an interface plane
+        wins, as in the reference)."""
         nx, ny, nz, c = self.nx, self.ny, self.nz, self.cells
         xs = np.asarray(x_stacked)
         m = xs.shape[1] if xs.ndim > 1 else 1
-        xs2 = xs.reshape(self.D, self.n_loc_pad, m)
+        xs2 = xs.reshape(self.Dl, self.n_loc_pad, m)
+        if self.link is not None:
+            xs2 = self.link.group.all_gather(torch.from_numpy(
+                np.ascontiguousarray(xs2))).reshape(
+                    self.D, self.n_loc_pad, m).numpy()
         sx, sy, _ = self._sizes
         Ex = np.zeros((nx, ny + 1, nz + 1, m), dtype=xs.dtype)
         Ey = np.zeros((nx + 1, ny, nz + 1, m), dtype=xs.dtype)

@@ -8,8 +8,8 @@ CUDA kernels (K1, K2) on the card, the plain blocked-ELL apply on the CPU.
 
 dryrun_multichip(n, device, procs=1): every branch of the reference's
 distributed dry run on n row shards or slabs, on tiny shapes, returning its
-checks (raising on the first that fails); the row-sharded branches on
-`procs` processes (dist/procs.py), the slab ones in this process.
+checks (raising on the first that fails); the row-sharded and the slab
+branches on `procs` processes (dist/procs.py).
 
     python -m maxwell_tpu_torch.entry [--shards 8] [--procs 1]
         [--device cuda|cpu]
@@ -65,12 +65,12 @@ def dryrun_multichip(n_devices: int, device="cuda", procs: int = 1) -> dict:
     K8 SpMM, K10 SpMV) with slice halos, with the ring shift ("rdma", K6)
     and with the DCN-first schedule; the union pencil, plain and with the
     fused interior SpMM + halo copy ("rdma_overlap", K5); the staged
-    `batch` solve; lanczos_dist; thick_restart_lanczos_dist (these, the
-    assembled branches, on `procs` processes, dist/procs.py); then in this
-    process the slab pencil (K4 on its ghost-extended slabs);
-    refine_dw_dist; the device-resident chain (lobpcg_dist ->
+    `batch` solve; lanczos_dist; thick_restart_lanczos_dist (the
+    assembled branches); then the slab pencil (K4 on its ghost-extended
+    slabs); refine_dw_dist; the device-resident chain (lobpcg_dist ->
     refine_dw_dist with return_device); the staged solve with
-    stage_polish.
+    stage_polish (the slab branches). All of them on `procs` processes
+    (dist/procs.py), D / procs shards or slabs each.
 
     Returns {check: True} for each step, and the max |difference| of the
     bit-for-bit comparisons (0.0, the largest over the ranks); raises on
@@ -79,11 +79,17 @@ def dryrun_multichip(n_devices: int, device="cuda", procs: int = 1) -> dict:
     if procs > 1:
         from maxwell_tpu_torch.dist.procs import spawn
 
-        checks = spawn(assembled_branches, procs, n_devices, device, procs,
-                       device=device)
-    else:
-        checks = assembled_branches(n_devices, device)
-    checks.update(_slab_branches(n_devices, device))
+        return spawn(dryrun_branches, procs, n_devices, device, procs,
+                     device=device)
+    return dryrun_branches(n_devices, device)
+
+
+def dryrun_branches(n_devices: int, device="cuda", procs: int = 1) -> dict:
+    """Every branch of dryrun_multichip on this process's shards and slabs
+    of meshes over `procs` processes (called in each rank of a spawn when
+    procs > 1)."""
+    checks = assembled_branches(n_devices, device, procs)
+    checks.update(_slab_branches(n_devices, device, procs))
     return checks
 
 
@@ -199,26 +205,28 @@ def assembled_branches(n_devices: int, device="cuda", procs: int = 1
     return checks
 
 
-def _slab_branches(n_devices: int, device) -> dict:
-    """The slab-sharded branches of dryrun_multichip, in this process."""
+def _slab_branches(n_devices: int, device, procs: int = 1) -> dict:
+    """The slab-sharded branches of dryrun_multichip on this process's
+    slabs of a mesh over `procs` processes."""
     from maxwell_tpu_torch.dist import make_mesh
     from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
     from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
     from maxwell_tpu_torch.solvers.refine_device import refine_dw_dist
 
-    dev = torch.device(device)
-    mesh = make_mesh(n_devices, dev)
+    mesh = make_mesh(n_devices, torch.device(device), procs)
+    dev = mesh.device
     f32 = torch.float32
-    checks, check, _ = _checker(n_devices, None)
+    checks, check, _ = _checker(n_devices, mesh.group)
     lob = dict(nev=2, m=4, maxiter=2, tol=1e-30)
     sp = DistStencilPencil3D.build(nx=2 * n_devices, ny=4, nz=3,
-                                   D=n_devices, dtype=f32, device=dev)
+                                   D=n_devices, dtype=f32, mesh=mesh)
     check("lobpcg_dist_slab",
           _nev_of(lobpcg_dist(sp, mesh, precond_alpha=15.0, **lob), 2))
+    sp.close()
     del sp
 
     sp2 = DistStencilPencil3D.build(nx=2 * n_devices, ny=4, nz=3,
-                                    D=n_devices, dtype=f32, device=dev)
+                                    D=n_devices, dtype=f32, mesh=mesh)
     r0 = lobpcg_dist(sp2, mesh, nev=2, m=4, maxiter=3, tol=1e-30,
                      precond_alpha=15.0)
     ref = refine_dw_dist(sp2, mesh, r0.eigenvectors, tol=1e-8, max_sweeps=2)
@@ -231,13 +239,13 @@ def _slab_branches(n_devices: int, device) -> dict:
     X5 = r5.eigenvectors
     check("lobpcg_dist_return_device",
           torch.is_tensor(X5) and X5.device.type == dev.type
-          and X5.shape == (sp2.global_rows, 2))
+          and X5.shape == (sp2.n_padded, 2))
     ref5 = refine_dw_dist(sp2, mesh, X5, tol=1e-8, max_sweeps=2,
                           return_device=True)
     check("refine_dw_dist_return_device",
           isinstance(ref5.eigenvectors, tuple) and all(
               torch.is_tensor(v) and v.device.type == dev.type
-              and v.shape == (sp2.global_rows, 2)
+              and v.shape == (sp2.n_padded, 2)
               for v in ref5.eigenvectors))
 
     rstaged = lobpcg_dist(
@@ -245,6 +253,7 @@ def _slab_branches(n_devices: int, device) -> dict:
         stage_polish=lambda r: refine_dw_dist(
             sp2, mesh, r.eigenvectors, tol=1e-8, max_sweeps=2))
     check("stage_polish", rstaged.eigenvalues.shape == (4,))
+    sp2.close()
     del sp2
     _free(dev)
     return checks

@@ -26,7 +26,14 @@ meets the other ranks at a barrier, before (no neighbour still reads the
 buffer a push overwrites) and after (no rank reads before every push has
 landed); `HaloLink.wait_s` is the time spent in those barriers. The plain
 transport between ranks is a peer `copy_` into the mapped buffers on the
-card, and gloo's isend/irecv on the CPU.
+card, and gloo's isend/irecv on the CPU. The slab-sharded pencil
+(dist/stencil_dist.py) takes the same link: its ghost-extended blocks are
+registered buffers its neighbours push their edge planes into, and
+`HaloLink.swap` carries one plane across each rank boundary each way. The
+link counts what it moves: `bytes_pushed` to the neighbours, and the
+reductions' all-gathers (`gathers`, `bytes_gathered`, `gather_s`). On the
+card a gather goes through registered buffers too, each rank's mapped in
+every rank, device to device; on the CPU over gloo.
 
 `ring_shift` returns, per shard, [own Lb rows if own | left Hb | right Hb |
 pad_rows zero rows] stacked over the shards: with own and pad_rows = b, the
@@ -269,10 +276,15 @@ class HaloLink:
         self.Dl = D // group.procs
         self.d0 = group.rank * self.Dl
         self._buffers: dict[tuple, _Buffers] = {}
+        self._gathers: dict[tuple, list] = {}  # every rank's, mapped here
         self._owned: list[int] = []  # pointers this rank allocated
         self._opened: list[int] = []  # neighbours' pointers it mapped
         self.exchanges = 0  # exchanges through the registered buffers
         self.wait_s = 0.0  # host seconds in their barriers
+        self.bytes_pushed = 0  # bytes this rank sent its neighbours
+        self.gathers = 0  # all-gathers of partials (the reductions)
+        self.bytes_gathered = 0  # the bytes those gathers returned
+        self.gather_s = 0.0  # host seconds in them
 
     @property
     def first(self) -> bool:
@@ -287,33 +299,51 @@ class HaloLink:
         neighbours' (None at a chain end), allocated and exchanged on first
         use: a collective, which every rank reaches in the same order (the
         ranks run the same program)."""
-        key = (rows, m, dtype)
-        if key in self._buffers:
-            return self._buffers[key]
+        return self._register((rows, m, dtype), (self.Dl * rows, m), dtype)
+
+    def _register(self, key, shape, dtype: torch.dtype) -> _Buffers:
+        """The registered buffer of this rank under `key`, of `shape`, and
+        its neighbours' mapped (see buffers)."""
+        if key not in self._buffers:
+            r = self.group.rank
+            views = self._alloc(shape, dtype, (r - 1, r + 1))
+            self._buffers[key] = _Buffers(views[r], views.get(r - 1),
+                                          views.get(r + 1))
+        return self._buffers[key]
+
+    def _alloc(self, shape, dtype: torch.dtype, peers) -> dict:
+        """{rank: view}: a new buffer of this rank (a cudaMalloc of its
+        own, exported as an IPC handle) and the buffers of the ranks
+        `peers` (those that exist) mapped here. A collective: every rank
+        allocates and trades its handle over the gloo group."""
         dev = self.group.device
         if dev.type != "cuda":
             raise ValueError("registered exchange buffers live on the card")
-        shape = (self.Dl * rows, m)
-        nbytes = self.Dl * rows * m * torch.empty((), dtype=dtype
-                                                  ).element_size()
+        nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
         ptr = ctypes.c_void_p()
         handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
         _ipc("ipc_alloc", nbytes, dev.index, ctypes.byref(ptr), handle)
         self._owned.append(ptr.value)
         handles = self.group.all_gather_object(handle.raw)
-        out = _view(ptr.value, shape, dtype, dev)
-        peers = []
-        for r in (self.group.rank - 1, self.group.rank + 1):
-            if not 0 <= r < self.group.procs:
-                peers.append(None)
+        views = {self.group.rank: _view(ptr.value, shape, dtype, dev)}
+        for r in peers:
+            if r == self.group.rank or not 0 <= r < self.group.procs:
                 continue
             peer = ctypes.c_void_p()
             buf = ctypes.create_string_buffer(handles[r], IPC_HANDLE_BYTES)
             _ipc("ipc_open", buf, dev.index, ctypes.byref(peer))
             self._opened.append(peer.value)
-            peers.append(_view(peer.value, shape, dtype, dev))
-        self._buffers[key] = _Buffers(out, *peers)
-        return self._buffers[key]
+            views[r] = _view(peer.value, shape, dtype, dev)
+        return views
+
+    def count_push(self, nbytes: int) -> None:
+        """Count `nbytes` sent to each neighbour this rank has."""
+        self.bytes_pushed += nbytes * ((not self.first) + (not self.last))
+
+    def exchange(self):
+        """The context of a push into the neighbours' registered buffers: a
+        fence before and after (counted in `exchanges`)."""
+        return _fenced(self)
 
     def fence(self) -> None:
         """Synchronize this rank's stream, then meet every rank at a
@@ -325,23 +355,84 @@ class HaloLink:
         self.wait_s += time.perf_counter() - t0
 
     def gather(self, X: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows, stacked: the (D * Lb, ...) global X."""
-        return self.group.all_gather(X).reshape(-1, *X.shape[1:])
+        """Every rank's rows, stacked: the (D * Lb, ...) global X (counted
+        in gathers, bytes_gathered and gather_s). A CPU X goes over gloo
+        (host copies); a CUDA X through registered buffers that every rank
+        maps (`_gather_on_card`)."""
+        t0 = time.perf_counter()
+        out = (self._gather_on_card(X) if X.device.type == "cuda"
+               else self.group.all_gather(X)).reshape(-1, *X.shape[1:])
+        self.gather_s += time.perf_counter() - t0
+        self.gathers += 1
+        self.bytes_gathered += out.numel() * out.element_size()
+        return out
 
-    def _edges(self, X: torch.Tensor):
-        """(previous rank's last Hb rows, next rank's first Hb rows), zeros
-        at the chain ends: gloo isend/irecv (the CPU's plain transport)."""
+    def _gather_on_card(self, X: torch.Tensor) -> torch.Tensor:
+        """(procs, *X.shape): every rank's X, device to device. Each rank
+        copies its X into its own registered buffer of X's shape between
+        two synchronize-and-barrier steps, then copies every rank's buffer
+        (mapped in every rank) into a new tensor on its stream. The next
+        gather of that shape starts with a synchronize and a barrier, so
+        no rank overwrites a buffer another still reads."""
+        X = X.contiguous()
+        views = self._mapped(("gather", tuple(X.shape), X.dtype), X.shape,
+                             X.dtype)
+        stream = torch.cuda.current_stream(self.group.device)
+        stream.synchronize()
+        self.group.barrier()
+        views[self.group.rank].copy_(X)
+        stream.synchronize()
+        self.group.barrier()
+        out = X.new_empty((self.group.procs, *X.shape))
+        for r, view in enumerate(views):
+            out[r].copy_(view)
+        return out
+
+    def _mapped(self, key, shape, dtype: torch.dtype) -> list:
+        """[every rank's registered buffer under `key`], in rank order,
+        each mapped here (this rank's own at its rank): allocated and
+        exchanged on first use, a collective as buffers()."""
+        if key not in self._gathers:
+            views = self._alloc(shape, dtype, range(self.group.procs))
+            self._gathers[key] = [views[r] for r in range(self.group.procs)]
+        return self._gathers[key]
+
+    def swap(self, first: torch.Tensor, last: torch.Tensor):
+        """(the previous rank's `last`, the next rank's `first`), zeros at
+        the chain ends: what crosses each rank boundary in each direction.
+        Every rank passes tensors of the same shapes. On the CPU gloo
+        isend/irecv into new tensors; on the card a peer copy_ of each into
+        the neighbour's registered two-slot buffer between two fences, and
+        views of this rank's slots returned (valid until its next swap of
+        that size)."""
+        self.count_push(first.numel() * first.element_size())
+        if first.device.type == "cpu":
+            return self._sendrecv(first, last)
+        shape, k = first.shape, first.numel()
+        bufs = self._register(("swap", k, first.dtype), (2, k), first.dtype)
+        with self.exchange():
+            if self.first:
+                bufs.out[0].zero_()
+            else:
+                bufs.left[1].copy_(first.reshape(-1))
+            if self.last:
+                bufs.out[1].zero_()
+            else:
+                bufs.right[0].copy_(last.reshape(-1))
+        return bufs.out[0].view(shape), bufs.out[1].view(shape)
+
+    def _sendrecv(self, first: torch.Tensor, last: torch.Tensor):
+        """swap over gloo isend/irecv (the CPU's plain transport)."""
         import torch.distributed as dist
 
-        Hb, r = self.Hb, self.group.rank
-        left = X.new_zeros((Hb, X.shape[1]))
-        right = X.new_zeros((Hb, X.shape[1]))
+        r = self.group.rank
+        left, right = last.new_zeros(last.shape), first.new_zeros(first.shape)
         ops = []
         if not self.first:
-            ops += [dist.P2POp(dist.isend, X[:Hb].contiguous(), r - 1),
+            ops += [dist.P2POp(dist.isend, first.contiguous(), r - 1),
                     dist.P2POp(dist.irecv, left, r - 1)]
         if not self.last:
-            ops += [dist.P2POp(dist.isend, X[-Hb:].contiguous(), r + 1),
+            ops += [dist.P2POp(dist.isend, last.contiguous(), r + 1),
                     dist.P2POp(dist.irecv, right, r + 1)]
         for req in dist.batch_isend_irecv(ops) if ops else ():
             req.wait()
@@ -357,7 +448,7 @@ class HaloLink:
         m = X.shape[1]
         Xv = X.reshape(Dl, Lb, m)
         if X.device.type == "cpu":
-            left, right = self._edges(X)
+            left, right = self.swap(X[:Hb], X[-Hb:])
             return assemble(X, Dl, torch.cat([left[None], Xv[:-1, Lb - Hb:]]),
                             torch.cat([Xv[1:, :Hb], right[None]]), own,
                             pad_rows)
@@ -365,7 +456,8 @@ class HaloLink:
         rows = o + 2 * Hb + pad_rows
         bufs = self.buffers(rows, m, X.dtype)
         ov = bufs.out.view(Dl, rows, m)
-        with _fenced(self):
+        self.count_push(Hb * m * X.element_size())
+        with self.exchange():
             if own:
                 ov[:, :o].copy_(Xv)
             ov[1:, o:o + Hb].copy_(Xv[:-1, Lb - Hb:])
@@ -396,6 +488,7 @@ class HaloLink:
         for ptr in self._owned:
             _ipc("ipc_free", ptr, dev)
         self._buffers.clear()
+        self._gathers.clear()
         self._owned.clear()
         self._opened.clear()
 
@@ -466,6 +559,8 @@ def ring_shift(X: torch.Tensor, D: int, Hb: int, own: bool = False,
     row_bytes = X.shape[1] * X.element_size()
     unit = copy_unit(ring_shift_plan(D, Lb, Hb, own, pad_rows, row_bytes)[0],
                      *aligned)
+    if link is not None:
+        link.count_push(Hb * row_bytes)
     with _fenced(link):
         _launch("ring_shift", X, X.data_ptr(), out.data_ptr(), *peers, D,
                 d0, Dl, Lb, Hb, row_bytes, pad_rows, int(own), unit)
@@ -500,6 +595,8 @@ def union_interior_overlap(A: BELLUnion, X: torch.Tensor, D: int, Hb: int,
     yb = Ys[1].data_ptr() if len(Ys) == 2 else None
     unit = copy_unit(ring_shift_plan(D, Lb, Hb, False, 0, m * 4)[0],
                      *aligned)
+    if link is not None:
+        link.count_push(Hb * m * 4)
     with _fenced(link):
         _launch("union_overlap_f32", X, pairs[0][0].data_ptr(), vb,
                 *_tables(A), X.data_ptr(), Ys[0].data_ptr(), yb,

@@ -57,12 +57,16 @@ def _check_mesh(dpencil: DistPencil, mesh) -> None:
 
 def _stacked(dpencil: DistPencil, X, width: int) -> torch.Tensor:
     """A block in the stacked layout, (global_rows, width) or (n, width),
-    zero past row n, on the pencil's device: this process's rows."""
+    zero past row n, on the pencil's device: this process's rows. Across
+    processes an (n_padded, width) block is this process's rows already
+    (a pencil's inject_vectors) and is taken as it is."""
     if not torch.is_tensor(X):
         X = torch.from_numpy(np.array(X))  # a writable copy
     X = X.to(dtype=dpencil.dtype, device=dpencil.device)
     if X.dim() == 1:
         X = X[:, None]
+    if _procs(dpencil) > 1 and X.shape == (dpencil.n_padded, width):
+        return X
     if X.shape not in ((dpencil.n, width), (dpencil.global_rows, width)):
         raise ValueError(
             f"block must be ({dpencil.n}, {width}) or "
@@ -128,8 +132,9 @@ def lobpcg_dist(
     hard-deflate. batch < nev: solve in stages of `batch` pairs, each
     stage's block hard-deflated from the next; stage_polish: a hook
     EigenResult -> EigenResult applied to each stage's block first.
-    X0: start block in the stacked layout (default: make_block from
-    `generator`, seed 0 on the pencil's device).
+    X0: start block in the stacked layout, whole or (across processes)
+    this process's rows (default: make_block from `generator`, seed 0 on
+    the pencil's device).
     return_device: eigenvectors is the stacked (n_padded, nev) tensor on
     the pencil's device (across processes the rank's own rows), the layout
     refine_dw_dist takes without a copy through the host; eigenvalues and

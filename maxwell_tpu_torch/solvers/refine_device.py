@@ -32,7 +32,10 @@ pencil (dist/stencil_dist.py) in its stacked view: double-word slab tap
 applies, the distributed spectral shift solve, and cross-slab double-word
 sums taken in a fixed slab order (`_dw_allsum_pairs`: a plain sum would
 round each word on its own and lose the pair's accuracy). It works in f32
-pairs whatever the pencil's dtype.
+pairs whatever the pencil's dtype. Across processes every rank calls it
+(a collective): each rank's per-slab pairs, both words, are gathered from
+every rank before the slab-order sum, so every rank takes the same host
+decisions on the same bits.
 """
 
 from __future__ import annotations
@@ -245,10 +248,14 @@ def refine_dw(
 
 
 # --- the slab-sharded refinement ---------------------------------------------
-def _dw_allsum_pairs(h, l):
-    """Exact cross-slab sum of per-slab dw pairs (D, ...): the D pairs
+def _dw_allsum_pairs(h, l, link=None):
+    """Exact cross-slab sum of per-slab dw pairs (Dl, ...): the D pairs
     dw-added in slab order (the reference all-gathers them and does the
-    same)."""
+    same); across processes (link) both words gathered from every rank
+    first, in one gather."""
+    if link is not None:
+        hl = link.gather(torch.stack([h, l], dim=1))
+        h, l = hl[:, 0], hl[:, 1]
     ah, al = h[0], l[0]
     for d in range(1, h.shape[0]):
         ah, al = tf.dw_add(ah, al, h[d], l[d])
@@ -256,10 +263,10 @@ def _dw_allsum_pairs(h, l):
 
 
 def _slab_dot_cols(p, xh, xl, yh, yl):
-    """Per-slab dw column dots of stacked (D n_loc_pad, m) blocks: (D, m)
+    """Per-slab dw column dots of stacked (Dl n_loc_pad, m) blocks: (Dl, m)
     pairs, each slab's rows summed pairwise as tf.dw_dot_cols sums them."""
     ph, pl = tf.dw_mul(xh, xl, yh, yl)
-    shape = (p.D, p.n_loc_pad, ph.shape[1])
+    shape = (p.Dl, p.n_loc_pad, ph.shape[1])
     return tf.dw_sum(ph.reshape(shape), pl.reshape(shape), dim=1)
 
 
@@ -269,8 +276,10 @@ def _rq_and_residual_dist(p, Xh, Xl):
     each replicated interface row once."""
     (KXh, KXl), (MXh, MXl) = p.KM_mm_dw(Xh, Xl)
     w = p.w_dot.to(Xh.dtype)[:, None]
-    nh, nl = _dw_allsum_pairs(*_slab_dot_cols(p, Xh * w, Xl * w, KXh, KXl))
-    dh, dl = _dw_allsum_pairs(*_slab_dot_cols(p, Xh * w, Xl * w, MXh, MXl))
+    nh, nl = _dw_allsum_pairs(*_slab_dot_cols(p, Xh * w, Xl * w, KXh, KXl),
+                              p.link)
+    dh, dl = _dw_allsum_pairs(*_slab_dot_cols(p, Xh * w, Xl * w, MXh, MXl),
+                              p.link)
     th, tl = _dw_div_cols(nh, nl, dh, dl)
     tMh, tMl = tf.dw_mul(MXh, MXl, th[None, :], tl[None, :])
     Rh, Rl = tf.dw_add(KXh, KXl, -tMh, -tMl)
@@ -296,14 +305,14 @@ def _dist_grams_local(p, Xh, Xl):
         for j in range(m):
             ph, pl = tf.dw_mul(xh_t, xl_t, Yh[:, j][None, :],
                                Yl[:, j][None, :])
-            shape = (m, p.D, p.n_loc_pad)
+            shape = (m, p.Dl, p.n_loc_pad)
             gh, gl = tf.dw_sum(ph.reshape(shape), pl.reshape(shape), dim=2)
             cols_h.append(gh)  # (m, D)
             cols_l.append(gl)
-        # (D, m, m) per-slab Grams, column j of slab d at [d, :, j]
+        # (Dl, m, m) per-slab Grams, column j of slab d at [d, :, j]
         gh = torch.stack(cols_h, dim=2).transpose(0, 1)
         gl = torch.stack(cols_l, dim=2).transpose(0, 1)
-        out.append(_dw_allsum_pairs(gh, gl))
+        out.append(_dw_allsum_pairs(gh, gl, p.link))
     return (*out[0], *out[1])
 
 
@@ -323,13 +332,15 @@ def refine_dw_dist(
     solves. The host reads the (m,) residual per sweep and solves one
     (m, m) f64 eigh.
 
-    mesh: None or the pencil's mesh (dist/mesh.py; checked against D).
-    X: a host (n_full, m) block in the global stencil ordering, or a
-    (global_rows, m) tensor in the stacked layout (lobpcg_dist's
-    return_device), used as it is. Returns the eigenvectors in the global
-    ordering, reconstructed in f64 on the host; with return_device=True
-    the on-device double-word pair (Xh, Xl) in the stacked layout, and only
-    the (m,) eigenvalues and residuals come to the host."""
+    mesh: None or the pencil's mesh (dist/mesh.py; checked against D and
+    the process count: across processes every rank calls this).
+    X: a host (n_full, m) block in the global stencil ordering, or an
+    (n_padded, m) tensor in the stacked layout (lobpcg_dist's
+    return_device: a process's own rows), used as it is. Returns the
+    eigenvectors in the global ordering, reconstructed in f64 on the host
+    (gathered from every rank); with return_device=True the on-device
+    double-word pair (Xh, Xl) in the stacked layout, and only the (m,)
+    eigenvalues and residuals come to the host."""
     from maxwell_tpu_torch.solvers.dist_solve import _check_mesh
     from maxwell_tpu_torch.solvers.spectral import DistSpectralShift
 
@@ -339,7 +350,7 @@ def refine_dw_dist(
     device = dpencil.device
     sol = DistSpectralShift.build(dpencil, alpha=0.0, dtype=torch.float32)
     if torch.is_tensor(X) and X.dim() == 2 and (
-        X.shape[0] == dpencil.global_rows
+        X.shape[0] == dpencil.n_padded
     ):
         Xh = X.to(device=device, dtype=torch.float32)  # stacked layout
     else:

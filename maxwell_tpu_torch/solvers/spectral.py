@@ -206,11 +206,12 @@ class SpectralShiftSolver:
 
 
 # --- slab transforms: grids (D, X, Y, Z, m), one per slab --------------------
-def x_rows(A_full: torch.Tensor, rows: int, step: int, D: int):
-    """(D, rows, k) view of each slab's rows of a replicated 1D transform:
-    slab d's rows d step .. d step + rows - 1 (the reference's
-    dynamic_slice)."""
-    return A_full.unfold(0, rows, step)[:D].transpose(1, 2)
+def x_rows(A_full: torch.Tensor, rows: int, step: int, count: int,
+           first: int = 0):
+    """(count, rows, k) view of slabs first .. first + count - 1's rows of
+    a replicated 1D transform: slab d's rows d step .. d step + rows - 1
+    (the reference's dynamic_slice)."""
+    return A_full.unfold(0, rows, step)[first:first + count].transpose(1, 2)
 
 
 def tr_yz(G, Ay, Az):
@@ -220,10 +221,10 @@ def tr_yz(G, Ay, Az):
     return torch.einsum("qp,dilqm->dilpm", Az, G)
 
 
-def tr_x_sum(G, Axl):
-    """The global x contraction: each slab's partial sum_i Axl[d, i, k]
-    G[d, i], then the D partials added in slab order (the psum)."""
-    return torch.einsum("dik,dijqm->dkjqm", Axl, G).sum(dim=0)
+def tr_x_parts(G, Axl):
+    """Each slab's partial of the global x contraction: out[d] =
+    sum_i Axl[d, i, k] G[d, i] (their slab-order sum is the psum)."""
+    return torch.einsum("dik,dijqm->dkjqm", Axl, G)
 
 
 def tr_x_local(H, Axl):
@@ -241,12 +242,13 @@ class DistSpectralShift:
     The y/z transforms are local to each slab. The x transform is a global
     contraction: each slab contracts its own x-planes (ownership-weighted,
     so a replicated interface plane counts once) against its rows of the
-    replicated 1D matrices, and the D partial mode grids are summed in slab
-    order; the inverse transform back to each slab's planes is then local,
-    and the two copies of an interface plane agree by construction. Each
-    slab here applies its y/z transforms to its own planes before the x
-    contraction, the reference after it: the same linear map, with D times
-    fewer y/z products in the stacked view.
+    replicated 1D matrices, and the D partial mode grids are summed in
+    slab order (across processes gathered from every rank first, the three
+    components' in one gather); the inverse transform back to each slab's
+    planes is then local, and the two copies of an interface plane agree by
+    construction. Each slab here applies its y/z transforms to its own
+    planes before the x contraction, the reference after it: the same
+    linear map, with D times fewer y/z products in the stacked view.
 
     Sx_full, Sy_full, Sz_full: the sine matrices with zero rows at the
     Dirichlet boundary nodes, so a slab's rows are a plain slice."""
@@ -302,7 +304,8 @@ class DistSpectralShift:
         )
 
     def solve(self, sp, R: torch.Tensor) -> torch.Tensor:
-        """(K + alpha M)^-1 R on the stacked layout, R (D n_loc_pad[, m])."""
+        """(K + alpha M)^-1 R on the stacked layout, R (Dl n_loc_pad[, m])
+        (a collective across processes)."""
         return self._solve_alpha(sp, R, self.alpha)
 
     def solve_sigma(self, sp, R: torch.Tensor,
@@ -315,19 +318,20 @@ class DistSpectralShift:
     def _solve_alpha(self, sp, R: torch.Tensor, alpha) -> torch.Tensor:
         vec = R.dim() == 1
         Rl = R[:, None] if vec else R
-        c, ny, nz, D = self.cells, self.ny, self.nz, sp.D
+        c, ny, nz, Dl = self.cells, self.ny, self.nz, sp.Dl
         mk = sp.mask.to(Rl.dtype)
         # ownership-weighted so the slab sum counts interface planes once
         ex, ey, ez = sp._to_grids(Rl * (mk * sp.w_dot.to(Rl.dtype))[:, None])
-        Uxl = x_rows(self.Ux, c, c, D)  # (D, c, nx)
-        Sxl = x_rows(self.Sx_full, c + 1, c, D)  # (D, c+1, nx-1)
+        Uxl = x_rows(self.Ux, c, c, Dl, sp.d0)  # (Dl, c, nx)
+        Sxl = x_rows(self.Sx_full, c + 1, c, Dl, sp.d0)  # (Dl, c+1, nx-1)
         Syi = self.Sy_full[1:ny]  # interior rows (ny-1, ny-1)
         Szi = self.Sz_full[1:nz]
         # forward: interior y/z slices and transforms per slab, then the
         # x contraction summed over the slabs: replicated mode grids
-        rx = tr_x_sum(tr_yz(ex[:, :, 1:ny, 1:nz], Syi, Szi), Uxl)
-        ry = tr_x_sum(tr_yz(ey[:, :, :, 1:nz], self.Uy, Szi), Sxl)
-        rz = tr_x_sum(tr_yz(ez[:, :, 1:ny, :], Syi, self.Uz), Sxl)
+        rx, ry, rz = sp._sum_slabs(
+            tr_x_parts(tr_yz(ex[:, :, 1:ny, 1:nz], Syi, Szi), Uxl),
+            tr_x_parts(tr_yz(ey[:, :, :, 1:nz], self.Uy, Szi), Sxl),
+            tr_x_parts(tr_yz(ez[:, :, 1:ny, :], Syi, self.Uz), Sxl))
 
         pad = lambda g, px, py, pz: torch.nn.functional.pad(
             g, (0, 0, pz, 0, py, 0, px, 0))

@@ -735,6 +735,28 @@ def test_cuda_cross_process_halo_kernels_match_peer_copy(cuda_device, P):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+def test_cuda_cross_process_slab_ghosts_and_k4_match_one_process(
+        cuda_device, P):
+    """The slab pencil across P processes sharing the card: each rank's
+    ghost-extended blocks, its neighbours' edge planes pushed into them
+    (peer copies between the link's fences), and K4 on each of its blocks;
+    slab_bench raises unless on every rank K4 is within 1e-5 of max|plain|
+    of the plain slab apply; the gathered blocks and K4 outputs equal the
+    one-process pencil's bit for bit."""
+    from maxwell_tpu_torch.dist import procs, rank_tasks
+
+    one = rank_tasks.slab_bench(16, 8, 1, (9, 1), 0, 2)
+    got = procs.spawn(rank_tasks.slab_bench, P, 16, 8, P, (9, 1), 0, 2,
+                      device=cuda_device)
+    assert set(got["outputs"]) == set(one["outputs"])
+    for key, want in one["outputs"].items():
+        assert np.array_equal(got["outputs"][key], want), key
+    for row in got["rows"]:
+        assert all(n == 8 // P for n in row["launches_per_apply_per_rank"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,UC", [(10, 16), (37, 32), (300, 16), (900, 16)])
 def test_cuda_union_panel_kernels_match_plain(cuda_device, T, UC):
     """K15a's kernels against their plain versions on the probe's own
