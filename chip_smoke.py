@@ -70,7 +70,14 @@ probes and check that they ran through the kernels:
     them, held bit for bit to one process; the device-resident chain
     (lobpcg_dist -> refine_dw_dist) on P processes with K4 on every rank;
     configs 4_stencil and 5 through the CLI with --procs 4; the scaling
-    harness (bench/scaling.py) over 1, 2 and 4 processes.
+    harness (bench/scaling.py) over 1, 2 and 4 processes;
+  slice 14, shift-invert and checkpoints across processes: the MINRES
+    shift-invert Lanczos and thick-restart Lanczos on the 16x16 rectangle
+    in 8 row shards over 2 and 4 processes (K5 on every rank; K6 at P 2)
+    and on the 16^3 brick in 8 slabs over 2 (K4), against phase 26's one
+    process from the same start vector; configs 4 and 4_stencil through
+    the CLI with --procs 2 --checkpoint, stopped, then resumed with --procs
+    4 from the shard files; K5 on a rank that holds only padding rows.
 
     python3 chip_smoke.py
 
@@ -219,10 +226,13 @@ Phases, in order; any failure raises and the process exits non-zero:
                apply); the 64^3 stencil brick with MINRES (sigma 60, nev 3,
                30 steps) through the tap kernel, within 2e-3 of 6 pi^2
  26. si dist   shift_invert_lanczos_dist at f32 on the 16x16 rectangle in 8
-               row shards (union + "rdma_overlap": K5) and the 16^3 brick in
-               8 slabs (K4 on the slabs), and thick_restart_lanczos_dist(
-               mode="shift_invert") on the rectangle, each within 1e-4 of
-               the one-device port from the same start vector
+               row shards (union + "rdma_overlap": K5; 30 Lanczos steps) and
+               the 16^3 brick in 8 slabs (K4 on the slabs; 24 steps), and
+               thick_restart_lanczos_dist(mode="shift_invert") on the
+               rectangle (ncv 20, six restarts), each within 1e-4 of the
+               one-device port from the same start vector; then, in one
+               process, the same runs at phase 40's cut depth (SI_CUT) and
+               the rectangle's blocked-ELL pencil ("rdma": K6)
  27. tet cli   config 6 through the CLI (f64), against a dense eigh to 1e-8
  28. r5chain   exp_r5chain.run() at 64^3: f32 LOBPCG (the knobs of phase
                5) -> refine_dw with the block kept on the card
@@ -253,7 +263,8 @@ Phases, in order; any failure raises and the process exits non-zero:
                launches per kernel
  34. procs kernels  the compute mode (nvidia-smi; with Exclusive_Process
                more than one context cannot share the card, and phases
-               34-36 run one process only, saying so on a line); then on
+               34-36 and 40-41 run one process only, saying so on a
+               line); then on
                P = 2 and 4 processes (dist/procs.py, one spawn each for
                phases 34 and 35) and on one: K6 (both layouts) and K5 (both
                streams) at m 9 and 1 on the 8-shard 24^3 brick, each rank's
@@ -262,7 +273,12 @@ Phases, in order; any failure raises and the process exits non-zero:
                bit K2, the gathered halos and products bit for bit one
                process's; per exchange (rank 0) the kernel's device time
                (torch.profiler), the whole exchange's and the plain
-               transport's host time, the barrier wait, bytes and bound
+               transport's host time, the barrier wait, bytes and bound;
+               and K5 (both streams) on the 8 union shards of the 16x16
+               rectangle, whose shards 4-7 hold only padding rows, against
+               its plain version on every rank (exactly zero on a rank of
+               padding rows; F5), the gathered outputs bit for bit one
+               process's
  35. procs solves  lobpcg_dist at phase 16's knobs on the union
                ("rdma_overlap") and blocked-ELL ("rdma") pencils on P = 2
                and 4 processes, twice (bitwise equal; the second traced for
@@ -299,8 +315,28 @@ Phases, in order; any failure raises and the process exits non-zero:
                1e-9 of phase 23's one-process eigenvalues
  39. procs scaling  bench/scaling.run in weak mode over 1, 2 and 4
                processes: every row with the reference's keys and
-               shared_card, the comm model's prediction rows
- 40. result    an {"off_main_path": [...]} line for the kernels no solver
+               shared_card, no block broken down past the f32 floor, the
+               comm model's prediction rows
+ 40. procs si  shift_invert_lanczos_dist and thick_restart_lanczos_dist(
+               mode="shift_invert") (6 Lanczos steps; ncv 8, two cycles)
+               on the 16x16 rectangle in 8 row shards over P = 2 and 4
+               processes (union pencil, "rdma_overlap": K5),
+               shift_invert_lanczos_dist on its blocked-ELL pencil
+               ("rdma": K6) at P 2, and on the 16^3 brick in 8 slabs at P
+               2 (K4; 6 steps), run in the spawns of phases 34/35 and
+               37/38 from phase 26's start vectors: each within 1e-4 of
+               phase 26's one-process run at that depth, the kernel
+               launched on every rank (counts zeroed just before each run),
+               no plain version on the card; wall s, barrier s, exchanges
+               and gathers of each rank
+ 41. procs checkpoint  configs 4 and 4_stencil as written through the CLI's
+               rank path with --procs 2 --checkpoint --checkpoint-every 2
+               --maxiter 4 (in the spawns of phases 34/35 and 37/38), the
+               exit-time file removed, resumed with --procs 4 from the 8
+               shard files to the end: the history starts at iteration 4,
+               the eigenvalues within 1e-8 of phases 17 and 23's; the files
+               under a temporary directory, removed after
+ 42. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -2323,6 +2359,25 @@ def phase_dist_stencil_cli():
 
 
 SI_GRID = 128  # slice 10: the reference probe's 2D shift-invert row
+# phase 26's distributed shift-invert runs against the one-device port.
+# Phase 40 ran past its 240 s at phase 26's depth (30 and 24 Lanczos
+# steps, ncv 20: 344 s of solves on 2 and 4 processes sharing one H100
+# 80GB HBM3 at 700 W), the smoke near its clock. So phase 40's runs are
+# cut (PROCS_SI_*; SI_CUT, logged), and phase 26 also runs them in one
+# process at that depth, which phase 40 holds them to: a P-process run
+# agrees with one process's at any depth (bit for bit on the row shards
+# but thick restart's 2.1e-8; 3e-7 on the slabs)
+SI_RECT = dict(sigma=45.0, nev=4, maxiter=30, tol=1e-5)
+SI_TRL = dict(mode="shift_invert", sigma=45.0, nev=4, ncv=20, max_restarts=6,
+              tol=1e-5)
+SI_BRICK = dict(sigma=60.0, nev=3, maxiter=24, tol=1e-5)
+PROCS_SI_RECT = dict(SI_RECT, maxiter=6)
+PROCS_SI_TRL = dict(SI_TRL, ncv=8, max_restarts=2)
+PROCS_SI_BRICK = dict(SI_BRICK, maxiter=6)
+SI_CUT = {"phase 40 (rect16 maxiter, trlanczos ncv and restarts, brick16 "
+          "maxiter)": ((30, 20, 6, 24), (6, 8, 2, 6))}
+SI_BRICK_GRID = 16
+CKPT_STOP = 4  # phase 41: the checkpointed CLI runs stop here, then resume
 SI_SIGMA = 45.0  # config 3's shift
 SI_STENCIL_SIGMA = 60.0  # the probe's 64^3 stencil row: near 6 pi^2
 SI_WIDTHS = (1, 4)
@@ -2619,10 +2674,13 @@ def phase_si_dist():
     fused interior SpMM + halo copy, K5), sigma 45, nev 4, maxiter 30; the
     16^3 brick in 8 slabs (the tap kernel on the ghost-extended slabs),
     sigma 60, nev 3, maxiter 24; and thick_restart_lanczos_dist(mode=
-    "shift_invert") on the 8-shard rectangle (ncv 20). The f32 MINRES
-    inner solves stop at 16 eps, so the eigenvalues are held to the
-    one-device port's within 1e-4. Counts zeroed just before each
-    distributed run."""
+    "shift_invert") on the 8-shard rectangle (ncv 20, six restarts). The
+    f32 MINRES inner solves stop at 16 eps, so the eigenvalues are held to
+    the one-device port's within 1e-4. Counts zeroed just before each
+    distributed run. Then the same runs, and shift_invert_lanczos_dist on
+    the rectangle's blocked-ELL pencil ("rdma": K6), in one process at
+    phase 40's cut depth (PROCS_SI_*). Returns every run's eigenvalues and
+    the start vectors (host arrays in the stacked layout) for phase 40."""
     from maxwell_tpu_torch.dist import make_mesh, partition_problem
     from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
     from maxwell_tpu_torch.problems import RectCavity2D
@@ -2641,7 +2699,7 @@ def phase_si_dist():
     )
 
     mesh = make_mesh(SHARDS, "cuda")
-    out = {}
+    out, eigenvalues, starts = {}, {}, {}
 
     def check(name, res, one, wall, counts, need):
         got, want = np.sort(res.eigenvalues), np.sort(one.eigenvalues)
@@ -2663,6 +2721,7 @@ def phase_si_dist():
         if stray:
             raise AssertionError(f"plain versions ran on the card: {stray}")
         out[name] = counts
+        eigenvalues[name] = np.asarray(res.eigenvalues)
 
     cav = RectCavity2D(nx=16, ny=16)
     dp = partition_problem(cav, SHARDS, kernel="union", dtype=torch.float32,
@@ -2670,46 +2729,57 @@ def phase_si_dist():
     one = Pencil.from_problem(cav, kernel="union", dtype=torch.float32,
                               precision="highest", device="cuda")
     v0 = dp.make_block(1, torch.Generator("cuda").manual_seed(0))[:, 0]
+    starts["rect16"] = v0.cpu().numpy()
     v_one = dp.extract_vectors(v0[:, None])[:, 0]
-    want = shift_invert_lanczos(one, 45.0, nev=4, maxiter=30, tol=1e-5,
-                                backend="iterative", v0=v_one)
+    want = shift_invert_lanczos(one, backend="iterative", v0=v_one,
+                                **SI_RECT)
     reset_all_counts()
     t0 = time.perf_counter()
-    res = shift_invert_lanczos_dist(dp, mesh, sigma=45.0, nev=4, maxiter=30,
-                                    tol=1e-5, v0=v0)
+    res = shift_invert_lanczos_dist(dp, mesh, v0=v0, **SI_RECT)
     torch.cuda.synchronize()
     check("rect16_8shards", res, want, time.perf_counter() - t0,
           all_counts(), "union_interior_overlap")
 
-    kw = dict(nev=4, ncv=20, max_restarts=6, tol=1e-5, mode="shift_invert",
-              sigma=45.0)
-    want = thick_restart_lanczos(one, v0=v_one,
-                                 apply_op=iterative_apply(one, 45.0), **kw)
+    want = thick_restart_lanczos(
+        one, v0=v_one, apply_op=iterative_apply(one, SI_TRL["sigma"]),
+        **SI_TRL)
     reset_all_counts()
     t0 = time.perf_counter()
-    res = thick_restart_lanczos_dist(dp, mesh, v0=v0, **kw)
+    res = thick_restart_lanczos_dist(dp, mesh, v0=v0, **SI_TRL)
     torch.cuda.synchronize()
     check("rect16_8shards_trlanczos", res, want, time.perf_counter() - t0,
           all_counts(), "union_interior_overlap")
-    del dp, one
+    # one process at phase 40's depth, on both row-sharded pencils
+    eigenvalues["rect16_8shards@40"] = shift_invert_lanczos_dist(
+        dp, mesh, v0=v0, **PROCS_SI_RECT).eigenvalues
+    eigenvalues["rect16_8shards_trlanczos@40"] = thick_restart_lanczos_dist(
+        dp, mesh, v0=v0, **PROCS_SI_TRL).eigenvalues
+    dpp = partition_problem(cav, SHARDS, kernel="pallas",
+                            dtype=torch.float32, halo_impl="rdma",
+                            device="cuda")
+    eigenvalues["rect16_8shards_pallas@40"] = shift_invert_lanczos_dist(
+        dpp, mesh, v0=v0, **PROCS_SI_RECT).eigenvalues
+    del dp, dpp, one
 
-    g = 16
+    g = SI_BRICK_GRID
     dps = DistStencilPencil3D.build(nx=g, ny=g, nz=g, D=SHARDS,
                                     dtype=torch.float32, device="cuda")
     stp = StencilPencil3D.build(nx=g, ny=g, nz=g, dtype=torch.float32,
                                 device="cuda")
     v0 = dps.make_block(1, torch.Generator("cuda").manual_seed(0))[:, 0]
+    starts[f"brick{g}"] = v0.cpu().numpy()
     v_one = dps.extract_vectors(v0[:, None])[:, 0]
-    want = shift_invert_lanczos(stp, 60.0, nev=3, maxiter=24, tol=1e-5,
-                                backend="iterative", v0=v_one)
+    want = shift_invert_lanczos(stp, backend="iterative", v0=v_one,
+                                **SI_BRICK)
     reset_all_counts()
     t0 = time.perf_counter()
-    res = shift_invert_lanczos_dist(dps, mesh, sigma=60.0, nev=3,
-                                    maxiter=24, tol=1e-5, v0=v0)
+    res = shift_invert_lanczos_dist(dps, mesh, v0=v0, **SI_BRICK)
     torch.cuda.synchronize()
     check(f"brick{g}_8slabs", res, want, time.perf_counter() - t0,
           all_counts(), "stencil_taps")
-    return out
+    eigenvalues[f"brick{g}_8slabs@40"] = shift_invert_lanczos_dist(
+        dps, mesh, v0=v0, **PROCS_SI_BRICK).eigenvalues
+    return {"counts": out, "eigenvalues": eigenvalues, "starts": starts}
 
 
 def phase_tet_cli():
@@ -2984,10 +3054,27 @@ def _one_process_halos(problem):
     return out
 
 
-def phase_procs(problem, one_eigenvalues):
+def _cli_checkpoint(config, P, path, write):
+    """The CLI's rank path for a config with --procs P and --checkpoint
+    path: stopped at CKPT_STOP iterations, a snapshot every 2 (write), or
+    resumed from the snapshots to the end."""
+    from maxwell_tpu_torch.dist import rank_tasks as rt
+
+    argv = [os.path.join(CONFIGS, f"{config}.json"), "--device", "cuda",
+            "--procs", str(P), "--checkpoint", path]
+    if write:
+        argv += ["--maxiter", str(CKPT_STOP), "--checkpoint-every", "2"]
+    return (rt.cli, (argv,))
+
+
+def phase_procs(problem, one_eigenvalues, si_one, ckpt_dir):
     """Phases 34 and 35 (slice 12): see the module docstring; the one
     process's outputs from its pencils here, its eigenvalues from phase 16.
-    Returns ({kernel: {"procs": {P: entry}}}, the compute mode)."""
+    The same spawns run phase 34's padding-rank check of K5, phase 40's
+    row-sharded shift-invert runs (from phase 26's start vector) and phase
+    41's config 4 checkpoint (written at the first process count into
+    ckpt_dir, resumed at the last). Returns ({kernel: {"procs": {P:
+    entry}}}, the compute mode, {P: phase 40's and 41's results})."""
     from maxwell_tpu_torch.dist import procs
     from maxwell_tpu_torch.dist import rank_tasks as rt
     from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
@@ -3007,6 +3094,12 @@ def phase_procs(problem, one_eigenvalues):
     runs = {"first": ("lobpcg_dist", kw), "repeat": ("lobpcg_dist", kw)}
     families = {"union": ("rdma_overlap", "union_interior_overlap"),
                 "pallas": ("rdma", "ring_shift")}
+    v0 = si_one["starts"]["rect16"]
+    si_runs = {"si": ("shift_invert_lanczos_dist",
+                      {**PROCS_SI_RECT, "v0": v0}),
+               "trl": ("thick_restart_lanczos_dist",
+                       {**PROCS_SI_TRL, "v0": v0})}
+    ckpt = os.path.join(ckpt_dir, "config4.npz")
 
     def calls(P):
         return [(rt.exchange_bench, (spec, SHARDS, P)),
@@ -3014,17 +3107,48 @@ def phase_procs(problem, one_eigenvalues):
                                      "f32", runs, ("repeat",)))
                   for kernel, (impl, _) in families.items()]]
 
-    results = {}
+    def extra(P):
+        """{key: call} of phases 34 (padding rank), 40 and 41 at P."""
+        out = {"padding": (rt.padding_rank_overlap, (
+                   ("rect", 16), SHARDS, P, "cuda")),
+               "si_union": (rt.solve_checks, (
+                   ("rect", 16), SHARDS, P, "cuda", "union",
+                   "rdma_overlap", "f32", si_runs))}
+        if P == counts_of[0]:
+            out["si_pallas"] = (rt.solve_checks, (
+                ("rect", 16), SHARDS, P, "cuda", "pallas", "rdma", "f32",
+                {"si": si_runs["si"]}))
+            out["ckpt_write"] = _cli_checkpoint("config4", P, ckpt, True)
+        if P == counts_of[-1] and len(counts_of) > 1:
+            os.remove(ckpt)  # the exit-time file: resume from the shards
+            out["ckpt_resume"] = _cli_checkpoint("config4", P, ckpt, False)
+        return out
+
+    results, extras = {}, {}
     for P in counts_of:
+        more = extra(P)
+        every = calls(P) + list(more.values())
         t0 = time.perf_counter()
-        results[P] = (rt.sequence(calls(1)) if P == 1
-                      else procs.spawn(rt.sequence, P, calls(P)))
+        got = (rt.sequence(every) if P == 1
+               else procs.spawn(rt.sequence, P, every))
         torch.cuda.synchronize()
+        results[P], extras[P] = got[:3], dict(zip(more, got[3:]))
         log({"phase": "procs_spawn", "procs": P,
              "seconds": time.perf_counter() - t0,
              "exchange_bench_s": results[P][0]["seconds"],
              "solve_s": {f: [r["seconds"] for r in sol.values()]
-                         for f, sol in zip(families, results[P][1:])}})
+                         for f, sol in zip(families, results[P][1:])},
+             "si_s": {f"{k} {label}": r["seconds"]
+                      for k in ("si_union", "si_pallas") if k in more
+                      for label, r in extras[P][k].items()}})
+    if len(counts_of) == 1:
+        # Exclusive_Process: the resume in this process, after the write
+        os.remove(ckpt)
+        extras[1]["ckpt_resume"] = rt.cli(
+            _cli_checkpoint("config4", 1, ckpt, False)[1][0])
+
+    # phase 34: K5 on a rank that holds only padding rows (F5)
+    _check_padding_ranks(extras, counts_of)
 
     # phase 34: the exchanges
     one = _one_process_halos(problem)
@@ -3110,7 +3234,39 @@ def phase_procs(problem, one_eigenvalues):
         if P > 1:
             stats.setdefault(kernel, {"procs": {}})["procs"][str(P)] = (
                 _procs_entry(row, bound, launches[(kernel, P)]))
-    return stats, mode
+    return stats, mode, extras
+
+
+def _check_padding_ranks(extras, counts_of):
+    """Phase 34's F5 check: on the 16x16 rectangle's 8 union shards
+    (shards 4-7 hold only padding rows) every rank's K5, both streams,
+    within 1e-5 of max|plain| of the plain version (exactly zero where the
+    plain products are: on a rank of padding rows), its halo section bit
+    for bit the plain transport's, and a rank of padding rows present
+    across processes; the gathered outputs bit for bit one process's."""
+    one = extras[1]["padding"] if 1 in extras else None
+    if one is None:
+        from maxwell_tpu_torch.dist import rank_tasks as rt
+
+        one = rt.padding_rank_overlap(("rect", 16), SHARDS, 1, "cuda")
+    for P in counts_of:
+        got = extras[P]["padding"]
+        same = {m: all(np.array_equal(a, b) for a, b in zip(
+            got["outputs"][m], one["outputs"][m])) for m in got["outputs"]}
+        log({"phase": "procs_k5_padding_rank", "procs": P, "n": got["n"],
+             "Lb": got["Lb"], "ranks": got["ranks"],
+             "bitwise_equal_one_process": same})
+        for m, ranks in got["ranks"].items():
+            bad = [r for r in ranks if not (
+                r["err_a"] <= 1e-5 * r["scale"]
+                and r["err_b"] <= 1e-5 * r["scale"] and r["halo_equal"])]
+            if bad:
+                raise AssertionError(f"K5 vs plain on {P} processes, m {m}: "
+                                     f"{bad}")
+            if P > 1 and not any(r["padding_only"] for r in ranks):
+                raise AssertionError(f"no rank of padding rows at P {P}")
+        if not all(same.values()):
+            raise AssertionError(f"K5 on {P} processes vs one: {same}")
 
 
 def phase_procs_cli(reports_one, mode):
@@ -3174,27 +3330,59 @@ def _slab_library_ms(P, m):
     return out
 
 
-def phase_procs_slab(mode, stencil_cli_one):
+def _slab_extra(P, si_one, ckpt, write, resume):
+    """{key: call} of phases 40 and 41 on the slab road at P: the 16^3
+    brick's shift-invert in 8 slabs from phase 26's start vector, config
+    4_stencil's checkpoint written into ckpt (write) or resumed from its
+    shard files (resume)."""
+    from maxwell_tpu_torch.dist import rank_tasks as rt
+
+    g = SI_BRICK_GRID
+    out = {}
+    if write:
+        out["si_slabs"] = (rt.slab_solves, (
+            dict(nx=g, ny=g, nz=g), SHARDS, P, "cuda", "f32",
+            {"si": ("shift_invert_lanczos_dist",
+                    {**PROCS_SI_BRICK,
+                     "v0": si_one["starts"][f"brick{g}"]})}))
+        out["ckpt_write"] = _cli_checkpoint("config4_stencil", P, ckpt, True)
+    if resume:
+        os.remove(ckpt)  # the exit-time file: resume from the shards
+        out["ckpt_resume"] = _cli_checkpoint("config4_stencil", P, ckpt,
+                                             False)
+    return out
+
+
+def phase_procs_slab(mode, stencil_cli_one, si_one, ckpt_dir):
     """Phases 37 and 38 (slice 13): see the module docstring. One spawn a
     process count runs the kernel checks (rank_tasks.slab_bench) and the
     chain (exp_r5dist.chain), and at P 4 configs 4_stencil and 5 through
     the CLI's rank path; the one process's outputs from slab_bench here,
-    its CLI reports from phase 23. Returns {"procs": {P: the kernels
-    line's entry}} for stencil_taps."""
+    its CLI reports from phase 23. The same spawns run phase 40's slab
+    shift-invert (P 2) and phase 41's config 4_stencil checkpoint (written
+    at P 2 into ckpt_dir, resumed at P 4); with Exclusive_Process those run
+    in this process. Returns ({"procs": {P: the kernels line's entry}} for
+    stencil_taps, {P: phase 40's and 41's results})."""
     from maxwell_tpu_torch.bench import exp_r5dist
     from maxwell_tpu_torch.dist import procs
     from maxwell_tpu_torch.dist import rank_tasks as rt
 
     g = STENCIL_GRID
+    ckpt = os.path.join(ckpt_dir, "config4_stencil.npz")
     counts_of = PROCS if mode != "Exclusive_Process" else ()
     if not counts_of:
         log({"phase": "procs_slab", "skipped": "Exclusive_Process: one "
-             "context a card, no two ranks can share it"})
-        return {}
+             "context a card, no two ranks can share it; phases 40 and "
+             "41's slab runs take one process"})
+        more = _slab_extra(1, si_one, ckpt, True, False)
+        extras = {1: dict(zip(more, rt.sequence(list(more.values()))))}
+        more = _slab_extra(1, si_one, ckpt, False, True)
+        extras[1].update(zip(more, rt.sequence(list(more.values()))))
+        return {}, extras
     one = rt.slab_bench(g, SHARDS, 1, SLAB_WIDTHS, 0, 2)["outputs"]
     torch.cuda.empty_cache()
     configs = ("config4_stencil", "config5")
-    results = {}
+    results, extras = {}, {}
     for P in counts_of:
         calls = [(rt.slab_bench, (g, SHARDS, P, SLAB_WIDTHS, 0, 20)),
                  # P 4 runs the chain once (no steady run)
@@ -3204,11 +3392,16 @@ def phase_procs_slab(mode, stencil_cli_one):
             calls += [(rt.cli, ([os.path.join(CONFIGS, f"{name}.json"),
                                  "--device", "cuda", "--procs", str(P)],))
                       for name in configs]
+        more = _slab_extra(P, si_one, ckpt, P == PROCS[0], P == PROCS[-1])
         t0 = time.perf_counter()
-        results[P] = procs.spawn(rt.sequence, P, calls)
+        got = procs.spawn(rt.sequence, P, calls + list(more.values()))
+        results[P], extras[P] = got[:len(calls)], dict(zip(
+            more, got[len(calls):]))
         log({"phase": "procs_slab_spawn", "procs": P,
              "seconds": time.perf_counter() - t0,
-             "slab_bench_s": results[P][0]["seconds"]})
+             "slab_bench_s": results[P][0]["seconds"],
+             "si_s": {f"si_slabs {label}": r["seconds"] for label, r in
+                      extras[P].get("si_slabs", {}).items()}})
 
     # phase 37: the ghost exchange and K4 on the ranks' slabs
     entries = {}
@@ -3282,14 +3475,15 @@ def phase_procs_slab(mode, stencil_cli_one):
                 if not rel.max() <= 1e-9:
                     raise AssertionError(f"{name} on {P} processes vs one: "
                                          f"{rel}")
-    return {"procs": entries}
+    return {"procs": entries}, extras
 
 
 def phase_procs_scaling(mode):
     """Phase 39 (slice 13): bench/scaling.run in weak mode (the reference's
     defaults: 8 x-cells a slab, 16 x 16, nev 4, maxiter 40) over 1, 2 and
-    4 processes, one slab each; rows on a shared card must say so, and the
-    comm model's prediction rows must be there."""
+    4 processes, one slab each; rows on a shared card must say so, no row's
+    block may break down past its floor (its last 10 iterations under
+    1e-2), and the comm model's prediction rows must be there."""
     from maxwell_tpu_torch.bench import scaling
 
     counts = (1, *PROCS) if mode != "Exclusive_Process" else (1,)
@@ -3308,8 +3502,127 @@ def phase_procs_scaling(mode):
         if not (np.isfinite(row["t_solve_s"]) and row["solve_iters"] > 0
                 and np.isfinite(row["max_res"])):
             raise AssertionError(f"scaling row: {row}")
+        # run past the f32 floor (tol 1e-30) the block bounces there (up
+        # to 6e-4) but must not break down (0.9 and more before F6)
+        if not max(row["history"][-10:]) < 1e-2:
+            raise AssertionError(f"scaling row broke down: {row['history']}")
     if not rep["predicted_weak_scaling"]:
         raise AssertionError("scaling: no prediction rows")
+
+
+# --- slice 14, shift-invert and checkpoints across processes ----------------
+
+
+def phase_procs_si(row_extras, slab_extras, si_one):
+    """Phase 40 (slice 14): the P-process shift-invert runs made in the
+    spawns of phases 34/35 (the 16x16 rectangle in 8 row shards:
+    shift_invert_lanczos_dist and thick_restart_lanczos_dist(mode=
+    "shift_invert") on the union pencil with "rdma_overlap", K5, at every
+    process count; shift_invert_lanczos_dist on the blocked-ELL pencil
+    with "rdma", K6, at the first) and 37/38 (the 16^3 brick in 8 slabs,
+    K4, at the first), each from phase 26's start vector at the depth
+    PROCS_SI_* and within 1e-4 of phase 26's one-process run at that
+    depth; the kernel launched on every rank
+    (counts zeroed just before each run, read just after) and no plain
+    version on the card; wall s, barrier s, exchanges and gathers of each
+    rank. Returns {kernel: {P: launches, all ranks}}."""
+    cases = {("si_union", "si"): ("rect16_8shards@40",
+                                  "union_interior_overlap"),
+             ("si_union", "trl"): ("rect16_8shards_trlanczos@40",
+                                   "union_interior_overlap"),
+             ("si_pallas", "si"): ("rect16_8shards_pallas@40", "ring_shift"),
+             ("si_slabs", "si"): (f"brick{SI_BRICK_GRID}_8slabs@40",
+                                  "stencil_taps")}
+    log({"phase": "procs_si_cut", "cut": {k: list(v) for k, v in
+                                          SI_CUT.items()},
+         "why": "phase 40 ran 344 s of solves at phase 26's 30 and 24 "
+                "Lanczos steps and ncv 20, past its 240 s; its one-process "
+                "comparison, run in phase 26, is cut alike"})
+    launches, seconds = {}, 0.0
+    for extras in (row_extras, slab_extras):
+        for P, got in extras.items():
+            for (key, label), (one_case, kernel) in cases.items():
+                if key not in got:
+                    continue
+                r = got[key][label]
+                want = si_one["eigenvalues"][one_case]
+                rel = (np.abs(np.sort(r["eigenvalues"]) - np.sort(want))
+                       / np.abs(want))
+                per_rank = [c[kernel] for c in r["counts"]]
+                seconds += r["seconds"]
+                log({"phase": "procs_si", "case": f"{key} {label}",
+                     "procs": P, "kernel": kernel,
+                     "converged": r["converged"],
+                     "iterations": r["iterations"],
+                     "eigenvalues": r["eigenvalues"].tolist(),
+                     "one_process": want.tolist(),
+                     "rel_to_one_process": rel.tolist(),
+                     "residuals": r["residuals"].tolist(),
+                     "wall_s": r["seconds"], "barrier_wait_s": r["wait_s"],
+                     "exchanges": r["exchanges"], "gathers": r["gathers"],
+                     "gather_s": r["gather_s"],
+                     f"{kernel}_launches_per_rank": per_rank,
+                     "nvidia_smi": nvidia_smi_line()})
+                if not (rel.max() <= 1e-4 and np.all(np.isfinite(
+                        r["eigenvectors"]))):
+                    raise AssertionError(f"procs si {key} {label} on {P} "
+                                         f"processes vs one: {rel}")
+                if not all(n > 0 for n in per_rank):
+                    raise AssertionError(f"{kernel} not launched on every "
+                                         f"rank: {per_rank}")
+                stray = {k: v for c in r["counts"] for k, v in c.items()
+                         if v and k.endswith(("_ref", "_plain"))}
+                if stray:
+                    raise AssertionError(f"plain versions ran on the card: "
+                                         f"{stray}")
+                launches.setdefault(kernel, {})
+                launches[kernel][str(P)] = (launches[kernel].get(str(P), 0)
+                                            + sum(per_rank))
+    log({"phase": "procs_si_total", "solve_s": seconds,
+         "launches": launches})
+    return launches
+
+
+def phase_procs_checkpoint(row_extras, slab_extras, config4_reports,
+                           stencil_cli_one, ckpt_dir):
+    """Phase 41 (slice 14): configs 4 and 4_stencil through the CLI's rank
+    path with --checkpoint, written in phases 34/35 and 37/38's spawns at
+    the first process count (stopped at CKPT_STOP iterations, a snapshot
+    every 2) and, the exit-time file removed, resumed at the last from the
+    shard files to the end: the stopped run wrote every shard file, the
+    resumed history starts at the saved iteration, and the eigenvalues end
+    within 1e-8 of phases 17 and 23's one-process runs."""
+    ones = {"config4": config4_reports["a"],
+            "config4_stencil": stencil_cli_one["config4_stencil"][0]}
+    for name, extras in (("config4", row_extras),
+                         ("config4_stencil", slab_extras)):
+        (P_w, (hist_w, rep_w)), = [(P, e["ckpt_write"])
+                                   for P, e in extras.items()
+                                   if "ckpt_write" in e]
+        (P_r, (hist_r, rep_r)), = [(P, e["ckpt_resume"])
+                                   for P, e in extras.items()
+                                   if "ckpt_resume" in e]
+        shards = sorted(f for f in os.listdir(ckpt_dir)
+                        if f.startswith(f"{name}.npz.shard"))
+        ev1 = np.asarray(ones[name]["eigenvalues"])
+        rel = np.abs(np.asarray(rep_r["eigenvalues"]) - ev1) / ev1
+        solve_w = [h["iter"] for h in hist_w if "phase" not in h]
+        log({"phase": "procs_checkpoint", "config": name,
+             "write_procs": P_w, "resume_procs": P_r,
+             "write_iterations": solve_w, "shard_files": shards,
+             "resume_first_iter": hist_r[0]["iter"],
+             **{k: rep_r.get(k) for k in (
+                 "converged", "iterations", "t_solve_s", "t_refine_s",
+                 "eigenvalues", "residuals")},
+             "rel_to_one_process": rel.tolist()})
+        if solve_w != list(range(CKPT_STOP)) or len(shards) != SHARDS:
+            raise AssertionError(f"{name} stopped run: {solve_w}, {shards}")
+        if hist_r[0]["iter"] != CKPT_STOP:
+            raise AssertionError(f"{name} resumed at {hist_r[0]['iter']}")
+        if not rep_r["converged"] or max(rep_r["residuals"]) > 1e-8:
+            raise AssertionError(f"{name} resumed: {rep_r}")
+        if not rel.max() <= 1e-8:
+            raise AssertionError(f"{name} resumed vs one process: {rel}")
 
 
 def timed(fn, *args):
@@ -3376,7 +3689,7 @@ def main():
     stencil_cli_one = timed(phase_dist_stencil_cli)
     stats["level_solve"] = timed(phase_tri_solve_kernels)
     si_counts = timed(phase_si_solve)
-    timed(phase_si_dist)
+    si_one = timed(phase_si_dist)
     timed(phase_tet_cli)
     surface = {"r5chain": timed(phase_r5chain), "r5dist": timed(phase_r5dist),
                "r5si": timed(phase_r5si), "conv": timed(phase_conv),
@@ -3386,13 +3699,21 @@ def main():
         phase: ({k: launched(c) for k, c in counts.items()}
                 if phase == "r5dist" else launched(counts))
         for phase, counts in surface.items()}})
-    procs_stats, mode = timed(phase_procs, grid_problem, dist_eigenvalues)
-    timed(phase_procs_cli, config4_reports, mode)
-    for name, st in procs_stats.items():
-        stats[name].update(st)
-    stats["stencil_taps"].update(timed(phase_procs_slab, mode,
-                                       stencil_cli_one))
-    timed(phase_procs_scaling, mode)
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_") as ckpt_dir:
+        procs_stats, mode, row_extras = timed(
+            phase_procs, grid_problem, dist_eigenvalues, si_one, ckpt_dir)
+        timed(phase_procs_cli, config4_reports, mode)
+        for name, st in procs_stats.items():
+            stats[name].update(st)
+        slab_stats, slab_extras = timed(phase_procs_slab, mode,
+                                        stencil_cli_one, si_one, ckpt_dir)
+        stats["stencil_taps"].update(slab_stats)
+        timed(phase_procs_scaling, mode)
+        for name, per_p in timed(phase_procs_si, row_extras, slab_extras,
+                                 si_one).items():
+            stats[name]["procs_si"] = per_p
+        timed(phase_procs_checkpoint, row_extras, slab_extras,
+              config4_reports, stencil_cli_one, ckpt_dir)
     stats["level_solve"].update(
         config3_cli_launches=si_counts["cli"]["level_solve"],
         note="not a Pallas kernel in the reference: a jnp fori_loop over "
@@ -3447,7 +3768,8 @@ def main():
                           "m1", "m8", "m9", "m32", "m64", "m128", "m171",
                           "launch_floor_ms", "chain_ms", "chain_floor_ms",
                           "unit_bytes", "library_bf16_ms", "l2_floor_ms",
-                          "p3_grid91", "slab", "procs", "levels",
+                          "p3_grid91", "slab", "procs", "procs_si",
+                          "levels",
                           "window", "window_route", "cases",
                           "config3_cli_launches", "note")
                          if w in stats[name]}}

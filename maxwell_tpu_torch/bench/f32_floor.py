@@ -162,7 +162,7 @@ def _solve(pencils, devices, dense, op, eigh_on=None, dot_on=None):
     with solver_precision(), _eigh_on(eigh_on, devices):
         X = pencil.project(_stacked(pencils[dense], X0, 7))
         hist = lobpcg_run(pencil, X, 60, 1e-5, pc, nev=3, stall_window=8,
-                          lock_tol=1e-7, shards=8)[4]
+                          lock_tol=1e-7, shards=range(8))[4]
     return hist
 
 

@@ -69,10 +69,13 @@ def _timeit(fn, sync, iters=8, warmup=2):
 
 
 def scaling_row(nx: int, ny: int, nz: int, procs: int, nev: int,
-                maxiter: int, device="cuda") -> dict:
+                maxiter: int, device="cuda", X0=None) -> dict:
     """One row on this process's slab of a mesh of `procs` slabs over
     `procs` processes (called in each rank of a spawn when procs > 1);
-    rank 0's row is returned, with the link's volumes of every rank."""
+    rank 0's row is returned, with the link's volumes of every rank and
+    the solve's residual history (`history`: the max relative residual of
+    each iteration). X0: the solve's start block, a host array in the
+    stacked layout (default: the pencil's make_block)."""
     from maxwell_tpu_torch.dist import make_mesh, mesh_topology_report
     from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
     from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
@@ -91,7 +94,7 @@ def scaling_row(nx: int, ny: int, nz: int, procs: int, nev: int,
     sync()
     t0 = time.perf_counter()
     res = lobpcg_dist(sp, mesh, nev=nev, maxiter=maxiter, tol=1e-30,
-                      precond_alpha=15.0)
+                      precond_alpha=15.0, X0=X0)
     sync()
     t_solve = time.perf_counter() - t0
     v2 = link_volumes(sp.link)
@@ -125,6 +128,7 @@ def scaling_row(nx: int, ny: int, nz: int, procs: int, nev: int,
         "t_iter_s": t_solve / iters,
         "solve_iters": int(res.iterations),
         "max_res": float(res.residuals.max()),
+        "history": [h["max_rel_res"] for h in res.history],
         "dcn_links": topo["dcn_links"],
         "hosts": topo["hosts"],
         "procs": procs,

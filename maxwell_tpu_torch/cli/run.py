@@ -22,8 +22,16 @@ processes (dist/procs.py), D / P shards or slabs each, rank r on
 cuda:(r % device count) (or the CPU with --device cpu): the assembled
 road (config 4) and the slab-sharded one (configs 4_stencil and 5, whose
 refinement, `refine_dw_dist`, every rank runs); rank 0's history and
-report are printed, by this process. The other solver kinds take one
-process. With refinement, PEC 3D stencil
+report are printed, by this process. `--checkpoint f.npz` and
+`--checkpoint-every k` work there as in one process: the ranks write the
+D shard files `f.npz.shard{d}` every k iterations, rank 0 the exit-time
+file, and a run resumes from them at another P (the exit-time file also
+at another shard count), its history starting at the saved iteration.
+The other solver kinds take one process; shift-invert across processes
+is reached through the solvers (`shift_invert_lanczos_dist`,
+`thick_restart_lanczos_dist(mode="shift_invert")`), as in the
+reference, whose CLI has no distributed shift-invert kind. With
+refinement, PEC 3D stencil
 pencils refine to tol on the device (`refine_dw`; slab-sharded ones
 `refine_dw_dist`, for a staged `batch` run each stage's block before it
 joins the deflation basis), other stencil pencils by warm-started f64
@@ -308,8 +316,8 @@ def _parser():
     )
     ap.add_argument(
         "--procs", type=int, default=1,
-        help="processes of a lobpcg_dist run, assembled or slab-sharded "
-        "(default: 1)",
+        help="processes of a lobpcg_dist run, assembled or slab-sharded, "
+        "--checkpoint included (default: 1)",
     )
     return ap
 

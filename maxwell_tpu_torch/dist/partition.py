@@ -57,8 +57,9 @@ bit).
 
 The gradient projector's node vectors are replicated in the reference;
 here they are the projector of the whole problem, its G^T summed per node
-in a fixed order (solvers/deflation.py); across processes each rank holds
-its own rows' edges and G^T sums the ranks' partials in rank order.
+in a fixed order (solvers/deflation.py); across processes every rank
+holds all of G and G^T gathers the ranks' rows first, so P processes
+project bit for bit as one.
 """
 
 from __future__ import annotations
@@ -465,16 +466,17 @@ def _local_shards(D: int, group) -> tuple[int, int]:
     return Dl, group.rank * Dl
 
 
-def _projector(G, Dl: int, d0: int, Lb: int, dtype, device, group):
+def _projector(G, D: int, Lb: int, dtype, device, link):
     """The gradient projector of a process's rows [d0 Lb, (d0 + Dl) Lb):
-    its edges' rows of G (all of them in one process); across processes
-    G^T sums the ranks' partials (solvers/deflation.py)."""
-    if group is None:
-        return GradientProjector.from_gradient(G, Dl * Lb, dtype=dtype,
+    every edge of G either way; across processes G^T gathers the ranks'
+    rows through the link first (solvers/deflation.py), so it is the one
+    process's bit for bit."""
+    if link is None:
+        return GradientProjector.from_gradient(G, D * Lb, dtype=dtype,
                                                device=device)
-    rows = sp.csr_matrix(G)[d0 * Lb:(d0 + Dl) * Lb]
-    return GradientProjector.from_gradient(rows, Dl * Lb, dtype=dtype,
-                                           device=device, group=group)
+    return GradientProjector.from_gradient(
+        G, D * Lb, dtype=dtype, device=device, gather=link.gather,
+        rows=(link.d0 * Lb, (link.d0 + link.Dl) * Lb))
 
 
 def _link(group, D: int, Lb: int, Hb: int) -> HaloLink | None:
@@ -610,12 +612,13 @@ def partition_problem(
 
     K_int, K_bnd = split(K_blocks_np, K_cols_np, nz_K)
     M_int, M_bnd = split(M_blocks_np, M_cols_np, nz_M)
-    proj = _projector(problem.G, Dl, d0, L * b, dtype, device, group)
+    link = _link(group, D, L * b, H * b)
+    proj = _projector(problem.G, D, L * b, dtype, device, link)
     return DistPencil(
         D=D, L=L, H=H, b=b, n=problem.K.shape[0], n_nodes=proj.n_nodes,
         proj=proj, kernel=kernel, K_int=K_int, K_bnd=K_bnd, M_int=M_int,
         M_bnd=M_bnd, halo_impl=halo_impl, dcn_links=dcn_links, perm=perm,
-        link=_link(group, D, L * b, H * b),
+        link=link,
     )
 
 
@@ -710,9 +713,10 @@ def _partition_union(problem, n_shards, block, dtype, halo_impl, dcn_links,
         ub_pack = 2 if (ub_cl // b) % 2 == 0 else 1
         Ub = build(Kb, Mb, 2 * Hb, ub_cl, ub_pack)
 
-    proj = _projector(problem.G, Dl, d0, Lb, dtype, device, group)
+    link = _link(group, D, Lb, Hb)
+    proj = _projector(problem.G, D, Lb, dtype, device, link)
     return DistPencil(
         D=D, L=L, H=H, b=b, n=n, n_nodes=proj.n_nodes, proj=proj,
         kernel="union", Ui=Ui, Ub=Ub, halo_impl=halo_impl,
-        dcn_links=dcn_links, perm=perm, link=_link(group, D, Lb, Hb),
+        dcn_links=dcn_links, perm=perm, link=link,
     )

@@ -67,15 +67,6 @@ class RankGroup:
         dist.all_gather(parts, h)
         return torch.stack(parts).to(t.device)
 
-    def rank_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's t, added in rank order (the same bits on
-        every rank)."""
-        parts = self.all_gather(t)
-        out = parts[0]
-        for p in parts[1:]:
-            out = out + p
-        return out
-
     def all_gather_object(self, obj) -> list:
         """Every rank's obj (picklable), in rank order."""
         out = [None] * self.procs

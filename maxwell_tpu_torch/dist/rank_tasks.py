@@ -9,14 +9,22 @@ rank imports the module of its target function, which must import no more
 than the port.
 
     apply_checks(spec, D, procs, device, cases, widths, seed)
+    padding_rank_overlap(spec, D, procs, device, widths, seed)
     solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs)
     exchange_bench(spec, D, procs, widths, seed, reps)   (the card)
     slab_checks(dims, D, procs, device, cases, widths, seed)
     slab_solve(dims, D, procs, device, lobpcg_kwargs, refine_tol)
+    slab_solves(dims, D, procs, device, dtype, runs)
     slab_bench(grid, D, procs, widths, seed, reps)       (the card)
+    checkpoint_run(of, D, procs, device, path, lobpcg_kwargs)
     cli(argv)                                            (cli/run.py)
     sequence(calls)                                      several in one spawn
     raise_on(rank, message)                              the failure drill
+
+The solve tasks take the distributed solvers by name: "lobpcg_dist",
+"lanczos_dist", "shift_invert_lanczos_dist" and
+"thick_restart_lanczos_dist" (mode="shift_invert" in its kwargs for the
+MINRES apply).
 """
 
 from __future__ import annotations
@@ -42,14 +50,15 @@ def build_problem(spec):
     raise ValueError(f"unknown problem {spec!r}")
 
 
-def pencil(spec, D, procs, device, kernel, halo_impl, dtype):
-    """(mesh, the row-sharded pencil of `spec` on it): this rank's shards."""
+def pencil(spec, D, procs, device, kernel, halo_impl, dtype, block=None):
+    """(mesh, the row-sharded pencil of `spec` on it): this rank's shards
+    (block: partition_problem's, None for the kernel's default)."""
     from maxwell_tpu_torch.dist import make_mesh, partition_problem
 
     mesh = make_mesh(D, device, procs)
-    dp = partition_problem(build_problem(spec), D, kernel=kernel,
-                           dtype=DTYPES[dtype], halo_impl=halo_impl,
-                           mesh=mesh)
+    dp = partition_problem(build_problem(spec), D, block=block,
+                           kernel=kernel, dtype=DTYPES[dtype],
+                           halo_impl=halo_impl, mesh=mesh)
     return mesh, dp
 
 
@@ -126,16 +135,65 @@ def apply_checks(spec, D, procs, device, cases, widths=(1, 3), seed=0):
     return out
 
 
-def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
-                 traced=()):
-    """Each run {label: (solver, kwargs)} on the pencil (solver
-    "lobpcg_dist", "lanczos_dist" or "thick_restart_lanczos_dist"), its launch counts zeroed just before and read just after on
-    every rank; the runs named in `traced` under torch.profiler (device
-    activity only). {label:
-    {"eigenvalues", "eigenvectors" (the problem's order), "residuals",
-    "iterations", "history", "converged", "seconds", "counts", "wait_s",
-    "exchanges" (the last three lists over the ranks: launches, host
-    seconds in the exchanges' barriers, exchanges) and, traced,
+def padding_rank_overlap(spec, D, procs, device, widths=(9, 1), seed=0):
+    """K5 (union_interior_overlap, both streams) against its plain version
+    on every rank of the f32 union pencil of `spec` with "rdma_overlap",
+    ranks that hold only padding rows included (on the card such a rank
+    once left its second stream unwritten). Per width m and rank:
+    {"padding_only", "err_a", "err_b" (max |kernel - plain| of each
+    stream's product), "scale" (max |plain| of either), "halo_equal" (the
+    halo section bit for bit the plain transport's)}, and the kernel's
+    outputs gathered for the caller to hold to one process. {"n", "Lb",
+    "ranks": {m: [per rank]}, "outputs": {m: (Ya, Yb, halo) whole}}."""
+    from maxwell_tpu_torch.kernels import halo
+
+    _, dp = pencil(spec, D, procs, device, "union", "rdma_overlap", "f32")
+    ranks, outputs = {}, {}
+    for m in widths:
+        X = block(dp, m, seed + m)
+        got = [T.clone() for T in halo.union_interior_overlap(
+            dp.Ui, X, D, dp.Hb, "ab", dp.link)]
+        want = halo.union_interior_overlap_ref(dp.Ui, X, D, dp.Hb, "ab",
+                                               dp.link)
+        mine = {"padding_only": dp.d0 * dp.Lb >= dp.n,
+                "err_a": float((got[0] - want[0]).abs().max()),
+                "err_b": float((got[1] - want[1]).abs().max()),
+                "scale": float(max(want[0].abs().max(),
+                                   want[1].abs().max())),
+                "halo_equal": bool(torch.equal(got[2], want[2]))}
+        ranks[m] = _every(dp, mine)
+        outputs[m] = tuple(whole(dp, T) for T in got)
+    dp.close()
+    return {"n": dp.n, "Lb": dp.Lb, "ranks": ranks, "outputs": outputs}
+
+
+def _solvers() -> dict:
+    from maxwell_tpu_torch.solvers import dist_solve, trlanczos
+
+    return {"lobpcg_dist": dist_solve.lobpcg_dist,
+            "lanczos_dist": dist_solve.lanczos_dist,
+            "shift_invert_lanczos_dist": dist_solve.shift_invert_lanczos_dist,
+            "thick_restart_lanczos_dist":
+                trlanczos.thick_restart_lanczos_dist}
+
+
+_LINK_COUNTERS = ("wait_s", "exchanges", "gathers", "gather_s")
+
+
+def _link_counters(link) -> dict:
+    return {k: getattr(link, k) if link else 0 for k in _LINK_COUNTERS}
+
+
+def _run_solves(mesh, dp, runs, traced=()):
+    """Each run {label: (solver, kwargs)} on the distributed pencil dp, its
+    launch counts zeroed just before and read just after on every rank;
+    the runs named in `traced` under torch.profiler (device activity
+    only). {label: {"eigenvalues", "eigenvectors" (the problem's order),
+    "residuals", "iterations", "history", "converged", "tridiagonal"
+    (Lanczos's (alphas, betas), else None), "seconds", "counts",
+    "wait_s", "exchanges", "gathers", "gather_s" (lists over the ranks:
+    launches, host seconds in the exchanges' barriers, exchanges, the
+    reductions' gathers and their host seconds) and, traced,
     "device_busy_ms" (a list over the ranks)}}."""
     import contextlib
 
@@ -143,17 +201,12 @@ def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
 
     from maxwell_tpu_torch.utils import profiling
 
-    from maxwell_tpu_torch.solvers import dist_solve, trlanczos
-
-    fns = {"lobpcg_dist": dist_solve.lobpcg_dist,
-           "lanczos_dist": dist_solve.lanczos_dist,
-           "thick_restart_lanczos_dist": trlanczos.thick_restart_lanczos_dist}
-    mesh, dp = pencil(spec, D, procs, device, kernel, halo_impl, dtype)
+    fns = _solvers()
     out = {}
     link = dp.link
     for label, (solver, kwargs) in runs.items():
         reset_counts()
-        w0, e0 = (link.wait_s, link.exchanges) if link else (0.0, 0)
+        c0 = _link_counters(link)
         if dp.device.type == "cuda":
             torch.cuda.synchronize(dp.device)
         # device activity only: a solve's host ops would make the trace's
@@ -166,9 +219,9 @@ def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
             if dp.device.type == "cuda":
                 torch.cuda.synchronize(dp.device)
         seconds = time.perf_counter() - t0
+        c1 = _link_counters(link)
         mine = {"counts": kernel_counts(),
-                "wait_s": link.wait_s - w0 if link else 0.0,
-                "exchanges": link.exchanges - e0 if link else 0}
+                **{k: c1[k] - c0[k] for k in _LINK_COUNTERS}}
         if label in traced:
             mine["device_busy_ms"] = profiling.device_busy_ms(prof)
         every = [mine] if link is None else link.group.all_gather_object(
@@ -179,9 +232,20 @@ def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
             "residuals": np.asarray(res.residuals),
             "iterations": res.iterations, "converged": res.converged,
             "history": [h["max_rel_res"] for h in res.history or []],
+            "tridiagonal": res.tridiagonal,
             "seconds": seconds,
             **{k: [e[k] for e in every] for k in mine},
         }
+    return out
+
+
+def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
+                 traced=(), block=None):
+    """The runs {label: (solver, kwargs)} of `_run_solves` on the
+    row-sharded pencil of `spec` (block: partition_problem's)."""
+    mesh, dp = pencil(spec, D, procs, device, kernel, halo_impl, dtype,
+                      block)
+    out = _run_solves(mesh, dp, runs, traced)
     dp.close()
     return out
 
@@ -453,29 +517,45 @@ def slab_solve(dims, D, procs, device, lobpcg_kwargs, refine_tol=1e-8,
             "counts": counts, "seconds": seconds}
 
 
-def slab_refusals(dims, D, procs, device, checkpoint_path):
-    """What the slab pencil across processes still refuses: [(call,
-    ValueError message)] for shift-invert and a checkpointed lobpcg_dist
-    (every rank raises, so no collective is left waiting)."""
-    from maxwell_tpu_torch.solvers.dist_solve import (
-        lobpcg_dist,
-        shift_invert_lanczos_dist,
-    )
-
-    mesh, sp = slab_pencil(dims, D, procs, device)
-    out = []
-    for name, call in (
-            ("shift_invert", lambda: shift_invert_lanczos_dist(
-                sp, mesh, sigma=10.0, nev=1, maxiter=2)),
-            ("checkpoint", lambda: lobpcg_dist(
-                sp, mesh, nev=1, maxiter=1, checkpoint=checkpoint_path))):
-        try:
-            call()
-            out.append((name, None))
-        except ValueError as e:
-            out.append((name, str(e)))
+def slab_solves(dims, D, procs, device, dtype, runs, traced=()):
+    """The runs {label: (solver, kwargs)} of `_run_solves` on the vacuum
+    slab pencil of the brick `dims` in D slabs."""
+    mesh, sp = slab_pencil(dims, D, procs, device, dtype)
+    out = _run_solves(mesh, sp, runs, traced)
     sp.close()
     return out
+
+
+# --- checkpoints -------------------------------------------------------------
+
+
+def _make_pencil(of, D, procs, device):
+    """(mesh, pencil) of `of`: ("rows", spec, kernel, halo_impl, dtype) or
+    ("slabs", dims, dtype)."""
+    if of[0] == "rows":
+        return pencil(of[1], D, procs, device, *of[2:])
+    if of[0] == "slabs":
+        return slab_pencil(of[1], D, procs, device, of[2])
+    raise ValueError(f"unknown pencil {of!r}")
+
+
+def checkpoint_run(of, D, procs, device, path, lobpcg_kwargs):
+    """lobpcg_dist(checkpoint=path, **lobpcg_kwargs) on the pencil `of`
+    (see _make_pencil; an X0 in the kwargs is a host block in the stacked
+    layout, else the run resumes from the checkpoint where one is there).
+    {"eigenvalues", "residuals", "iterations", "history" (the (iteration,
+    residual) pairs), "converged", "eigenvectors" (the problem's
+    ordering)}."""
+    from maxwell_tpu_torch.solvers.dist_solve import lobpcg_dist
+
+    mesh, dp = _make_pencil(of, D, procs, device)
+    res = lobpcg_dist(dp, mesh, checkpoint=path, **lobpcg_kwargs)
+    dp.close()
+    return {"eigenvalues": np.asarray(res.eigenvalues),
+            "residuals": np.asarray(res.residuals),
+            "iterations": res.iterations, "converged": res.converged,
+            "history": [(h["iter"], h["max_rel_res"]) for h in res.history],
+            "eigenvectors": np.asarray(res.eigenvectors)}
 
 
 def slab_bench(grid, D, procs, widths=(9, 1), seed=0, reps=20):

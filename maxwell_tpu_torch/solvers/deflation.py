@@ -12,12 +12,13 @@ incident edges and a sum over them. The reference scatter-adds G^T @ y; on
 a CUDA device a scatter-add (index_add_) adds in whatever order its
 atomics land, so two runs of a solve would differ in their last bits.
 
-Across processes (dist/procs.py) a rank holds the edges of its own rows:
-G @ phi stays local (phi, the node vector, is replicated), and G^T @ y is
-each rank's partial over its own edges, the partials added in rank order
-on every rank (the reference's psum-finished scatter,
-maxwell_tpu/dist/partition.py:508-516). That adds a node's edges in
-another order than one process does.
+Across processes (dist/procs.py) every rank holds all of G: G @ phi (phi,
+the node vector, is replicated) runs over the edges of the rank's own
+rows, and G^T @ y first gathers y from every rank (`gather`, the pencil's
+link) and then sums each node's edges as one process does, so P
+processes project bit for bit as one. (The reference finishes a per-shard scatter with a psum,
+maxwell_tpu/dist/partition.py:508-516, which adds a node's edges in
+another order on another mesh.)
 """
 
 from __future__ import annotations
@@ -59,9 +60,11 @@ class GradientProjector:
 
     head/tail: (n,) int64 node ids per edge (n_nodes = ghost slot for an
     endpoint on the PEC boundary); weight: (n,) signed magnitude 1/h_edge.
-    Vectors are padded to n_padded rows (zero padding preserved). group:
-    the RankGroup of a process holding only its own rows' edges (None: all
-    edges).
+    Vectors are padded to n_padded rows (zero padding preserved). Across
+    processes (see the module docstring) the edges are every rank's,
+    n_padded the global rows, `rows` the (start, stop) of this process's
+    and `gather` its rows -> every rank's, stacked; vectors are the
+    process's rows. None: one process.
     """
 
     head: torch.Tensor
@@ -70,7 +73,8 @@ class GradientProjector:
     n: int
     n_nodes: int
     n_padded: int
-    group: object = dataclasses.field(default=None, compare=False)
+    rows: tuple | None = None
+    gather: object = dataclasses.field(default=None, compare=False)
 
     @functools.cached_property
     def incidence(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -86,11 +90,12 @@ class GradientProjector:
     @staticmethod
     def from_gradient(
         G: sp.spmatrix, n_padded: int, dtype: torch.dtype = torch.float32,
-        device: str | torch.device = "cuda", group=None,
+        device: str | torch.device = "cuda", rows=None, gather=None,
     ) -> "GradientProjector":
         """Build from the assembled discrete gradient (rows = edges, cols =
         nodes): +w at the head node and -w at the tail node of each edge.
-        group: G holds this process's rows only (see the module
+        rows, gather: a process's rows of the stacked edges across
+        processes and the gather of every rank's (see the class
         docstring)."""
         G = sp.coo_matrix(G)
         n, n_nodes = G.shape
@@ -109,7 +114,8 @@ class GradientProjector:
             n=n,
             n_nodes=n_nodes,
             n_padded=n_padded,
-            group=group,
+            rows=rows,
+            gather=gather,
         )
 
     @staticmethod
@@ -124,26 +130,38 @@ class GradientProjector:
             n_padded=int(p.n_padded),
         )
 
+    @functools.cached_property
+    def own_edges(self) -> tuple:
+        """(head, tail, weight, padding rows) of this process's rows: the
+        edges among them and how many of them lie past the last edge."""
+        start, stop = (0, self.n_padded) if self.rows is None else self.rows
+        lo, hi = min(start, self.n), min(stop, self.n)
+        return (self.head[lo:hi], self.tail[lo:hi], self.weight[lo:hi],
+                (stop - start) - (hi - lo))
+
     def g_mm(self, phi: torch.Tensor) -> torch.Tensor:
-        """(n_padded, m) <- G @ phi for phi (n_nodes, m)."""
-        w = self.weight if phi.dim() == 1 else self.weight[:, None]
+        """(n_padded, m) <- G @ phi for phi (n_nodes, m): across processes
+        this process's rows."""
+        head, tail, weight, pad = self.own_edges
+        w = weight if phi.dim() == 1 else weight[:, None]
         zero = phi.new_zeros((1,) + tuple(phi.shape[1:]))
         phi_ext = torch.cat([phi, zero], dim=0)  # ghost node reads 0
-        out = w * (phi_ext[self.head] - phi_ext[self.tail])
-        pad = self.n_padded - self.n
+        out = w * (phi_ext[head] - phi_ext[tail])
         if pad:
             out = torch.cat([out, out.new_zeros((pad,) + tuple(out.shape[1:]))])
         return out
 
     def gt_mm(self, y: torch.Tensor) -> torch.Tensor:
-        """(n_nodes, m) <- G^T @ y for y (n_padded, m)."""
+        """(n_nodes, m) <- G^T @ y for y (n_padded, m), across processes
+        this process's rows (gathered first)."""
+        if self.gather is not None:
+            y = self.gather(y)
         y = y[: self.n]
         vec = y.dim() == 1
         w = self.weight if vec else self.weight[:, None]
         wy = torch.cat([w * y, y.new_zeros((1,) + tuple(y.shape[1:]))])
         edges, signs = self.incidence
-        out = (wy[edges] * (signs if vec else signs[..., None])).sum(dim=1)
-        return out if self.group is None else self.group.rank_sum(out)
+        return (wy[edges] * (signs if vec else signs[..., None])).sum(dim=1)
 
     def project(
         self,

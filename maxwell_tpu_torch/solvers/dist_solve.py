@@ -8,12 +8,19 @@ The reference shard_maps its loops over a JAX device mesh; here the shards
 live in one process, or a DistPencil's in P processes (dist/procs.py), each
 running these loops on its own shards in step, so a mesh argument only
 names the shard and process counts and is checked against the pencil.
-Start blocks are in the pencil's stacked layout (a DistPencil's rows in its
-RCM order, zero past row n; a DistStencilPencil3D's slabs), as the
-reference's `make_block` draws them, given whole (every rank keeps its own
-rows); eigenvectors come back in the problem's own ordering
-(`extract_vectors`, gathered from every rank), or, with `return_device`,
-stay on the device in the stacked layout (a rank's own rows).
+Start blocks and vectors are in the pencil's stacked layout (a DistPencil's
+rows in its RCM order, zero past row n; a DistStencilPencil3D's slabs), as
+the reference's `make_block` draws them: a numpy array is the whole block
+(every rank keeps its own rows), and across processes a tensor of
+n_padded rows is this process's rows already (what `make_block` and
+`inject_vectors` return). Eigenvectors come back in the problem's own
+ordering (`extract_vectors`, gathered from every rank), or, with
+`return_device`, stay on the device in the stacked layout (a rank's own
+rows).
+
+Across processes every host decision is taken on replicated values: the
+reductions' sums, the Ritz values, MINRES's residual; and a checkpoint's
+resume is decided by rank 0 and handed to every rank.
 """
 
 from __future__ import annotations
@@ -41,12 +48,6 @@ def _procs(dpencil) -> int:
     return getattr(dpencil, "procs", 1)
 
 
-def _one_process(dpencil, what: str) -> None:
-    if _procs(dpencil) > 1:
-        raise ValueError(f"{what} on a pencil across processes is not "
-                         "supported")
-
-
 def _check_mesh(dpencil: DistPencil, mesh) -> None:
     if mesh is not None and (mesh.D, mesh.procs) != (dpencil.D,
                                                      _procs(dpencil)):
@@ -58,14 +59,16 @@ def _check_mesh(dpencil: DistPencil, mesh) -> None:
 def _stacked(dpencil: DistPencil, X, width: int) -> torch.Tensor:
     """A block in the stacked layout, (global_rows, width) or (n, width),
     zero past row n, on the pencil's device: this process's rows. Across
-    processes an (n_padded, width) block is this process's rows already
-    (a pencil's inject_vectors) and is taken as it is."""
+    processes a tensor of (n_padded, width) is this process's rows already
+    (a pencil's make_block or inject_vectors) and is taken as it is; a
+    numpy array is always the whole block."""
+    rows = torch.is_tensor(X) and _procs(dpencil) > 1
     if not torch.is_tensor(X):
         X = torch.from_numpy(np.array(X))  # a writable copy
     X = X.to(dtype=dpencil.dtype, device=dpencil.device)
     if X.dim() == 1:
         X = X[:, None]
-    if _procs(dpencil) > 1 and X.shape == (dpencil.n_padded, width):
+    if rows and X.shape == (dpencil.n_padded, width):
         return X
     if X.shape not in ((dpencil.n, width), (dpencil.global_rows, width)):
         raise ValueError(
@@ -75,6 +78,49 @@ def _stacked(dpencil: DistPencil, X, width: int) -> torch.Tensor:
                       device=dpencil.device)
     out[: dpencil.n] = X[: dpencil.n]
     return out if _procs(dpencil) == 1 else dpencil.local(out)
+
+
+def _group(dpencil):
+    """The rank group of a pencil across processes, else None."""
+    return None if dpencil.link is None else dpencil.link.group
+
+
+def _resume(dpencil, path: str, m: int):
+    """(X0, iteration) of a resume from the checkpoint `path`: the
+    exit-time file (the problem's ordering, any D and P) when its block is
+    m wide, else the in-loop shard files of the pencil's D shards (the
+    stacked layout, any P that divides D) when every one is there and m
+    wide, else (None, 0), a fresh start. Across processes rank 0 looks and
+    decides, and every rank takes its decision: the same file and the same
+    iteration (the oldest of the shard files'); then each rank reads it and
+    keeps its own rows."""
+    from maxwell_tpu_torch.utils.checkpoint import (
+        load_sharded_state,
+        load_state,
+    )
+
+    group = _group(dpencil)
+    choice = (None, 0)
+    if group is None or group.rank == 0:
+        state = load_state(path)
+        if state is not None and state["X"].shape[1] == m:
+            choice = ("exit", state["iteration"])
+        else:
+            sstate = load_sharded_state(path, dpencil.D)
+            if sstate is not None and sstate["X"].shape[1] == m:
+                choice = ("shards", sstate["iteration"])
+    if group is not None:
+        choice = group.all_gather_object(choice)[0]
+    kind, iteration = choice
+    if kind == "exit":
+        return dpencil.inject_vectors(load_state(path)["X"]), iteration
+    if kind == "shards":
+        sstate = load_sharded_state(path, dpencil.D)
+        if sstate is None:
+            raise FileNotFoundError(f"{path}.shard*: a shard file went "
+                                    "missing during the resume")
+        return _stacked(dpencil, sstate["X"], m), iteration
+    return None, 0
 
 
 def host_vectors(dpencil, vecs) -> np.ndarray:
@@ -117,11 +163,20 @@ def lobpcg_dist(
     """Distributed LOBPCG on a row-sharded pencil. Returns a host
     EigenResult with eigenvectors in the problem's ordering.
 
-    checkpoint: resume from / save the Ritz block — the exit-time file holds
-    vectors in the problem's ordering (portable across shard counts);
-    checkpoint_every > 0 also writes per-shard snapshots `{checkpoint}
-    .shard{d}` every k iterations, which a resume reassembles when the
-    exit-time file is missing.
+    checkpoint: resume from / save the Ritz block. The exit-time file holds
+    vectors in the problem's ordering, so it resumes at any shard count D
+    and any process count P; across processes every rank gathers the
+    block, rank 0 alone writes it (atomic rename), and a barrier follows,
+    so every rank sees it once lobpcg_dist returns. checkpoint_every > 0
+    also writes per-shard snapshots `{checkpoint}.shard{d}`, d = 0 ... D -
+    1, every k iterations, each rank its own shards' files, so P ranks
+    write the files one process writes; a resume reassembles them when the
+    exit-time file is missing (or of another width). They hold the stacked
+    layout of the D shards or slabs, which does not depend on P: they
+    resume at any P that divides D, one process included, but not at
+    another D. Across processes rank 0 decides which file a resume takes,
+    and at which iteration, and every rank follows (`_resume`). The staged
+    path takes no checkpoint.
     precond: "auto" takes the exact distributed spectral (K + alpha M)^-1
     (solvers/spectral.DistSpectralShift, alpha = precond_alpha or 15.0) on
     a vacuum slab-sharded stencil pencil (DistStencilPencil3D), chosen by
@@ -139,11 +194,8 @@ def lobpcg_dist(
     the pencil's device (across processes the rank's own rows), the layout
     refine_dw_dist takes without a copy through the host; eigenvalues and
     residuals stay numpy. The staged path ignores it.
-    Across processes: no checkpoint (ValueError).
     """
     _check_mesh(dpencil, mesh)
-    if checkpoint is not None:
-        _one_process(dpencil, "a checkpoint")
     if precond not in ("auto", "cg", "spectral"):
         raise ValueError(f"unknown precond {precond!r}")
     if batch is not None and batch < nev:
@@ -158,21 +210,7 @@ def lobpcg_dist(
         m = nev + max(4, nev // 2)
     prev_iters = 0
     if X0 is None and checkpoint is not None:
-        from maxwell_tpu_torch.utils.checkpoint import (
-            load_sharded_state,
-            load_state,
-        )
-
-        state = load_state(checkpoint)
-        if state is not None and state["X"].shape[1] == m:
-            X0 = dpencil.inject_vectors(state["X"])
-            prev_iters = state["iteration"]
-        else:
-            # the in-loop per-shard snapshots (stacked layout)
-            sstate = load_sharded_state(checkpoint, dpencil.D)
-            if sstate is not None and sstate["X"].shape[1] == m:
-                X0 = sstate["X"]
-                prev_iters = sstate["iteration"]
+        X0, prev_iters = _resume(dpencil, checkpoint, m)
     X0 = (dpencil.make_block(m, generator) if X0 is None
           else _stacked(dpencil, X0, m))
     X0 = dpencil.project(X0)
@@ -202,7 +240,7 @@ def lobpcg_dist(
         checkpoint_every=checkpoint_every if checkpoint else 0,
         checkpoint_path=checkpoint, prev_iters=prev_iters,
         stall_window=stall_window, lock_tol=tol * 1e-2 if lock else 0.0,
-        shards=dpencil.D,
+        shards=range(dpencil.d0, dpencil.d0 + dpencil.Dl),
     )
     # ascending order of the tracked pairs (a frozen column can be
     # overtaken by a smaller late pair)
@@ -215,8 +253,13 @@ def lobpcg_dist(
     if checkpoint is not None:
         from maxwell_tpu_torch.utils.checkpoint import save_state
 
-        save_state(checkpoint, X=dpencil.extract_vectors(X),
-                   theta=theta.cpu().numpy(), iteration=prev_iters + it)
+        Xh = dpencil.extract_vectors(X)  # a gather on every rank
+        group = _group(dpencil)
+        if group is None or group.rank == 0:
+            save_state(checkpoint, X=Xh, theta=theta.cpu().numpy(),
+                       iteration=prev_iters + it)
+        if group is not None:
+            group.barrier()
     res_h = res[:nev].cpu().numpy()
     return EigenResult(
         eigenvalues=theta[:nev].cpu().numpy(),
@@ -269,6 +312,16 @@ def _lobpcg_dist_staged(dpencil, nev, batch, m, maxiter, tol, generator,
     return merge_stages(vals, vecs, resids, iters, hist, tol)
 
 
+def start_rows(dpencil, v0=None, generator: torch.Generator | None = None):
+    """The start vector of a distributed Krylov solve as this process's
+    (n_padded,) stacked rows: v0 taken as `_stacked` takes a block (a
+    numpy vector whole; across processes a tensor of n_padded rows as the
+    rank's), or make_block(1) from `generator`."""
+    if v0 is None:
+        return dpencil.make_block(1, generator)[:, 0]
+    return _stacked(dpencil, v0, 1)[:, 0]
+
+
 @fp32_true
 def lanczos_dist(
     dpencil: DistPencil,
@@ -280,15 +333,14 @@ def lanczos_dist(
     generator: torch.Generator | None = None,
 ) -> EigenResult:
     """Distributed direct-mode Lanczos: the single-device factorization
-    loop on the stacked pencil. v0: start vector in the stacked layout
-    (default: make_block(1) from `generator`)."""
+    loop on the stacked pencil. v0: start vector in the stacked layout,
+    whole or this process's rows as `_stacked` takes them (default:
+    make_block(1) from `generator`)."""
     from maxwell_tpu_torch.solvers.lanczos import lanczos
 
     _check_mesh(dpencil, mesh)
-    if v0 is None:
-        v0 = dpencil.make_block(1, generator)[:, 0]
-    res = lanczos(dpencil, nev=nev, maxiter=maxiter, tol=tol, v0=v0,
-                  return_device=True)
+    res = lanczos(dpencil, nev=nev, maxiter=maxiter, tol=tol,
+                  v0=start_rows(dpencil, v0, generator), return_device=True)
     res.eigenvectors = dpencil.extract_vectors(res.eigenvectors)
     return res
 
@@ -311,18 +363,17 @@ def shift_invert_lanczos_dist(
     matrix-free MINRES apply (solvers/shift_invert.py), whose every inner
     step is a sharded K/M apply and per-shard dots. No factorization: works
     on the row-sharded DistPencil and the slab-sharded DistStencilPencil3D,
-    in one process (a pencil across processes: ValueError). v0: start
-    vector in the stacked layout (default: make_block(1) from
-    `generator`)."""
+    in one process or across processes, where every rank runs the same
+    MINRES steps on its rows (its stopping test reads a reduced scalar).
+    v0: start vector in the stacked layout, whole or this process's rows
+    as `_stacked` takes them (default: make_block(1) from `generator`)."""
     from maxwell_tpu_torch.solvers.lanczos import lanczos
     from maxwell_tpu_torch.solvers.shift_invert import iterative_apply
 
     _check_mesh(dpencil, mesh)
-    _one_process(dpencil, "shift-invert")
-    if v0 is None:
-        v0 = dpencil.make_block(1, generator)[:, 0]
     res = lanczos(
-        dpencil, nev=nev, maxiter=maxiter, tol=tol, v0=v0,
+        dpencil, nev=nev, maxiter=maxiter, tol=tol,
+        v0=start_rows(dpencil, v0, generator),
         mode="shift_invert",
         apply_op=iterative_apply(dpencil, sigma, inner_tol, inner_iters),
         sigma=sigma, return_device=True,

@@ -222,9 +222,8 @@ def lanczos(
     alphas, betas, V, _ = lanczos_factorization(
         apply_op, pencil, v, maxiter, post
     )
-    lams, Y_sel, keff = ritz_extract(
-        alphas.cpu().numpy(), betas.cpu().numpy(), nev, tol, mode, sigma
-    )
+    alphas, betas = alphas.cpu().numpy(), betas.cpu().numpy()
+    lams, Y_sel, keff = ritz_extract(alphas, betas, nev, tol, mode, sigma)
     Yd = torch.as_tensor(Y_sel, dtype=V.dtype, device=V.device)
     X = V[:keff].T @ Yd  # (n_pad, nev) Ritz vectors
     res = relative_residuals(pencil, X, lams)
@@ -234,4 +233,5 @@ def lanczos(
         residuals=res,
         iterations=keff,
         converged=bool(np.all(res <= tol)),
+        tridiagonal=(alphas, betas),
     )

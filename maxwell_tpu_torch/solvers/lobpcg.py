@@ -49,7 +49,7 @@ def lobpcg_run(
     prev_iters: int = 0,
     stall_window: int = 0,
     lock_tol: float = 0.0,
-    shards: int | None = None,
+    shards: range | None = None,
 ):
     """LOBPCG loop. X0: (n_padded, m), already projected off the nullspace
     (zero padding preserved). Convergence is tested on the first `nev`
@@ -62,9 +62,14 @@ def lobpcg_run(
     it stays in the RR basis. stall_window > 0: stop after that many
     iterations without a >= 10% improvement of the best residual and
     return the best iterate. checkpoint_every > 0 saves (X, theta, iteration)
-    to checkpoint_path every that many iterations; with `shards` = D (a
-    row-sharded pencil's stacked block) one file per shard,
-    `{checkpoint_path}.shard{d}` (utils/checkpoint.load_sharded_state).
+    to checkpoint_path every that many iterations; with `shards`, the
+    global indices of the shards or slabs X0's rows hold in equal parts (a
+    distributed pencil's stacked rows, range(d0, d0 + Dl)), one file per
+    shard, `{checkpoint_path}.shard{d}` (utils/checkpoint.
+    load_sharded_state).
+    A step whose [X, W, P] basis has a Gram condition number past
+    1/sqrt(eps) restarts without P (the JAX package's basis, [X, W]):
+    without that, at the f32 floor the block broke down.
     Returns (theta, X, res, iters, res_hist).
     """
     n, m = X0.shape
@@ -94,6 +99,9 @@ def lobpcg_run(
     best = (X, theta, res)
     locked = torch.zeros(m, dtype=torch.bool, device=X.device)
     tracked = torch.arange(m, device=X.device) < nev
+    # the Gram condition past which the step restarts without P: Q then
+    # keeps M-orthonormality to sqrt(eps)
+    max_cond = torch.finfo(dtype).eps ** -0.5
 
     def residuals(KX, MX, theta):
         # column norms through the pencil's reduction (per-shard partials
@@ -125,7 +133,16 @@ def lobpcg_run(
         MS = torch.cat([MX, MW, MP], dim=1)
         # M-orthonormalize the basis (dead columns masked) and rotate KS by
         # the same transform — no extra SpMM
-        Q, MQ, good, T = svqb(S, MS, dot_mm=dot_mm)
+        Q, MQ, good, T, cond = svqb(S, MS, dot_mm=dot_mm, cond=True)
+        if cond > max_cond:
+            # restart without P: at the f32 floor W and P are noise, the
+            # kept basis nearly dependent, and Q's M-orthonormality error
+            # (cond * eps) feeds back each iteration until the block breaks
+            # down. [X, W] is the reference's basis (its P is masked)
+            P = KP = MP = torch.zeros_like(X)
+            S, KS, MS = (torch.cat([A, B, P], dim=1)
+                         for A, B in ((X, W), (KX, KW), (MX, MW)))
+            Q, MQ, good, T = svqb(S, MS, dot_mm=dot_mm)
         KQ = KS @ T
 
         A = dot_mm(Q, KQ)
@@ -216,7 +233,7 @@ def lobpcg_run(
                 save_state(checkpoint_path, X=Xh, theta=th,
                            iteration=prev_iters + it + 1)
             else:
-                for d, Xd in enumerate(np.split(Xh, shards)):
+                for d, Xd in zip(shards, np.split(Xh, len(shards))):
                     save_state(f"{checkpoint_path}.shard{d}", X=Xd, theta=th,
                                iteration=prev_iters + it + 1)
         X, KX, MX, theta = X_new, KX_new, MX_new, theta_new

@@ -21,6 +21,8 @@ class EigenResult:
     history: optional per-iteration metrics (list of dicts, JSON-able).
     timings: wall-clock seconds of the phases that produced it (solve()
     records "setup_s", "device_solve_s" and, when it refines, "refine_s").
+    tridiagonal: lanczos()'s (alphas, betas) host arrays, the projected
+    operator T = tridiag(betas[:-1], alphas); None from other solvers.
     """
 
     eigenvalues: np.ndarray
@@ -30,6 +32,7 @@ class EigenResult:
     converged: bool
     history: list[dict[str, Any]] = dataclasses.field(default_factory=list)
     timings: dict[str, float] = dataclasses.field(default_factory=dict)
+    tridiagonal: tuple | None = None
 
     def __repr__(self):
         ev = np.array2string(self.eigenvalues, precision=6, max_line_width=100)

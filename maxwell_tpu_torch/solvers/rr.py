@@ -48,12 +48,15 @@ def eigh_gen(A: torch.Tensor, B: torch.Tensor, eps: float = 1e-12):
 
 
 def svqb(S: torch.Tensor, MS: torch.Tensor, dot_mm=None,
-         eps: float | None = None):
+         eps: float | None = None, cond: bool = False):
     """SVQB M-orthonormalization of a block S (n x m), given MS = M @ S.
 
     Returns (S_orth, MS_orth, rank_mask, T) with S_orth = S @ T. Columns
     whose scaled Gram eigenvalue falls below eps * max are zeroed
-    (rank_mask False there).
+    (rank_mask False there). cond: also return the condition number of
+    the kept scaled Gram matrix (its largest eigenvalue over its smallest
+    kept one), a host float: S_orth's loss of M-orthonormality grows with
+    it.
     """
     if dot_mm is None:
         dot_mm = _local_dot
@@ -74,6 +77,10 @@ def svqb(S: torch.Tensor, MS: torch.Tensor, dot_mm=None,
         good, 1.0 / torch.sqrt(torch.abs(theta)), 0.0
     )
     T = (Dinv[:, None] * V) * inv_sqrt[None, :]
+    if cond:
+        top = torch.max(theta)
+        kept = torch.min(torch.where(good, theta, top))
+        return S @ T, MS @ T, good, T, float(top / kept)
     return S @ T, MS @ T, good, T
 
 

@@ -200,27 +200,24 @@ def thick_restart_lanczos_dist(
     DistStencilPencil3D: the basis is (ncv + 1) stacked vectors, O(n ncv)
     as on one device. mode="shift_invert" takes the matrix-free MINRES
     apply (the operator of shift_invert_lanczos_dist). v0: start vector in
-    the stacked layout (default: make_block(1) from `generator`).
-    Eigenvectors come back in the problem's ordering. A DistPencil across
-    processes takes the direct mode only (ValueError)."""
-    from maxwell_tpu_torch.solvers.dist_solve import (
-        _check_mesh,
-        _one_process,
-    )
+    the stacked layout, whole or this process's rows (dist_solve.
+    start_rows; default: make_block(1) from `generator`). Across processes
+    each rank holds the basis's rows of its shards (the expansion's V^T c
+    is row-wise; dot_basis is reduced over the ranks). Eigenvectors come
+    back in the problem's ordering."""
+    from maxwell_tpu_torch.solvers.dist_solve import _check_mesh, start_rows
 
     if mode not in ("direct", "shift_invert"):
         raise ValueError(f"unknown mode {mode!r}")
     _check_mesh(dpencil, mesh)
     apply_op = None
     if mode == "shift_invert":
-        _one_process(dpencil, "shift-invert")
         from maxwell_tpu_torch.solvers.shift_invert import iterative_apply
 
         apply_op = iterative_apply(dpencil, sigma, inner_tol, inner_iters)
-    if v0 is None:
-        v0 = dpencil.make_block(1, generator)[:, 0]
     res = thick_restart_lanczos(dpencil, nev=nev, ncv=ncv,
-                                max_restarts=max_restarts, tol=tol, v0=v0,
+                                max_restarts=max_restarts, tol=tol,
+                                v0=start_rows(dpencil, v0, generator),
                                 apply_op=apply_op, mode=mode, sigma=sigma,
                                 return_device=True)
     res.eigenvectors = dpencil.extract_vectors(res.eigenvectors)

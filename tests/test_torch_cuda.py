@@ -736,6 +736,32 @@ def test_cuda_cross_process_halo_kernels_match_peer_copy(cuda_device, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", [2, 4])
+def test_cuda_k5_on_a_padding_rank_matches_plain(cuda_device, P):
+    """F5: K5 (both streams) across P processes on the 16x16 rectangle's
+    8 union shards, whose shards 4-7 hold only padding rows: on every rank
+    within 1e-5 of max|plain| of the plain version (so exactly zero on a
+    rank of padding rows, where a second stream was once left unwritten),
+    the halo section bit for bit the plain transport's; the gathered
+    outputs bit for bit one process's."""
+    from maxwell_tpu_torch.dist import procs, rank_tasks
+
+    spec = ("rect", 16)
+    one = rank_tasks.padding_rank_overlap(spec, 8, 1, cuda_device)
+    got = procs.spawn(rank_tasks.padding_rank_overlap, P, spec, 8, P,
+                      cuda_device, device=cuda_device)
+    for m, ranks in got["ranks"].items():
+        assert [r["padding_only"] for r in ranks] == [
+            r >= P // 2 for r in range(P)]
+        for r in ranks:
+            assert r["err_a"] <= 1e-5 * r["scale"]
+            assert r["err_b"] <= 1e-5 * r["scale"]
+            assert r["halo_equal"]
+        for a, b in zip(got["outputs"][m], one["outputs"][m]):
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
 def test_cuda_cross_process_slab_ghosts_and_k4_match_one_process(
         cuda_device, P):
     """The slab pencil across P processes sharing the card: each rank's

@@ -5,8 +5,11 @@ tests/distributed/test_stencil_dist.py): build's arrays field for field,
 the layout maps, the K/M/KM slab applies (the reference's shard_map apply;
 f64 at its own 1e-12, f32 at 1e-5 of max|ref|), materials, the tap kernel
 K4's route on ghost-extended slabs (its index math through the kernel's
-plain version), the projector, and the distributed solvers on the pencil
-against dense eigh."""
+plain version), the projector, the distributed solvers on the pencil
+against dense eigh, and the f32 LOBPCG run past its floor as the scaling
+rows run it, from the reference's side too."""
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ from maxwell_tpu.dist import make_mesh as ref_make_mesh
 from maxwell_tpu.dist.stencil_dist import (
     DistStencilPencil3D as RefDistStencil,
 )
+from maxwell_tpu.solvers.dist_solve import lobpcg_dist as ref_lobpcg_dist
 from maxwell_tpu_torch.dist import make_mesh
 from maxwell_tpu_torch.dist.stencil_dist import DistStencilPencil3D
 from maxwell_tpu_torch.kernels import stencil_taps as kst
@@ -314,6 +318,40 @@ def test_thick_restart_lanczos_dist_on_the_slab_pencil():
     assert res.converged, f"residuals {res.residuals}"
     np.testing.assert_allclose(res.eigenvalues, _discrete(8, 3, 3, 3),
                                rtol=1e-8)
+
+
+FLOOR_START_H100 = Path(__file__).parent / "data" / "scaling16_start_h100.npz"
+
+
+@pytest.mark.parametrize("start", ["h100", 2, 4, 8])
+def test_lobpcg_dist_f32_stays_at_its_floor(mesh, start, monkeypatch):
+    """The scaling rows' solve (bench/scaling.py: the 16^3 vacuum brick in
+    2 slabs, f32, nev 4, alpha 15, tol 1e-30, 40 iterations) in both
+    packages from one start block: the port's make_block on an H100
+    (NVIDIA H100 80GB HBM3), where the port's row broke down (0.958), or
+    on the CPU from seed 2, 4 or 8, where it broke down on one thread
+    (0.96-1.0) before LOBPCG restarted without P on an ill-conditioned
+    basis. The reference's block (its P masked) never broke down from
+    these blocks. Both reach the f32 floor and stay there."""
+    port = DistStencilPencil3D.build(nx=16, ny=16, nz=16, D=2,
+                                     dtype=torch.float32, device="cpu")
+    if start == "h100":
+        X0 = np.load(FLOOR_START_H100)["X0"]
+    else:
+        X0 = port.make_block(8, torch.Generator().manual_seed(start)).numpy()
+    kw = dict(nev=4, maxiter=40, tol=1e-30, precond_alpha=15.0)
+    got = lobpcg_dist(port, make_mesh(2, "cpu"), X0=X0, **kw)
+    monkeypatch.setattr(RefDistStencil, "make_block",
+                        lambda self, key, m: jnp.asarray(X0[:, :m]))
+    ref = RefDistStencil.build(nx=16, ny=16, nz=16, D=2, dtype=jnp.float32)
+    want = ref_lobpcg_dist(ref, ref_make_mesh(2), **kw)
+    for res in (got, want):
+        hist = [h["max_rel_res"] for h in res.history]
+        assert len(hist) == 40
+        assert min(hist) < 1e-5
+        assert max(hist[-10:]) < 1e-4, hist[-10:]
+    assert got.history[0]["max_rel_res"] == pytest.approx(
+        want.history[0]["max_rel_res"], rel=1e-5)
 
 
 def test_build_refuses_a_width_the_slabs_do_not_divide():

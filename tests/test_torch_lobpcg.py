@@ -165,8 +165,8 @@ def test_lobpcg_keeps_its_p_block(monkeypatch):
     mod = importlib.import_module("maxwell_tpu_torch.solvers.lobpcg")
     svqb, live = mod.svqb, []
 
-    def counting_svqb(S, MS, dot_mm=None, eps=None):
-        out = svqb(S, MS, dot_mm=dot_mm, eps=eps)
+    def counting_svqb(S, MS, **kw):
+        out = svqb(S, MS, **kw)
         if S.shape[1] == 3 * M_BLOCK:
             live.append(int(out[2].sum()))
         return out
