@@ -77,7 +77,13 @@ probes and check that they ran through the kernels:
     and on the 16^3 brick in 8 slabs over 2 (K4), against phase 26's one
     process from the same start vector; configs 4 and 4_stencil through
     the CLI with --procs 2 --checkpoint, stopped, then resumed with --procs
-    4 from the shard files; K5 on a rank that holds only padding rows.
+    4 from the shard files; K5 on a rank that holds only padding rows;
+  slice 15, the roads across hosts: two host launchers meeting at a
+    TCPStore on the one machine, 2 ranks each on the card, the ranks
+    beside the host boundary exchanging by the host-staged route: K6 and
+    K5 on the 24^3 brick's 8 shards, lobpcg_dist on its union pencil, the
+    ghost exchange and K4 on the 64^3 brick's 8 slabs, each held to one
+    process.
 
     python3 chip_smoke.py
 
@@ -318,7 +324,7 @@ Phases, in order; any failure raises and the process exits non-zero:
                shared_card, no block broken down past the f32 floor, the
                comm model's prediction rows
  40. procs si  shift_invert_lanczos_dist and thick_restart_lanczos_dist(
-               mode="shift_invert") (6 Lanczos steps; ncv 8, two cycles)
+               mode="shift_invert") (4 Lanczos steps; ncv 8, one cycle)
                on the 16x16 rectangle in 8 row shards over P = 2 and 4
                processes (union pencil, "rdma_overlap": K5),
                shift_invert_lanczos_dist on its blocked-ELL pencil
@@ -336,7 +342,29 @@ Phases, in order; any failure raises and the process exits non-zero:
                shard files to the end: the history starts at iteration 4,
                the eigenvalues within 1e-8 of phases 17 and 23's; the files
                under a temporary directory, removed after
- 42. result    an {"off_main_path": [...]} line for the kernels no solver
+ 42. procs hosts  the roads across hosts: two host launchers
+               (dist/procs.py run_hosts: one launcher process a host
+               meeting at a TCPStore on 127.0.0.1, 2 ranks each, all on the
+               one card; rank 1's right side and rank 2's left take the
+               host-staged route, the others IPC); in one run_hosts call:
+               every rank's place (hosts-major); on the 24^3 brick in 8
+               shards K6 (both layouts) and K5 (both streams) at m 9, each
+               rank's kernel bit for bit the plain transport and K5's
+               products K2's, the gathered halos and products bit for bit
+               phase 34's one process's, every rank's routes as expected,
+               K6 launched on every rank; one lobpcg_dist at phase 35's
+               knobs on the union pencil within 1e-6 of phase 16's
+               one-process eigenvalues, K5 launched on every rank, no
+               plain version on the card; the 64^3 brick in 8 slabs: the
+               ghost exchange and one fused K4 apply at m 9, within 1e-5 of
+               max|plain| on every rank, blocks and outputs bit for bit
+               phase 37's one process's, K4 launched on every rank. From
+               the rank at the host boundary (rank 1) each exchange's host
+               ms, its host-staged side's ms, the rest outside the
+               barriers (the launch with its IPC push), the barrier wait
+               and the bytes across hosts; the kernels line's K5, K6 and
+               K4 rows gain a "procs_hosts" object
+ 43. result    an {"off_main_path": [...]} line for the kernels no solver
                path calls (the union SpMV, the windowed blocked-ELL and
                BELLPairs SpMMs, the banded BELLPairs and union forms), the
                {"kernels": [...]} line of every ported kernel with the path
@@ -3074,7 +3102,8 @@ def phase_procs(problem, one_eigenvalues, si_one, ckpt_dir):
     row-sharded shift-invert runs (from phase 26's start vector) and phase
     41's config 4 checkpoint (written at the first process count into
     ckpt_dir, resumed at the last). Returns ({kernel: {"procs": {P:
-    entry}}}, the compute mode, {P: phase 40's and 41's results})."""
+    entry}}}, the compute mode, {P: phase 40's and 41's results}, the one
+    process's exchange_bench outputs)."""
     from maxwell_tpu_torch.dist import procs
     from maxwell_tpu_torch.dist import rank_tasks as rt
     from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
@@ -3234,7 +3263,7 @@ def phase_procs(problem, one_eigenvalues, si_one, ckpt_dir):
         if P > 1:
             stats.setdefault(kernel, {"procs": {}})["procs"][str(P)] = (
                 _procs_entry(row, bound, launches[(kernel, P)]))
-    return stats, mode, extras
+    return stats, mode, extras, one
 
 
 def _check_padding_ranks(extras, counts_of):
@@ -3362,7 +3391,8 @@ def phase_procs_slab(mode, stencil_cli_one, si_one, ckpt_dir):
     shift-invert (P 2) and phase 41's config 4_stencil checkpoint (written
     at P 2 into ckpt_dir, resumed at P 4); with Exclusive_Process those run
     in this process. Returns ({"procs": {P: the kernels line's entry}} for
-    stencil_taps, {P: phase 40's and 41's results})."""
+    stencil_taps, {P: phase 40's and 41's results}, the one process's
+    slab_bench outputs (None with Exclusive_Process))."""
     from maxwell_tpu_torch.bench import exp_r5dist
     from maxwell_tpu_torch.dist import procs
     from maxwell_tpu_torch.dist import rank_tasks as rt
@@ -3378,7 +3408,7 @@ def phase_procs_slab(mode, stencil_cli_one, si_one, ckpt_dir):
         extras = {1: dict(zip(more, rt.sequence(list(more.values()))))}
         more = _slab_extra(1, si_one, ckpt, False, True)
         extras[1].update(zip(more, rt.sequence(list(more.values()))))
-        return {}, extras
+        return {}, extras, None
     one = rt.slab_bench(g, SHARDS, 1, SLAB_WIDTHS, 0, 2)["outputs"]
     torch.cuda.empty_cache()
     configs = ("config4_stencil", "config5")
@@ -3475,7 +3505,7 @@ def phase_procs_slab(mode, stencil_cli_one, si_one, ckpt_dir):
                 if not rel.max() <= 1e-9:
                     raise AssertionError(f"{name} on {P} processes vs one: "
                                          f"{rel}")
-    return {"procs": entries}, extras
+    return {"procs": entries}, extras, one
 
 
 def phase_procs_scaling(mode):
@@ -3624,6 +3654,152 @@ def phase_procs_checkpoint(row_extras, slab_extras, config4_reports,
         if not rel.max() <= 1e-8:
             raise AssertionError(f"{name} resumed vs one process: {rel}")
 
+HOSTS = (2, 2)  # phase 42: host groups x ranks a group, on the one card
+
+
+def _boundary_sides(sides, rank):
+    """Phase 42's log of one exchange on the rank at the host boundary
+    (rank_tasks._timed: medians over the timed calls): its routes, the
+    whole exchange's host ms, its host-staged side's (post and land), its
+    IPC side's (the launch with its pushes, the local copies, the stream
+    syncs), the barrier wait, the bytes across hosts and pushed on the
+    host."""
+    s = sides[rank]
+    return {"rank": rank, "exchange_ms": s["ms"], **{k: s[k] for k in (
+        "routes", "host_staged_ms", "ipc_side_ms", "wait_ms",
+        "bytes_across_hosts", "bytes_pushed", "kernel_device_ms") if k in s}}
+
+
+def phase_procs_hosts(mode, n, one_halos, one_eigenvalues, one_slabs):
+    """Phase 42 (slice 13 across hosts): see the module docstring. Two
+    host launchers (dist/procs.py run_hosts: a TCPStore on 127.0.0.1, one
+    launcher process a host, 2 ranks each) on the one card; rank 1's right
+    side and rank 2's left cross hosts (host-staged), the others stay on
+    the host (IPC). n: the 24^3 brick's edges (phase 35's start block).
+    The one process's outputs and eigenvalues come from phases 34, 16 and
+    37. Returns {kernel: the kernels line's "procs_hosts" entry}."""
+    from maxwell_tpu_torch.dist import procs
+    from maxwell_tpu_torch.dist import rank_tasks as rt
+    from maxwell_tpu_torch.problems.analytic import cavity_eigenvalues_3d
+
+    H, per = HOSTS
+    P = H * per
+    if mode == "Exclusive_Process" or one_slabs is None:
+        log({"phase": "procs_hosts", "skipped": "Exclusive_Process: one "
+             "context a card, no two ranks can share it"})
+        return {}
+    spec = ("brick", GRID)
+    X0 = np.random.default_rng(5).standard_normal((n, 9))
+    kw = dict(nev=NEV, maxiter=120, tol=1e-5, stall_window=12, X0=X0,
+              precond_alpha=float(cavity_eigenvalues_3d(1.0, 1.0, 1.0,
+                                                        NEV)[0]))
+    calls = [(rt.places, ()),
+             (rt.exchange_bench, (spec, SHARDS, P, (9,), 0, 5)),
+             (rt.solve_checks, (spec, SHARDS, P, "cuda", "union",
+                                "rdma_overlap", "f32",
+                                {"first": ("lobpcg_dist", kw)})),
+             (rt.slab_bench, (STENCIL_GRID, SHARDS, P, (9,), 0, 3))]
+    t0 = time.perf_counter()
+    places, bench, solve, slabs = procs.run_hosts(rt.sequence, H, per,
+                                                  calls)
+    seconds = time.perf_counter() - t0
+    boundary = per - 1  # the last rank of host 0
+    want_routes = [{"left": None if r == 0 else "host_staged"
+                    if r % per == 0 else "ipc",
+                    "right": None if r == P - 1 else "host_staged"
+                    if r % per == per - 1 else "ipc"} for r in range(P)]
+    log({"phase": "procs_hosts_spawn", "hosts": H, "ranks_a_host": per,
+         "seconds": seconds, "exchange_bench_s": bench["seconds"],
+         "solve_s": solve["first"]["seconds"],
+         "slab_bench_s": slabs["seconds"],
+         "places": [{k: p[k] for k in ("rank", "host", "device")}
+                    for p in places],
+         "nvidia_smi": nvidia_smi_line()})
+    if [p["host"] for p in places] != [r // per for r in range(P)]:
+        raise AssertionError(f"ranks not hosts-major: {places}")
+
+    # the exchanges: K6 (both layouts) and K5 (both streams) at m 9
+    same = {f"{name} m{m}": bool(np.array_equal(v, one_halos[(name, m)]))
+            for (name, m), v in bench["outputs"].items()}
+    stats = {}
+    for row in bench["rows"]:
+        routes = [sd["routes"] for sd in row["sides"]]
+        log({"phase": "procs_hosts_kernels", "grid": GRID, "shards": SHARDS,
+             "kernel": row["kernel"], "m": row["m"],
+             "bitwise_equal_plain": row["bitwise_equal_plain"],
+             "bitwise_equal_one_process": same,
+             "boundary": _boundary_sides(row["sides"], boundary),
+             "per_rank": row["sides"], "nvidia_smi": nvidia_smi_line()})
+        if routes != want_routes:
+            raise AssertionError(f"routes {routes}, want {want_routes}")
+        if row["kernel"] != "ring_shift_own0":
+            name = row["kernel"].split("_own")[0]
+            stats[name] = {"hosts": H, "procs": P,
+                           **_boundary_sides(row["sides"], boundary)}
+    if not all(same.values()):
+        raise AssertionError(f"across hosts vs one process: {same}")
+    k6 = [c["ring_shift"] for c in bench["counts"]]
+    if not all(c > 0 for c in k6):
+        raise AssertionError(f"K6 not launched on every rank: {k6}")
+    stats["ring_shift"]["launches"] = sum(k6)
+
+    # one lobpcg_dist on the union pencil (K5)
+    first = solve["first"]
+    ev1 = one_eigenvalues["union"]
+    rel = np.abs(first["eigenvalues"] - ev1) / np.abs(ev1)
+    k5 = [c["union_interior_overlap"] for c in first["counts"]]
+    log({"phase": "procs_hosts_solve", "grid": GRID, "shards": SHARDS,
+         "hosts": H, "procs": P, "converged": first["converged"],
+         "iterations": first["iterations"],
+         "eigenvalues": first["eigenvalues"].tolist(),
+         "rel_to_one_process": rel.tolist(),
+         "residuals": first["residuals"].tolist(),
+         "wall_s": first["seconds"], "barrier_wait_s": first["wait_s"],
+         "exchanges": first["exchanges"],
+         "union_interior_overlap_launches_per_rank": k5,
+         "nvidia_smi": nvidia_smi_line()})
+    if not first["converged"] or first["residuals"].max() > 1e-5:
+        raise AssertionError(f"union across hosts: {first['residuals']}")
+    if not rel.max() <= 1e-6:
+        raise AssertionError(f"union across hosts vs one process: {rel}")
+    if not all(c > 0 for c in k5):
+        raise AssertionError(f"K5 not launched on every rank: {k5}")
+    stray = {k: v for c in first["counts"] for k, v in c.items()
+             if v and k.endswith("_ref")}
+    if stray:
+        raise AssertionError(f"plain versions ran on the card: {stray}")
+    stats["union_interior_overlap"].update(
+        launches=sum(k5), solve_wall_s=first["seconds"],
+        iterations=first["iterations"])
+
+    # the 64^3 brick in 8 slabs: the ghost exchange and one fused K4 apply
+    same = {f"{name} m{m}": bool(np.array_equal(v, one_slabs[(name, m)]))
+            for (name, m), v in slabs["outputs"].items()}
+    (row,) = slabs["rows"]
+    k4 = row["launches_per_apply_per_rank"]
+    log({"phase": "procs_hosts_slab", "grid": STENCIL_GRID, "slabs": SHARDS,
+         "m": row["m"], "max_abs_err_per_rank": row["max_abs_err_per_rank"],
+         "rel_err_per_rank": row["rel_err_per_rank"],
+         "bitwise_equal_one_process": same,
+         "kernel_device_ms_per_apply_per_rank":
+             row["kernel_device_ms_per_apply_per_rank"],
+         "apply_ms": row["apply_ms"], "plain_ms": row["plain_ms"],
+         "stencil_taps_launches_per_rank": k4,
+         "boundary": _boundary_sides(row["sides_per_rank"], boundary),
+         "nvidia_smi": nvidia_smi_line()})
+    if [sd["routes"] for sd in row["sides_per_rank"]] != want_routes:
+        raise AssertionError(f"slab routes {row['sides_per_rank']}")
+    if not all(same.values()):
+        raise AssertionError(f"slabs across hosts vs one process: {same}")
+    if not all(c > 0 for c in k4):
+        raise AssertionError(f"K4 not launched on every rank: {k4}")
+    stats["stencil_taps"] = {
+        "hosts": H, "procs": P, "launches": sum(k4),
+        "ms": row["kernel_device_ms_per_apply_per_rank"][boundary],
+        "max_abs_err": max(row["max_abs_err_per_rank"]),
+        **_boundary_sides(row["sides_per_rank"], boundary)}
+    return stats
+
 
 def timed(fn, *args):
     """fn(*args), with a {"phase_seconds": ...} line for its wall time."""
@@ -3700,13 +3876,13 @@ def main():
                 if phase == "r5dist" else launched(counts))
         for phase, counts in surface.items()}})
     with tempfile.TemporaryDirectory(prefix="smoke_ckpt_") as ckpt_dir:
-        procs_stats, mode, row_extras = timed(
+        procs_stats, mode, row_extras, one_halos = timed(
             phase_procs, grid_problem, dist_eigenvalues, si_one, ckpt_dir)
         timed(phase_procs_cli, config4_reports, mode)
         for name, st in procs_stats.items():
             stats[name].update(st)
-        slab_stats, slab_extras = timed(phase_procs_slab, mode,
-                                        stencil_cli_one, si_one, ckpt_dir)
+        slab_stats, slab_extras, one_slabs = timed(
+            phase_procs_slab, mode, stencil_cli_one, si_one, ckpt_dir)
         stats["stencil_taps"].update(slab_stats)
         timed(phase_procs_scaling, mode)
         for name, per_p in timed(phase_procs_si, row_extras, slab_extras,
@@ -3714,6 +3890,9 @@ def main():
             stats[name]["procs_si"] = per_p
         timed(phase_procs_checkpoint, row_extras, slab_extras,
               config4_reports, stencil_cli_one, ckpt_dir)
+    for name, st in timed(phase_procs_hosts, mode, grid_problem.K.shape[0],
+                          one_halos, dist_eigenvalues, one_slabs).items():
+        stats[name]["procs_hosts"] = st
     stats["level_solve"].update(
         config3_cli_launches=si_counts["cli"]["level_solve"],
         note="not a Pallas kernel in the reference: a jnp fori_loop over "
@@ -3769,6 +3948,7 @@ def main():
                           "launch_floor_ms", "chain_ms", "chain_floor_ms",
                           "unit_bytes", "library_bf16_ms", "l2_floor_ms",
                           "p3_grid91", "slab", "procs", "procs_si",
+                          "procs_hosts",
                           "levels",
                           "window", "window_route", "cases",
                           "config3_cli_launches", "note")

@@ -135,12 +135,11 @@ class CommModel:
 
 def link_volumes(link) -> dict:
     """What a rank's HaloLink (kernels/halo.py) has moved so far: bytes
-    pushed to its neighbours, exchanges through the registered buffers,
-    the reductions' all-gathers and the bytes they returned, and the host
-    seconds in barriers and gathers. Zeros in one process (no link)."""
-    if link is None:
-        return {"bytes_pushed": 0, "exchanges": 0, "gathers": 0,
-                "bytes_gathered": 0, "wait_s": 0.0, "gather_s": 0.0}
-    return {"bytes_pushed": link.bytes_pushed, "exchanges": link.exchanges,
-            "gathers": link.gathers, "bytes_gathered": link.bytes_gathered,
-            "wait_s": link.wait_s, "gather_s": link.gather_s}
+    pushed to its neighbours on its host and sent to those on another
+    host (the links this model prices at bw_dcn), exchanges through the
+    registered buffers, the reductions' all-gathers and the bytes they
+    returned, and the host seconds in barriers, in the host-staged
+    transfers and in gathers. Zeros in one process (no link)."""
+    keys = ("bytes_pushed", "bytes_across_hosts", "exchanges", "gathers",
+            "bytes_gathered", "wait_s", "host_s", "gather_s")
+    return {k: getattr(link, k) if link is not None else 0 for k in keys}

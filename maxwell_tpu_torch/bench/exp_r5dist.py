@@ -121,7 +121,9 @@ def chain(grid: int, slabs: int, steady: int, device="cuda",
         link = dsp.link
         mine = {"counts": rt.kernel_counts(), "wait_s": link.wait_s,
                 "exchanges": link.exchanges,
-                "bytes_pushed": link.bytes_pushed, "gathers": link.gathers,
+                "bytes_pushed": link.bytes_pushed,
+                "bytes_across_hosts": link.bytes_across_hosts,
+                "host_s": link.host_s, "gathers": link.gathers,
                 "bytes_gathered": link.bytes_gathered,
                 "gather_s": link.gather_s}
         every = link.group.all_gather_object(mine)

@@ -10,8 +10,10 @@ solve (spectral preconditioner, alpha 15, tol 1e-30 so every row runs
 `maxiter` iterations). Weak mode grows the x cells with the process count
 (`cells` a slab); strong mode fixes the grid at `cells` times the largest
 count. Rows carry the reference's keys (devices = processes = slabs,
-efficiency against the first row), what each rank's link moved
-(comm_model.link_volumes, per KM apply and per solve) and `shared_card`:
+efficiency against the first row), the mesh's real `hosts` and
+`dcn_links` (dist/mesh.py mesh_topology_report), what each rank's link
+moved (comm_model.link_volumes, per KM apply and per solve: to its
+neighbours on its host and across hosts) and `shared_card`:
 true where the processes share one card, time-sliced (more ranks than
 cards), the counterpart of the reference's `simulated` (its CPU mesh),
 which the report keeps for a CPU run. Weak mode adds the reference's
@@ -24,6 +26,9 @@ for both link classes, or at the model's default rates if there is none
     python -m maxwell_tpu_torch.bench.scaling [--mode weak|strong]
         [--cells 8] [--ny 16] [--nz 16] [--nev 4] [--maxiter 40]
         [--procs 1 2 4 8] [--device cuda|cpu] [--out PATH]
+
+On more than one host, each host's launcher calls scaling_row through
+dist.procs.spawn with its Rendezvous; the row carries the mesh's hosts.
 
 Process counts above the host's CPU count are left out, and on a card in
 Exclusive_Process mode so are counts above its card count. Runs on the
@@ -103,6 +108,10 @@ def scaling_row(nx: int, ny: int, nz: int, procs: int, nev: int,
     mine = {
         "km_apply_bytes_pushed": (v1["bytes_pushed"] - v0["bytes_pushed"])
         // applies,
+        "km_apply_bytes_across_hosts": (v1["bytes_across_hosts"]
+                                        - v0["bytes_across_hosts"])
+        // applies,
+        "km_apply_host_s": (v1["host_s"] - v0["host_s"]) / applies,
         "km_apply_wait_s": (v1["wait_s"] - v0["wait_s"]) / applies,
         "solve_bytes_pushed_per_iter":
             (v2["bytes_pushed"] - v1["bytes_pushed"]) / iters,

@@ -27,6 +27,11 @@ report are printed, by this process. `--checkpoint f.npz` and
 D shard files `f.npz.shard{d}` every k iterations, rank 0 the exit-time
 file, and a run resumes from them at another P (the exit-time file also
 at another shard count), its history starting at the saved iteration.
+Across H hosts each host runs the same command with `--hosts H --host h
+--rendezvous ADDR:PORT` (host 0's address, a free port there) and its own
+h: `--procs P` ranks a host, ranks hosts-major, D / (H P) shards or slabs
+each (dist/procs.py Rendezvous); host 0 prints rank 0's history and
+report, the other hosts print nothing.
 The other solver kinds take one process; shift-invert across processes
 is reached through the solvers (`shift_invert_lanczos_dist`,
 `thick_restart_lanczos_dist(mode="shift_invert")`), as in the
@@ -317,7 +322,19 @@ def _parser():
     ap.add_argument(
         "--procs", type=int, default=1,
         help="processes of a lobpcg_dist run, assembled or slab-sharded, "
-        "--checkpoint included (default: 1)",
+        "--checkpoint included (default: 1); across hosts, a host's",
+    )
+    ap.add_argument(
+        "--hosts", type=int, default=1,
+        help="hosts of a lobpcg_dist run, each running this command with "
+        "its --host (default: 1)",
+    )
+    ap.add_argument("--host", type=int, default=0,
+                    help="this host's index among --hosts (default: 0)")
+    ap.add_argument(
+        "--rendezvous", default=None,
+        help="ADDR:PORT where host 0's launcher holds the ranks' store "
+        "(with --hosts > 1)",
     )
     return ap
 
@@ -328,7 +345,7 @@ def main(argv=None):
     from maxwell_tpu_torch.dist import procs
 
     args = _parser().parse_args(argv)
-    if args.procs > 1:
+    if args.procs > 1 or args.hosts > 1:
         with open(args.config) as f:
             cfg = json.load(f)
         if cfg.get("solver", {}).get("kind") != "lobpcg_dist":
@@ -337,9 +354,19 @@ def main(argv=None):
                 "only; the one-device solvers take one process")
         from maxwell_tpu_torch.dist import rank_tasks
 
+        rendezvous = None
+        if args.hosts > 1:
+            if args.rendezvous is None:
+                raise ValueError("--hosts > 1 needs --rendezvous ADDR:PORT")
+            addr, _, port = args.rendezvous.rpartition(":")
+            rendezvous = procs.Rendezvous(addr, int(port), args.hosts,
+                                          args.host)
         history, report = procs.spawn(rank_tasks.cli, args.procs,
                                       list(argv or sys.argv[1:]),
-                                      device=args.device)
+                                      device=args.device,
+                                      rendezvous=rendezvous)
+        if args.host != 0:
+            return 0
     else:
         history, report = run(argv)
     for h in history:
@@ -361,7 +388,7 @@ def run(argv=None):
     device = torch.device(args.device)
     group = procs.current()
     rank = 0 if group is None else group.rank
-    if args.procs > 1 and group is not None:
+    if group is not None:
         device = group.device
 
     with open(args.config) as f:
@@ -420,7 +447,7 @@ def run(argv=None):
         from maxwell_tpu_torch.dist import make_mesh, partition_problem
 
         mesh = make_mesh(cfg.get("dist", {}).get("n_shards", 1), device,
-                         args.procs)
+                         args.procs if group is None else group.procs)
         if use_stencil:
             dp = build_dist_stencil(pcfg, mesh, dtype, block)
         else:

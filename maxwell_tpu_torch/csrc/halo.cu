@@ -2,7 +2,8 @@
 // process holds Dl consecutive shards of the D (global shards d0 .. d0 +
 // Dl - 1) in a stacked view: Dl shards of Lb rows, one after the other in
 // one (Dl*Lb, m) tensor. One process holds all D (d0 = 0, Dl = D), or P
-// processes hold D/P each, on one card or on the cards of one host.
+// processes hold D/P each, on one card, on the cards of one host or on the
+// cards of several hosts.
 //
 // Replaces the Pallas TPU kernels in maxwell_tpu/kernels/halo_rdma.py:
 //   ring_shift (_ring_kernel), as exchange_halos_rdma calls it   -> ring_shift
@@ -34,6 +35,11 @@
 // stream and meets its neighbours at a barrier before the launch (no
 // neighbour still reads the halo this launch overwrites) and after it (no
 // one reads before every push has landed), kernels/halo.py HaloLink.
+// A neighbour on another host cannot map this process's buffer: there the
+// caller carries the halo itself (a host-staged copy between the fences),
+// and the launch is told so by a per-side flag. push_left / push_right: 1
+// pushes that side into the mapped peer pointer, 0 skips it; either way
+// the launch leaves the side's segment of its own output to the neighbour.
 // Design: a shard's block is at most five segments, each one contiguous
 // byte range in the output and, where it copies, in X (ring_segment below;
 // kernels/halo.py::ring_shift_plan is the same table on the host): own rows,
@@ -73,10 +79,12 @@ constexpr int kCopyUnroll = 4;     // units in flight per thread
 constexpr int kSegments = 5;
 
 // The geometry of one ring shift, in rows of row_bytes bytes: D shards in
-// all, this process's Dl from shard d0 on
+// all, this process's Dl from shard d0 on; push_l / push_r: whether the
+// launch pushes into the previous / next process's output (a neighbour on
+// another host gets its rows by the caller's host-staged copy instead)
 struct Ring {
   int64_t D, d0, Dl, Lb, Hb, pad, rows, row_bytes;  // rows: a shard's out
-  bool own;
+  bool own, push_l, push_r;
 };
 
 // The neighbours' outputs (nullptr where none): the previous process's and
@@ -125,18 +133,19 @@ __host__ __device__ inline int64_t ring_tasks(const Ring& g) {
 // process precedes and the right halo of the last when one follows (the
 // neighbours push those). Task Dl: the previous shard's right halo (this
 // process's first Hb rows) into the previous process; task Dl + 1: the
-// next shard's left halo (this process's last Hb rows) into the next.
+// next shard's left halo (this process's last Hb rows) into the next;
+// each only where its side pushes (push_l, push_r).
 __host__ __device__ inline Segment ring_task(const Ring& g, int64_t z, int k,
                                              int* target) {
   const bool first = g.d0 == 0, last = g.d0 + g.Dl == g.D;
   *target = 0;
   int64_t d = g.d0 + z, shift = g.d0;
   if (z >= g.Dl) {
-    if (z == g.Dl && k == 3 && !first) {
+    if (z == g.Dl && k == 3 && !first && g.push_l) {
       d = g.d0 - 1;
       shift = g.d0 - g.Dl;
       *target = -1;
-    } else if (z == g.Dl + 1 && k == 2 && !last) {
+    } else if (z == g.Dl + 1 && k == 2 && !last && g.push_r) {
       d = g.d0 + g.Dl;
       shift = g.d0 + g.Dl;
       *target = 1;
@@ -201,9 +210,9 @@ __device__ __forceinline__ void segment_copy(const void* x, void* out,
 }
 
 // Checks a unit of 1 << shift bytes against the pointers and every
-// segment's offsets and length, and the geometry (a neighbour's pointer
-// wherever a push goes); returns the chunks of the longest segment for
-// THREADS-thread blocks, 0 if nothing is copied, -1 if the unit or the
+// segment's offsets and length, and the geometry (a neighbour's pointer on
+// exactly the sides that push); returns the chunks of the longest segment
+// for THREADS-thread blocks, 0 if nothing is copied, -1 if the unit or the
 // geometry does not fit or a segment's units pass 32 bits.
 inline int64_t ring_chunks(const Ring& g, const void* x, const void* out,
                            const Peers& peers, int shift, int threads) {
@@ -211,8 +220,8 @@ inline int64_t ring_chunks(const Ring& g, const void* x, const void* out,
       g.d0 + g.Dl > g.D || g.d0 % g.Dl || g.D % g.Dl ||
       ring_tasks(g) > 65535)
     return -1;
-  if ((g.d0 > 0) != (peers.left != nullptr) ||
-      (g.d0 + g.Dl < g.D) != (peers.right != nullptr))
+  if ((g.d0 > 0 && g.push_l) != (peers.left != nullptr) ||
+      (g.d0 + g.Dl < g.D && g.push_r) != (peers.right != nullptr))
     return -1;
   const int64_t unit = (int64_t)1 << shift;
   if (((uintptr_t)x | (uintptr_t)out | (uintptr_t)peers.left |
@@ -292,16 +301,20 @@ int overlap(const Params& p, float* halo, const Peers& peers,
 
 // x: this process's (Dl*Lb, m) rows, shards d0 .. d0 + Dl - 1 of D; out its
 // (Dl*rows, m) output; left/right the previous and next process's outputs
-// (nullptr where none, and for one process). unit: the copy unit in bytes
+// (nullptr where none, and for one process); push_left / push_right: 1
+// where the launch pushes into left / right (0 where a neighbour is on
+// another host, or there is none). unit: the copy unit in bytes
 // (16, 8 or 4), kernels/halo.py's choice; one that does not divide the
 // pointers and every segment's offsets and length, or a geometry the
 // pointers do not match, returns cudaErrorInvalidValue, with no launch
 extern "C" int ring_shift(const void* x, void* out, void* left, void* right,
                           int64_t D, int64_t d0, int64_t Dl, int64_t Lb,
                           int64_t Hb, int64_t row_bytes, int64_t pad_rows,
-                          int64_t own, int64_t unit, void* stream) {
+                          int64_t own, int64_t push_left, int64_t push_right,
+                          int64_t unit, void* stream) {
   const Ring g{D,  d0, Dl, Lb, Hb, pad_rows,
-               (own ? Lb : 0) + 2 * Hb + pad_rows, row_bytes, own != 0};
+               (own ? Lb : 0) + 2 * Hb + pad_rows, row_bytes, own != 0,
+               push_left != 0, push_right != 0};
   const Peers peers{left, right};
   const int shift = unit == 16 ? 4 : unit == 8 ? 3 : unit == 4 ? 2 : -1;
   const int64_t n_chunks =
@@ -319,8 +332,9 @@ extern "C" int ring_shift(const void* x, void* out, void* left, void* right,
 // into yb), one X gather. A value pointer may be null: the stacked layout
 // of a process holding only padding rows has no live sub-block. The value
 // pointers and tables are those of the bellunion_matmat_* entry points
-// (csrc/bellunion_spmm.cu); halo, left, right, D, d0 and Dl as
-// ring_shift's out, left, right and geometry (without own rows or pad).
+// (csrc/bellunion_spmm.cu); halo, left, right, D, d0, Dl, push_left and
+// push_right as ring_shift's out, left, right, geometry (without own rows
+// or pad) and flags.
 extern "C" int union_overlap_f32(
     const void* vals_a, const void* vals_b, const void* sb_ptr,
     const void* sb_run, const void* xr_ptr, const void* xr_run,
@@ -328,12 +342,13 @@ extern "C" int union_overlap_f32(
     const void* x, void* ya, void* yb, void* halo, void* left, void* right,
     int64_t two, int64_t n_tiles, int64_t m, int64_t cl, int64_t b,
     int64_t x_max, int64_t D, int64_t d0, int64_t Dl, int64_t Lb,
-    int64_t Hb, int64_t unit, void* stream) {
+    int64_t Hb, int64_t push_left, int64_t push_right, int64_t unit,
+    void* stream) {
   const Tables tb{sb_ptr, sb_run, xr_ptr, xr_run, ucols, tile_ptr, tile_end};
   const Params p = make_params(vals_a, nullptr, vals_b, nullptr, tb, x, ya,
                                yb, m, cl, b, x_max);
   const Ring g{D, d0, Dl, Lb, Hb, 0, 2 * Hb, m * (int64_t)sizeof(float),
-               false};
+               false, push_left != 0, push_right != 0};
   const Peers peers{left, right};
   const int shift = unit == 16 ? 4 : unit == 8 ? 3 : unit == 4 ? 2 : -1;
   float* h = static_cast<float*>(halo);

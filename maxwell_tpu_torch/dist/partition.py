@@ -50,10 +50,14 @@ Halo transports (`halo_impl`), chosen as the reference chooses them:
                   reference.
 A halo deeper than a shard (H > L, tiny or unordered problems) takes the
 gather window (plain torch; across processes on an all-gather of X), and
-H = 0 (one shard) needs no halo. Synthetic `dcn_links` select the
-reference's DCN-first schedule (plain torch on the gather window; the order
-of the copies changes nothing, so it equals the plain transport bit for
-bit).
+H = 0 (one shard) needs no halo. `dcn_links`, the links that cross hosts
+(from the mesh's mesh_topology_report, or given as a test seam), select
+the reference's DCN-first schedule: in one process plain torch on the
+window's slices; across processes the link's own transport (each
+transport above), which posts the sides that cross hosts first, over the
+host-staged route (kernels/halo.py HaloLink), and gathers nothing. The
+order of the copies changes nothing, so it equals the plain transport bit
+for bit.
 
 The gradient projector's node vectors are replicated in the reference;
 here they are the projector of the whole problem, its G^T summed per node
@@ -307,7 +311,7 @@ class DistPencil:
             if self.halo_impl == "rdma":
                 return _halo.ring_shift(X.contiguous(), self.D, Hb, own,
                                         pad_rows, self.link)
-            if self.dcn_links:
+            if self.dcn_links and self.link is None:
                 return self._exchange_dcn(X, own, pad_rows)
             return _halo.ppermute(X, self.D, Hb, own, pad_rows, self.link)
         # H > L: the gather window; H = 0: no halo
@@ -325,10 +329,12 @@ class DistPencil:
         return left[sl], right[sl]
 
     def _exchange_dcn(self, X, own, pad_rows):
-        """The reference's DCN-first schedule: the copies over links that
-        cross hosts (positions p of link (p, p + 1) in dcn_links) first,
-        then the others; each part is zero where the other copies, so
-        their sum is the plain transport's result."""
+        """The reference's DCN-first schedule in one process: the copies
+        over links that cross hosts (positions p of link (p, p + 1) in
+        dcn_links) first, then the others; each part is zero where the
+        other copies, so their sum is the plain transport's result. Across
+        processes the link's transports post their host-crossing sides
+        first themselves."""
         left, right = self._window(X)
         dcn = set(self.dcn_links)
         shape = (self.Dl, 1, 1)
@@ -502,8 +508,9 @@ def partition_problem(
 
     reorder=True applies RCM so halos are shallow; the permutation is kept
     on the pencil (`perm`). dcn_links: positions p whose link (p, p + 1)
-    crosses hosts (a test seam, as in the reference; a mesh of shards on
-    one host has none, mesh_topology_report).
+    crosses hosts; None takes them from the mesh's mesh_topology_report,
+    as the reference does (a mesh on one host has none), and a tuple
+    given here is a test seam, as in the reference.
     """
     if kernel not in _KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
@@ -515,6 +522,12 @@ def partition_problem(
             raise ValueError(f"mesh has {mesh.D} shards, asked for {n_shards}")
         device = mesh.device
         group = mesh.group
+        if dcn_links is None:
+            from maxwell_tpu_torch.dist.mesh import mesh_topology_report
+
+            dcn_links = tuple(
+                p for p in mesh_topology_report(mesh)["dcn_link_positions"]
+                if p < n_shards - 1)
     device = torch.device("cuda" if device is None else device)
     dcn_links = tuple(dcn_links or ())
     if block is None:

@@ -9,6 +9,7 @@ rank imports the module of its target function, which must import no more
 than the port.
 
     apply_checks(spec, D, procs, device, cases, widths, seed)
+    link_checks(spec, D, procs, device, cases, m, seed)
     padding_rank_overlap(spec, D, procs, device, widths, seed)
     solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs)
     exchange_bench(spec, D, procs, widths, seed, reps)   (the card)
@@ -19,6 +20,7 @@ than the port.
     checkpoint_run(of, D, procs, device, path, lobpcg_kwargs)
     cli(argv)                                            (cli/run.py)
     sequence(calls)                                      several in one spawn
+    places()                                             every rank's place
     raise_on(rank, message)                              the failure drill
 
 The solve tasks take the distributed solvers by name: "lobpcg_dist",
@@ -132,6 +134,40 @@ def apply_checks(spec, D, procs, device, cases, widths=(1, 3), seed=0):
             res[m] = r
         dp.close()
         out[(kernel, impl, dtype)] = res
+    return out
+
+
+def link_checks(spec, D, procs, device, cases, m=3, seed=0):
+    """Each rank's link on the pencil of `spec` for each case (kernel,
+    halo_impl, dtype): its mesh's topology report, the pencil's dcn_links,
+    its sides' routes and which cross hosts, and what one exchange
+    ([own | left | right | pad] and [left | right]) and one K apply moved:
+    the change of each link counter (comm_model.link_volumes) over each.
+    {(kernel, halo_impl, dtype): [per rank]}."""
+    from maxwell_tpu_torch.bench.comm_model import link_volumes
+    from maxwell_tpu_torch.dist import mesh_topology_report
+
+    out = {}
+    for kernel, impl, dtype in cases:
+        mesh, dp = pencil(spec, D, procs, device, kernel, impl, dtype)
+        X = block(dp, m, seed + m)
+        link = dp.link
+        moved = {}
+        for name, fn in (("exchange_own", lambda: dp.exchange_halos(X)),
+                         ("exchange_lr", lambda: dp._exchange(X, False, 0)),
+                         ("K", lambda: dp.K_mm(X))):
+            v0 = link_volumes(link)
+            fn()
+            v1 = link_volumes(link)
+            moved[name] = {k: v1[k] - v0[k] for k in v1
+                           if not k.endswith("_s")}
+        mine = {"rank": mesh.rank, "report": mesh_topology_report(mesh),
+                "dcn_links": list(dp.dcn_links),
+                "routes": link.routes if link else None,
+                "crosses": dict(link.crosses) if link else None,
+                "moved": moved}
+        out[(kernel, impl, dtype)] = _every(dp, mine)
+        dp.close()
     return out
 
 
@@ -250,20 +286,37 @@ def solve_checks(spec, D, procs, device, kernel, halo_impl, dtype, runs,
     return out
 
 
-def _timed(link, fn, reps):
-    """(median host ms of fn() over `reps` synchronized calls, the barrier
-    wait a exchange of the link over them, 0 without a link)."""
-    w0, e0 = (link.wait_s, link.exchanges) if link else (0.0, 0)
+def _timed(link, fn, reps) -> dict:
+    """fn() over `reps` synchronized calls, each timed on the host and
+    split by the link's counters: the medians of the whole call (`ms`),
+    of its barrier wait (`wait_ms`), of its host-staged transfers
+    (`host_staged_ms`: post and land) and of the rest (`ipc_side_ms`: the
+    launch with its IPC pushes, the local copies, the stream syncs), each
+    split 0 without a link; with a link also the routes of its sides and
+    the bytes an exchange pushed on the host and sent across hosts."""
+    from maxwell_tpu_torch.bench.comm_model import link_volumes
+
     torch.cuda.synchronize()
-    t = []
+    calls, v0 = [], link_volumes(link)
     for _ in range(reps):
+        a = link_volumes(link)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        t.append((time.perf_counter() - t0) * 1e3)
-    wait = ((link.wait_s - w0) * 1e3 / max(link.exchanges - e0, 1)
-            if link else 0.0)
-    return float(np.median(t)), wait
+        t = time.perf_counter() - t0
+        b = link_volumes(link)
+        wait, staged = b["wait_s"] - a["wait_s"], b["host_s"] - a["host_s"]
+        calls.append((t, wait, staged, t - staged - wait))
+    out = dict(zip(("ms", "wait_ms", "host_staged_ms", "ipc_side_ms"),
+                   (float(np.median(c)) * 1e3 for c in zip(*calls))))
+    if link is not None:
+        v1 = link_volumes(link)
+        n = max(v1["exchanges"] - v0["exchanges"], 1)
+        out.update(routes=link.routes,
+                   bytes_pushed=(v1["bytes_pushed"] - v0["bytes_pushed"]) // n,
+                   bytes_across_hosts=(v1["bytes_across_hosts"]
+                                       - v0["bytes_across_hosts"]) // n)
+    return out
 
 
 def exchange_bench(spec, D, procs, widths=(9, 1), seed=0, reps=20):
@@ -276,9 +329,13 @@ def exchange_bench(spec, D, procs, widths=(9, 1), seed=0, reps=20):
     host time of a whole exchange, the fences included, and of the plain
     transport, the kernel's device time (torch.profiler: under time-sliced
     contexts its span on the card), the host time a rank waits in the
-    barriers, and the bytes the rank's launch reads (X) and writes.
-    {"rows": [...], "outputs": {(name, m): array}, "seconds": the task's
-    host time}."""
+    barriers, and the bytes the rank's launch reads (X) and writes; and
+    per rank (`sides`, a list over the ranks) the kernel exchange's timing
+    (_timed: whole, host-staged, barrier wait and the rest, with the
+    routes and the bytes pushed on the host and sent across hosts across
+    processes) and that rank's `kernel_device_ms`. {"rows": [...],
+    "outputs": {(name, m): array}, "counts": each rank's launches in the
+    task, "seconds": the task's host time}."""
     from maxwell_tpu_torch.dist import make_mesh, partition_problem
     from maxwell_tpu_torch.kernels import halo, spmm
     from maxwell_tpu_torch.sparse.reorder import PermutedProblem
@@ -291,6 +348,7 @@ def exchange_bench(spec, D, procs, widths=(9, 1), seed=0, reps=20):
                                  f"{oks}")
 
     t0 = time.perf_counter()
+    reset_counts()
     problem = PermutedProblem(build_problem(spec))
     mesh = make_mesh(D, "cuda", procs)
     rows, outputs = [], {}
@@ -325,8 +383,8 @@ def exchange_bench(spec, D, procs, widths=(9, 1), seed=0, reps=20):
                 agree(f"{name} vs the plain transport", m,
                       bool(torch.equal(got, plain())))
                 outputs[(name, m)] = whole(dp, got)
-                ms, wait_ms = _timed(link, kern, reps)
-                plain_ms, plain_wait_ms = _timed(link, plain, reps)
+                sides = _timed(link, kern, reps)
+                plain_t = _timed(link, plain, reps)
                 with profiling.trace(None) as prof:
                     for _ in range(reps):
                         kern()
@@ -334,20 +392,24 @@ def exchange_bench(spec, D, procs, widths=(9, 1), seed=0, reps=20):
                        else "union_overlap_kernel")
                 dev = [k for k in profiling.top_kernels(prof, None)
                        if tag in k["name"]]
+                sides["kernel_device_ms"] = (
+                    sum(k["device_ms"] for k in dev)
+                    / max(sum(k["launches"] for k in dev), 1))
                 rows.append({
                     "kernel": name, "m": m, "procs": procs, "own": own,
                     "rows_out": got.shape[0],
                     "local_rows": X.shape[0], "bitwise_equal_plain": True,
-                    "exchange_ms": ms, "plain_exchange_ms": plain_ms,
-                    "kernel_device_ms": (
-                        sum(k["device_ms"] for k in dev)
-                        / max(sum(k["launches"] for k in dev), 1)),
-                    "barrier_wait_ms_per_exchange": wait_ms,
-                    "plain_barrier_wait_ms_per_exchange": plain_wait_ms,
+                    "exchange_ms": sides["ms"],
+                    "plain_exchange_ms": plain_t["ms"],
+                    "kernel_device_ms": sides["kernel_device_ms"],
+                    "barrier_wait_ms_per_exchange": sides["wait_ms"],
+                    "plain_barrier_wait_ms_per_exchange": plain_t["wait_ms"],
                     "bytes_read_x": X.numel() * 4,
-                    "bytes_written": got.numel() * 4})
+                    "bytes_written": got.numel() * 4,
+                    "sides": _every(dp, sides)})
         dp.close()
     return {"rows": rows, "outputs": outputs,
+            "counts": _every(dp, kernel_counts()),
             "seconds": time.perf_counter() - t0}
 
 
@@ -361,6 +423,20 @@ def cli(argv):
 def sequence(calls):
     """[fn(*args) for fn, args in calls]: several tasks in one spawn."""
     return [fn(*args) for fn, args in calls]
+
+
+def places() -> list:
+    """Every rank's place, in rank order: {"rank", "procs", "host",
+    "hosts", "host_ranks", "device", "pid"}."""
+    import os
+
+    from maxwell_tpu_torch.dist.procs import current
+
+    g = current()
+    return g.all_gather_object({
+        "rank": g.rank, "procs": g.procs, "host": g.host, "hosts": g.hosts,
+        "host_ranks": list(g.host_ranks), "device": str(g.device),
+        "pid": os.getpid()})
 
 
 def raise_on(rank: int, message: str) -> None:
@@ -421,7 +497,8 @@ def slab_checks(dims, D, procs, device, cases, widths=(1, 3), seed=0):
     of both operators) and the spectral solves (solve at alpha 6,
     solve_sigma at per-column shifts). Each rank's link counters, lists
     over the ranks: around one fused apply "push_bytes_KM" (bytes sent to
-    the neighbours) and "gathers_KM"; the bytes gathered by one projection
+    the neighbours on the rank's host), "across_bytes_KM" (to those on
+    another host) and "gathers_KM"; the bytes gathered by one projection
     ("gather_bytes_project") and, vacuum, one spectral solve
     ("gather_bytes_solve"). {case index: {m: {name: array}}}."""
     from maxwell_tpu_torch.solvers.spectral import DistSpectralShift
@@ -443,11 +520,14 @@ def slab_checks(dims, D, procs, device, cases, widths=(1, 3), seed=0):
                     sp, (link.bytes_gathered - b0) if link else 0))
 
             p0 = link.bytes_pushed if link else 0
+            a0 = link.bytes_across_hosts if link else 0
             g0 = link.gathers if link else 0
             KM = sp.KM_mm(X)
             r = {"KM": np.stack([slab_whole(sp, Z) for Z in KM]),
                  "push_bytes_KM": np.asarray(_every(
                      sp, (link.bytes_pushed - p0) if link else 0)),
+                 "across_bytes_KM": np.asarray(_every(
+                     sp, (link.bytes_across_hosts - a0) if link else 0)),
                  "gathers_KM": np.asarray(_every(
                      sp, (link.gathers - g0) if link else 0)),
                  "ext": slab_whole(sp, sp._ext_block(X).reshape(-1, m)),
@@ -569,9 +649,11 @@ def slab_bench(grid, D, procs, widths=(9, 1), seed=0, reps=20):
     apply (torch.profiler: under time-sliced contexts its span on the
     card), the host time of a whole exchange (fences included), of a
     whole K4 apply and of the plain apply, the barrier wait a exchange,
-    K4's launches a apply, and the bytes and operations of the rank's
-    apply for its bound. {"rows": [...] (rank 0's, with the per-rank
-    lists), "outputs": {(name, m): array}, "seconds"}."""
+    K4's launches a apply, the bytes and operations of the rank's apply
+    for its bound, and the ghost exchange's timing (`sides`, _timed).
+    {"rows": [...]
+    (rank 0's, with the per-rank lists), "outputs": {(name, m): array},
+    "seconds"}."""
     from maxwell_tpu_torch.kernels import stencil_taps as kst
     from maxwell_tpu_torch.utils import profiling
 
@@ -597,11 +679,11 @@ def slab_bench(grid, D, procs, widths=(9, 1), seed=0, reps=20):
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         scale = max(b.abs().max().item() for b in want)
         outputs[("KM", m)] = np.stack([slab_whole(sp, Y) for Y in got])
-        exchange_ms, wait_ms = _timed(link, lambda: sp._ext_block(X), reps)
-        apply_ms, apply_wait_ms = _timed(
-            link, lambda: sp._taps_apply_ext(X, True, True), reps)
-        plain_ms, _ = _timed(
-            link, lambda: sp._taps_apply_plain(X, True, True), reps)
+        sides = _timed(link, lambda: sp._ext_block(X), reps)
+        apply_t = _timed(link, lambda: sp._taps_apply_ext(X, True, True),
+                         reps)
+        plain_t = _timed(link, lambda: sp._taps_apply_plain(X, True, True),
+                         reps)
         with profiling.trace(None) as prof:
             for _ in range(reps):
                 sp._taps_apply_ext(X, True, True)
@@ -613,12 +695,14 @@ def slab_bench(grid, D, procs, widths=(9, 1), seed=0, reps=20):
                 "kernel_device_ms_per_apply":
                     sum(k["device_ms"] for k in dev) / reps,
                 "launches_per_apply": launches,
-                "exchange_ms": exchange_ms,
-                "barrier_wait_ms_per_exchange": wait_ms,
-                "apply_ms": apply_ms, "apply_barrier_wait_ms": apply_wait_ms,
-                "plain_ms": plain_ms,
+                "exchange_ms": sides["ms"],
+                "barrier_wait_ms_per_exchange": sides["wait_ms"],
+                "apply_ms": apply_t["ms"],
+                "apply_barrier_wait_ms": apply_t["wait_ms"],
+                "plain_ms": plain_t["ms"],
                 "bytes": rows_local * m * 4 * 3 + rows_local * 4,
-                "flops": 2 * live * taps_per_row * 2 * m}
+                "flops": 2 * live * taps_per_row * 2 * m,
+                "sides": sides}
         every = _every(sp, mine)
         if not all(e["within_tol"] for e in every):
             raise AssertionError(f"K4 on the slabs m={m}: "

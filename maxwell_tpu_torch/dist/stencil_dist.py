@@ -47,8 +47,9 @@ Applies:
       (Ex 1..c, Ey/Ez 1..c+1). Across processes on the card the rank's
       extended block is a registered buffer of its link: each neighbour
       pushes its three edge planes straight into the ghost slots (peer
-      copies between the link's two fences), and K4 reads the block where
-      it lies; on the CPU the planes cross over gloo. Every CPU apply and
+      copies between the link's two fences; from a neighbour on another
+      host the link's host-staged route lands them there), and K4 reads
+      the block where it lies; on the CPU the planes cross over gloo. Every CPU apply and
       every f64 apply runs
       the plain version, torch slices in tap order as the reference's jnp:
       a rule on device and dtype, not a fallback; whatever the kernel
@@ -335,8 +336,9 @@ class DistStencilPencil3D:
         one's Ex[0], Ey[1], Ez[1]; zeros at the chain ends). Across a rank
         boundary the planes come over the link: on the card the block is
         the rank's registered buffer (valid until its next exchange of that
-        width), its neighbours' edge planes pushed into its ghost slots; on
-        the CPU they cross over gloo."""
+        width), its neighbours' edge planes pushed into its ghost slots by
+        a neighbour on this host, and landed there by the host-staged route
+        from one on another host; on the CPU they cross over gloo."""
         link, m, Dl = self.link, X.shape[1], self.Dl
         on_card = link is not None and X.device.type == "cuda"
         bufs = (link.buffers(self.n_ext, m, X.dtype) if on_card else None)
@@ -347,6 +349,7 @@ class DistStencilPencil3D:
         sides = [(-1, 0) if k == 0 else (-2, 1) for k in range(3)]
         to_left = [G[0, right] for G, (_, right) in zip(grids, sides)]
         to_right = [G[-1, left] for G, (left, _) in zip(grids, sides)]
+        flat = lambda ps: torch.cat([p.reshape(-1) for p in ps])
 
         def local():
             for G, E, (left, right) in zip(grids, views, sides):
@@ -362,7 +365,6 @@ class DistStencilPencil3D:
                 E[-1, -1] = 0.0
         elif not on_card:
             local()
-            flat = lambda ps: torch.cat([p.reshape(-1) for p in ps])
             left_in, right_in = link.swap(flat(to_left), flat(to_right))
             start = 0
             for E in views:
@@ -374,19 +376,28 @@ class DistStencilPencil3D:
         else:
             link.count_push(sum(p.numel() for p in to_left)
                             * X.element_size())
-            peers = [None if t is None else self._ext_views(
-                t.view(Dl, self.n_ext, m)) for t in (bufs.left, bufs.right)]
+            # the neighbours on this host, whose ghost slots this rank fills
+            peers = {side: self._ext_views(
+                link.peer(bufs, side).view(Dl, self.n_ext, m))
+                for side, push in zip(("left", "right"), link.pushes())
+                if push}
             with link.exchange():
+                # the sides that cross hosts first (host-staged)
+                pending = link.post(
+                    {"left": flat(to_left), "right": flat(to_right)},
+                    {"left": [E[0, 0] for E in views],
+                     "right": [E[-1, -1] for E in views]})
                 local()
                 for k, E in enumerate(views):
                     if link.first:
                         E[0, 0] = 0.0
-                    else:
-                        peers[0][k][-1, -1].copy_(to_left[k])
+                    elif not link.crosses["left"]:
+                        peers["left"][k][-1, -1].copy_(to_left[k])
                     if link.last:
                         E[-1, -1] = 0.0
-                    else:
-                        peers[1][k][0, 0].copy_(to_right[k])
+                    elif not link.crosses["right"]:
+                        peers["right"][k][0, 0].copy_(to_right[k])
+                link.land(pending)
         return blk
 
     def _owned(self, Y):

@@ -126,6 +126,7 @@ def assembled_branches(n_devices: int, device="cuda", procs: int = 1
         mesh_topology_report,
         partition_problem,
     )
+    from maxwell_tpu_torch.dist.procs import current
     from maxwell_tpu_torch.problems import RectCavity2D
     from maxwell_tpu_torch.solvers.dist_solve import (
         lanczos_dist,
@@ -138,9 +139,10 @@ def assembled_branches(n_devices: int, device="cuda", procs: int = 1
     dev = mesh.device
     f32 = torch.float32
     checks, check, same = _checker(n_devices, mesh.group)
+    group = current()  # the spawn's group: the hosts its ranks span
     check("mesh_processes",
-          mesh_topology_report(mesh)["real"] == {"devices": procs,
-                                                 "hosts": 1})
+          mesh_topology_report(mesh)["real"] == {
+              "devices": procs, "hosts": group.hosts if group else 1})
 
     # tiny shapes; grids chosen so each shard still has real halo traffic
     cav = RectCavity2D(nx=16, ny=16)
@@ -192,6 +194,7 @@ def assembled_branches(n_devices: int, device="cuda", procs: int = 1
         dcn_links=(n_devices // 2,) if n_devices > 1 else (), mesh=mesh)
     check("lobpcg_dist_dcn",
           _nev_of(lobpcg_dist(dp_dcn, mesh, precond_alpha=10.0, **lob), 2))
+    dp_dcn.close()
     del dp_dcn
 
     check("lobpcg_dist_staged", _nev_of(lobpcg_dist(

@@ -48,8 +48,8 @@ _SIGNATURES = {
     # stencil_taps.cu
     "stencil_taps_f32": [_P] * 8,
     # halo.cu
-    "ring_shift": [_P] * 4 + [_I] * 9 + [_P],
-    "union_overlap_f32": [_P] * 15 + [_I] * 12 + [_P],
+    "ring_shift": [_P] * 4 + [_I] * 11 + [_P],
+    "union_overlap_f32": [_P] * 15 + [_I] * 14 + [_P],
     "ipc_alloc": [_I] * 2 + [_P] * 2,
     "ipc_open": [_P, _I, _P],
     "ipc_close": [_P, _I],

@@ -14,26 +14,41 @@ next shard's first Hb rows; the chain ends get zeros, written, not left as
 the buffer held them.
 
 One process may hold all D shards (link=None), or P processes hold D / P
-each (dist/procs.py): then X is the rank's (D/P * Lb, m) rows and `link`,
-a HaloLink, names the rank's place and owns its exchange buffers. Across
-processes the kernels push: the rank's first and last Hb rows go straight
-into its neighbours' outputs, which each rank allocates once per output
-shape with a cudaMalloc of its own, exports as an IPC handle, and opens
-from its neighbours over the gloo group (csrc/halo.cu). An exchange then
-returns the rank's registered buffer, valid until its next exchange of the
-same shape. Around each such exchange the link synchronizes the stream and
-meets the other ranks at a barrier, before (no neighbour still reads the
-buffer a push overwrites) and after (no rank reads before every push has
-landed); `HaloLink.wait_s` is the time spent in those barriers. The plain
-transport between ranks is a peer `copy_` into the mapped buffers on the
-card, and gloo's isend/irecv on the CPU. The slab-sharded pencil
+each (dist/procs.py), on one host or on several: then X is the rank's
+(D/P * Lb, m) rows and `link`, a HaloLink, names the rank's place and owns
+its exchange buffers. Each output shape has a registered buffer on every
+rank, a cudaMalloc of its own, which an exchange returns, valid until the
+rank's next exchange of that shape. Each side of a rank (the previous and
+the next rank) takes a route of its own:
+  - a neighbour on this host: the kernels push, the rank's first and last
+    Hb rows going straight into the neighbour's registered buffer, which
+    the neighbour exports as an IPC handle and this rank opens (traded
+    over the gloo group, csrc/halo.cu);
+  - a neighbour on another host, where an IPC handle does not open: the
+    host-staged route. The rank copies its edge rows to the host and
+    sends them with gloo's isend, and receives the neighbour's into a host
+    buffer that it copies into its own registered buffer's slot. The
+    kernels skip that side (a flag of their own). The rank posts these
+    transfers before its local pushes and its launch, so they run beside
+    them (beside K5's interior SpMM): the reference's DCN-first order.
+Around each exchange the link synchronizes the stream and meets the other
+ranks at a barrier, before (no neighbour still reads the buffer a push
+overwrites) and after (no rank reads before every push has landed; the
+host-staged copies land before the closing fence); `HaloLink.wait_s` is
+the time spent in those barriers, `host_s` the time in the host-staged
+transfers. The plain transport between ranks is a peer `copy_` into the
+mapped buffers on the card (the host-staged route across hosts), and
+gloo's isend/irecv on the CPU. The slab-sharded pencil
 (dist/stencil_dist.py) takes the same link: its ghost-extended blocks are
 registered buffers its neighbours push their edge planes into, and
-`HaloLink.swap` carries one plane across each rank boundary each way. The
-link counts what it moves: `bytes_pushed` to the neighbours, and the
-reductions' all-gathers (`gathers`, `bytes_gathered`, `gather_s`). On the
-card a gather goes through registered buffers too, each rank's mapped in
-every rank, device to device; on the CPU over gloo.
+`HaloLink.swap` carries one plane across each rank boundary each way,
+each side by its route. The link counts what it moves: `bytes_pushed` to
+the neighbours on its host, `bytes_across_hosts` to those on another, and
+the reductions' all-gathers (`gathers`, `bytes_gathered`, `gather_s`). On
+the card a gather goes through registered buffers too, each rank's mapped
+in every rank, device to device, where every rank shares one host; across
+hosts, and on the CPU, over gloo on host copies, in rank order, so it
+gathers the same values.
 
 `ring_shift` returns, per shard, [own Lb rows if own | left Hb | right Hb |
 pad_rows zero rows] stacked over the shards: with own and pad_rows = b, the
@@ -279,9 +294,16 @@ class HaloLink:
         self._gathers: dict[tuple, list] = {}  # every rank's, mapped here
         self._owned: list[int] = []  # pointers this rank allocated
         self._opened: list[int] = []  # neighbours' pointers it mapped
+        r = group.rank
+        # which sides lead to another host (the host-staged route)
+        self.crosses = {side: 0 <= q < group.procs
+                        and group.host_of(q) != group.host
+                        for side, q in (("left", r - 1), ("right", r + 1))}
         self.exchanges = 0  # exchanges through the registered buffers
         self.wait_s = 0.0  # host seconds in their barriers
-        self.bytes_pushed = 0  # bytes this rank sent its neighbours
+        self.bytes_pushed = 0  # bytes this rank sent its neighbours on its host
+        self.bytes_across_hosts = 0  # bytes it sent to those on another host
+        self.host_s = 0.0  # host seconds in the host-staged transfers
         self.gathers = 0  # all-gathers of partials (the reductions)
         self.bytes_gathered = 0  # the bytes those gathers returned
         self.gather_s = 0.0  # host seconds in them
@@ -293,6 +315,17 @@ class HaloLink:
     @property
     def last(self) -> bool:
         return self.d0 + self.Dl == self.D
+
+    @property
+    def routes(self) -> dict:
+        """{"left", "right"}: each side's route, None at a chain end; on
+        the card "ipc" (a neighbour on this host) or "host_staged" (one on
+        another host), on the CPU "gloo"."""
+        ends = {"left": self.first, "right": self.last}
+        cuda = self.group.device.type == "cuda"
+        return {side: None if ends[side] else "gloo" if not cuda
+                else "host_staged" if self.crosses[side] else "ipc"
+                for side in ends}
 
     def buffers(self, rows: int, m: int, dtype: torch.dtype) -> _Buffers:
         """The registered (Dl * rows, m) output of this rank and its
@@ -306,7 +339,9 @@ class HaloLink:
         its neighbours' mapped (see buffers)."""
         if key not in self._buffers:
             r = self.group.rank
-            views = self._alloc(shape, dtype, (r - 1, r + 1))
+            views = self._alloc(shape, dtype, [
+                q for q, side in ((r - 1, "left"), (r + 1, "right"))
+                if not self.crosses[side]])
             self._buffers[key] = _Buffers(views[r], views.get(r - 1),
                                           views.get(r + 1))
         return self._buffers[key]
@@ -314,8 +349,9 @@ class HaloLink:
     def _alloc(self, shape, dtype: torch.dtype, peers) -> dict:
         """{rank: view}: a new buffer of this rank (a cudaMalloc of its
         own, exported as an IPC handle) and the buffers of the ranks
-        `peers` (those that exist) mapped here. A collective: every rank
-        allocates and trades its handle over the gloo group."""
+        `peers` (those that exist, all on this host) mapped here. A
+        collective: every rank allocates and trades its handle over the
+        gloo group, whatever it maps."""
         dev = self.group.device
         if dev.type != "cuda":
             raise ValueError("registered exchange buffers live on the card")
@@ -336,14 +372,94 @@ class HaloLink:
             views[r] = _view(peer.value, shape, dtype, dev)
         return views
 
-    def count_push(self, nbytes: int) -> None:
-        """Count `nbytes` sent to each neighbour this rank has."""
-        self.bytes_pushed += nbytes * ((not self.first) + (not self.last))
+    def peer(self, bufs: _Buffers, side: str) -> torch.Tensor:
+        """bufs' neighbour buffer on `side`, which must be a neighbour on
+        this host (route "ipc"): raises where its buffer is not mapped, so
+        no side of an exchange is skipped unseen."""
+        t = getattr(bufs, side)
+        if t is None:
+            raise RuntimeError(
+                f"rank {self.group.rank}: the {side} neighbour shares this "
+                "host but its buffer is not mapped")
+        return t
 
+    def pushes(self) -> tuple[int, int]:
+        """(left, right): 1 where a launch pushes that side into the
+        neighbour's mapped buffer (a neighbour on this host), 0 at a chain
+        end or where the host-staged route carries it."""
+        return (int(not self.first and not self.crosses["left"]),
+                int(not self.last and not self.crosses["right"]))
+
+    def count_push(self, nbytes: int) -> None:
+        """Count `nbytes` sent to each neighbour this rank has: into
+        bytes_pushed on this host, bytes_across_hosts to another."""
+        for side, end in (("left", self.first), ("right", self.last)):
+            if end:
+                continue
+            if self.crosses[side]:
+                self.bytes_across_hosts += nbytes
+            else:
+                self.bytes_pushed += nbytes
+
+    def post(self, send: dict, into: dict):
+        """Start the host-staged transfers of an exchange, inside its
+        fences and before anything else of it: for each side that crosses
+        hosts, send[side] (a tensor on the card) copied to the host and
+        sent to that neighbour, and the neighbour's rows received into a
+        host buffer, to land in the views into[side] (this rank's
+        registered buffer, in order). Returns what `land` completes."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        r = self.group.rank
+        ops, landing = [], []
+        for side, q in (("left", r - 1), ("right", r + 1)):
+            if not self.crosses[side]:
+                continue
+            h = send[side].detach().to("cpu").reshape(-1)
+            buf = torch.empty(sum(v.numel() for v in into[side]),
+                              dtype=h.dtype)
+            ops += [dist.P2POp(dist.isend, h, q),
+                    dist.P2POp(dist.irecv, buf, q)]
+            landing.append((buf, into[side], h))
+        reqs = dist.batch_isend_irecv(ops) if ops else []
+        self.host_s += time.perf_counter() - t0
+        return reqs, landing
+
+    def land(self, pending) -> None:
+        """Wait for the transfers `post` started and copy what came into
+        the registered buffer (on the stream, before the closing fence)."""
+        t0 = time.perf_counter()
+        reqs, landing = pending
+        for req in reqs:
+            req.wait()
+        for buf, views, _ in landing:
+            start = 0
+            for v in views:
+                v.copy_(buf[start:start + v.numel()].view(v.shape))
+                start += v.numel()
+        self.host_s += time.perf_counter() - t0
+
+    def post_halo(self, X: torch.Tensor, out: torch.Tensor, own_rows: int,
+                  rows: int):
+        """post() for a halo section: this rank's first and last Hb rows
+        of X, into out's slots, the first local shard's left halo and the
+        last one's right (out: per shard [own_rows | left Hb | right Hb |
+        ...], `rows` rows)."""
+        Hb, o = self.Hb, own_rows
+        ov = out.view(self.Dl, rows, X.shape[1])
+        return self.post({"left": X[:Hb], "right": X[-Hb:]},
+                         {"left": [ov[0, o:o + Hb]],
+                          "right": [ov[-1, o + Hb:o + 2 * Hb]]})
+
+    @contextlib.contextmanager
     def exchange(self):
         """The context of a push into the neighbours' registered buffers: a
         fence before and after (counted in `exchanges`)."""
-        return _fenced(self)
+        self.fence()
+        yield
+        self.fence()
+        self.exchanges += 1
 
     def fence(self) -> None:
         """Synchronize this rank's stream, then meet every rank at a
@@ -356,11 +472,12 @@ class HaloLink:
 
     def gather(self, X: torch.Tensor) -> torch.Tensor:
         """Every rank's rows, stacked: the (D * Lb, ...) global X (counted
-        in gathers, bytes_gathered and gather_s). A CPU X goes over gloo
-        (host copies); a CUDA X through registered buffers that every rank
-        maps (`_gather_on_card`)."""
+        in gathers, bytes_gathered and gather_s). A CUDA X where every rank
+        shares one host goes through registered buffers that every rank
+        maps (`_gather_on_card`); otherwise over gloo (host copies)."""
         t0 = time.perf_counter()
-        out = (self._gather_on_card(X) if X.device.type == "cuda"
+        on_card = X.device.type == "cuda" and self.group.hosts == 1
+        out = (self._gather_on_card(X) if on_card
                else self.group.all_gather(X)).reshape(-1, *X.shape[1:])
         self.gather_s += time.perf_counter() - t0
         self.gathers += 1
@@ -401,39 +518,49 @@ class HaloLink:
         """(the previous rank's `last`, the next rank's `first`), zeros at
         the chain ends: what crosses each rank boundary in each direction.
         Every rank passes tensors of the same shapes. On the CPU gloo
-        isend/irecv into new tensors; on the card a peer copy_ of each into
-        the neighbour's registered two-slot buffer between two fences, and
-        views of this rank's slots returned (valid until its next swap of
-        that size)."""
+        isend/irecv into new tensors; on the card, between two fences, a
+        peer copy_ of each into the neighbour's registered two-slot buffer
+        on this host (the host-staged route into this rank's own slots
+        across hosts, posted first), and views of this rank's slots
+        returned (valid until its next swap of that size)."""
         self.count_push(first.numel() * first.element_size())
         if first.device.type == "cpu":
             return self._sendrecv(first, last)
         shape, k = first.shape, first.numel()
         bufs = self._register(("swap", k, first.dtype), (2, k), first.dtype)
         with self.exchange():
+            pending = self.post({"left": first, "right": last},
+                                {"left": [bufs.out[0]],
+                                 "right": [bufs.out[1]]})
             if self.first:
                 bufs.out[0].zero_()
-            else:
-                bufs.left[1].copy_(first.reshape(-1))
+            elif not self.crosses["left"]:
+                self.peer(bufs, "left")[1].copy_(first.reshape(-1))
             if self.last:
                 bufs.out[1].zero_()
-            else:
-                bufs.right[0].copy_(last.reshape(-1))
+            elif not self.crosses["right"]:
+                self.peer(bufs, "right")[0].copy_(last.reshape(-1))
+            self.land(pending)
         return bufs.out[0].view(shape), bufs.out[1].view(shape)
 
     def _sendrecv(self, first: torch.Tensor, last: torch.Tensor):
-        """swap over gloo isend/irecv (the CPU's plain transport)."""
+        """swap over gloo isend/irecv (the CPU's plain transport), the
+        sides that cross hosts posted first."""
         import torch.distributed as dist
 
         r = self.group.rank
         left, right = last.new_zeros(last.shape), first.new_zeros(first.shape)
-        ops = []
+        sides = []
         if not self.first:
-            ops += [dist.P2POp(dist.isend, first.contiguous(), r - 1),
-                    dist.P2POp(dist.irecv, left, r - 1)]
+            sides.append(("left", [dist.P2POp(dist.isend, first.contiguous(),
+                                              r - 1),
+                                   dist.P2POp(dist.irecv, left, r - 1)]))
         if not self.last:
-            ops += [dist.P2POp(dist.isend, last.contiguous(), r + 1),
-                    dist.P2POp(dist.irecv, right, r + 1)]
+            sides.append(("right", [dist.P2POp(dist.isend, last.contiguous(),
+                                               r + 1),
+                                    dist.P2POp(dist.irecv, right, r + 1)]))
+        sides.sort(key=lambda side: not self.crosses[side[0]])
+        ops = [op for _, pair in sides for op in pair]
         for req in dist.batch_isend_irecv(ops) if ops else ():
             req.wait()
         return left, right
@@ -441,9 +568,10 @@ class HaloLink:
     def ppermute(self, X: torch.Tensor, own: bool, pad_rows: int):
         """The plain transport between ranks: per local shard [own rows if
         own | left Hb | right Hb | pad_rows zeros]. On the CPU over gloo
-        into a new tensor; on the card a peer copy_ of this rank's first and
-        last Hb rows into its neighbours' registered buffers, the rest
-        written locally, between two fences."""
+        into a new tensor; on the card, between two fences, a peer copy_
+        of this rank's first and last Hb rows into its neighbours'
+        registered buffers on this host (across hosts the host-staged
+        route, posted first), the rest written locally."""
         Dl, Lb, Hb = self.Dl, self.Lb, self.Hb
         m = X.shape[1]
         Xv = X.reshape(Dl, Lb, m)
@@ -458,6 +586,7 @@ class HaloLink:
         ov = bufs.out.view(Dl, rows, m)
         self.count_push(Hb * m * X.element_size())
         with self.exchange():
+            pending = self.post_halo(X, bufs.out, o, rows)
             if own:
                 ov[:, :o].copy_(Xv)
             ov[1:, o:o + Hb].copy_(Xv[:-1, Lb - Hb:])
@@ -465,14 +594,15 @@ class HaloLink:
             ov[:, o + 2 * Hb:].zero_()
             if self.first:
                 ov[0, o:o + Hb].zero_()
-            else:
-                bufs.left.view(Dl, rows, m)[-1, o + Hb:o + 2 * Hb].copy_(
-                    Xv[0, :Hb])
+            elif not self.crosses["left"]:
+                self.peer(bufs, "left").view(Dl, rows, m)[
+                    -1, o + Hb:o + 2 * Hb].copy_(Xv[0, :Hb])
             if self.last:
                 ov[-1, o + Hb:o + 2 * Hb].zero_()
-            else:
-                bufs.right.view(Dl, rows, m)[0, o:o + Hb].copy_(
-                    Xv[-1, Lb - Hb:])
+            elif not self.crosses["right"]:
+                self.peer(bufs, "right").view(Dl, rows, m)[
+                    0, o:o + Hb].copy_(Xv[-1, Lb - Hb:])
+            self.land(pending)
         return bufs.out
 
     def close(self) -> None:
@@ -511,31 +641,37 @@ def _local(X: torch.Tensor, D: int, Hb: int, link: HaloLink | None):
 
 
 def _output(X: torch.Tensor, rows: int, Dl: int, link: HaloLink | None):
-    """(out, the neighbours' out pointers, the tensors the copy unit must
-    divide): a new (Dl * rows, m) tensor in one process, the link's
-    registered buffers across processes."""
+    """(out, the neighbours' out pointers, the per-side push flags, the
+    tensors the copy unit must divide): a new (Dl * rows, m) tensor in one
+    process, the link's registered buffers across processes. The flags
+    come from the link's routes (HaloLink.pushes), not from the pointers,
+    so the kernel refuses a side on this host whose buffer is not
+    mapped."""
     if link is None:
         out = torch.empty((Dl * rows, X.shape[1]), dtype=X.dtype,
                           device=X.device)
-        return out, (None, None), (X, out)
+        return out, (None, None), (0, 0), (X, out)
     bufs = link.buffers(rows, X.shape[1], X.dtype)
     peers = (bufs.left, bufs.right)
     return (bufs.out, tuple(None if t is None else t.data_ptr()
                             for t in peers),
+            link.pushes(),
             (X, bufs.out, *(t for t in peers if t is not None)))
 
 
 @contextlib.contextmanager
-def _fenced(link: HaloLink | None):
+def _fenced(link: HaloLink | None, X: torch.Tensor, out: torch.Tensor,
+            own_rows: int, rows: int):
     """Around a launch that pushes into the neighbours' buffers: a fence
-    before and after (none in one process)."""
+    before and after, and inside them the host-staged sides posted before
+    the launch and landed after it (nothing in one process)."""
     if link is None:
         yield
         return
-    link.fence()
-    yield
-    link.fence()
-    link.exchanges += 1
+    with link.exchange():
+        pending = link.post_halo(X, out, own_rows, rows)
+        yield
+        link.land(pending)
 
 
 def ring_shift(X: torch.Tensor, D: int, Hb: int, own: bool = False,
@@ -555,15 +691,15 @@ def ring_shift(X: torch.Tensor, D: int, Hb: int, own: bool = False,
     if not X.is_contiguous():
         raise ValueError("X must be contiguous")
     rows = (Lb if own else 0) + 2 * Hb + pad_rows
-    out, peers, aligned = _output(X, rows, Dl, link)
+    out, peers, push, aligned = _output(X, rows, Dl, link)
     row_bytes = X.shape[1] * X.element_size()
     unit = copy_unit(ring_shift_plan(D, Lb, Hb, own, pad_rows, row_bytes)[0],
                      *aligned)
     if link is not None:
         link.count_push(Hb * row_bytes)
-    with _fenced(link):
+    with _fenced(link, X, out, Lb if own else 0, rows):
         _launch("ring_shift", X, X.data_ptr(), out.data_ptr(), *peers, D,
-                d0, Dl, Lb, Hb, row_bytes, pad_rows, int(own), unit)
+                d0, Dl, Lb, Hb, row_bytes, pad_rows, int(own), *push, unit)
         ring_shift.launches += 1
     return out
 
@@ -590,18 +726,18 @@ def union_interior_overlap(A: BELLUnion, X: torch.Tensor, D: int, Hb: int,
     m = X.shape[1]
     Ys = [torch.empty((A.n_padded, m), dtype=torch.float32, device=X.device)
           for _ in streams]
-    halo, peers, aligned = _output(X, 2 * Hb, Dl, link)
+    halo, peers, push, aligned = _output(X, 2 * Hb, Dl, link)
     vb = pairs[1][0].data_ptr() if len(pairs) == 2 else None
     yb = Ys[1].data_ptr() if len(Ys) == 2 else None
     unit = copy_unit(ring_shift_plan(D, Lb, Hb, False, 0, m * 4)[0],
                      *aligned)
     if link is not None:
         link.count_push(Hb * m * 4)
-    with _fenced(link):
+    with _fenced(link, X, halo, 0, 2 * Hb):
         _launch("union_overlap_f32", X, pairs[0][0].data_ptr(), vb,
                 *_tables(A), X.data_ptr(), Ys[0].data_ptr(), yb,
                 halo.data_ptr(), *peers, len(streams) - 1, A.n_tiles, m,
-                A.cl, A.b, A.live.x_max, D, d0, Dl, Lb, Hb, unit)
+                A.cl, A.b, A.live.x_max, D, d0, Dl, Lb, Hb, *push, unit)
         union_interior_overlap.launches += 1
     return (*Ys, halo)
 

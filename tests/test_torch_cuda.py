@@ -734,6 +734,63 @@ def test_cuda_cross_process_halo_kernels_match_peer_copy(cuda_device, P):
         assert np.array_equal(got["outputs"][key], want), key
 
 
+def _host_routes(hosts, per_host):
+    """Each rank's routes with hosts-major ranks: "ipc" to a neighbour on
+    its host, "host_staged" to one on another, None at a chain end."""
+    P = hosts * per_host
+
+    def route(r, q):
+        if not 0 <= q < P:
+            return None
+        return "ipc" if q // per_host == r // per_host else "host_staged"
+
+    return [{"left": route(r, r - 1), "right": route(r, r + 1)}
+            for r in range(P)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts,per_host", [(2, 1), (2, 2)])
+def test_cuda_halo_kernels_across_hosts_match_one_process(cuda_device, hosts,
+                                                          per_host):
+    """K6 and K5 (both streams) and the slab pencil's ghost exchange with
+    K4 across two host launchers (dist/procs.py run_hosts: a TCPStore on
+    127.0.0.1), 1 or 2 ranks each on the card. A side to the other host
+    takes the host-staged route (the kernels' push flag off there), a
+    side on the host the IPC push; at 2 x 2 the ranks at the host
+    boundary have one of each. Every side reports its route and counts
+    its bytes as on the host or across hosts. exchange_bench raises
+    unless on every rank each kernel equals the plain transport and K5's
+    products K2, and slab_bench unless K4 is within 1e-5 of the plain
+    slab apply, on every rank; the gathered halos, products, ghost blocks
+    and K4 outputs equal the one-process pencil's bit for bit."""
+    from maxwell_tpu_torch.dist import procs, rank_tasks
+
+    spec, grid, P = ("rect", 16), 16, hosts * per_host
+    one = rank_tasks.exchange_bench(spec, 8, 1, reps=2)
+    one_slabs = rank_tasks.slab_bench(grid, 8, 1, (9,), 0, 2)
+    got, slabs = procs.run_hosts(
+        rank_tasks.sequence, hosts, per_host,
+        [(rank_tasks.exchange_bench, (spec, 8, P, (9, 1), 0, 2)),
+         (rank_tasks.slab_bench, (grid, 8, P, (9,), 0, 2))],
+        device=cuda_device)
+    for want_all, got_all in ((one, got), (one_slabs, slabs)):
+        assert set(got_all["outputs"]) == set(want_all["outputs"])
+        for key, want in want_all["outputs"].items():
+            assert np.array_equal(got_all["outputs"][key], want), key
+    want_routes = _host_routes(hosts, per_host)
+    for name, sides in ([(row["kernel"], row["sides"]) for row in got["rows"]]
+                        + [("slabs", slabs["rows"][0]["sides_per_rank"])]):
+        assert [s["routes"] for s in sides] == want_routes, name
+        for s in sides:
+            routes = list(s["routes"].values())
+            assert (s["bytes_pushed"] > 0) == ("ipc" in routes), name
+            assert (s["bytes_across_hosts"] > 0) == (
+                "host_staged" in routes), name
+    for c in got["counts"]:
+        assert c["ring_shift"] > 0 and c["union_interior_overlap"] > 0
+    assert all(n > 0 for n in slabs["rows"][0]["launches_per_apply_per_rank"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", [2, 4])
 def test_cuda_k5_on_a_padding_rank_matches_plain(cuda_device, P):
